@@ -6,27 +6,44 @@
 Phases (any failure exits nonzero, and nothing is swallowed):
 
   1. the card's name and power limit (nvidia-smi); build the CUDA kernels
-     from the checkout's sources (nvcc, sm_90a) and report the seconds;
-  2. every kernel against its plain PyTorch version on the card, at the
-     main path's shape (C = 7 cells, N = 10 devices, D = 814,090) and at
-     ragged D in {1, 5000}: K1 ``ota_round_step`` with f32, bf16 and int8
-     wires, K2 ``ota_aggregate`` with f32 and bf16; median times with CUDA
-     events beside the plain version's and the byte bound;
-  3. the main path at full width through ``repro_torch.fig2.run``:
+     from the checkout's sources (one nvcc per source, all at once, sm_90a)
+     and report the seconds;
+  2. every kernel against its plain PyTorch version on the card, at its
+     main path's shapes, with median times (CUDA events) beside the plain
+     version's, the bound, and one PyTorch library call where there is one:
+       - K1 ``ota_round_step`` (f32, bf16, int8 wires) and K2
+         ``ota_aggregate`` (f32, bf16) at the fleet's C = 7 cells, N = 10
+         devices, D = 814,090, and at ragged D in {1, 5000};
+       - K3 ``flash_attention`` at the serve path's prefill (B 8, S 1024,
+         H = KH = 16, Dh 64, bf16, causal), at qwen3's heads (H 16, KH 8,
+         Dh 128), with window 256, at ragged S = 1000, and in f32 (window
+         256 too) -- f32 to 2e-5, bf16 to two bf16 ulps;
+         ``scaled_dot_product_attention`` is timed beside it;
+  3. the fleet's main path at full width through ``repro_torch.fig2.run``:
      paper_mlp, 7 schemes, minibatch 128, flat, fused, f32 uplink, 30
      rounds with an eval every 10 -- K1 must launch once per round and the
      plain versions never; then the unfused path (K2 once per round) and
      the bf16 and int8 uplinks (K1 once per round), a few rounds each;
-  4. the port on the card with its kernels against the same port with the
-     kernels forced off, on the same draws, for 3 rounds (fused and
-     unfused, f32 uplink): the params must agree to the f32 tolerance (an
-     int8 wire is left out: a reordered f32 sum may move one gradient
-     element across a quantizer boundary, a whole quantum, in later rounds);
-  5. one JSON line ``{"kernels": [...]}``, then the last line
+  4. the fleet with its kernels against the same fleet with the kernels
+     forced off, on the same draws, for 3 rounds (fused and unfused, f32
+     uplink): the params must agree to the f32 tolerance (an int8 wire is
+     left out: a reordered f32 sum may move one gradient element across a
+     quantizer boundary, a whole quantum, in later rounds);
+  5. the LM serve path at full width through
+     ``python -m repro_torch.launch.serve`` (qwen1.5-0.5b, 24 layers, bf16,
+     batch 8, prompt 1,024, 32 decode tokens): K3 must launch 24 times per
+     prefill and K3's plain version never; finite logits, tokens in range;
+     then the same weights and prompts with K3 forced off: the first
+     layer's attention within K3's bf16 tolerance, and the logits' max
+     difference and the share of equal greedy tokens through 24 bf16
+     layers, held to a drift tolerance; then a 2-layer sliding-window run
+     (window 256 < prompt) decoding through the ring cache, its tokens
+     held against a full forward over the generated sequence;
+  6. one JSON line ``{"kernels": [...]}``, then the last line
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
-reference is full float32.
+fleet's reference is full float32.
 """
 import json
 import statistics
@@ -40,17 +57,46 @@ SRC = ROOT / "src"
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)       # as tests/test_kernels.py
 BF16_TOL = dict(rtol=6e-2, atol=6e-2)      # bf16 outputs, compared in f32
+# K3 in bf16: its scores, softmax and accumulator are f32 like its plain
+# version's, so the two bf16 outputs may round one ulp apart (2**-8 of the
+# value); 1.6e-2 relative is two ulps, and 1e-2 absolute stays well under
+# a typical output at S ~ 1000 (|o| ~ sqrt(e / S) ~ 0.05-0.07 for
+# unit-variance q, k, v), so a wrong row fails
+ATTN_BF16_TOL = dict(rtol=1.6e-2, atol=1e-2)
 MAIN = (7, 10, 814_090)                    # cells, devices, d of the main path
 RAGGED_D = (1, 5000)
 ROUNDS, EVERY, BATCH = 30, 10, 128
 SHORT = 5                                  # rounds of the other paths
-# published peaks per card (data sheets): (device-memory bytes/s, f32 flop/s
-# outside the tensor cores); an unknown name falls back to the H100 SXM
-PEAKS = {"H100 PCIe": (2.0e12, 51e12), "H100 NVL": (3.9e12, 60e12),
-         "H200": (4.8e12, 67e12), "H100": (3.35e12, 67e12)}
-SOURCE = "src/repro_torch/kernels/csrc/ota_kernels.cu"
+# published peaks per card (data sheets, dense): (device-memory bytes/s, f32
+# flop/s outside the tensor cores, bf16 tensor-core flop/s); an unknown name
+# falls back to the H100 SXM
+PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
+         "H100 NVL": (3.9e12, 60e12, 835e12),
+         "H200": (4.8e12, 67e12, 989e12), "H100": (3.35e12, 67e12, 989e12)}
+SOURCES = {"ota_round_step": "src/repro_torch/kernels/csrc/ota_kernels.cu",
+           "ota_aggregate": "src/repro_torch/kernels/csrc/ota_kernels.cu",
+           "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
 REPLACES = {"ota_round_step": "src/repro/kernels/round_step.py:53",
-            "ota_aggregate": "src/repro/kernels/ota_aggregate.py:41"}
+            "ota_aggregate": "src/repro/kernels/ota_aggregate.py:41",
+            "flash_attention": "src/repro/kernels/flash_attention.py:68"}
+# K3 shapes: (label, B, S, H, KH, Dh, dtype, window); the first is the
+# serve path's prefill at full width
+ATTN_MAIN = ("main", 8, 1024, 16, 16, 64, "bf16", None)
+ATTN_SHAPES = [ATTN_MAIN,
+               ("qwen3", 8, 1024, 16, 8, 128, "bf16", None),
+               ("qwen3_window256", 8, 1024, 16, 8, 128, "bf16", 256),
+               ("ragged_s1000", 8, 1000, 16, 16, 64, "bf16", None),
+               ("main_f32", 8, 1024, 16, 16, 64, "f32", None),
+               ("qwen3_f32", 8, 1024, 16, 8, 128, "f32", None),
+               ("qwen3_window256_f32", 8, 1024, 16, 8, 128, "f32", 256)]
+SERVE = dict(arch="qwen1.5-0.5b", batch=8, prompt_len=1024, decode_tokens=32)
+SWA = dict(n_layers=2, window=256)   # over the arch's long-context variant
+# full width, K3 on vs off on the same weights: the first layer's attention
+# output to the bf16 tolerance; through 24 bf16 layers a one-ulp difference
+# may grow, so the logits are held to a drift bound (a share of their
+# largest magnitude) and greedy tokens to a share that agrees
+DRIFT_LOGITS_SHARE = 0.05
+EQUAL_TOKENS_MIN = 0.9
 
 
 class SmokeFailure(Exception):
@@ -63,6 +109,7 @@ def check(cond, msg):
 
 
 def peaks(name: str):
+    """(matched name, (bytes/s, f32 flop/s, bf16 tensor flop/s))."""
     for key, val in PEAKS.items():
         if key in name:
             return key, val
@@ -94,7 +141,7 @@ def nbytes(*tensors):
 def phase_kernels(torch, dev, card):
     """Phase 2: every kernel against its plain version on the card."""
     from repro_torch.kernels import ops, ota_aggregate, ref, round_step
-    _, (bw, f32_peak) = peaks(card)
+    _, (bw, f32_peak, _) = peaks(card)
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for (c, n, d) in [MAIN] + [(3, 10, dd) for dd in RAGGED_D]:
@@ -168,18 +215,90 @@ def phase_kernels(torch, dev, card):
 
 def counts():
     from repro_torch.kernels import ota_aggregate, ref, round_step
+    from repro_torch.kernels.flash_attention import flash_attention
     return {"ota_round_step": round_step.ota_round_step.launches,
             "ota_aggregate": ota_aggregate.ota_aggregate.launches,
+            "flash_attention": flash_attention.launches,
             "plain_round_step": ref.ota_round_step_ref.calls,
-            "plain_aggregate": ref.ota_aggregate_ref.calls}
+            "plain_aggregate": ref.ota_aggregate_ref.calls,
+            "plain_attention": ref.attention_ref.calls}
 
 
 def zero_counts():
     from repro_torch.kernels import ota_aggregate, ref, round_step
+    from repro_torch.kernels.flash_attention import flash_attention
     round_step.ota_round_step.launches = 0
     ota_aggregate.ota_aggregate.launches = 0
+    flash_attention.launches = 0
     ref.ota_round_step_ref.calls = 0
     ref.ota_aggregate_ref.calls = 0
+    ref.attention_ref.calls = 0
+
+
+def attention_pairs(sq, sk, causal, window):
+    """(query, key) pairs the masks allow, positions from 0 on both sides."""
+    total = 0
+    for i in range(sq):
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def phase_attention_kernel(torch, dev, card):
+    """Phase 2, K3: flash attention against its plain version on the card,
+    with scaled_dot_product_attention timed beside it."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention
+    _, (bw, f32_peak, bf16_peak) = peaks(card)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    results = {}
+    for label, b, s, h, kh, dh, dt, window in ATTN_SHAPES:
+        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+        tol = ATTN_BF16_TOL if dt == "bf16" else F32_TOL
+        q, k, v = (torch.randn((b, s, hh, dh), generator=gen, device=dev)
+                   .to(dtype) for hh in (h, kh, kh))
+
+        def kern():
+            return flash_attention(q, k, v, causal=True, window=window)
+
+        def plain():
+            return ref.attention_ref(q, k, v, causal=True, window=window)
+        got, want = kern().float(), plain().float()
+        torch.cuda.synchronize()
+        err = (got - want).abs()
+        ok = bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
+        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+        pos = torch.arange(s, device=dev)
+        mask = None if window is None else (
+            (pos[None, :] <= pos[:, None])
+            & (pos[None, :] > pos[:, None] - window))
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+                enable_gqa=h != kh)
+        lib_err = float((library().transpose(1, 2).float() - want)
+                        .abs().max())
+        byts = nbytes(q, k, v, got.to(dtype))
+        flops = 4 * b * h * dh * attention_pairs(s, s, True, window)
+        peak = bf16_peak if dt == "bf16" else f32_peak
+        row = {"shape": [b, s, h, kh, dh], "dtype": dt, "window": window,
+               "max_abs_err": float(err.max()), "tol": tol, "ok": ok,
+               "ms": median_ms(torch, kern),
+               "plain_ms": median_ms(torch, plain),
+               "library_ms": median_ms(torch, library),
+               "library_max_abs_err": lib_err,
+               "bound_ms": 1e3 * max(byts / bw, flops / peak),
+               "bytes": byts, "flops": flops,
+               "bound_by": "bytes" if byts / bw >= flops / peak
+               else "operations"}
+        results[label] = row
+        print(f"  K3 flash_attention {label}: " + json.dumps(row), flush=True)
+        check(ok, f"K3 {label} disagrees with its plain version")
+        del q, k, v, got, want
+    return results
 
 
 def check_result(torch, np, res, rounds, label):
@@ -286,6 +405,94 @@ def phase_kernels_vs_plain_path(torch, dev, world):
     return worst
 
 
+def phase_serve(torch, dev):
+    """Phase 5: the LM serve path at full width, K3 on vs forced off, and
+    a sliding-window run through the ring cache."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import attention as attn
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed, rmsnorm
+    argv = [f"--{k.replace('_', '-')}={v}" for k, v in SERVE.items()]
+    zero_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    main_cnt = cnt = counts()
+    cfg, st = res.cfg, res.stats
+    n_layers = cfg.n_layers
+    print(f"  serve main path: counts {cnt}", flush=True)
+    check(st["k3_launches_per_prefill"] == n_layers,
+          f"K3 launched {st['k3_launches_per_prefill']} times in a prefill "
+          f"of {n_layers} layers")
+    check(cnt["flash_attention"] == 2 * n_layers,     # warm-up + timed
+          f"K3 launched {cnt['flash_attention']} times in 2 prefills")
+    check(cnt["plain_attention"] == 0, "K3's plain version ran on the card")
+    check(cnt["ota_round_step"] == cnt["ota_aggregate"] == 0,
+          "an OTA kernel ran on the serve path")
+    b, s, v = SERVE["batch"], SERVE["prompt_len"], cfg.padded_vocab
+    check(tuple(res.logits.shape) == (b, s, v), f"logits {res.logits.shape}")
+    check(bool(torch.isfinite(res.logits).all()), "logits not finite")
+    check(tuple(res.tokens.shape) == (b, SERVE["decode_tokens"]),
+          f"tokens {res.tokens.shape}")
+    check(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < v,
+          "a token out of range")
+
+    # K3 forced off, same weights and prompts
+    p0 = res.params["layers"][0]
+    with torch.no_grad():
+        h = rmsnorm(p0["ln1"], embed(res.params["embed"], res.prompts,
+                                     cfg.compute_dtype), cfg.norm_eps)
+        on, _ = attn.gqa_apply(p0["mixer"], h, cfg)
+        off, _ = attn.gqa_apply(p0["mixer"], h, cfg, use_kernel=False)
+        on, off = on.float(), off.float()
+        layer0_err = float((on - off).abs().max())
+        check(bool((on - off).abs().le(ATTN_BF16_TOL["atol"]
+                                       + ATTN_BF16_TOL["rtol"]
+                                       * off.abs()).all()),
+              f"layer 0 attention, K3 on vs off: max |d| {layer0_err}")
+        logits_off, _ = tfm.forward(res.params, res.prompts, cfg,
+                                    use_kernel=False)
+    d_logits = float((res.logits - logits_off).abs().max())
+    scale = float(logits_off.abs().max())
+    equal = float((res.logits.argmax(-1) == logits_off.argmax(-1))
+                  .float().mean())
+    drift = {"layer0_attention_max_abs_err": layer0_err,
+             "logits_max_abs_diff": d_logits, "logits_max_abs": scale,
+             "equal_next_tokens": equal}
+    print(f"  serve, K3 on vs off: {json.dumps(drift)} (tolerance: "
+          f"logits within {DRIFT_LOGITS_SHARE} of max |logit|, greedy "
+          f"tokens equal at >= {EQUAL_TOKENS_MIN} of positions)", flush=True)
+    check(d_logits <= DRIFT_LOGITS_SHARE * scale,
+          f"logits drift {d_logits} over {DRIFT_LOGITS_SHARE} x {scale}")
+    check(equal >= EQUAL_TOKENS_MIN, f"equal next tokens {equal}")
+    del res, logits_off
+
+    # sliding window shorter than the prompt: ring-cache decode
+    swa_cfg = configs.long_context_config(SERVE["arch"]).replace(**SWA)
+    zero_counts()
+    sw = serve.run(swa_cfg, batch=b, prompt_len=s,
+                   decode_tokens=SERVE["decode_tokens"], seed=0, device=dev)
+    torch.cuda.synchronize()
+    cnt = counts()
+    check(sw.stats["k3_launches_per_prefill"] == SWA["n_layers"],
+          f"swa: K3 launched {sw.stats['k3_launches_per_prefill']} times")
+    check(cnt["plain_attention"] == 0, "swa: K3's plain version ran")
+    check(bool(torch.isfinite(sw.logits).all()), "swa: logits not finite")
+    # the ring decode's greedy tokens against one windowed forward (K3)
+    # over the prompt and the tokens fed back
+    with torch.no_grad():
+        seq = torch.cat([sw.prompts, sw.tokens[:, :-1]], dim=1)
+        full, _ = tfm.forward(sw.params, seq, swa_cfg)
+    want = full[:, s - 1:].argmax(-1)
+    ring_equal = float((want == sw.tokens).float().mean())
+    print(f"  swa (2 layers, window {SWA['window']}, ring cache of "
+          f"{SWA['window']} slots): {json.dumps(sw.stats)}; greedy tokens "
+          f"equal to a full windowed forward at {ring_equal}", flush=True)
+    check(ring_equal >= EQUAL_TOKENS_MIN,
+          f"swa: ring decode agrees with the full forward at {ring_equal}")
+    return st, main_cnt, drift, {"equal_tokens": ring_equal, **sw.stats}
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -308,21 +515,27 @@ def main() -> int:
     card_line = smi.stdout.strip().splitlines()[0]
     dev = resolve_device(None)
     card = torch.cuda.get_device_name(0)
-    peak_name, (bw, f32_peak) = peaks(card)
+    peak_name, (bw, f32_peak, bf16_peak) = peaks(card)
     print(f"[1] card: {card} | torch {torch.__version__} cuda "
           f"{torch.version.cuda} | peaks of {peak_name}: {bw / 1e12} TB/s, "
-          f"{f32_peak / 1e12} TFLOP/s f32", flush=True)
+          f"{f32_peak / 1e12} TFLOP/s f32, {bf16_peak / 1e12} TFLOP/s bf16 "
+          "tensor", flush=True)
     t0 = time.time()
-    lib = build.build(verbose=True)
-    build.library()
-    print(f"[1] built {lib.name} in {time.time() - t0:.2f} s", flush=True)
+    libs = build.build(verbose=True)
+    for name in libs:
+        build.library(name)
+    print(f"[1] built {sorted(p.name for p in libs.values())} in "
+          f"{time.time() - t0:.2f} s", flush=True)
 
     print("[2] kernels vs plain versions on the card", flush=True)
     kres = phase_kernels(torch, dev, card)
-    print("[3] main path at full width", flush=True)
+    ares = phase_attention_kernel(torch, dev, card)
+    print("[3] fleet main path at full width", flush=True)
     main_counts, path_counts, walls, world = phase_main_path(torch, np, dev)
-    print("[4] kernels on vs forced off, same draws", flush=True)
+    print("[4] fleet kernels on vs forced off, same draws", flush=True)
     phase_kernels_vs_plain_path(torch, dev, world)
+    print("[5] LM serve path at full width", flush=True)
+    serve_stats, serve_counts, drift, swa = phase_serve(torch, dev)
 
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
@@ -331,19 +544,26 @@ def main() -> int:
                     path_counts["fused_int8"]["ota_round_step"],
                 ("ota_aggregate", "f32"):
                     path_counts["unfused_f32"]["ota_aggregate"]}
-    kernels = []
-    for (name, wire), n_launch in launches.items():
-        row = kres[(name, wire, MAIN[2])]
-        kernels.append({
-            "name": f"{name}[{wire}]", "route": "cuda", "source": SOURCE,
-            "replaces": REPLACES[name], "launches": n_launch,
-            "max_abs_err": row["max_abs_err"], "ms": row["ms"],
-            "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-            "bound_by": row["bound_by"], "library_ms": None})
+    rows = [(f"{name}[{wire}]", name, n_launch, kres[(name, wire, MAIN[2])])
+            for (name, wire), n_launch in launches.items()]
+    rows.append(("flash_attention[bf16]", "flash_attention",
+                 serve_counts["flash_attention"], ares[ATTN_MAIN[0]]))
+    kernels = [{
+        "name": label, "route": "cuda", "source": SOURCES[name],
+        "replaces": REPLACES[name], "launches": n_launch,
+        "max_abs_err": row["max_abs_err"], "ms": row["ms"],
+        "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
+        "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
+        for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[5] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[6] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[5] round walls ms: {json.dumps(walls)}; total "
+    print(f"[6] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[6] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+          f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
+          f"(batch {serve_stats['batch']}); swa prefill "
+          f"{swa['prefill_ms']:.3f} ms, decode "
+          f"{swa['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,1 +1,34 @@
+"""Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
+Copies of the reference's registry (``repro.configs``) for the archs the
+port runs: the dense GQA decoders.  Any other arch raises and names
+ROADMAP.md, where the reference's other archs are queued.
+"""
+from __future__ import annotations
+
+import importlib
+
+_MODULES = {
+    "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
+    "qwen3-1.7b": "repro_torch.configs.qwen3_17b",
+}
+ARCH_IDS = tuple(_MODULES)
+
+
+def _module(arch: str):
+    if arch not in _MODULES:
+        raise ValueError(f"arch {arch!r} is not in repro_torch (ported: "
+                         f"{ARCH_IDS}); the reference's other archs are "
+                         "queued in ROADMAP.md")
+    return importlib.import_module(_MODULES[arch])
+
+
+def get_config(arch: str):
+    return _module(arch).CONFIG
+
+
+def long_context_config(arch: str):
+    """Config used for the long_500k shape (may be a sub-quadratic variant)."""
+    mod = _module(arch)
+    variant = getattr(mod, "LONG_CONTEXT_VARIANT", None)
+    return mod.CONFIG.replace(**variant) if variant else mod.CONFIG

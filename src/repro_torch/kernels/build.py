@@ -1,11 +1,13 @@
 """Builds and loads the port's CUDA kernels (plain C interface + ctypes).
 
-``library()`` compiles ``csrc/ota_kernels.cu`` with ``nvcc`` for
-``sm_90a`` into ``build/repro_torch/`` at the root of the checkout, at
-first use, and loads it with ``ctypes``.  The shared object is named after
-a hash of the source (and the flags), so an edit rebuilds it.  Nothing is
-built or loaded when the module is imported: the CPU tests import every
-module on a machine without ``nvcc``.  A failed build raises.
+Each source under ``csrc/`` is one shared library: ``library(name)``
+compiles ``csrc/<name>.cu`` with ``nvcc`` for ``sm_90a`` into
+``build/repro_torch/`` at the root of the checkout, at first use, and
+loads it with ``ctypes``.  A library is named after a hash of its source
+(and the flags), so an edit rebuilds it.  ``build()`` starts one ``nvcc``
+per source that is not built yet, all at once, and waits for them.
+Nothing is built or loaded when the module is imported: the CPU tests
+import every module on a machine without ``nvcc``.  A failed build raises.
 """
 from __future__ import annotations
 
@@ -18,21 +20,31 @@ import subprocess
 import tempfile
 from pathlib import Path
 
-SOURCE = Path(__file__).resolve().parent / "csrc" / "ota_kernels.cu"
+CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC")
 
 _P = ctypes.c_void_p
-_ROUND_STEP_ARGS = [_P] * 8 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P]
-_AGGREGATE_ARGS = [_P] * 5 + [ctypes.c_int, ctypes.c_int, ctypes.c_longlong, _P]
+_I = ctypes.c_int
+_ROUND_STEP_ARGS = [_P] * 8 + [_I, _I, ctypes.c_longlong, _P]
+_AGGREGATE_ARGS = [_P] * 5 + [_I, _I, ctypes.c_longlong, _P]
+# q, k, v, o; b, sq, sk, h, kh, dh, causal, window; stream
+_ATTENTION_ARGS = [_P] * 4 + [_I] * 8 + [_P]
 ENTRIES = {
-    "ota_round_step_f32": _ROUND_STEP_ARGS,
-    "ota_round_step_bf16": _ROUND_STEP_ARGS,
-    "ota_round_step_int8": _ROUND_STEP_ARGS,
-    "ota_aggregate_f32": _AGGREGATE_ARGS,
-    "ota_aggregate_bf16": _AGGREGATE_ARGS,
+    "ota_kernels": {
+        "ota_round_step_f32": _ROUND_STEP_ARGS,
+        "ota_round_step_bf16": _ROUND_STEP_ARGS,
+        "ota_round_step_int8": _ROUND_STEP_ARGS,
+        "ota_aggregate_f32": _AGGREGATE_ARGS,
+        "ota_aggregate_bf16": _AGGREGATE_ARGS,
+    },
+    "flash_attention": {
+        "flash_attention_f32": _ATTENTION_ARGS,
+        "flash_attention_bf16": _ATTENTION_ARGS,
+    },
 }
+SOURCES = {name: CSRC / f"{name}.cu" for name in ENTRIES}
 
 
 def nvcc() -> str:
@@ -44,45 +56,58 @@ def nvcc() -> str:
                        "kernels are built on the machine with the card")
 
 
-def library_path() -> Path:
-    digest = hashlib.sha256(SOURCE.read_bytes()
+def library_path(name: str) -> Path:
+    digest = hashlib.sha256(SOURCES[name].read_bytes()
                             + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return BUILD_DIR / f"ota_kernels_{digest}.so"
+    return BUILD_DIR / f"{name}_{digest}.so"
 
 
-def build(verbose: bool = False) -> Path:
-    """Compile the kernels unless this source's library exists; returns its
-    path.  ``verbose`` adds ``-Xptxas -v`` (registers, spills) and prints
-    the compiler's output."""
-    out = library_path()
-    if out.exists():
-        return out
+def build(*names: str, verbose: bool = False) -> dict:
+    """Compile the named sources (all when none is named) whose libraries
+    do not exist yet, one ``nvcc`` each, in parallel; returns
+    ``{name: path}``.  ``verbose`` adds ``-Xptxas -v`` (registers, spills)
+    and prints the compiler's output."""
+    names = names or tuple(SOURCES)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
-           "-o", tmp, str(SOURCE)]
+    jobs = {}
     try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                               f"{' '.join(cmd)}\n{proc.stderr}")
-        if verbose:
-            print(proc.stdout + proc.stderr, flush=True)
-        os.replace(tmp, out)        # atomic: concurrent builders agree
+        for name in names:
+            out = library_path(name)
+            if out.exists():
+                continue
+            fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
+            os.close(fd)
+            cmd = [nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []),
+                   "-o", tmp, str(SOURCES[name])]
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.STDOUT, text=True)
+            jobs[name] = (proc, cmd, tmp, out)
+        for name, (proc, cmd, tmp, out) in jobs.items():
+            log = proc.communicate()[0]
+            if proc.returncode != 0:
+                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
+                                   f"{' '.join(cmd)}\n{log}")
+            if verbose:
+                print(log, flush=True)
+            os.replace(tmp, out)    # atomic: concurrent builders agree
     finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-    return out
+        for proc, _, tmp, _ in jobs.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+            if os.path.exists(tmp):
+                os.unlink(tmp)
+    return {name: library_path(name) for name in names}
 
 
 @functools.lru_cache(maxsize=None)
-def library() -> ctypes.CDLL:
-    """The loaded kernel library, built on first use; argtypes declared for
-    every entry (pointers as c_void_p, or ctypes would cut them to 32 bits)."""
-    lib = ctypes.CDLL(str(build()))
-    for name, argtypes in ENTRIES.items():
-        fn = getattr(lib, name)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use; argtypes
+    declared for every entry (pointers as c_void_p, or ctypes would cut
+    them to 32 bits)."""
+    lib = ctypes.CDLL(str(build(name)[name]))
+    for entry, argtypes in ENTRIES[name].items():
+        fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib

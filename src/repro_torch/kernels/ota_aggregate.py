@@ -50,7 +50,7 @@ def ota_aggregate(g: torch.Tensor, s: torch.Tensor, z: torch.Tensor,
         _expect(t, name, shape, f32, g.device)
     out = torch.empty((c, d), dtype=g.dtype, device=g.device)
     name = f"ota_aggregate_{G_DTYPES[g.dtype]}"
-    err = getattr(build.library(), name)(
+    err = getattr(build.library("ota_kernels"), name)(
         g.data_ptr(), s.data_ptr(), z.data_ptr(), ns.data_ptr(),
         out.data_ptr(), c, n, d,
         torch.cuda.current_stream(g.device).cuda_stream)

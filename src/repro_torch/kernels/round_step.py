@@ -66,7 +66,7 @@ def ota_round_step(g: torch.Tensor, qs: torch.Tensor, s: torch.Tensor,
         _expect(t, name, shape, f32, g.device)
     out = torch.empty_like(params)
     name = f"ota_round_step_{WIRE_DTYPES[g.dtype]}"
-    err = getattr(build.library(), name)(
+    err = getattr(build.library("ota_kernels"), name)(
         g.data_ptr(), qs.data_ptr(), s.data_ptr(), z.data_ptr(),
         ns.data_ptr(), params.data_ptr(), eta.data_ptr(), out.data_ptr(),
         c, n, d, torch.cuda.current_stream(g.device).cuda_stream)

@@ -1,0 +1,149 @@
+"""GQA self-attention of the port's dense decoders, with QKV bias, qk-norm
+and sliding-window (ring-cache) variants.
+
+A copy of the GQA part of ``repro.models.attention``.  A prefill computes
+its attention through kernel K3 (``kernels.flash_attention``): q and k
+share their positions there, and a shared offset cancels in both masks, so
+K3's positions from 0 give the same answer at any ``pos_offset``.  A
+decode step (one query against the KV cache) stays plain PyTorch
+(``kernels.ref.grouped_attention``, K3's plain version over the cache's
+positions), as the reference computes it outside any Pallas kernel.
+MLA and cross-attention are not ported yet (ROADMAP.md).
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ref import grouped_attention
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (apply_rope, dense, dense_def, rmsnorm,
+                                       rmsnorm_def)
+from repro_torch.models.param import ParamDef
+
+
+def gqa_def(cfg: ModelConfig) -> dict:
+    dh = cfg.resolved_head_dim
+    d = cfg.d_model
+    kv = cfg.n_kv_heads * dh
+    defs = {
+        "wq": dense_def(d, cfg.n_heads * dh, cfg, bias=cfg.qkv_bias),
+        # k and v as one [D, 2, KV] weight, as the reference
+        "wkv": ParamDef((d, 2, kv), init="scaled", fan_in=d,
+                        dtype=cfg.param_dtype),
+        "wo": dense_def(cfg.n_heads * dh, d, cfg),
+    }
+    if cfg.qkv_bias:
+        defs["bkv"] = ParamDef((2, kv), init="zeros", dtype=cfg.param_dtype)
+    if cfg.qk_norm:
+        defs["q_norm"] = rmsnorm_def(dh, cfg.param_dtype)
+        defs["k_norm"] = rmsnorm_def(dh, cfg.param_dtype)
+    return defs
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, max_len: int, kind: str,
+                  device: torch.device, dtype=None) -> dict:
+    """Zero KV cache [B, L, KH, Dh] for one attention layer; a ring buffer
+    of ``window`` slots for sliding/local layers longer than the window."""
+    dh = cfg.resolved_head_dim
+    dtype = dtype or cfg.compute_dtype
+    if kind in ("swa", "local") and cfg.window and max_len > cfg.window:
+        max_len = cfg.window
+    shape = (batch, max_len, cfg.n_kv_heads, dh)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _cache_write(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
+                 pos: int, ring: bool) -> dict:
+    """Insert [B, S, KH, Dh] at position ``pos``, IN PLACE (the reference
+    returns a new cache); returns ``cache``.
+
+    Ring buffer, S == 1: slot ``pos mod cap``.  Ring buffer, S >= cap: keep
+    the trailing cap entries, slot j holding the entry whose absolute
+    position is j mod cap.  Otherwise a linear write at ``pos``; a write
+    past the end raises (the reference's dynamic_update_slice would clamp
+    it onto the last slots).
+    """
+    s = k_new.shape[1]
+    cap = cache["k"].shape[1]
+    k_new = k_new.to(cache["k"].dtype)
+    v_new = v_new.to(cache["v"].dtype)
+    if ring and s == 1:
+        idx = pos % cap
+        cache["k"][:, idx:idx + 1] = k_new
+        cache["v"][:, idx:idx + 1] = v_new
+    elif ring and s >= cap:
+        shift = (pos + s - cap) % cap
+        cache["k"].copy_(torch.roll(k_new[:, -cap:], shift, dims=1))
+        cache["v"].copy_(torch.roll(v_new[:, -cap:], shift, dims=1))
+    else:
+        if pos + s > cap:
+            raise ValueError(f"cache write of {s} at {pos} past its {cap} slots")
+        cache["k"][:, pos:pos + s] = k_new
+        cache["v"][:, pos:pos + s] = v_new
+    return cache
+
+
+def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str = "attn",
+              pos_offset: int = 0, cache: Optional[dict] = None,
+              decode: bool = False, use_kernel: bool = True):
+    """Self-attention.  Returns (out, cache); the cache, when given, is
+    updated in place.
+
+    kind: attn (full causal) | swa | local (sliding-window causal).
+    decode: S == 1, reads and updates the cache.  ``use_kernel=False``
+    computes a prefill's attention with K3's plain version (on-card
+    comparison only).
+    """
+    if kind not in ("attn", "swa", "local"):
+        raise NotImplementedError(
+            f"attention kind {kind!r} (enc-dec) is not ported (ROADMAP.md)")
+    b, s, _ = x.shape
+    dh = cfg.resolved_head_dim
+    ct = cfg.compute_dtype
+    window = cfg.window if kind in ("swa", "local") else None
+
+    q = dense(p["wq"], x, ct).reshape(b, s, cfg.n_heads, dh)
+    wkv = p["wkv"].to(ct)                                   # [D, 2, KV]
+    kv2 = (x.to(ct) @ wkv.reshape(wkv.shape[0], -1)).unflatten(
+        -1, wkv.shape[1:])
+    if "bkv" in p:
+        kv2 = kv2 + p["bkv"].to(ct)
+    k = kv2[..., 0, :].reshape(b, s, cfg.n_kv_heads, dh)
+    v = kv2[..., 1, :].reshape(b, s, cfg.n_kv_heads, dh)
+    if cfg.qk_norm:
+        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+
+    positions = pos_offset + torch.arange(s, device=x.device)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    if decode:
+        if cache is None or s != 1:
+            raise ValueError("decode takes one token against a cache")
+        cap = cache["k"].shape[1]
+        ring = window is not None and cap <= window
+        _cache_write(cache, k, v, pos_offset, ring)
+        slots = torch.arange(cap, device=x.device)
+        if ring:
+            # absolute position of slot i from the write pointer; slots never
+            # written decode to negative positions: push them into the future
+            kpos = pos_offset - torch.remainder(pos_offset - slots, cap)
+            kpos = torch.where(kpos < 0, pos_offset + 1, kpos)
+        else:
+            kpos = slots
+        out = grouped_attention(q, cache["k"], cache["v"], positions, kpos,
+                                causal=True, window=window)
+    else:
+        if cache is not None:
+            ring = window is not None and cache["k"].shape[1] <= window
+            _cache_write(cache, k, v, pos_offset, ring)
+        out = flash_attention(q, k, v.contiguous(), causal=True,
+                              window=window, use_kernel=use_kernel)
+
+    out = out.reshape(b, s, cfg.n_heads * dh)
+    return dense(p["wo"], out, ct), cache

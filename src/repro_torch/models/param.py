@@ -6,26 +6,35 @@ for a dict: for the MLP that is ``b1, b2, w1, w2``.  The per-leaf noise
 draws and the raveled gradient line up with the reference only in that
 order.
 
-``init_params`` draws the ``scaled`` law of ``repro.models.param``
-(normal x 1/sqrt(fan_in), zeros for biases) from a ``torch.Generator``; it
-cannot reproduce JAX's threefry stream, so weights are carried across with
-``params_from_jax`` where a test needs the reference's exact start.
+``init_params`` draws the init laws of ``repro.models.param`` (``scaled``:
+normal x 1/sqrt(fan_in); ``embed``: normal x 1/sqrt(d_model); ``zeros``,
+``ones``) from a ``torch.Generator``; it cannot reproduce JAX's threefry
+stream, so weights are carried across with ``params_from_jax`` (the MLP)
+or ``lm_params_from_jax`` (the language models) where a test needs the
+reference's exact start.
+
+The language models hold their parameters in a ``ParamTree``: a module
+whose children are indexed like the reference's pytree
+(``p["mixer"]["wq"]["w"]``), with one child per layer where the reference
+stacks the layers of a ``lax.scan``.
 """
 from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Mapping, Optional
+from typing import Any, Mapping, Optional
 
 import numpy as np
 import torch
+from torch import nn
 
 
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple
-    init: str = "scaled"          # scaled | zeros
+    init: str = "scaled"          # scaled | zeros | ones | embed
     fan_in: Optional[int] = None  # for 'scaled': 1/sqrt(fan_in)
+    dtype: Any = torch.float32
 
     @property
     def size(self) -> int:
@@ -41,14 +50,25 @@ def leaf_order(tree: Mapping) -> list:
     return sorted(tree)
 
 
-def _init_one(d: ParamDef, gen: torch.Generator) -> torch.Tensor:
+def _init_one(d: ParamDef, gen: torch.Generator,
+              device: Optional[torch.device] = None) -> torch.Tensor:
+    """One leaf in ``d.dtype``, drawn in float32 on ``gen``'s device."""
+    kw = dict(dtype=torch.float32, device=device)
     if d.init == "zeros":
-        return torch.zeros(d.shape, dtype=torch.float32)
-    if d.init != "scaled":
+        return torch.zeros(d.shape, **kw).to(d.dtype)
+    if d.init == "ones":
+        return torch.ones(d.shape, **kw).to(d.dtype)
+    if d.init == "embed":
+        # 1/sqrt(d_model): keeps tied-unembedding logits O(1) at init
+        scale = 1.0 / math.sqrt(d.shape[-1])
+    elif d.init == "scaled":
+        fan_in = d.fan_in
+        if fan_in is None:
+            fan_in = d.shape[-2] if len(d.shape) >= 2 else max(1, d.shape[-1])
+        scale = 1.0 / math.sqrt(fan_in)
+    else:
         raise ValueError(f"unknown init {d.init!r}")
-    fan_in = d.fan_in if d.fan_in is not None else d.shape[-2]
-    scale = 1.0 / math.sqrt(fan_in)
-    return torch.randn(d.shape, generator=gen, dtype=torch.float32) * scale
+    return (torch.randn(d.shape, generator=gen, **kw) * scale).to(d.dtype)
 
 
 def init_params(defs: Mapping[str, ParamDef], seed: int,
@@ -65,3 +85,88 @@ def params_from_jax(tree: Mapping[str, np.ndarray],
     caller) across as float32 tensors, bit for bit."""
     return {k: torch.from_numpy(np.array(tree[k], np.float32)).to(device)
             for k in leaf_order(tree)}
+
+
+class ParamTree(nn.Module):
+    """A nested dict (and list) of tensors as a module, indexed like the
+    reference's pytree: ``tree["layers"][3]["mixer"]["wq"]["w"]``.
+    Leaves are frozen parameters (serving computes no gradient)."""
+
+    def __init__(self, tree: Mapping):
+        super().__init__()
+        for key, val in tree.items():
+            if isinstance(val, Mapping):
+                self.add_module(key, ParamTree(val))
+            elif isinstance(val, (list, tuple)):
+                self.add_module(key, nn.ModuleList(ParamTree(v) for v in val))
+            else:
+                self.register_parameter(
+                    key, nn.Parameter(val, requires_grad=False))
+
+    def __getitem__(self, key: str):
+        if key in self._parameters:
+            return self._parameters[key]
+        return self._modules[key]
+
+    def __contains__(self, key: str) -> bool:
+        return key in self._parameters or key in self._modules
+
+
+def _map_defs(defs, fn):
+    if isinstance(defs, ParamDef):
+        return fn(defs)
+    if isinstance(defs, Mapping):
+        return {k: _map_defs(v, fn) for k, v in defs.items()}
+    return [_map_defs(v, fn) for v in defs]
+
+
+def tree_param_count(defs) -> int:
+    """Parameters of a nested def tree (dicts and lists of ``ParamDef``)."""
+    n = []
+    _map_defs(defs, lambda d: n.append(d.size))
+    return sum(n)
+
+
+def init_param_tree(defs: Mapping, seed: int,
+                    device: torch.device) -> ParamTree:
+    """Materialize a nested def tree on ``device`` from a generator there,
+    seeded with ``seed``; leaves drawn in the tree's insertion order."""
+    gen = torch.Generator(device=device).manual_seed(int(seed))
+    return ParamTree(_map_defs(defs, lambda d: _init_one(d, gen, device)))
+
+
+def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:
+    """Carry a reference decoder's parameters (``repro.models.transformer``
+    layout, leaves converted to numpy by the caller) across as a
+    ``ParamTree`` on the CPU in ``cfg.param_dtype`` (``.to(device)`` moves
+    it).
+
+    The reference groups its layers as ``lead`` (a list), ``scan`` (a dict
+    ``u0 .. u{k-1}`` of unit layers whose leaves are stacked ``[n_rep,
+    ...]``) and ``tail`` (a list); the port keeps one entry per layer in
+    ``layers``, in execution order: lead, then the units repetition by
+    repetition, then tail.
+    """
+    def conv(a):
+        return torch.from_numpy(np.array(a, np.float32)).to(cfg.param_dtype)
+
+    def leaves(t, fn):
+        if isinstance(t, Mapping):
+            return {k: leaves(v, fn) for k, v in t.items()}
+        return fn(t)
+
+    lead, tail = tree.get("lead", []), tree.get("tail", [])
+    layers = [leaves(p, conv) for p in lead]
+    scan = tree.get("scan")
+    if scan:
+        units = [scan[f"u{i}"] for i in range(len(scan))]
+        n_rep = (cfg.n_layers - len(lead) - len(tail)) // len(units)
+        for r in range(n_rep):
+            layers += [leaves(u, lambda a, r=r: conv(np.asarray(a)[r]))
+                       for u in units]
+    layers += [leaves(p, conv) for p in tail]
+    out = {"layers": layers, "ln_f": conv(tree["ln_f"])}
+    for key in ("embed", "unembed"):
+        if key in tree:
+            out[key] = conv(tree[key])
+    return ParamTree(out)

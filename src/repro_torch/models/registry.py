@@ -1,0 +1,67 @@
+"""Model bundle: one interface over the port's language models.
+
+A copy of the decoder bundle of ``repro.models.registry``.  A
+``ModelBundle`` holds one config and its device, and exposes ``init``,
+``prefill``, ``decode`` and ``init_caches``.  The training loss waits for
+the LM train path, and the encoder-decoder bundle for its family
+(ROADMAP.md).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.device import DeviceLike, resolve_device
+from repro_torch.models import transformer as tfm
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.param import (ParamTree, init_param_tree,
+                                      tree_param_count)
+
+
+@dataclasses.dataclass
+class ModelBundle:
+    cfg: ModelConfig
+    defs: Any
+    device: torch.device
+    prefill: Callable       # (params, tokens, caches) -> (logits, caches)
+    decode: Callable        # (params, caches, token, pos) -> (logits, caches)
+    init_caches: Callable   # (batch, max_len) -> per-layer caches
+    num_params: int = 0
+
+    def init(self, seed: int) -> ParamTree:
+        """Parameters drawn with the reference's init laws from a generator
+        on the bundle's device, seeded with ``seed`` (not JAX's stream:
+        ``lm_params_from_jax`` carries the reference's weights across)."""
+        return init_param_tree(self.defs, seed, self.device)
+
+
+def _decoder_bundle(cfg: ModelConfig, device: torch.device) -> ModelBundle:
+    defs = tfm.model_defs(cfg)
+
+    @torch.no_grad()
+    def prefill(params, tokens, caches):
+        return tfm.forward(params, tokens, cfg, caches=caches)
+
+    @torch.no_grad()
+    def decode(params, caches, token, pos: int):
+        return tfm.forward(params, token, cfg, pos_offset=pos, caches=caches,
+                           decode=True)
+
+    def init_caches(batch: int, max_len: int):
+        return tfm.init_caches(cfg, batch, max_len, device)
+
+    return ModelBundle(cfg=cfg, defs=defs, device=device, prefill=prefill,
+                       decode=decode, init_caches=init_caches,
+                       num_params=tree_param_count(defs))
+
+
+def build_bundle(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
+    """The bundle of ``cfg`` on ``device`` (None: the CUDA card, which must
+    be there; ``"cpu"`` runs every kernel's plain version)."""
+    if cfg.is_enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder bundle is not ported to "
+            "repro_torch yet (see ROADMAP.md)")
+    return _decoder_bundle(cfg, resolve_device(device))

@@ -1,0 +1,110 @@
+"""Decoder-only transformer of the port: the dense GQA decoders.
+
+A copy of the decoder path of ``repro.models.transformer``.  The reference
+groups repeating layers under ``lax.scan`` over stacked parameters with
+``jax.checkpoint``; the port keeps one parameter entry per layer and runs
+a Python loop over them.  The reference's sharding hints are no-ops on one
+card and are dropped.  Mixers: attn | swa | local (GQA); FFN: dense
+(swiglu | geglu | gelu).  MoE, SSD, RG-LRU, MLA, MTP, frame inputs and the
+encoder-decoder raise, naming ROADMAP.md, where their port is queued.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch.models import attention as attn_mod
+from repro_torch.models.config import ModelConfig
+from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
+                                       rmsnorm, rmsnorm_def, unembed,
+                                       unembed_def)
+
+GQA_KINDS = ("attn", "swa", "local")
+
+
+def check_supported(cfg: ModelConfig) -> None:
+    """Raise for what the port does not run yet (ROADMAP.md)."""
+    missing = []
+    if cfg.is_enc_dec:
+        missing.append("encoder-decoder")
+    if cfg.moe_num_experts:
+        missing.append("MoE")
+    if cfg.attn_kind != "gqa":
+        missing.append(f"{cfg.attn_kind} attention")
+    if cfg.mtp_depth:
+        missing.append("MTP")
+    if cfg.input_mode != "tokens":
+        missing.append(f"{cfg.input_mode} inputs")
+    if cfg.ffn_kind == "none":
+        missing.append("FFN-less blocks")
+    missing += [f"{k} mixer" for k in sorted(set(cfg.block_pattern))
+                if k not in GQA_KINDS]
+    if missing:
+        raise NotImplementedError(
+            f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
+            "yet (see ROADMAP.md, modules to port)")
+
+
+def layer_sigs(cfg: ModelConfig) -> list:
+    """Per-layer (kind, ffn), in execution order: the reference's scan
+    groups flattened (every port layer has a dense FFN)."""
+    return [(kind, "dense") for kind in cfg.block_kinds(cfg.n_layers)]
+
+
+def layer_def(cfg: ModelConfig) -> dict:
+    """One dense GQA block (every kind in GQA_KINDS has the same weights)."""
+    return {"ln1": rmsnorm_def(cfg.d_model, cfg.param_dtype),
+            "mixer": attn_mod.gqa_def(cfg),
+            "ln2": rmsnorm_def(cfg.d_model, cfg.param_dtype),
+            "ffn": mlp_def(cfg)}
+
+
+def model_defs(cfg: ModelConfig) -> dict:
+    """Parameter definitions of a decoder-only LM: ``embed``, one entry per
+    layer in ``layers``, ``ln_f``, and ``unembed`` unless tied."""
+    check_supported(cfg)
+    defs = {"embed": embedding_def(cfg),
+            "layers": [layer_def(cfg) for _ in layer_sigs(cfg)],
+            "ln_f": rmsnorm_def(cfg.d_model, cfg.param_dtype)}
+    if not cfg.tie_embeddings:
+        defs["unembed"] = unembed_def(cfg)
+    return defs
+
+
+def init_caches(cfg: ModelConfig, batch: int, max_len: int,
+                device: torch.device) -> list:
+    """One KV cache per layer, in execution order."""
+    return [attn_mod.init_kv_cache(cfg, batch, max_len, kind, device)
+            for kind, _ in layer_sigs(cfg)]
+
+
+def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
+                pos_offset: int = 0, cache: Optional[dict] = None,
+                decode: bool = False, use_kernel: bool = True):
+    """One block (pre-norm mixer, then pre-norm FFN).  Returns (x, cache)."""
+    kind, _ = sig
+    h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+    mix, cache = attn_mod.gqa_apply(p["mixer"], h, cfg, kind=kind,
+                                    pos_offset=pos_offset, cache=cache,
+                                    decode=decode, use_kernel=use_kernel)
+    x = x + mix
+    x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    return x, cache
+
+
+def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+            pos_offset: int = 0, caches: Optional[list] = None,
+            decode: bool = False, use_kernel: bool = True):
+    """tokens: int [B, S].  Returns (logits [B, S, V] float32, caches); the
+    caches, when given, are updated in place.  (The reference also returns
+    the MoE router's aux loss, always 0 for the dense decoders.)"""
+    x = embed(params["embed"], tokens, cfg.compute_dtype)
+    for i, sig in enumerate(layer_sigs(cfg)):
+        x, _ = apply_layer(params["layers"][i], x, cfg, sig,
+                           pos_offset=pos_offset,
+                           cache=None if caches is None else caches[i],
+                           decode=decode, use_kernel=use_kernel)
+    h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return unembed(w, h, cfg), caches

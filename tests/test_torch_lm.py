@@ -1,0 +1,325 @@
+"""The port's dense-decoder serve slice on the CPU against the reference.
+
+Module by module (RMSNorm, RoPE, the MLPs, the KV-cache writes, GQA
+prefill and decode, the decoder forward), then the whole slice: the
+port's bundle and serve step against
+``repro.models.registry.build_bundle(cfg.smoke(), tp=1, dp=1)`` on the
+reference's own ``PRNGKey(0)`` weights, carried across with
+``lm_params_from_jax``, and the same numpy prompts of a ragged length
+(37): the prefill logits, then 8 greedy decode steps, their tokens and
+logits.  Three smoke variants: qwen1.5-0.5b (QKV bias), qwen3-1.7b
+(qk-norm, GQA G = 2) and qwen1.5-0.5b's sliding-window variant with a
+16-slot ring cache, shorter than the prompt.
+
+The reference initializes biases to 0 and norm weights to 1; the tests
+perturb those leaves with seeded noise, the same on both sides, so that
+the bias and norm paths are held too.
+
+Tolerance: float32 smoke configs, rtol 1e-4 / atol 1e-5 -- the same f32
+math through 2 layers, with matmul and reduction sums taken in another
+order by XLA and PyTorch (the observed gap is ~6e-6 on logits of ~4);
+greedy tokens must be equal.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro import configs as jconfigs
+from repro.models import attention as jattn
+from repro.models import layers as jlayers
+from repro.models import transformer as jtfm
+from repro.models.param import init_params as jinit
+from repro.models.registry import build_bundle as jbuild
+from repro_torch import configs as tconfigs
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.launch import serve as tserve
+from repro_torch.launch import steps as tsteps
+from repro_torch.models import attention as tattn
+from repro_torch.models import layers as tlayers
+from repro_torch.models import transformer as ttfm
+from repro_torch.models.param import (ParamTree, lm_params_from_jax,
+                                      tree_param_count)
+from repro_torch.models.registry import build_bundle as tbuild
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+CPU = torch.device("cpu")
+# (arch, its long-context variant (sliding window), smoke overrides)
+VARIANTS = {
+    "qwen1.5-0.5b": ("qwen1.5-0.5b", False, {}),
+    "qwen3-1.7b": ("qwen3-1.7b", False, {}),
+    "qwen1.5-0.5b-swa16": ("qwen1.5-0.5b", True, dict(window=16)),
+}
+
+
+def _cfgs(variant):
+    arch, long, kw = VARIANTS[variant]
+    jcfg = (jconfigs.long_context_config if long else jconfigs.get_config)(arch)
+    tcfg = (tconfigs.long_context_config if long else tconfigs.get_config)(arch)
+    return jcfg.smoke(**kw), tcfg.smoke(**kw)
+
+
+def _perturb(tree, seed=0):
+    """Seeded noise on the leaves the reference inits to 0 or 1 (biases and
+    norm weights), as numpy; other leaves unchanged."""
+    rng = np.random.default_rng(seed)
+
+    def one(path, a):
+        a = np.asarray(a, np.float32)
+        name = jax.tree_util.keystr(path)
+        if any(t in name for t in ("'b'", "bkv", "ln", "norm")):
+            a = a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
+        return a
+    return jax.tree_util.tree_map_with_path(one, tree)
+
+
+def _torch_tree(tree):
+    return ParamTree(jax.tree.map(lambda a: torch.from_numpy(np.array(a)),
+                                  tree))
+
+
+def _np(x):
+    return np.asarray(x.detach().float().numpy() if torch.is_tensor(x) else x,
+                      np.float32)
+
+
+def _rand(shape, seed):
+    return np.random.default_rng(seed).standard_normal(shape).astype(np.float32)
+
+
+# ---------------------------------------------------------------------------
+# layers
+# ---------------------------------------------------------------------------
+
+def test_rmsnorm_matches_reference():
+    x, w = _rand((2, 5, 64), 0), 1 + 0.1 * _rand((64,), 1)
+    got = tlayers.rmsnorm(torch.from_numpy(w), torch.from_numpy(x), 1e-5)
+    want = jlayers.rmsnorm(jnp.asarray(w), jnp.asarray(x), 1e-5)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("offset", [0, 1000])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_rope_matches_reference(dh, offset):
+    x = _rand((2, 7, 4, dh), 2)
+    pos = offset + np.arange(7)
+    got = tlayers.apply_rope(torch.from_numpy(x), torch.from_numpy(pos), 1e6)
+    want = jlayers.apply_rope(jnp.asarray(x), jnp.asarray(pos), 1e6)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("ffn", ["swiglu", "geglu", "gelu"])
+def test_mlp_matches_reference(ffn):
+    jcfg, tcfg = (c.replace(ffn_kind=ffn) for c in _cfgs("qwen1.5-0.5b"))
+    jp = _perturb(jinit(jlayers.mlp_def(jcfg, tp=1), jax.random.PRNGKey(1)))
+    x = _rand((2, 9, jcfg.d_model), 3)
+    got = tlayers.mlp(_torch_tree(jp), torch.from_numpy(x), tcfg)
+    want = jlayers.mlp(jp, jnp.asarray(x), jcfg)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+def test_param_count_at_full_width():
+    """qwen1.5-0.5b: 24 layers, d 1024, vocab padded to 152,064."""
+    cfg = tconfigs.get_config("qwen1.5-0.5b")
+    assert cfg.padded_vocab == 152_064
+    assert tree_param_count(ttfm.model_defs(cfg)) == 619_832_320
+    jcfg = jconfigs.get_config("qwen1.5-0.5b")
+    assert jbuild(jcfg, tp=1, dp=1).num_params == 619_832_320
+
+
+def test_init_draws_the_reference_laws():
+    """``bundle.init`` draws other numbers than JAX's threefry stream, but
+    the same tree of shapes and dtypes and the same laws: per leaf, the
+    spread of the reference's draw (1/sqrt(fan_in), 1/sqrt(d_model) for the
+    embedding, zeros, ones) to 10 %, on leaves of >= 4096 values."""
+    jcfg, tcfg = _cfgs("qwen3-1.7b")
+    jp = jax.tree.map(np.asarray, jbuild(jcfg, tp=1, dp=1).init(
+        jax.random.PRNGKey(0)))
+    want = lm_params_from_jax(tcfg, jp).state_dict()
+    got = tbuild(tcfg, CPU).init(0).state_dict()
+    assert sorted(got) == sorted(want)
+    for name, w in want.items():
+        g = got[name]
+        assert g.shape == w.shape and g.dtype == w.dtype == torch.float32
+        if w.numel() >= 4096:
+            np.testing.assert_allclose(float(g.std()), float(w.std()),
+                                       rtol=0.1, err_msg=name)
+        else:       # zeros and ones
+            torch.testing.assert_close(g, w, rtol=0, atol=0)
+
+
+def test_unported_archs_raise_naming_roadmap():
+    for arch in jconfigs.ARCH_IDS:
+        if arch not in tconfigs.ARCH_IDS:
+            with pytest.raises(ValueError, match="ROADMAP"):
+                tconfigs.get_config(arch)
+    assert set(tconfigs.ARCH_IDS) <= set(jconfigs.ARCH_IDS)
+    for kw in (dict(moe_num_experts=4), dict(attn_kind="mla"),
+               dict(block_pattern=("attn", "ssd")), dict(encoder_layers=2)):
+        cfg = tconfigs.get_config("qwen3-1.7b").smoke(**kw)
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tbuild(cfg, CPU)
+
+
+# ---------------------------------------------------------------------------
+# KV cache writes
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("case", [
+    ("linear", 10, 4, 3, False),        # prefill segment at pos 3
+    ("linear decode", 10, 1, 9, False),  # the last slot
+    ("ring decode", 8, 1, 13, True),    # slot 13 mod 8
+    ("ring prefill", 8, 11, 0, True),   # keep the trailing 8 entries
+    ("ring prefill at pos", 8, 8, 5, True),
+], ids=lambda c: c[0])
+def test_cache_write_matches_reference(case):
+    _, cap, s, pos, ring = case
+    cache = {"k": _rand((2, cap, 2, 8), 4), "v": _rand((2, cap, 2, 8), 5)}
+    k_new, v_new = _rand((2, s, 2, 8), 6), _rand((2, s, 2, 8), 7)
+    want = jattn._cache_write({n: jnp.asarray(a) for n, a in cache.items()},
+                              jnp.asarray(k_new), jnp.asarray(v_new),
+                              jnp.asarray(pos), ring)
+    tcache = {n: torch.from_numpy(a.copy()) for n, a in cache.items()}
+    got = tattn._cache_write(tcache, torch.from_numpy(k_new),
+                             torch.from_numpy(v_new), pos, ring)
+    assert got is tcache                       # in place
+    for n in ("k", "v"):
+        np.testing.assert_array_equal(_np(got[n]), _np(want[n]))
+
+
+def test_cache_write_past_the_end_raises():
+    cache = {"k": torch.zeros(1, 4, 1, 8), "v": torch.zeros(1, 4, 1, 8)}
+    with pytest.raises(ValueError):
+        tattn._cache_write(cache, torch.ones(1, 2, 1, 8),
+                           torch.ones(1, 2, 1, 8), 3, ring=False)
+
+
+# ---------------------------------------------------------------------------
+# GQA prefill and decode
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_gqa_apply_prefill_and_decode_match_reference(variant):
+    jcfg, tcfg = _cfgs(variant)
+    kind = jcfg.block_pattern[0]
+    jp = _perturb(jinit(jattn.gqa_def(jcfg, tp=1), jax.random.PRNGKey(2)))
+    tp = _torch_tree(jp)
+    s, steps, max_len = 21, 3, 40
+    x = _rand((2, s + steps, jcfg.d_model), 8)
+    jcache = jattn.init_kv_cache(jcfg, 2, max_len, kind)
+    tcache = tattn.init_kv_cache(tcfg, 2, max_len, kind, CPU)
+    assert tcache["k"].shape == jcache["k"].shape
+
+    calls = tref.attention_ref.calls
+    want, jcache = jattn.gqa_apply(jp, jnp.asarray(x[:, :s]), jcfg, kind=kind,
+                                   cache=jcache)
+    got, tcache = tattn.gqa_apply(tp, torch.from_numpy(x[:, :s]), tcfg,
+                                  kind=kind, cache=tcache)
+    assert tref.attention_ref.calls == calls + 1   # K3's plain version
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    for i in range(steps):
+        xs = x[:, s + i:s + i + 1]
+        want, jcache = jattn.gqa_apply(jp, jnp.asarray(xs), jcfg, kind=kind,
+                                       pos_offset=s + i, cache=jcache,
+                                       decode=True)
+        got, tcache = tattn.gqa_apply(tp, torch.from_numpy(xs), tcfg,
+                                      kind=kind, pos_offset=s + i,
+                                      cache=tcache, decode=True)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+        for n in ("k", "v"):
+            np.testing.assert_allclose(_np(tcache[n]), _np(jcache[n]), **TOL)
+    assert tref.attention_ref.calls == calls + 1   # decode stays plain torch
+
+
+def test_gqa_prefill_at_an_offset_matches_reference():
+    jcfg, tcfg = _cfgs("qwen1.5-0.5b-swa16")
+    jp = _perturb(jinit(jattn.gqa_def(jcfg, tp=1), jax.random.PRNGKey(3)))
+    x = _rand((1, 24, jcfg.d_model), 9)
+    want, _ = jattn.gqa_apply(jp, jnp.asarray(x), jcfg, kind="swa",
+                              pos_offset=50)
+    got, _ = tattn.gqa_apply(_torch_tree(jp), torch.from_numpy(x), tcfg,
+                             kind="swa", pos_offset=50)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+# ---------------------------------------------------------------------------
+# decoder forward and the whole slice
+# ---------------------------------------------------------------------------
+
+def _jparams(jcfg, seed=0):
+    return _perturb(jbuild(jcfg, tp=1, dp=1).init(jax.random.PRNGKey(seed)))
+
+
+def test_layer_plan_and_forward_match_reference():
+    jcfg, tcfg = _cfgs("qwen3-1.7b")
+    jcfg, tcfg = jcfg.replace(n_layers=3), tcfg.replace(n_layers=3)
+    lead, unit, n_rep, tail = jtfm.layer_plan(jcfg)
+    assert ttfm.layer_sigs(tcfg) == list(lead) + list(unit) * n_rep \
+        + list(tail)
+    jp = _jparams(jcfg)
+    tp = lm_params_from_jax(tcfg, jp)
+    assert len(tp["layers"]) == 3
+    toks = np.random.default_rng(10).integers(0, jcfg.vocab_size, (2, 19))
+    want, _, _ = jtfm.forward(jp, jnp.asarray(toks), jcfg)
+    got, _ = ttfm.forward(tp, torch.from_numpy(toks), tcfg)
+    assert got.dtype == torch.float32 and got.shape == (2, 19,
+                                                        tcfg.padded_vocab)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_serve_slice_matches_reference_bundle(variant):
+    jcfg, tcfg = _cfgs(variant)
+    jb = jbuild(jcfg, tp=1, dp=1)
+    tb = tbuild(tcfg, CPU)
+    assert tb.num_params == jb.num_params
+    jp = _jparams(jcfg)
+    tp = lm_params_from_jax(tcfg, jp)
+    b, s, steps = 2, 37, 8
+    prompts = np.random.default_rng(11).integers(0, jcfg.vocab_size, (b, s))
+    jcache, tcache = jb.init_caches(b, s + steps), tb.init_caches(b, s + steps)
+
+    launches, calls = flash_attention.launches, tref.attention_ref.calls
+    want, jcache = jax.jit(jb.prefill)(jp, jnp.asarray(prompts, jnp.int32),
+                                       jcache)
+    got, tcache = tsteps.make_prefill_step(tb)(tp, torch.from_numpy(prompts),
+                                               tcache)
+    assert flash_attention.launches == launches     # CPU: the plain version
+    assert tref.attention_ref.calls == calls + tcfg.n_layers
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+
+    jdecode, serve = jax.jit(jb.decode), tsteps.make_serve_step(tb)
+    jtok = jnp.argmax(want[:, -1:], -1)
+    ttok = torch.argmax(got[:, -1:], -1)
+    for i in range(steps):
+        wl, jcache = jdecode(jp, jcache, jtok, jnp.asarray(s + i))
+        gl, _ = tb.decode(tp, [{n: c.clone() for n, c in lc.items()}
+                               for lc in tcache], ttok, s + i)
+        np.testing.assert_allclose(_np(gl), _np(wl), **TOL)
+        jtok = jnp.argmax(wl[:, -1, :], -1)[:, None]
+        ttok, tcache = serve(tp, tcache, ttok, s + i)
+        np.testing.assert_array_equal(ttok.numpy(), np.asarray(jtok))
+
+
+def test_serve_entry_point_on_the_cpu(capsys):
+    res = tserve.main(["--arch", "qwen3-1.7b", "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "33",
+                       "--decode-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "arch=qwen3-1.7b" in out and "prefill:" in out
+    assert res.tokens.shape == (2, 4)
+    assert res.logits.shape == (2, 33, res.cfg.padded_vocab)
+    assert bool(torch.isfinite(res.logits).all())
+    assert int(res.tokens.min()) >= 0 \
+        and int(res.tokens.max()) < res.cfg.padded_vocab
+    assert res.stats["k3_launches_per_prefill"] == 0
+    assert res.stats["card"] is None
+
+
+def test_serve_without_a_card_raises():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tserve.main(["--smoke"])
