@@ -19,6 +19,12 @@ Phases (any failure exits nonzero, and nothing is swallowed):
          Dh 128), with window 256, at ragged S = 1000, and in f32 (window
          256 too) -- f32 to 2e-5, bf16 to two bf16 ulps;
          ``scaled_dot_product_attention`` is timed beside it;
+       - K4 ``ssd_scan`` at the mamba2 prefill's scan (B 8, S 1024, H 64,
+         P 64, N 128, G 1, f32, chunk 128), at ragged S = 1000, with
+         G = 2 and a nonzero state0, with bf16 inputs, and at the smoke
+         model's P = N = 32 -- y and the final state to 1e-4 of their
+         largest magnitude plus 2e-4 relative (bf16 y: 1.6e-2); no
+         PyTorch call computes the scan, so no library time;
   3. the fleet's main path at full width through ``repro_torch.fig2.run``:
      paper_mlp, 7 schemes, minibatch 128, flat, fused, f32 uplink, 30
      rounds with an eval every 10 -- K1 must launch once per round and the
@@ -39,7 +45,21 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      layers, held to a drift tolerance; then a 2-layer sliding-window run
      (window 256 < prompt) decoding through the ring cache, its tokens
      held against a full forward over the generated sequence;
-  6. one JSON line ``{"kernels": [...]}``, then the last line
+  6. the Mamba-2 serve path at full width through the same entry point
+     (mamba2-1.3b, 48 layers, bf16, batch 8, prompt 1,024, 32 decode
+     tokens): K4 must launch 48 times per prefill and K4's plain version,
+     K3 and the OTA kernels never; finite logits, tokens in range; then
+     the same weights and prompts with K4 forced off: the first layer's
+     mixer output within two bf16 ulps; the whole model's logit drift and
+     equal greedy tokens are printed as readings, and so is the share of
+     greedy tokens of prefill + recurrent decode that one prefill (K4)
+     over the prompt and the fed-back tokens reproduces; then the same
+     model in float32 (weights and compute, same draw): layer 0 to the
+     f32 SSD tolerance, the logits to the drift tolerance, the greedy
+     tokens of K4 on vs off and of the state check (which holds K4's final
+     state, the conv stash and the plain decode together) to the share of
+     equal tokens;
+  7. one JSON line ``{"kernels": [...]}``, then the last line
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
@@ -75,10 +95,12 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
          "H200": (4.8e12, 67e12, 989e12), "H100": (3.35e12, 67e12, 989e12)}
 SOURCES = {"ota_round_step": "src/repro_torch/kernels/csrc/ota_kernels.cu",
            "ota_aggregate": "src/repro_torch/kernels/csrc/ota_kernels.cu",
-           "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu"}
+           "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
+           "ssd_scan": "src/repro_torch/kernels/csrc/ssd_scan.cu"}
 REPLACES = {"ota_round_step": "src/repro/kernels/round_step.py:53",
             "ota_aggregate": "src/repro/kernels/ota_aggregate.py:41",
-            "flash_attention": "src/repro/kernels/flash_attention.py:68"}
+            "flash_attention": "src/repro/kernels/flash_attention.py:68",
+            "ssd_scan": "src/repro/kernels/ssd_scan.py:69"}
 # K3 shapes: (label, B, S, H, KH, Dh, dtype, window); the first is the
 # serve path's prefill at full width
 ATTN_MAIN = ("main", 8, 1024, 16, 16, 64, "bf16", None)
@@ -89,7 +111,32 @@ ATTN_SHAPES = [ATTN_MAIN,
                ("main_f32", 8, 1024, 16, 16, 64, "f32", None),
                ("qwen3_f32", 8, 1024, 16, 8, 128, "f32", None),
                ("qwen3_window256_f32", 8, 1024, 16, 8, 128, "f32", 256)]
+# K4 shapes: (label, B, S, H, P, N, G, dtype, state0, chunk); the first is
+# the mamba2 prefill's scan at full width
+SSD_MAIN = ("main", 8, 1024, 64, 64, 128, 1, "f32", False, 128)
+SSD_SHAPES = [SSD_MAIN,
+              ("ragged_s1000", 8, 1000, 64, 64, 128, 1, "f32", False, 128),
+              ("g2_state0", 8, 1024, 64, 64, 128, 2, "f32", True, 128),
+              ("bf16_state0", 8, 1024, 64, 64, 128, 1, "bf16", True, 128),
+              ("smoke_p32_n32", 2, 37, 16, 32, 32, 1, "f32", True, 32)]
+# K4 sums terms as large as its largest output, in another order and over
+# its own tile of 64 rows against the plain version's chunk of 128: f32
+# agrees to ~1e-5 of the largest |y|, so y and the state are held at 1e-4
+# of their largest magnitude plus 2e-4 relative (the reference's SSD
+# tolerance); a bf16 y may then land one ulp apart: 1.6e-2 (two ulps)
+SSD_SCALE_TOL = 1e-4
+SSD_REL_TOL = {"f32": 2e-4, "bf16": 1.6e-2}
 SERVE = dict(arch="qwen1.5-0.5b", batch=8, prompt_len=1024, decode_tokens=32)
+SSD_SERVE = dict(arch="mamba2-1.3b", batch=8, prompt_len=1024,
+                 decode_tokens=32)
+# mamba2 with random weights amplifies a rounding difference through its
+# 48 layers: in bf16 a one-ulp change at layer 0 grows to ~20-30 % of the
+# largest logit, as far for two plain scans that differ only in their chunk
+# length as for K4 against its plain version.  So the bf16 run's whole-model
+# drift and token shares are printed readings; its layer-0 mixer is held to
+# two bf16 ulps, and DRIFT_LOGITS_SHARE and EQUAL_TOKENS_MIN are held on the
+# same model in float32, where a rounding difference stays ~1e-4 of the
+# logits
 SWA = dict(n_layers=2, window=256)   # over the arch's long-context variant
 # full width, K3 on vs off on the same weights: the first layer's attention
 # output to the bf16 tolerance; through 24 bf16 layers a one-ulp difference
@@ -216,23 +263,29 @@ def phase_kernels(torch, dev, card):
 def counts():
     from repro_torch.kernels import ota_aggregate, ref, round_step
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
     return {"ota_round_step": round_step.ota_round_step.launches,
             "ota_aggregate": ota_aggregate.ota_aggregate.launches,
             "flash_attention": flash_attention.launches,
+            "ssd_scan": ssd_scan.launches,
             "plain_round_step": ref.ota_round_step_ref.calls,
             "plain_aggregate": ref.ota_aggregate_ref.calls,
-            "plain_attention": ref.attention_ref.calls}
+            "plain_attention": ref.attention_ref.calls,
+            "plain_ssd": ref.ssd_chunked.calls}
 
 
 def zero_counts():
     from repro_torch.kernels import ota_aggregate, ref, round_step
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
     round_step.ota_round_step.launches = 0
     ota_aggregate.ota_aggregate.launches = 0
     flash_attention.launches = 0
+    ssd_scan.launches = 0
     ref.ota_round_step_ref.calls = 0
     ref.ota_aggregate_ref.calls = 0
     ref.attention_ref.calls = 0
+    ref.ssd_chunked.calls = 0
 
 
 def attention_pairs(sq, sk, causal, window):
@@ -298,6 +351,79 @@ def phase_attention_kernel(torch, dev, card):
         print(f"  K3 flash_attention {label}: " + json.dumps(row), flush=True)
         check(ok, f"K3 {label} disagrees with its plain version")
         del q, k, v, got, want
+    return results
+
+
+def ssd_flops(b, s, h, p, n, g, state0):
+    """Fewest operations of the SSD scan on these inputs: the chunked form
+    at the tile length q that minimises them (the form is exact for any q;
+    K4 walks tiles of 64).  Per tile: C B^T once per group and att (dt x)
+    per head over the causal triangle, C S_in (none on the first tile
+    without a state in), the state's decay and its update B^T (dt x)."""
+    def at(q):
+        full, r = divmod(s, q)
+        pairs = full * q * (q + 1) // 2 + r * (r + 1) // 2
+        carried = 0 if state0 else 1          # the first tile's state is 0
+        return (2 * b * pairs * (g * n + h * p)
+                + 2 * b * h * n * p * (2 * s - carried * min(q, s))
+                + b * h * n * p * (full + (r > 0) - carried))
+    return min(at(q) for q in range(1, s + 1))
+
+
+def phase_ssd_kernel(torch, dev, card):
+    """Phase 2, K4: the SSD scan against its plain version on the card."""
+    import torch.nn.functional as F
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    _, (bw, f32_peak, _) = peaks(card)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    results = {}
+    for label, b, s, h, p, n, g, dt_name, state, chunk in SSD_SHAPES:
+        dtype = torch.bfloat16 if dt_name == "bf16" else torch.float32
+
+        def randn(*shape):
+            return torch.randn(shape, generator=gen, device=dev)
+        x = randn(b, s, h, p).to(dtype)
+        dt = F.softplus(randn(b, s, h)).to(dtype)
+        a_neg = -torch.exp(0.5 * randn(h))
+        bm, cm = ((0.5 * randn(b, s, g, n)).to(dtype) for _ in range(2))
+        s0 = randn(b, h, p, n) if state else None
+
+        def kern():
+            return ssd_scan(x, dt, a_neg, bm, cm, chunk=chunk, state0=s0)
+
+        def plain():
+            return ref.ssd_chunked(x, dt, a_neg, bm, cm, chunk, state0=s0)
+        (y, st), (want_y, want_st) = kern(), plain()
+        torch.cuda.synchronize()
+        ok, errs = True, {}
+        for name, got, want, rel in (("y", y, want_y, SSD_REL_TOL[dt_name]),
+                                     ("state", st, want_st,
+                                      SSD_REL_TOL["f32"])):
+            got, want = got.float(), want.float()
+            err = (got - want).abs()
+            scale = float(want.abs().max())
+            ok &= bool((err <= SSD_SCALE_TOL * scale
+                        + rel * want.abs()).all())
+            errs[name] = (float(err.max()), scale)
+        byts = nbytes(x, dt, a_neg, bm, cm, s0, y, st)
+        flops = ssd_flops(b, s, h, p, n, g, state)
+        row = {"shape": [b, s, h, p, n, g], "dtype": dt_name,
+               "state0": state, "chunk": chunk,
+               "max_abs_err": errs["y"][0], "max_abs_y": errs["y"][1],
+               "state_max_abs_err": errs["state"][0],
+               "max_abs_state": errs["state"][1],
+               "tol": {"scale": SSD_SCALE_TOL, "rtol": SSD_REL_TOL[dt_name]},
+               "ok": ok, "ms": median_ms(torch, kern),
+               "plain_ms": median_ms(torch, plain), "library_ms": None,
+               "bound_ms": 1e3 * max(byts / bw, flops / f32_peak),
+               "bytes": byts, "flops": flops,
+               "bound_by": "bytes" if byts / bw >= flops / f32_peak
+               else "operations"}
+        results[label] = row
+        print(f"  K4 ssd_scan {label}: " + json.dumps(row), flush=True)
+        check(ok, f"K4 {label} disagrees with its plain version")
+        del x, dt, bm, cm, s0, y, st, want_y, want_st
     return results
 
 
@@ -429,6 +555,8 @@ def phase_serve(torch, dev):
     check(cnt["plain_attention"] == 0, "K3's plain version ran on the card")
     check(cnt["ota_round_step"] == cnt["ota_aggregate"] == 0,
           "an OTA kernel ran on the serve path")
+    check(cnt["ssd_scan"] == cnt["plain_ssd"] == 0,
+          "K4 or its plain version ran on the GQA serve path")
     b, s, v = SERVE["batch"], SERVE["prompt_len"], cfg.padded_vocab
     check(tuple(res.logits.shape) == (b, s, v), f"logits {res.logits.shape}")
     check(bool(torch.isfinite(res.logits).all()), "logits not finite")
@@ -493,6 +621,125 @@ def phase_serve(torch, dev):
     return st, main_cnt, drift, {"equal_tokens": ring_equal, **sw.stats}
 
 
+def ssd_on_vs_off(torch, res, cfg):
+    """K4 on vs forced off on a serve run's weights and prompts: the first
+    layer's mixer output (on, off), and the prefill logits of K4 against
+    its plain version as (max |d|, max |logit|, share of equal greedy
+    tokens)."""
+    from repro_torch.models import ssm
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed, rmsnorm
+    p0 = res.params["layers"][0]
+    with torch.no_grad():
+        h = rmsnorm(p0["ln1"], embed(res.params["embed"], res.prompts,
+                                     cfg.compute_dtype), cfg.norm_eps)
+        on, _ = ssm.ssd_apply(p0["mixer"], h, cfg)
+        off, _ = ssm.ssd_apply(p0["mixer"], h, cfg, use_kernel=False)
+        logits_off, _ = tfm.forward(res.params, res.prompts, cfg,
+                                    use_kernel=False)
+    kernel = (float((res.logits - logits_off).abs().max()),
+              float(logits_off.abs().max()),
+              float((res.logits.argmax(-1) == logits_off.argmax(-1))
+                    .float().mean()))
+    return on.float(), off.float(), kernel
+
+
+def ssd_state_check(torch, res, cfg):
+    """Share of the greedy tokens of prefill + recurrent decode that one
+    prefill (K4) over the prompt and the fed-back tokens reproduces."""
+    from repro_torch.models import transformer as tfm
+    with torch.no_grad():
+        seq = torch.cat([res.prompts, res.tokens[:, :-1]], dim=1)
+        full, _ = tfm.forward(res.params, seq, cfg)
+    want = full[:, res.prompts.shape[1] - 1:].argmax(-1)
+    return float((want == res.tokens).float().mean())
+
+
+def phase_serve_ssd(torch, dev):
+    """Phase 6: the Mamba-2 serve path at full width, K4 on vs forced off,
+    prefill + recurrent decode against one prefill; then both checks on
+    the same model in float32."""
+    from repro_torch.launch import serve
+    argv = [f"--{k.replace('_', '-')}={v}" for k, v in SSD_SERVE.items()]
+    zero_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    cnt = counts()
+    cfg, st = res.cfg, res.stats
+    n_layers = cfg.n_layers
+    print(f"  mamba2 serve main path: counts {cnt}", flush=True)
+    check(st["k4_launches_per_prefill"] == n_layers,
+          f"K4 launched {st['k4_launches_per_prefill']} times in a prefill "
+          f"of {n_layers} layers")
+    check(cnt["ssd_scan"] == 2 * n_layers,            # warm-up + timed
+          f"K4 launched {cnt['ssd_scan']} times in 2 prefills")
+    check(cnt["plain_ssd"] == 0, "K4's plain version ran on the card")
+    check(cnt["flash_attention"] == cnt["plain_attention"] == 0,
+          "attention ran on the Mamba-2 path")
+    check(cnt["ota_round_step"] == cnt["ota_aggregate"] == 0,
+          "an OTA kernel ran on the serve path")
+    b, s = SSD_SERVE["batch"], SSD_SERVE["prompt_len"]
+    v = cfg.padded_vocab
+    check(tuple(res.logits.shape) == (b, s, v), f"logits {res.logits.shape}")
+    check(bool(torch.isfinite(res.logits).all()), "logits not finite")
+    check(tuple(res.tokens.shape) == (b, SSD_SERVE["decode_tokens"]),
+          f"tokens {res.tokens.shape}")
+    check(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < v,
+          "a token out of range")
+
+    # bf16, the main path's weights: K4 forced off
+    on, off, kernel = ssd_on_vs_off(torch, res, cfg)
+    layer0_err = float((on - off).abs().max())
+    check(bool((on - off).abs().le(ATTN_BF16_TOL["atol"]
+                                   + ATTN_BF16_TOL["rtol"]
+                                   * off.abs()).all()),
+          f"layer 0 mixer, K4 on vs off: max |d| {layer0_err}")
+    drift = {"bf16": {
+        "layer0_mixer_max_abs_err": layer0_err,
+        "layer0_mixer_max_abs": float(off.abs().max()),
+        "logits_max_abs_diff": kernel[0], "logits_max_abs": kernel[1],
+        "equal_next_tokens": kernel[2],
+        "state_equal_tokens": ssd_state_check(torch, res, cfg)}}
+    print(f"  mamba2 serve (bf16), K4 on vs off and prefill + decode vs one "
+          f"prefill: {json.dumps(drift['bf16'])} (tolerance: layer 0 within "
+          f"{ATTN_BF16_TOL}; the whole model's numbers are readings, held "
+          f"in f32 below)", flush=True)
+    del res, on, off
+
+    # the same model in float32 (the same draw, unrounded)
+    cfg32 = cfg.replace(param_dtype=torch.float32,
+                        compute_dtype=torch.float32)
+    r32 = serve.run(cfg32, batch=b, prompt_len=s,
+                    decode_tokens=SSD_SERVE["decode_tokens"], seed=0,
+                    device=dev)
+    on, off, kernel = ssd_on_vs_off(torch, r32, cfg32)
+    layer0_err = float((on - off).abs().max())
+    state_equal = ssd_state_check(torch, r32, cfg32)
+    drift["f32"] = {
+        "layer0_mixer_max_abs_err": layer0_err,
+        "layer0_mixer_max_abs": float(off.abs().max()),
+        "logits_max_abs_diff": kernel[0], "logits_max_abs": kernel[1],
+        "equal_next_tokens": kernel[2],
+        "state_equal_tokens": state_equal,
+        "prefill_ms": r32.stats["prefill_ms"],
+        "decode_ms_per_token": r32.stats["decode_ms_per_token"]}
+    print(f"  mamba2 serve (f32), K4 on vs off and prefill + decode vs one "
+          f"prefill: {json.dumps(drift['f32'])} (tolerance: layer 0 within "
+          f"{SSD_SCALE_TOL} of its largest |output| + {SSD_REL_TOL['f32']} "
+          f"relative; logits within {DRIFT_LOGITS_SHARE} of max |logit|, "
+          f"greedy tokens equal at >= {EQUAL_TOKENS_MIN})", flush=True)
+    check(bool(((on - off).abs() <= SSD_SCALE_TOL * off.abs().max()
+                + SSD_REL_TOL["f32"] * off.abs()).all()),
+          f"f32 layer 0 mixer, K4 on vs off: max |d| {layer0_err}")
+    check(kernel[0] <= DRIFT_LOGITS_SHARE * kernel[1],
+          f"f32 logits drift {kernel[0]} over {DRIFT_LOGITS_SHARE} x "
+          f"{kernel[1]}")
+    check(kernel[2] >= EQUAL_TOKENS_MIN, f"f32 equal next tokens {kernel[2]}")
+    check(state_equal >= EQUAL_TOKENS_MIN,
+          f"f32 recurrent decode agrees with one prefill at {state_equal}")
+    return st, cnt, drift
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -530,12 +777,15 @@ def main() -> int:
     print("[2] kernels vs plain versions on the card", flush=True)
     kres = phase_kernels(torch, dev, card)
     ares = phase_attention_kernel(torch, dev, card)
+    sres = phase_ssd_kernel(torch, dev, card)
     print("[3] fleet main path at full width", flush=True)
     main_counts, path_counts, walls, world = phase_main_path(torch, np, dev)
     print("[4] fleet kernels on vs forced off, same draws", flush=True)
     phase_kernels_vs_plain_path(torch, dev, world)
     print("[5] LM serve path at full width", flush=True)
     serve_stats, serve_counts, drift, swa = phase_serve(torch, dev)
+    print("[6] Mamba-2 serve path at full width", flush=True)
+    ssd_stats, ssd_counts, ssd_drift = phase_serve_ssd(torch, dev)
 
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
@@ -548,6 +798,8 @@ def main() -> int:
             for (name, wire), n_launch in launches.items()]
     rows.append(("flash_attention[bf16]", "flash_attention",
                  serve_counts["flash_attention"], ares[ATTN_MAIN[0]]))
+    rows.append(("ssd_scan[f32]", "ssd_scan", ssd_counts["ssd_scan"],
+                 sres[SSD_MAIN[0]]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -556,14 +808,16 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[6] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[7] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[6] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[6] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print(f"[7] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[7] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); swa prefill "
           f"{swa['prefill_ms']:.3f} ms, decode "
-          f"{swa['decode_ms_per_token']:.3f} ms per token; total "
+          f"{swa['decode_ms_per_token']:.3f} ms per token; mamba2 prefill "
+          f"{ssd_stats['prefill_ms']:.3f} ms, decode "
+          f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,7 +1,7 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
 Copies of the reference's registry (``repro.configs``) for the archs the
-port runs: the dense GQA decoders.  Any other arch raises and names
+port runs: the dense GQA decoders and mamba2.  Any other arch raises and names
 ROADMAP.md, where the reference's other archs are queued.
 """
 from __future__ import annotations
@@ -11,6 +11,7 @@ import importlib
 _MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_17b",
+    "mamba2-1.3b": "repro_torch.configs.mamba2_13b",
 }
 ARCH_IDS = tuple(_MODULES)
 

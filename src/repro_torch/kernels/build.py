@@ -31,6 +31,9 @@ _ROUND_STEP_ARGS = [_P] * 8 + [_I, _I, ctypes.c_longlong, _P]
 _AGGREGATE_ARGS = [_P] * 5 + [_I, _I, ctypes.c_longlong, _P]
 # q, k, v, o; b, sq, sk, h, kh, dh, causal, window; stream
 _ATTENTION_ARGS = [_P] * 4 + [_I] * 8 + [_P]
+# x, dt, a_neg, b, c, state0 (may be null), y, state; batch, seq, h, g, p, n;
+# stream
+_SSD_ARGS = [_P] * 8 + [_I] * 6 + [_P]
 ENTRIES = {
     "ota_kernels": {
         "ota_round_step_f32": _ROUND_STEP_ARGS,
@@ -42,6 +45,10 @@ ENTRIES = {
     "flash_attention": {
         "flash_attention_f32": _ATTENTION_ARGS,
         "flash_attention_bf16": _ATTENTION_ARGS,
+    },
+    "ssd_scan": {
+        "ssd_scan_f32": _SSD_ARGS,
+        "ssd_scan_bf16": _SSD_ARGS,
     },
 }
 SOURCES = {name: CSRC / f"{name}.cu" for name in ENTRIES}

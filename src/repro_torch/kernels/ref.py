@@ -4,14 +4,15 @@ These are the CPU path of every kernel wrapper and the yardstick the CUDA
 kernels are held against on the card.  They repeat the reference's
 arithmetic (``repro.kernels.ref``): f32 accumulation, one cast on write.
 The OTA kernels carry a leading cell axis.
-Each keeps a plain call count (``.calls``), so that a run can show that its
-CUDA path never fell back to them.
+Each kernel's plain version keeps a plain call count (``.calls``), so
+that a run can show that its CUDA path never fell back to them.
 """
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 
 
 def ota_aggregate_ref(g: torch.Tensor, s: torch.Tensor, z: torch.Tensor,
@@ -91,6 +92,79 @@ def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                              window=window)
 
 
+def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
+                b_mat: torch.Tensor, c_mat: torch.Tensor, chunk: int,
+                state0: Optional[torch.Tensor] = None
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K4's plain version: the chunked SSD scan of
+    ``repro.models.ssm.ssd_chunked``, counted.
+
+    x: [B, L, H, P]; dt: [B, L, H] (> 0); a_neg: [H] (< 0); b_mat, c_mat:
+    [B, L, G, N], G dividing H (head h reads group h // (H / G));
+    state0: [B, H, P, N] or None (zeros).  Computes in float32.  Returns
+    (y [B, L, H, P] in x's dtype, final state [B, H, P, N] float32).
+
+    A length L that is not a multiple of ``chunk`` is zero-padded with
+    dt = 0, as the reference's mixer pads before its call: the padding's
+    decay is exp(0) = 1 and its input weight 0, so the final state is
+    exact.  The decay exp(cum_i - cum_j) is taken only inside the causal
+    triangle: above it cum_i - cum_j > 0 may overflow to inf.
+    """
+    ssd_chunked.calls += 1
+    bsz, l, h, p_dim = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    pad = (-l) % chunk
+    if pad:
+        x, b_mat, c_mat = (F.pad(t, (0, 0, 0, 0, 0, pad))
+                           for t in (x, b_mat, c_mat))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    nc = (l + pad) // chunk
+    rep = h // g
+
+    dt = dt.float()
+    d_a = dt * a_neg.float()[None, None, :]               # [B, L, H] (< 0)
+    xw = x.float() * dt[..., None]                        # dt-weighted input
+    xw_c = xw.reshape(bsz, nc, chunk, h, p_dim)
+    cum = torch.cumsum(d_a.reshape(bsz, nc, chunk, h), dim=2)   # [B,NC,Q,H]
+    seg_end = cum[:, :, -1:, :]                           # whole chunk decay
+    bh = b_mat.float().reshape(bsz, nc, chunk, g, n)
+    ch = c_mat.float().reshape(bsz, nc, chunk, g, n)
+    if rep > 1:
+        bh = bh.repeat_interleave(rep, dim=3)             # [B,NC,Q,H,N]
+        ch = ch.repeat_interleave(rep, dim=3)
+
+    # intra-chunk: att[i, j] = exp(cum_i - cum_j) (C_i . B_j), i >= j
+    scores = torch.einsum("bcihn,bcjhn->bchij", ch, bh)
+    cum_h = cum.permute(0, 1, 3, 2)                       # [B,NC,H,Q]
+    decay = cum_h[..., :, None] - cum_h[..., None, :]     # [B,NC,H,Qi,Qj]
+    above = torch.ones(chunk, chunk, dtype=torch.bool,
+                       device=x.device).triu(1)
+    att = scores * torch.exp(decay.masked_fill(above, float("-inf")))
+    y_intra = torch.einsum("bchij,bcjhp->bcihp", att, xw_c)
+
+    # each chunk's own state: sum_j exp(seg_end - cum_j) B_j (x) xw_j
+    w_in = torch.exp(seg_end - cum)                       # [B,NC,Q,H]
+    s_local = torch.einsum("bcjhn,bcjhp->bchpn", bh * w_in[..., None], xw_c)
+
+    # across chunks: S_k = exp(seg_end_k) S_{k-1} + local_k
+    seg_decay = torch.exp(seg_end[:, :, 0, :])            # [B,NC,H]
+    state = (torch.zeros((bsz, h, p_dim, n), dtype=torch.float32,
+                         device=x.device)
+             if state0 is None else state0.float())
+    s_in = []
+    for k in range(nc):
+        s_in.append(state)                                # entering chunk k
+        state = state * seg_decay[:, k, :, None, None] + s_local[:, k]
+    s_in = torch.stack(s_in, dim=1)                       # [B,NC,H,P,N]
+
+    # inter-chunk output: y_i += exp(cum_i) C_i . S_in
+    y_inter = torch.einsum("bcihn,bchpn->bcihp", ch, s_in) \
+        * torch.exp(cum)[..., None]
+    y = (y_intra + y_inter).reshape(bsz, l + pad, h, p_dim)[:, :l]
+    return y.to(x.dtype), state
+
+
 ota_aggregate_ref.calls = 0
 ota_round_step_ref.calls = 0
 attention_ref.calls = 0
+ssd_chunked.calls = 0

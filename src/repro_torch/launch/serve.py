@@ -1,18 +1,22 @@
 """Batched decode driver: prefill a batch of prompts, then step the decoder
-greedily against the KV cache.
+greedily against the KV cache (GQA layers) or the recurrent state (ssd
+layers).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
+        --batch 8 --prompt-len 1024 --decode-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --batch 8 --prompt-len 1024 --decode-tokens 32
 
 The port of ``repro.launch.serve``, with ``--device`` (default: the CUDA
 card; without one it raises unless ``--device cpu`` is given).  Weights are
 random, drawn from ``--seed`` with the reference's init laws; prompts are
 drawn from ``--seed`` + 1.  On the card, one untimed prefill and decode
-step of the same shapes runs first (kernel build, library loading); each
-time printed is then a host clock between two device synchronizations.
-Prints the reference's lines, then one JSON line with the times, the
-tokens per second, K3's launches per prefill, and the card's name and
-power limit.
+step of the same shapes runs first (the build of the kernels the arch
+uses, library loading); each time printed is then a host clock between two
+device synchronizations.  Prints the reference's lines, then one JSON line
+with the times, the tokens per second, the launches per prefill of K3
+(flash attention) and K4 (the SSD scan), and the card's name and power
+limit.
 """
 from __future__ import annotations
 
@@ -29,7 +33,9 @@ from repro_torch import configs
 from repro_torch.device import DeviceLike
 from repro_torch.kernels import build
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.launch import steps as steps_lib
+from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.registry import build_bundle
 
@@ -56,6 +62,15 @@ def card_line() -> Optional[str]:
     return lines[0] if out.returncode == 0 and lines else None
 
 
+def kernel_libraries(cfg: ModelConfig) -> list:
+    """The CUDA libraries a prefill of ``cfg`` launches: K3's for GQA
+    layers, K4's for ssd layers."""
+    kinds = {kind for kind, _ in tfm.layer_sigs(cfg)}
+    return ([name for name, uses in (("flash_attention", tfm.GQA_KINDS),
+                                     ("ssd_scan", ("ssd",)))
+             if kinds & set(uses)])
+
+
 def _sync(dev: torch.device) -> float:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -79,18 +94,19 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, decode_tokens: int,
     serve = steps_lib.make_serve_step(bundle)
 
     if dev.type == "cuda":                  # untimed warm-up, same shapes
-        build.library("flash_attention")
+        for name in kernel_libraries(cfg):
+            build.library(name)
         caches = bundle.init_caches(batch, max_len)
         logits, caches = prefill(params, prompts, caches)
         serve(params, caches, logits[:, -1:].argmax(-1), prompt_len)
         del logits, caches
 
     caches = bundle.init_caches(batch, max_len)
-    launches = flash_attention.launches
+    k3, k4 = flash_attention.launches, ssd_scan.launches
     t0 = _sync(dev)
     logits, caches = prefill(params, prompts, caches)
     t_prefill = _sync(dev) - t0
-    launches = flash_attention.launches - launches
+    k3, k4 = flash_attention.launches - k3, ssd_scan.launches - k4
     tok = torch.argmax(logits[:, -1:, :], dim=-1)
     outs = [tok]
     t0 = _sync(dev)
@@ -109,7 +125,8 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, decode_tokens: int,
         "prefill_tok_s": batch * prompt_len / max(t_prefill, 1e-9),
         "decode_ms_per_token": 1e3 * t_decode / max(n_dec, 1),
         "decode_tok_s": n_dec * batch / max(t_decode, 1e-9),
-        "k3_launches_per_prefill": launches,
+        "k3_launches_per_prefill": k3,
+        "k4_launches_per_prefill": k4,
         "card": torch.cuda.get_device_name(dev) if dev.type == "cuda"
         else None,
         "card_line": card_line() if dev.type == "cuda" else None,

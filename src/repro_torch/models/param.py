@@ -138,17 +138,20 @@ def init_param_tree(defs: Mapping, seed: int,
 def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:
     """Carry a reference decoder's parameters (``repro.models.transformer``
     layout, leaves converted to numpy by the caller) across as a
-    ``ParamTree`` on the CPU in ``cfg.param_dtype`` (``.to(device)`` moves
-    it).
+    ``ParamTree`` on the CPU (``.to(device)`` moves it), each leaf in the
+    dtype of its ``ParamDef`` in the port's ``model_defs(cfg)``: mostly
+    ``cfg.param_dtype``, but float32 for the SSD mixer's ``a_log``,
+    ``dt_bias`` and ``d_skip`` at every width, as in the reference.
 
     The reference groups its layers as ``lead`` (a list), ``scan`` (a dict
     ``u0 .. u{k-1}`` of unit layers whose leaves are stacked ``[n_rep,
     ...]``) and ``tail`` (a list); the port keeps one entry per layer in
     ``layers``, in execution order: lead, then the units repetition by
-    repetition, then tail.
+    repetition, then tail.  A leaf missing on either side, or of another
+    shape than its def, raises.
     """
-    def conv(a):
-        return torch.from_numpy(np.array(a, np.float32)).to(cfg.param_dtype)
+    # transformer imports this module, so its defs are looked up here
+    from repro_torch.models.transformer import model_defs
 
     def leaves(t, fn):
         if isinstance(t, Mapping):
@@ -156,17 +159,34 @@ def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:
         return fn(t)
 
     lead, tail = tree.get("lead", []), tree.get("tail", [])
-    layers = [leaves(p, conv) for p in lead]
+    layers = list(lead)
     scan = tree.get("scan")
     if scan:
         units = [scan[f"u{i}"] for i in range(len(scan))]
         n_rep = (cfg.n_layers - len(lead) - len(tail)) // len(units)
         for r in range(n_rep):
-            layers += [leaves(u, lambda a, r=r: conv(np.asarray(a)[r]))
+            layers += [leaves(u, lambda a, r=r: np.asarray(a)[r])
                        for u in units]
-    layers += [leaves(p, conv) for p in tail]
-    out = {"layers": layers, "ln_f": conv(tree["ln_f"])}
+    layers += list(tail)
+    flat = {"layers": layers, "ln_f": tree["ln_f"]}
     for key in ("embed", "unembed"):
         if key in tree:
-            out[key] = conv(tree[key])
-    return ParamTree(out)
+            flat[key] = tree[key]
+
+    def carry(t, d, path):
+        if isinstance(d, ParamDef):
+            a = np.array(t, np.float32)
+            if a.shape != d.shape:
+                raise ValueError(f"{path}: shape {a.shape}, def {d.shape}")
+            return torch.from_numpy(a).to(d.dtype)
+        if isinstance(d, Mapping):
+            if not isinstance(t, Mapping) or set(t) != set(d):
+                raise ValueError(f"{path}: keys {sorted(t)} against the "
+                                 f"defs' {sorted(d)}")
+            return {k: carry(t[k], d[k], f"{path}/{k}") for k in d}
+        if len(t) != len(d):
+            raise ValueError(f"{path}: {len(t)} entries, defs {len(d)}")
+        return [carry(a, b, f"{path}/{i}")
+                for i, (a, b) in enumerate(zip(t, d))]
+
+    return ParamTree(carry(flat, model_defs(cfg), ""))

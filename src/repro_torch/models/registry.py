@@ -1,8 +1,9 @@
 """Model bundle: one interface over the port's language models.
 
-A copy of the decoder bundle of ``repro.models.registry``.  A
-``ModelBundle`` holds one config and its device, and exposes ``init``,
-``prefill``, ``decode`` and ``init_caches``.  The training loss waits for
+A copy of the decoder bundle of ``repro.models.registry``, for the dense
+GQA decoders and Mamba-2 alike.  A ``ModelBundle`` holds one config and
+its device, and exposes ``init``, ``prefill``, ``decode`` and
+``init_caches`` (per layer, a KV cache or a recurrent state).  The training loss waits for
 the LM train path, and the encoder-decoder bundle for its family
 (ROADMAP.md).
 """
@@ -27,7 +28,7 @@ class ModelBundle:
     device: torch.device
     prefill: Callable       # (params, tokens, caches) -> (logits, caches)
     decode: Callable        # (params, caches, token, pos) -> (logits, caches)
-    init_caches: Callable   # (batch, max_len) -> per-layer caches
+    init_caches: Callable   # (batch, max_len) -> per-layer caches or states
     num_params: int = 0
 
     def init(self, seed: int) -> ParamTree:

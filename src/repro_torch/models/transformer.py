@@ -1,11 +1,13 @@
-"""Decoder-only transformer of the port: the dense GQA decoders.
+"""Decoder-only transformer of the port: the dense GQA decoders, Mamba-2
+and their hybrids.
 
 A copy of the decoder path of ``repro.models.transformer``.  The reference
 groups repeating layers under ``lax.scan`` over stacked parameters with
 ``jax.checkpoint``; the port keeps one parameter entry per layer and runs
 a Python loop over them.  The reference's sharding hints are no-ops on one
-card and are dropped.  Mixers: attn | swa | local (GQA); FFN: dense
-(swiglu | geglu | gelu).  MoE, SSD, RG-LRU, MLA, MTP, frame inputs and the
+card and are dropped.  Mixers: attn | swa | local (GQA) and ssd (Mamba-2);
+FFN: dense (swiglu | geglu | gelu), or none after an ssd mixer when
+``ffn_kind="none"`` (mamba2).  MoE, RG-LRU, MLA, MTP, frame inputs and the
 encoder-decoder raise, naming ROADMAP.md, where their port is queued.
 """
 from __future__ import annotations
@@ -15,12 +17,14 @@ from typing import Optional
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
                                        rmsnorm, rmsnorm_def, unembed,
                                        unembed_def)
 
 GQA_KINDS = ("attn", "swa", "local")
+MIXER_KINDS = GQA_KINDS + ("ssd",)
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -36,10 +40,8 @@ def check_supported(cfg: ModelConfig) -> None:
         missing.append("MTP")
     if cfg.input_mode != "tokens":
         missing.append(f"{cfg.input_mode} inputs")
-    if cfg.ffn_kind == "none":
-        missing.append("FFN-less blocks")
     missing += [f"{k} mixer" for k in sorted(set(cfg.block_pattern))
-                if k not in GQA_KINDS]
+                if k not in MIXER_KINDS]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not ported to repro_torch "
@@ -48,16 +50,22 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def layer_sigs(cfg: ModelConfig) -> list:
     """Per-layer (kind, ffn), in execution order: the reference's scan
-    groups flattened (every port layer has a dense FFN)."""
-    return [(kind, "dense") for kind in cfg.block_kinds(cfg.n_layers)]
+    groups flattened; an ssd mixer has no FFN when ``ffn_kind="none"``."""
+    return [(kind, "none" if kind == "ssd" and cfg.ffn_kind == "none"
+             else "dense") for kind in cfg.block_kinds(cfg.n_layers)]
 
 
-def layer_def(cfg: ModelConfig) -> dict:
-    """One dense GQA block (every kind in GQA_KINDS has the same weights)."""
-    return {"ln1": rmsnorm_def(cfg.d_model, cfg.param_dtype),
-            "mixer": attn_mod.gqa_def(cfg),
-            "ln2": rmsnorm_def(cfg.d_model, cfg.param_dtype),
-            "ffn": mlp_def(cfg)}
+def layer_def(cfg: ModelConfig, sig: tuple) -> dict:
+    """One block: the mixer of its kind (every kind in GQA_KINDS has the
+    same weights), and ``ln2`` and ``ffn`` unless its FFN is none."""
+    kind, ffn = sig
+    d = {"ln1": rmsnorm_def(cfg.d_model, cfg.param_dtype),
+         "mixer": ssm_mod.ssd_def(cfg) if kind == "ssd"
+         else attn_mod.gqa_def(cfg)}
+    if ffn != "none":
+        d["ln2"] = rmsnorm_def(cfg.d_model, cfg.param_dtype)
+        d["ffn"] = mlp_def(cfg)
+    return d
 
 
 def model_defs(cfg: ModelConfig) -> dict:
@@ -65,7 +73,7 @@ def model_defs(cfg: ModelConfig) -> dict:
     layer in ``layers``, ``ln_f``, and ``unembed`` unless tied."""
     check_supported(cfg)
     defs = {"embed": embedding_def(cfg),
-            "layers": [layer_def(cfg) for _ in layer_sigs(cfg)],
+            "layers": [layer_def(cfg, sig) for sig in layer_sigs(cfg)],
             "ln_f": rmsnorm_def(cfg.d_model, cfg.param_dtype)}
     if not cfg.tie_embeddings:
         defs["unembed"] = unembed_def(cfg)
@@ -74,22 +82,30 @@ def model_defs(cfg: ModelConfig) -> dict:
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device: torch.device) -> list:
-    """One KV cache per layer, in execution order."""
-    return [attn_mod.init_kv_cache(cfg, batch, max_len, kind, device)
+    """One cache per layer, in execution order: a KV cache for a GQA
+    layer, the recurrent state for an ssd layer."""
+    return [ssm_mod.init_ssd_state(cfg, batch, device) if kind == "ssd"
+            else attn_mod.init_kv_cache(cfg, batch, max_len, kind, device)
             for kind, _ in layer_sigs(cfg)]
 
 
 def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
                 pos_offset: int = 0, cache: Optional[dict] = None,
                 decode: bool = False, use_kernel: bool = True):
-    """One block (pre-norm mixer, then pre-norm FFN).  Returns (x, cache)."""
-    kind, _ = sig
+    """One block (pre-norm mixer, then pre-norm FFN unless none).  Returns
+    (x, cache)."""
+    kind, ffn = sig
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
-    mix, cache = attn_mod.gqa_apply(p["mixer"], h, cfg, kind=kind,
-                                    pos_offset=pos_offset, cache=cache,
-                                    decode=decode, use_kernel=use_kernel)
+    if kind == "ssd":
+        mix, cache = ssm_mod.ssd_apply(p["mixer"], h, cfg, state=cache,
+                                       decode=decode, use_kernel=use_kernel)
+    else:
+        mix, cache = attn_mod.gqa_apply(p["mixer"], h, cfg, kind=kind,
+                                        pos_offset=pos_offset, cache=cache,
+                                        decode=decode, use_kernel=use_kernel)
     x = x + mix
-    x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
+    if ffn != "none":
+        x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     return x, cache
 
 
@@ -98,7 +114,7 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             decode: bool = False, use_kernel: bool = True):
     """tokens: int [B, S].  Returns (logits [B, S, V] float32, caches); the
     caches, when given, are updated in place.  (The reference also returns
-    the MoE router's aux loss, always 0 for the dense decoders.)"""
+    the MoE router's aux loss, always 0 without MoE.)"""
     x = embed(params["embed"], tokens, cfg.compute_dtype)
     for i, sig in enumerate(layer_sigs(cfg)):
         x, _ = apply_layer(params["layers"][i], x, cfg, sig,

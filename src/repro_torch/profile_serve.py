@@ -1,16 +1,18 @@
 """Where the LM serve path's time goes, on the card.
 
-    python -m repro_torch.profile_serve [--arch qwen1.5-0.5b] [--batch 8]
-        [--prompt-len 1024] [--decode-tokens 32]
+    python -m repro_torch.profile_serve [--arch qwen1.5-0.5b|mamba2-1.3b]
+        [--batch 8] [--prompt-len 1024] [--decode-tokens 32]
 
 Runs ``repro_torch.launch.serve.run`` at full width (warm-up, then a timed
 prefill and decode on the host clock between device synchronizations),
 then one more prefill and the same decode steps under ``torch.profiler``.
 For each of the two phases it prints the unprofiled wall, the device time
 summed over every kernel the profiler saw, the device's busy share (one
-stream, so kernels do not overlap), the kernel launches, and the kernels
-that take the most device time.  The last line is one JSON object with
-those numbers.  Needs a CUDA device.
+stream, so kernels do not overlap), the kernel launches, the port's own
+kernels (K3 flash attention, K4 the SSD scan: device ms, launches, share
+of the phase's device time), and the kernels that take the most device
+time.  The last line is one JSON object with those numbers.  Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -24,6 +26,9 @@ from torch.profiler import ProfilerActivity, profile
 from repro_torch import configs
 from repro_torch.launch import serve
 from repro_torch.models import transformer as tfm
+
+# the port's kernels, by a part of their symbol's name
+PORT_KERNELS = {"K3": "flash_attention_kernel", "K4": "ssd_scan_kernel"}
 
 
 def _device_events(prof):
@@ -46,6 +51,16 @@ def _report(label, wall_ms, per, prof, top_n=12):
     top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top_n]
     print(f"{label}: wall {wall_ms:.3f} ms; device time {device_ms:.3f} ms; "
           f"busy share {device_ms / wall_ms:.3f}; {n / per:.1f} launches")
+    port = {}
+    for key, part in PORT_KERNELS.items():
+        k = sum(c for name, (c, _) in by_name.items() if part in name)
+        ms = sum(us for name, (_, us) in by_name.items()
+                 if part in name) / 1e3 / per
+        port[key] = {"ms": ms, "launches": k / per,
+                     "share": ms / device_ms if device_ms else 0.0}
+        if k:
+            print(f"  {key}: {ms:.4f} ms in {k / per:.1f} launches, "
+                  f"{port[key]['share']:.3f} of the device time")
     rows = []
     for name, (k, us) in top:
         print(f"  {us / 1e3 / per:8.4f} ms  {k / per:6.1f} launches  "
@@ -54,7 +69,7 @@ def _report(label, wall_ms, per, prof, top_n=12):
                      "launches": k / per})
     return {"wall_ms": wall_ms, "device_ms": device_ms,
             "busy_share": device_ms / wall_ms, "launches": n / per,
-            "top": rows}
+            "port_kernels": port, "top": rows}
 
 
 def main(argv=None) -> dict:

@@ -1,4 +1,4 @@
-"""The port's CUDA kernels K1, K2 and K3 against their plain PyTorch
+"""The port's CUDA kernels K1, K2, K3 and K4 against their plain PyTorch
 versions on the card.
 
 Needs an NVIDIA GPU and nvcc; every test skips without a CUDA device.
@@ -14,7 +14,13 @@ at 6e-2 (as the reference's bf16 kernel sweeps).  K3 (flash attention)
 keeps its scores, softmax and accumulator in f32 like its plain version:
 f32 holds at 2e-5, and its bf16 outputs at two bf16 ulps (rtol 1.6e-2)
 plus 1e-2, well under a typical output (about sqrt(e / Sk) for
-unit-variance inputs), so a wrong row fails.
+unit-variance inputs), so a wrong row fails.  K4 (the SSD scan) sums terms
+as large as its largest output, in another order and over its own tile of
+64 rows against the plain version's chunk: f32 agrees to about 1e-5 of the
+largest |y| (measured on the card), so y and the state are held at 1e-4
+of their largest magnitude plus 2e-4 relative (the reference's SSD
+tolerance); a bf16 y may then land one bf16 ulp apart, so 1.6e-2 relative
+(two ulps) instead.
 """
 import numpy as np
 import pytest
@@ -22,6 +28,7 @@ import torch
 
 from repro_torch.kernels import ops, ota_aggregate, ref, round_step
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 pytestmark = pytest.mark.cuda
 
@@ -183,3 +190,98 @@ def test_flash_attention_plain_version_not_called_on_cuda(cuda):
     assert ref.attention_ref.calls == before
     flash_attention(q, k, v, use_kernel=False)
     assert ref.attention_ref.calls == before + 1
+
+
+# K4: the smoke model's and the full-width mamba2 scan, a ragged S, and an
+# odd P, N pair; each with G in (1, 2), with and without state0, f32 and bf16
+SSD_SHAPES = [(2, 37, 16, 32, 32, 32), (8, 1024, 64, 64, 128, 128),
+              (8, 1000, 64, 64, 128, 128), (1, 130, 4, 96, 64, 64)]
+SSD_REL = {torch.float32: 2e-4, torch.bfloat16: 1.6e-2}
+
+
+def _ssd_inputs(cuda, b, s, h, p, n, g, dtype, state, seed=0):
+    """x, dt (> 0), a_neg (< 0), B, C as the reference's SSD tests draw
+    them; a_neg and state0 in f32."""
+    rng = np.random.default_rng(seed)
+
+    def t(a, dt=dtype):
+        return torch.from_numpy(a.astype(np.float32)).to(device=cuda,
+                                                         dtype=dt)
+    x = t(rng.standard_normal((b, s, h, p)))
+    dt = t(np.log1p(np.exp(rng.standard_normal((b, s, h)))))
+    a_neg = t(-np.exp(0.5 * rng.standard_normal(h)), torch.float32)
+    bm = t(0.5 * rng.standard_normal((b, s, g, n)))
+    cm = t(0.5 * rng.standard_normal((b, s, g, n)))
+    s0 = t(rng.standard_normal((b, h, p, n)), torch.float32) if state \
+        else None
+    return x, dt, a_neg, bm, cm, s0
+
+
+def _close_to_scale(got, want, rel):
+    """|got - want| <= 1e-4 max|want| + rel |want|, in f32."""
+    got, want = got.float(), want.float()
+    bound = 1e-4 * want.abs().max() + rel * want.abs()
+    assert bool(((got - want).abs() <= bound).all()), \
+        float((got - want).abs().max())
+
+
+def _check_ssd(x, dt, a_neg, bm, cm, s0, chunk):
+    want_y, want_s = ref.ssd_chunked(x, dt, a_neg, bm, cm, chunk, state0=s0)
+    launches, calls = ssd_scan.launches, ref.ssd_chunked.calls
+    got_y, got_s = ssd_scan(x, dt, a_neg, bm, cm, chunk=chunk, state0=s0)
+    torch.cuda.synchronize()
+    assert ssd_scan.launches == launches + 1
+    assert ref.ssd_chunked.calls == calls
+    assert got_y.dtype == x.dtype and got_y.shape == x.shape
+    assert got_s.dtype == torch.float32 and got_s.shape == want_s.shape
+    assert bool(torch.isfinite(got_y).all() and torch.isfinite(got_s).all())
+    _close_to_scale(got_y, want_y, SSD_REL[x.dtype])
+    _close_to_scale(got_s, want_s, SSD_REL[torch.float32])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("g", [1, 2])
+@pytest.mark.parametrize("b,s,h,p,n,chunk", SSD_SHAPES)
+def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk, g, state,
+                                       dtype):
+    _check_ssd(*_ssd_inputs(cuda, b, s, h, p, n, g, dtype, state), chunk)
+
+
+@pytest.mark.parametrize("n", [32, 64, 96, 128])
+@pytest.mark.parametrize("p", [32, 64, 96, 128])
+def test_ssd_scan_kernel_every_width(cuda, p, n):
+    _check_ssd(*_ssd_inputs(cuda, 1, 130, 4, p, n, 2, torch.float32, True,
+                            seed=1), 64)
+
+
+def test_ssd_scan_rejects_what_it_does_not_take(cuda):
+    x, dt, a_neg, bm, cm, s0 = _ssd_inputs(cuda, 1, 64, 4, 64, 64, 1,
+                                           torch.float32, True)
+    with pytest.raises(ValueError):      # P not in (32, 64, 96, 128)
+        ssd_scan(*_ssd_inputs(cuda, 1, 64, 4, 48, 64, 1, torch.float32,
+                              False)[:5], chunk=32)
+    with pytest.raises(ValueError):      # N not in (32, 64, 96, 128)
+        ssd_scan(*_ssd_inputs(cuda, 1, 64, 4, 64, 16, 1, torch.float32,
+                              False)[:5], chunk=32)
+    with pytest.raises(ValueError):      # non-contiguous x
+        ssd_scan(x.transpose(1, 2).contiguous().transpose(1, 2), dt, a_neg,
+                 bm, cm, chunk=32)
+    with pytest.raises(ValueError):      # CPU and CUDA mixed
+        ssd_scan(x, dt, a_neg.cpu(), bm, cm, chunk=32)
+    with pytest.raises(TypeError):       # float16
+        ssd_scan(x.half(), dt.half(), a_neg, bm.half(), cm.half(), chunk=32)
+    with pytest.raises(TypeError):       # mixed input dtypes
+        ssd_scan(x, dt.bfloat16(), a_neg, bm, cm, chunk=32)
+    with pytest.raises(TypeError):       # a bf16 state
+        ssd_scan(x, dt, a_neg, bm, cm, chunk=32, state0=s0.bfloat16())
+
+
+def test_ssd_scan_plain_version_not_called_on_cuda(cuda):
+    args = _ssd_inputs(cuda, 1, 64, 4, 32, 32, 1, torch.float32, True)
+    before = ref.ssd_chunked.calls
+    ssd_scan(*args[:5], chunk=32, state0=args[5])
+    torch.cuda.synchronize()
+    assert ref.ssd_chunked.calls == before
+    ssd_scan(*args[:5], chunk=32, state0=args[5], use_kernel=False)
+    assert ref.ssd_chunked.calls == before + 1

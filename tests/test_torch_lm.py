@@ -1,19 +1,25 @@
-"""The port's dense-decoder serve slice on the CPU against the reference.
+"""The port's decoder serve slice on the CPU against the reference: the
+dense GQA decoders and Mamba-2.
 
 Module by module (RMSNorm, RoPE, the MLPs, the KV-cache writes, GQA
-prefill and decode, the decoder forward), then the whole slice: the
-port's bundle and serve step against
+prefill and decode, the Mamba-2 mixer's prefill and recurrent decode, the
+decoder forward, a GQA + SSD hybrid), then the whole slice: the port's
+bundle and serve step against
 ``repro.models.registry.build_bundle(cfg.smoke(), tp=1, dp=1)`` on the
 reference's own ``PRNGKey(0)`` weights, carried across with
 ``lm_params_from_jax``, and the same numpy prompts of a ragged length
 (37): the prefill logits, then 8 greedy decode steps, their tokens and
-logits.  Three smoke variants: qwen1.5-0.5b (QKV bias), qwen3-1.7b
-(qk-norm, GQA G = 2) and qwen1.5-0.5b's sliding-window variant with a
-16-slot ring cache, shorter than the prompt.
+logits.  Six smoke variants: qwen1.5-0.5b (QKV bias), qwen3-1.7b
+(qk-norm, GQA G = 2), qwen1.5-0.5b's sliding-window variant with a
+16-slot ring cache, shorter than the prompt, and mamba2-1.3b three ways:
+as it is (the prompt of 37 ragged against its chunk of 32, so the
+reference pads), with two SSD groups, and with a chunk of 64, longer than
+the prompt (one chunk of S).
 
-The reference initializes biases to 0 and norm weights to 1; the tests
-perturb those leaves with seeded noise, the same on both sides, so that
-the bias and norm paths are held too.
+The reference initializes biases to 0, norm weights and the SSD's skip to
+1, and its log-decays and dt biases to 0 (every head then decays alike);
+the tests perturb those leaves with seeded noise, the same on both sides,
+so that the bias, norm and per-head paths are held too.
 
 Tolerance: float32 smoke configs, rtol 1e-4 / atol 1e-5 -- the same f32
 math through 2 layers, with matmul and reduction sums taken in another
@@ -29,16 +35,19 @@ import torch
 from repro import configs as jconfigs
 from repro.models import attention as jattn
 from repro.models import layers as jlayers
+from repro.models import ssm as jssm
 from repro.models import transformer as jtfm
 from repro.models.param import init_params as jinit
 from repro.models.registry import build_bundle as jbuild
 from repro_torch import configs as tconfigs
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.launch import serve as tserve
 from repro_torch.launch import steps as tsteps
 from repro_torch.models import attention as tattn
 from repro_torch.models import layers as tlayers
+from repro_torch.models import ssm as tssm
 from repro_torch.models import transformer as ttfm
 from repro_torch.models.param import (ParamTree, lm_params_from_jax,
                                       tree_param_count)
@@ -47,11 +56,17 @@ from repro_torch.models.registry import build_bundle as tbuild
 TOL = dict(rtol=1e-4, atol=1e-5)
 CPU = torch.device("cpu")
 # (arch, its long-context variant (sliding window), smoke overrides)
-VARIANTS = {
+GQA_VARIANTS = {
     "qwen1.5-0.5b": ("qwen1.5-0.5b", False, {}),
     "qwen3-1.7b": ("qwen3-1.7b", False, {}),
     "qwen1.5-0.5b-swa16": ("qwen1.5-0.5b", True, dict(window=16)),
 }
+SSD_VARIANTS = {
+    "mamba2-1.3b": ("mamba2-1.3b", False, {}),
+    "mamba2-1.3b-g2": ("mamba2-1.3b", False, dict(ssm_ngroups=2)),
+    "mamba2-1.3b-chunk64": ("mamba2-1.3b", False, dict(ssm_chunk=64)),
+}
+VARIANTS = {**GQA_VARIANTS, **SSD_VARIANTS}
 
 
 def _cfgs(variant):
@@ -62,14 +77,16 @@ def _cfgs(variant):
 
 
 def _perturb(tree, seed=0):
-    """Seeded noise on the leaves the reference inits to 0 or 1 (biases and
-    norm weights), as numpy; other leaves unchanged."""
+    """Seeded noise on the leaves the reference inits to 0 or 1 (biases,
+    norm weights, the SSD's log-decay, dt bias and skip), as numpy; other
+    leaves unchanged."""
     rng = np.random.default_rng(seed)
 
     def one(path, a):
         a = np.asarray(a, np.float32)
         name = jax.tree_util.keystr(path)
-        if any(t in name for t in ("'b'", "bkv", "ln", "norm")):
+        if any(t in name for t in ("'b'", "bkv", "ln", "norm", "a_log",
+                                   "dt_bias", "d_skip", "conv_b")):
             a = a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
         return a
     return jax.tree_util.tree_map_with_path(one, tree)
@@ -157,7 +174,7 @@ def test_unported_archs_raise_naming_roadmap():
                 tconfigs.get_config(arch)
     assert set(tconfigs.ARCH_IDS) <= set(jconfigs.ARCH_IDS)
     for kw in (dict(moe_num_experts=4), dict(attn_kind="mla"),
-               dict(block_pattern=("attn", "ssd")), dict(encoder_layers=2)):
+               dict(block_pattern=("attn", "rglru")), dict(encoder_layers=2)):
         cfg = tconfigs.get_config("qwen3-1.7b").smoke(**kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbuild(cfg, CPU)
@@ -200,7 +217,7 @@ def test_cache_write_past_the_end_raises():
 # GQA prefill and decode
 # ---------------------------------------------------------------------------
 
-@pytest.mark.parametrize("variant", list(VARIANTS))
+@pytest.mark.parametrize("variant", list(GQA_VARIANTS))
 def test_gqa_apply_prefill_and_decode_match_reference(variant):
     jcfg, tcfg = _cfgs(variant)
     kind = jcfg.block_pattern[0]
@@ -281,13 +298,18 @@ def test_serve_slice_matches_reference_bundle(variant):
     prompts = np.random.default_rng(11).integers(0, jcfg.vocab_size, (b, s))
     jcache, tcache = jb.init_caches(b, s + steps), tb.init_caches(b, s + steps)
 
-    launches, calls = flash_attention.launches, tref.attention_ref.calls
+    kinds = [kind for kind, _ in ttfm.layer_sigs(tcfg)]
+    launches = (flash_attention.launches, ssd_scan.launches)
+    calls = (tref.attention_ref.calls, tref.ssd_chunked.calls)
     want, jcache = jax.jit(jb.prefill)(jp, jnp.asarray(prompts, jnp.int32),
                                        jcache)
     got, tcache = tsteps.make_prefill_step(tb)(tp, torch.from_numpy(prompts),
                                                tcache)
-    assert flash_attention.launches == launches     # CPU: the plain version
-    assert tref.attention_ref.calls == calls + tcfg.n_layers
+    # CPU: the plain versions, once per layer of their kind
+    assert (flash_attention.launches, ssd_scan.launches) == launches
+    assert tref.attention_ref.calls == calls[0] + kinds.count("attn") \
+        + kinds.count("swa") + kinds.count("local")
+    assert tref.ssd_chunked.calls == calls[1] + kinds.count("ssd")
     np.testing.assert_allclose(_np(got), _np(want), **TOL)
 
     jdecode, serve = jax.jit(jb.decode), tsteps.make_serve_step(tb)
@@ -323,3 +345,131 @@ def test_serve_without_a_card_raises():
         pytest.skip("a CUDA card is present")
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         tserve.main(["--smoke"])
+
+
+# ---------------------------------------------------------------------------
+# Mamba-2: the mixer, its parameters, the hybrid, the serve entry point
+# ---------------------------------------------------------------------------
+
+def test_mamba2_param_count_at_full_width():
+    """mamba2-1.3b: 48 layers, d 2048, vocab padded to 50,432, tied."""
+    cfg = tconfigs.get_config("mamba2-1.3b")
+    assert cfg.padded_vocab == 50_432
+    assert tree_param_count(ttfm.model_defs(cfg)) == 1_344_052_224
+    jcfg = jconfigs.get_config("mamba2-1.3b")
+    assert jbuild(jcfg, tp=1, dp=1).num_params == 1_344_052_224
+
+
+@pytest.mark.parametrize("variant", list(SSD_VARIANTS))
+def test_ssd_apply_prefill_and_decode_match_reference(variant):
+    """A ragged prefill (37 rows) from the zero state, then 3 recurrent
+    decode steps: outputs and both parts of the state."""
+    jcfg, tcfg = _cfgs(variant)
+    jp = _perturb(jinit(jssm.ssd_def(jcfg, tp=1), jax.random.PRNGKey(4)))
+    tp = _torch_tree(jp)
+    s, steps = 37, 3
+    x = _rand((2, s + steps, jcfg.d_model), 12)
+    jstate = jssm.init_ssd_state(jcfg, 2)
+    tstate = tssm.init_ssd_state(tcfg, 2, CPU)
+    for n in ("ssm", "conv"):
+        assert tstate[n].shape == jstate[n].shape
+
+    calls = tref.ssd_chunked.calls
+    want, jstate = jssm.ssd_apply(jp, jnp.asarray(x[:, :s]), jcfg,
+                                  state=jstate)
+    got, out_state = tssm.ssd_apply(tp, torch.from_numpy(x[:, :s]), tcfg,
+                                    state=tstate)
+    assert out_state is tstate                     # in place
+    assert tref.ssd_chunked.calls == calls + 1     # K4's plain version
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    for i in range(steps):
+        for n in ("ssm", "conv"):
+            np.testing.assert_allclose(_np(tstate[n]), _np(jstate[n]), **TOL)
+        xs = x[:, s + i:s + i + 1]
+        want, jstate = jssm.ssd_apply(jp, jnp.asarray(xs), jcfg,
+                                      state=jstate, decode=True)
+        got, _ = tssm.ssd_apply(tp, torch.from_numpy(xs), tcfg,
+                                state=tstate, decode=True)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    assert tref.ssd_chunked.calls == calls + 1     # decode stays plain torch
+
+
+def test_ssd_prefill_shorter_than_the_conv_window_raises():
+    _, tcfg = _cfgs("mamba2-1.3b")
+    p = tbuild(tcfg, CPU).init(0)["layers"][0]["mixer"]
+    state = tssm.init_ssd_state(tcfg, 1, CPU)
+    with pytest.raises(ValueError, match="conv window"):
+        tssm.ssd_apply(p, torch.zeros(1, tcfg.ssm_conv - 2, tcfg.d_model),
+                       tcfg, state=state)
+
+
+def test_attn_ssd_hybrid_matches_reference():
+    """block_pattern ("attn", "ssd") on qwen3's smoke, as a hybrid family
+    (the smoke's SSD widths): both mixers with a dense FFN each, a KV cache
+    and a recurrent state; the layer plan, the prefill logits and 3 decode
+    steps against the reference bundle."""
+    kw = dict(arch_type="hybrid", block_pattern=("attn", "ssd"))
+    jcfg = jconfigs.get_config("qwen3-1.7b").replace(**kw).smoke(n_layers=4)
+    tcfg = tconfigs.get_config("qwen3-1.7b").replace(**kw).smoke(n_layers=4)
+    assert tcfg.ssm_state == jcfg.ssm_state == 32
+    lead, unit, n_rep, tail = jtfm.layer_plan(jcfg)
+    sigs = list(lead) + list(unit) * n_rep + list(tail)
+    assert ttfm.layer_sigs(tcfg) == sigs == [("attn", "dense"),
+                                             ("ssd", "dense")] * 2
+    jb, tb = jbuild(jcfg, tp=1, dp=1), tbuild(tcfg, CPU)
+    assert tb.num_params == jb.num_params
+    jp = _jparams(jcfg)
+    tp = lm_params_from_jax(tcfg, jp)
+    b, s, steps = 2, 19, 3
+    prompts = np.random.default_rng(13).integers(0, jcfg.vocab_size, (b, s))
+    jcache, tcache = jb.init_caches(b, s + steps), tb.init_caches(b, s + steps)
+    want, jcache = jax.jit(jb.prefill)(jp, jnp.asarray(prompts, jnp.int32),
+                                       jcache)
+    got, tcache = tb.prefill(tp, torch.from_numpy(prompts), tcache)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    tok = np.array(jnp.argmax(want[:, -1:], -1))
+    jdecode = jax.jit(jb.decode)
+    for i in range(steps):
+        want, jcache = jdecode(jp, jcache, jnp.asarray(tok),
+                               jnp.asarray(s + i))
+        got, tcache = tb.decode(tp, tcache, torch.from_numpy(tok), s + i)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+        tok = np.array(jnp.argmax(want[:, -1:], -1))
+
+
+def test_lm_params_from_jax_keeps_each_leaf_in_its_def_dtype():
+    """A bf16 mamba2 smoke config: the SSD's a_log, dt_bias and d_skip come
+    across as float32, as the reference keeps them, the rest as bf16."""
+    kw = dict(param_dtype=jnp.bfloat16, compute_dtype=jnp.bfloat16)
+    jcfg = jconfigs.get_config("mamba2-1.3b").smoke(**kw)
+    tcfg = tconfigs.get_config("mamba2-1.3b").smoke(
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16)
+    jp = jbuild(jcfg, tp=1, dp=1).init(jax.random.PRNGKey(0))
+    got = lm_params_from_jax(tcfg, jax.tree.map(
+        lambda a: np.asarray(a, np.float32), jp)).state_dict()
+    f32 = ("a_log", "dt_bias", "d_skip")
+    for name, t in got.items():
+        want = torch.float32 if name.split(".")[-1] in f32 else torch.bfloat16
+        assert t.dtype == want, name
+    assert sum(name.split(".")[-1] in f32 for name in got) \
+        == 3 * tcfg.n_layers
+    # the port's own init draws the same dtypes
+    init = tbuild(tcfg, CPU).init(0).state_dict()
+    assert {k: v.dtype for k, v in init.items()} \
+        == {k: v.dtype for k, v in got.items()}
+
+
+def test_serve_entry_point_mamba2_on_the_cpu(capsys):
+    res = tserve.main(["--arch", "mamba2-1.3b", "--smoke", "--device", "cpu",
+                       "--batch", "2", "--prompt-len", "37",
+                       "--decode-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "arch=mamba2-1.3b" in out and "prefill:" in out
+    assert res.tokens.shape == (2, 4)
+    assert res.logits.shape == (2, 37, res.cfg.padded_vocab)
+    assert bool(torch.isfinite(res.logits).all())
+    assert int(res.tokens.min()) >= 0 \
+        and int(res.tokens.max()) < res.cfg.padded_vocab
+    assert res.stats["k3_launches_per_prefill"] == 0
+    assert res.stats["k4_launches_per_prefill"] == 0
+    assert tserve.kernel_libraries(res.cfg) == ["ssd_scan"]

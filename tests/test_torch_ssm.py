@@ -1,0 +1,172 @@
+"""Kernel K4's plain version and its wrapper on the CPU against the
+reference.
+
+The port's ``kernels.ref.ssd_chunked``, reached through the K4 wrapper
+``kernels.ssd_scan.ssd_scan`` on CPU tensors (no launch, one plain call),
+against the JAX package's two oracles of the SSD scan on the same
+numpy-seeded inputs: ``repro.models.ssm.ssd_chunked`` (the model's chunked
+form, which also returns the final state) and ``repro.kernels.ref.ssd_ref``
+(the sequential recurrence).  The Pallas kernel itself cannot run on the
+installed jax.  The sweep is the reference's own (``tests/test_kernels.py``:
+S and chunk, (H, G)), plus a nonzero initial state, a split sequence
+carried through the state, and a ragged S.
+
+Tolerances: against ``ssd_chunked``, the same f32 arithmetic in another
+summation order, rtol 1e-4 / atol 1e-5 on y and the final state; against
+``ssd_ref``, the reference test's own 2e-4 (the chunked and the sequential
+forms round differently).  The CUDA kernel is held against this plain
+version on the card (``test_torch_kernels_cuda.py``, ``chip_smoke.py``).
+"""
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.kernels import ref as jref
+from repro.models import ssm as jssm
+from repro_torch.kernels import ref as tref
+from repro_torch.kernels.ssd_scan import ssd_scan
+
+TOL = dict(rtol=1e-4, atol=1e-5)
+SEQ_TOL = dict(rtol=2e-4, atol=2e-4)
+
+
+def _inputs(b, s, h, p, g, n, seed=0, state=False):
+    """x, dt (> 0), a_neg (< 0), B, C and optionally state0, as numpy,
+    drawn as the reference's SSD tests draw them."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a_neg = -np.exp(0.5 * rng.standard_normal(h)).astype(np.float32)
+    bm = (0.5 * rng.standard_normal((b, s, g, n))).astype(np.float32)
+    cm = (0.5 * rng.standard_normal((b, s, g, n))).astype(np.float32)
+    s0 = rng.standard_normal((b, h, p, n)).astype(np.float32) if state \
+        else None
+    return x, dt, a_neg, bm, cm, s0
+
+
+def _port(x, dt, a_neg, bm, cm, s0, chunk):
+    """The wrapper on CPU tensors: the plain version, no launch."""
+    launches, calls = ssd_scan.launches, tref.ssd_chunked.calls
+    t = [torch.from_numpy(a) for a in (x, dt, a_neg, bm, cm)]
+    y, st = ssd_scan(*t, chunk=chunk,
+                     state0=None if s0 is None else torch.from_numpy(s0))
+    assert ssd_scan.launches == launches
+    assert tref.ssd_chunked.calls == calls + 1
+    assert y.dtype == torch.float32 and st.dtype == torch.float32
+    return y.numpy(), st.numpy()
+
+
+def _jax_chunked(x, dt, a_neg, bm, cm, s0, chunk):
+    """The reference's chunked scan, zero-padded to a chunk multiple with
+    dt = 0 as its mixer pads (``ssd_apply``)."""
+    s = x.shape[1]
+    pad = (-s) % chunk
+
+    def p(a):
+        return jnp.asarray(np.pad(a, [(0, 0), (0, pad)]
+                                  + [(0, 0)] * (a.ndim - 2)))
+    y, st = jssm.ssd_chunked(p(x), p(dt), jnp.asarray(a_neg), p(bm), p(cm),
+                             chunk, state0=None if s0 is None
+                             else jnp.asarray(s0))
+    return np.asarray(y)[:, :s], np.asarray(st)
+
+
+@pytest.mark.parametrize("s,chunk", [(64, 16), (128, 128), (96, 32)])
+@pytest.mark.parametrize("h,g", [(4, 1), (4, 2), (8, 8)])
+def test_ssd_scan_sweep_matches_reference(s, chunk, h, g):
+    args = _inputs(2, s, h, 16, g, 16)
+    y, st = _port(*args, chunk)
+    want_y, want_st = _jax_chunked(*args, chunk)
+    np.testing.assert_allclose(y, want_y, **TOL)
+    np.testing.assert_allclose(st, want_st, **TOL)
+    seq = np.asarray(jref.ssd_ref(*(jnp.asarray(a) for a in args[:5])))
+    np.testing.assert_allclose(y, seq, **SEQ_TOL)
+
+
+@pytest.mark.parametrize("chunk", [16, 64])
+def test_ssd_scan_from_a_state_matches_reference(chunk):
+    """A nonzero state0, at the smoke model's widths (P = N = 32, G 2)."""
+    args = _inputs(2, 64, 8, 32, 2, 32, seed=1, state=True)
+    y, st = _port(*args, chunk)
+    want_y, want_st = _jax_chunked(*args, chunk)
+    np.testing.assert_allclose(y, want_y, **TOL)
+    np.testing.assert_allclose(st, want_st, **TOL)
+
+
+def test_ssd_state_carry_consistency():
+    """Splitting the sequence and carrying the state == the whole sequence
+    (the reference's ``test_ssd_state_carry_consistency``, through the
+    wrapper)."""
+    x, dt, a_neg, bm, cm, _ = _inputs(1, 64, 2, 8, 1, 8, seed=2)
+    y_full, st_full = _port(x, dt, a_neg, bm, cm, None, 16)
+    h = 32
+    y1, st1 = _port(x[:, :h], dt[:, :h], a_neg, bm[:, :h], cm[:, :h], None,
+                    16)
+    y2, st2 = _port(x[:, h:], dt[:, h:], a_neg, bm[:, h:], cm[:, h:], st1,
+                    16)
+    np.testing.assert_allclose(np.concatenate([y1, y2], 1), y_full, **TOL)
+    np.testing.assert_allclose(st2, st_full, **TOL)
+
+
+@pytest.mark.parametrize("s,chunk", [(37, 32), (100, 64), (5, 128)])
+def test_ssd_scan_ragged_length_matches_padded_reference(s, chunk):
+    """S not a multiple of the chunk: the plain version pads with dt = 0,
+    as the reference's mixer does; the state comes out exact."""
+    args = _inputs(2, s, 4, 32, 2, 32, seed=3, state=True)
+    y, st = _port(*args, chunk)
+    want_y, want_st = _jax_chunked(*args, chunk)
+    assert y.shape == args[0].shape
+    np.testing.assert_allclose(y, want_y, **TOL)
+    np.testing.assert_allclose(st, want_st, **TOL)
+
+
+def test_ssd_scan_keeps_the_decay_finite_above_the_diagonal():
+    """A strong decay (cum_i - cum_j ~ +400 above the diagonal, whose exp
+    overflows f32) gives finite outputs: the exp is taken only inside the
+    causal triangle."""
+    x, dt, a_neg, bm, cm, _ = _inputs(1, 32, 2, 8, 1, 8, seed=4)
+    dt = np.full_like(dt, 50.0)
+    a_neg = np.full_like(a_neg, -1.0)
+    y, st = _port(x, dt, a_neg, bm, cm, None, 32)
+    assert np.isfinite(y).all() and np.isfinite(st).all()
+    want_y, want_st = _jax_chunked(x, dt, a_neg, bm, cm, None, 32)
+    np.testing.assert_allclose(y, want_y, **TOL)
+    np.testing.assert_allclose(st, want_st, **TOL)
+
+
+def test_ssd_scan_bf16_inputs_compute_in_f32():
+    """bf16 inputs: y comes back in bf16, the state in f32, both from the
+    f32 computation on the same (rounded) values."""
+    args = _inputs(1, 48, 4, 32, 1, 32, seed=5, state=True)
+    t = [torch.from_numpy(a) for a in args[:5]]
+    tb = [a.to(torch.bfloat16) if i != 2 else a for i, a in enumerate(t)]
+    s0 = torch.from_numpy(args[5])
+    y, st = ssd_scan(*tb, chunk=16, state0=s0)
+    assert y.dtype == torch.bfloat16 and st.dtype == torch.float32
+    want_y, want_st = tref.ssd_chunked(*(a.float() for a in tb), 16,
+                                       state0=s0)
+    torch.testing.assert_close(y, want_y.to(torch.bfloat16), rtol=0, atol=0)
+    torch.testing.assert_close(st, want_st, rtol=0, atol=0)
+
+
+@pytest.mark.parametrize("bad", ["dt_shape", "a_shape", "groups", "state",
+                                 "chunk", "device"])
+def test_ssd_scan_rejects_what_it_does_not_take(bad):
+    x, dt, a_neg, bm, cm, s0 = (torch.from_numpy(a) for a in
+                                _inputs(1, 16, 4, 8, 2, 8, state=True))
+    kw = dict(chunk=8, state0=s0)
+    if bad == "dt_shape":
+        dt = dt[:, :-1]
+    elif bad == "a_shape":
+        a_neg = a_neg[:-1]
+    elif bad == "groups":
+        bm, cm = (torch.cat([t, t[:, :, :1]], 2) for t in (bm, cm))
+    elif bad == "state":
+        kw["state0"] = s0[..., :-1]
+    elif bad == "chunk":
+        kw["chunk"] = 0
+    else:
+        kw["state0"] = s0.to("meta")
+    with pytest.raises(ValueError):
+        ssd_scan(x, dt, a_neg, bm, cm, **kw)
