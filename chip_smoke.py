@@ -7,7 +7,9 @@ Phases (any failure exits nonzero, and nothing is swallowed):
 
   1. the card's name and power limit (nvidia-smi); build the CUDA kernels
      from the checkout's sources (one nvcc per source, all at once, sm_90a)
-     and report the seconds;
+     and report the seconds; count the tensor-core instructions in each
+     kernel of the flash-attention library (``cuobjdump -sass``: HGMMA for
+     wgmma, HMMA for mma.sync) and fail if K3's bf16 kernel has none;
   2. every kernel against its plain PyTorch version on the card, at its
      main path's shapes, with median times (CUDA events) beside the plain
      version's, the bound, and one PyTorch library call where there is one:
@@ -17,7 +19,7 @@ Phases (any failure exits nonzero, and nothing is swallowed):
        - K3 ``flash_attention`` at the serve path's prefill (B 8, S 1024,
          H = KH = 16, Dh 64, bf16, causal), at qwen3's heads (H 16, KH 8,
          Dh 128), with window 256, at ragged S = 1000, and in f32 (window
-         256 too) -- f32 to 2e-5, bf16 to two bf16 ulps;
+         256 too) -- f32 to 2e-5, bf16 to two bf16 ulps plus 1e-2;
          ``scaled_dot_product_attention`` is timed beside it;
        - K4 ``ssd_scan`` at the mamba2 prefill's scan (B 8, S 1024, H 64,
          P 64, N 128, G 1, f32, chunk 128), at ragged S = 1000, with
@@ -66,6 +68,7 @@ TF32 is off throughout (``repro_torch.device.resolve_device``): the
 fleet's reference is full float32.
 """
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -183,6 +186,27 @@ def median_ms(torch, fn, iters=25, warmup=3):
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
+
+
+def tensor_core_ops(build):
+    """{kernel symbol: {"HGMMA": n, "HMMA": n}} for the built
+    flash-attention library, read from its SASS (cuobjdump -sass)."""
+    exe = Path(build.nvcc()).with_name("cuobjdump")
+    out = subprocess.run([str(exe), "-sass",
+                          str(build.library_path("flash_attention"))],
+                         capture_output=True, text=True, timeout=120)
+    check(out.returncode == 0, f"cuobjdump failed: {out.stderr}")
+    found, fn = {}, None
+    for line in out.stdout.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            fn = m.group(1)
+            found[fn] = {"HGMMA": 0, "HMMA": 0}
+        elif fn is not None:
+            op = re.search(r"\b(HGMMA|HMMA)\.", line)
+            if op:
+                found[fn][op.group(1)] += 1
+    return found
 
 
 def phase_kernels(torch, dev, card):
@@ -773,6 +797,15 @@ def main() -> int:
         build.library(name)
     print(f"[1] built {sorted(p.name for p in libs.values())} in "
           f"{time.time() - t0:.2f} s", flush=True)
+    sass = tensor_core_ops(build)
+    print(f"[1] tensor-core instructions in the flash-attention library: "
+          f"{json.dumps(sass)}", flush=True)
+    bf16_kernels = {fn: n for fn, n in sass.items()
+                    if "flash_attention_kernel_bf16" in fn}
+    check(len(bf16_kernels) == 2 and all(
+        n["HGMMA"] + n["HMMA"] > 0 for n in bf16_kernels.values()),
+        f"K3's bf16 kernel (Dh 64 and 128) has no tensor-core instruction: "
+        f"{bf16_kernels}")
 
     print("[2] kernels vs plain versions on the card", flush=True)
     kres = phase_kernels(torch, dev, card)

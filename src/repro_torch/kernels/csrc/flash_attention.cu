@@ -6,11 +6,10 @@
 //   positions start at 0 for q and for k.
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
-// (body _attn_kernel) and keeps its semantics: q is scaled by 1/sqrt(Dh)
-// in f32 before the product, masked scores are -1e30, the running (m, l,
-// acc) state is f32, and the output is acc / max(l, 1e-30) cast to q's
-// dtype.  Layouts are the reference's: q, o [B, Sq, H, Dh]; k, v
-// [B, Sk, KH, Dh], H = KH * G.
+// (body _attn_kernel) and keeps its semantics: masked scores are -1e30, a
+// key past Sk gets no weight, the running (m, l, acc) state is f32, and the
+// output is acc / max(l, 1e-30) cast to q's dtype.  Layouts are the
+// reference's: q, o [B, Sq, H, Dh]; k, v [B, Sk, KH, Dh], H = KH * G.
 //
 // Bound: at the main-path shape (B 8, S 1024, H = KH = 16, Dh 64, bf16,
 // causal) bytes and tensor-core operations about equally: 17.2 GFLOP (the
@@ -18,25 +17,30 @@
 // against 67.1 MB of q, k, v and o read or written once, 0.0200 ms at
 // 3.35 TB/s.  At qwen3's Dh 128 the operations bound (0.0348 ms).
 //
-// What this simple design does about it: it uses no tensor cores yet, so
-// it runs far from that bound, on the f32 FMA units (the f32 path must
-// meet the reference's f32 tolerance, which TF32 or bf16 products would
-// not).  It does read q, k and v once per block and write o once, keep
-// the work to what the masks need, and keep every intermediate on chip:
-//   - one block per (q tile of 64 rows, head, batch); 256 threads, each
-//     owning 4 query rows x 4 keys of a score tile and 4 query rows x Dh/16
-//     output columns;
-//   - the q tile (scaled, f32) and each 64-key K/V tile are staged in
-//     shared memory (row stride Dh + 1 against bank conflicts); the running
-//     (m, l, acc) state stays in registers; p goes through shared memory
-//     for the P.V product;
-//   - GQA reads KV head h / G directly (no repeated copies of k and v);
-//   - the ragged Sq and Sk edges are masked in the kernel, no padding:
-//     a key past Sk scores -inf and so counts nowhere, and non-causal calls
-//     take any Sk;
-//   - key tiles wholly above the causal diagonal or wholly outside the
-//     window of the block's queries are not visited.
-// Tensor cores (mma.sync, then wgmma with TMA) are later work.
+// bf16 (flash_attention_bf16): tensor cores, mma.sync m16n8k16.
+//   - one block of 4 warps per (q tile of 64 rows, head, batch), 16 query
+//     rows a warp; the q tile goes to registers once (ldmatrix);
+//   - 64-key K and V tiles double-buffered in shared memory by cp.async
+//     (rows past Sk zero-filled), 16-byte chunks XOR-swizzled by row so
+//     ldmatrix is free of bank conflicts; V feeds the P.V product through
+//     ldmatrix.trans, no transposing copy;
+//   - S = Q.K^T on the unscaled bf16 q and k (exact products, f32 sums),
+//     then scaled by 1/sqrt(Dh) in f32, the plain version's order; the
+//     mask only on tiles that cross the diagonal, the window's edge or Sk;
+//     the online softmax in f32 registers; P rounded to bf16 for the P.V
+//     product (l sums the f32 p), the accumulator f32;
+//   - key tiles wholly above the causal diagonal or outside the window are
+//     not loaded; the heaviest causal q tiles are launched first.
+//   Precision: bf16 enters only where P is rounded (2^-9 relative per
+//   weight, in sums that average it out) and in the bf16 output; the plain
+//   version rounds only the output, so the two agree within ATTN_BF16_TOL
+//   (tests/test_torch_attention.py emulates this rounding on the CPU).
+//
+// f32 (flash_attention_f32): the SIMT kernel on the f32 FMA units (the f32
+// tolerance, 2e-5, rules out TF32 or bf16 products): q scaled by 1/sqrt(Dh)
+// before the product; 256 threads, each 4 query rows x 4 keys of a 64 x 64
+// score tile and 4 rows x Dh/16 output columns; q, K and V tiles staged in
+// shared memory (row stride Dh + 1), p through shared memory.
 //
 // Plain C interface for ctypes: every pointer and the stream are void*,
 // and each entry returns a cudaError_t as an int (0 = launched).
@@ -48,6 +52,12 @@
 
 namespace {
 
+constexpr float kNegInf = -1e30f;  // the reference's masked score
+
+// ---------------------------------------------------------------- f32 ----
+
+namespace simt {
+
 constexpr int kBQ = 64;           // query rows per block
 constexpr int kBK = 64;           // keys per tile
 constexpr int kLanes = 16;        // threads sharing one group of query rows
@@ -55,19 +65,8 @@ constexpr int kThreads = 256;     // (kBQ / kRows) row groups x kLanes
 constexpr int kRows = 4;          // query rows per thread
 constexpr int kCols = kBK / kLanes;  // keys per thread in a score tile
 constexpr int kLdP = kBK + 1;     // row stride of the p tile
-constexpr float kNegInf = -1e30f;  // the reference's masked score
 
 static_assert(kBQ == kRows * (kThreads / kLanes), "row groups cover kBQ");
-
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-
-__device__ __forceinline__ void store(float* dst, float v) { *dst = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
-  *dst = __float2bfloat16_rn(v);
-}
 
 // Max and sum over the kLanes threads of a row group (aligned halves of a
 // warp, so the xor offsets stay inside the group).
@@ -91,12 +90,13 @@ constexpr size_t smem_bytes() {
          (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kLdP);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads)
-flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                       const T* __restrict__ v, T* __restrict__ o, int sq,
-                       int sk, int h, int kh, int causal, int window,
-                       float scale) {
+flash_attention_kernel_f32(const float* __restrict__ q,
+                           const float* __restrict__ k,
+                           const float* __restrict__ v, float* __restrict__ o,
+                           int sq, int sk, int h, int kh, int causal,
+                           int window, float scale) {
   constexpr int kLd = D + 1;       // row stride of q_s and k_s
   constexpr int kDc = D / kLanes;  // output columns per thread
   extern __shared__ float smem[];
@@ -115,16 +115,16 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   const int64_t q_stride = static_cast<int64_t>(h) * D;   // one q/o row
   const int64_t k_stride = static_cast<int64_t>(kh) * D;  // one k/v row
-  const T* qb = q + (static_cast<int64_t>(b) * sq * h + head) * D;
-  T* ob = o + (static_cast<int64_t>(b) * sq * h + head) * D;
-  const T* kb = k + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
-  const T* vb = v + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
+  const float* qb = q + (static_cast<int64_t>(b) * sq * h + head) * D;
+  float* ob = o + (static_cast<int64_t>(b) * sq * h + head) * D;
+  const float* kb = k + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
+  const float* vb = v + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
 
   // the q tile, scaled in f32 before the product; rows past Sq are zero
   for (int e = tid; e < kBQ * D; e += kThreads) {
     const int r = e / D, c = e % D;
     float val = 0.f;
-    if (q0 + r < sq) val = to_f32(qb[(q0 + r) * q_stride + c]) * scale;
+    if (q0 + r < sq) val = qb[(q0 + r) * q_stride + c] * scale;
     q_s[r * kLd + c] = val;
   }
 
@@ -148,8 +148,8 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
       const int r = e / D, c = e % D;
       float kv = 0.f, vv = 0.f;
       if (k0 + r < sk) {
-        kv = to_f32(kb[(k0 + r) * k_stride + c]);
-        vv = to_f32(vb[(k0 + r) * k_stride + c]);
+        kv = kb[(k0 + r) * k_stride + c];
+        vv = vb[(k0 + r) * k_stride + c];
       }
       k_s[r * kLd + c] = kv;
       v_s[r * D + c] = vv;
@@ -224,40 +224,349 @@ flash_attention_kernel(const T* __restrict__ q, const T* __restrict__ k,
     const float denom = fmaxf(l[i], 1e-30f);
 #pragma unroll
     for (int c = 0; c < kDc; ++c)
-      store(&ob[qp * q_stride + tx + kLanes * c], acc[i][c] / denom);
+      ob[qp * q_stride + tx + kLanes * c] = acc[i][c] / denom;
   }
 }
 
-template <typename T, int D>
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int sk, int h, int kh, int causal, int window,
-           void* stream) {
+           cudaStream_t stream) {
   constexpr size_t smem = smem_bytes<D>();
-  auto kernel = flash_attention_kernel<T, D>;
+  auto kernel = flash_attention_kernel_f32<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  kernel<<<grid, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(o), sq, sk, h, kh, causal,
-      window, scale);
+  kernel<<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h, kh,
+      causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T>
+}  // namespace simt
+
+// --------------------------------------------------------------- bf16 ----
+
+namespace tc {
+
+using bf16 = __nv_bfloat16;
+
+constexpr int kBQ = 64;           // query rows per block, 16 per warp
+constexpr int kBK = 64;           // keys per tile
+constexpr int kThreads = 128;     // 4 warps
+constexpr int kNB = kBK / 8;      // n8 blocks of a score row pair
+constexpr float kLog2e = 1.4426950408889634f;
+
+static_assert(kBQ == kBK, "the q tile and the K/V tiles share a loader");
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared, zero-filled when !full
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
+                                           bool full) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
+               "l"(src), "r"(full ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
+                                                  uint32_t addr) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(addr));
+}
+
+// d += a . b over one m16 n8 k16 tile (bf16 in, f32 accumulator)
+__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
+                                    uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+// Byte offset of 16-byte chunk `ch` of row `row` in a [rows][D] bf16 tile,
+// the chunk index XOR-ed with row % 8.
+template <int D>
+__device__ __forceinline__ uint32_t swz(int row, int ch) {
+  return row * (D * 2) + ((ch ^ (row & 7)) << 4);
+}
+
+// rows row0 .. row0 + 63 of a [rows, D] slice (row stride `stride`
+// elements) into a swizzled tile; rows at or past `n_rows` read as zero
+template <int D>
+__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
+                                          int64_t stride, int row0,
+                                          int n_rows) {
+  constexpr int kCh = D / 8;  // 16-byte chunks per row
+#pragma unroll
+  for (int e = threadIdx.x; e < kBK * kCh; e += kThreads) {
+    const int r = e / kCh, ch = e % kCh;
+    const bool in = row0 + r < n_rows;
+    cp_async16(dst + swz<D>(r, ch),
+               src + (in ? row0 + r : 0) * stride + ch * 8, in);
+  }
+}
+
+// One tile of the online softmax on a score fragment: s holds, per n8
+// block j, (row r, keys 2c, 2c+1) in s[j][0..1] and (row r + 8, the same
+// keys) in s[j][2..3] (r = lane / 4, c = lane % 4; the layout of the
+// mma.sync and wgmma accumulators).  Scales, masks when `edge`, turns s
+// into p = exp(s - m_new), folds the tile into (m, l) and returns the
+// factor alpha by which the output accumulator's rows must be rescaled.
+// l is this thread's partial row sum; the quad's sum is taken at the end.
+template <int NB>
+__device__ __forceinline__ void softmax_tile(float (&s)[NB][4], float (&m)[2],
+                                             float (&l)[2], float (&alpha)[2],
+                                             int k0, int row, int sk,
+                                             int causal, int window,
+                                             float scale, bool edge) {
+  const int c = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) s[j][e] *= scale;
+  if (edge) {
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int kp = k0 + 8 * j + 2 * c + (e & 1);
+        const int qp = row + 8 * (e >> 1);
+        if (kp >= sk)
+          s[j][e] = __int_as_float(0xff800000);  // past Sk: -inf, no weight
+        else if ((causal && kp > qp) || (window > 0 && kp <= qp - window))
+          s[j][e] = kNegInf;
+      }
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      mx = fmaxf(mx, fmaxf(s[j][2 * i], s[j][2 * i + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[i], mx);
+    alpha[i] = exp2f((m[i] - m_new) * kLog2e);
+    m[i] = m_new;
+    float rs = 0.f;
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+#pragma unroll
+      for (int e = 2 * i; e < 2 * i + 2; ++e) {
+        s[j][e] = exp2f((s[j][e] - m_new) * kLog2e);
+        rs += s[j][e];
+      }
+    l[i] = l[i] * alpha[i] + rs;
+  }
+}
+
+// o = acc / max(l, 1e-30) in bf16, rows r and r + 8 of a 16-row fragment
+// starting at query row `row`; rows at or past Sq are not written
+template <int NB>
+__device__ __forceinline__ void store_rows(bf16* ob, int64_t q_stride,
+                                           const float (&acc)[NB][4],
+                                           float (&l)[2], int row, int sq) {
+  const int c = threadIdx.x % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int qp = row + 8 * i;
+    if (qp >= sq) continue;
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+#pragma unroll
+    for (int j = 0; j < NB; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(ob + qp * q_stride + 8 * j + 2 * c) =
+          __floats2bfloat162_rn(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
+  }
+}
+
+template <int D>
+constexpr size_t smem_bytes() {
+  return (1 + 2 * 2) * kBK * D * sizeof(bf16);  // q, 2 stages of K and V
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+flash_attention_kernel_bf16(const bf16* __restrict__ q,
+                            const bf16* __restrict__ k,
+                            const bf16* __restrict__ v, bf16* __restrict__ o,
+                            int nb, int sq, int sk, int h, int kh,
+                            int causal, int window, float scale) {
+  constexpr uint32_t kTile = kBK * D * sizeof(bf16);
+  constexpr int kKs = D / 16;  // k16 steps of Q.K^T
+  extern __shared__ __align__(128) uint8_t shm[];
+  const uint32_t q_s = smem_u32(shm);
+  const uint32_t k_s = q_s + kTile;          // two stages
+  const uint32_t v_s = k_s + 2 * kTile;      // two stages
+
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
+  // heaviest causal q tiles first: blocks start in order of their index
+  const int n_bh = nb * h;
+  const int q0 = ((sq + kBQ - 1) / kBQ - 1 - blockIdx.x / n_bh) * kBQ;
+  const int head = blockIdx.x % n_bh % h;
+  const int b = blockIdx.x % n_bh / h;
+  const int kv_head = head / (h / kh);
+
+  const int64_t q_stride = static_cast<int64_t>(h) * D;
+  const int64_t k_stride = static_cast<int64_t>(kh) * D;
+  const bf16* qb = q + (static_cast<int64_t>(b) * sq * h + head) * D;
+  bf16* ob = o + (static_cast<int64_t>(b) * sq * h + head) * D;
+  const bf16* kb = k + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
+  const bf16* vb = v + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
+
+  const int q_last = min(q0 + kBQ, sq) - 1;
+  const int k_end = causal ? min(sk, q_last + 1) : sk;
+  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_first = k_begin / kBK, t_end = (k_end + kBK - 1) / kBK;
+
+  load_tile<D>(q_s, qb, q_stride, q0, sq);
+  cp_async_commit();
+  load_tile<D>(k_s, kb, k_stride, t_first * kBK, sk);
+  load_tile<D>(v_s, vb, k_stride, t_first * kBK, sk);
+  cp_async_commit();
+  cp_async_wait<1>();
+  __syncthreads();
+  uint32_t qf[kKs][4];  // this warp's 16 q rows, in registers throughout
+#pragma unroll
+  for (int kk = 0; kk < kKs; ++kk)
+    ldmatrix_x4(qf[kk],
+                q_s + swz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
+
+  const int row = q0 + warp * 16 + lane / 4;  // this thread's rows: +0, +8
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+
+  for (int t = t_first; t < t_end; ++t) {
+    const uint32_t st = ((t - t_first) & 1) * kTile;
+    if (t + 1 < t_end) {
+      load_tile<D>(k_s + (st ^ kTile), kb, k_stride, (t + 1) * kBK, sk);
+      load_tile<D>(v_s + (st ^ kTile), vb, k_stride, (t + 1) * kBK, sk);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+
+    // S = Q . K^T, unscaled
+    float s[kNB][4];
+#pragma unroll
+    for (int j = 0; j < kNB; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kKs; ++kk)
+#pragma unroll
+      for (int j = 0; j < kNB; j += 2) {
+        uint32_t bk[4];
+        ldmatrix_x4(bk, k_s + st + swz<D>(8 * j + (lane & 7) + ((lane >> 4) << 3),
+                                          2 * kk + ((lane >> 3) & 1)));
+        mma(s[j], qf[kk], bk[0], bk[1]);
+        mma(s[j + 1], qf[kk], bk[2], bk[3]);
+      }
+
+    const int k0 = t * kBK;
+    const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && k0 <= q_last - window);
+    softmax_tile<kNB>(s, m, l, alpha, k0, row, sk, causal, window, scale,
+                      edge);
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+
+    // O += P . V, P rounded to bf16 in registers
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
+                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
+                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
+                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
+#pragma unroll
+      for (int j = 0; j < D / 8; j += 2) {
+        uint32_t bv[4];
+        ldmatrix_x4_trans(
+            bv, v_s + st + swz<D>(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3),
+                                  j + (lane >> 4)));
+        mma(acc[j], a, bv[0], bv[1]);
+        mma(acc[j + 1], a, bv[2], bv[3]);
+      }
+    }
+    __syncthreads();  // this stage is read before the next load refills it
+  }
+  store_rows<D / 8>(ob, q_stride, acc, l, row, sq);
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* o, int b,
+           int sq, int sk, int h, int kh, int causal, int window,
+           cudaStream_t stream) {
+  constexpr size_t smem = smem_bytes<D>();
+  auto kernel = flash_attention_kernel_bf16<D>;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const int64_t blocks =
+      static_cast<int64_t>((sq + kBQ - 1) / kBQ) * h * b;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
+      static_cast<const bf16*>(v), static_cast<bf16*>(o), b, sq, sk, h, kh,
+      causal, window, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace tc
+
+template <int (*L64)(const void*, const void*, const void*, void*, int, int,
+                     int, int, int, int, int, cudaStream_t),
+          int (*L128)(const void*, const void*, const void*, void*, int, int,
+                      int, int, int, int, int, cudaStream_t)>
 int dispatch(const void* q, const void* k, const void* v, void* o, int b,
              int sq, int sk, int h, int kh, int dh, int causal, int window,
              void* stream) {
+  auto s = static_cast<cudaStream_t>(stream);
   switch (dh) {
     case 64:
-      return launch<T, 64>(q, k, v, o, b, sq, sk, h, kh, causal, window,
-                           stream);
+      return L64(q, k, v, o, b, sq, sk, h, kh, causal, window, s);
     case 128:
-      return launch<T, 128>(q, k, v, o, b, sq, sk, h, kh, causal, window,
-                            stream);
+      return L128(q, k, v, o, b, sq, sk, h, kh, causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -270,15 +579,15 @@ extern "C" {
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int b, int sq, int sk, int h, int kh, int dh,
                         int causal, int window, void* stream) {
-  return dispatch<float>(q, k, v, o, b, sq, sk, h, kh, dh, causal, window,
-                         stream);
+  return dispatch<simt::launch<64>, simt::launch<128>>(
+      q, k, v, o, b, sq, sk, h, kh, dh, causal, window, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int b, int sq, int sk, int h, int kh, int dh,
                          int causal, int window, void* stream) {
-  return dispatch<__nv_bfloat16>(q, k, v, o, b, sq, sk, h, kh, dh, causal,
-                                 window, stream);
+  return dispatch<tc::launch<64>, tc::launch<128>>(
+      q, k, v, o, b, sq, sk, h, kh, dh, causal, window, stream);
 }
 
 }  // extern "C"

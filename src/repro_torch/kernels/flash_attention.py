@@ -32,6 +32,7 @@ from repro_torch.kernels import build, ref
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (64, 128)
 MAX_GRID_YZ = 65535            # heads and batch ride gridDim.y and .z
+ALIGN = 16                     # bytes; the bf16 kernel's tile copies need it
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -77,6 +78,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name} must start on a {ALIGN}-byte boundary")
     out = torch.empty_like(q)
     name = f"flash_attention_{DTYPES[q.dtype]}"
     err = getattr(build.library("flash_attention"), name)(

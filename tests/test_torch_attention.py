@@ -116,6 +116,41 @@ def test_attention_at_an_offset_is_the_same():
     np.testing.assert_allclose(got, want, **F32_TOL)
 
 
+ATTN_BF16_TOL = dict(rtol=1.6e-2, atol=1e-2)   # as chip_smoke.py's
+
+
+def _bf16_kernel_form(q, k, v, *, causal):
+    """K3's bf16 rounding in plain torch: the unscaled bf16 products summed
+    in f32, then the 1/sqrt(Dh) scale, the mask and an f32 softmax; the
+    weights P rounded to bf16 for P.V (f32 sums), l summed over the f32 p;
+    one cast of the output."""
+    b, sq, h, dh = q.shape
+    kh = k.shape[2]
+    qg = q.reshape(b, sq, kh, h // kh, dh).float()
+    s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
+    s = s * torch.tensor(1.0 / dh ** 0.5, dtype=torch.float32)
+    if causal:
+        pos_q, pos_k = torch.arange(sq), torch.arange(k.shape[1])
+        s = torch.where(pos_k[None, :] <= pos_q[:, None], s, tref.NEG_INF)
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    l = p.sum(-1, keepdim=True).clamp_min(1e-30)
+    o = torch.einsum("bkgqs,bskd->bkgqd", p.bfloat16().float(), v.float())
+    return (o / l).permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).bfloat16()
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("h,kh", [(4, 4), (4, 2), (8, 1)])
+@pytest.mark.parametrize("sq,sk", [(128, 128), (256, 256), (64, 256),
+                                   (1, 512), (100, 100)])
+def test_bf16_kernel_rounding_within_tolerance(sq, sk, h, kh, dh):
+    """Rounding P to bf16, as the CUDA kernel's tensor-core P.V does, keeps
+    the output within the kernel's bf16 tolerance of the plain version."""
+    ts, _ = _inputs(2, sq, sk, h, kh, dh, "bf16", seed=5)
+    got = _bf16_kernel_form(*ts, causal=True).float().numpy()
+    want = tref.attention_ref(*ts, causal=True).float().numpy()
+    np.testing.assert_allclose(got, want, **ATTN_BF16_TOL)
+
+
 def test_wrapper_rejects_what_no_version_takes():
     ts, _ = _inputs(1, 8, 8, 4, 2, 64, "f32")
     q, k, v = ts

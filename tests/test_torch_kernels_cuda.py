@@ -11,8 +11,10 @@ Tolerances: f32 accumulation on both sides, in another order, so f32
 outputs agree to 2e-5 (the reference's own kernel tolerance); a bf16
 output may land one bf16 ulp apart after that, so bf16 is compared in f32
 at 6e-2 (as the reference's bf16 kernel sweeps).  K3 (flash attention)
-keeps its scores, softmax and accumulator in f32 like its plain version:
-f32 holds at 2e-5, and its bf16 outputs at two bf16 ulps (rtol 1.6e-2)
+keeps its scores, softmax and accumulator in f32 like its plain version;
+its bf16 path also rounds the softmax weights P to bf16 for the tensor
+cores' P.V product (2^-9 relative per weight, averaged over the keys):
+f32 holds at 2e-5, and bf16 outputs at two bf16 ulps (rtol 1.6e-2)
 plus 1e-2, well under a typical output (about sqrt(e / Sk) for
 unit-variance inputs), so a wrong row fails.  K4 (the SSD scan) sums terms
 as large as its largest output, in another order and over its own tile of
@@ -119,11 +121,15 @@ def test_plain_version_not_called_on_cuda(cuda):
 
 
 # K3: the reference's flash-attention sweep, head_dim 64 and 128, plus a
-# ragged S = 1000 at qwen3's heads
+# ragged S = 1000 at qwen3's heads; S at 127, 128, 129 and 255 around the
+# bf16 kernel's 128-row q tile and 128-key tile (Sq != Sk both ways), and
+# G = 8 at H = 32
 ATTN_SHAPES = [(sq, sk, h, kh)
                for sq, sk in ((128, 128), (256, 256), (64, 256), (1, 512),
-                              (100, 100))
-               for h, kh in ((4, 4), (4, 2), (8, 1))] + [(1000, 1000, 16, 8)]
+                              (100, 100), (127, 127), (129, 129), (255, 255),
+                              (129, 255), (255, 127))
+               for h, kh in ((4, 4), (4, 2), (8, 1), (32, 4))] \
+    + [(1000, 1000, 16, 8)]
 
 
 def _qkv(cuda, b, sq, sk, h, kh, dh, dtype, seed=0):
@@ -156,17 +162,20 @@ def test_flash_attention_kernel_matches_plain(cuda, sq, sk, h, kh, dh,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("window", [16, 64, 128, 256])
-def test_flash_attention_kernel_window_matches_plain(cuda, window, causal,
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("window", [16, 64, 100, 128, 200, 256])
+def test_flash_attention_kernel_window_matches_plain(cuda, window, dh, causal,
                                                      dtype):
-    _check_attention(*_qkv(cuda, 2, 1000, 1000, 16, 8, 128, dtype, seed=1),
+    _check_attention(*_qkv(cuda, 2, 1000, 1000, 16, 8, dh, dtype, seed=1),
                      causal=causal, window=window)
 
 
-@pytest.mark.parametrize("sq,sk", [(128, 128), (100, 300), (300, 100)])
-def test_flash_attention_kernel_noncausal_ragged_keys(cuda, sq, sk):
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("sq,sk", [(128, 128), (100, 300), (300, 100),
+                                   (129, 255), (255, 129)])
+def test_flash_attention_kernel_noncausal_ragged_keys(cuda, sq, sk, dtype):
     """Non-causal calls take any Sk: keys past Sk are masked in the kernel."""
-    _check_attention(*_qkv(cuda, 2, sq, sk, 4, 2, 64, torch.float32, seed=2),
+    _check_attention(*_qkv(cuda, 2, sq, sk, 4, 2, 64, dtype, seed=2),
                      causal=False)
 
 
@@ -180,6 +189,13 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError):
         flash_attention(q, k.cpu(), v)
+    for dtype in (torch.float32, torch.bfloat16):   # a base off 16 bytes
+        qa, ka, va = (t.to(dtype) for t in (q, k, v))
+        off = torch.empty(qa.numel() + 1, dtype=dtype,
+                          device=cuda)[1:].view(qa.shape).copy_(qa)
+        assert off.is_contiguous() and off.data_ptr() % 16
+        with pytest.raises(ValueError):
+            flash_attention(off, ka, va)
 
 
 def test_flash_attention_plain_version_not_called_on_cuda(cuda):
