@@ -47,6 +47,7 @@
 
 #include <cstdint>
 
+#include <cuda.h>  // CUtensorMap and its enums; the driver is not linked
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -255,55 +256,171 @@ namespace tc {
 
 using bf16 = __nv_bfloat16;
 
-constexpr int kBQ = 64;           // query rows per block, 16 per warp
-constexpr int kBK = 64;           // keys per tile
-constexpr int kThreads = 128;     // 4 warps
+constexpr int kBQ = 128;          // query rows per block: 2 consumer warpgroups
+constexpr int kBK = 128;          // keys per K/V tile
+constexpr int kStages = 2;        // K/V tiles in flight
+constexpr int kThreads = 384;     // producer warpgroup + 2 consumer warpgroups
+constexpr int kConsumerWarps = 8;
 constexpr int kNB = kBK / 8;      // n8 blocks of a score row pair
+constexpr int kPanel = 64;        // bf16 columns of one 128-byte swizzle atom
 constexpr float kLog2e = 1.4426950408889634f;
-
-static_assert(kBQ == kBK, "the q tile and the K/V tiles share a loader");
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
 }
 
-// 16 bytes global -> shared, zero-filled when !full
-__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src,
-                                           bool full) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst),
-               "l"(src), "r"(full ? 16 : 0));
+// ---- mbarriers ----
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count));
 }
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
 }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+// Waits for the phase of parity `parity` to complete.  A wait that has not
+// ended after ~2^34 cycles (several seconds) traps, so a fault in the
+// pipeline ends the kernel with an error instead of hanging the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  const long long start = clock64();
+  while (true) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+    if (done) return;
+    if (clock64() - start > (1ll << 34)) __trap();
+  }
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
+// ---- TMA: one box of a 4-D tensor map into shared memory ----
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, int c2, int c3,
+                                         uint32_t bar) {
   asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%2, %3, %4, %5}], [%6];\n" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3), "r"(bar)
+      : "memory");
 }
 
-// d += a . b over one m16 n8 k16 tile (bf16 in, f32 accumulator)
-__device__ __forceinline__ void mma(float (&d)[4], const uint32_t (&a)[4],
-                                    uint32_t b0, uint32_t b1) {
+// ---- wgmma ----
+// Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets (16-byte units).  K-major tiles (q, K): rows of
+// 128 bytes, SBO = 1024 bytes between 8-row groups, LBO unused.  MN-major
+// tiles (V as the B of P.V): LBO = bytes between 64-column panels, SBO =
+// 1024 bytes between 8-key groups.
+__device__ __forceinline__ uint64_t desc(uint32_t addr, uint32_t lbo,
+                                         uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3ffff) >> 4) |
+         static_cast<uint64_t>(lbo >> 4) << 16 |
+         static_cast<uint64_t>(sbo >> 4) << 32 | 1ull << 62;
+}
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// d = A . B (+ d when `accumulate`) over m64 n128 k16, A and B K-major
+// in shared memory (B's rows are the n index)
+__device__ __forceinline__ void wgmma_ss(float (&d)[16][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
   asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "l"(da), "l"(db), "r"(accumulate));
+}
+
+// d += A . B over m64 n64 k16, A in registers, B MN-major in shared
+// memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[8][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
+}
+
+// d += A . B over m64 n128 k16, A in registers, B MN-major in shared
+// memory (the transpose bit set)
+__device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
+                                         const uint32_t (&a)[4], uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31, %32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, "
+      "%44, %45, %46, %47, %48, %49, %50, %51, %52, %53, %54, %55, %56, %57, "
+      "%58, %59, %60, %61, %62, %63"
+      "}, {%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3]),
+        "+f"(d[8][0]), "+f"(d[8][1]), "+f"(d[8][2]), "+f"(d[8][3]),
+        "+f"(d[9][0]), "+f"(d[9][1]), "+f"(d[9][2]), "+f"(d[9][3]),
+        "+f"(d[10][0]), "+f"(d[10][1]), "+f"(d[10][2]), "+f"(d[10][3]),
+        "+f"(d[11][0]), "+f"(d[11][1]), "+f"(d[11][2]), "+f"(d[11][3]),
+        "+f"(d[12][0]), "+f"(d[12][1]), "+f"(d[12][2]), "+f"(d[12][3]),
+        "+f"(d[13][0]), "+f"(d[13][1]), "+f"(d[13][2]), "+f"(d[13][3]),
+        "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
+        "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -311,36 +428,13 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Byte offset of 16-byte chunk `ch` of row `row` in a [rows][D] bf16 tile,
-// the chunk index XOR-ed with row % 8.
-template <int D>
-__device__ __forceinline__ uint32_t swz(int row, int ch) {
-  return row * (D * 2) + ((ch ^ (row & 7)) << 4);
-}
-
-// rows row0 .. row0 + 63 of a [rows, D] slice (row stride `stride`
-// elements) into a swizzled tile; rows at or past `n_rows` read as zero
-template <int D>
-__device__ __forceinline__ void load_tile(uint32_t dst, const bf16* src,
-                                          int64_t stride, int row0,
-                                          int n_rows) {
-  constexpr int kCh = D / 8;  // 16-byte chunks per row
-#pragma unroll
-  for (int e = threadIdx.x; e < kBK * kCh; e += kThreads) {
-    const int r = e / kCh, ch = e % kCh;
-    const bool in = row0 + r < n_rows;
-    cp_async16(dst + swz<D>(r, ch),
-               src + (in ? row0 + r : 0) * stride + ch * 8, in);
-  }
-}
-
 // One tile of the online softmax on a score fragment: s holds, per n8
 // block j, (row r, keys 2c, 2c+1) in s[j][0..1] and (row r + 8, the same
-// keys) in s[j][2..3] (r = lane / 4, c = lane % 4; the layout of the
-// mma.sync and wgmma accumulators).  Scales, masks when `edge`, turns s
-// into p = exp(s - m_new), folds the tile into (m, l) and returns the
-// factor alpha by which the output accumulator's rows must be rescaled.
-// l is this thread's partial row sum; the quad's sum is taken at the end.
+// keys) in s[j][2..3] (r = lane / 4, c = lane % 4: the wgmma accumulator's
+// layout within a warp).  Scales, masks when `edge`, turns s into
+// p = exp(s - m_new), folds the tile into (m, l) and returns the factor
+// alpha by which the output accumulator's rows must be rescaled.  l is this
+// thread's partial row sum; the quad's sum is taken at the end.
 template <int NB>
 __device__ __forceinline__ void softmax_tile(float (&s)[NB][4], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
@@ -388,7 +482,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NB][4], float (&m)[2],
   }
 }
 
-// o = acc / max(l, 1e-30) in bf16, rows r and r + 8 of a 16-row fragment
+// o = acc / max(l, 1e-30) in bf16, rows r and r + 8 of a warp's 16 rows
 // starting at query row `row`; rows at or past Sq are not written
 template <int NB>
 __device__ __forceinline__ void store_rows(bf16* ob, int64_t q_stride,
@@ -410,26 +504,37 @@ __device__ __forceinline__ void store_rows(bf16* ob, int64_t q_stride,
   }
 }
 
+// Shared memory, every tile 1024-byte aligned (the swizzle atom): the q
+// tile, then kStages K tiles and kStages V tiles, then the mbarriers.  A
+// tile of R rows and D columns is D / 64 panels of R rows x 128 bytes.
 template <int D>
-constexpr size_t smem_bytes() {
-  return (1 + 2 * 2) * kBK * D * sizeof(bf16);  // q, 2 stages of K and V
-}
+struct Smem {
+  static constexpr uint32_t kQ = kBQ * D * 2;
+  static constexpr uint32_t kKV = kBK * D * 2;
+  static constexpr uint32_t kK = kQ;
+  static constexpr uint32_t kV = kK + kStages * kKV;
+  static constexpr uint32_t kBar = kV + kStages * kKV;
+  // q_full, then k_full, v_full and empty for each stage
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 3 * kStages);
+};
 
 template <int D>
-__global__ void __launch_bounds__(kThreads)
-flash_attention_kernel_bf16(const bf16* __restrict__ q,
-                            const bf16* __restrict__ k,
-                            const bf16* __restrict__ v, bf16* __restrict__ o,
-                            int nb, int sq, int sk, int h, int kh,
-                            int causal, int window, float scale) {
-  constexpr uint32_t kTile = kBK * D * sizeof(bf16);
-  constexpr int kKs = D / 16;  // k16 steps of Q.K^T
-  extern __shared__ __align__(128) uint8_t shm[];
-  const uint32_t q_s = smem_u32(shm);
-  const uint32_t k_s = q_s + kTile;          // two stages
-  const uint32_t v_s = k_s + 2 * kTile;      // two stages
+__global__ void __launch_bounds__(kThreads, 1)
+flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
+                            const __grid_constant__ CUtensorMap tk,
+                            const __grid_constant__ CUtensorMap tv,
+                            bf16* __restrict__ o, int nb, int sq, int sk,
+                            int h, int kh, int causal, int window,
+                            float scale) {
+  using S = Smem<D>;
+  constexpr int kPanels = D / kPanel;
+  extern __shared__ uint8_t shm[];
+  const uint32_t base = (smem_u32(shm) + 1023) & ~1023u;
+  const uint32_t q_full = base + S::kBar;
+  auto k_full = [&](int st) { return q_full + 8 + 24 * st; };
+  auto v_full = [&](int st) { return q_full + 16 + 24 * st; };
+  auto empty = [&](int st) { return q_full + 24 + 24 * st; };
 
-  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32;
   // heaviest causal q tiles first: blocks start in order of their index
   const int n_bh = nb * h;
   const int q0 = ((sq + kBQ - 1) / kBQ - 1 - blockIdx.x / n_bh) * kBQ;
@@ -437,105 +542,178 @@ flash_attention_kernel_bf16(const bf16* __restrict__ q,
   const int b = blockIdx.x % n_bh / h;
   const int kv_head = head / (h / kh);
 
-  const int64_t q_stride = static_cast<int64_t>(h) * D;
-  const int64_t k_stride = static_cast<int64_t>(kh) * D;
-  const bf16* qb = q + (static_cast<int64_t>(b) * sq * h + head) * D;
-  bf16* ob = o + (static_cast<int64_t>(b) * sq * h + head) * D;
-  const bf16* kb = k + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
-  const bf16* vb = v + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
-
+  // the key tiles that some query row of this tile may see, walked from
+  // the last (the diagonal) down
   const int q_last = min(q0 + kBQ, sq) - 1;
   const int k_end = causal ? min(sk, q_last + 1) : sk;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t_first = k_begin / kBK, t_end = (k_end + kBK - 1) / kBK;
+  const int t_first = k_begin / kBK, t_last = (k_end - 1) / kBK;
+  const int n_tiles = t_last - t_first + 1;
 
-  load_tile<D>(q_s, qb, q_stride, q0, sq);
-  cp_async_commit();
-  load_tile<D>(k_s, kb, k_stride, t_first * kBK, sk);
-  load_tile<D>(v_s, vb, k_stride, t_first * kBK, sk);
-  cp_async_commit();
-  cp_async_wait<1>();
-  __syncthreads();
-  uint32_t qf[kKs][4];  // this warp's 16 q rows, in registers throughout
-#pragma unroll
-  for (int kk = 0; kk < kKs; ++kk)
-    ldmatrix_x4(qf[kk],
-                q_s + swz<D>(warp * 16 + (lane & 15), 2 * kk + (lane >> 4)));
-
-  const int row = q0 + warp * 16 + lane / 4;  // this thread's rows: +0, +8
-  float acc[D / 8][4];
-#pragma unroll
-  for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
-
-  for (int t = t_first; t < t_end; ++t) {
-    const uint32_t st = ((t - t_first) & 1) * kTile;
-    if (t + 1 < t_end) {
-      load_tile<D>(k_s + (st ^ kTile), kb, k_stride, (t + 1) * kBK, sk);
-      load_tile<D>(v_s + (st ^ kTile), vb, k_stride, (t + 1) * kBK, sk);
-      cp_async_commit();
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int st = 0; st < kStages; ++st) {
+      mbar_init(k_full(st), 1);
+      mbar_init(v_full(st), 1);
+      mbar_init(empty(st), kConsumerWarps);
     }
-    __syncthreads();
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // S = Q . K^T, unscaled
-    float s[kNB][4];
-#pragma unroll
-    for (int j = 0; j < kNB; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) s[j][e] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kKs; ++kk)
-#pragma unroll
-      for (int j = 0; j < kNB; j += 2) {
-        uint32_t bk[4];
-        ldmatrix_x4(bk, k_s + st + swz<D>(8 * j + (lane & 7) + ((lane >> 4) << 3),
-                                          2 * kk + ((lane >> 3) & 1)));
-        mma(s[j], qf[kk], bk[0], bk[1]);
-        mma(s[j + 1], qf[kk], bk[2], bk[3]);
+  const int wg = threadIdx.x / 128;
+  if (wg == 0) {
+    // producer: one thread keeps the q tile and the K/V ring fed by TMA
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, S::kQ);
+      for (int p = 0; p < kPanels; ++p)
+        tma_load(base + p * (kBQ * 128), &tq, p * kPanel, head, q0, b, q_full);
+      for (int i = 0; i < n_tiles; ++i) {
+        const int st = i % kStages;
+        const int k0 = (t_last - i) * kBK;
+        mbar_wait(empty(st), ((i / kStages) & 1) ^ 1);
+        const uint32_t k_dst = base + S::kK + st * S::kKV;
+        const uint32_t v_dst = base + S::kV + st * S::kKV;
+        mbar_expect_tx(k_full(st), S::kKV);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(k_dst + p * (kBK * 128), &tk, p * kPanel, kv_head, k0, b,
+                   k_full(st));
+        mbar_expect_tx(v_full(st), S::kKV);
+        for (int p = 0; p < kPanels; ++p)
+          tma_load(v_dst + p * (kBK * 128), &tv, p * kPanel, kv_head, k0, b,
+                   v_full(st));
       }
-
-    const int k0 = t * kBK;
-    const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0) ||
-                      (window > 0 && k0 <= q_last - window);
-    softmax_tile<kNB>(s, m, l, alpha, k0, row, sk, causal, window, scale,
-                      edge);
+    }
+  } else {
+    // consumers: warpgroup cw owns q rows 64 cw .. 64 cw + 63 of the tile
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
+    const int cw = wg - 1;
+    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32 % 4;
+    const int row = q0 + 64 * cw + 16 * warp + lane / 4;  // and row + 8
+    float acc[D / 8][4];
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+    const uint32_t q_tile = base + cw * 64 * 128;
 
-    // O += P . V, P rounded to bf16 in registers
+    mbar_wait(q_full, 0);
+    for (int i = 0; i < n_tiles; ++i) {
+      const int st = i % kStages;
+      const uint32_t parity = (i / kStages) & 1;
+      const int k0 = (t_last - i) * kBK;
+      const uint32_t k_tile = base + S::kK + st * S::kKV;
+      const uint32_t v_tile = base + S::kV + st * S::kKV;
+
+      // S = Q . K^T on the unscaled bf16 q and k, f32 accumulator
+      float s[kNB][4];
+      mbar_wait(k_full(st), parity);
+      wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[2 * kk][0], s[2 * kk][1]),
-                             pack_bf16(s[2 * kk][2], s[2 * kk][3]),
-                             pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]),
-                             pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3])};
-#pragma unroll
-      for (int j = 0; j < D / 8; j += 2) {
-        uint32_t bv[4];
-        ldmatrix_x4_trans(
-            bv, v_s + st + swz<D>(16 * kk + (lane & 7) + (((lane >> 3) & 1) << 3),
-                                  j + (lane >> 4)));
-        mma(acc[j], a, bv[0], bv[1]);
-        mma(acc[j + 1], a, bv[2], bv[3]);
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const uint32_t off = (kk % 4) * 32;  // k16 step in the atom
+        wgmma_ss(s, desc(q_tile + (kk / 4) * (kBQ * 128) + off, 16, 1024),
+                 desc(k_tile + (kk / 4) * (kBK * 128) + off, 16, 1024),
+                 kk > 0);
       }
+      wgmma_commit();
+      wgmma_wait();
+
+      const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0) ||
+                        (window > 0 && k0 <= q_last - window);
+      softmax_tile<kNB>(s, m, l, alpha, k0, row, sk, causal, window, scale,
+                        edge);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
+
+      // O += P . V: P rounded to bf16 in registers (the A operand), V's
+      // [keys, D] tile read through the transpose bit
+      uint32_t pa[kBK / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk) {
+        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+      }
+      mbar_wait(v_full(st), parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 16; ++kk)
+        wgmma_rs(acc, pa[kk], desc(v_tile + kk * 16 * 128, kBK * 128, 1024));
+      wgmma_commit();
+      wgmma_wait();
+      if (lane == 0) mbar_arrive(empty(st));  // this warp is done with st
     }
-    __syncthreads();  // this stage is read before the next load refills it
+    const int64_t q_stride = static_cast<int64_t>(h) * D;
+    store_rows<D / 8>(o + (static_cast<int64_t>(b) * sq * h + head) * D,
+                      q_stride, acc, l, row, sq);
   }
-  store_rows<D / 8>(ob, q_stride, acc, l, row, sq);
+}
+
+// cuTensorMapEncodeTiled, from the driver through the runtime (no -lcuda)
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
+                                 cuuint32_t, void*, const cuuint64_t*,
+                                 const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave,
+                                 CUtensorMapSwizzle, CUtensorMapL2promotion,
+                                 CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static const EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &found);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &found);
+#endif
+    return err == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A tensor map over a [batch, rows, heads, D] bf16 tensor, as dimensions
+// (D, heads, rows, batch) from the innermost: boxes of 64 columns x 1 head
+// x `box_rows` rows, 128-byte swizzled; rows past the end read as zero.
+bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d,
+              int rows, int heads, int batch, int box_rows) {
+  const cuuint64_t dims[4] = {static_cast<cuuint64_t>(d),
+                              static_cast<cuuint64_t>(heads),
+                              static_cast<cuuint64_t>(rows),
+                              static_cast<cuuint64_t>(batch)};
+  const cuuint64_t row = static_cast<cuuint64_t>(d) * sizeof(bf16);
+  const cuuint64_t strides[3] = {row, row * heads, row * heads * rows};
+  const cuuint32_t box[4] = {static_cast<cuuint32_t>(kPanel), 1,
+                             static_cast<cuuint32_t>(box_rows), 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, unit,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int sk, int h, int kh, int causal, int window,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  const EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  CUtensorMap tq, tk, tv;
+  if (!make_map(encode, &tq, q, D, sq, h, b, kBQ) ||
+      !make_map(encode, &tk, k, D, sk, kh, b, kBK) ||
+      !make_map(encode, &tv, v, D, sk, kh, b, kBK))
+    return static_cast<int>(cudaErrorInvalidValue);
+  constexpr size_t smem = Smem<D>::kBytes + 1024;  // + alignment slack
   auto kernel = flash_attention_kernel_bf16<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -546,9 +724,8 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      static_cast<const bf16*>(q), static_cast<const bf16*>(k),
-      static_cast<const bf16*>(v), static_cast<bf16*>(o), b, sq, sk, h, kh,
-      causal, window, scale);
+      tq, tk, tv, static_cast<bf16*>(o), b, sq, sk, h, kh, causal, window,
+      scale);
   return static_cast<int>(cudaGetLastError());
 }
 
