@@ -15,26 +15,41 @@
 // causal) bytes and tensor-core operations about equally: 17.2 GFLOP (the
 // causal half of 4 B H S^2 Dh), 0.0174 ms at the 989 TFLOP/s bf16 peak,
 // against 67.1 MB of q, k, v and o read or written once, 0.0200 ms at
-// 3.35 TB/s.  At qwen3's Dh 128 the operations bound (0.0348 ms).
+// 3.35 TB/s.  At qwen3's Dh 128 the operations bound (0.0348 ms).  Beside
+// the products, each score needs one exp: at Dh 64 the SM's 16 exps a
+// clock take as long as its tensor cores take for the two products.
 //
-// bf16 (flash_attention_bf16): tensor cores, mma.sync m16n8k16.
-//   - one block of 4 warps per (q tile of 64 rows, head, batch), 16 query
-//     rows a warp; the q tile goes to registers once (ldmatrix);
-//   - 64-key K and V tiles double-buffered in shared memory by cp.async
-//     (rows past Sk zero-filled), 16-byte chunks XOR-swizzled by row so
-//     ldmatrix is free of bank conflicts; V feeds the P.V product through
-//     ldmatrix.trans, no transposing copy;
-//   - S = Q.K^T on the unscaled bf16 q and k (exact products, f32 sums),
-//     then scaled by 1/sqrt(Dh) in f32, the plain version's order; the
-//     mask only on tiles that cross the diagonal, the window's edge or Sk;
-//     the online softmax in f32 registers; P rounded to bf16 for the P.V
-//     product (l sums the f32 p), the accumulator f32;
+// bf16 (flash_attention_bf16): wgmma on the tensor cores, fed by TMA.
+//   - one block of two warpgroups per (q tile of 128 rows, head, batch);
+//     warpgroup cw owns rows 64 cw .. 64 cw + 63; the heaviest causal q
+//     tiles are launched first;
+//   - thread 0 loads the q tile and a ring of kStages K and V tiles into
+//     shared memory by cp.async.bulk.tensor against 4-D tensor maps over
+//     [B, S, heads, Dh] (boxes of 64 columns = one 128-byte swizzle atom;
+//     Dh 128 is two boxes; rows past Sq or Sk read as zero; GQA reads KV
+//     head h / G in place); mbarriers count the bytes in;
+//   - S = Q.K^T on the unscaled bf16 q and k (exact products, f32 sums;
+//     both operands K-major in shared memory), then scaled by 1/sqrt(Dh) in
+//     f32, the plain version's order; masks only on tiles that cross the
+//     diagonal, the window's edge or Sk; the online softmax in f32
+//     registers; P rounded to bf16 in registers is the A operand of
+//     O += P.V, V's [keys, Dh] tile the B operand through wgmma's transpose
+//     bit (no transposing copy); the accumulator is f32;
+//   - the two warpgroups take turns at the tensor cores (named barriers),
+//     so one's products overlap the other's softmax; each turn issues
+//     P_{t-1}.V_{t-1} and then S_t, and each product group sits between one
+//     wgmma fence and one commit with no branch, or the compiler
+//     serializes the wgmmas;
 //   - key tiles wholly above the causal diagonal or outside the window are
-//     not loaded; the heaviest causal q tiles are launched first.
-//   Precision: bf16 enters only where P is rounded (2^-9 relative per
-//   weight, in sums that average it out) and in the bf16 output; the plain
-//   version rounds only the output, so the two agree within ATTN_BF16_TOL
-//   (tests/test_torch_attention.py emulates this rounding on the CPU).
+//     never loaded; the output is staged in the q tile's rows and written
+//     by a TMA store (rows past Sq are not written);
+//   - Dh 64: 64-key tiles, 120 registers, two blocks per SM (one hides the
+//     other's start and end); Dh 128: 128-key tiles, one block per SM.
+//   Precision: bf16 enters where P is rounded for the P.V product (2^-9
+//   relative per weight; l sums the f32 p) and in the bf16 output; the
+//   plain version rounds only the output.  The rounding of P averages out
+//   over the keys, so the two agree within ATTN_BF16_TOL (rtol 1.6e-2,
+//   atol 1e-2); tests/test_torch_attention.py emulates it on the CPU.
 //
 // f32 (flash_attention_f32): the SIMT kernel on the f32 FMA units (the f32
 // tolerance, 2e-5, rules out TF32 or bf16 products): q scaled by 1/sqrt(Dh)
@@ -43,7 +58,10 @@
 // shared memory (row stride Dh + 1), p through shared memory.
 //
 // Plain C interface for ctypes: every pointer and the stream are void*,
-// and each entry returns a cudaError_t as an int (0 = launched).
+// and each entry returns a cudaError_t as an int (0 = launched).  The
+// tensor maps are built in the entry from the pointers and sizes, with
+// cuTensorMapEncodeTiled fetched from the driver through the runtime, so
+// the library links no more than the runtime.
 
 #include <cstdint>
 
@@ -257,11 +275,8 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBQ = 128;          // query rows per block: 2 consumer warpgroups
-constexpr int kBK = 128;          // keys per K/V tile
-constexpr int kStages = 2;        // K/V tiles in flight
-constexpr int kThreads = 384;     // producer warpgroup + 2 consumer warpgroups
-constexpr int kConsumerWarps = 8;
-constexpr int kNB = kBK / 8;      // n8 blocks of a score row pair
+constexpr int kStages = 3;        // K/V tiles in flight
+constexpr int kThreads = 256;     // 2 warpgroups of 64 q rows each
 constexpr int kPanel = 64;        // bf16 columns of one 128-byte swizzle atom
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -279,10 +294,6 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
       "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
       "r"(bytes)
       : "memory");
-}
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
-               : "memory");
 }
 // Waits for the phase of parity `parity` to complete.  A wait that has not
 // ended after ~2^34 cycles (several seconds) traps, so a fault in the
@@ -315,6 +326,21 @@ __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
       : "memory");
 }
 
+// ...and one box of shared memory out to a 4-D tensor map (rows past the
+// end are not written); the smem must stay until the copy has read it
+__device__ __forceinline__ void tma_store(const CUtensorMap* map, uint32_t src,
+                                          int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%1, %2, %3, %4}], [%5];\n" ::"l"(reinterpret_cast<uint64_t>(map)),
+      "r"(c0), "r"(c1), "r"(c2), "r"(c3), "r"(src)
+      : "memory");
+}
+__device__ __forceinline__ void tma_store_drain() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
 // ---- wgmma ----
 // Shared-memory matrix descriptor, 128-byte swizzle: start address, leading
 // and stride byte offsets (16-byte units).  K-major tiles (q, K): rows of
@@ -333,8 +359,57 @@ __device__ __forceinline__ void wgmma_fence() {
 __device__ __forceinline__ void wgmma_commit() {
   asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+template <int N>
 __device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+// Pins a wgmma's registers: nothing computed on them moves across the
+// wgmma fence or wait beside which this stands.
+template <int NB>
+__device__ __forceinline__ void fence_regs(float (&d)[NB][4]) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+f"(d[j][e])::"memory");
+}
+template <int NB>
+__device__ __forceinline__ void fence_regs(uint32_t (&d)[NB][4]) {
+#pragma unroll
+  for (int j = 0; j < NB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) asm volatile("" : "+r"(d[j][e])::"memory");
+}
+
+// ---- named barriers: the consumer warpgroups take turns at issuing ----
+constexpr int kTurn = 1;   // barrier kTurn + cw: warpgroup cw may issue
+constexpr int kStore = 3;  // barrier kStore + cw: cw's output is staged
+__device__ __forceinline__ void named_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+__device__ __forceinline__ void named_arrive(int id, int threads) {
+  asm volatile("bar.arrive %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// d = A . B (+ d when `accumulate`) over m64 n64 k16, A and B K-major in
+// shared memory (B's rows are the n index)
+__device__ __forceinline__ void wgmma_ss(float (&d)[8][4], uint64_t da,
+                                         uint64_t db, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, "
+      "%30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0][0]), "+f"(d[0][1]), "+f"(d[0][2]), "+f"(d[0][3]),
+        "+f"(d[1][0]), "+f"(d[1][1]), "+f"(d[1][2]), "+f"(d[1][3]),
+        "+f"(d[2][0]), "+f"(d[2][1]), "+f"(d[2][2]), "+f"(d[2][3]),
+        "+f"(d[3][0]), "+f"(d[3][1]), "+f"(d[3][2]), "+f"(d[3][3]),
+        "+f"(d[4][0]), "+f"(d[4][1]), "+f"(d[4][2]), "+f"(d[4][3]),
+        "+f"(d[5][0]), "+f"(d[5][1]), "+f"(d[5][2]), "+f"(d[5][3]),
+        "+f"(d[6][0]), "+f"(d[6][1]), "+f"(d[6][2]), "+f"(d[6][3]),
+        "+f"(d[7][0]), "+f"(d[7][1]), "+f"(d[7][2]), "+f"(d[7][3])
+      : "l"(da), "l"(db), "r"(accumulate));
 }
 
 // d = A . B (+ d when `accumulate`) over m64 n128 k16, A and B K-major
@@ -423,6 +498,12 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
 }
 
+__device__ __forceinline__ float ex2(float x) {  // 2^x, ~2 ulp; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
@@ -468,72 +549,70 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NB][4], float (&m)[2],
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m[i], mx);
-    alpha[i] = exp2f((m[i] - m_new) * kLog2e);
+    alpha[i] = ex2((m[i] - m_new) * kLog2e);
     m[i] = m_new;
     float rs = 0.f;
 #pragma unroll
     for (int j = 0; j < NB; ++j)
 #pragma unroll
       for (int e = 2 * i; e < 2 * i + 2; ++e) {
-        s[j][e] = exp2f((s[j][e] - m_new) * kLog2e);
+        s[j][e] = ex2((s[j][e] - m_new) * kLog2e);
         rs += s[j][e];
       }
     l[i] = l[i] * alpha[i] + rs;
   }
 }
 
-// o = acc / max(l, 1e-30) in bf16, rows r and r + 8 of a warp's 16 rows
-// starting at query row `row`; rows at or past Sq are not written
-template <int NB>
-__device__ __forceinline__ void store_rows(bf16* ob, int64_t q_stride,
-                                           const float (&acc)[NB][4],
-                                           float (&l)[2], int row, int sq) {
-  const int c = threadIdx.x % 4;
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    float li = l[i];
-    li += __shfl_xor_sync(0xffffffffu, li, 1);
-    li += __shfl_xor_sync(0xffffffffu, li, 2);
-    const int qp = row + 8 * i;
-    if (qp >= sq) continue;
-    const float inv = 1.f / fmaxf(li, 1e-30f);
-#pragma unroll
-    for (int j = 0; j < NB; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(ob + qp * q_stride + 8 * j + 2 * c) =
-          __floats2bfloat162_rn(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv);
-  }
-}
-
 // Shared memory, every tile 1024-byte aligned (the swizzle atom): the q
 // tile, then kStages K tiles and kStages V tiles, then the mbarriers.  A
 // tile of R rows and D columns is D / 64 panels of R rows x 128 bytes.
+// Keys per K/V tile and blocks per SM.  At Dh 64 a 64-key tile keeps a
+// thread under 128 registers, so two blocks share an SM and each hides the
+// other's start and end; at Dh 128 one block per SM with 128-key tiles is
+// faster (its products, not its softmax, set the pace).
 template <int D>
-struct Smem {
-  static constexpr uint32_t kQ = kBQ * D * 2;
-  static constexpr uint32_t kKV = kBK * D * 2;
-  static constexpr uint32_t kK = kQ;
-  static constexpr uint32_t kV = kK + kStages * kKV;
-  static constexpr uint32_t kBar = kV + kStages * kKV;
-  // q_full, then k_full, v_full and empty for each stage
-  static constexpr uint32_t kBytes = kBar + 8 * (1 + 3 * kStages);
+struct Tile {
+  static constexpr int kKeys = D == 64 ? 64 : 128;
+  static constexpr int kBlocksPerSM = D == 64 ? 2 : 1;
 };
 
 template <int D>
-__global__ void __launch_bounds__(kThreads, 1)
+struct Smem {
+  static constexpr uint32_t kQ = kBQ * D * 2;
+  static constexpr uint32_t kKV = Tile<D>::kKeys * D * 2;
+  static constexpr uint32_t kK = kQ;
+  static constexpr uint32_t kV = kK + kStages * kKV;
+  static constexpr uint32_t kBar = kV + kStages * kKV;
+  // q_full, then k_full and v_full for each stage
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
+};
+
+// Two warpgroups, each owning 64 rows of the block's 128 q rows, walk the
+// key tiles from the last (the diagonal) down.  Round r of a warpgroup
+// runs O += P_{r-1} . V_{r-1} and S_r = Q . K_r^T on the tensor cores, then
+// tile r's softmax; the warpgroups take turns at the tensor cores, so one's
+// products run while the other's softmax has the exp units to itself.
+// Thread 0 issues every TMA copy: the q tile and the first kStages K and V
+// tiles up front, then, at the start of warpgroup 0's round r, K_{r-1+S}
+// and V_{r-2+S} into the slots that K_{r-1} and V_{r-2} left (both
+// warpgroups are done with them: the turn order says so).
+template <int D>
+__global__ void __launch_bounds__(kThreads, Tile<D>::kBlocksPerSM)
 flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
-                            bf16* __restrict__ o, int nb, int sq, int sk,
-                            int h, int kh, int causal, int window,
-                            float scale) {
+                            const __grid_constant__ CUtensorMap to, int nb,
+                            int sq, int sk, int h, int kh, int causal,
+                            int window, float scale) {
   using S = Smem<D>;
   constexpr int kPanels = D / kPanel;
+  constexpr int kBK = Tile<D>::kKeys;
+  constexpr int kNB = kBK / 8;  // n8 blocks of a score row pair
   extern __shared__ uint8_t shm[];
   const uint32_t base = (smem_u32(shm) + 1023) & ~1023u;
   const uint32_t q_full = base + S::kBar;
-  auto k_full = [&](int st) { return q_full + 8 + 24 * st; };
-  auto v_full = [&](int st) { return q_full + 16 + 24 * st; };
-  auto empty = [&](int st) { return q_full + 24 + 24 * st; };
+  auto k_full = [&](int t) { return q_full + 8 + 16 * (t % kStages); };
+  auto v_full = [&](int t) { return q_full + 16 + 16 * (t % kStages); };
 
   // heaviest causal q tiles first: blocks start in order of their index
   const int n_bh = nb * h;
@@ -542,116 +621,169 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
   const int b = blockIdx.x % n_bh / h;
   const int kv_head = head / (h / kh);
 
-  // the key tiles that some query row of this tile may see, walked from
-  // the last (the diagonal) down
+  // the key tiles that some query row of this tile may see; tile t of the
+  // walk starts at key (t_last - t) * kBK
   const int q_last = min(q0 + kBQ, sq) - 1;
   const int k_end = causal ? min(sk, q_last + 1) : sk;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
-  const int t_first = k_begin / kBK, t_last = (k_end - 1) / kBK;
-  const int n_tiles = t_last - t_first + 1;
+  const int t_last = (k_end - 1) / kBK;
+  const int n_tiles = t_last - k_begin / kBK + 1;
 
-  if (threadIdx.x == 0) {
+  const bool loader = threadIdx.x == 0;
+  auto load_kv = [&](const CUtensorMap* map, uint32_t bar, uint32_t dst,
+                     int t) {
+    mbar_expect_tx(bar, S::kKV);
+    for (int p = 0; p < kPanels; ++p)
+      tma_load(dst + p * (kBK * 128), map, p * kPanel, kv_head,
+               (t_last - t) * kBK, b, bar);
+  };
+  auto load_k = [&](int t) {
+    load_kv(&tk, k_full(t), base + S::kK + (t % kStages) * S::kKV, t);
+  };
+  auto load_v = [&](int t) {
+    load_kv(&tv, v_full(t), base + S::kV + (t % kStages) * S::kKV, t);
+  };
+  if (loader) {
     mbar_init(q_full, 1);
     for (int st = 0; st < kStages; ++st) {
       mbar_init(k_full(st), 1);
       mbar_init(v_full(st), 1);
-      mbar_init(empty(st), kConsumerWarps);
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(q_full, S::kQ);
+    for (int p = 0; p < kPanels; ++p)
+      tma_load(base + p * (kBQ * 128), &tq, p * kPanel, head, q0, b, q_full);
+    for (int t = 0; t < min(n_tiles, kStages); ++t) {
+      load_k(t);
+      load_v(t);
+    }
   }
   __syncthreads();
 
-  const int wg = threadIdx.x / 128;
-  if (wg == 0) {
-    // producer: one thread keeps the q tile and the K/V ring fed by TMA
-    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n" ::: "memory");
-    if (threadIdx.x == 0) {
-      mbar_expect_tx(q_full, S::kQ);
-      for (int p = 0; p < kPanels; ++p)
-        tma_load(base + p * (kBQ * 128), &tq, p * kPanel, head, q0, b, q_full);
-      for (int i = 0; i < n_tiles; ++i) {
-        const int st = i % kStages;
-        const int k0 = (t_last - i) * kBK;
-        mbar_wait(empty(st), ((i / kStages) & 1) ^ 1);
-        const uint32_t k_dst = base + S::kK + st * S::kKV;
-        const uint32_t v_dst = base + S::kV + st * S::kKV;
-        mbar_expect_tx(k_full(st), S::kKV);
-        for (int p = 0; p < kPanels; ++p)
-          tma_load(k_dst + p * (kBK * 128), &tk, p * kPanel, kv_head, k0, b,
-                   k_full(st));
-        mbar_expect_tx(v_full(st), S::kKV);
-        for (int p = 0; p < kPanels; ++p)
-          tma_load(v_dst + p * (kBK * 128), &tv, p * kPanel, kv_head, k0, b,
-                   v_full(st));
-      }
+  const int cw = threadIdx.x / 128;  // this warpgroup: q rows 64 cw + 0..63
+  const int lane = threadIdx.x % 32, warp = threadIdx.x / 32 % 4;
+  const int row = q0 + 64 * cw + 16 * warp + lane / 4;  // and row + 8
+  float acc[D / 8][4];
+#pragma unroll
+  for (int j = 0; j < D / 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
+  uint32_t pa[kBK / 16][4];  // P of the last tile in bf16: P.V's A operand
+  const uint32_t q_tile = base + cw * 64 * 128;
+
+  // The products of a round are issued between a wgmma fence and a commit
+  // with no branch in between (a branch there makes the compiler serialize
+  // them), so rounds 0 and n_tiles are peeled off the loop.
+  auto issue_pv = [&](int t) {  // O += P_t . V_t, V through the transpose bit
+    const uint32_t v_tile = base + S::kV + (t % kStages) * S::kKV;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_rs(acc, pa[kk], desc(v_tile + kk * 16 * 128, kBK * 128, 1024));
+  };
+  auto issue_s = [&](float (&s)[kNB][4], int t) {  // S_t = Q . K_t^T
+    const uint32_t k_tile = base + S::kK + (t % kStages) * S::kKV;
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk % 4) * 32;  // k16 step in the atom
+      wgmma_ss(s, desc(q_tile + (kk / 4) * (kBQ * 128) + off, 16, 1024),
+               desc(k_tile + (kk / 4) * (kBK * 128) + off, 16, 1024),
+               kk > 0);
     }
-  } else {
-    // consumers: warpgroup cw owns q rows 64 cw .. 64 cw + 63 of the tile
-    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n" ::: "memory");
-    const int cw = wg - 1;
-    const int lane = threadIdx.x % 32, warp = threadIdx.x / 32 % 4;
-    const int row = q0 + 64 * cw + 16 * warp + lane / 4;  // and row + 8
-    float acc[D / 8][4];
+  };
+  auto softmax = [&](float (&s)[kNB][4], int t) {  // then P_t in bf16
+    const int k0 = (t_last - t) * kBK;
+    const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0) ||
+                      (window > 0 && k0 <= q_last - window);
+    softmax_tile<kNB>(s, m, l, alpha, k0, row, sk, causal, window, scale,
+                      edge);
 #pragma unroll
     for (int j = 0; j < D / 8; ++j)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
-    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
-    const uint32_t q_tile = base + cw * 64 * 128;
-
-    mbar_wait(q_full, 0);
-    for (int i = 0; i < n_tiles; ++i) {
-      const int st = i % kStages;
-      const uint32_t parity = (i / kStages) & 1;
-      const int k0 = (t_last - i) * kBK;
-      const uint32_t k_tile = base + S::kK + st * S::kKV;
-      const uint32_t v_tile = base + S::kV + st * S::kKV;
-
-      // S = Q . K^T on the unscaled bf16 q and k, f32 accumulator
-      float s[kNB][4];
-      mbar_wait(k_full(st), parity);
-      wgmma_fence();
+      for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
 #pragma unroll
-      for (int kk = 0; kk < D / 16; ++kk) {
-        const uint32_t off = (kk % 4) * 32;  // k16 step in the atom
-        wgmma_ss(s, desc(q_tile + (kk / 4) * (kBQ * 128) + off, 16, 1024),
-                 desc(k_tile + (kk / 4) * (kBK * 128) + off, 16, 1024),
-                 kk > 0);
-      }
-      wgmma_commit();
-      wgmma_wait();
-
-      const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0) ||
-                        (window > 0 && k0 <= q_last - window);
-      softmax_tile<kNB>(s, m, l, alpha, k0, row, sk, causal, window, scale,
-                        edge);
-#pragma unroll
-      for (int j = 0; j < D / 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
-
-      // O += P . V: P rounded to bf16 in registers (the A operand), V's
-      // [keys, D] tile read through the transpose bit
-      uint32_t pa[kBK / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk) {
-        pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-        pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-        pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-        pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      }
-      mbar_wait(v_full(st), parity);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_rs(acc, pa[kk], desc(v_tile + kk * 16 * 128, kBK * 128, 1024));
-      wgmma_commit();
-      wgmma_wait();
-      if (lane == 0) mbar_arrive(empty(st));  // this warp is done with st
+    for (int kk = 0; kk < kBK / 16; ++kk) {  // P rounded to bf16
+      pa[kk][0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+      pa[kk][1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+      pa[kk][2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+      pa[kk][3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
     }
-    const int64_t q_stride = static_cast<int64_t>(h) * D;
-    store_rows<D / 8>(o + (static_cast<int64_t>(b) * sq * h + head) * D,
-                      q_stride, acc, l, row, sq);
+  };
+  auto pv = [&](int t) {
+    mbar_wait(v_full(t), (t / kStages) & 1);
+    fence_regs(acc);  // the rescale and P's packing stay before the fence
+    fence_regs(pa);
+    wgmma_fence();
+    issue_pv(t);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+  };
+  auto scores = [&](float (&s)[kNB][4], int t) {
+    mbar_wait(k_full(t), (t / kStages) & 1);
+    wgmma_fence();
+    issue_s(s, t);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(s);
+  };
+  auto refill = [&](int r) {  // warpgroup 0's thread 0, at round r's start
+    if (loader) {
+      if (r - 1 + kStages < n_tiles) load_k(r - 1 + kStages);
+      if (r >= 2 && r - 2 + kStages < n_tiles) load_v(r - 2 + kStages);
+    }
+    __syncwarp();
+  };
+
+  mbar_wait(q_full, 0);
+  if (cw == 1) named_arrive(kTurn, 256);  // warpgroup 0 goes first
+  {  // round 0: S_0
+    float s[kNB][4];
+    named_sync(kTurn + cw, 256);
+    scores(s, 0);
+    named_arrive(kTurn + 1 - cw, 256);
+    softmax(s, 0);
+  }
+  for (int r = 1; r < n_tiles; ++r) {  // round r: P_{r-1} . V_{r-1}, S_r
+    float s[kNB][4];
+    named_sync(kTurn + cw, 256);
+    refill(r);
+    pv(r - 1);  // P's registers are free before S_r takes its own
+    scores(s, r);
+    named_arrive(kTurn + 1 - cw, 256);
+    softmax(s, r);
+  }
+  {  // round n_tiles: P_{n-1} . V_{n-1}
+    named_sync(kTurn + cw, 256);
+    pv(n_tiles - 1);
+    if (cw == 0) named_arrive(kTurn + 1, 256);  // every sync has its arrive
+  }
+  // o = acc / max(l, 1e-30) in bf16, staged in this warpgroup's rows of
+  // the q tile (its last S is done) in the TMA layout, then one TMA store
+  const int c = lane % 4;
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const float inv = 1.f / fmaxf(li, 1e-30f);
+    const int r = 16 * warp + lane / 4 + 8 * i;  // row in this warpgroup's 64
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j) {
+      const uint32_t dst = q_tile + (j / 8) * (kBQ * 128) + r * 128 +
+                           (((j % 8) ^ (r % 8)) << 4) + 4 * c;
+      asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst),
+                   "r"(pack_bf16(acc[j][2 * i] * inv, acc[j][2 * i + 1] * inv))
+                   : "memory");
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  named_sync(kStore + cw, 128);
+  if (threadIdx.x % 128 == 0) {
+    for (int p = 0; p < kPanels; ++p)
+      tma_store(&to, q_tile + p * (kBQ * 128), p * kPanel, head,
+                q0 + 64 * cw, b);
+    tma_store_drain();
   }
 }
 
@@ -708,10 +840,11 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
            cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
-  CUtensorMap tq, tk, tv;
+  CUtensorMap tq, tk, tv, to;
   if (!make_map(encode, &tq, q, D, sq, h, b, kBQ) ||
-      !make_map(encode, &tk, k, D, sk, kh, b, kBK) ||
-      !make_map(encode, &tv, v, D, sk, kh, b, kBK))
+      !make_map(encode, &to, o, D, sq, h, b, kBQ / 2) ||
+      !make_map(encode, &tk, k, D, sk, kh, b, Tile<D>::kKeys) ||
+      !make_map(encode, &tv, v, D, sk, kh, b, Tile<D>::kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
   constexpr size_t smem = Smem<D>::kBytes + 1024;  // + alignment slack
   auto kernel = flash_attention_kernel_bf16<D>;
@@ -724,8 +857,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(static_cast<float>(D));
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<bf16*>(o), b, sq, sk, h, kh, causal, window,
-      scale);
+      tq, tk, tv, to, b, sq, sk, h, kh, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -11,11 +11,16 @@ head_dim 64 and 128, in float32 and bfloat16.
 Bound: at the main-path shape (B 8, S 1024, H = KH = 16, Dh 64, bf16,
 causal) bytes and tensor-core operations about equally: 17.2 GFLOP,
 0.0174 ms at 989 TFLOP/s, against 67.1 MB of q/k/v/o, 0.0200 ms at
-3.35 TB/s.  The simple design runs on the f32 FMA units, about 45x that
-bound on an H100: one block per (64-row q tile, head, batch), K/V tiles in
-shared memory, the running softmax state in registers, GQA by index,
-ragged edges masked in the kernel, key tiles outside the causal or window
-band skipped (see the source).
+3.35 TB/s.  The bf16 kernel runs both products on the tensor cores
+(``wgmma``): TMA copies the q tile and a ring of K/V tiles into shared
+memory, two warpgroups of 64 q rows take turns at the tensor cores so one's
+softmax overlaps the other's products, P goes from registers into P.V in
+bf16, and key tiles outside the causal or window band are never loaded
+(see the source).  Its precision: the scores, the softmax, l and the
+accumulator are f32 as in the plain version; P is rounded to bf16 for the
+P.V product (2^-9 relative per weight, averaged over the keys), which
+keeps the output within two bf16 ulps plus 1e-2 of the plain version.  The
+f32 kernel stays on the f32 FMA units (SIMT), to meet the 2e-5 tolerance.
 
 The plain version is ``ref.attention_ref``.  The wrapper takes it for CPU
 tensors, and on the card only when asked (``use_kernel=False``, for
@@ -32,7 +37,7 @@ from repro_torch.kernels import build, ref
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (64, 128)
 MAX_GRID_YZ = 65535            # heads and batch ride gridDim.y and .z
-ALIGN = 16                     # bytes; the bf16 kernel's tile copies need it
+ALIGN = 16                     # bytes; TMA needs each base 16-byte aligned
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
