@@ -748,8 +748,17 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
     float s[kNB][4];
     named_sync(kTurn + cw, 256);
     refill(r);
-    pv(r - 1);  // P's registers are free before S_r takes its own
-    scores(s, r);
+    mbar_wait(v_full(r - 1), ((r - 1) / kStages) & 1);
+    mbar_wait(k_full(r), (r / kStages) & 1);
+    fence_regs(acc);  // the rescale and P's packing stay before the fence
+    fence_regs(pa);
+    wgmma_fence();
+    issue_pv(r - 1);
+    issue_s(s, r);
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(s);
     named_arrive(kTurn + 1 - cw, 256);
     softmax(s, r);
   }
