@@ -563,9 +563,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NB][4], float (&m)[2],
   }
 }
 
-// Shared memory, every tile 1024-byte aligned (the swizzle atom): the q
-// tile, then kStages K tiles and kStages V tiles, then the mbarriers.  A
-// tile of R rows and D columns is D / 64 panels of R rows x 128 bytes.
 // Keys per K/V tile and blocks per SM.  At Dh 64 a 64-key tile keeps a
 // thread under 128 registers, so two blocks share an SM and each hides the
 // other's start and end; at Dh 128 one block per SM with 128-key tiles is
@@ -576,6 +573,9 @@ struct Tile {
   static constexpr int kBlocksPerSM = D == 64 ? 2 : 1;
 };
 
+// Shared memory, every tile 1024-byte aligned (the swizzle atom): the q
+// tile, then kStages K tiles and kStages V tiles, then the mbarriers.  A
+// tile of R rows and D columns is D / 64 panels of R rows x 128 bytes.
 template <int D>
 struct Smem {
   static constexpr uint32_t kQ = kBQ * D * 2;

@@ -122,8 +122,8 @@ def test_plain_version_not_called_on_cuda(cuda):
 
 # K3: the reference's flash-attention sweep, head_dim 64 and 128, plus a
 # ragged S = 1000 at qwen3's heads; S at 127, 128, 129 and 255 around the
-# bf16 kernel's 128-row q tile and 128-key tile (Sq != Sk both ways), and
-# G = 8 at H = 32
+# bf16 kernel's 128-row q tile and its 64- and 128-key tiles (Sq != Sk
+# both ways), and G = 8 at H = 32
 ATTN_SHAPES = [(sq, sk, h, kh)
                for sq, sk in ((128, 128), (256, 256), (64, 256), (1, 512),
                               (100, 100), (127, 127), (129, 129), (255, 255),
