@@ -4,8 +4,10 @@
 fed the reference's own draws, the reference's initial params and its
 scheme designs, against ``repro.fl.driver.run_fleet_task`` run in a child
 process: a shrunk paper_mlp (hidden 16, mnist_like(40), batch 8, 4 rounds,
-seeds (0, 1)), all 7 Fig.-2 schemes, fused, unfused and with an int8
-uplink.
+seeds (0, 1)), all 7 Fig.-2 schemes, minibatch and flat (fused, unfused
+and with an int8 uplink), and the paper's full-batch protocol (batch 0,
+aggregated leaf by leaf, ``flat=False``), which the reference's
+``fig2.run`` runs by default.
 
 Tolerance rtol 1e-4, atol 1e-5 on params, traces and evals: the two sides
 run the same f32 arithmetic, but XLA and PyTorch order the sums of the
@@ -43,26 +45,25 @@ def ref(tmp_path_factory):
         every=EVERY, batch=BATCH, seeds=SEEDS)
 
 
-def _port_run(ref, **kw):
+def _port_run(ref, batch_size=BATCH, flat=True, **kw):
+    """The port on the reference's draws; full batch (``batch_size=0``)
+    replays them without minibatch indices."""
     task = make_paper_mlp(hidden=16, samples_per_class=40)
     td = task.build_data(0)
     schemes = [tpc.scheme_from_jax(n, torch_ref.prefixed(ref, f"scheme/{n}"))
                for n in torch_ref.FIG2_SCHEMES]
-    draws = ReplayDraws(ref["draws/h"], ref["draws/z"], ref["draws/idx"],
+    draws = ReplayDraws(ref["draws/h"], ref["draws/z"],
+                        ref["draws/idx"] if batch_size else None,
                         ref["draws/coin"], CPU)
     run = task.run_config(num_rounds=ROUNDS, eval_every=EVERY, seed=0,
-                          batch_size=BATCH)
+                          batch_size=batch_size)
     params0 = params_from_jax(torch_ref.prefixed(ref, "params0"))
     return tdriver.run_fleet_task(task, schemes, ref["gains"], run,
                                   task_data=td, params=params0, seeds=SEEDS,
-                                  flat=True, draws=draws, device="cpu", **kw)
+                                  flat=flat, draws=draws, device="cpu", **kw)
 
 
-@pytest.mark.parametrize("variant,kw", [
-    ("fused", {}),
-    ("unfused", {"fuse_round": False}),
-    ("int8", {"uplink_dtype": "int8"}),
-])
+@pytest.mark.parametrize("variant,kw", list(torch_ref.FLEET_VARIANTS.items()))
 def test_fleet_matches_reference(ref, variant, kw):
     res = _port_run(ref, **kw)
     assert res.names == torch_ref.FIG2_SCHEMES and res.seeds == SEEDS

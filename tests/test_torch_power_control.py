@@ -25,7 +25,9 @@ from repro.core.theory import OTAParams as JPrm
 from repro_torch.core import channel as tch
 from repro_torch.core import power_control as tpc
 from repro_torch.core import sca as tsca
+from repro_torch.core import theory as tth
 from repro_torch.core.theory import OTAParams as TPrm
+from repro_torch.tasks.image import make_paper_mlp
 
 TOL = dict(rtol=1e-5, atol=0)
 ROUNDS = 12
@@ -65,6 +67,35 @@ def test_sca_gamma_equals_reference_slsqp(worlds):
     j = jsca.solve_sca(worlds["jprm"])
     np.testing.assert_array_equal(t.gamma, j.gamma)
     assert t.iterations == j.iterations and t.history == j.history
+
+
+def test_sca_near_reference_default_solver(tmp_path):
+    """The reference's Fig. 2 designs ``sca`` with its default solver, the
+    batched JAX one (``make_sca(method="jax")``); the port's ``make_sca`` is
+    the SLSQP loop (the reference's ``method="scipy"``, held bitwise above).
+    At the full-width Fig.-2 world (paper_mlp, d = 814,090, eta =
+    ``eta_for("sca", 0.05)`` = 0.06), the reference running in a child
+    process, the two points measured: (P1) objective 3.11437441 (port)
+    against 3.11437423, a relative gap of 5.7e-8; gamma and the chi
+    thresholds 2.94e-4 relative at most; alpha 9.87e-5.  The optimum is
+    flat, so both points solve the same problem and the objective agrees
+    far closer than the design does: the objective is held at 1e-6
+    relative, gamma, the thresholds and alpha at 1e-3, not at the
+    reference docstring's "~1e-6" between its solvers, which does not hold
+    at this world.  Porting the JAX solver makes the two equal."""
+    want = torch_ref.run_reference_sca(tmp_path / "sca.npz")
+    task = make_paper_mlp()
+    assert task.param_dim == int(want["d"]) == 814_090
+    dep, prm = _world(tch, TPrm, task.param_dim)
+    prm = prm.replace(eta=task.eta_for("sca", 0.05))
+    assert prm.eta == float(want["eta"])
+    pc = tpc.make_power_control("sca", dep, prm)
+    np.testing.assert_allclose(tth.p1_objective(pc.gamma, prm),
+                               want["objective"], rtol=1e-6, atol=0)
+    np.testing.assert_allclose(pc.gamma, want["gamma"], rtol=1e-3, atol=0)
+    np.testing.assert_allclose(pc.thresholds, want["thresholds"], rtol=1e-3,
+                               atol=0)
+    np.testing.assert_allclose(pc.alpha, want["alpha"], rtol=1e-3, atol=0)
 
 
 @pytest.mark.parametrize("name", tpc.SCHEMES)

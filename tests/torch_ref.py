@@ -27,6 +27,11 @@ SCHEME_FIELDS = ("gamma", "alpha", "p", "thresholds", "noise_over_alpha",
 CHUNK_CASES = ((30, 10, 1), (31, 10, 1), (4, 2, 1), (7, 3, 0), (1, 5, 1))
 FIG2_SCHEMES = ("ideal", "opc", "sca", "lcpc", "vanilla", "bbfl_interior",
                 "bbfl_alternative")
+# the reference fleet's variants: minibatch and flat (fused, unfused, int8
+# uplink), and the paper's full-batch protocol, aggregated leaf by leaf
+FLEET_VARIANTS = {"fused": {}, "unfused": {"fuse_round": False},
+                  "int8": {"uplink_dtype": "int8"},
+                  "full_batch": {"batch_size": 0, "flat": False}}
 
 
 def to_numpy(tree: dict) -> dict:
@@ -112,11 +117,12 @@ for pc in schemes:
     for f, v in torch_ref.scheme_fields(pc).items():
         out["scheme/%s/%s" % (pc.name, f)] = v
 for name, kw in cfg["variants"].items():
+    kw = dict(kw)
     run = task.run_config(num_rounds=cfg["rounds"], eval_every=cfg["every"],
-                          seed=0, batch_size=cfg["batch"])
+                          seed=0, batch_size=kw.pop("batch_size", cfg["batch"]))
     res = driver.run_fleet_task(task, schemes, dep.gains, run, task_data=td,
                                 params=params0, seeds=tuple(cfg["seeds"]),
-                                flat=True, **kw)
+                                flat=kw.pop("flat", True), **kw)
     for k, v in res.params.items():
         out["%s/params/%s" % (name, k)] = np.asarray(v)
     for k, v in res.traces.items():
@@ -139,6 +145,32 @@ for case in cfg["chunk_cases"]:
 np.savez(cfg["out"], **out)
 '''
 
+_SCA_CHILD = r'''
+import json, sys
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+from repro.core import channel, power_control as pcm, theory
+from repro.core.theory import OTAParams
+from repro.tasks.image import make_paper_mlp
+
+task = make_paper_mlp()
+wcfg = channel.WirelessConfig(num_devices=task.num_devices, seed=0)
+dep = channel.deploy(wcfg)
+prm = OTAParams(d=task.param_dim, gmax=10.0, es=wcfg.energy_per_sample,
+                n0=wcfg.noise_psd, gains=dep.gains,
+                sigma_sq=np.zeros(wcfg.num_devices), eta=0.05, lsmooth=1.0,
+                kappa_sq=4.0).replace(eta=task.eta_for("sca", 0.05))
+pc = pcm.make_power_control("sca", dep, prm)      # the default solver
+np.savez(cfg["out"], gamma=np.asarray(pc.gamma, np.float64),
+         alpha=np.float64(pc.alpha),
+         thresholds=np.asarray(pc.thresholds, np.float64),
+         objective=np.float64(theory.p1_objective(pc.gamma, prm)),
+         d=np.int64(prm.d), eta=np.float64(prm.eta))
+'''
+
 
 def run_reference_fleet(out_path: Path, *, hidden: int = 16,
                         samples_per_class: int = 40, batch: int = 8,
@@ -149,22 +181,38 @@ def run_reference_fleet(out_path: Path, *, hidden: int = 16,
     child process (JAX on the CPU) and return what it wrote: initial
     params, scheme design leaves, per-variant params/traces/evals, the
     draws it consumed ([T, S, ...]), and ``engine.chunk_lengths`` for each
-    (num_rounds, eval_every, with_eval) of ``CHUNK_CASES``."""
-    variants = variants if variants is not None else {
-        "fused": {}, "unfused": {"fuse_round": False},
-        "int8": {"uplink_dtype": "int8"}}
+    (num_rounds, eval_every, with_eval) of ``CHUNK_CASES``.  A variant's
+    keywords go to ``run_fleet_task``, except ``batch_size`` (default
+    ``batch``) and ``flat`` (default True)."""
+    variants = variants if variants is not None else FLEET_VARIANTS
     cfg = dict(hidden=hidden, samples_per_class=samples_per_class,
                batch=batch, rounds=rounds, every=every, seeds=list(seeds),
                schemes=list(schemes), variants=variants, out=str(out_path),
                chunk_cases=[list(c) for c in CHUNK_CASES],
                tests=str(ROOT / "tests"))
+    return _run_child(_CHILD, cfg, "reference fleet", timeout)
+
+
+def run_reference_sca(out_path: Path, timeout: float = 300.0) -> dict:
+    """The reference's default SCA design (``make_power_control("sca",
+    ...)``, the batched JAX solver) in a child process, at the full-width
+    Fig.-2 world: paper_mlp (d = 814,090), the fig2 deployment, eta =
+    ``task.eta_for("sca", 0.05)``.  Returns gamma, alpha, thresholds, the
+    (P1) objective (``repro.core.theory.p1_objective``), d and eta."""
+    return _run_child(_SCA_CHILD, {"out": str(out_path)}, "reference sca",
+                      timeout)
+
+
+def _run_child(script: str, cfg: dict, what: str, timeout: float) -> dict:
+    """Run ``script`` with the shim in a child process (JAX on the CPU) and
+    return the arrays it saved to ``cfg["out"]``."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
-    proc = subprocess.run([sys.executable, "-c", _CHILD, json.dumps(cfg)],
+    proc = subprocess.run([sys.executable, "-c", script, json.dumps(cfg)],
                           env=env, cwd=str(ROOT), capture_output=True,
                           text=True, timeout=timeout)
     if proc.returncode != 0:
-        raise RuntimeError(f"reference fleet failed:\n{proc.stderr[-4000:]}")
-    with np.load(out_path) as f:
+        raise RuntimeError(f"{what} failed:\n{proc.stderr[-4000:]}")
+    with np.load(cfg["out"]) as f:
         return {k: f[k] for k in f.files}
 
 
