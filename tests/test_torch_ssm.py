@@ -170,3 +170,95 @@ def test_ssd_scan_rejects_what_it_does_not_take(bad):
         kw["state0"] = s0.to("meta")
     with pytest.raises(ValueError):
         ssd_scan(x, dt, a_neg, bm, cm, **kw)
+
+
+# K4's precision argument.  The kernel (``csrc/ssd_scan.cu``) walks tiles of
+# 64 rows and runs its four products, C B^T, C S^T, att (dt x) and the state
+# update, on the tensor cores in TF32 (``cvt.rna.tf32.f32``: a significand
+# of 11 bits, rounded to nearest, ties away from zero).  Emulated here in
+# plain torch on the same tiles: one pass (big . big) misses the f32 SSD
+# tolerance the card holds K4 to, three passes (small . big + big . small +
+# big . big, small = the TF32 rounding of v - big) keep it.
+SSD_SCALE_TOL, SSD_REL_TOL = 1e-4, 2e-4     # as chip_smoke.py, for f32
+
+
+def _tf32(v):
+    """Round float32 to TF32 on the bit pattern: add half of the 13 dropped
+    bits' range to the magnitude and clear them (ties away from zero)."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def _mm_tf32(a, b, passes):
+    """a @ b with TF32 operands and f32 sums: big . big alone, or with
+    small . big and big . small before it (small . small dropped)."""
+    a_big, b_big = _tf32(a), _tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _ssd_tiles_tf32(x, dt, a_neg, bm, cm, s0, passes, q=64):
+    """K4's arithmetic: tiles of q rows, products in TF32 (``passes``), the
+    cumulative sums, exps, masks and decays in f32.  Returns (y, state)."""
+    x, dt, a_neg, bm, cm = (torch.from_numpy(a) for a in
+                            (x, dt, a_neg, bm, cm))
+    b, s, h, p = x.shape
+    rep = h // bm.shape[2]
+    pad = (-s) % q
+    xw = torch.nn.functional.pad(x * dt[..., None], (0, 0, 0, 0, 0, pad))
+    da = torch.nn.functional.pad(dt * a_neg, (0, 0, 0, pad))
+    bh, ch = (torch.nn.functional.pad(t, (0, 0, 0, 0, 0, pad))
+              .repeat_interleave(rep, 2).permute(0, 2, 1, 3)
+              for t in (bm, cm))                          # [B, H, L, N]
+    xw, da = xw.permute(0, 2, 1, 3), da.permute(0, 2, 1)
+    state = torch.zeros(b, h, p, bm.shape[3]) if s0 is None \
+        else torch.from_numpy(s0)
+    tri = torch.ones(q, q, dtype=torch.bool).tril()
+    ys = []
+    for t0 in range(0, s + pad, q):
+        cum = torch.cumsum(da[..., t0:t0 + q], -1)        # [B, H, q]
+        c_t, b_t, x_t = (t[:, :, t0:t0 + q] for t in (ch, bh, xw))
+        scores = _mm_tf32(c_t, b_t.transpose(-1, -2), passes)
+        decay = (cum[..., :, None] - cum[..., None, :]).masked_fill(~tri, 0)
+        att = torch.where(tri, scores * torch.exp(decay), 0.0)
+        ys.append(_mm_tf32(c_t, state.transpose(-1, -2), passes)
+                  * torch.exp(cum)[..., None] + _mm_tf32(att, x_t, passes))
+        seg = cum[..., -1:]
+        state = state * torch.exp(seg)[..., None] + _mm_tf32(
+            (x_t * torch.exp(seg - cum)[..., None]).transpose(-1, -2), b_t,
+            passes)
+    return torch.cat(ys, 2)[:, :, :s].permute(0, 2, 1, 3), state
+
+
+def _worst_share_of_tolerance(args, chunk, passes):
+    """max |got - want| / (SSD_SCALE_TOL max|want| + SSD_REL_TOL |want|)
+    over y and the final state, against the plain version."""
+    got = _ssd_tiles_tf32(*args, passes)
+    want = tref.ssd_chunked(*(torch.from_numpy(a) for a in args[:5]), chunk,
+                            state0=None if args[5] is None
+                            else torch.from_numpy(args[5]))
+    return max(float(((g - w).abs() / (SSD_SCALE_TOL * w.abs().max()
+                                        + SSD_REL_TOL * w.abs())).max())
+               for g, w in zip(got, want))
+
+
+@pytest.mark.parametrize("state", [False, True])
+@pytest.mark.parametrize("s,chunk", [(64, 16), (128, 128), (96, 32)])
+@pytest.mark.parametrize("h,g", [(4, 1), (4, 2), (8, 8)])
+def test_ssd_3xtf32_tiles_within_f32_tolerance(s, chunk, h, g, state):
+    """3xTF32 products on tiles of 64 stay within the f32 SSD tolerance of
+    the plain version, over the sweep's shapes, with and without state0."""
+    args = _inputs(2, s, h, 16, g, 16, state=state)
+    assert _worst_share_of_tolerance(args, chunk, passes=3) <= 1.0
+
+
+def test_ssd_single_pass_tf32_misses_f32_tolerance():
+    """Why K4 pays for three products: at P 64, N 128 (the mamba2 widths;
+    B 2, S 512, H 8) one TF32 pass misses the f32 SSD tolerance (3.2x
+    over it on this seed), while three passes sit at a few hundredths of
+    it (0.023), as plain f32 does."""
+    args = _inputs(2, 512, 8, 64, 1, 128, seed=0)
+    assert _worst_share_of_tolerance(args, 128, passes=1) > 1.5
+    assert _worst_share_of_tolerance(args, 128, passes=3) < 0.1
