@@ -8,8 +8,9 @@ Phases (any failure exits nonzero, and nothing is swallowed):
   1. the card's name and power limit (nvidia-smi); build the CUDA kernels
      from the checkout's sources (one nvcc per source, all at once, sm_90a)
      and report the seconds; count the tensor-core instructions in each
-     kernel of the flash-attention library (``cuobjdump -sass``: HGMMA for
-     wgmma, HMMA for mma.sync) and fail if K3's bf16 kernel has none;
+     kernel of the flash-attention and ssd_scan libraries (``cuobjdump
+     -sass``: HGMMA for wgmma, HMMA for mma.sync) and fail if K3's bf16
+     kernel or K4's f32 kernel has none;
   2. every kernel against its plain PyTorch version on the card, at its
      main path's shapes, with median times (CUDA events) beside the plain
      version's, the bound, and one PyTorch library call where there is one:
@@ -25,8 +26,10 @@ Phases (any failure exits nonzero, and nothing is swallowed):
          P 64, N 128, G 1, f32, chunk 128), at ragged S = 1000, with
          G = 2 and a nonzero state0, with bf16 inputs, and at the smoke
          model's P = N = 32 -- y and the final state to 1e-4 of their
-         largest magnitude plus 2e-4 relative (bf16 y: 1.6e-2); no
-         PyTorch call computes the scan, so no library time;
+         largest magnitude plus 2e-4 relative (bf16 y: 1.6e-2); its
+         bound takes the cheaper of the f32 FMA units and 3xTF32 on the
+         tensor cores; no PyTorch call computes the scan, so no library
+         time;
   3. the fleet's main path at full width through ``repro_torch.fig2.run``:
      paper_mlp, 7 schemes, minibatch 128, flat, fused, f32 uplink, 30
      rounds with an eval every 10 -- K1 must launch once per round and the
@@ -91,8 +94,8 @@ RAGGED_D = (1, 5000)
 ROUNDS, EVERY, BATCH = 30, 10, 128
 SHORT = 5                                  # rounds of the other paths
 # published peaks per card (data sheets, dense): (device-memory bytes/s, f32
-# flop/s outside the tensor cores, bf16 tensor-core flop/s); an unknown name
-# falls back to the H100 SXM
+# flop/s outside the tensor cores, bf16 tensor-core flop/s; TF32 runs at
+# half the bf16 rate); an unknown name falls back to the H100 SXM
 PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
          "H100 NVL": (3.9e12, 60e12, 835e12),
          "H200": (4.8e12, 67e12, 989e12), "H100": (3.35e12, 67e12, 989e12)}
@@ -188,12 +191,11 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def tensor_core_ops(build):
-    """{kernel symbol: {"HGMMA": n, "HMMA": n}} for the built
-    flash-attention library, read from its SASS (cuobjdump -sass)."""
+def tensor_core_ops(build, name):
+    """{kernel symbol: {"HGMMA": n, "HMMA": n}} for the built library of
+    ``csrc/<name>.cu``, read from its SASS (cuobjdump -sass)."""
     exe = Path(build.nvcc()).with_name("cuobjdump")
-    out = subprocess.run([str(exe), "-sass",
-                          str(build.library_path("flash_attention"))],
+    out = subprocess.run([str(exe), "-sass", str(build.library_path(name))],
                          capture_output=True, text=True, timeout=120)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr}")
     found, fn = {}, None
@@ -399,7 +401,7 @@ def phase_ssd_kernel(torch, dev, card):
     import torch.nn.functional as F
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
-    _, (bw, f32_peak, _) = peaks(card)
+    _, (bw, f32_peak, bf16_peak) = peaks(card)
     gen = torch.Generator(device=dev).manual_seed(2)
     results = {}
     for label, b, s, h, p, n, g, dt_name, state, chunk in SSD_SHAPES:
@@ -432,6 +434,10 @@ def phase_ssd_kernel(torch, dev, card):
             errs[name] = (float(err.max()), scale)
         byts = nbytes(x, dt, a_neg, bm, cm, s0, y, st)
         flops = ssd_flops(b, s, h, p, n, g, state)
+        # the products may run in f32 on the FMA units or as three TF32
+        # products on the tensor cores, whichever takes less time
+        ops_s = min((flops / f32_peak, "f32 FMA"),
+                    (3 * flops / (bf16_peak / 2), "3xTF32 tensor cores"))
         row = {"shape": [b, s, h, p, n, g], "dtype": dt_name,
                "state0": state, "chunk": chunk,
                "max_abs_err": errs["y"][0], "max_abs_y": errs["y"][1],
@@ -440,10 +446,11 @@ def phase_ssd_kernel(torch, dev, card):
                "tol": {"scale": SSD_SCALE_TOL, "rtol": SSD_REL_TOL[dt_name]},
                "ok": ok, "ms": median_ms(torch, kern),
                "plain_ms": median_ms(torch, plain), "library_ms": None,
-               "bound_ms": 1e3 * max(byts / bw, flops / f32_peak),
+               "bound_ms": 1e3 * max(byts / bw, ops_s[0]),
                "bytes": byts, "flops": flops,
-               "bound_by": "bytes" if byts / bw >= flops / f32_peak
-               else "operations"}
+               "bound_by": "bytes" if byts / bw >= ops_s[0]
+               else "operations", "operations_on": ops_s[1],
+               "f32_fma_bound_ms": 1e3 * max(byts / bw, flops / f32_peak)}
         results[label] = row
         print(f"  K4 ssd_scan {label}: " + json.dumps(row), flush=True)
         check(ok, f"K4 {label} disagrees with its plain version")
@@ -797,7 +804,7 @@ def main() -> int:
         build.library(name)
     print(f"[1] built {sorted(p.name for p in libs.values())} in "
           f"{time.time() - t0:.2f} s", flush=True)
-    sass = tensor_core_ops(build)
+    sass = tensor_core_ops(build, "flash_attention")
     print(f"[1] tensor-core instructions in the flash-attention library: "
           f"{json.dumps(sass)}", flush=True)
     bf16_kernels = {fn: n for fn, n in sass.items()
@@ -806,6 +813,14 @@ def main() -> int:
         n["HGMMA"] + n["HMMA"] > 0 for n in bf16_kernels.values()),
         f"K3's bf16 kernel (Dh 64 and 128) has no tensor-core instruction: "
         f"{bf16_kernels}")
+    sass = tensor_core_ops(build, "ssd_scan")
+    print(f"[1] tensor-core instructions in the ssd_scan library: "
+          f"{json.dumps(sass)}", flush=True)
+    f32_kernels = {fn: n for fn, n in sass.items()
+                   if "ssd_scan_kernelIf" in fn}
+    check(len(f32_kernels) == 16 and all(
+        n["HMMA"] > 0 for n in f32_kernels.values()),
+        f"K4's f32 kernel (16 P, N pairs) has no HMMA: {f32_kernels}")
 
     print("[2] kernels vs plain versions on the card", flush=True)
     kres = phase_kernels(torch, dev, card)

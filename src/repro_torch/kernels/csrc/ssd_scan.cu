@@ -52,11 +52,9 @@
 namespace {
 
 constexpr int kQ = 64;            // rows per tile
-constexpr int kThreads = 256;
-constexpr int kLanes = 16;        // threads across columns
-constexpr int kRows = 4;          // y and score rows per thread
-constexpr int kJc = kQ / kLanes;  // score columns per thread
-constexpr int kLdA = kQ + 1;      // row stride of the att tile
+constexpr int kThreads = 256;     // 8 warps
+constexpr int kLanes = 16;        // threads across columns (SIMT phases)
+constexpr int kRows = 4;          // y rows per thread (SIMT phases)
 
 static_assert(kQ == kRows * (kThreads / kLanes), "row groups cover a tile");
 
@@ -70,16 +68,64 @@ __device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16_rn(v);
 }
 
+// Shared tiles are row-major with a row stride of their width (a multiple
+// of 32) and columns XOR-swizzled within each 32-column block by the row's
+// low three bits.  An m16n8k8 fragment load reads an 8 x 4 patch, its rows
+// on the lanes' group (lane / 4) and its columns on the lane in the group
+// (lane % 4), or the other way round; the B tile is read both ways (rows
+// of the scores' operand, the state update's depth), so no padding serves
+// both.  With the swizzle each patch hits 32 banks either way, and a pair
+// of columns (2c, 2c + 1) stays adjacent.
+__device__ __forceinline__ int swz(int row, int col) {
+  return col ^ (((row & 3) << 3) | (row & 4));
+}
+
+// TF32 operand halves: big = v rounded to TF32 (round to nearest, ties
+// away), small = the rounding of v - big (exact in f32).  big + small
+// carries v to ~2^-22 relative; the mma reads the top 19 bits of each.
+__device__ __forceinline__ uint32_t to_tf32(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return r;
+}
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = to_tf32(v) & 0xffffe000u;
+  small = to_tf32(v - __uint_as_float(big));
+}
+
+// d += a b, one m16n8k8 TF32 product with an f32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: small.big and big.small into the accumulator first, then
+// big.big; small.small (~2^-22 relative) is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(d, a_small, b_big[0], b_big[1]);
+  mma_tf32(d, a_big, b_small[0], b_small[1]);
+  mma_tf32(d, a_big, b_big[0], b_big[1]);
+}
+
 // Shared-memory layout, in floats.
 template <int P, int N>
 struct Smem {
-  static constexpr int kLdN = N + 1;
-  static constexpr int c = 0;                    // C tile [kQ][N + 1]
-  static constexpr int b = c + kQ * kLdN;        // B tile [kQ][N + 1]
-  static constexpr int xw = b + kQ * kLdN;       // dt x   [kQ][P]
-  static constexpr int att = xw + kQ * P;        // masked scores [kQ][kQ + 1]
-  static constexpr int s = att + kQ * kLdA;      // state  [P][N + 1]
-  static constexpr int cum = s + P * kLdN;       // running sum of dt a [kQ]
+  static constexpr int c = 0;                    // C tile [kQ][N]
+  static constexpr int bs = c + kQ * N;          // B tile [kQ][N], then the
+                                                 // state S [P][N]
+  static constexpr int xw = bs + (kQ + P) * N;   // dt x   [kQ][P]
+  static constexpr int att = xw + kQ * P;        // masked scores [kQ][kQ]
+  static constexpr int yt = att + kQ * kQ;       // y tile [kQ][P + 4]
+  static constexpr int cum = yt + kQ * (P + 4);  // running sum of dt a [kQ]
   static constexpr int ecum = cum + kQ;          // exp(cum_i)
   static constexpr int win = ecum + kQ;          // exp(seg - cum_j)
   static constexpr int total = win + kQ;
@@ -94,15 +140,21 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 T* __restrict__ y, float* __restrict__ state_out, int seq,
                 int h, int g) {
   using L = Smem<P, N>;
-  constexpr int kLdN = L::kLdN;
+  constexpr int kLdY = P + 4;
   constexpr int kPc = P / kLanes;   // y columns; state rows per thread
   constexpr int kNc = N / kLanes;   // state columns per thread
+  // the pass over N: each warp takes 16 rows and half the columns of
+  // [scores | C S^T], i.e. 4 score n-tiles and P / 16 state n-tiles of 8
+  constexpr int kScoreTiles = kQ / 16;
+  constexpr int kStateTiles = P / 16;
+  constexpr int kTiles1 = kScoreTiles + kStateTiles;
   extern __shared__ float smem[];
   float* c_s = smem + L::c;
-  float* b_s = smem + L::b;
+  float* bs_s = smem + L::bs;       // rows 0..kQ-1: B tile; kQ..: the state
+  float* s_s = bs_s + kQ * N;
   float* xw_s = smem + L::xw;
   float* att_s = smem + L::att;
-  float* s_s = smem + L::s;
+  float* y_s = smem + L::yt;
   float* cum_s = smem + L::cum;
   float* ecum_s = smem + L::ecum;
   float* win_s = smem + L::win;
@@ -110,9 +162,13 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   const int tid = threadIdx.x;
   const int ty = tid / kLanes;
   const int tx = tid % kLanes;
+  const int lane = tid % 32;
+  const int warp = tid / 32;
+  const int grp = lane / 4;         // fragment row (A) / column (B)
+  const int tig = lane % 4;         // fragment column (A) / row (B)
   const int head = blockIdx.x;
   const int b = blockIdx.y;
-  const int grp = head / (h / g);
+  const int group = head / (h / g);
   const float a = a_neg[head];
 
   const int64_t x_row = static_cast<int64_t>(h) * P;    // one x / y row
@@ -120,12 +176,18 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   const T* xb = x + (static_cast<int64_t>(b) * seq * h + head) * P;
   T* yb = y + (static_cast<int64_t>(b) * seq * h + head) * P;
   const T* dtb = dt + static_cast<int64_t>(b) * seq * h + head;
-  const T* bb = bm + (static_cast<int64_t>(b) * seq * g + grp) * N;
-  const T* cb = cm + (static_cast<int64_t>(b) * seq * g + grp) * N;
+  const T* bb = bm + (static_cast<int64_t>(b) * seq * g + group) * N;
+  const T* cb = cm + (static_cast<int64_t>(b) * seq * g + group) * N;
   const int64_t st_off = (static_cast<int64_t>(b) * h + head) * P * N;
 
-  for (int e = tid; e < P * N; e += kThreads)
-    s_s[(e / N) * kLdN + e % N] = state0 ? state0[st_off + e] : 0.f;
+  for (int e = tid; e < P * N; e += kThreads) {
+    const int p = e / N, n = e % N;
+    s_s[p * N + swz(p, n)] = state0 ? state0[st_off + e] : 0.f;
+  }
+
+  // this warp's rows and columns in the pass over N
+  const int row0 = (warp / 2) * 16;
+  const int half = warp % 2;
 
   for (int t0 = 0; t0 < seq; t0 += kQ) {
     __syncthreads();  // the state is staged; the last tile's readers are done
@@ -142,8 +204,8 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         bv = to_f32(bb[t * bc_row + n]);
         cv = to_f32(cb[t * bc_row + n]);
       }
-      b_s[r * kLdN + n] = bv;
-      c_s[r * kLdN + n] = cv;
+      bs_s[r * N + swz(r, n)] = bv;
+      c_s[r * N + swz(r, n)] = cv;
     }
     for (int e = tid; e < kQ * P; e += kThreads) {
       const int r = e / P, p = e % P, t = t0 + r;
@@ -174,52 +236,73 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       win_s[2 * tid] = expf(seg - c0);
       win_s[2 * tid + 1] = expf(seg - c1);
     }
-    __syncthreads();
 
-    // one pass over N: scores C_i . B_j and the inter-tile term C_i . S[p]
-    float sc[kRows][kJc], yacc[kRows][kPc];
+    // one pass over N on the tensor cores: C [kQ x N] times the B tile and
+    // the state stacked, [kQ + P x N]^T, gives the scores C_i . B_j and
+    // the inter-tile term C_i . S[p] together
+    float acc[kTiles1][4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
+    for (int q = 0; q < kTiles1; ++q)
 #pragma unroll
-      for (int j = 0; j < kJc; ++j) sc[r][j] = 0.f;
+      for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
+#pragma unroll 2
+    for (int k0 = 0; k0 < N; k0 += 8) {
+      uint32_t a_big[4], a_small[4];
 #pragma unroll
-      for (int c = 0; c < kPc; ++c) yacc[r][c] = 0.f;
-    }
-#pragma unroll 4
-    for (int n = 0; n < N; ++n) {
-      float cv[kRows], bv[kJc], sv[kPc];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) cv[r] = c_s[(ty * kRows + r) * kLdN + n];
-#pragma unroll
-      for (int j = 0; j < kJc; ++j) bv[j] = b_s[(tx + kLanes * j) * kLdN + n];
-#pragma unroll
-      for (int c = 0; c < kPc; ++c) sv[c] = s_s[(tx + kLanes * c) * kLdN + n];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-#pragma unroll
-        for (int j = 0; j < kJc; ++j) sc[r][j] = fmaf(cv[r], bv[j], sc[r][j]);
-#pragma unroll
-        for (int c = 0; c < kPc; ++c)
-          yacc[r][c] = fmaf(cv[r], sv[c], yacc[r][c]);
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int i = ty * kRows + r;
-      const float ci = cum_s[i], ei = ecum_s[i];
-#pragma unroll
-      for (int j = 0; j < kJc; ++j) {
-        const int jj = tx + kLanes * j;
-        att_s[i * kLdA + jj] =
-            jj <= i ? sc[r][j] * expf(ci - cum_s[jj]) : 0.f;
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + grp + 8 * (e & 1);
+        const int k = k0 + tig + 4 * (e >> 1);
+        split_tf32(c_s[r * N + swz(r, k)], a_big[e], a_small[e]);
       }
 #pragma unroll
-      for (int c = 0; c < kPc; ++c) yacc[r][c] *= ei;
+      for (int q = 0; q < kTiles1; ++q) {
+        const int j = (q < kScoreTiles
+                           ? half * (kQ / 2) + 8 * q
+                           : kQ + half * (P / 2) + 8 * (q - kScoreTiles)) +
+                      grp;
+        uint32_t b_big[2], b_small[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = k0 + tig + 4 * e;
+          split_tf32(bs_s[j * N + swz(j, k)], b_big[e], b_small[e]);
+        }
+        mma_3xtf32(acc[q], a_big, a_small, b_big, b_small);
+      }
     }
+    __syncthreads();  // cum, ecum and win are written
+    // scores: masked, decayed only inside the causal triangle (where
+    // exp(cum_i - cum_j) <= 1; above it the difference may overflow);
+    // C S^T scaled by exp(cum_i) into the y tile
+#pragma unroll
+    for (int q = 0; q < kTiles1; ++q)
+#pragma unroll
+      for (int hi = 0; hi < 2; ++hi) {
+        const int i = row0 + grp + 8 * hi;
+        const float v0 = acc[q][2 * hi], v1 = acc[q][2 * hi + 1];
+        if (q < kScoreTiles) {
+          const int j = half * (kQ / 2) + 8 * q + 2 * tig;
+          const float ci = cum_s[i];
+          float2 w;
+          w.x = j <= i ? v0 * expf(ci - cum_s[j]) : 0.f;
+          w.y = j + 1 <= i ? v1 * expf(ci - cum_s[j + 1]) : 0.f;
+          *reinterpret_cast<float2*>(&att_s[i * kQ + swz(i, j)]) = w;
+        } else {
+          const int p = half * (P / 2) + 8 * (q - kScoreTiles) + 2 * tig;
+          const float ei = ecum_s[i];
+          y_s[i * kLdY + p] = v0 * ei;
+          y_s[i * kLdY + p + 1] = v1 * ei;
+        }
+      }
     __syncthreads();
 
     // intra-tile term att (dt x), over the triangle only: a warp's rows end
     // at ((ty | 1) + 1) * kRows - 1
+    float yacc[kRows][kPc];
+#pragma unroll
+    for (int r = 0; r < kRows; ++r)
+#pragma unroll
+      for (int c = 0; c < kPc; ++c)
+        yacc[r][c] = y_s[(ty * kRows + r) * kLdY + tx + kLanes * c];
     const int j_end = ((ty | 1) + 1) * kRows;
     for (int jj = 0; jj < j_end; ++jj) {
       float xv[kPc];
@@ -227,7 +310,8 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       for (int c = 0; c < kPc; ++c) xv[c] = xw_s[jj * P + tx + kLanes * c];
 #pragma unroll
       for (int r = 0; r < kRows; ++r) {
-        const float av = att_s[(ty * kRows + r) * kLdA + jj];
+        const int i = ty * kRows + r;
+        const float av = att_s[i * kQ + swz(i, jj)];
 #pragma unroll
         for (int c = 0; c < kPc; ++c) yacc[r][c] = fmaf(av, xv[c], yacc[r][c]);
       }
@@ -242,12 +326,13 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     }
 
     // state update: S[p][n] = exp(seg) S[p][n] + sum_j w_j xw[j][p] B[j][n];
-    // no thread reads S in this phase, each writes only its own elements
-    float acc[kPc][kNc];
+    // the pass over N read S before the last barrier, and each thread
+    // writes only its own elements
+    float sacc[kPc][kNc];
 #pragma unroll
     for (int q = 0; q < kPc; ++q)
 #pragma unroll
-      for (int c = 0; c < kNc; ++c) acc[q][c] = 0.f;
+      for (int c = 0; c < kNc; ++c) sacc[q][c] = 0.f;
 #pragma unroll 2
     for (int jj = 0; jj < kQ; ++jj) {
       const float w = win_s[jj];
@@ -255,24 +340,31 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 #pragma unroll
       for (int q = 0; q < kPc; ++q) xv[q] = xw_s[jj * P + ty + kLanes * q] * w;
 #pragma unroll
-      for (int c = 0; c < kNc; ++c) bv[c] = b_s[jj * kLdN + tx + kLanes * c];
+      for (int c = 0; c < kNc; ++c) {
+        const int n = tx + kLanes * c;
+        bv[c] = bs_s[jj * N + swz(jj, n)];
+      }
 #pragma unroll
       for (int q = 0; q < kPc; ++q)
 #pragma unroll
-        for (int c = 0; c < kNc; ++c) acc[q][c] = fmaf(xv[q], bv[c], acc[q][c]);
+        for (int c = 0; c < kNc; ++c)
+          sacc[q][c] = fmaf(xv[q], bv[c], sacc[q][c]);
     }
     const float seg_decay = expf(cum_s[kQ - 1]);
 #pragma unroll
     for (int q = 0; q < kPc; ++q)
 #pragma unroll
       for (int c = 0; c < kNc; ++c) {
-        float* sp = &s_s[(ty + kLanes * q) * kLdN + tx + kLanes * c];
-        *sp = fmaf(*sp, seg_decay, acc[q][c]);
+        const int p = ty + kLanes * q, n = tx + kLanes * c;
+        float* sp = &s_s[p * N + swz(p, n)];
+        *sp = fmaf(*sp, seg_decay, sacc[q][c]);
       }
   }
   __syncthreads();
-  for (int e = tid; e < P * N; e += kThreads)
-    state_out[st_off + e] = s_s[(e / N) * kLdN + e % N];
+  for (int e = tid; e < P * N; e += kThreads) {
+    const int p = e / N, n = e % N;
+    state_out[st_off + e] = s_s[p * N + swz(p, n)];
+  }
 }
 
 template <typename T, int P, int N>

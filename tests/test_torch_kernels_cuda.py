@@ -18,11 +18,12 @@ f32 holds at 2e-5, and bf16 outputs at two bf16 ulps (rtol 1.6e-2)
 plus 1e-2, well under a typical output (about sqrt(e / Sk) for
 unit-variance inputs), so a wrong row fails.  K4 (the SSD scan) sums terms
 as large as its largest output, in another order and over its own tile of
-64 rows against the plain version's chunk: f32 agrees to about 1e-5 of the
-largest |y| (measured on the card), so y and the state are held at 1e-4
-of their largest magnitude plus 2e-4 relative (the reference's SSD
-tolerance); a bf16 y may then land one bf16 ulp apart, so 1.6e-2 relative
-(two ulps) instead.
+64 rows against the plain version's chunk, its products in 3xTF32 (about
+f32's precision; ``tests/test_torch_ssm.py`` emulates it): f32 agrees to
+about 1e-5 of the largest |y| (measured on the card), so y and the state
+are held at 1e-4 of their largest magnitude plus 2e-4 relative (the
+reference's SSD tolerance); a bf16 y may then land one bf16 ulp apart, so
+1.6e-2 relative (two ulps) instead.
 """
 import numpy as np
 import pytest
@@ -209,9 +210,14 @@ def test_flash_attention_plain_version_not_called_on_cuda(cuda):
 
 
 # K4: the smoke model's and the full-width mamba2 scan, a ragged S, and an
-# odd P, N pair; each with G in (1, 2), with and without state0, f32 and bf16
+# odd P, N pair; S around the kernel's 64-row tile (63, 64, 65, 129) at the
+# mamba2 widths, and P = N = 96; each with G in (1, 2), with and without
+# state0, f32 and bf16
 SSD_SHAPES = [(2, 37, 16, 32, 32, 32), (8, 1024, 64, 64, 128, 128),
-              (8, 1000, 64, 64, 128, 128), (1, 130, 4, 96, 64, 64)]
+              (8, 1000, 64, 64, 128, 128), (1, 130, 4, 96, 64, 64),
+              (2, 63, 4, 64, 128, 64), (2, 64, 4, 64, 128, 64),
+              (2, 65, 4, 64, 128, 64), (2, 129, 4, 64, 128, 64),
+              (1, 130, 4, 96, 96, 64)]
 SSD_REL = {torch.float32: 2e-4, torch.bfloat16: 1.6e-2}
 
 
@@ -264,11 +270,16 @@ def test_ssd_scan_kernel_matches_plain(cuda, b, s, h, p, n, chunk, g, state,
     _check_ssd(*_ssd_inputs(cuda, b, s, h, p, n, g, dtype, state), chunk)
 
 
+@pytest.mark.parametrize("x_scale", [1.0, 1e3])
 @pytest.mark.parametrize("n", [32, 64, 96, 128])
 @pytest.mark.parametrize("p", [32, 64, 96, 128])
-def test_ssd_scan_kernel_every_width(cuda, p, n):
-    _check_ssd(*_ssd_inputs(cuda, 1, 130, 4, p, n, 2, torch.float32, True,
-                            seed=1), 64)
+def test_ssd_scan_kernel_every_width(cuda, p, n, x_scale):
+    """Every P, N pair; x scaled by 1e3 against B, C and state0 drawn as
+    usual puts the TF32 products' error in the small halves at another
+    magnitude than the others'."""
+    x, *rest = _ssd_inputs(cuda, 1, 130, 4, p, n, 2, torch.float32, True,
+                           seed=1)
+    _check_ssd(x * x_scale, *rest, 64)
 
 
 def test_ssd_scan_rejects_what_it_does_not_take(cuda):
