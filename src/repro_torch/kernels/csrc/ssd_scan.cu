@@ -17,10 +17,22 @@
 // Bound: at the main-path shape (B 8, S 1024, H 64, P 64, N 128, G 1, f32,
 // no state in) the chunked form needs 17.9 GFLOP at the tile length that
 // needs fewest, 13 rows (C B^T once per group, the lower triangles only,
-// C S_in, the state's decay and update), 0.27 ms at the f32 FMA peak of
-// 67 TFLOP/s, and moves 295.7 MB (x and y dominate), 0.088 ms at
-// 3.35 TB/s: operations bound it.  TF32 or bf16 products would miss the f32 tolerance, so the
-// simple design computes on the f32 FMA units.
+// C S_in, the state's decay and update), and moves 295.7 MB (x and y
+// dominate), 0.088 ms at 3.35 TB/s.  On the f32 FMA units (67 TFLOP/s)
+// the operations take 0.267 ms; as three TF32 products on the tensor cores
+// (495 TFLOP/s dense) 0.108 ms, which is the bound.
+//
+// Precision: the products run on mma.sync m16n8k8 TF32 with f32
+// accumulators.  TF32 keeps 11 bits of the significand, and one pass
+// misses the f32 tolerance the port holds K4 to (1e-4 of the largest
+// output plus 2e-4 relative) about twofold.  So each operand is split in
+// registers as it leaves shared memory, big = cvt.rna.tf32(v) and small =
+// cvt.rna.tf32(v - big), and each product is small.big + big.small +
+// big.big (3xTF32; small.small, ~2^-22 relative, is dropped): that carries
+// the operands to ~2^-22, as near to f32 as its own rounding
+// (tests/test_torch_ssm.py emulates both on the CPU).  TF32 rounding enters
+// only there: the running sums of dt a, the exps, the mask and the decays
+// stay in f32 on the FMA units.
 //
 // What this design does about it: every product stays on chip and the
 // state never goes back to device memory until the end.
@@ -28,18 +40,24 @@
 //     rows (the Pallas body uses the chunk, 128; the SSD form is exact for
 //     any tile, so the tile length changes rounding only) with the state in
 //     shared memory;
-//   - per tile: B, C (row stride N + 1 against bank conflicts) and dt-weighted
-//     x are staged in shared memory; one warp scans dt a; then one pass over
-//     N computes C B^T (the decay applied only inside the causal triangle,
-//     where exp(cum_i - cum_j) <= 1; above it the difference may overflow)
-//     and C S_in together; then att (dt x) over the triangle only, and the
-//     state update exp(seg) S + B^T diag(exp(seg - cum_j)) (dt x);
-//   - 256 threads, each owning 4 rows x P/16 columns of y, 4 x 4 scores and
-//     P/16 x N/16 elements of the state;
+//   - per tile, 8 warps: B, C and dt-weighted x are staged in shared memory
+//     (row-major, columns XOR-swizzled so that fragment loads hit 32
+//     banks); one warp scans dt a; then three products on the tensor cores:
+//       1. C [64 x N] times [B_tile; S]^T, one pass over N that gives the
+//          scores C B^T and C S_in^T together (each warp 16 rows, half the
+//          columns), the scores masked and decayed only inside the causal
+//          triangle (where exp(cum_i - cum_j) <= 1; above it the difference
+//          may overflow), C S_in^T scaled by exp(cum_i) in the registers;
+//       2. att [64 x 64] times (dt x) [64 x P] onto those same fragments,
+//          skipping k-steps above a warp's rows; y leaves from them;
+//       3. the state update S = exp(seg) S + (w o dt x)^T B_tile [P x N],
+//          w_j = exp(seg - cum_j), its accumulator started as exp(seg) S
+//          and written back for the next tile's pass;
 //   - rows past S read as zero with dt = 0, as the reference's padding: the
 //     state is exact and no y row past S is written;
 //   - head h reads group h / (H / G) in place (no repeated copies).
-// Tensor cores (mma.sync, then wgmma) are later work.
+// wgmma, two blocks per SM, cp.async staging and strided loads are later
+// work.
 //
 // Plain C interface for ctypes: every pointer and the stream are void*,
 // and each entry returns a cudaError_t as an int (0 = launched).
@@ -53,19 +71,19 @@ namespace {
 
 constexpr int kQ = 64;            // rows per tile
 constexpr int kThreads = 256;     // 8 warps
-constexpr int kLanes = 16;        // threads across columns (SIMT phases)
-constexpr int kRows = 4;          // y rows per thread (SIMT phases)
-
-static_assert(kQ == kRows * (kThreads / kLanes), "row groups cover a tile");
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
-__device__ __forceinline__ void store(float* dst, float v) { *dst = v; }
-__device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
-  *dst = __float2bfloat16_rn(v);
+// two adjacent outputs (an accumulator fragment's column pair)
+__device__ __forceinline__ void store2(float* dst, float v0, float v1) {
+  *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
+}
+__device__ __forceinline__ void store2(__nv_bfloat16* dst, float v0,
+                                       float v1) {
+  *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
 }
 
 // Shared tiles are row-major with a row stride of their width (a multiple
@@ -124,8 +142,7 @@ struct Smem {
                                                  // state S [P][N]
   static constexpr int xw = bs + (kQ + P) * N;   // dt x   [kQ][P]
   static constexpr int att = xw + kQ * P;        // masked scores [kQ][kQ]
-  static constexpr int yt = att + kQ * kQ;       // y tile [kQ][P + 4]
-  static constexpr int cum = yt + kQ * (P + 4);  // running sum of dt a [kQ]
+  static constexpr int cum = att + kQ * kQ;      // running sum of dt a [kQ]
   static constexpr int ecum = cum + kQ;          // exp(cum_i)
   static constexpr int win = ecum + kQ;          // exp(seg - cum_j)
   static constexpr int total = win + kQ;
@@ -140,28 +157,27 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 T* __restrict__ y, float* __restrict__ state_out, int seq,
                 int h, int g) {
   using L = Smem<P, N>;
-  constexpr int kLdY = P + 4;
-  constexpr int kPc = P / kLanes;   // y columns; state rows per thread
-  constexpr int kNc = N / kLanes;   // state columns per thread
-  // the pass over N: each warp takes 16 rows and half the columns of
-  // [scores | C S^T], i.e. 4 score n-tiles and P / 16 state n-tiles of 8
+  // C [B; S]^T and att (dt x): each warp takes 16 rows and half the
+  // columns, 4 score n-tiles of 8 and P / 16 y n-tiles (the same for both
+  // products, so att (dt x) accumulates onto C S^T)
   constexpr int kScoreTiles = kQ / 16;
-  constexpr int kStateTiles = P / 16;
-  constexpr int kTiles1 = kScoreTiles + kStateTiles;
+  constexpr int kYTiles = P / 16;
+  constexpr int kTiles1 = kScoreTiles + kYTiles;
+  // the state update [P x N]: each warp takes P / 32 m-tiles of 16 rows
+  // and N / 32 n-tiles of 8
+  constexpr int kSm = P / 32;
+  constexpr int kSn = N / 32;
   extern __shared__ float smem[];
   float* c_s = smem + L::c;
   float* bs_s = smem + L::bs;       // rows 0..kQ-1: B tile; kQ..: the state
   float* s_s = bs_s + kQ * N;
   float* xw_s = smem + L::xw;
   float* att_s = smem + L::att;
-  float* y_s = smem + L::yt;
   float* cum_s = smem + L::cum;
   float* ecum_s = smem + L::ecum;
   float* win_s = smem + L::win;
 
   const int tid = threadIdx.x;
-  const int ty = tid / kLanes;
-  const int tx = tid % kLanes;
   const int lane = tid % 32;
   const int warp = tid / 32;
   const int grp = lane / 4;         // fragment row (A) / column (B)
@@ -185,9 +201,12 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     s_s[p * N + swz(p, n)] = state0 ? state0[st_off + e] : 0.f;
   }
 
-  // this warp's rows and columns in the pass over N
+  // this warp's rows and columns: of the tile's rows and [scores | y]
+  // (row0, half), and of the state (p_base, n_base)
   const int row0 = (warp / 2) * 16;
   const int half = warp % 2;
+  const int p_base = (warp / 4) * (P / 2);
+  const int n_base = (warp % 4) * (N / 4);
 
   for (int t0 = 0; t0 < seq; t0 += kQ) {
     __syncthreads();  // the state is staged; the last tile's readers are done
@@ -209,9 +228,10 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     }
     for (int e = tid; e < kQ * P; e += kThreads) {
       const int r = e / P, p = e % P, t = t0 + r;
-      xw_s[e] = t < seq ? to_f32(xb[t * x_row + p]) *
-                              to_f32(dtb[t * static_cast<int64_t>(h)])
-                        : 0.f;
+      xw_s[r * P + swz(r, p)] =
+          t < seq ? to_f32(xb[t * x_row + p]) *
+                        to_f32(dtb[t * static_cast<int64_t>(h)])
+                  : 0.f;
     }
     __syncthreads();
 
@@ -269,96 +289,120 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         mma_3xtf32(acc[q], a_big, a_small, b_big, b_small);
       }
     }
-    __syncthreads();  // cum, ecum and win are written
+    __syncthreads();  // cum, ecum and win are written; S is read
     // scores: masked, decayed only inside the causal triangle (where
     // exp(cum_i - cum_j) <= 1; above it the difference may overflow);
-    // C S^T scaled by exp(cum_i) into the y tile
+    // C S^T scaled by exp(cum_i) in the registers
 #pragma unroll
-    for (int q = 0; q < kTiles1; ++q)
+    for (int hi = 0; hi < 2; ++hi) {
+      const int i = row0 + grp + 8 * hi;
+      const float ci = cum_s[i], ei = ecum_s[i];
 #pragma unroll
-      for (int hi = 0; hi < 2; ++hi) {
-        const int i = row0 + grp + 8 * hi;
-        const float v0 = acc[q][2 * hi], v1 = acc[q][2 * hi + 1];
-        if (q < kScoreTiles) {
-          const int j = half * (kQ / 2) + 8 * q + 2 * tig;
-          const float ci = cum_s[i];
-          float2 w;
-          w.x = j <= i ? v0 * expf(ci - cum_s[j]) : 0.f;
-          w.y = j + 1 <= i ? v1 * expf(ci - cum_s[j + 1]) : 0.f;
-          *reinterpret_cast<float2*>(&att_s[i * kQ + swz(i, j)]) = w;
-        } else {
-          const int p = half * (P / 2) + 8 * (q - kScoreTiles) + 2 * tig;
-          const float ei = ecum_s[i];
-          y_s[i * kLdY + p] = v0 * ei;
-          y_s[i * kLdY + p + 1] = v1 * ei;
-        }
+      for (int q = 0; q < kScoreTiles; ++q) {
+        const int j = half * (kQ / 2) + 8 * q + 2 * tig;
+        float2 v;
+        v.x = j <= i ? acc[q][2 * hi] * expf(ci - cum_s[j]) : 0.f;
+        v.y = j + 1 <= i ? acc[q][2 * hi + 1] * expf(ci - cum_s[j + 1])
+                         : 0.f;
+        *reinterpret_cast<float2*>(&att_s[i * kQ + swz(i, j)]) = v;
       }
-    __syncthreads();
+#pragma unroll
+      for (int q = kScoreTiles; q < kTiles1; ++q) {
+        acc[q][2 * hi] *= ei;
+        acc[q][2 * hi + 1] *= ei;
+      }
+    }
+    __syncthreads();  // att is written
 
-    // intra-tile term att (dt x), over the triangle only: a warp's rows end
-    // at ((ty | 1) + 1) * kRows - 1
-    float yacc[kRows][kPc];
+    // intra-tile term: y += att (dt x) onto the C S^T fragments, over the
+    // causal triangle only (k-steps past this warp's last row are zero)
+    for (int k0 = 0; k0 < row0 + 16; k0 += 8) {
+      uint32_t a_big[4], a_small[4];
 #pragma unroll
-    for (int r = 0; r < kRows; ++r)
+      for (int e = 0; e < 4; ++e) {
+        const int r = row0 + grp + 8 * (e & 1);
+        const int k = k0 + tig + 4 * (e >> 1);
+        split_tf32(att_s[r * kQ + swz(r, k)], a_big[e], a_small[e]);
+      }
 #pragma unroll
-      for (int c = 0; c < kPc; ++c)
-        yacc[r][c] = y_s[(ty * kRows + r) * kLdY + tx + kLanes * c];
-    const int j_end = ((ty | 1) + 1) * kRows;
-    for (int jj = 0; jj < j_end; ++jj) {
-      float xv[kPc];
+      for (int q = kScoreTiles; q < kTiles1; ++q) {
+        const int p = half * (P / 2) + 8 * (q - kScoreTiles) + grp;
+        uint32_t b_big[2], b_small[2];
 #pragma unroll
-      for (int c = 0; c < kPc; ++c) xv[c] = xw_s[jj * P + tx + kLanes * c];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int i = ty * kRows + r;
-        const float av = att_s[i * kQ + swz(i, jj)];
-#pragma unroll
-        for (int c = 0; c < kPc; ++c) yacc[r][c] = fmaf(av, xv[c], yacc[r][c]);
+        for (int e = 0; e < 2; ++e) {
+          const int k = k0 + tig + 4 * e;
+          split_tf32(xw_s[k * P + swz(k, p)], b_big[e], b_small[e]);
+        }
+        mma_3xtf32(acc[q], a_big, a_small, b_big, b_small);
       }
     }
 #pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int t = t0 + ty * kRows + r;
+    for (int hi = 0; hi < 2; ++hi) {
+      const int t = t0 + row0 + grp + 8 * hi;
       if (t >= seq) continue;
 #pragma unroll
-      for (int c = 0; c < kPc; ++c)
-        store(&yb[t * x_row + tx + kLanes * c], yacc[r][c]);
+      for (int q = kScoreTiles; q < kTiles1; ++q) {
+        const int p = half * (P / 2) + 8 * (q - kScoreTiles) + 2 * tig;
+        store2(&yb[t * x_row + p], acc[q][2 * hi], acc[q][2 * hi + 1]);
+      }
     }
 
-    // state update: S[p][n] = exp(seg) S[p][n] + sum_j w_j xw[j][p] B[j][n];
-    // the pass over N read S before the last barrier, and each thread
-    // writes only its own elements
-    float sacc[kPc][kNc];
-#pragma unroll
-    for (int q = 0; q < kPc; ++q)
-#pragma unroll
-      for (int c = 0; c < kNc; ++c) sacc[q][c] = 0.f;
-#pragma unroll 2
-    for (int jj = 0; jj < kQ; ++jj) {
-      const float w = win_s[jj];
-      float xv[kPc], bv[kNc];
-#pragma unroll
-      for (int q = 0; q < kPc; ++q) xv[q] = xw_s[jj * P + ty + kLanes * q] * w;
-#pragma unroll
-      for (int c = 0; c < kNc; ++c) {
-        const int n = tx + kLanes * c;
-        bv[c] = bs_s[jj * N + swz(jj, n)];
-      }
-#pragma unroll
-      for (int q = 0; q < kPc; ++q)
-#pragma unroll
-        for (int c = 0; c < kNc; ++c)
-          sacc[q][c] = fmaf(xv[q], bv[c], sacc[q][c]);
-    }
+    // state update: S = exp(seg) S + (w o dt x)^T B_tile [P x N], w_j =
+    // exp(seg - cum_j); the accumulator starts as exp(seg) S.  Every
+    // reader of S passed the last barrier, and each thread reads and
+    // writes only its own fragment's elements
     const float seg_decay = expf(cum_s[kQ - 1]);
+    float sacc[kSm][kSn][4];
 #pragma unroll
-    for (int q = 0; q < kPc; ++q)
+    for (int mt = 0; mt < kSm; ++mt)
 #pragma unroll
-      for (int c = 0; c < kNc; ++c) {
-        const int p = ty + kLanes * q, n = tx + kLanes * c;
-        float* sp = &s_s[p * N + swz(p, n)];
-        *sp = fmaf(*sp, seg_decay, sacc[q][c]);
+      for (int nt = 0; nt < kSn; ++nt)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int p = p_base + 16 * mt + grp + 8 * hi;
+          const int n = n_base + 8 * nt + 2 * tig;
+          const float2 v =
+              *reinterpret_cast<const float2*>(&s_s[p * N + swz(p, n)]);
+          sacc[mt][nt][2 * hi] = v.x * seg_decay;
+          sacc[mt][nt][2 * hi + 1] = v.y * seg_decay;
+        }
+#pragma unroll 2
+    for (int k0 = 0; k0 < kQ; k0 += 8) {
+      uint32_t a_big[kSm][4], a_small[kSm][4];
+#pragma unroll
+      for (int mt = 0; mt < kSm; ++mt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int p = p_base + 16 * mt + grp + 8 * (e & 1);
+          const int k = k0 + tig + 4 * (e >> 1);
+          split_tf32(xw_s[k * P + swz(k, p)] * win_s[k], a_big[mt][e],
+                     a_small[mt][e]);
+        }
+#pragma unroll
+      for (int nt = 0; nt < kSn; ++nt) {
+        const int n = n_base + 8 * nt + grp;
+        uint32_t b_big[2], b_small[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int k = k0 + tig + 4 * e;
+          split_tf32(bs_s[k * N + swz(k, n)], b_big[e], b_small[e]);
+        }
+#pragma unroll
+        for (int mt = 0; mt < kSm; ++mt)
+          mma_3xtf32(sacc[mt][nt], a_big[mt], a_small[mt], b_big, b_small);
       }
+    }
+#pragma unroll
+    for (int mt = 0; mt < kSm; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < kSn; ++nt)
+#pragma unroll
+        for (int hi = 0; hi < 2; ++hi) {
+          const int p = p_base + 16 * mt + grp + 8 * hi;
+          const int n = n_base + 8 * nt + 2 * tig;
+          *reinterpret_cast<float2*>(&s_s[p * N + swz(p, n)]) =
+              make_float2(sacc[mt][nt][2 * hi], sacc[mt][nt][2 * hi + 1]);
+        }
   }
   __syncthreads();
   for (int e = tid; e < P * N; e += kThreads) {

@@ -13,15 +13,22 @@ float32.
 
 Bound: at the main-path shape (B 8, S 1024, H 64, P 64, N 128, G 1, f32,
 no state in) operations: 17.9 GFLOP of the chunked form at the tile length
-that needs fewest (13 rows), 0.27 ms at the f32 FMA peak of 67 TFLOP/s,
+that needs fewest (13 rows), 0.108 ms as three TF32 products on the tensor
+cores at 495 TFLOP/s (0.27 ms on the f32 FMA units at 67 TFLOP/s),
 against 295.7 MB moved, 0.088 ms at 3.35 TB/s.
-The simple design runs on the f32 FMA units: one block per (head, batch)
-walks tiles of 64 rows with the state in shared memory, and computes the
-masked C B^T, the inter-tile term and the state update on chip (see the
-source).  The kernel's tile is its own: the SSD form is exact for any
-chunk length, so ``chunk`` changes rounding only and is what the plain
-version uses.  Rows past S are masked in the kernel as the reference's
-padding with dt = 0, so a ragged S needs no padded copy.
+One block per (head, batch) walks tiles of 64 rows with the state in
+shared memory and runs the tile's three products on the tensor cores
+(``mma.sync`` m16n8k8 TF32): C [B; S]^T (the scores and the inter-tile
+term in one pass), the masked scores times dt x, and the state update (see
+the source).  TF32 enters only there, and as 3xTF32: each operand is split
+into a TF32 big half and the TF32 rounding of the rest, and small.big +
+big.small + big.big carries the products to about f32's precision, so K4
+keeps the f32 tolerance that one TF32 pass misses
+(``tests/test_torch_ssm.py`` emulates both).  The running sums, exps,
+masks and decays stay in f32.  The kernel's tile is its own: the SSD form
+is exact for any chunk length, so ``chunk`` changes rounding only and is
+what the plain version uses.  Rows past S are masked in the kernel as the
+reference's padding with dt = 0, so a ragged S needs no padded copy.
 
 The plain version is ``ref.ssd_chunked``.  The wrapper takes it for CPU
 tensors, and on the card only when asked (``use_kernel=False``, for
