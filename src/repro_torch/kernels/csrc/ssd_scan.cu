@@ -25,14 +25,14 @@
 // Precision: the products run on mma.sync m16n8k8 TF32 with f32
 // accumulators.  TF32 keeps 11 bits of the significand, and one pass
 // misses the f32 tolerance the port holds K4 to (1e-4 of the largest
-// output plus 2e-4 relative) about twofold.  So each operand is split in
-// registers as it leaves shared memory, big = cvt.rna.tf32(v) and small =
-// cvt.rna.tf32(v - big), and each product is small.big + big.small +
-// big.big (3xTF32; small.small, ~2^-22 relative, is dropped): that carries
-// the operands to ~2^-22, as near to f32 as its own rounding
-// (tests/test_torch_ssm.py emulates both on the CPU).  TF32 rounding enters
-// only there: the running sums of dt a, the exps, the mask and the decays
-// stay in f32 on the FMA units.
+// output plus 2e-4 relative) two- to threefold.  So each operand is split
+// in registers as it leaves shared memory, big = v rounded to TF32 and
+// small = v - big rounded to TF32 (cvt.rna.tf32.f32's rounding), and each
+// product is small.big + big.small + big.big (3xTF32; small.small, ~2^-22
+// relative, is dropped): that carries the operands to ~2^-22, as near to
+// f32 as its own rounding (tests/test_torch_ssm.py emulates both on the
+// CPU).  TF32 rounding enters only there: the running sums of dt a, the
+// exps, the mask and the decays stay in f32 on the FMA units.
 //
 // What this design does about it: every product stays on chip and the
 // state never goes back to device memory until the end.
@@ -41,8 +41,9 @@
 //     any tile, so the tile length changes rounding only) with the state in
 //     shared memory;
 //   - per tile, 8 warps: B, C and dt-weighted x are staged in shared memory
-//     (row-major, columns XOR-swizzled so that fragment loads hit 32
-//     banks); one warp scans dt a; then three products on the tensor cores:
+//     (16-byte loads, all of a thread's issued before its stores; rows
+//     padded so that fragment loads hit 32 banks); one warp scans dt a;
+//     then three products on the tensor cores:
 //       1. C [64 x N] times [B_tile; S]^T, one pass over N that gives the
 //          scores C B^T and C S_in^T together (each warp 16 rows, half the
 //          columns), the scores masked and decayed only inside the causal
@@ -77,6 +78,19 @@ __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
 
+// four consecutive inputs as f32: 16 bytes of f32, 8 of bf16
+__device__ __forceinline__ float4 load4(const float* src) {
+  return *reinterpret_cast<const float4*>(src);
+}
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* src) {
+  const uint2 u = *reinterpret_cast<const uint2*>(src);
+  const float2 lo =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+  const float2 hi =
+      __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
+}
+
 // two adjacent outputs (an accumulator fragment's column pair)
 __device__ __forceinline__ void store2(float* dst, float v0, float v1) {
   *reinterpret_cast<float2*>(dst) = make_float2(v0, v1);
@@ -86,29 +100,30 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float v0,
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
 }
 
-// Shared tiles are row-major with a row stride of their width (a multiple
-// of 32) and columns XOR-swizzled within each 32-column block by the row's
-// low three bits.  An m16n8k8 fragment load reads an 8 x 4 patch, its rows
-// on the lanes' group (lane / 4) and its columns on the lane in the group
-// (lane % 4), or the other way round; the B tile is read both ways (rows
-// of the scores' operand, the state update's depth), so no padding serves
-// both.  With the swizzle each patch hits 32 banks either way, and a pair
-// of columns (2c, 2c + 1) stays adjacent.
-__device__ __forceinline__ int swz(int row, int col) {
-  return col ^ (((row & 3) << 3) | (row & 4));
-}
+// Shared tiles are row-major with padded rows.  An m16n8k8 fragment load
+// reads an 8 x 4 patch: 8 rows (lane / 4) by 4 columns (lane % 4) of C,
+// [B; S] and att, or 4 rows by 8 columns of dt x (and of B in the state
+// update).  A row stride of 4 mod 32 words puts the first kind on 32 banks,
+// one of 8 mod 32 the second; B, read both ways, takes 4 and its state
+// update loads fall two lanes to a bank.
+template <int W>
+struct Pad {
+  static constexpr int ld4 = W + 4;   // rows read 8 x 4
+  static constexpr int ld8 = W + 8;   // rows read 4 x 8
+};
 
-// TF32 operand halves: big = v rounded to TF32 (round to nearest, ties
-// away), small = the rounding of v - big (exact in f32).  big + small
-// carries v to ~2^-22 relative; the mma reads the top 19 bits of each.
+// TF32 operand halves: big = v rounded to TF32, small = the rounding of
+// v - big (exact in f32); big + small carries v to ~2^-22 relative.  The
+// rounding is cvt.rna.tf32.f32's (to nearest on the 13 dropped bits, ties
+// away from zero), written as integer operations: for a finite v it is the
+// same, and ptxas expands cvt.rna into a NaN/inf test and a predicated add
+// besides (three instructions a value, on the operands of every product).
 __device__ __forceinline__ uint32_t to_tf32(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return r;
+  return (__float_as_uint(v) + 0x1000u) & 0xffffe000u;
 }
 __device__ __forceinline__ void split_tf32(float v, uint32_t& big,
                                            uint32_t& small) {
-  big = to_tf32(v) & 0xffffe000u;
+  big = to_tf32(v);
   small = to_tf32(v - __uint_as_float(big));
 }
 
@@ -137,12 +152,15 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
 // Shared-memory layout, in floats.
 template <int P, int N>
 struct Smem {
+  static constexpr int ldn = Pad<N>::ld4;        // C, B and S rows
+  static constexpr int ldx = Pad<P>::ld8;        // dt x rows
+  static constexpr int lda = Pad<kQ>::ld4;       // att rows
   static constexpr int c = 0;                    // C tile [kQ][N]
-  static constexpr int bs = c + kQ * N;          // B tile [kQ][N], then the
+  static constexpr int bs = c + kQ * ldn;        // B tile [kQ][N], then the
                                                  // state S [P][N]
-  static constexpr int xw = bs + (kQ + P) * N;   // dt x   [kQ][P]
-  static constexpr int att = xw + kQ * P;        // masked scores [kQ][kQ]
-  static constexpr int cum = att + kQ * kQ;      // running sum of dt a [kQ]
+  static constexpr int xw = bs + (kQ + P) * ldn; // dt x   [kQ][P]
+  static constexpr int att = xw + kQ * ldx;      // masked scores [kQ][kQ]
+  static constexpr int cum = att + kQ * lda;     // running sum of dt a [kQ]
   static constexpr int ecum = cum + kQ;          // exp(cum_i)
   static constexpr int win = ecum + kQ;          // exp(seg - cum_j)
   static constexpr int total = win + kQ;
@@ -157,6 +175,7 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
                 T* __restrict__ y, float* __restrict__ state_out, int seq,
                 int h, int g) {
   using L = Smem<P, N>;
+  constexpr int kLdN = L::ldn, kLdX = L::ldx, kLdA = L::lda;
   // C [B; S]^T and att (dt x): each warp takes 16 rows and half the
   // columns, 4 score n-tiles of 8 and P / 16 y n-tiles (the same for both
   // products, so att (dt x) accumulates onto C S^T)
@@ -167,10 +186,13 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
   // and N / 32 n-tiles of 8
   constexpr int kSm = P / 32;
   constexpr int kSn = N / 32;
+  // staging: float4s of B (and of C) and of x per thread
+  constexpr int kStage = kQ * N / 4 / kThreads;
+  constexpr int kStageX = kQ * P / 4 / kThreads;
   extern __shared__ float smem[];
   float* c_s = smem + L::c;
   float* bs_s = smem + L::bs;       // rows 0..kQ-1: B tile; kQ..: the state
-  float* s_s = bs_s + kQ * N;
+  float* s_s = bs_s + kQ * kLdN;
   float* xw_s = smem + L::xw;
   float* att_s = smem + L::att;
   float* cum_s = smem + L::cum;
@@ -198,7 +220,7 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 
   for (int e = tid; e < P * N; e += kThreads) {
     const int p = e / N, n = e % N;
-    s_s[p * N + swz(p, n)] = state0 ? state0[st_off + e] : 0.f;
+    s_s[p * kLdN + n] = state0 ? state0[st_off + e] : 0.f;
   }
 
   // this warp's rows and columns: of the tile's rows and [scores | y]
@@ -216,22 +238,41 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       cum_s[tid] = t < seq ? to_f32(dtb[t * static_cast<int64_t>(h)]) * a
                            : 0.f;
     }
-    for (int e = tid; e < kQ * N; e += kThreads) {
-      const int r = e / N, n = e % N, t = t0 + r;
-      float bv = 0.f, cv = 0.f;
+    // four elements a load, every load of the tile issued before the first
+    // store to shared memory
+    float4 bv[kStage], cv[kStage], xv[kStageX];
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int v = tid + u * kThreads, r = v / (N / 4), t = t0 + r;
+      const int n = 4 * (v % (N / 4));
+      bv[u] = cv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
       if (t < seq) {
-        bv = to_f32(bb[t * bc_row + n]);
-        cv = to_f32(cb[t * bc_row + n]);
+        bv[u] = load4(bb + t * bc_row + n);
+        cv[u] = load4(cb + t * bc_row + n);
       }
-      bs_s[r * N + swz(r, n)] = bv;
-      c_s[r * N + swz(r, n)] = cv;
     }
-    for (int e = tid; e < kQ * P; e += kThreads) {
-      const int r = e / P, p = e % P, t = t0 + r;
-      xw_s[r * P + swz(r, p)] =
-          t < seq ? to_f32(xb[t * x_row + p]) *
-                        to_f32(dtb[t * static_cast<int64_t>(h)])
-                  : 0.f;
+#pragma unroll
+    for (int u = 0; u < kStageX; ++u) {
+      const int v = tid + u * kThreads, r = v / (P / 4), t = t0 + r;
+      const int p = 4 * (v % (P / 4));
+      xv[u] = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (t < seq) {
+        const float d = to_f32(dtb[t * static_cast<int64_t>(h)]);
+        const float4 xr = load4(xb + t * x_row + p);
+        xv[u] = make_float4(xr.x * d, xr.y * d, xr.z * d, xr.w * d);
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < kStage; ++u) {
+      const int v = tid + u * kThreads, r = v / (N / 4);
+      const int at = r * kLdN + 4 * (v % (N / 4));
+      *reinterpret_cast<float4*>(&bs_s[at]) = bv[u];
+      *reinterpret_cast<float4*>(&c_s[at]) = cv[u];
+    }
+#pragma unroll
+    for (int u = 0; u < kStageX; ++u) {
+      const int v = tid + u * kThreads, r = v / (P / 4);
+      *reinterpret_cast<float4*>(&xw_s[r * kLdX + 4 * (v % (P / 4))]) = xv[u];
     }
     __syncthreads();
 
@@ -265,14 +306,14 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
     for (int q = 0; q < kTiles1; ++q)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[q][e] = 0.f;
-#pragma unroll 2
+#pragma unroll 4
     for (int k0 = 0; k0 < N; k0 += 8) {
       uint32_t a_big[4], a_small[4];
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int r = row0 + grp + 8 * (e & 1);
         const int k = k0 + tig + 4 * (e >> 1);
-        split_tf32(c_s[r * N + swz(r, k)], a_big[e], a_small[e]);
+        split_tf32(c_s[r * kLdN + k], a_big[e], a_small[e]);
       }
 #pragma unroll
       for (int q = 0; q < kTiles1; ++q) {
@@ -284,7 +325,7 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int k = k0 + tig + 4 * e;
-          split_tf32(bs_s[j * N + swz(j, k)], b_big[e], b_small[e]);
+          split_tf32(bs_s[j * kLdN + k], b_big[e], b_small[e]);
         }
         mma_3xtf32(acc[q], a_big, a_small, b_big, b_small);
       }
@@ -304,7 +345,7 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         v.x = j <= i ? acc[q][2 * hi] * expf(ci - cum_s[j]) : 0.f;
         v.y = j + 1 <= i ? acc[q][2 * hi + 1] * expf(ci - cum_s[j + 1])
                          : 0.f;
-        *reinterpret_cast<float2*>(&att_s[i * kQ + swz(i, j)]) = v;
+        *reinterpret_cast<float2*>(&att_s[i * kLdA + j]) = v;
       }
 #pragma unroll
       for (int q = kScoreTiles; q < kTiles1; ++q) {
@@ -322,7 +363,7 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
       for (int e = 0; e < 4; ++e) {
         const int r = row0 + grp + 8 * (e & 1);
         const int k = k0 + tig + 4 * (e >> 1);
-        split_tf32(att_s[r * kQ + swz(r, k)], a_big[e], a_small[e]);
+        split_tf32(att_s[r * kLdA + k], a_big[e], a_small[e]);
       }
 #pragma unroll
       for (int q = kScoreTiles; q < kTiles1; ++q) {
@@ -331,7 +372,7 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int k = k0 + tig + 4 * e;
-          split_tf32(xw_s[k * P + swz(k, p)], b_big[e], b_small[e]);
+          split_tf32(xw_s[k * kLdX + p], b_big[e], b_small[e]);
         }
         mma_3xtf32(acc[q], a_big, a_small, b_big, b_small);
       }
@@ -362,11 +403,11 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
           const int p = p_base + 16 * mt + grp + 8 * hi;
           const int n = n_base + 8 * nt + 2 * tig;
           const float2 v =
-              *reinterpret_cast<const float2*>(&s_s[p * N + swz(p, n)]);
+              *reinterpret_cast<const float2*>(&s_s[p * kLdN + n]);
           sacc[mt][nt][2 * hi] = v.x * seg_decay;
           sacc[mt][nt][2 * hi + 1] = v.y * seg_decay;
         }
-#pragma unroll 2
+#pragma unroll 4
     for (int k0 = 0; k0 < kQ; k0 += 8) {
       uint32_t a_big[kSm][4], a_small[kSm][4];
 #pragma unroll
@@ -375,7 +416,7 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         for (int e = 0; e < 4; ++e) {
           const int p = p_base + 16 * mt + grp + 8 * (e & 1);
           const int k = k0 + tig + 4 * (e >> 1);
-          split_tf32(xw_s[k * P + swz(k, p)] * win_s[k], a_big[mt][e],
+          split_tf32(xw_s[k * kLdX + p] * win_s[k], a_big[mt][e],
                      a_small[mt][e]);
         }
 #pragma unroll
@@ -385,7 +426,7 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
 #pragma unroll
         for (int e = 0; e < 2; ++e) {
           const int k = k0 + tig + 4 * e;
-          split_tf32(bs_s[k * N + swz(k, n)], b_big[e], b_small[e]);
+          split_tf32(bs_s[k * kLdN + n], b_big[e], b_small[e]);
         }
 #pragma unroll
         for (int mt = 0; mt < kSm; ++mt)
@@ -400,14 +441,14 @@ ssd_scan_kernel(const T* __restrict__ x, const T* __restrict__ dt,
         for (int hi = 0; hi < 2; ++hi) {
           const int p = p_base + 16 * mt + grp + 8 * hi;
           const int n = n_base + 8 * nt + 2 * tig;
-          *reinterpret_cast<float2*>(&s_s[p * N + swz(p, n)]) =
+          *reinterpret_cast<float2*>(&s_s[p * kLdN + n]) =
               make_float2(sacc[mt][nt][2 * hi], sacc[mt][nt][2 * hi + 1]);
         }
   }
   __syncthreads();
   for (int e = tid; e < P * N; e += kThreads) {
     const int p = e / N, n = e % N;
-    state_out[st_off + e] = s_s[p * N + swz(p, n)];
+    state_out[st_off + e] = s_s[p * kLdN + n];
   }
 }
 

@@ -45,6 +45,8 @@ from repro_torch.kernels import build, ref
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 DIMS = (32, 64, 96, 128)       # P and N the kernel is built for
 MAX_BATCH = 65535              # batch rides gridDim.y
+ALIGN = 16                     # bytes; the kernel stages x, B, C 16 bytes
+                               # (f32) or 8 (bf16) a load
 
 
 def _check_inputs(x, dt, a_neg, b_mat, c_mat, chunk, state0) -> None:
@@ -79,8 +81,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
     """x: [B, S, H, P]; dt: [B, S, H] (> 0); a_neg: [H] (< 0); b_mat, c_mat:
     [B, S, G, N]; state0: [B, H, P, N] or None.  Returns (y [B, S, H, P] in
     x's dtype, final state [B, H, P, N] float32).  On the card: contiguous
-    x, dt, b_mat, c_mat of one dtype (f32 or bf16), a_neg and state0 in
-    f32, P and N in ``DIMS``."""
+    x, dt, b_mat, c_mat of one dtype (f32 or bf16), x, b_mat and c_mat
+    starting on a 16-byte boundary, a_neg and state0 in f32, P and N in
+    ``DIMS``."""
     _check_inputs(x, dt, a_neg, b_mat, c_mat, chunk, state0)
     if not x.is_cuda or not use_kernel:
         return ref.ssd_chunked(x, dt, a_neg, b_mat, c_mat, chunk,
@@ -103,6 +106,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
                     (c_mat, "c_mat"), (state0, "state0")):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    for t, name in ((x, "x"), (b_mat, "b_mat"), (c_mat, "c_mat")):
+        if t.data_ptr() % ALIGN:
+            raise ValueError(f"{name} must start on a {ALIGN}-byte boundary")
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
     name = f"ssd_scan_{DTYPES[x.dtype]}"

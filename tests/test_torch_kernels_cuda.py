@@ -302,6 +302,13 @@ def test_ssd_scan_rejects_what_it_does_not_take(cuda):
         ssd_scan(x, dt.bfloat16(), a_neg, bm, cm, chunk=32)
     with pytest.raises(TypeError):       # a bf16 state
         ssd_scan(x, dt, a_neg, bm, cm, chunk=32, state0=s0.bfloat16())
+    for dtype in (torch.float32, torch.bfloat16):   # a base off 16 bytes
+        xa, dta, bma, cma = (t.to(dtype) for t in (x, dt, bm, cm))
+        off = torch.empty(xa.numel() + 1, dtype=dtype,
+                          device=cuda)[1:].view(xa.shape).copy_(xa)
+        assert off.is_contiguous() and off.data_ptr() % 16
+        with pytest.raises(ValueError):
+            ssd_scan(off, dta, a_neg, bma, cma, chunk=32)
 
 
 def test_ssd_scan_plain_version_not_called_on_cuda(cuda):
