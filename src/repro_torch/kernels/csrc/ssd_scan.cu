@@ -100,18 +100,6 @@ __device__ __forceinline__ void store2(__nv_bfloat16* dst, float v0,
   *reinterpret_cast<__nv_bfloat162*>(dst) = __floats2bfloat162_rn(v0, v1);
 }
 
-// Shared tiles are row-major with padded rows.  An m16n8k8 fragment load
-// reads an 8 x 4 patch: 8 rows (lane / 4) by 4 columns (lane % 4) of C,
-// [B; S] and att, or 4 rows by 8 columns of dt x (and of B in the state
-// update).  A row stride of 4 mod 32 words puts the first kind on 32 banks,
-// one of 8 mod 32 the second; B, read both ways, takes 4 and its state
-// update loads fall two lanes to a bank.
-template <int W>
-struct Pad {
-  static constexpr int ld4 = W + 4;   // rows read 8 x 4
-  static constexpr int ld8 = W + 8;   // rows read 4 x 8
-};
-
 // TF32 operand halves: big = v rounded to TF32, small = the rounding of
 // v - big (exact in f32); big + small carries v to ~2^-22 relative.  The
 // rounding is cvt.rna.tf32.f32's (to nearest on the 13 dropped bits, ties
@@ -149,12 +137,17 @@ __device__ __forceinline__ void mma_3xtf32(float (&d)[4],
   mma_tf32(d, a_big, b_big[0], b_big[1]);
 }
 
-// Shared-memory layout, in floats.
+// Shared-memory layout, in floats.  Tiles are row-major with padded rows.
+// An m16n8k8 fragment load reads an 8 x 4 patch: 8 rows (lane / 4) by 4
+// columns (lane % 4) of C, [B; S] and att, or 4 rows by 8 columns of dt x
+// (and of B in the state update).  A row stride of 4 mod 32 words puts the
+// first kind on 32 banks, one of 8 mod 32 the second; B, read both ways,
+// takes 4, and its loads in the state update fall two lanes to a bank.
 template <int P, int N>
 struct Smem {
-  static constexpr int ldn = Pad<N>::ld4;        // C, B and S rows
-  static constexpr int ldx = Pad<P>::ld8;        // dt x rows
-  static constexpr int lda = Pad<kQ>::ld4;       // att rows
+  static constexpr int ldn = N + 4;              // C, B and S rows
+  static constexpr int ldx = P + 8;              // dt x rows
+  static constexpr int lda = kQ + 4;             // att rows
   static constexpr int c = 0;                    // C tile [kQ][N]
   static constexpr int bs = c + kQ * ldn;        // B tile [kQ][N], then the
                                                  // state S [P][N]
