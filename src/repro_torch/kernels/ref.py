@@ -3,7 +3,10 @@
 These are the CPU path of every kernel wrapper and the yardstick the CUDA
 kernels are held against on the card.  They repeat the reference's
 arithmetic (``repro.kernels.ref``): f32 accumulation, one cast on write.
-The OTA kernels carry a leading cell axis.
+The OTA kernels carry a leading cell axis, and their plain versions take
+the kernels' own order of operations (a loop over the devices, one
+rounded op at a time), so that the card holds K1 and K2 to them bit for
+bit.
 Each kernel's plain version keeps a plain call count (``.calls``), so
 that a run can show that its CUDA path never fell back to them.
 """
@@ -20,10 +23,15 @@ def ota_aggregate_ref(g: torch.Tensor, s: torch.Tensor, z: torch.Tensor,
     """out[c] = sum_m s[c, m] g[c, m] + noise_scale[c] z[c].
 
     g: [C, N, D] (f32 or bf16); s: [C, N]; z: [C, D]; noise_scale: [C].
-    Returns [C, D] in g's dtype.
+    Returns [C, D] in g's dtype.  K2's exact arithmetic: an f32 loop over
+    m = 0..N-1, ``acc = acc + g_m s_m``, then ``+ noise_scale z``, each a
+    separate rounded op, and one cast on write.
     """
     ota_aggregate_ref.calls += 1
-    acc = torch.sum(g.float() * s[..., None].float(), dim=1)
+    sf = s.float()
+    acc = torch.zeros(z.shape, dtype=torch.float32, device=g.device)
+    for m in range(g.shape[1]):
+        acc = acc + g[:, m].float() * sf[:, m, None]
     return (acc + noise_scale[:, None].float() * z.float()).to(g.dtype)
 
 
@@ -39,13 +47,20 @@ def ota_round_step_ref(g: torch.Tensor, s: torch.Tensor, z: torch.Tensor,
     g: [C, N, D] wire dtype (f32, bf16 or int8); s, q_scale: [C, N];
     z, params: [C, D]; noise_scale, eta: [C].  ``q_scale`` is the int8
     uplink's per-device dequantization scale (None: the f32 cast alone
-    dequantizes).  Returns [C, D] in params' dtype.
+    dequantizes, and the kernel's x 1 is exact).  Returns [C, D] in
+    params' dtype.  K1's exact arithmetic: an f32 loop over m = 0..N-1,
+    ``acc = acc + (g_m qs_m) s_m``, then ``+ noise_scale z``, then
+    ``params - eta ghat``, each a separate rounded op.
     """
     ota_round_step_ref.calls += 1
-    gf = g.float()
-    if q_scale is not None:
-        gf = gf * q_scale[..., None].float()
-    acc = torch.sum(gf * s[..., None].float(), dim=1)
+    sf = s.float()
+    qf = None if q_scale is None else q_scale.float()
+    acc = torch.zeros(z.shape, dtype=torch.float32, device=g.device)
+    for m in range(g.shape[1]):
+        gm = g[:, m].float()
+        if qf is not None:
+            gm = gm * qf[:, m, None]
+        acc = acc + gm * sf[:, m, None]
     ghat = acc + noise_scale[:, None].float() * z.float()
     return (params.float() - eta[:, None].float() * ghat).to(params.dtype)
 

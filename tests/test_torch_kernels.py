@@ -98,6 +98,69 @@ def test_plain_aggregate_matches_reference_and_pallas(c, n, d, dtype):
                                        np.asarray(ref_out, np.float32), **tol)
 
 
+def _np_round_step(g, qs, s, z, ns, p, eta):
+    """K1's arithmetic in numpy float32: one rounded op at a time, devices
+    in order."""
+    acc = np.zeros(z.shape, np.float32)
+    for m in range(g.shape[1]):
+        gm = g[:, m]
+        if qs is not None:
+            gm = gm * qs[:, m, None]
+        acc = acc + gm * s[:, m, None]
+    return p - eta[:, None] * (acc + ns[:, None] * z)
+
+
+def _np_bf16(a: np.ndarray) -> np.ndarray:
+    """Round f32 to bf16 (to nearest, ties to even), kept as f32 values."""
+    u = a.astype(np.float32).view(np.uint32).astype(np.uint64)
+    u = ((u + 0x7FFF + ((u >> 16) & 1)) >> 16) << 16
+    return u.astype(np.uint32).view(np.float32)
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("c,n,d", SWEEP + [(2, 32, 37), (7, 10, 15)])
+def test_plain_round_step_is_kernel_arithmetic(c, n, d, wire):
+    """The plain K1 equals a numpy float32 loop in K1's association, bit
+    for bit, so the card can hold the kernel to it with torch.equal."""
+    g, s, z, p, ns, eta = _inputs(c, n, d, seed=5 + c * 100 + n * 10 + d)
+    w, qs = tops.quantize_uplink(torch.from_numpy(g), wire)
+    got = tref.ota_round_step_ref(w, *_t(s, z, ns, p, eta), q_scale=qs)
+    want = _np_round_step(w.float().numpy(),
+                          None if qs is None else qs.numpy(), s, z, ns, p, eta)
+    assert got.dtype == torch.float32
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("c,n,d", SWEEP)
+def test_plain_round_step_unit_scale_is_exact(c, n, d):
+    """The kernel always multiplies by a dequantization scale (ones for an
+    f32 or bf16 wire); the plain version skips it: x * 1 is exact."""
+    g, s, z, p, ns, eta = _t(*_inputs(c, n, d, seed=9))
+    a = tref.ota_round_step_ref(g, s, z, ns, p, eta)
+    b = tref.ota_round_step_ref(g, s, z, ns, p, eta,
+                                q_scale=torch.ones_like(s))
+    assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,n,d", SWEEP + [(2, 32, 37), (7, 10, 15)])
+def test_plain_aggregate_is_kernel_arithmetic(c, n, d, dtype):
+    """The plain K2 equals a numpy float32 loop in K2's association (one
+    cast on write), bit for bit."""
+    g, s, z, _, ns, _ = _inputs(c, n, d, seed=6 + c * 100 + n * 10 + d)
+    gt = torch.from_numpy(g).to(dtype)
+    got = tref.ota_aggregate_ref(gt, *_t(s, z, ns))
+    acc = np.zeros((c, d), np.float32)
+    gf = gt.float().numpy()
+    for m in range(n):
+        acc = acc + gf[:, m] * s[:, m, None]
+    want = acc + ns[:, None] * z
+    if dtype == torch.bfloat16:
+        want = _np_bf16(want)
+    assert got.dtype == dtype
+    np.testing.assert_array_equal(got.float().numpy(), want)
+
+
 @pytest.mark.parametrize("wire", ["bf16", "int8"])
 @pytest.mark.parametrize("c,n,d", SWEEP)
 def test_quantize_uplink_bitwise(c, n, d, wire):
