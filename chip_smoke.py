@@ -7,16 +7,21 @@ Phases (any failure exits nonzero, and nothing is swallowed):
 
   1. the card's name and power limit (nvidia-smi); build the CUDA kernels
      from the checkout's sources (one nvcc per source, all at once, sm_90a)
-     and report the seconds; count the tensor-core instructions in each
-     kernel of the flash-attention and ssd_scan libraries (``cuobjdump
-     -sass``: HGMMA for wgmma, HMMA for mma.sync) and fail if K3's bf16
-     kernel or K4's f32 kernel has none;
+     and report the seconds; read each kernel's SASS (``cuobjdump -sass``):
+     count the 128-bit global loads (LDG.E.128) of every K1/K2 instance and
+     the tensor-core instructions of the flash-attention and ssd_scan
+     kernels (HGMMA for wgmma, HMMA for mma.sync), and fail if a K1/K2
+     instance has no 128-bit load or K3's bf16 kernel or K4's f32 kernel
+     has no tensor-core instruction;
   2. every kernel against its plain PyTorch version on the card, at its
      main path's shapes, with median times (CUDA events) beside the plain
      version's, the bound, and one PyTorch library call where there is one:
        - K1 ``ota_round_step`` (f32, bf16, int8 wires) and K2
          ``ota_aggregate`` (f32, bf16) at the fleet's C = 7 cells, N = 10
-         devices, D = 814,090, and at ragged D in {1, 5000};
+         devices, D = 814,090, and at ragged D in {1, 5000}: bitwise equal
+         to the plain versions (which take the kernels' order of f32
+         operations) and within the f32 / bf16 tolerance; the main shape's
+         achieved GB/s and share of the byte bound beside its time;
        - K3 ``flash_attention`` at the serve path's prefill (B 8, S 1024,
          H = KH = 16, Dh 64, bf16, causal), at qwen3's heads (H 16, KH 8,
          Dh 128), with window 256, at ragged S = 1000, and in f32 (window
@@ -191,24 +196,37 @@ def nbytes(*tensors):
                if t is not None)
 
 
-def tensor_core_ops(build, name):
-    """{kernel symbol: {"HGMMA": n, "HMMA": n}} for the built library of
-    ``csrc/<name>.cu``, read from its SASS (cuobjdump -sass)."""
+def sass_ops(build, name, ops=("HGMMA", "HMMA")):
+    """{kernel symbol: {op: n}} for the built library of ``csrc/<name>.cu``,
+    read from its SASS (cuobjdump -sass); the defaults are the tensor-core
+    instructions (HGMMA for wgmma, HMMA for mma.sync)."""
     exe = Path(build.nvcc()).with_name("cuobjdump")
     out = subprocess.run([str(exe), "-sass", str(build.library_path(name))],
                          capture_output=True, text=True, timeout=120)
     check(out.returncode == 0, f"cuobjdump failed: {out.stderr}")
+    pattern = re.compile(r"\b(" + "|".join(map(re.escape, ops)) + r")\b")
     found, fn = {}, None
     for line in out.stdout.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
             fn = m.group(1)
-            found[fn] = {"HGMMA": 0, "HMMA": 0}
+            found[fn] = dict.fromkeys(ops, 0)
         elif fn is not None:
-            op = re.search(r"\b(HGMMA|HMMA)\.", line)
+            op = pattern.search(line)
             if op:
                 found[fn][op.group(1)] += 1
     return found
+
+
+def ota_timing(torch, kern, plain, byts, flops, bw, f32_peak):
+    """Times, bound and achieved rate of a K1/K2 call at the main shape."""
+    ms = median_ms(torch, kern)
+    bound = 1e3 * max(byts / bw, flops / f32_peak)
+    return {"ms": ms, "plain_ms": median_ms(torch, plain), "bound_ms": bound,
+            "bytes": byts, "gb_per_s": byts / ms / 1e6,
+            "bound_share": bound / ms,
+            "bound_by": "bytes" if byts / bw >= flops / f32_peak
+            else "operations"}
 
 
 def phase_kernels(torch, dev, card):
@@ -240,20 +258,18 @@ def phase_kernels(torch, dev, card):
             err = (got - want).abs()
             ok = bool((err <= F32_TOL["atol"]
                        + F32_TOL["rtol"] * want.abs()).all())
-            row = {"max_abs_err": float(err.max()), "tol": F32_TOL, "ok": ok}
+            row = {"max_abs_err": float(err.max()), "tol": F32_TOL, "ok": ok,
+                   "bitwise": bool(torch.equal(got, want))}
             if main:
-                byts = nbytes(w, qs1, s, z, ns, p, eta, got)
-                flops = c * d * (3 * n + 4)
-                bound = 1e3 * max(byts / bw, flops / f32_peak)
-                row.update(ms=median_ms(torch, kern),
-                           plain_ms=median_ms(torch, plain),
-                           bound_ms=bound, bytes=byts,
-                           bound_by="bytes" if byts / bw >= flops / f32_peak
-                           else "operations")
+                row.update(ota_timing(torch, kern, plain,
+                                      nbytes(w, qs1, s, z, ns, p, eta, got),
+                                      c * d * (3 * n + 4), bw, f32_peak))
             results[("ota_round_step", wire, d)] = row
             print(f"  K1 ota_round_step {wire:>4} C={c} N={n} D={d}: "
                   + json.dumps(row), flush=True)
             check(ok, f"K1 {wire} D={d} disagrees with its plain version")
+            check(row["bitwise"], f"K1 {wire} D={d} is not bitwise equal to "
+                  "its plain version")
         for dtype, tol in ((torch.float32, F32_TOL),
                            (torch.bfloat16, BF16_TOL)):
             gd = g.to(dtype)
@@ -263,25 +279,26 @@ def phase_kernels(torch, dev, card):
 
             def plain():
                 return ref.ota_aggregate_ref(gd, s, z, ns)
-            got, want = kern().float(), plain().float()
+            got, want = kern(), plain()
             torch.cuda.synchronize()
+            bitwise = bool(torch.equal(got, want))
+            got, want = got.float(), want.float()
             err = (got - want).abs()
             ok = bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
-            row = {"max_abs_err": float(err.max()), "tol": tol, "ok": ok}
+            row = {"max_abs_err": float(err.max()), "tol": tol, "ok": ok,
+                   "bitwise": bitwise}
             wire = "f32" if dtype == torch.float32 else "bf16"
             if main:
-                byts = nbytes(gd, s, z, ns) + c * d * gd.element_size()
-                flops = c * d * (2 * n + 2)
-                bound = 1e3 * max(byts / bw, flops / f32_peak)
-                row.update(ms=median_ms(torch, kern),
-                           plain_ms=median_ms(torch, plain),
-                           bound_ms=bound, bytes=byts,
-                           bound_by="bytes" if byts / bw >= flops / f32_peak
-                           else "operations")
+                row.update(ota_timing(
+                    torch, kern, plain,
+                    nbytes(gd, s, z, ns) + c * d * gd.element_size(),
+                    c * d * (2 * n + 2), bw, f32_peak))
             results[("ota_aggregate", wire, d)] = row
             print(f"  K2 ota_aggregate  {wire:>4} C={c} N={n} D={d}: "
                   + json.dumps(row), flush=True)
             check(ok, f"K2 {wire} D={d} disagrees with its plain version")
+            check(bitwise, f"K2 {wire} D={d} is not bitwise equal to its "
+                  "plain version")
         del g, z, p
     return results
 
@@ -804,7 +821,15 @@ def main() -> int:
         build.library(name)
     print(f"[1] built {sorted(p.name for p in libs.values())} in "
           f"{time.time() - t0:.2f} s", flush=True)
-    sass = tensor_core_ops(build, "flash_attention")
+    sass = sass_ops(build, "ota_kernels", ("LDG.E.128", "STG.E.128"))
+    print(f"[1] 128-bit global loads and stores in the OTA library: "
+          f"{json.dumps(sass)}", flush=True)
+    ota = {fn: n for fn, n in sass.items()
+           if "round_step_kernel" in fn or "aggregate_kernel" in fn}
+    check(len(ota) == 5 and all(n["LDG.E.128"] > 0 for n in ota.values()),
+          f"a K1/K2 instance (K1 f32, bf16, int8; K2 f32, bf16) has no "
+          f"128-bit global load: {ota}")
+    sass = sass_ops(build, "flash_attention")
     print(f"[1] tensor-core instructions in the flash-attention library: "
           f"{json.dumps(sass)}", flush=True)
     bf16_kernels = {fn: n for fn, n in sass.items()
@@ -813,7 +838,7 @@ def main() -> int:
         n["HGMMA"] + n["HMMA"] > 0 for n in bf16_kernels.values()),
         f"K3's bf16 kernel (Dh 64 and 128) has no tensor-core instruction: "
         f"{bf16_kernels}")
-    sass = tensor_core_ops(build, "ssd_scan")
+    sass = sass_ops(build, "ssd_scan")
     print(f"[1] tensor-core instructions in the ssd_scan library: "
           f"{json.dumps(sass)}", flush=True)
     f32_kernels = {fn: n for fn, n in sass.items()

@@ -15,17 +15,35 @@
 // per output element, well under one flop per byte, so both sit on the
 // device-memory roofline.
 //
-// Design (simple and correct first): a 2-D grid, blocks over D and one
-// grid row per cell; one thread per output element, so a warp's loads of
-// one device row are 32 neighbouring elements (coalesced).  The ragged tail
-// of D is masked; nothing is padded, unlike the TPU's 1024-element tiles.
-// The per-device coefficients of the block's cell are staged in shared
-// memory.  Every thread runs an f32 loop over the N devices with the
-// reference's association -- (g*qs)*s summed over m, then + ns*z, then
-// p - eta*ghat -- written with the _rn intrinsics so the compiler cannot
-// contract it into FMAs.  No vector loads: a cell row of D f32 values is
-// not 16-byte aligned when D is odd (D = 814,090 at full width).
-// Vectorised loads, TMA and a persistent grid are left to a later change.
+// Arithmetic: every thread runs an f32 loop over the N devices in order --
+// (g*qs)*s summed over m, then + ns*z, then p - eta*ghat -- written with
+// the _rn intrinsics so the compiler cannot contract it into FMAs.  The
+// plain versions (kernels/ref.py) take the same order, so the two agree
+// bit for bit.
+//
+// Design: 16-byte loads and stores on rows that are not 16-byte aligned.
+// A cell row of D values is not aligned when D is not a multiple of the
+// vector (D = 814,090 at full width), and each device row of g starts at
+// its own misalignment, (c*N + m)*D elements in.  So the output row sets
+// the tiling: after a scalar head of fewer than one vector, a thread owns a
+// run of 16 / sizeof(wire) output elements (one 16-byte vector of g: 4 f32,
+// 8 bf16 or 16 int8), whose output bytes start 16-byte aligned and are
+// written by 16-byte stores.  Every other stream (each device row of g, z,
+// p) is read by 16-byte ld.global.nc loads at the aligned address below
+// the run, and realigned in registers: the bytes past the lane's last
+// vector are the next lane's first vector, fetched by __shfl_down_sync,
+// and the stream's offset (its address & 15, the same for every lane of
+// the grid row, so no lane branches on it) picks words by two selects and
+// bytes by a funnel shift.  Lane 31 only lends its vector, so a warp
+// computes 31 runs.  A thread issues the loads of up to kRows device rows,
+// and of its z and p, before it consumes any: N = 10 puts 12 (f32 wire) to
+// 18 (int8) 16-byte loads of each thread in flight.  Each loaded vector
+// holds a byte of the row it serves, so no load leaves the row's memory.
+// The ragged ends (fewer than one vector before the first aligned output
+// and after the last whole run) are done one element a thread by the
+// cell's first block.  The coefficients of the block's cell are staged in
+// shared memory.  out is written with streaming stores (st.global.cs);
+// OTA_PLAIN_STORE selects plain stores, to time the two.
 //
 // Plain C interface for ctypes: every pointer and the stream are void*,
 // and each entry returns cudaGetLastError() as an int (0 = launched).
@@ -38,6 +56,9 @@
 namespace {
 
 constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRuns = 31;    // runs a warp computes; lane 31 lends its vector
+constexpr int kRows = 16;    // device rows whose loads a thread has in flight
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -52,6 +73,96 @@ __device__ __forceinline__ void store(__nv_bfloat16* dst, float v) {
   *dst = __float2bfloat16_rn(v);
 }
 
+// Element k of a run held as 32-bit words: the same value as to_f32.
+__device__ __forceinline__ float word_elem(const uint32_t* w, int k, float) {
+  return __uint_as_float(w[k]);
+}
+__device__ __forceinline__ float word_elem(const uint32_t* w, int k,
+                                           __nv_bfloat16) {
+  const uint32_t v = w[k / 2];
+  return __uint_as_float(k % 2 ? v & 0xffff0000u : v << 16);
+}
+__device__ __forceinline__ float word_elem(const uint32_t* w, int k, int8_t) {
+  return static_cast<float>(static_cast<int8_t>(w[k / 4] >> (8 * (k % 4))));
+}
+
+// 32-bit word holding the output value(s) of element k (and k + 1 in bf16).
+__device__ __forceinline__ uint32_t out_word(const float* v, int k, float) {
+  return __float_as_uint(v[k]);
+}
+__device__ __forceinline__ uint32_t out_word(const float* v, int k,
+                                             __nv_bfloat16) {
+  return static_cast<uint32_t>(
+             __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k]))) |
+         static_cast<uint32_t>(
+             __bfloat16_as_ushort(__float2bfloat16_rn(v[2 * k + 1])))
+             << 16;
+}
+
+__device__ __forceinline__ uint4 load16(const char* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ void store16(void* p, uint4 v) {
+#ifdef OTA_PLAIN_STORE
+  *reinterpret_cast<uint4*>(p) = v;
+#else
+  __stcs(reinterpret_cast<uint4*>(p), v);
+#endif
+}
+
+__device__ __forceinline__ uint32_t offset16(const void* p) {
+  return static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p) & 15);
+}
+
+// Loads a lane's W vectors of one stream from the aligned address `a`: the
+// first when `lend` (the lane's own run or lane - 1's needs it), all when
+// `mine` (the lane computes its run).
+template <int W>
+__device__ __forceinline__ void load_run(uint4* v, const char* a, bool mine,
+                                         bool lend) {
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    v[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (i == 0 ? lend : mine) v[i] = load16(a + 16 * i);
+  }
+}
+
+// The run's 4W words: the lane's W vectors, loaded `sh` bytes below the
+// run, shifted down by sh bytes, the bytes past them taken from lane + 1's
+// first vector.  sh is the same on every lane of the warp, and every lane
+// of the warp calls this (the shuffle).
+template <int W>
+__device__ __forceinline__ void realign(uint32_t* r, const uint4* v,
+                                        uint32_t sh) {
+  uint32_t u[4 * W + 4];
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    u[4 * i] = v[i].x;
+    u[4 * i + 1] = v[i].y;
+    u[4 * i + 2] = v[i].z;
+    u[4 * i + 3] = v[i].w;
+  }
+  if (sh == 0) {
+#pragma unroll
+    for (int j = 0; j < 4 * W; ++j) r[j] = u[j];
+    return;
+  }
+  u[4 * W] = __shfl_down_sync(0xffffffffu, v[0].x, 1);
+  u[4 * W + 1] = __shfl_down_sync(0xffffffffu, v[0].y, 1);
+  u[4 * W + 2] = __shfl_down_sync(0xffffffffu, v[0].z, 1);
+  u[4 * W + 3] = __shfl_down_sync(0xffffffffu, v[0].w, 1);
+  const bool two = sh & 8, one = sh & 4;
+  const uint32_t bits = 8 * (sh & 3);
+  uint32_t t[4 * W + 2], q[4 * W + 1];
+#pragma unroll
+  for (int j = 0; j < 4 * W + 2; ++j) t[j] = two ? u[j + 2] : u[j];
+#pragma unroll
+  for (int j = 0; j < 4 * W + 1; ++j) q[j] = one ? t[j + 1] : t[j];
+#pragma unroll
+  for (int j = 0; j < 4 * W; ++j) r[j] = __funnelshift_r(q[j], q[j + 1], bits);
+}
+
 // Copies this block's cell's [n] coefficient rows into shared memory.
 __device__ __forceinline__ void stage_rows(float* sh, const float* a,
                                            const float* b, int c, int n) {
@@ -62,6 +173,70 @@ __device__ __forceinline__ void stage_rows(float* sh, const float* a,
   __syncthreads();
 }
 
+// Output elements of a row before its first 16-byte aligned one (at most d).
+template <typename O>
+__device__ __forceinline__ int64_t head_of(const O* row, int64_t d) {
+  const int64_t h = ((16 - offset16(row)) & 15) / sizeof(O);
+  return h < d ? h : d;
+}
+
+// sum_m (g_m*qs_m)*s_m of one element (K1, kScaled), or sum_m g_m*s_m (K2).
+template <typename T, bool kScaled>
+__device__ __forceinline__ float sum_scalar(const T* gj, int64_t d, int n,
+                                            const float* qs, const float* s) {
+  float acc = 0.f;
+  for (int m = 0; m < n; ++m) {
+    float gm = to_f32(gj[static_cast<int64_t>(m) * d]);
+    if (kScaled) gm = __fmul_rn(gm, qs[m]);
+    acc = __fadd_rn(acc, __fmul_rn(gm, s[m]));
+  }
+  return acc;
+}
+
+// The same sum for a lane's run of E = 16 / sizeof(T) elements: run r of
+// the row, whose first element lies at `ga` in device row 0; device rows
+// are `row` bytes apart.  Loads kRows rows, then consumes them in order.
+template <typename T, bool kScaled>
+__device__ __forceinline__ void sum_run(float* acc, const char* ga,
+                                        int64_t row, int n, const float* qs,
+                                        const float* s, int64_t r,
+                                        int64_t nb) {
+  constexpr int E = 16 / sizeof(T);
+#pragma unroll
+  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  for (int m0 = 0; m0 < n; m0 += kRows) {
+    uint4 gv[kRows];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const char* a = ga + (m0 + i) * row;
+      const uint32_t sh = offset16(a);
+      gv[i] = make_uint4(0u, 0u, 0u, 0u);
+      if (m0 + i < n && (r < nb || (r == nb && sh != 0)))
+        gv[i] = load16(a - sh);
+    }
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int m = m0 + i;
+      if (m >= n) break;
+      uint32_t w[4];
+      realign<1>(w, &gv[i], offset16(ga + m * row));
+      const float q = kScaled ? qs[m] : 1.f;
+      const float sm = s[m];
+#pragma unroll
+      for (int e = 0; e < E; ++e) {
+        float gm = word_elem(w, e, T());
+        if (kScaled) gm = __fmul_rn(gm, q);
+        acc[e] = __fadd_rn(acc[e], __fmul_rn(gm, sm));
+      }
+    }
+  }
+}
+
+__device__ __forceinline__ float step(float acc, float ns, float z, float p,
+                                      float eta) {
+  return __fsub_rn(p, __fmul_rn(eta, __fadd_rn(acc, __fmul_rn(ns, z))));
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 round_step_kernel(const T* __restrict__ g, const float* __restrict__ qs,
@@ -69,21 +244,62 @@ round_step_kernel(const T* __restrict__ g, const float* __restrict__ qs,
                   const float* __restrict__ ns, const float* __restrict__ p,
                   const float* __restrict__ eta, float* __restrict__ out,
                   int n, int64_t d) {
-  extern __shared__ float coef[];  // [0, n): qs, [n, 2n): s
+  constexpr int E = 16 / sizeof(T);  // a run: one 16-byte vector of g
+  constexpr int W = E / 4;           // its 16-byte vectors of z, p and out
+  extern __shared__ float coef[];    // [0, n): qs, [n, 2n): s
   const int c = blockIdx.y;
   stage_rows(coef, qs, s, c, n);
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= d) return;
-  const T* gc = g + static_cast<int64_t>(c) * n * d + j;
-  float acc = 0.f;
-#pragma unroll 4
-  for (int m = 0; m < n; ++m) {
-    const float gm = __fmul_rn(to_f32(gc[static_cast<int64_t>(m) * d]), coef[m]);
-    acc = __fadd_rn(acc, __fmul_rn(gm, coef[n + m]));
+  const T* gc = g + static_cast<int64_t>(c) * n * d;
+  const float* zc = z + static_cast<int64_t>(c) * d;
+  const float* pc = p + static_cast<int64_t>(c) * d;
+  float* oc = out + static_cast<int64_t>(c) * d;
+  const float nsc = ns[c], etac = eta[c];
+  const int64_t h = head_of(oc, d);
+  const int64_t nb = (d - h) / E;  // whole runs
+  if (blockIdx.x == 0) {           // the ragged ends
+    const int64_t tail = h + nb * E;
+    for (int64_t i = threadIdx.x; i < h + d - tail; i += blockDim.x) {
+      const int64_t j = i < h ? i : tail + (i - h);
+      oc[j] = step(sum_scalar<T, true>(gc + j, d, n, coef, coef + n), nsc,
+                   zc[j], pc[j], etac);
+    }
   }
-  const int64_t o = static_cast<int64_t>(c) * d + j;
-  const float ghat = __fadd_rn(acc, __fmul_rn(ns[c], z[o]));
-  out[o] = __fsub_rn(p[o], __fmul_rn(eta[c], ghat));
+  const int lane = threadIdx.x & 31;
+  const int64_t r0 =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32) * kRuns;
+  if (r0 >= nb) return;  // the whole warp
+  const int64_t r = r0 + lane;
+  const bool mine = lane < kRuns && r < nb;
+
+  const char* za = reinterpret_cast<const char*>(zc + h);
+  const char* pa = reinterpret_cast<const char*>(pc + h);
+  const uint32_t zsh = offset16(za), psh = offset16(pa);
+  uint4 zv[W], pv[W];
+  load_run<W>(zv, za - zsh + r * 16 * W, mine, r < nb || (r == nb && zsh));
+  load_run<W>(pv, pa - psh + r * 16 * W, mine, r < nb || (r == nb && psh));
+  float acc[E];
+  sum_run<T, true>(acc, reinterpret_cast<const char*>(gc + h) + r * 16,
+                   d * static_cast<int64_t>(sizeof(T)), n, coef, coef + n, r,
+                   nb);
+  uint32_t zw[4 * W], pw[4 * W];
+  realign<W>(zw, zv, zsh);
+  realign<W>(pw, pv, psh);
+  if (!mine) return;
+  char* oa = reinterpret_cast<char*>(oc + h) + r * 16 * W;
+#pragma unroll
+  for (int i = 0; i < W; ++i) {
+    float v[4];
+#pragma unroll
+    for (int k = 0; k < 4; ++k) {
+      const int e = 4 * i + k;
+      v[k] = step(acc[e], nsc, __uint_as_float(zw[e]),
+                  __uint_as_float(pw[e]), etac);
+    }
+    store16(oa + 16 * i, make_uint4(__float_as_uint(v[0]),
+                                    __float_as_uint(v[1]),
+                                    __float_as_uint(v[2]),
+                                    __float_as_uint(v[3])));
+  }
 }
 
 template <typename T>
@@ -91,23 +307,60 @@ __global__ void __launch_bounds__(kThreads)
 aggregate_kernel(const T* __restrict__ g, const float* __restrict__ s,
                  const float* __restrict__ z, const float* __restrict__ ns,
                  T* __restrict__ out, int n, int64_t d) {
-  extern __shared__ float coef[];  // [0, n): s
+  constexpr int E = 16 / sizeof(T);  // a run: one 16-byte vector of g, out
+  constexpr int W = E / 4;           // its 16-byte vectors of z
+  extern __shared__ float coef[];    // [0, n): s
   const int c = blockIdx.y;
   stage_rows(coef, s, nullptr, c, n);
-  const int64_t j = static_cast<int64_t>(blockIdx.x) * blockDim.x + threadIdx.x;
-  if (j >= d) return;
-  const T* gc = g + static_cast<int64_t>(c) * n * d + j;
-  float acc = 0.f;
-#pragma unroll 4
-  for (int m = 0; m < n; ++m) {
-    acc = __fadd_rn(acc, __fmul_rn(to_f32(gc[static_cast<int64_t>(m) * d]), coef[m]));
+  const T* gc = g + static_cast<int64_t>(c) * n * d;
+  const float* zc = z + static_cast<int64_t>(c) * d;
+  T* oc = out + static_cast<int64_t>(c) * d;
+  const float nsc = ns[c];
+  const int64_t h = head_of(oc, d);
+  const int64_t nb = (d - h) / E;
+  if (blockIdx.x == 0) {
+    const int64_t tail = h + nb * E;
+    for (int64_t i = threadIdx.x; i < h + d - tail; i += blockDim.x) {
+      const int64_t j = i < h ? i : tail + (i - h);
+      store(oc + j,
+            __fadd_rn(sum_scalar<T, false>(gc + j, d, n, nullptr, coef),
+                      __fmul_rn(nsc, zc[j])));
+    }
   }
-  const int64_t o = static_cast<int64_t>(c) * d + j;
-  store(out + o, __fadd_rn(acc, __fmul_rn(ns[c], z[o])));
+  const int lane = threadIdx.x & 31;
+  const int64_t r0 =
+      (static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32) * kRuns;
+  if (r0 >= nb) return;
+  const int64_t r = r0 + lane;
+  const bool mine = lane < kRuns && r < nb;
+
+  const char* za = reinterpret_cast<const char*>(zc + h);
+  const uint32_t zsh = offset16(za);
+  uint4 zv[W];
+  load_run<W>(zv, za - zsh + r * 16 * W, mine, r < nb || (r == nb && zsh));
+  float acc[E];
+  sum_run<T, false>(acc, reinterpret_cast<const char*>(gc + h) + r * 16,
+                    d * static_cast<int64_t>(sizeof(T)), n, nullptr, coef, r,
+                    nb);
+  uint32_t zw[4 * W];
+  realign<W>(zw, zv, zsh);
+  if (!mine) return;
+  float v[E];
+#pragma unroll
+  for (int e = 0; e < E; ++e)
+    v[e] = __fadd_rn(acc[e], __fmul_rn(nsc, __uint_as_float(zw[e])));
+  store16(reinterpret_cast<char*>(oc + h) + r * 16,
+          make_uint4(out_word(v, 0, T()), out_word(v, 1, T()),
+                     out_word(v, 2, T()), out_word(v, 3, T())));
 }
 
+// (D blocks, C): enough warps of kRuns runs for a row's whole runs.
+template <typename T>
 dim3 grid_of(int c, int64_t d) {
-  return dim3(static_cast<unsigned>((d + kThreads - 1) / kThreads),
+  const int64_t runs = d / (16 / static_cast<int64_t>(sizeof(T)));
+  const int64_t warps = (runs + kRuns - 1) / kRuns;
+  const int64_t blocks = (warps + kWarps - 1) / kWarps;
+  return dim3(static_cast<unsigned>(blocks > 0 ? blocks : 1),
               static_cast<unsigned>(c));
 }
 
@@ -117,7 +370,7 @@ int launch_round_step(const void* g, const void* qs, const void* s,
                       const void* eta, void* out, int c, int n, int64_t d,
                       void* stream) {
   if (c > 0 && d > 0) {
-    round_step_kernel<T><<<grid_of(c, d), kThreads, 2 * n * sizeof(float),
+    round_step_kernel<T><<<grid_of<T>(c, d), kThreads, 2 * n * sizeof(float),
                            static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(g), static_cast<const float*>(qs),
         static_cast<const float*>(s), static_cast<const float*>(z),
@@ -132,7 +385,7 @@ int launch_aggregate(const void* g, const void* s, const void* z,
                      const void* ns, void* out, int c, int n, int64_t d,
                      void* stream) {
   if (c > 0 && d > 0) {
-    aggregate_kernel<T><<<grid_of(c, d), kThreads, n * sizeof(float),
+    aggregate_kernel<T><<<grid_of<T>(c, d), kThreads, n * sizeof(float),
                           static_cast<cudaStream_t>(stream)>>>(
         static_cast<const T*>(g), static_cast<const float*>(s),
         static_cast<const float*>(z), static_cast<const float*>(ns),

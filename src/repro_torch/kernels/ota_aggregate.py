@@ -12,9 +12,11 @@ are dequantized first.
 
 Bound: bytes.  At the main-path shape (C = 7, N = 10, D = 814,090, f32) it
 reads g (227.9 MB) and z (22.8 MB) and writes out (22.8 MB): 273.5 MB,
-81.7 us at the H100 SXM data sheet's 3.35 TB/s.  Design as K1's: one
-thread per output element on a (D blocks, C) grid, coalesced loads, the
-cell's coefficients in shared memory, the ragged tail of D masked.
+81.7 us at the H100 SXM data sheet's 3.35 TB/s.  Design as K1's: runs of
+one 16-byte vector of g (and of out) per thread on a (D blocks, C) grid,
+16-byte loads of every stream realigned across lanes by warp shuffles,
+16-byte stores, the ragged ends one element a thread; the result is
+bitwise equal to the plain version.
 
 The plain version is ``ref.ota_aggregate_ref``.
 """

@@ -12,10 +12,16 @@ the wire dtype (f32, bf16, int8).
 Bound: bytes.  At the main-path shape (C = 7, N = 10, D = 814,090, f32
 wire) it reads g (227.9 MB), z and p (22.8 MB each) and writes out
 (22.8 MB): 296.3 MB, 88.5 us at the H100 SXM data sheet's 3.35 TB/s; 2N+3
-flops per output element is far below the card's ridge point.  Design: one
-thread per output element on a (D blocks, C) grid, coalesced loads, the
-cell's coefficients in shared memory, an f32 loop over the devices with
-the reference's association, the ragged tail of D masked (see the source).
+flops per output element is far below the card's ridge point.  Design: on
+a (D blocks, C) grid a thread owns a run of one 16-byte vector of g (4
+f32, 8 bf16 or 16 int8 elements) whose output starts 16-byte aligned;
+every stream is read by 16-byte loads, issued for up to 16 devices before
+any is consumed, and realigned across lanes by warp shuffles, since no row
+of D = 814,090 values need be aligned; out is written by 16-byte stores;
+the few elements before the first aligned output and after the last run
+are done one a thread (see the source).  Bases off 16-byte alignment are
+taken.  An f32 loop over the devices in order, one rounded op at a time,
+makes the result bitwise equal to the plain version.
 
 The plain version is ``ref.ota_round_step_ref``; ``kernels.ops`` picks
 between the two by the tensors' device.

@@ -7,10 +7,12 @@ no JAX installed:
 
     python -m pytest -q --noconftest tests/test_torch_kernels_cuda.py
 
-Tolerances: f32 accumulation on both sides, in another order, so f32
-outputs agree to 2e-5 (the reference's own kernel tolerance); a bf16
-output may land one bf16 ulp apart after that, so bf16 is compared in f32
-at 6e-2 (as the reference's bf16 kernel sweeps).  K3 (flash attention)
+K1 and K2 take their plain versions' order of f32 operations, so they
+are held to them bit for bit (``torch.equal``) over every misalignment
+class of a row, bases off 16-byte alignment and rows shorter than one
+vector; the tolerance cases stay beside them.  Tolerances: f32 outputs
+agree to 2e-5 (the reference's own kernel tolerance); a bf16 output
+compared in f32 at 6e-2 (as the reference's bf16 kernel sweeps).  K3 (flash attention)
 keeps its scores, softmax and accumulator in f32 like its plain version;
 its bf16 path also rounds the softmax weights P to bf16 for the tensor
 cores' P.V product (2^-9 relative per weight, averaged over the keys):
@@ -91,6 +93,76 @@ def test_aggregate_kernel_matches_plain(cuda, dtype, c, n, d):
                                want.float().cpu().numpy(),
                                **(F32_TOL if dtype == torch.float32
                                   else BF16_TOL))
+
+
+# Bitwise against the plain versions, which take the kernels' own order of
+# f32 operations: every misalignment class of a row (D = 4096 + r, three
+# cells, so that cell rows start at 0, D and 2D elements), D shorter than
+# one 16-byte vector, N from 1 to 32 (two groups of in-flight rows), and
+# the main shape
+BITWISE_SHAPES = [(3, 10, 4096 + r) for r in range(16)] \
+    + [(c, n, d) for c in (1, 7) for n in (1, 10, 32) for d in (1, 3, 7, 15)] \
+    + [(7, 10, 814090)]
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("c,n,d", BITWISE_SHAPES)
+def test_round_step_kernel_bitwise(cuda, wire, c, n, d):
+    g, s, z, p, ns, eta = (t.to(cuda) for t in _inputs(c, n, d, seed=2))
+    w, qs = ops.quantize_uplink(g, wire)
+    want = ref.ota_round_step_ref(w, s, z, ns, p, eta, q_scale=qs)
+    got = ops.ota_round_step_flat(w, s, z, ns, p, eta, qs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,n,d", BITWISE_SHAPES)
+def test_aggregate_kernel_bitwise(cuda, dtype, c, n, d):
+    g, s, z, _, ns, _ = (t.to(cuda) for t in _inputs(c, n, d, seed=3))
+    g = g.to(dtype)
+    want = ref.ota_aggregate_ref(g, s, z, ns)
+    got = ops.ota_aggregate_flat(g, s, z, ns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+def _offset(t: torch.Tensor, k: int) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose data starts ``k`` elements into a
+    fresh buffer (so ``k * itemsize`` bytes off 16-byte alignment)."""
+    buf = torch.zeros(t.numel() + 16, dtype=t.dtype, device=t.device)
+    out = buf.view(-1)[k:k + t.numel()].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+@pytest.mark.parametrize("k", [1, 2, 3, 7, 15])
+def test_round_step_kernel_takes_offset_bases(cuda, wire, k):
+    """g, z and p whose bases are not 16-byte aligned are taken: each
+    stream is realigned from its own address."""
+    c, n, d = 3, 10, 4099
+    g, s, z, p, ns, eta = (t.to(cuda) for t in _inputs(c, n, d, seed=4))
+    w, qs = ops.quantize_uplink(g, wire)
+    want = ref.ota_round_step_ref(w, s, z, ns, p, eta, q_scale=qs)
+    wk, zk, pk = _offset(w, k), _offset(z, (k + 1) % 4), _offset(p, 3)
+    assert wk.data_ptr() % 16 != 0 and wk.is_contiguous()
+    got = ops.ota_round_step_flat(wk, s, zk, ns, pk, eta, qs)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("k", [1, 2, 3, 7, 15])
+def test_aggregate_kernel_takes_offset_bases(cuda, dtype, k):
+    c, n, d = 3, 10, 4099
+    g, s, z, _, ns, _ = (t.to(cuda) for t in _inputs(c, n, d, seed=5))
+    g = g.to(dtype)
+    want = ref.ota_aggregate_ref(g, s, z, ns)
+    got = ops.ota_aggregate_flat(_offset(g, k), s, _offset(z, (k + 2) % 4),
+                                 ns)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
 
 
 def test_kernels_reject_what_they_do_not_take(cuda):
