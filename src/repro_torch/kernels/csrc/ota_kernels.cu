@@ -27,23 +27,29 @@
 // its own misalignment, (c*N + m)*D elements in.  So the output row sets
 // the tiling: after a scalar head of fewer than one vector, a thread owns a
 // run of 16 / sizeof(wire) output elements (one 16-byte vector of g: 4 f32,
-// 8 bf16 or 16 int8), whose output bytes start 16-byte aligned and are
-// written by 16-byte stores.  Every other stream (each device row of g, z,
-// p) is read by 16-byte ld.global.nc loads at the aligned address below
-// the run, and realigned in registers: the bytes past the lane's last
-// vector are the next lane's first vector, fetched by __shfl_down_sync,
-// and the stream's offset (its address & 15, the same for every lane of
-// the grid row, so no lane branches on it) picks words by two selects and
-// bytes by a funnel shift.  Lane 31 only lends its vector, so a warp
-// computes 31 runs.  A thread issues the loads of up to kRows device rows,
-// and of its z and p, before it consumes any: N = 10 puts 12 (f32 wire) to
-// 18 (int8) 16-byte loads of each thread in flight.  Each loaded vector
-// holds a byte of the row it serves, so no load leaves the row's memory.
-// The ragged ends (fewer than one vector before the first aligned output
-// and after the last whole run) are done one element a thread by the
-// cell's first block.  The coefficients of the block's cell are staged in
-// shared memory.  out is written with streaming stores (st.global.cs);
-// OTA_PLAIN_STORE selects plain stores, to time the two.
+// 8 bf16 or 16 int8) whose output starts 16-byte aligned, and a warp owns a
+// span of 31 runs.  Every stream is read by 16-byte ld.global.nc loads at
+// the aligned address at or below the data and realigned in registers: the
+// bytes past a lane's vector are the next lane's vector, fetched by
+// __shfl_sync, and the stream's offset (its address & 15, the same for every
+// lane of the grid row, so no lane branches on it) picks words by two
+// selects and bytes by a funnel shift; lane 31 of a g row only lends its
+// vector.  The f32 streams (z, p, out) are read and written in slots, lane
+// l taking the span's vectors l, 32 + l, ..., so that each load and store
+// instruction covers 512 contiguous bytes; on the narrow wires (a run of 2
+// or 4 of their vectors) the sums go from runs to slots (K1) or z from
+// slots to runs (K2) through shared memory.  A thread issues its loads of
+// kRows device rows, and of z and p, before it consumes any; an int8 run's
+// z and p (4 vectors each) wait for the sum, as holding them would cost a
+// block per SM.  int8 converts to f32 by integer ops and one exact add (no
+// conversion instruction).  Each loaded vector holds a byte of the row it
+// serves, so no load leaves the row's memory.  The ragged ends (fewer than
+// one vector before the first aligned output and after the last whole run)
+// are done one element a thread by the cell's first block.  The grid is
+// (D blocks, C), one span per warp; the coefficients of a block's cell are
+// staged in shared memory.  (A grid of resident blocks walking the spans,
+// loads of the next span issued during this one's sum, streaming stores
+// and caps on registers were each timed and gained nothing: PERF.md.)
 //
 // Plain C interface for ctypes: every pointer and the stream are void*,
 // and each entry returns cudaGetLastError() as an int (0 = launched).
@@ -58,7 +64,9 @@ namespace {
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRuns = 31;    // runs a warp computes; lane 31 lends its vector
-constexpr int kRows = 16;    // device rows whose loads a thread has in flight
+// device rows whose loads a thread issues before it consumes any: the
+// fleet's N; more go in groups of kRows (more would cost occupancy)
+constexpr int kRows = 10;
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
@@ -82,8 +90,13 @@ __device__ __forceinline__ float word_elem(const uint32_t* w, int k,
   const uint32_t v = w[k / 2];
   return __uint_as_float(k % 2 ? v & 0xffff0000u : v << 16);
 }
+// int8 without a conversion instruction: the byte with its sign bit
+// flipped (b + 128) as the low mantissa byte of 2^23, minus 2^23 + 128;
+// exact, so equal to static_cast<float>(b).
 __device__ __forceinline__ float word_elem(const uint32_t* w, int k, int8_t) {
-  return static_cast<float>(static_cast<int8_t>(w[k / 4] >> (8 * (k % 4))));
+  const uint32_t v = __byte_perm(w[k / 4] ^ 0x80808080u, 0x4b000000u,
+                                 0x7440u | (k % 4));
+  return __fsub_rn(__uint_as_float(v), 8388736.f);
 }
 
 // 32-bit word holding the output value(s) of element k (and k + 1 in bf16).
@@ -104,63 +117,85 @@ __device__ __forceinline__ uint4 load16(const char* p) {
 }
 
 __device__ __forceinline__ void store16(void* p, uint4 v) {
-#ifdef OTA_PLAIN_STORE
   *reinterpret_cast<uint4*>(p) = v;
-#else
-  __stcs(reinterpret_cast<uint4*>(p), v);
-#endif
 }
 
 __device__ __forceinline__ uint32_t offset16(const void* p) {
   return static_cast<uint32_t>(reinterpret_cast<uintptr_t>(p) & 15);
 }
 
-// Loads a lane's W vectors of one stream from the aligned address `a`: the
-// first when `lend` (the lane's own run or lane - 1's needs it), all when
-// `mine` (the lane computes its run).
-template <int W>
-__device__ __forceinline__ void load_run(uint4* v, const char* a, bool mine,
-                                         bool lend) {
+// The vector of lane + 1 (lane 31 gets lane 0's).
+__device__ __forceinline__ uint4 from_next_lane(uint4 v, int lane) {
+  const int src = (lane + 1) & 31;
+  return make_uint4(__shfl_sync(0xffffffffu, v.x, src),
+                    __shfl_sync(0xffffffffu, v.y, src),
+                    __shfl_sync(0xffffffffu, v.z, src),
+                    __shfl_sync(0xffffffffu, v.w, src));
+}
+
+// The 16 bytes that start `sh` bytes into v and run on into nx, as four
+// words: two selects pick the words, a funnel shift the bytes.  sh is the
+// same on every lane of the warp.  A stream of S-byte elements has sh a
+// multiple of S, so 4-byte ones need no byte shift.
+template <int S>
+__device__ __forceinline__ void shift_down(uint32_t* r, uint4 v, uint4 nx,
+                                           uint32_t sh) {
+  const uint32_t u[8] = {v.x, v.y, v.z, v.w, nx.x, nx.y, nx.z, nx.w};
+  const bool two = sh & 8, one = sh & 4;
+  const uint32_t bits = S == 4 ? 0 : 8 * (sh & 3);
+  uint32_t t[6], q[5];
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
-    v[i] = make_uint4(0u, 0u, 0u, 0u);
-    if (i == 0 ? lend : mine) v[i] = load16(a + 16 * i);
+  for (int j = 0; j < 6; ++j) t[j] = two ? u[j + 2] : u[j];
+#pragma unroll
+  for (int j = 0; j < 5; ++j) q[j] = one ? t[j + 1] : t[j];
+#pragma unroll
+  for (int j = 0; j < 4; ++j)
+    r[j] = S == 4 ? q[j] : __funnelshift_r(q[j], q[j + 1], bits);
+}
+
+// A warp's span of an f32 stream: the 31 runs r0 .. r0+30, W 16-byte
+// vectors each, from `a`, the aligned address at or below the span's first
+// element (sh bytes below it).  Lane l holds slots k = 0 .. W-1, vector
+// 32k + l of the span: consecutive lanes load consecutive vectors, and the
+// vector past a slot is lane + 1's (lane 0's next slot for lane 31), so the
+// span's one extra vector is slot 31W.  A vector is loaded only if it holds
+// a byte of a whole run, or of the last whole run when the stream is
+// offset.
+template <int W>
+__device__ __forceinline__ void load_span(uint4* v, const char* a,
+                                          uint32_t sh, int lane, int64_t r0,
+                                          int64_t nb) {
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int j = 32 * k + lane;
+    const int64_t run = r0 + j / W;
+    v[k] = make_uint4(0u, 0u, 0u, 0u);
+    if (j <= kRuns * W &&
+        (run < nb || (run == nb && j % W == 0 && sh != 0)))
+      v[k] = load16(a + 16 * j);
   }
 }
 
-// The run's 4W words: the lane's W vectors, loaded `sh` bytes below the
-// run, shifted down by sh bytes, the bytes past them taken from lane + 1's
-// first vector.  sh is the same on every lane of the warp, and every lane
-// of the warp calls this (the shuffle).
+// The span's slots realigned: words r[4k .. 4k+3] are elements
+// 4(32k + l) .. +3 of the span.  Every lane of the warp calls this.
 template <int W>
-__device__ __forceinline__ void realign(uint32_t* r, const uint4* v,
-                                        uint32_t sh) {
-  uint32_t u[4 * W + 4];
+__device__ __forceinline__ void realign_span(uint32_t* r, const uint4* v,
+                                             uint32_t sh, int lane) {
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
-    u[4 * i] = v[i].x;
-    u[4 * i + 1] = v[i].y;
-    u[4 * i + 2] = v[i].z;
-    u[4 * i + 3] = v[i].w;
+  for (int k = 0; k < W; ++k) {
+    if (sh == 0) {
+      r[4 * k] = v[k].x;
+      r[4 * k + 1] = v[k].y;
+      r[4 * k + 2] = v[k].z;
+      r[4 * k + 3] = v[k].w;
+    } else {
+      // lane 0 hands its next slot to lane 31
+      const uint4 nx = from_next_lane(lane == 0 && k + 1 < W ? v[k + 1]
+                                                              : v[k],
+                                      lane);
+      shift_down<4>(r + 4 * k, v[k], nx, sh);
+    }
   }
-  if (sh == 0) {
-#pragma unroll
-    for (int j = 0; j < 4 * W; ++j) r[j] = u[j];
-    return;
-  }
-  u[4 * W] = __shfl_down_sync(0xffffffffu, v[0].x, 1);
-  u[4 * W + 1] = __shfl_down_sync(0xffffffffu, v[0].y, 1);
-  u[4 * W + 2] = __shfl_down_sync(0xffffffffu, v[0].z, 1);
-  u[4 * W + 3] = __shfl_down_sync(0xffffffffu, v[0].w, 1);
-  const bool two = sh & 8, one = sh & 4;
-  const uint32_t bits = 8 * (sh & 3);
-  uint32_t t[4 * W + 2], q[4 * W + 1];
-#pragma unroll
-  for (int j = 0; j < 4 * W + 2; ++j) t[j] = two ? u[j + 2] : u[j];
-#pragma unroll
-  for (int j = 0; j < 4 * W + 1; ++j) q[j] = one ? t[j + 1] : t[j];
-#pragma unroll
-  for (int j = 0; j < 4 * W; ++j) r[j] = __funnelshift_r(q[j], q[j + 1], bits);
 }
 
 // Copies this block's cell's [n] coefficient rows into shared memory.
@@ -193,42 +228,65 @@ __device__ __forceinline__ float sum_scalar(const T* gj, int64_t d, int n,
   return acc;
 }
 
-// The same sum for a lane's run of E = 16 / sizeof(T) elements: run r of
-// the row, whose first element lies at `ga` in device row 0; device rows
-// are `row` bytes apart.  Loads kRows rows, then consumes them in order.
+// Device rows m0 .. m0 + kRows-1 (those below n) of a lane's run r of E =
+// 16 / sizeof(T) elements: one 16-byte vector each, loaded at the aligned
+// address at or below the run, whose first element lies at `ga` in device
+// row 0; device rows are `row` bytes apart.  Lane 31 (run r0 + 31) only
+// lends its vector to lane 30.
+template <typename T>
+__device__ __forceinline__ void load_rows(uint4* gv, const char* ga,
+                                          int64_t row, int n, int m0,
+                                          int64_t r, int64_t nb) {
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const char* a = ga + (m0 + i) * row;
+    const uint32_t sh = offset16(a);
+    gv[i] = make_uint4(0u, 0u, 0u, 0u);
+    if (m0 + i < n && (r < nb || (r == nb && sh != 0)))
+      gv[i] = load16(a - sh);
+  }
+}
+
+// acc[e] += (g_m * qs_m) * s_m (K1, kScaled) or g_m * s_m (K2) over those
+// rows, in order, each row realigned first.  Every lane of the warp calls
+// this.
+template <typename T, bool kScaled>
+__device__ __forceinline__ void add_rows(float* acc, const uint4* gv,
+                                         const char* ga, int64_t row, int n,
+                                         int m0, const float* qs,
+                                         const float* s, int lane) {
+  constexpr int E = 16 / sizeof(T);
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    const int m = m0 + i;
+    if (m >= n) break;
+    const uint32_t sh = offset16(ga + m * row);
+    uint32_t w[4] = {gv[i].x, gv[i].y, gv[i].z, gv[i].w};
+    if (sh != 0)
+      shift_down<sizeof(T)>(w, gv[i], from_next_lane(gv[i], lane), sh);
+    const float q = kScaled ? qs[m] : 1.f;
+    const float sm = s[m];
+#pragma unroll
+    for (int e = 0; e < E; ++e) {
+      float gm = word_elem(w, e, T());
+      if (kScaled) gm = __fmul_rn(gm, q);
+      acc[e] = __fadd_rn(acc[e], __fmul_rn(gm, sm));
+    }
+  }
+}
+
+// The sum over all n rows of run r, kRows rows at a time.
 template <typename T, bool kScaled>
 __device__ __forceinline__ void sum_run(float* acc, const char* ga,
                                         int64_t row, int n, const float* qs,
-                                        const float* s, int64_t r,
+                                        const float* s, int lane, int64_t r,
                                         int64_t nb) {
-  constexpr int E = 16 / sizeof(T);
 #pragma unroll
-  for (int e = 0; e < E; ++e) acc[e] = 0.f;
+  for (int e = 0; e < 16 / static_cast<int>(sizeof(T)); ++e) acc[e] = 0.f;
   for (int m0 = 0; m0 < n; m0 += kRows) {
     uint4 gv[kRows];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const char* a = ga + (m0 + i) * row;
-      const uint32_t sh = offset16(a);
-      gv[i] = make_uint4(0u, 0u, 0u, 0u);
-      if (m0 + i < n && (r < nb || (r == nb && sh != 0)))
-        gv[i] = load16(a - sh);
-    }
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int m = m0 + i;
-      if (m >= n) break;
-      uint32_t w[4];
-      realign<1>(w, &gv[i], offset16(ga + m * row));
-      const float q = kScaled ? qs[m] : 1.f;
-      const float sm = s[m];
-#pragma unroll
-      for (int e = 0; e < E; ++e) {
-        float gm = word_elem(w, e, T());
-        if (kScaled) gm = __fmul_rn(gm, q);
-        acc[e] = __fadd_rn(acc[e], __fmul_rn(gm, sm));
-      }
-    }
+    load_rows<T>(gv, ga, row, n, m0, r, nb);
+    add_rows<T, kScaled>(acc, gv, ga, row, n, m0, qs, s, lane);
   }
 }
 
@@ -247,6 +305,7 @@ round_step_kernel(const T* __restrict__ g, const float* __restrict__ qs,
   constexpr int E = 16 / sizeof(T);  // a run: one 16-byte vector of g
   constexpr int W = E / 4;           // its 16-byte vectors of z, p and out
   extern __shared__ float coef[];    // [0, n): qs, [n, 2n): s
+  __shared__ float4 xs[kWarps][32 * W];  // sums from runs to slots
   const int c = blockIdx.y;
   stage_rows(coef, qs, s, c, n);
   const T* gc = g + static_cast<int64_t>(c) * n * d;
@@ -265,40 +324,66 @@ round_step_kernel(const T* __restrict__ g, const float* __restrict__ qs,
     }
   }
   const int lane = threadIdx.x & 31;
+  float4* x = xs[threadIdx.x / 32];
+  const char* za = reinterpret_cast<const char*>(zc + h);
+  const char* pa = reinterpret_cast<const char*>(pc + h);
+  const char* ga = reinterpret_cast<const char*>(gc + h);
+  char* oa = reinterpret_cast<char*>(oc + h);
+  const uint32_t zsh = offset16(za), psh = offset16(pa);
+  const int64_t row = d * static_cast<int64_t>(sizeof(T));
   const int64_t r0 =
       (static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32) * kRuns;
   if (r0 >= nb) return;  // the whole warp
-  const int64_t r = r0 + lane;
-  const bool mine = lane < kRuns && r < nb;
-
-  const char* za = reinterpret_cast<const char*>(zc + h);
-  const char* pa = reinterpret_cast<const char*>(pc + h);
-  const uint32_t zsh = offset16(za), psh = offset16(pa);
+  // z and p are loaded with the rows when they fit beside them in
+  // registers; an int8 run's 4 vectors of each would cost a block per SM,
+  // so they wait for the sum
+  constexpr bool kAfter = W > 2;
   uint4 zv[W], pv[W];
-  load_run<W>(zv, za - zsh + r * 16 * W, mine, r < nb || (r == nb && zsh));
-  load_run<W>(pv, pa - psh + r * 16 * W, mine, r < nb || (r == nb && psh));
+  if (!kAfter) {
+    load_span<W>(zv, za - zsh + r0 * 16 * W, zsh, lane, r0, nb);
+    load_span<W>(pv, pa - psh + r0 * 16 * W, psh, lane, r0, nb);
+  }
   float acc[E];
-  sum_run<T, true>(acc, reinterpret_cast<const char*>(gc + h) + r * 16,
-                   d * static_cast<int64_t>(sizeof(T)), n, coef, coef + n, r,
-                   nb);
+  sum_run<T, true>(acc, ga + (r0 + lane) * 16, row, n, coef, coef + n, lane,
+                   r0 + lane, nb);
+  if (kAfter) {
+    load_span<W>(zv, za - zsh + r0 * 16 * W, zsh, lane, r0, nb);
+    load_span<W>(pv, pa - psh + r0 * 16 * W, psh, lane, r0, nb);
+  }
   uint32_t zw[4 * W], pw[4 * W];
-  realign<W>(zw, zv, zsh);
-  realign<W>(pw, pv, psh);
-  if (!mine) return;
-  char* oa = reinterpret_cast<char*>(oc + h) + r * 16 * W;
+  realign_span<W>(zw, zv, zsh, lane);
+  realign_span<W>(pw, pv, psh, lane);
+  // the sums in slot order: run l's E sums are slots W*l .. W*l + W-1
+  float a[4 * W];
+  if (W == 1) {
 #pragma unroll
-  for (int i = 0; i < W; ++i) {
-    float v[4];
+    for (int e = 0; e < E; ++e) a[e] = acc[e];
+  } else {
 #pragma unroll
-    for (int k = 0; k < 4; ++k) {
-      const int e = 4 * i + k;
-      v[k] = step(acc[e], nsc, __uint_as_float(zw[e]),
-                  __uint_as_float(pw[e]), etac);
+    for (int i = 0; i < W; ++i)
+      x[W * lane + i] = make_float4(acc[4 * i], acc[4 * i + 1],
+                                    acc[4 * i + 2], acc[4 * i + 3]);
+    __syncwarp();
+#pragma unroll
+    for (int k = 0; k < W; ++k) {
+      const float4 t = x[32 * k + lane];
+      a[4 * k] = t.x;
+      a[4 * k + 1] = t.y;
+      a[4 * k + 2] = t.z;
+      a[4 * k + 3] = t.w;
     }
-    store16(oa + 16 * i, make_uint4(__float_as_uint(v[0]),
-                                    __float_as_uint(v[1]),
-                                    __float_as_uint(v[2]),
-                                    __float_as_uint(v[3])));
+  }
+#pragma unroll
+  for (int k = 0; k < W; ++k) {
+    const int j = 32 * k + lane;
+    if (j >= kRuns * W || r0 + j / W >= nb) continue;
+    uint32_t o[4];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+      o[i] = __float_as_uint(step(a[4 * k + i], nsc,
+                                  __uint_as_float(zw[4 * k + i]),
+                                  __uint_as_float(pw[4 * k + i]), etac));
+    store16(oa + (r0 * W + j) * 16, make_uint4(o[0], o[1], o[2], o[3]));
   }
 }
 
@@ -310,6 +395,7 @@ aggregate_kernel(const T* __restrict__ g, const float* __restrict__ s,
   constexpr int E = 16 / sizeof(T);  // a run: one 16-byte vector of g, out
   constexpr int W = E / 4;           // its 16-byte vectors of z
   extern __shared__ float coef[];    // [0, n): s
+  __shared__ float4 xs[kWarps][32 * W];  // z from slots to runs
   const int c = blockIdx.y;
   stage_rows(coef, s, nullptr, c, n);
   const T* gc = g + static_cast<int64_t>(c) * n * d;
@@ -328,27 +414,46 @@ aggregate_kernel(const T* __restrict__ g, const float* __restrict__ s,
     }
   }
   const int lane = threadIdx.x & 31;
+  float4* x = xs[threadIdx.x / 32];
+  const char* za = reinterpret_cast<const char*>(zc + h);
+  const char* ga = reinterpret_cast<const char*>(gc + h);
+  const uint32_t zsh = offset16(za);
+  const int64_t row = d * static_cast<int64_t>(sizeof(T));
   const int64_t r0 =
       (static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32) * kRuns;
-  if (r0 >= nb) return;
+  if (r0 >= nb) return;  // the whole warp
   const int64_t r = r0 + lane;
-  const bool mine = lane < kRuns && r < nb;
-
-  const char* za = reinterpret_cast<const char*>(zc + h);
-  const uint32_t zsh = offset16(za);
   uint4 zv[W];
-  load_run<W>(zv, za - zsh + r * 16 * W, mine, r < nb || (r == nb && zsh));
+  load_span<W>(zv, za - zsh + r0 * 16 * W, zsh, lane, r0, nb);
   float acc[E];
-  sum_run<T, false>(acc, reinterpret_cast<const char*>(gc + h) + r * 16,
-                    d * static_cast<int64_t>(sizeof(T)), n, nullptr, coef, r,
-                    nb);
+  sum_run<T, false>(acc, ga + r * 16, row, n, nullptr, coef, lane, r, nb);
   uint32_t zw[4 * W];
-  realign<W>(zw, zv, zsh);
-  if (!mine) return;
+  realign_span<W>(zw, zv, zsh, lane);
+  // z in run order: slots W*l .. W*l + W-1 are run l's
+  float zr[E];
+  if (W == 1) {
+#pragma unroll
+    for (int e = 0; e < E; ++e) zr[e] = __uint_as_float(zw[e]);
+  } else {
+#pragma unroll
+    for (int k = 0; k < W; ++k)
+      x[32 * k + lane] = make_float4(
+          __uint_as_float(zw[4 * k]), __uint_as_float(zw[4 * k + 1]),
+          __uint_as_float(zw[4 * k + 2]), __uint_as_float(zw[4 * k + 3]));
+    __syncwarp();
+#pragma unroll
+    for (int i = 0; i < W; ++i) {
+      const float4 t = x[W * lane + i];
+      zr[4 * i] = t.x;
+      zr[4 * i + 1] = t.y;
+      zr[4 * i + 2] = t.z;
+      zr[4 * i + 3] = t.w;
+    }
+  }
+  if (lane >= kRuns || r >= nb) return;
   float v[E];
 #pragma unroll
-  for (int e = 0; e < E; ++e)
-    v[e] = __fadd_rn(acc[e], __fmul_rn(nsc, __uint_as_float(zw[e])));
+  for (int e = 0; e < E; ++e) v[e] = __fadd_rn(acc[e], __fmul_rn(nsc, zr[e]));
   store16(reinterpret_cast<char*>(oc + h) + r * 16,
           make_uint4(out_word(v, 0, T()), out_word(v, 1, T()),
                      out_word(v, 2, T()), out_word(v, 3, T())));
