@@ -4,20 +4,23 @@ their source.
     python -m repro_torch.profile_ota [--against LABEL=PATH[:FLAG,...]] [--reps 4]
 
 Builds ``kernels/csrc/ota_kernels.cu`` (label ``this``) and each
-``--against`` source -- another checkout's ``ota_kernels.cu``, or this one
-with preprocessor flags such as ``-DOTA_PLAIN_STORE`` -- with nvcc for
+``--against`` source -- another checkout's ``ota_kernels.cu``, or one
+compiled with preprocessor flags (``-DNAME=VALUE``) -- with nvcc for
 sm_90a and ``-Xptxas -v``, one process each, all at once, and prints each
 kernel's registers and spills.  Every build exports the same C entry
 points.  At the fleet's main shape (C = 7 cells, N = 10 devices, D =
 814,090) it launches K1 on the f32, bf16 and int8 wires and K2 on f32 and
 bf16 through each build, compares each output with the plain version
-(``torch.equal``), then times each as the median of 25 launches between
-CUDA events, in ``--reps`` rounds whose build order alternates (A B, B A,
-...).  Per kernel and build it prints the median of the rounds' medians,
+(``torch.equal``), then times each (CUDA events around batches of 20
+back-to-back launches, the median of 5 batches) in ``--reps`` rounds whose
+build order alternates (A B, B A, ...).  Per kernel and build it prints the median of the rounds' medians,
 the achieved GB/s and the share of the byte bound: the bytes of each
 input read once and the output written once, over the card's data-sheet
-memory rate.  The last line is one JSON object.  Fails if this source's
-kernels are not bitwise equal to the plain versions.  Needs a CUDA device.
+memory rate.  For scale it times one PyTorch pass of the same reach,
+``torch.sum(g, dim=1)`` on the f32 and bf16 g (what a streaming reduction
+of the library attains on this card).  The last line is one JSON object.
+Fails if this source's kernels are not bitwise equal to the plain
+versions.  Needs a CUDA device.
 """
 from __future__ import annotations
 
@@ -38,8 +41,6 @@ MAIN = (7, 10, 814_090)              # cells, devices, d of the main path
 # data-sheet device-memory rates; an unknown name falls back to the H100 SXM
 BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
                "H100": 3.35e12}
-KERNELS = [("K1", "f32"), ("K1", "bf16"), ("K1", "int8"), ("K2", "f32"),
-           ("K2", "bf16")]
 
 
 def bytes_per_s(card: str) -> float:
@@ -80,19 +81,23 @@ def registers(log: str) -> list:
     return keep
 
 
-def median_ms(fn, iters=25, warmup=3) -> float:
+def median_ms(fn, iters=20, batches=5, warmup=3) -> float:
+    """Median over ``batches`` of the mean time of ``iters`` back-to-back
+    calls between two CUDA events: the device's queue stays full, so the
+    host's time per call does not enter a kernel's."""
     for _ in range(warmup):
         fn()
     torch.cuda.synchronize()
     times = []
-    for _ in range(iters):
+    for _ in range(batches):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
-        fn()
+        for _ in range(iters):
+            fn()
         b.record()
         b.synchronize()
-        times.append(a.elapsed_time(b))
+        times.append(a.elapsed_time(b) / iters)
     return statistics.median(times)
 
 
@@ -193,7 +198,21 @@ def main(argv=None) -> None:
             raise SystemExit(f"{name}: this source's kernel is not bitwise "
                              "equal to the plain version")
         del want
+    c, n, d = MAIN
+    gen = torch.Generator(device=dev).manual_seed(1)
+    g = torch.randn((c, n, d), generator=gen, device=dev)
+    reach = {}
+    for wire, gd in (("f32", g), ("bf16", g.to(torch.bfloat16))):
+        nbytes = gd.numel() * gd.element_size() * (n + 1) // n
+        ms = median_ms(lambda: torch.sum(gd, dim=1))
+        reach[f"torch.sum(g, 1) {wire}"] = {
+            "bytes": nbytes, "ms": ms, "gb_per_s": nbytes / ms / 1e6,
+            "bound_share": 1e3 * nbytes / bw / ms}
+        print(f"torch.sum(g, 1) {wire}: "
+              + json.dumps(reach[f"torch.sum(g, 1) {wire}"]), flush=True)
+    del g
     print(json.dumps({"card": card, "shape": MAIN, "bytes_per_s": bw,
+                      "reach": {k: v["ms"] for k, v in reach.items()},
                       "kernels": {name: {label: row[label]["ms"]
                                          for label in labels}
                                   | {"bound_ms": row["bound_ms"]}
