@@ -8,11 +8,11 @@ Phases (any failure exits nonzero, and nothing is swallowed):
   1. the card's name and power limit (nvidia-smi); build the CUDA kernels
      from the checkout's sources (one nvcc per source, all at once, sm_90a)
      and report the seconds; read each kernel's SASS (``cuobjdump -sass``):
-     count the 128-bit global loads (LDG.E.128) of every K1/K2 instance and
-     the tensor-core instructions of the flash-attention and ssd_scan
-     kernels (HGMMA for wgmma, HMMA for mma.sync), and fail if a K1/K2
-     instance has no 128-bit load or K3's bf16 kernel or K4's f32 kernel
-     has no tensor-core instruction;
+     count the 128-bit global loads and stores (LDG.E.128, STG.E.128) of
+     every K1/K2 instance and the tensor-core instructions of the
+     flash-attention and ssd_scan kernels (HGMMA for wgmma, HMMA for
+     mma.sync), and fail if a K1/K2 instance has no 128-bit load or store
+     or K3's bf16 kernel or K4's f32 kernel has no tensor-core instruction;
   2. every kernel against its plain PyTorch version on the card, at its
      main path's shapes, with times (CUDA events around batches of 20
      back-to-back calls, the median of 5 batches) beside the plain
@@ -834,9 +834,10 @@ def main() -> int:
           f"{json.dumps(sass)}", flush=True)
     ota = {fn: n for fn, n in sass.items()
            if "round_step_kernel" in fn or "aggregate_kernel" in fn}
-    check(len(ota) == 5 and all(n["LDG.E.128"] > 0 for n in ota.values()),
+    check(len(ota) == 5 and all(n["LDG.E.128"] > 0 and n["STG.E.128"] > 0
+                                for n in ota.values()),
           f"a K1/K2 instance (K1 f32, bf16, int8; K2 f32, bf16) has no "
-          f"128-bit global load: {ota}")
+          f"128-bit global load or store: {ota}")
     sass = sass_ops(build, "flash_attention")
     print(f"[1] tensor-core instructions in the flash-attention library: "
           f"{json.dumps(sass)}", flush=True)

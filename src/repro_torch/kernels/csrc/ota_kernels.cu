@@ -116,8 +116,12 @@ __device__ __forceinline__ uint4 load16(const char* p) {
   return __ldg(reinterpret_cast<const uint4*>(p));
 }
 
+// One 16-byte store.  Written as PTX: a uint4 assignment is a struct copy,
+// which the compiler may split into 4- and 8-byte stores.
 __device__ __forceinline__ void store16(void* p, uint4 v) {
-  *reinterpret_cast<uint4*>(p) = v;
+  asm volatile("st.global.v4.b32 [%0], {%1, %2, %3, %4};" ::"l"(p),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
 }
 
 __device__ __forceinline__ uint32_t offset16(const void* p) {
