@@ -79,7 +79,6 @@ fleet's reference is full float32.
 """
 import json
 import re
-import statistics
 import subprocess
 import sys
 import time
@@ -176,25 +175,14 @@ def peaks(name: str):
     return "H100 (assumed)", PEAKS["H100"]
 
 
-def median_ms(torch, fn, iters=20, batches=5, warmup=3):
-    """Median over ``batches`` of the mean time of ``iters`` back-to-back
-    calls between two CUDA events: the device's queue stays full, so the
-    wrapper's host time per call (checks, allocation, launch: tens of
-    microseconds) does not enter the time of a kernel that takes longer."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(batches):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / iters)
-    return statistics.median(times)
+def median_ms(torch, fn):
+    """Median over 5 batches of the mean time of 20 back-to-back calls
+    between two CUDA events (``repro_torch.profile_ota.median_ms``): the
+    device's queue stays full, so the wrapper's host time per call (checks,
+    allocation, launch: tens of microseconds) does not enter the time of a
+    kernel that takes longer."""
+    from repro_torch.profile_ota import median_ms as batched_ms
+    return batched_ms(fn)
 
 
 def nbytes(*tensors):

@@ -41,8 +41,8 @@
 // slots to runs (K2) through shared memory.  A thread issues its loads of
 // kRows device rows, and of z and p, before it consumes any; an int8 run's
 // z and p (4 vectors each) wait for the sum, as holding them would cost a
-// block per SM.  int8 converts to f32 by integer ops and one exact add (no
-// conversion instruction).  Each loaded vector holds a byte of the row it
+// block per SM.  int8 converts to f32 by integer ops and one exact
+// subtraction (no conversion instruction).  Each loaded vector holds a byte of the row it
 // serves, so no load leaves the row's memory.  The ragged ends (fewer than
 // one vector before the first aligned output and after the last whole run)
 // are done one element a thread by the cell's first block.  The grid is
