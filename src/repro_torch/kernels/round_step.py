@@ -15,11 +15,12 @@ wire) it reads g (227.9 MB), z and p (22.8 MB each) and writes out
 flops per output element is far below the card's ridge point.  Design: on
 a (D blocks, C) grid a thread owns a run of one 16-byte vector of g (4
 f32, 8 bf16 or 16 int8 elements) whose output starts 16-byte aligned;
-every stream is read by 16-byte loads, issued for up to 16 devices before
-any is consumed, and realigned across lanes by warp shuffles, since no row
-of D = 814,090 values need be aligned; out is written by 16-byte stores;
-the few elements before the first aligned output and after the last run
-are done one a thread (see the source).  Bases off 16-byte alignment are
+every stream is read by 16-byte loads, issued for 10 devices (the fleet's
+N) at a time before any is consumed, and realigned across lanes by warp
+shuffles, since no row of D = 814,090 values need be aligned; z, p and
+out move in coalesced 16-byte slots; the few elements before the first
+aligned output and after the last run are done one a thread (see the
+source).  Bases off 16-byte alignment are
 taken.  An f32 loop over the devices in order, one rounded op at a time,
 makes the result bitwise equal to the plain version.
 
