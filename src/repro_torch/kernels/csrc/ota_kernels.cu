@@ -39,11 +39,12 @@
 // instruction covers 512 contiguous bytes; on the narrow wires (a run of 2
 // or 4 of their vectors) the sums go from runs to slots (K1) or z from
 // slots to runs (K2) through shared memory.  A thread issues its loads of
-// kRows device rows, and of z and p, before it consumes any; an int8 run's
-// z and p (4 vectors each) wait for the sum, as holding them would cost a
-// block per SM.  int8 converts to f32 by integer ops and one exact
-// subtraction (no conversion instruction).  Each loaded vector holds a byte of the row it
-// serves, so no load leaves the row's memory.  The ragged ends (fewer than
+// kRows device rows before it consumes any; K1's z and p wait for the sum,
+// as holding an int8 run's (4 vectors each) through it would cost a block
+// per SM, and K2's z is loaded with the rows.  int8 converts to f32 by
+// integer ops and one exact subtraction (no conversion instruction).  Each
+// loaded vector holds a byte of the row it serves, so no load leaves the
+// row's memory.  The ragged ends (fewer than
 // one vector before the first aligned output and after the last whole run)
 // are done one element a thread by the cell's first block.  The grid is
 // (D blocks, C), one span per warp; the coefficients of a block's cell are
@@ -338,22 +339,14 @@ round_step_kernel(const T* __restrict__ g, const float* __restrict__ qs,
   const int64_t r0 =
       (static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32) * kRuns;
   if (r0 >= nb) return;  // the whole warp
-  // z and p are loaded with the rows when they fit beside them in
-  // registers; an int8 run's 4 vectors of each would cost a block per SM,
-  // so they wait for the sum
-  constexpr bool kAfter = W > 2;
-  uint4 zv[W], pv[W];
-  if (!kAfter) {
-    load_span<W>(zv, za - zsh + r0 * 16 * W, zsh, lane, r0, nb);
-    load_span<W>(pv, pa - psh + r0 * 16 * W, psh, lane, r0, nb);
-  }
   float acc[E];
   sum_run<T, true>(acc, ga + (r0 + lane) * 16, row, n, coef, coef + n, lane,
                    r0 + lane, nb);
-  if (kAfter) {
-    load_span<W>(zv, za - zsh + r0 * 16 * W, zsh, lane, r0, nb);
-    load_span<W>(pv, pa - psh + r0 * 16 * W, psh, lane, r0, nb);
-  }
+  // z and p wait for the sum: held through it, an int8 run's 4 vectors of
+  // each would cost a block per SM
+  uint4 zv[W], pv[W];
+  load_span<W>(zv, za - zsh + r0 * 16 * W, zsh, lane, r0, nb);
+  load_span<W>(pv, pa - psh + r0 * 16 * W, psh, lane, r0, nb);
   uint32_t zw[4 * W], pw[4 * W];
   realign_span<W>(zw, zv, zsh, lane);
   realign_span<W>(pw, pv, psh, lane);
