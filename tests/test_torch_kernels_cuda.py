@@ -98,11 +98,12 @@ def test_aggregate_kernel_matches_plain(cuda, dtype, c, n, d):
 # Bitwise against the plain versions, which take the kernels' own order of
 # f32 operations: every misalignment class of a row (D = 4096 + r, three
 # cells, so that cell rows start at 0, D and 2D elements), D shorter than
-# one 16-byte vector, N from 1 to 32 (two groups of in-flight rows), and
-# the main shape
+# one 16-byte vector, N from 1 to 32 (the kernels issue the loads of 10
+# device rows at a time, so N = 32 takes four groups), N = 32 on rows of
+# whole 16-byte vectors too (on every wire), and the main shape
 BITWISE_SHAPES = [(3, 10, 4096 + r) for r in range(16)] \
     + [(c, n, d) for c in (1, 7) for n in (1, 10, 32) for d in (1, 3, 7, 15)] \
-    + [(7, 10, 814090)]
+    + [(2, 32, 1027), (3, 32, 4096 + 5), (7, 10, 814090)]
 
 
 @pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
