@@ -99,12 +99,6 @@ MAIN = (7, 10, 814_090)                    # cells, devices, d of the main path
 RAGGED_D = (1, 5000)
 ROUNDS, EVERY, BATCH = 30, 10, 128
 SHORT = 5                                  # rounds of the other paths
-# published peaks per card (data sheets, dense): (device-memory bytes/s, f32
-# flop/s outside the tensor cores, bf16 tensor-core flop/s; TF32 runs at
-# half the bf16 rate); an unknown name falls back to the H100 SXM
-PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
-         "H100 NVL": (3.9e12, 60e12, 835e12),
-         "H200": (4.8e12, 67e12, 989e12), "H100": (3.35e12, 67e12, 989e12)}
 SOURCES = {"ota_round_step": "src/repro_torch/kernels/csrc/ota_kernels.cu",
            "ota_aggregate": "src/repro_torch/kernels/csrc/ota_kernels.cu",
            "flash_attention": "src/repro_torch/kernels/csrc/flash_attention.cu",
@@ -167,24 +161,6 @@ def check(cond, msg):
         raise SmokeFailure(msg)
 
 
-def peaks(name: str):
-    """(matched name, (bytes/s, f32 flop/s, bf16 tensor flop/s))."""
-    for key, val in PEAKS.items():
-        if key in name:
-            return key, val
-    return "H100 (assumed)", PEAKS["H100"]
-
-
-def median_ms(torch, fn):
-    """Median over 5 batches of the mean time of 20 back-to-back calls
-    between two CUDA events (``repro_torch.profile_ota.median_ms``): the
-    device's queue stays full, so the wrapper's host time per call (checks,
-    allocation, launch: tens of microseconds) does not enter the time of a
-    kernel that takes longer."""
-    from repro_torch.profile_ota import median_ms as batched_ms
-    return batched_ms(fn)
-
-
 def nbytes(*tensors):
     return sum(t.numel() * t.element_size() for t in tensors
                if t is not None)
@@ -212,11 +188,12 @@ def sass_ops(build, name, ops=("HGMMA", "HMMA")):
     return found
 
 
-def ota_timing(torch, kern, plain, byts, flops, bw, f32_peak):
+def ota_timing(kern, plain, byts, flops, bw, f32_peak):
     """Times, bound and achieved rate of a K1/K2 call at the main shape."""
-    ms = median_ms(torch, kern)
+    from repro_torch.card import median_ms
+    ms = median_ms(kern)
     bound = 1e3 * max(byts / bw, flops / f32_peak)
-    return {"ms": ms, "plain_ms": median_ms(torch, plain), "bound_ms": bound,
+    return {"ms": ms, "plain_ms": median_ms(plain), "bound_ms": bound,
             "bytes": byts, "gb_per_s": byts / ms / 1e6,
             "bound_share": bound / ms,
             "bound_by": "bytes" if byts / bw >= flops / f32_peak
@@ -224,76 +201,39 @@ def ota_timing(torch, kern, plain, byts, flops, bw, f32_peak):
 
 
 def phase_kernels(torch, dev, card):
-    """Phase 2: every kernel against its plain version on the card."""
-    from repro_torch.kernels import ops, ota_aggregate, ref, round_step
+    """Phase 2: K1 and K2 against their plain versions on the card."""
+    from repro_torch.card import peaks
+    from repro_torch.kernels import ota_aggregate, round_step
+    from repro_torch.profile_ota import draw, ota_cases
     _, (bw, f32_peak, _) = peaks(card)
+    wrappers = {"ota_round_step": ("K1", round_step.ota_round_step),
+                "ota_aggregate": ("K2", ota_aggregate.ota_aggregate)}
     gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
     for (c, n, d) in [MAIN] + [(3, 10, dd) for dd in RAGGED_D]:
-        main = (c, n, d) == MAIN
-        g = torch.randn((c, n, d), generator=gen, device=dev)
-        s = torch.rand((c, n), generator=gen, device=dev) * 0.2
-        s[:, -1] = 0.0
-        z = torch.randn((c, d), generator=gen, device=dev)
-        p = torch.randn((c, d), generator=gen, device=dev)
-        ns = torch.rand((c,), generator=gen, device=dev) * 0.1
-        eta = torch.rand((c,), generator=gen, device=dev) * 0.1
-        for wire in ("f32", "bf16", "int8"):
-            w, qs = ops.quantize_uplink(g, wire)
-            qs1 = torch.ones_like(s) if qs is None else qs
+        for name, wire, args, plain, byts, flops in ota_cases(
+                *draw((c, n, d), dev, gen)):
+            k, fn = wrappers[name]
 
-            def kern():
-                return round_step.ota_round_step(w, qs1, s, z, ns, p, eta)
-
-            def plain():
-                return ref.ota_round_step_ref(w, s, z, ns, p, eta, qs)
+            def kern(fn=fn, args=args):
+                return fn(*args)
             got, want = kern(), plain()
             torch.cuda.synchronize()
-            err = (got - want).abs()
-            ok = bool((err <= F32_TOL["atol"]
-                       + F32_TOL["rtol"] * want.abs()).all())
-            row = {"max_abs_err": float(err.max()), "tol": F32_TOL, "ok": ok,
-                   "bitwise": bool(torch.equal(got, want))}
-            if main:
-                row.update(ota_timing(torch, kern, plain,
-                                      nbytes(w, qs1, s, z, ns, p, eta, got),
-                                      c * d * (3 * n + 4), bw, f32_peak))
-            results[("ota_round_step", wire, d)] = row
-            print(f"  K1 ota_round_step {wire:>4} C={c} N={n} D={d}: "
-                  + json.dumps(row), flush=True)
-            check(ok, f"K1 {wire} D={d} disagrees with its plain version")
-            check(row["bitwise"], f"K1 {wire} D={d} is not bitwise equal to "
-                  "its plain version")
-        for dtype, tol in ((torch.float32, F32_TOL),
-                           (torch.bfloat16, BF16_TOL)):
-            gd = g.to(dtype)
-
-            def kern():
-                return ota_aggregate.ota_aggregate(gd, s, z, ns)
-
-            def plain():
-                return ref.ota_aggregate_ref(gd, s, z, ns)
-            got, want = kern(), plain()
-            torch.cuda.synchronize()
+            tol = BF16_TOL if got.dtype == torch.bfloat16 else F32_TOL
             bitwise = bool(torch.equal(got, want))
             got, want = got.float(), want.float()
             err = (got - want).abs()
             ok = bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
             row = {"max_abs_err": float(err.max()), "tol": tol, "ok": ok,
                    "bitwise": bitwise}
-            wire = "f32" if dtype == torch.float32 else "bf16"
-            if main:
-                row.update(ota_timing(
-                    torch, kern, plain,
-                    nbytes(gd, s, z, ns) + c * d * gd.element_size(),
-                    c * d * (2 * n + 2), bw, f32_peak))
-            results[("ota_aggregate", wire, d)] = row
-            print(f"  K2 ota_aggregate  {wire:>4} C={c} N={n} D={d}: "
+            if (c, n, d) == MAIN:
+                row.update(ota_timing(kern, plain, byts, flops, bw, f32_peak))
+            results[(name, wire, d)] = row
+            print(f"  {k} {name:<14} {wire:>4} C={c} N={n} D={d}: "
                   + json.dumps(row), flush=True)
-            check(ok, f"K2 {wire} D={d} disagrees with its plain version")
-            check(bitwise, f"K2 {wire} D={d} is not bitwise equal to its "
+            check(ok, f"{k} {wire} D={d} disagrees with its plain version")
+            check(bitwise, f"{k} {wire} D={d} is not bitwise equal to its "
                   "plain version")
-        del g, z, p
     return results
 
 
@@ -339,6 +279,7 @@ def phase_attention_kernel(torch, dev, card):
     """Phase 2, K3: flash attention against its plain version on the card,
     with scaled_dot_product_attention timed beside it."""
     import torch.nn.functional as F
+    from repro_torch.card import median_ms, peaks
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
     _, (bw, f32_peak, bf16_peak) = peaks(card)
@@ -379,9 +320,9 @@ def phase_attention_kernel(torch, dev, card):
             flops / f32_peak, 3 * flops / (bf16_peak / 2))
         row = {"shape": [b, s, h, kh, dh], "dtype": dt, "window": window,
                "max_abs_err": float(err.max()), "tol": tol, "ok": ok,
-               "ms": median_ms(torch, kern),
-               "plain_ms": median_ms(torch, plain),
-               "library_ms": median_ms(torch, library),
+               "ms": median_ms(kern),
+               "plain_ms": median_ms(plain),
+               "library_ms": median_ms(library),
                "library_max_abs_err": lib_err,
                "bound_ms": 1e3 * max(byts / bw, ops_s),
                "bytes": byts, "flops": flops,
@@ -412,6 +353,7 @@ def ssd_flops(b, s, h, p, n, g, state0):
 def phase_ssd_kernel(torch, dev, card):
     """Phase 2, K4: the SSD scan against its plain version on the card."""
     import torch.nn.functional as F
+    from repro_torch.card import median_ms, peaks
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
     _, (bw, f32_peak, bf16_peak) = peaks(card)
@@ -457,8 +399,8 @@ def phase_ssd_kernel(torch, dev, card):
                "state_max_abs_err": errs["state"][0],
                "max_abs_state": errs["state"][1],
                "tol": {"scale": SSD_SCALE_TOL, "rtol": SSD_REL_TOL[dt_name]},
-               "ok": ok, "ms": median_ms(torch, kern),
-               "plain_ms": median_ms(torch, plain), "library_ms": None,
+               "ok": ok, "ms": median_ms(kern),
+               "plain_ms": median_ms(plain), "library_ms": None,
                "bound_ms": 1e3 * max(byts / bw, ops_s[0]),
                "bytes": byts, "flops": flops,
                "bound_by": "bytes" if byts / bw >= ops_s[0]
@@ -795,6 +737,7 @@ def main() -> int:
         return 1
     sys.path.insert(0, str(SRC))
     import numpy as np
+    from repro_torch.card import peaks
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
 

@@ -1,26 +1,27 @@
 """K1 and K2 at the fleet's main shape on the card, against other builds of
 their source.
 
-    python -m repro_torch.profile_ota [--against LABEL=PATH[:FLAG,...]] [--reps 4]
+    python -m repro_torch.profile_ota [--against LABEL=PATH] [--reps 4]
 
 Builds ``kernels/csrc/ota_kernels.cu`` (label ``this``) and each
-``--against`` source -- another checkout's ``ota_kernels.cu``, or one
-compiled with preprocessor flags (``-DNAME=VALUE``) -- with nvcc for
+``--against`` source (another checkout's ``ota_kernels.cu``) with nvcc for
 sm_90a and ``-Xptxas -v``, one process each, all at once, and prints each
 kernel's registers and spills.  Every build exports the same C entry
 points.  At the fleet's main shape (C = 7 cells, N = 10 devices, D =
 814,090) it launches K1 on the f32, bf16 and int8 wires and K2 on f32 and
 bf16 through each build, compares each output with the plain version
-(``torch.equal``), then times each (CUDA events around batches of 20
-back-to-back launches, the median of 5 batches) in ``--reps`` rounds whose
-build order alternates (A B, B A, ...).  Per kernel and build it prints the median of the rounds' medians,
-the achieved GB/s and the share of the byte bound: the bytes of each
-input read once and the output written once, over the card's data-sheet
-memory rate.  For scale it times one PyTorch pass of the same reach,
-``torch.sum(g, dim=1)`` on the f32 and bf16 g (what a streaming reduction
-of the library attains on this card).  The last line is one JSON object.
-Fails if this source's kernels are not bitwise equal to the plain
-versions.  Needs a CUDA device.
+(``torch.equal``), then times each (``card.median_ms``: CUDA events around
+batches of 20 back-to-back launches, the median of 5 batches) in
+``--reps`` rounds whose build order alternates (A B, B A, ...).  Per
+kernel and build it prints the median of the rounds' medians, the achieved
+GB/s and the share of the byte bound: the bytes of each input read once
+and the output written once, over the card's data-sheet memory rate.  For
+scale it times one PyTorch pass of the same reach, ``torch.sum(g, dim=1)``
+on the f32 and bf16 g (what a streaming reduction of the library attains
+on this card).  The last line is one JSON object.  Fails if this source's
+kernels are not bitwise equal to the plain versions.  Needs a CUDA device.
+
+``draw`` and ``ota_cases`` also make ``chip_smoke.py``'s K1/K2 rows.
 """
 from __future__ import annotations
 
@@ -34,28 +35,63 @@ from pathlib import Path
 
 import torch
 
+from repro_torch.card import median_ms, peaks
 from repro_torch.device import resolve_device
 from repro_torch.kernels import build, ops, ref
 
 MAIN = (7, 10, 814_090)              # cells, devices, d of the main path
-# data-sheet device-memory rates; an unknown name falls back to the H100 SXM
-BYTES_PER_S = {"H100 PCIe": 2.0e12, "H100 NVL": 3.9e12, "H200": 4.8e12,
-               "H100": 3.35e12}
 
 
-def bytes_per_s(card: str) -> float:
-    return next((v for k, v in BYTES_PER_S.items() if k in card),
-                BYTES_PER_S["H100"])
+def draw(shape, dev, gen):
+    """(g, s, z, ns, p, eta) of one round tail; the last device of every
+    cell is truncated (s = 0)."""
+    c, n, d = shape
+    g = torch.randn((c, n, d), generator=gen, device=dev)
+    s = torch.rand((c, n), generator=gen, device=dev) * 0.2
+    s[:, -1] = 0.0
+    z = torch.randn((c, d), generator=gen, device=dev)
+    p = torch.randn((c, d), generator=gen, device=dev)
+    ns = torch.rand((c,), generator=gen, device=dev) * 0.1
+    eta = torch.rand((c,), generator=gen, device=dev) * 0.1
+    return g, s, z, ns, p, eta
 
 
-def start_build(label: str, source: Path, flags: list):
+def nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def ota_cases(g, s, z, ns, p, eta):
+    """[(entry, wire, args, plain, bytes, flops)]: K1 (``ota_round_step``)
+    on the f32, bf16 and int8 wires and K2 (``ota_aggregate``) on f32 and
+    bf16, over one draw.  ``args`` are the kernel's inputs in the order of
+    its wrapper and its C entry; ``plain()`` computes the plain version;
+    bytes count each input read once and the output written once; flops
+    are the kernel's f32 operations."""
+    c, n, d = g.shape
+    cases = []
+    for wire in ("f32", "bf16", "int8"):
+        w, qs = ops.quantize_uplink(g, wire)
+        args = (w, torch.ones_like(s) if qs is None else qs, s, z, ns, p, eta)
+        cases.append(("ota_round_step", wire, args,
+                      lambda w=w, qs=qs: ref.ota_round_step_ref(
+                          w, s, z, ns, p, eta, qs),
+                      nbytes(*args) + c * d * 4, c * d * (3 * n + 4)))
+    for wire, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
+        args = (g.to(dtype), s, z, ns)
+        cases.append(("ota_aggregate", wire, args,
+                      lambda args=args: ref.ota_aggregate_ref(*args),
+                      nbytes(*args) + c * d * args[0].element_size(),
+                      c * d * (2 * n + 2)))
+    return cases
+
+
+def start_build(label: str, source: Path):
     """Starts nvcc on one source; returns (process, library path)."""
-    digest = hashlib.sha256(source.read_bytes()
-                            + " ".join(flags).encode()).hexdigest()[:16]
+    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
     out = build.BUILD_DIR / "variants" / f"ota_kernels_{label}_{digest}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", *flags, "-o",
-           str(out), str(source)]
+    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+           str(source)]
     return subprocess.Popen(cmd, stdout=subprocess.PIPE,
                             stderr=subprocess.STDOUT, text=True), out
 
@@ -81,87 +117,19 @@ def registers(log: str) -> list:
     return keep
 
 
-def median_ms(fn, iters=20, batches=5, warmup=3) -> float:
-    """Median over ``batches`` of the mean time of ``iters`` back-to-back
-    calls between two CUDA events: the device's queue stays full, so the
-    host's time per call does not enter a kernel's."""
-    for _ in range(warmup):
-        fn()
-    torch.cuda.synchronize()
-    times = []
-    for _ in range(batches):
-        a = torch.cuda.Event(enable_timing=True)
-        b = torch.cuda.Event(enable_timing=True)
-        a.record()
-        for _ in range(iters):
-            fn()
-        b.record()
-        b.synchronize()
-        times.append(a.elapsed_time(b) / iters)
-    return statistics.median(times)
-
-
-def cases(dev):
-    """{(kernel, wire): (launch(lib) -> out, plain output, bytes)} at the
-    main shape, on one draw."""
-    c, n, d = MAIN
-    gen = torch.Generator(device=dev).manual_seed(0)
-    g = torch.randn((c, n, d), generator=gen, device=dev)
-    s = torch.rand((c, n), generator=gen, device=dev) * 0.2
-    z = torch.randn((c, d), generator=gen, device=dev)
-    p = torch.randn((c, d), generator=gen, device=dev)
-    ns = torch.rand((c,), generator=gen, device=dev) * 0.1
-    eta = torch.rand((c,), generator=gen, device=dev) * 0.1
-    stream = torch.cuda.current_stream(dev).cuda_stream
-
-    def nbytes(*ts):
-        return sum(t.numel() * t.element_size() for t in ts)
-    out = {}
-    for wire in ("f32", "bf16", "int8"):
-        w, qs = ops.quantize_uplink(g, wire)
-        qs1 = torch.ones_like(s) if qs is None else qs
-        o = torch.empty_like(p)
-
-        def k1(lib, w=w, qs1=qs1, o=o, wire=wire):
-            err = getattr(lib, f"ota_round_step_{wire}")(
-                w.data_ptr(), qs1.data_ptr(), s.data_ptr(), z.data_ptr(),
-                ns.data_ptr(), p.data_ptr(), eta.data_ptr(), o.data_ptr(),
-                c, n, d, stream)
-            build.check(err, f"ota_round_step_{wire}")
-            return o
-        out[("K1", wire)] = (k1, ref.ota_round_step_ref(w, s, z, ns, p, eta,
-                                                        qs),
-                             nbytes(w, qs1, s, z, ns, p, eta, o))
-    for wire, dtype in (("f32", torch.float32), ("bf16", torch.bfloat16)):
-        gd = g.to(dtype)
-        o = torch.empty((c, d), dtype=dtype, device=dev)
-
-        def k2(lib, gd=gd, o=o, wire=wire):
-            err = getattr(lib, f"ota_aggregate_{wire}")(
-                gd.data_ptr(), s.data_ptr(), z.data_ptr(), ns.data_ptr(),
-                o.data_ptr(), c, n, d, stream)
-            build.check(err, f"ota_aggregate_{wire}")
-            return o
-        out[("K2", wire)] = (k2, ref.ota_aggregate_ref(gd, s, z, ns),
-                             nbytes(gd, s, z, ns, o))
-    return out
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[],
-                    metavar="LABEL=PATH[:FLAG,...]")
+                    metavar="LABEL=PATH")
     ap.add_argument("--reps", type=int, default=4)
     a = ap.parse_args(argv)
     dev = resolve_device(None)
     card = torch.cuda.get_device_name(0)
-    variants = {"this": (build.SOURCES["ota_kernels"], [])}
+    sources = {"this": build.SOURCES["ota_kernels"]}
     for spec in a.against:
-        label, rest = spec.split("=", 1)
-        path, _, flags = rest.partition(":")
-        variants[label] = (Path(path), [f for f in flags.split(",") if f])
-    jobs = {label: start_build(label, path, flags)
-            for label, (path, flags) in variants.items()}
+        label, path = spec.split("=", 1)
+        sources[label] = Path(path)
+    jobs = {label: start_build(label, path) for label, path in sources.items()}
     libs = {}
     for label, (proc, path) in jobs.items():
         log = proc.communicate()[0]
@@ -171,12 +139,22 @@ def main(argv=None) -> None:
             print(f"[ptxas] {label}: {line}", flush=True)
         libs[label] = load(path)
 
-    bw = bytes_per_s(card)
+    _, (bw, _, _) = peaks(card)
     labels = list(libs)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    gen = torch.Generator(device=dev).manual_seed(0)
     results = {}
-    for key, (launch, want, nbytes) in cases(dev).items():
-        name = f"{key[0]} {key[1]}"
-        row = {"bytes": nbytes, "bound_ms": 1e3 * nbytes / bw}
+    for entry, wire, args, plain, nb, _ in ota_cases(*draw(MAIN, dev, gen)):
+        name = f"{'K1' if entry == 'ota_round_step' else 'K2'} {wire}"
+        want = plain()
+        out = torch.empty_like(want)
+
+        def launch(lib, entry=entry, wire=wire, args=args, out=out):
+            err = getattr(lib, f"{entry}_{wire}")(
+                *(t.data_ptr() for t in args), out.data_ptr(), *MAIN, stream)
+            build.check(err, f"{entry}_{wire}")
+            return out
+        row = {"bytes": nb, "bound_ms": 1e3 * nb / bw}
         for label in labels:
             got = launch(libs[label])
             torch.cuda.synchronize()
@@ -190,24 +168,23 @@ def main(argv=None) -> None:
         for label in labels:
             r = row[label]
             r["ms"] = statistics.median(r["ms_reps"])
-            r["gb_per_s"] = nbytes / r["ms"] / 1e6
+            r["gb_per_s"] = nb / r["ms"] / 1e6
             r["bound_share"] = row["bound_ms"] / r["ms"]
         results[name] = row
         print(f"{name}: " + json.dumps(row), flush=True)
         if not row["this"]["equal"]:
             raise SystemExit(f"{name}: this source's kernel is not bitwise "
                              "equal to the plain version")
-        del want
     c, n, d = MAIN
     gen = torch.Generator(device=dev).manual_seed(1)
     g = torch.randn((c, n, d), generator=gen, device=dev)
     reach = {}
     for wire, gd in (("f32", g), ("bf16", g.to(torch.bfloat16))):
-        nbytes = gd.numel() * gd.element_size() * (n + 1) // n
+        nb = gd.numel() * gd.element_size() * (n + 1) // n
         ms = median_ms(lambda: torch.sum(gd, dim=1))
         reach[f"torch.sum(g, 1) {wire}"] = {
-            "bytes": nbytes, "ms": ms, "gb_per_s": nbytes / ms / 1e6,
-            "bound_share": 1e3 * nbytes / bw / ms}
+            "bytes": nb, "ms": ms, "gb_per_s": nb / ms / 1e6,
+            "bound_share": 1e3 * nb / bw / ms}
         print(f"torch.sum(g, 1) {wire}: "
               + json.dumps(reach[f"torch.sum(g, 1) {wire}"]), flush=True)
     del g
