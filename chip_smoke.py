@@ -11,8 +11,10 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      count the 128-bit global loads and stores (LDG.E.128, STG.E.128) of
      every K1/K2 instance and the tensor-core instructions of the
      flash-attention and ssd_scan kernels (HGMMA for wgmma, HMMA for
-     mma.sync), and fail if a K1/K2 instance has no 128-bit load or store
-     or K3's bf16 kernel or K4's f32 kernel has no tensor-core instruction;
+     mma.sync), and fail if a K1/K2 instance has no 128-bit load or store,
+     K3's bf16 kernel or K4's f32 kernel has no tensor-core instruction, or
+     K3's f32 kernel (Dh 64 and 128) has no HMMA; print K3 f32's registers
+     and spills (ptxas) and fail if it spills;
   2. every kernel against its plain PyTorch version on the card, at its
      main path's shapes, with times (CUDA events around batches of 20
      back-to-back calls, the median of 5 batches) beside the plain
@@ -25,10 +27,12 @@ Phases (any failure exits nonzero, and nothing is swallowed):
          achieved GB/s and share of the byte bound beside its time;
        - K3 ``flash_attention`` at the serve path's prefill (B 8, S 1024,
          H = KH = 16, Dh 64, bf16, causal), at qwen3's heads (H 16, KH 8,
-         Dh 128), with window 256, at ragged S = 1000, and in f32 (window
-         256 too) -- f32 to 2e-5, bf16 to two bf16 ulps plus 1e-2;
-         ``scaled_dot_product_attention`` is timed beside it; the f32
-         bound takes the cheaper of the FMA units and 3xTF32;
+         Dh 128), with window 256, at ragged S = 1000, and in f32 (the
+         serve path's prefill in f32, qwen3's heads, window 256) -- f32 to
+         2e-5, bf16 to two bf16 ulps plus 1e-2; the shapes, the bound and
+         the ``scaled_dot_product_attention`` call timed beside it are
+         ``repro_torch.profile_attention``'s; the f32 bound takes the
+         cheaper of the FMA units and 3xTF32;
        - K4 ``ssd_scan`` at the mamba2 prefill's scan (B 8, S 1024, H 64,
          P 64, N 128, G 1, f32, chunk 128), at ragged S = 1000, with
          G = 2 and a nonzero state0, with bf16 inputs, and at the smoke
@@ -54,9 +58,14 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      then the same weights and prompts with K3 forced off: the first
      layer's attention within K3's bf16 tolerance, and the logits' max
      difference and the share of equal greedy tokens through 24 bf16
-     layers, held to a drift tolerance; then a 2-layer sliding-window run
-     (window 256 < prompt) decoding through the ring cache, its tokens
-     held against a full forward over the generated sequence;
+     layers, held to a drift tolerance; then the same model in float32
+     (weights and compute, same draw), where every prefill attention is
+     K3's f32 kernel: 24 launches per prefill and no plain attention,
+     layer 0's attention on vs off within the f32 tolerance, the logits
+     and greedy tokens to the same drift tolerance and share; then a
+     2-layer sliding-window run (window 256 < prompt) decoding through the
+     ring cache, its tokens held against a full forward over the generated
+     sequence;
   6. the Mamba-2 serve path at full width through the same entry point
      (mamba2-1.3b, 48 layers, bf16, batch 8, prompt 1,024, 32 decode
      tokens): K4 must launch 48 times per prefill and K4's plain version,
@@ -71,7 +80,8 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      tokens of K4 on vs off and of the state check (which holds K4's final
      state, the conv stash and the plain decode together) to the share of
      equal tokens;
-  7. one JSON line ``{"kernels": [...]}``, then the last line
+  7. one JSON line ``{"kernels": [...]}`` (K3 twice: bf16 with the bf16
+     serve run's launches, f32 with the f32 run's), then the last line
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
@@ -107,16 +117,9 @@ REPLACES = {"ota_round_step": "src/repro/kernels/round_step.py:53",
             "ota_aggregate": "src/repro/kernels/ota_aggregate.py:41",
             "flash_attention": "src/repro/kernels/flash_attention.py:68",
             "ssd_scan": "src/repro/kernels/ssd_scan.py:69"}
-# K3 shapes: (label, B, S, H, KH, Dh, dtype, window); the first is the
-# serve path's prefill at full width
-ATTN_MAIN = ("main", 8, 1024, 16, 16, 64, "bf16", None)
-ATTN_SHAPES = [ATTN_MAIN,
-               ("qwen3", 8, 1024, 16, 8, 128, "bf16", None),
-               ("qwen3_window256", 8, 1024, 16, 8, 128, "bf16", 256),
-               ("ragged_s1000", 8, 1000, 16, 16, 64, "bf16", None),
-               ("main_f32", 8, 1024, 16, 16, 64, "f32", None),
-               ("qwen3_f32", 8, 1024, 16, 8, 128, "f32", None),
-               ("qwen3_window256_f32", 8, 1024, 16, 8, 128, "f32", 256)]
+# K3's shapes are repro_torch.profile_attention.SHAPES: the serve path's
+# prefill at full width in bf16 ("main") and in f32 ("main_f32"), qwen3's
+# heads, window 256, ragged S = 1000
 # K4 shapes: (label, B, S, H, P, N, G, dtype, state0, chunk); the first is
 # the mamba2 prefill's scan at full width
 SSD_MAIN = ("main", 8, 1024, 64, 64, 128, 1, "f32", False, 128)
@@ -265,31 +268,19 @@ def zero_counts():
     ref.ssd_chunked.calls = 0
 
 
-def attention_pairs(sq, sk, causal, window):
-    """(query, key) pairs the masks allow, positions from 0 on both sides."""
-    total = 0
-    for i in range(sq):
-        hi = min(i, sk - 1) if causal else sk - 1
-        lo = max(0, i - window + 1) if window else 0
-        total += max(0, hi - lo + 1)
-    return total
-
-
 def phase_attention_kernel(torch, dev, card):
     """Phase 2, K3: flash attention against its plain version on the card,
     with scaled_dot_product_attention timed beside it."""
-    import torch.nn.functional as F
-    from repro_torch.card import median_ms, peaks
+    from repro_torch.card import median_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    _, (bw, f32_peak, bf16_peak) = peaks(card)
+    from repro_torch.profile_attention import SHAPES, bound, draw, sdpa
     gen = torch.Generator(device=dev).manual_seed(1)
     results = {}
-    for label, b, s, h, kh, dh, dt, window in ATTN_SHAPES:
-        dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    for shape in SHAPES:
+        label, b, s, h, kh, dh, dt, window = shape
         tol = ATTN_BF16_TOL if dt == "bf16" else F32_TOL
-        q, k, v = (torch.randn((b, s, hh, dh), generator=gen, device=dev)
-                   .to(dtype) for hh in (h, kh, kh))
+        q, k, v = draw(shape, dev, gen)
 
         def kern():
             return flash_attention(q, k, v, causal=True, window=window)
@@ -300,33 +291,14 @@ def phase_attention_kernel(torch, dev, card):
         torch.cuda.synchronize()
         err = (got - want).abs()
         ok = bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
-        qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
-        pos = torch.arange(s, device=dev)
-        mask = None if window is None else (
-            (pos[None, :] <= pos[:, None])
-            & (pos[None, :] > pos[:, None] - window))
-
-        def library():
-            return F.scaled_dot_product_attention(
-                qt, kt, vt, attn_mask=mask, is_causal=mask is None,
-                enable_gqa=h != kh)
-        lib_err = float((library().transpose(1, 2).float() - want)
-                        .abs().max())
-        byts = nbytes(q, k, v, got.to(dtype))
-        flops = 4 * b * h * dh * attention_pairs(s, s, True, window)
-        # f32 products may run on the FMA units or as three TF32 products
-        # on the tensor cores (f32's precision), whichever takes less time
-        ops_s = flops / bf16_peak if dt == "bf16" else min(
-            flops / f32_peak, 3 * flops / (bf16_peak / 2))
+        library = sdpa(q, k, v, window)
+        lib_err = float((library().float() - want).abs().max())
         row = {"shape": [b, s, h, kh, dh], "dtype": dt, "window": window,
                "max_abs_err": float(err.max()), "tol": tol, "ok": ok,
                "ms": median_ms(kern),
                "plain_ms": median_ms(plain),
                "library_ms": median_ms(library),
-               "library_max_abs_err": lib_err,
-               "bound_ms": 1e3 * max(byts / bw, ops_s),
-               "bytes": byts, "flops": flops,
-               "bound_by": "bytes" if byts / bw >= ops_s else "operations"}
+               "library_max_abs_err": lib_err, **bound(shape, card)}
         results[label] = row
         print(f"  K3 flash_attention {label}: " + json.dumps(row), flush=True)
         check(ok, f"K3 {label} disagrees with its plain version")
@@ -517,69 +489,126 @@ def phase_kernels_vs_plain_path(torch, dev, world):
     return worst
 
 
-def phase_serve(torch, dev):
-    """Phase 5: the LM serve path at full width, K3 on vs forced off, and
-    a sliding-window run through the ring cache."""
-    from repro_torch import configs
-    from repro_torch.launch import serve
+def attention_on_vs_off(torch, res, cfg):
+    """K3 on vs forced off on a serve run's weights and prompts: the first
+    layer's attention output (on, off), and the prefill logits of K3
+    against its plain version as (max |d|, max |logit|, share of equal
+    greedy tokens)."""
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import embed, rmsnorm
-    argv = [f"--{k.replace('_', '-')}={v}" for k, v in SERVE.items()]
-    zero_counts()
-    res = serve.main(argv)
-    torch.cuda.synchronize()
-    main_cnt = cnt = counts()
-    cfg, st = res.cfg, res.stats
-    n_layers = cfg.n_layers
-    print(f"  serve main path: counts {cnt}", flush=True)
-    check(st["k3_launches_per_prefill"] == n_layers,
-          f"K3 launched {st['k3_launches_per_prefill']} times in a prefill "
-          f"of {n_layers} layers")
-    check(cnt["flash_attention"] == 2 * n_layers,     # warm-up + timed
-          f"K3 launched {cnt['flash_attention']} times in 2 prefills")
-    check(cnt["plain_attention"] == 0, "K3's plain version ran on the card")
-    check(cnt["ota_round_step"] == cnt["ota_aggregate"] == 0,
-          "an OTA kernel ran on the serve path")
-    check(cnt["ssd_scan"] == cnt["plain_ssd"] == 0,
-          "K4 or its plain version ran on the GQA serve path")
-    b, s, v = SERVE["batch"], SERVE["prompt_len"], cfg.padded_vocab
-    check(tuple(res.logits.shape) == (b, s, v), f"logits {res.logits.shape}")
-    check(bool(torch.isfinite(res.logits).all()), "logits not finite")
-    check(tuple(res.tokens.shape) == (b, SERVE["decode_tokens"]),
-          f"tokens {res.tokens.shape}")
-    check(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < v,
-          "a token out of range")
-
-    # K3 forced off, same weights and prompts
     p0 = res.params["layers"][0]
     with torch.no_grad():
         h = rmsnorm(p0["ln1"], embed(res.params["embed"], res.prompts,
                                      cfg.compute_dtype), cfg.norm_eps)
         on, _ = attn.gqa_apply(p0["mixer"], h, cfg)
         off, _ = attn.gqa_apply(p0["mixer"], h, cfg, use_kernel=False)
-        on, off = on.float(), off.float()
-        layer0_err = float((on - off).abs().max())
-        check(bool((on - off).abs().le(ATTN_BF16_TOL["atol"]
-                                       + ATTN_BF16_TOL["rtol"]
-                                       * off.abs()).all()),
-              f"layer 0 attention, K3 on vs off: max |d| {layer0_err}")
         logits_off, _ = tfm.forward(res.params, res.prompts, cfg,
                                     use_kernel=False)
-    d_logits = float((res.logits - logits_off).abs().max())
-    scale = float(logits_off.abs().max())
-    equal = float((res.logits.argmax(-1) == logits_off.argmax(-1))
-                  .float().mean())
-    drift = {"layer0_attention_max_abs_err": layer0_err,
-             "logits_max_abs_diff": d_logits, "logits_max_abs": scale,
-             "equal_next_tokens": equal}
-    print(f"  serve, K3 on vs off: {json.dumps(drift)} (tolerance: "
-          f"logits within {DRIFT_LOGITS_SHARE} of max |logit|, greedy "
-          f"tokens equal at >= {EQUAL_TOKENS_MIN} of positions)", flush=True)
-    check(d_logits <= DRIFT_LOGITS_SHARE * scale,
-          f"logits drift {d_logits} over {DRIFT_LOGITS_SHARE} x {scale}")
-    check(equal >= EQUAL_TOKENS_MIN, f"equal next tokens {equal}")
-    del res, logits_off
+    kernel = (float((res.logits - logits_off).abs().max()),
+              float(logits_off.abs().max()),
+              float((res.logits.argmax(-1) == logits_off.argmax(-1))
+                    .float().mean()))
+    return on.float(), off.float(), kernel
+
+
+def check_serve_run(torch, res, cnt, label):
+    """One qwen serve run: K3 once per layer in each of its two prefills
+    (warm-up, timed), no plain attention, OTA kernel or K4; finite logits
+    and tokens in range."""
+    n_layers = res.cfg.n_layers
+    check(res.stats["k3_launches_per_prefill"] == n_layers,
+          f"{label}: K3 launched {res.stats['k3_launches_per_prefill']} "
+          f"times in a prefill of {n_layers} layers")
+    check(cnt["flash_attention"] == 2 * n_layers,     # warm-up + timed
+          f"{label}: K3 launched {cnt['flash_attention']} times in 2 "
+          "prefills")
+    check(cnt["plain_attention"] == 0,
+          f"{label}: K3's plain version ran on the card")
+    check(cnt["ota_round_step"] == cnt["ota_aggregate"] == 0,
+          f"{label}: an OTA kernel ran on the serve path")
+    check(cnt["ssd_scan"] == cnt["plain_ssd"] == 0,
+          f"{label}: K4 or its plain version ran on the GQA serve path")
+    b, s, v = SERVE["batch"], SERVE["prompt_len"], res.cfg.padded_vocab
+    check(tuple(res.logits.shape) == (b, s, v),
+          f"{label}: logits {res.logits.shape}")
+    check(bool(torch.isfinite(res.logits).all()), f"{label}: logits not "
+          "finite")
+    check(tuple(res.tokens.shape) == (b, SERVE["decode_tokens"]),
+          f"{label}: tokens {res.tokens.shape}")
+    check(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < v,
+          f"{label}: a token out of range")
+
+
+def phase_serve(torch, dev):
+    """Phase 5: the LM serve path at full width, K3 on vs forced off, in
+    bf16 and in float32, and a sliding-window run through the ring
+    cache."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    argv = [f"--{k.replace('_', '-')}={v}" for k, v in SERVE.items()]
+    zero_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    main_cnt = counts()
+    cfg, st = res.cfg, res.stats
+    print(f"  serve main path: counts {main_cnt}", flush=True)
+    check_serve_run(torch, res, main_cnt, "bf16 serve")
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+
+    # K3 forced off, same weights and prompts
+    on, off, kernel = attention_on_vs_off(torch, res, cfg)
+    layer0_err = float((on - off).abs().max())
+    drift = {"bf16": {"layer0_attention_max_abs_err": layer0_err,
+                      "logits_max_abs_diff": kernel[0],
+                      "logits_max_abs": kernel[1],
+                      "equal_next_tokens": kernel[2]}}
+    print(f"  serve (bf16), K3 on vs off: {json.dumps(drift['bf16'])} "
+          f"(tolerance: layer 0 within {ATTN_BF16_TOL}; logits within "
+          f"{DRIFT_LOGITS_SHARE} of max |logit|, greedy tokens equal at >= "
+          f"{EQUAL_TOKENS_MIN} of positions)", flush=True)
+    check(bool((on - off).abs().le(ATTN_BF16_TOL["atol"]
+                                   + ATTN_BF16_TOL["rtol"]
+                                   * off.abs()).all()),
+          f"layer 0 attention, K3 on vs off: max |d| {layer0_err}")
+    check(kernel[0] <= DRIFT_LOGITS_SHARE * kernel[1],
+          f"logits drift {kernel[0]} over {DRIFT_LOGITS_SHARE} x {kernel[1]}")
+    check(kernel[2] >= EQUAL_TOKENS_MIN, f"equal next tokens {kernel[2]}")
+    del res, on, off
+
+    # the same model in float32 (the same draw, unrounded): K3's f32 kernel
+    # in every prefill
+    cfg32 = cfg.replace(param_dtype=torch.float32,
+                        compute_dtype=torch.float32)
+    zero_counts()
+    r32 = serve.run(cfg32, batch=b, prompt_len=s,
+                    decode_tokens=SERVE["decode_tokens"], seed=0, device=dev)
+    torch.cuda.synchronize()
+    f32_cnt = counts()
+    print(f"  serve (f32): counts {f32_cnt}", flush=True)
+    check_serve_run(torch, r32, f32_cnt, "f32 serve")
+    on, off, kernel = attention_on_vs_off(torch, r32, cfg32)
+    layer0_err = float((on - off).abs().max())
+    drift["f32"] = {"layer0_attention_max_abs_err": layer0_err,
+                    "layer0_attention_max_abs": float(off.abs().max()),
+                    "logits_max_abs_diff": kernel[0],
+                    "logits_max_abs": kernel[1],
+                    "equal_next_tokens": kernel[2],
+                    "prefill_ms": r32.stats["prefill_ms"],
+                    "decode_ms_per_token": r32.stats["decode_ms_per_token"]}
+    print(f"  serve (f32), K3 on vs off: {json.dumps(drift['f32'])} "
+          f"(tolerance: layer 0 within {F32_TOL}; logits within "
+          f"{DRIFT_LOGITS_SHARE} of max |logit|, greedy tokens equal at >= "
+          f"{EQUAL_TOKENS_MIN} of positions)", flush=True)
+    check(bool((on - off).abs().le(F32_TOL["atol"]
+                                   + F32_TOL["rtol"] * off.abs()).all()),
+          f"f32 layer 0 attention, K3 on vs off: max |d| {layer0_err}")
+    check(kernel[0] <= DRIFT_LOGITS_SHARE * kernel[1],
+          f"f32 logits drift {kernel[0]} over {DRIFT_LOGITS_SHARE} x "
+          f"{kernel[1]}")
+    check(kernel[2] >= EQUAL_TOKENS_MIN, f"f32 equal next tokens {kernel[2]}")
+    del r32, on, off
 
     # sliding window shorter than the prompt: ring-cache decode
     swa_cfg = configs.long_context_config(SERVE["arch"]).replace(**SWA)
@@ -604,7 +633,8 @@ def phase_serve(torch, dev):
           f"equal to a full windowed forward at {ring_equal}", flush=True)
     check(ring_equal >= EQUAL_TOKENS_MIN,
           f"swa: ring decode agrees with the full forward at {ring_equal}")
-    return st, main_cnt, drift, {"equal_tokens": ring_equal, **sw.stats}
+    return st, main_cnt, f32_cnt, drift, {"equal_tokens": ring_equal,
+                                          **sw.stats}
 
 
 def ssd_on_vs_off(torch, res, cfg):
@@ -778,6 +808,18 @@ def main() -> int:
         n["HGMMA"] + n["HMMA"] > 0 for n in bf16_kernels.values()),
         f"K3's bf16 kernel (Dh 64 and 128) has no tensor-core instruction: "
         f"{bf16_kernels}")
+    f32_kernels = {fn: n for fn, n in sass.items()
+                   if "flash_attention_kernel_f32" in fn}
+    check(len(f32_kernels) == 2 and all(
+        n["HMMA"] > 0 for n in f32_kernels.values()),
+        f"K3's f32 kernel (Dh 64 and 128) has no HMMA: {f32_kernels}")
+    regs = build.ptxas_report(build.log("flash_attention"),
+                              "flash_attention_kernel_f32")
+    print(f"[1] K3 f32 registers and spills: {json.dumps(regs)}", flush=True)
+    spills = [int(n) for line in regs
+              for n in re.findall(r"(\d+) bytes spill", line)]
+    check(len(spills) == 4 and not any(spills),
+          f"K3's f32 kernel spills, or its build log was not read: {regs}")
     sass = sass_ops(build, "ssd_scan")
     print(f"[1] tensor-core instructions in the ssd_scan library: "
           f"{json.dumps(sass)}", flush=True)
@@ -796,7 +838,8 @@ def main() -> int:
     print("[4] fleet kernels on vs forced off, same draws", flush=True)
     phase_kernels_vs_plain_path(torch, dev, world)
     print("[5] LM serve path at full width", flush=True)
-    serve_stats, serve_counts, drift, swa = phase_serve(torch, dev)
+    serve_stats, serve_counts, f32_counts, drift, swa = phase_serve(torch,
+                                                                     dev)
     print("[6] Mamba-2 serve path at full width", flush=True)
     ssd_stats, ssd_counts, ssd_drift = phase_serve_ssd(torch, dev)
 
@@ -810,7 +853,9 @@ def main() -> int:
     rows = [(f"{name}[{wire}]", name, n_launch, kres[(name, wire, MAIN[2])])
             for (name, wire), n_launch in launches.items()]
     rows.append(("flash_attention[bf16]", "flash_attention",
-                 serve_counts["flash_attention"], ares[ATTN_MAIN[0]]))
+                 serve_counts["flash_attention"], ares["main"]))
+    rows.append(("flash_attention[f32]", "flash_attention",
+                 f32_counts["flash_attention"], ares["main_f32"]))
     rows.append(("ssd_scan[f32]", "ssd_scan", ssd_counts["ssd_scan"],
                  sres[SSD_MAIN[0]]))
     kernels = [{
@@ -826,7 +871,9 @@ def main() -> int:
     print(f"[7] round walls ms: {json.dumps(walls)}", flush=True)
     print(f"[7] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
-          f"(batch {serve_stats['batch']}); swa prefill "
+          f"(batch {serve_stats['batch']}); f32 prefill "
+          f"{drift['f32']['prefill_ms']:.3f} ms, decode "
+          f"{drift['f32']['decode_ms_per_token']:.3f} ms per token; swa prefill "
           f"{swa['prefill_ms']:.3f} ms, decode "
           f"{swa['decode_ms_per_token']:.3f} ms per token; mamba2 prefill "
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "

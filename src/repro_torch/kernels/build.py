@@ -8,6 +8,9 @@ loads it with ``ctypes``.  A library is named after a hash of its source
 per source that is not built yet, all at once, and waits for them.
 Nothing is built or loaded when the module is imported: the CPU tests
 import every module on a machine without ``nvcc``.  A failed build raises.
+``build_variants`` builds and loads other copies of a source (a parent
+checkout's, a variant under trial) beside this one, for the profilers'
+comparisons in one process.
 """
 from __future__ import annotations
 
@@ -73,7 +76,7 @@ def build(*names: str, verbose: bool = False) -> dict:
     """Compile the named sources (all when none is named) whose libraries
     do not exist yet, one ``nvcc`` each, in parallel; returns
     ``{name: path}``.  ``verbose`` adds ``-Xptxas -v`` (registers, spills)
-    and prints the compiler's output."""
+    and prints the compiler's output; ``log(name)`` reads it back."""
     names = names or tuple(SOURCES)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     jobs = {}
@@ -96,6 +99,7 @@ def build(*names: str, verbose: bool = False) -> dict:
                                    f"{' '.join(cmd)}\n{log}")
             if verbose:
                 print(log, flush=True)
+            out.with_suffix(".log").write_text(log)
             os.replace(tmp, out)    # atomic: concurrent builders agree
     finally:
         for proc, _, tmp, _ in jobs.values():
@@ -107,17 +111,68 @@ def build(*names: str, verbose: bool = False) -> dict:
     return {name: library_path(name) for name in names}
 
 
-@functools.lru_cache(maxsize=None)
-def library(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, built on first use; argtypes
-    declared for every entry (pointers as c_void_p, or ctypes would cut
-    them to 32 bits)."""
-    lib = ctypes.CDLL(str(build(name)[name]))
+def log(name: str) -> str:
+    """The compiler's output of the build of ``csrc/<name>.cu`` ("" if this
+    checkout has not built it)."""
+    path = library_path(name).with_suffix(".log")
+    return path.read_text() if path.exists() else ""
+
+
+def load_variant(path: Path, name: str) -> ctypes.CDLL:
+    """A built library of ``csrc/<name>.cu`` or of a copy of it, with the
+    argtypes of its entries declared (pointers as c_void_p, or ctypes would
+    cut them to 32 bits)."""
+    lib = ctypes.CDLL(str(path))
     for entry, argtypes in ENTRIES[name].items():
         fn = getattr(lib, entry)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib
+
+
+@functools.lru_cache(maxsize=None)
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of ``csrc/<name>.cu``, built on first use."""
+    return load_variant(build(name)[name], name)
+
+
+def build_variants(name: str, sources: dict, *kernels: str) -> dict:
+    """Builds copies of ``csrc/<name>.cu`` that export the same entries
+    (``{label: path}``) with nvcc and ``-Xptxas -v``, one process each, all
+    at once; prints ptxas's register and spill lines for the kernels whose
+    symbol holds one of ``kernels``; returns ``{label: loaded library}``."""
+    jobs = {}
+    for label, source in sources.items():
+        digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
+        out = BUILD_DIR / "variants" / f"{name}_{label}_{digest}.so"
+        out.parent.mkdir(parents=True, exist_ok=True)
+        cmd = [nvcc(), *NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
+               str(source)]
+        jobs[label] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       out)
+    libs = {}
+    for label, (proc, out) in jobs.items():
+        log = proc.communicate()[0]
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc failed for {label}:\n{log}")
+        for line in ptxas_report(log, *kernels):
+            print(f"[ptxas] {label}: {line}", flush=True)
+        libs[label] = load_variant(out, name)
+    return libs
+
+
+def ptxas_report(log: str, *kernels: str) -> list:
+    """ptxas's register and spill lines for the kernels whose symbol holds
+    one of ``kernels``, each prefixed by its symbol."""
+    keep, fn = [], None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            fn = line.split("'")[1] if "'" in line else line
+        elif fn and any(k in fn for k in kernels) \
+                and ("registers" in line or "spill" in line):
+            keep.append(f"{fn}: {line.split(':', 1)[-1].strip()}")
+    return keep
 
 
 def check(err: int, name: str) -> None:

@@ -51,12 +51,31 @@
 //   over the keys, so the two agree within ATTN_BF16_TOL (rtol 1.6e-2,
 //   atol 1e-2); tests/test_torch_attention.py emulates it on the CPU.
 //
-// f32 (flash_attention_f32): the SIMT kernel on the f32 FMA units (the f32
-// tolerance, 2e-5, rules out TF32 or bf16 products): q scaled by 1/sqrt(Dh)
-// before the product; 256 threads, each 4 query rows x 4 keys of a 64 x 64
-// score tile and 4 rows x Dh/16 output columns; q, K and V tiles staged in
-// shared memory (row stride Dh + 1), p through shared memory.
-//
+// f32 (flash_attention_f32): both products on the tensor cores, mma.sync
+// m16n8k8 TF32 with f32 accumulators, as 3xTF32 (one TF32 pass misses the
+// f32 tolerance, 2e-5; tests/test_torch_attention.py emulates both): each
+// operand is split in registers into big = v rounded to TF32 and small =
+// the rounding of v - big, and each product is small.big + big.small +
+// big.big.  Bound at the main shape in f32: 51.6 GFLOP of TF32 products
+// (3 x 17.2) at 495 TFLOP/s, 0.1043 ms (on the f32 FMA units 0.2567 ms).
+//   - one block of four warps per (q tile of 64 rows, head, batch), each
+//     warp 16 rows (one m16 tile); the heaviest causal q tiles first;
+//   - K and V tiles of 64 keys (Dh 64) or 32 (Dh 128) come in by
+//     cp.async into a double-buffered ring; tiles wholly above the
+//     diagonal or outside the window are never loaded;
+//   - q is scaled by log2(e)/sqrt(Dh) in f32 before the product (the
+//     plain version scales the product by 1/sqrt(Dh)), read once into
+//     shared memory; the softmax takes 2^x (ex2.approx, ~2 ulp) of the
+//     f32 scores in base 2, the same weights as exp in base e;
+//   - P goes from the score registers into P.V with the keys relabelled
+//     within each 8-key slab (see the kernel), never through shared
+//     memory;
+//   - the tensor cores' accumulator truncates, so each tile's P.V is
+//     summed from zero there and added to the running output in f32 (one
+//     rounding a tile): the error does not grow with the number of tiles.
+// wgmma cannot take this product: it reads TF32 operands from shared
+// memory only K-major, and V's [keys, Dh] tile is MN-major as P.V's B.
+
 // Plain C interface for ctypes: every pointer and the stream are void*,
 // and each entry returns a cudaError_t as an int (0 = launched).  The
 // tensor maps are built in the entry from the pointers and sizes, with
@@ -73,65 +92,157 @@ namespace {
 
 constexpr float kNegInf = -1e30f;  // the reference's masked score
 
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ float ex2(float x) {  // 2^x, ~2 ulp; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
 // ---------------------------------------------------------------- f32 ----
 
-namespace simt {
+namespace tf32 {
 
-constexpr int kBQ = 64;           // query rows per block
-constexpr int kBK = 64;           // keys per tile
-constexpr int kLanes = 16;        // threads sharing one group of query rows
-constexpr int kThreads = 256;     // (kBQ / kRows) row groups x kLanes
-constexpr int kRows = 4;          // query rows per thread
-constexpr int kCols = kBK / kLanes;  // keys per thread in a score tile
-constexpr int kLdP = kBK + 1;     // row stride of the p tile
+constexpr int kBQ = 64;           // query rows per block: 4 warps of 16
+constexpr int kThreads = 128;
+constexpr int kStages = 2;        // K/V tiles in flight
 
-static_assert(kBQ == kRows * (kThreads / kLanes), "row groups cover kBQ");
-
-// Max and sum over the kLanes threads of a row group (aligned halves of a
-// warp, so the xor offsets stay inside the group).
-__device__ __forceinline__ float group_max(float v) {
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off /= 2)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, off));
-  return v;
+// 16 bytes from global into shared memory, or 16 zero bytes when `in` is
+// false (src is then not read)
+__device__ __forceinline__ void cp_async16(void* dst, const float* src,
+                                           bool in) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_u32(dst)),
+               "l"(src), "r"(in ? 16 : 0)
+               : "memory");
 }
-__device__ __forceinline__ float group_sum(float v) {
-#pragma unroll
-  for (int off = kLanes / 2; off > 0; off /= 2)
-    v += __shfl_xor_sync(0xffffffffu, v, off);
-  return v;
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// TF32 operand halves, K4's rounding (ssd_scan.cu): big = v rounded to
+// TF32, small = the rounding of v - big (exact in f32); big + small carries
+// v to ~2^-22 relative.  The rounding is cvt.rna.tf32.f32's (to nearest on
+// the 13 dropped bits, ties away from zero) for a finite v: add 0x1000 to
+// the bit pattern.  The tensor cores read a TF32 operand's top 19 bits and
+// ignore the low 13 (CUTLASS's round_half_ulp_truncate leaves them too), so
+// the low bits are cleared only where the value itself is needed, v - big:
+// four operations a value instead of five.
+__device__ __forceinline__ void split_tf32(float v, uint32_t& big,
+                                           uint32_t& small) {
+  big = __float_as_uint(v) + 0x1000u;
+  small = __float_as_uint(v - __uint_as_float(big & 0xffffe000u)) + 0x1000u;
+}
+
+// d += a b, one m16n8k8 TF32 product with an f32 accumulator
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 3xTF32: small.big and big.small into the accumulator first, then
+// big.big; small.small (~2^-22 relative) is dropped
+__device__ __forceinline__ void mma_3xtf32(float (&d)[4],
+                                           const uint32_t (&a_big)[4],
+                                           const uint32_t (&a_small)[4],
+                                           const uint32_t (&b_big)[2],
+                                           const uint32_t (&b_small)[2]) {
+  mma_tf32(d, a_small, b_big[0], b_big[1]);
+  mma_tf32(d, a_big, b_small[0], b_small[1]);
+  mma_tf32(d, a_big, b_big[0], b_big[1]);
+}
+
+// component i (a constant after unrolling) of a float4
+__device__ __forceinline__ float part(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// The A operand of the k-steps 2j + hk of S = Q.K^T from the q slab
+// qv[j] = (row g, row g + 8) x columns 16 j + 4 t .. + 3: A's column t is
+// column 16 j + 4 t + 2 hk, its column t + 4 the next one
+__device__ __forceinline__ void split_q(const float4 (&qv)[2], int hk,
+                                        uint32_t (&big)[4],
+                                        uint32_t (&small)[4]) {
+  split_tf32(part(qv[0], 2 * hk), big[0], small[0]);
+  split_tf32(part(qv[1], 2 * hk), big[1], small[1]);
+  split_tf32(part(qv[0], 2 * hk + 1), big[2], small[2]);
+  split_tf32(part(qv[1], 2 * hk + 1), big[3], small[3]);
+}
+
+// Keys per K/V tile and shared-memory row strides (floats).  K and q rows
+// of D + 16 floats put a quad's 16-byte reads of 8 rows (K[g][16 j + 4 t])
+// on 32 banks; V rows of D + 4 put both 16-byte reads (V[2 t][32 c + 4 g]
+// and V[2 t + 1][...]) on 32 banks; every row stays 16-byte aligned for
+// cp.async.  Two blocks share an SM (94 KB and 106 KB of shared memory;
+// 175 and 234 registers).  At Dh 128, 64-key tiles spill and leave one
+// block per SM.
 template <int D>
-constexpr size_t smem_bytes() {
-  // q_s [kBQ][D+1], k_s [kBK][D+1], v_s [kBK][D], p_s [kBQ][kBK+1]
-  return sizeof(float) *
-         (kBQ * (D + 1) + kBK * (D + 1) + kBK * D + kBQ * kLdP);
-}
+struct Tile {
+  static constexpr int kKeys = D == 64 ? 64 : 32;
+  static constexpr int kLdK = D + 16;
+  static constexpr int kLdV = D + 4;
+  static constexpr size_t kBytes =
+      sizeof(float) * (kStages * kKeys * (kLdK + kLdV) + kBQ * kLdK);
+  static_assert(kKeys * D / 4 % kThreads == 0, "whole 16-byte chunks a thread");
+};
 
+// Four warps, each owning 16 of the block's 64 q rows (one m16 tile), walk
+// the key tiles from the last (the diagonal) down.  Per tile:
+//   S = Q.K^T on mma.sync m16n8k8 in 3xTF32.  The head dimension is the
+//     product's depth, relabelled within each 16-column slab so that one
+//     16-byte read gives a lane the operands of two k-steps: k-step 2 j +
+//     hk takes columns 16 j + 4 t + 2 hk (A's column t) and + 1 (column
+//     t + 4), for q (the A operand) and K[key][d] (the .col B operand),
+//     both in shared memory and split as they are read;
+//   the online softmax on the f32 score fragments (row max and sum over a
+//     quad by __shfl_xor_sync), masks only on edge tiles;
+//   O = alpha O + P.V with P straight from the score registers: in the
+//     accumulator lane (g, t) holds keys 2 t and 2 t + 1 of each 8-key
+//     slab, so A's column t is key 2 t and column t + 4 key 2 t + 1, and
+//     V's B fragment is read in the same order (rows 2 t, 2 t + 1).  The
+//     tile's P.V is summed from zero on the tensor cores and added to O
+//     in f32.  The output columns are relabelled within each 32-column
+//     group: n-tile u's column g is 32 c + 4 g + u, so one 16-byte read of
+//     a V row feeds four n-tiles and a lane's 8 outputs of a row land on
+//     8 adjacent columns.
+// K and V tiles come in by cp.async into a ring of kStages, the next tile
+// in flight while this one computes; tiles wholly above the diagonal or
+// outside the window are never loaded; rows past Sk read as zero.
 template <int D>
-__global__ void __launch_bounds__(kThreads)
+__global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel_f32(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
-                           int sq, int sk, int h, int kh, int causal,
+                           int nb, int sq, int sk, int h, int kh, int causal,
                            int window, float scale) {
-  constexpr int kLd = D + 1;       // row stride of q_s and k_s
-  constexpr int kDc = D / kLanes;  // output columns per thread
-  extern __shared__ float smem[];
-  float* q_s = smem;
-  float* k_s = q_s + kBQ * kLd;
-  float* v_s = k_s + kBK * kLd;
-  float* p_s = v_s + kBK * D;
+  using T = Tile<D>;
+  constexpr int kBK = T::kKeys;
+  constexpr int kLdK = T::kLdK, kLdV = T::kLdV;
+  constexpr int kNT = kBK / 8;  // n8 tiles of S; k-steps of P.V
+  constexpr int kJ = D / 16;    // 16-column slabs of q and K
+  constexpr int kC = D / 32;    // 32-column groups of V and o
+  extern __shared__ __align__(16) float smem[];
+  float* k_s = smem;                          // [kStages][kBK][kLdK]
+  float* v_s = smem + kStages * kBK * kLdK;   // [kStages][kBK][kLdV]
+  float* q_s = v_s + kStages * kBK * kLdV;    // [kBQ][kLdK]
 
-  const int tid = threadIdx.x;
-  const int ty = tid / kLanes;     // row group: query rows ty*kRows + i
-  const int tx = tid % kLanes;     // keys tx + kLanes*j, columns tx + kLanes*c
-  const int q0 = blockIdx.x * kBQ;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
+  // heaviest causal q tiles first: blocks start in order of their index
+  const int n_bh = nb * h;
+  const int q0 = ((sq + kBQ - 1) / kBQ - 1 - blockIdx.x / n_bh) * kBQ;
+  const int head = blockIdx.x % n_bh % h;
+  const int b = blockIdx.x % n_bh / h;
   const int kv_head = head / (h / kh);
-
   const int64_t q_stride = static_cast<int64_t>(h) * D;   // one q/o row
   const int64_t k_stride = static_cast<int64_t>(kh) * D;  // one k/v row
   const float* qb = q + (static_cast<int64_t>(b) * sq * h + head) * D;
@@ -139,111 +250,207 @@ flash_attention_kernel_f32(const float* __restrict__ q,
   const float* kb = k + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
   const float* vb = v + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
 
-  // the q tile, scaled in f32 before the product; rows past Sq are zero
-  for (int e = tid; e < kBQ * D; e += kThreads) {
-    const int r = e / D, c = e % D;
-    float val = 0.f;
-    if (q0 + r < sq) val = qb[(q0 + r) * q_stride + c] * scale;
-    q_s[r * kLd + c] = val;
-  }
-
-  float m[kRows], l[kRows], acc[kRows][kDc];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = kNegInf;
-    l[i] = 0.f;
-#pragma unroll
-    for (int c = 0; c < kDc; ++c) acc[i][c] = 0.f;
-  }
-
-  // the keys that some query row of this tile may see
+  // the key tiles that some query row of this tile may see; tile r of the
+  // walk starts at key (t_last - r) * kBK
   const int q_last = min(q0 + kBQ, sq) - 1;
   const int k_end = causal ? min(sk, q_last + 1) : sk;
   const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int t_last = (k_end - 1) / kBK;
+  const int n_tiles = t_last - k_begin / kBK + 1;
 
-  for (int k0 = (k_begin / kBK) * kBK; k0 < k_end; k0 += kBK) {
-    __syncthreads();  // q_s is staged; the last tile's readers are done
-    for (int e = tid; e < kBK * D; e += kThreads) {
-      const int r = e / D, c = e % D;
-      float kv = 0.f, vv = 0.f;
-      if (k0 + r < sk) {
-        kv = kb[(k0 + r) * k_stride + c];
-        vv = vb[(k0 + r) * k_stride + c];
+  const int tid = threadIdx.x;
+  auto load_tile = [&](int r) {
+    // the thread index read anew: else the compiler keeps every chunk's
+    // offsets live through the loop (Dh 128 then spills at 255 registers)
+    int thread;
+    asm volatile("mov.u32 %0, %%tid.x;" : "=r"(thread));
+    const int k0 = (t_last - r) * kBK;
+    float* kd = k_s + (r % kStages) * kBK * kLdK;
+    float* vd = v_s + (r % kStages) * kBK * kLdV;
+#pragma unroll
+    for (int u = 0; u < kBK * D / 4 / kThreads; ++u) {
+      const int e = thread + u * kThreads;
+      const int row = e / (D / 4), c = 4 * (e % (D / 4));
+      const bool in = k0 + row < sk;
+      const int64_t src = (in ? k0 + row : 0) * k_stride + c;
+      cp_async16(kd + row * kLdK + c, kb + src, in);
+      cp_async16(vd + row * kLdV + c, vb + src, in);
+    }
+    cp_async_commit();
+  };
+  load_tile(0);
+
+  const int lane = tid % 32, warp = tid / 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = q0 + 16 * warp + g;  // this lane's rows: row, row + 8
+
+  // q scaled by log2(e)/sqrt(Dh) in f32 before the product (rows past Sq
+  // zero) into q_s: the lane's rows, columns 16 j + 4 t .. + 3, which the
+  // same lane reads back (the loop's first barrier orders them)
+  float* q_row = q_s + (16 * warp + g) * kLdK + 4 * t;  // rows g, g + 8
+#pragma unroll
+  for (int j = 0; j < kJ; ++j)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      float4 x = make_float4(0.f, 0.f, 0.f, 0.f);
+      if (row + 8 * i < sq)
+        x = *reinterpret_cast<const float4*>(qb + (row + 8 * i) * q_stride +
+                                             16 * j + 4 * t);
+      *reinterpret_cast<float4*>(q_row + 8 * i * kLdK + 16 * j) =
+          make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
+    }
+
+  float acc[D / 8][4];
+#pragma unroll
+  for (int n = 0; n < D / 8; ++n)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
+
+  for (int r = 0; r < n_tiles; ++r) {
+    if (r + 1 < n_tiles) {
+      load_tile(r + 1);  // into the slot tile r - 1 left (all warps are done)
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile r is in shared memory for every warp
+    const float* kt = k_s + (r % kStages) * kBK * kLdK;
+    const float* vt = v_s + (r % kStages) * kBK * kLdV;
+
+    // S = Q.K^T
+    float s[kNT][4];
+#pragma unroll
+    for (int n = 0; n < kNT; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) s[n][e] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kJ; ++j) {
+      const float4 qx[2] = {
+          *reinterpret_cast<const float4*>(q_row + 16 * j),
+          *reinterpret_cast<const float4*>(q_row + 8 * kLdK + 16 * j)};
+      uint32_t a_big[2][4], a_small[2][4];
+      split_q(qx, 0, a_big[0], a_small[0]);
+      split_q(qx, 1, a_big[1], a_small[1]);
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        const float4 kx = *reinterpret_cast<const float4*>(
+            kt + (8 * n + g) * kLdK + 16 * j + 4 * t);
+        uint32_t b_big[2][2], b_small[2][2];
+        split_tf32(kx.x, b_big[0][0], b_small[0][0]);
+        split_tf32(kx.y, b_big[0][1], b_small[0][1]);
+        split_tf32(kx.z, b_big[1][0], b_small[1][0]);
+        split_tf32(kx.w, b_big[1][1], b_small[1][1]);
+        mma_3xtf32(s[n], a_big[0], a_small[0], b_big[0], b_small[0]);
+        mma_3xtf32(s[n], a_big[1], a_small[1], b_big[1], b_small[1]);
       }
-      k_s[r * kLd + c] = kv;
-      v_s[r * D + c] = vv;
-    }
-    __syncthreads();
-
-    float s[kRows][kCols];
-#pragma unroll
-    for (int i = 0; i < kRows; ++i)
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) s[i][j] = 0.f;
-#pragma unroll 8
-    for (int d = 0; d < D; ++d) {
-      float qv[kRows], kv[kCols];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i) qv[i] = q_s[(ty * kRows + i) * kLd + d];
-#pragma unroll
-      for (int j = 0; j < kCols; ++j) kv[j] = k_s[(tx + kLanes * j) * kLd + d];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
     }
 
+    // masks (only on a tile that crosses the diagonal, the window's edge
+    // or Sk), then the online softmax in base 2 (q carries log2(e)): s
+    // becomes p = 2^(s - m_new), and alpha = 2^(m - m_new) rescales the
+    // running sums
+    const int k0 = (t_last - r) * kBK;
+    if (k0 + kBK > sk || (causal && k0 + kBK - 1 > q0) ||
+        (window > 0 && k0 <= q_last - window)) {
 #pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qp = q0 + ty * kRows + i;
+      for (int n = 0; n < kNT; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int kp = k0 + 8 * n + 2 * t + (e & 1);
+          const int qp = row + 8 * (e >> 1);
+          if (kp >= sk)
+            s[n][e] = __int_as_float(0xff800000);  // past Sk: -inf, no weight
+          else if ((causal && kp > qp) || (window > 0 && kp <= qp - window))
+            s[n][e] = kNegInf;
+        }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
       float mx = kNegInf;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const int kp = k0 + tx + kLanes * j;
-        if (kp >= sk)
-          s[i][j] = __int_as_float(0xff800000);  // past Sk: -inf, no weight
-        else if ((causal && kp > qp) || (window > 0 && kp <= qp - window))
-          s[i][j] = kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], group_max(mx));
-      const float alpha = expf(m[i] - m_new);
+      for (int n = 0; n < kNT; ++n)
+        mx = fmaxf(mx, fmaxf(s[n][2 * i], s[n][2 * i + 1]));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[i], mx);
+      alpha[i] = ex2(m[i] - m_new);
+      m[i] = m_new;
       float rs = 0.f;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) {
-        const float p = expf(s[i][j] - m_new);
-        p_s[(ty * kRows + i) * kLdP + tx + kLanes * j] = p;
-        rs += p;
-      }
-      l[i] = l[i] * alpha + group_sum(rs);
-      m[i] = m_new;
+      for (int n = 0; n < kNT; ++n)
 #pragma unroll
-      for (int c = 0; c < kDc; ++c) acc[i][c] *= alpha;
+        for (int e = 2 * i; e < 2 * i + 2; ++e) {
+          s[n][e] = ex2(s[n][e] - m_new);
+          rs += s[n][e];
+        }
+      l[i] = l[i] * alpha[i] + rs;  // this lane's part; the quad's at the end
     }
-    __syncthreads();
 
-#pragma unroll 4
-    for (int kk = 0; kk < kBK; ++kk) {
-      float vv[kDc];
+    // O = alpha O + P.V.  The tensor cores' accumulator truncates, so the
+    // tile's P.V is summed from zero there (k-step n covers keys 8 n ..
+    // 8 n + 7) and added to O in f32: one rounding a tile, however long the
+    // walk.  At Dh 128 in two 64-column halves, to stay within 255 registers.
 #pragma unroll
-      for (int c = 0; c < kDc; ++c) vv[c] = v_s[kk * D + tx + kLanes * c];
+    for (int hc = 0; hc < D / 64; ++hc) {
+      float pv[8][4];
 #pragma unroll
-      for (int i = 0; i < kRows; ++i) {
-        const float p = p_s[(ty * kRows + i) * kLdP + kk];
+      for (int n = 0; n < 8; ++n)
 #pragma unroll
-        for (int c = 0; c < kDc; ++c) acc[i][c] = fmaf(p, vv[c], acc[i][c]);
+        for (int e = 0; e < 4; ++e) pv[n][e] = 0.f;
+#pragma unroll
+      for (int n = 0; n < kNT; ++n) {
+        uint32_t p_big[4], p_small[4];
+        split_tf32(s[n][0], p_big[0], p_small[0]);  // row g,     key 2 t
+        split_tf32(s[n][2], p_big[1], p_small[1]);  // row g + 8, key 2 t
+        split_tf32(s[n][1], p_big[2], p_small[2]);  // row g,     key 2 t + 1
+        split_tf32(s[n][3], p_big[3], p_small[3]);  // row g + 8, key 2 t + 1
+        const float* v0 = vt + (8 * n + 2 * t) * kLdV + 64 * hc + 4 * g;
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const float4 x0 = *reinterpret_cast<const float4*>(v0 + 32 * c);
+          const float4 x1 =
+              *reinterpret_cast<const float4*>(v0 + kLdV + 32 * c);
+#pragma unroll
+          for (int u = 0; u < 4; ++u) {
+            uint32_t b_big[2], b_small[2];
+            split_tf32(part(x0, u), b_big[0], b_small[0]);
+            split_tf32(part(x1, u), b_big[1], b_small[1]);
+            mma_3xtf32(pv[4 * c + u], p_big, p_small, b_big, b_small);
+          }
+        }
       }
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          acc[8 * hc + n][e] =
+              fmaf(acc[8 * hc + n][e], alpha[e >> 1], pv[n][e]);
     }
+    __syncthreads();  // every warp is done with tile r's slot
   }
 
+  // o = acc / max(l, 1e-30): a lane's row holds columns 32 c + 8 t .. + 7
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    const int qp = q0 + ty * kRows + i;
+  for (int i = 0; i < 2; ++i) {
+    float li = l[i];
+    li += __shfl_xor_sync(0xffffffffu, li, 1);
+    li += __shfl_xor_sync(0xffffffffu, li, 2);
+    const int qp = row + 8 * i;
     if (qp >= sq) continue;
-    const float denom = fmaxf(l[i], 1e-30f);
+    const float denom = fmaxf(li, 1e-30f);
+    float* dst = ob + qp * q_stride + 8 * t;
 #pragma unroll
-    for (int c = 0; c < kDc; ++c)
-      ob[qp * q_stride + tx + kLanes * c] = acc[i][c] / denom;
+    for (int c = 0; c < kC; ++c) {
+      *reinterpret_cast<float4*>(dst + 32 * c) = make_float4(
+          acc[4 * c][2 * i] / denom, acc[4 * c + 1][2 * i] / denom,
+          acc[4 * c + 2][2 * i] / denom, acc[4 * c + 3][2 * i] / denom);
+      *reinterpret_cast<float4*>(dst + 32 * c + 4) = make_float4(
+          acc[4 * c][2 * i + 1] / denom, acc[4 * c + 1][2 * i + 1] / denom,
+          acc[4 * c + 2][2 * i + 1] / denom,
+          acc[4 * c + 3][2 * i + 1] / denom);
+    }
   }
 }
 
@@ -251,22 +458,25 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int sk, int h, int kh, int causal, int window,
            cudaStream_t stream) {
-  constexpr size_t smem = smem_bytes<D>();
+  constexpr size_t smem = Tile<D>::kBytes;
   auto kernel = flash_attention_kernel_f32<D>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBQ - 1) / kBQ, h, b);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
-  kernel<<<grid, kThreads, smem, stream>>>(
+  const int64_t blocks =
+      static_cast<int64_t>((sq + kBQ - 1) / kBQ) * h * b;
+  if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
+  // 1/sqrt(Dh) and log2(e): the softmax runs in base 2
+  const float scale = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(o), sq, sk, h, kh,
+      static_cast<const float*>(v), static_cast<float*>(o), b, sq, sk, h, kh,
       causal, window, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace simt
+}  // namespace tf32
 
 // --------------------------------------------------------------- bf16 ----
 
@@ -279,10 +489,6 @@ constexpr int kStages = 3;        // K/V tiles in flight
 constexpr int kThreads = 256;     // 2 warpgroups of 64 q rows each
 constexpr int kPanel = 64;        // bf16 columns of one 128-byte swizzle atom
 constexpr float kLog2e = 1.4426950408889634f;
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
 
 // ---- mbarriers ----
 __device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
@@ -496,12 +702,6 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[16][4],
         "+f"(d[14][0]), "+f"(d[14][1]), "+f"(d[14][2]), "+f"(d[14][3]),
         "+f"(d[15][0]), "+f"(d[15][1]), "+f"(d[15][2]), "+f"(d[15][3])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1));
-}
-
-__device__ __forceinline__ float ex2(float x) {  // 2^x, ~2 ulp; 2^-inf = 0
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
@@ -897,7 +1097,7 @@ extern "C" {
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int b, int sq, int sk, int h, int kh, int dh,
                         int causal, int window, void* stream) {
-  return dispatch<simt::launch<64>, simt::launch<128>>(
+  return dispatch<tf32::launch<64>, tf32::launch<128>>(
       q, k, v, o, b, sq, sk, h, kh, dh, causal, window, stream);
 }
 

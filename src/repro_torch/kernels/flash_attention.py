@@ -20,7 +20,11 @@ bf16, and key tiles outside the causal or window band are never loaded
 accumulator are f32 as in the plain version; P is rounded to bf16 for the
 P.V product (2^-9 relative per weight, averaged over the keys), which
 keeps the output within two bf16 ulps plus 1e-2 of the plain version.  The
-f32 kernel stays on the f32 FMA units (SIMT), to meet the 2e-5 tolerance.
+f32 kernel runs both products on the tensor cores too (``mma.sync``
+m16n8k8) as three TF32 products (3xTF32), which meets the 2e-5 tolerance
+that one TF32 pass misses; K and V tiles come in by ``cp.async``, and each
+tile's P.V is summed from zero and added in f32, so the error does not
+grow with the sequence.
 
 The plain version is ``ref.attention_ref``.  The wrapper takes it for CPU
 tensors, and on the card only when asked (``use_kernel=False``, for

@@ -1,0 +1,204 @@
+"""K3 (flash attention) at the smoke's shapes on the card, against other
+builds of its source.
+
+    python -m repro_torch.profile_attention [--against LABEL=PATH] \
+        [--reps 4] [--dtype f32|bf16|all] [--long]
+
+Builds ``kernels/csrc/flash_attention.cu`` (label ``this``) and each
+``--against`` source (another checkout's ``flash_attention.cu``, or a
+variant under trial) with nvcc for sm_90a and ``-Xptxas -v``, one process
+each, all at once, and prints the registers and spills of the kernels of
+the chosen dtype.  For each shape of ``SHAPES`` in that dtype (B 8, S 1024
+or 1000, causal) it launches every build through its C entry on the same
+inputs and compares the output with the plain version (f32 to 2e-5; bf16
+to two bf16 ulps plus 1e-2), then times every build and one
+``scaled_dot_product_attention`` call on the same inputs
+(``card.median_ms``: CUDA events around batches of 20 back-to-back
+launches, the median of 5 batches) in ``--reps`` rounds whose order
+alternates (A B S, S B A, ...).  Per shape it prints each build's median
+of the rounds' medians, its share of the bound and its max abs error,
+and SDPA's time; the last line is one JSON object.  Fails if this
+source's kernel disagrees with the plain version.  ``--long`` first
+holds every build's f32 kernel against the plain version at long
+sequences (``LONG``: B 1, H 2, KH 1, S up to 16,384) and prints the max
+abs error and its share of the f32 tolerance, which shows whether the
+error grows with the number of key tiles.  Needs a CUDA device.
+
+``SHAPES``, ``draw``, ``bound`` and ``sdpa`` also make ``chip_smoke.py``'s
+K3 rows.
+"""
+from __future__ import annotations
+
+import argparse
+import json
+import statistics
+from pathlib import Path
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.card import median_ms, peaks
+from repro_torch.device import resolve_device
+from repro_torch.kernels import build, ref
+
+F32_TOL = dict(rtol=2e-5, atol=2e-5)
+ATTN_BF16_TOL = dict(rtol=1.6e-2, atol=1e-2)
+DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
+# (S, Dh, window) of the --long accuracy rows, at B 1, H 2, KH 1, causal
+LONG = [(1024, 64, None), (4096, 64, None), (16384, 64, None),
+        (4096, 128, None), (16384, 128, None), (16384, 128, 4096)]
+# (label, B, S, H, KH, Dh, dtype, window), causal; the first is the qwen
+# serve path's prefill at full width
+SHAPES = [("main", 8, 1024, 16, 16, 64, "bf16", None),
+          ("qwen3", 8, 1024, 16, 8, 128, "bf16", None),
+          ("qwen3_window256", 8, 1024, 16, 8, 128, "bf16", 256),
+          ("ragged_s1000", 8, 1000, 16, 16, 64, "bf16", None),
+          ("main_f32", 8, 1024, 16, 16, 64, "f32", None),
+          ("qwen3_f32", 8, 1024, 16, 8, 128, "f32", None),
+          ("qwen3_window256_f32", 8, 1024, 16, 8, 128, "f32", 256)]
+
+
+def pairs(sq: int, sk: int, causal: bool, window) -> int:
+    """(query, key) pairs the masks allow, positions from 0 on both sides."""
+    total = 0
+    for i in range(sq):
+        hi = min(i, sk - 1) if causal else sk - 1
+        lo = max(0, i - window + 1) if window else 0
+        total += max(0, hi - lo + 1)
+    return total
+
+
+def draw(shape, dev, gen):
+    """q, k, v of one shape of ``SHAPES``, unit normal, in its dtype."""
+    _, b, s, h, kh, dh, dt, _ = shape
+    return [torch.randn((b, s, hh, dh), generator=gen, device=dev)
+            .to(DTYPES[dt]) for hh in (h, kh, kh)]
+
+
+def bound(shape, card: str) -> dict:
+    """The least time the card could take (causal): the larger of q, k, v
+    and o read or written once over the memory rate, and the masks'
+    products over the tensor cores' bf16 rate, or in f32 over the cheaper
+    of the FMA units and three TF32 products (f32's precision)."""
+    _, b, s, h, kh, dh, dt, window = shape
+    _, (bw, f32_peak, bf16_peak) = peaks(card)
+    size = torch.finfo(DTYPES[dt]).bits // 8
+    byts = size * b * s * dh * (2 * h + 2 * kh)
+    flops = 4 * b * h * dh * pairs(s, s, True, window)
+    ops_s = flops / bf16_peak if dt == "bf16" else min(
+        flops / f32_peak, 3 * flops / (bf16_peak / 2))
+    return {"bytes": byts, "flops": flops,
+            "bound_ms": 1e3 * max(byts / bw, ops_s),
+            "bound_by": "bytes" if byts / bw >= ops_s else "operations"}
+
+
+def sdpa(q, k, v, window):
+    """One ``scaled_dot_product_attention`` call of the same function, as a
+    yardstick (the port never calls it)."""
+    s, h, kh = q.shape[1], q.shape[2], k.shape[2]
+    qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
+    pos = torch.arange(s, device=q.device)
+    mask = None if window is None else (
+        (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window))
+    return lambda: F.scaled_dot_product_attention(
+        qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+        enable_gqa=h != kh).transpose(1, 2)
+
+
+def launch(lib, q, k, v, out, window, stream):
+    """One causal call of a build's C entry for q's dtype, into ``out``."""
+    name = "flash_attention_" + ("f32" if q.dtype == torch.float32
+                                 else "bf16")
+    build.check(getattr(lib, name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
+        q.shape[3], 1, window or 0, stream), name)
+    return out
+
+
+def long_errors(libs, dev, stream) -> None:
+    """Each build's f32 error against the plain version at ``LONG``."""
+    gen = torch.Generator(device=dev).manual_seed(3)
+    for s, dh, window in LONG:
+        q, k, v = (torch.randn((1, s, hh, dh), generator=gen, device=dev)
+                   for hh in (2, 1, 1))
+        want = ref.attention_ref(q, k, v, causal=True, window=window)
+        row = {}
+        for name, lib in libs.items():
+            err = (launch(lib, q, k, v, torch.empty_like(q), window, stream)
+                   - want).abs()
+            row[name] = {"max_abs_err": float(err.max()), "tol_share": float(
+                (err / (F32_TOL["atol"] + F32_TOL["rtol"] * want.abs()))
+                .max())}
+        print(f"long S {s} Dh {dh} window {window}: " + json.dumps(row),
+              flush=True)
+        del q, k, v, want
+
+
+def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--against", action="append", default=[],
+                    metavar="LABEL=PATH")
+    ap.add_argument("--reps", type=int, default=4)
+    ap.add_argument("--dtype", choices=("f32", "bf16", "all"), default="f32")
+    ap.add_argument("--long", action="store_true")
+    a = ap.parse_args(argv)
+    dev = resolve_device(None)
+    card = torch.cuda.get_device_name(0)
+    dtypes = ("f32", "bf16") if a.dtype == "all" else (a.dtype,)
+    sources = {"this": build.SOURCES["flash_attention"]}
+    for spec in a.against:
+        label, path = spec.split("=", 1)
+        sources[label] = Path(path)
+    libs = build.build_variants(
+        "flash_attention", sources,
+        *(f"flash_attention_kernel_{d}" for d in dtypes))
+
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    if a.long:
+        long_errors(libs, dev, stream)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    names = [*libs, "sdpa"]
+    results = {}
+    for shape in SHAPES:
+        label, b, s, h, kh, dh, dt, window = shape
+        if dt not in dtypes:
+            continue
+        q, k, v = draw(shape, dev, gen)
+        want = ref.attention_ref(q, k, v, causal=True, window=window).float()
+        out = torch.empty_like(q)
+        tol = F32_TOL if dt == "f32" else ATTN_BF16_TOL
+        fns = {name: (lambda lib=lib, q=q, k=k, v=v, out=out, w=window:
+                      launch(lib, q, k, v, out, w, stream))
+               for name, lib in libs.items()}
+        fns["sdpa"] = sdpa(q, k, v, window)
+        row = {"shape": [b, s, h, kh, dh], "dtype": dt, "window": window,
+               **bound(shape, card)}
+        for name, fn in fns.items():
+            got = fn().float()
+            torch.cuda.synchronize()
+            err = (got - want).abs()
+            row[name] = {"max_abs_err": float(err.max()),
+                         "ok": bool((err <= tol["atol"]
+                                     + tol["rtol"] * want.abs()).all()),
+                         "ms_reps": []}
+        for rep in range(a.reps):
+            for name in names if rep % 2 == 0 else names[::-1]:
+                row[name]["ms_reps"].append(median_ms(fns[name]))
+        for name in names:
+            row[name]["ms"] = statistics.median(row[name]["ms_reps"])
+            row[name]["bound_share"] = row["bound_ms"] / row[name]["ms"]
+        results[label] = row
+        print(f"{label}: " + json.dumps(row), flush=True)
+        if not row["this"]["ok"]:
+            raise SystemExit(f"{label}: this source's kernel disagrees with "
+                             "the plain version")
+        del q, k, v, want, out
+    print(json.dumps({"card": card, "shapes": {
+        label: {name: row[name]["ms"] for name in names}
+        | {"bound_ms": row["bound_ms"]} for label, row in results.items()}}),
+        flush=True)
+
+
+if __name__ == "__main__":
+    main()

@@ -26,11 +26,8 @@ kernels are not bitwise equal to the plain versions.  Needs a CUDA device.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import hashlib
 import json
 import statistics
-import subprocess
 from pathlib import Path
 
 import torch
@@ -85,38 +82,6 @@ def ota_cases(g, s, z, ns, p, eta):
     return cases
 
 
-def start_build(label: str, source: Path):
-    """Starts nvcc on one source; returns (process, library path)."""
-    digest = hashlib.sha256(source.read_bytes()).hexdigest()[:16]
-    out = build.BUILD_DIR / "variants" / f"ota_kernels_{label}_{digest}.so"
-    out.parent.mkdir(parents=True, exist_ok=True)
-    cmd = [build.nvcc(), *build.NVCC_FLAGS, "-Xptxas", "-v", "-o", str(out),
-           str(source)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                            stderr=subprocess.STDOUT, text=True), out
-
-
-def load(path: Path) -> ctypes.CDLL:
-    lib = ctypes.CDLL(str(path))
-    for entry, argtypes in build.ENTRIES["ota_kernels"].items():
-        fn = getattr(lib, entry)
-        fn.argtypes = argtypes
-        fn.restype = ctypes.c_int
-    return lib
-
-
-def registers(log: str) -> list:
-    """ptxas's lines for the K1 and K2 kernels (registers, spills)."""
-    keep, fn = [], None
-    for line in log.splitlines():
-        if "Compiling entry function" in line:
-            fn = line.split("'")[1] if "'" in line else line
-        elif fn and ("round_step_kernel" in fn or "aggregate_kernel" in fn) \
-                and ("registers" in line or "spill" in line):
-            keep.append(f"{fn}: {line.split(':', 1)[-1].strip()}")
-    return keep
-
-
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--against", action="append", default=[],
@@ -129,15 +94,8 @@ def main(argv=None) -> None:
     for spec in a.against:
         label, path = spec.split("=", 1)
         sources[label] = Path(path)
-    jobs = {label: start_build(label, path) for label, path in sources.items()}
-    libs = {}
-    for label, (proc, path) in jobs.items():
-        log = proc.communicate()[0]
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed for {label}:\n{log}")
-        for line in registers(log):
-            print(f"[ptxas] {label}: {line}", flush=True)
-        libs[label] = load(path)
+    libs = build.build_variants("ota_kernels", sources, "round_step_kernel",
+                                "aggregate_kernel")
 
     _, (bw, _, _) = peaks(card)
     labels = list(libs)

@@ -25,6 +25,7 @@ from repro.kernels import ref as jref
 from repro.models import attention as jattn
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention
+from torch_ref import mm_tf32
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=6e-2, atol=6e-2)
@@ -149,6 +150,91 @@ def test_bf16_kernel_rounding_within_tolerance(sq, sk, h, kh, dh):
     got = _bf16_kernel_form(*ts, causal=True).float().numpy()
     want = tref.attention_ref(*ts, causal=True).float().numpy()
     np.testing.assert_allclose(got, want, **ATTN_BF16_TOL)
+
+
+# K3's f32 precision argument.  The kernel (``csrc/flash_attention.cu``)
+# runs S = Q.K^T and each tile's P.V on the tensor cores in TF32 (a
+# significand of 11 bits): one pass misses F32_TOL; three passes (small .
+# big + big . small + big . big, small = the TF32 rounding of v - big) keep
+# it, with the softmax in base 2 as the kernel takes it.
+
+
+def _f32_kernel_form(q, k, v, *, causal, window, passes):
+    """K3's f32 arithmetic in plain torch: q scaled by log2(e)/sqrt(Dh) in
+    f32 before the product; key tiles of 64 (Dh 64) or 32 (Dh 128) walked
+    from the last down; S = Q.K^T and each tile's P.V as TF32 products
+    (``passes`` 1, or 3 for 3xTF32) with f32 sums, P.V's keys in each 8-key
+    slab in the order the kernel's registers hold them (A's column t is key
+    2t, t + 4 is 2t + 1); masked scores -1e30, keys past Sk -inf; the
+    online softmax (m, l, acc) in f32 and base 2 (p = 2^(s - m));
+    o = acc / max(l, 1e-30)."""
+    b, sq, h, dh = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    tile = 64 if dh == 64 else 32
+    scale = (torch.tensor(1.4426950408889634)
+             / torch.sqrt(torch.tensor(float(dh))))
+    qs = q.permute(0, 2, 1, 3) * scale                       # [B, H, Sq, Dh]
+    kt, vt = (torch.nn.functional.pad(
+        x.permute(0, 2, 1, 3).repeat_interleave(h // kh, 1),
+        (0, 0, 0, (-sk) % tile)) for x in (k, v))            # [B, H, Sk', Dh]
+    order = torch.arange(tile).view(-1, 8)[:, [0, 2, 4, 6, 1, 3, 5, 7]]
+    order = order.reshape(-1)
+    pos_q = torch.arange(sq)[:, None]
+    m = torch.full((b, h, sq), tref.NEG_INF)
+    l, acc = torch.zeros(b, h, sq), torch.zeros(b, h, sq, dh)
+    for k0 in range(kt.shape[2] - tile, -1, -tile):
+        s = mm_tf32(qs, kt[:, :, k0:k0 + tile].transpose(-1, -2), passes)
+        pos_k = k0 + torch.arange(tile)[None, :]
+        keep = torch.ones(sq, tile, dtype=torch.bool)
+        if causal:
+            keep &= pos_k <= pos_q
+        if window is not None:
+            keep &= pos_k > pos_q - window
+        s = torch.where(keep, s, tref.NEG_INF)
+        s = torch.where(pos_k < sk, s, float("-inf"))
+        m_new = torch.maximum(m, s.amax(-1))
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s - m_new[..., None])
+        l = l * alpha + p.sum(-1)
+        acc = acc * alpha[..., None] + mm_tf32(
+            p[..., order], vt[:, :, k0 + order], passes)
+        m = m_new
+    return (acc / l.clamp_min(1e-30)[..., None]).permute(0, 2, 1, 3)
+
+
+def _share_of_f32_tol(sq, sk, h, kh, dh, causal, window, passes, seed=6):
+    """max |got - want| / (atol + rtol |want|) of the emulation against
+    the plain version (<= 1 is within F32_TOL)."""
+    ts, _ = _inputs(2, sq, sk, h, kh, dh, "f32", seed=seed)
+    got = _f32_kernel_form(*ts, causal=causal, window=window, passes=passes)
+    want = tref.attention_ref(*ts, causal=causal, window=window)
+    return float(((got - want).abs()
+                  / (F32_TOL["atol"] + F32_TOL["rtol"] * want.abs())).max())
+
+
+@pytest.mark.parametrize("sq,sk,h,kh,dh,causal,window", [
+    (128, 128, 4, 4, 64, True, None), (100, 100, 4, 2, 64, True, None),
+    (1, 512, 8, 1, 64, True, None), (65, 65, 8, 1, 128, True, None),
+    (129, 129, 10, 2, 128, True, None), (256, 256, 4, 2, 128, True, 16),
+    (300, 300, 8, 2, 64, True, 8), (200, 200, 4, 2, 64, False, 100),
+    (100, 300, 4, 2, 64, False, None), (300, 100, 4, 2, 128, False, None)])
+def test_f32_kernel_3xtf32_within_tolerance(sq, sk, h, kh, dh, causal,
+                                            window):
+    """3xTF32 products on the kernel's tiles, with its key order and online
+    softmax, stay within F32_TOL of the plain version: Dh 64 and 128, GQA
+    (G up to 8, and 5), windows, non-causal calls, ragged S."""
+    assert _share_of_f32_tol(sq, sk, h, kh, dh, causal, window,
+                             passes=3) <= 1.0
+
+
+def test_f32_kernel_single_pass_tf32_misses_tolerance():
+    """Why K3 f32 pays for three products: at the qwen3 widths (H 16,
+    KH 8, Dh 128; B 2, S 512) one TF32 pass misses F32_TOL 59.3-fold on
+    this seed (the rows that see few keys take V's TF32 rounding, 2^-12
+    relative, almost whole), while three passes sit at 0.063 of it."""
+    args = (512, 512, 16, 8, 128, True, None)
+    assert _share_of_f32_tol(*args, passes=1) > 10
+    assert _share_of_f32_tol(*args, passes=3) < 0.2
 
 
 def test_wrapper_rejects_what_no_version_takes():

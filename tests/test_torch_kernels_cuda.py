@@ -15,8 +15,9 @@ agree to 2e-5 (the reference's own kernel tolerance); a bf16 output
 compared in f32 at 6e-2 (as the reference's bf16 kernel sweeps).  K3 (flash attention)
 keeps its scores, softmax and accumulator in f32 like its plain version;
 its bf16 path also rounds the softmax weights P to bf16 for the tensor
-cores' P.V product (2^-9 relative per weight, averaged over the keys):
-f32 holds at 2e-5, and bf16 outputs at two bf16 ulps (rtol 1.6e-2)
+cores' P.V product (2^-9 relative per weight, averaged over the keys),
+and its f32 path runs both products in 3xTF32 (about f32's precision;
+``tests/test_torch_attention.py`` emulates it): f32 holds at 2e-5, and bf16 outputs at two bf16 ulps (rtol 1.6e-2)
 plus 1e-2, well under a typical output (about sqrt(e / Sk) for
 unit-variance inputs), so a wrong row fails.  K4 (the SSD scan) sums terms
 as large as its largest output, in another order and over its own tile of
@@ -197,12 +198,13 @@ def test_plain_version_not_called_on_cuda(cuda):
 # K3: the reference's flash-attention sweep, head_dim 64 and 128, plus a
 # ragged S = 1000 at qwen3's heads; S at 127, 128, 129 and 255 around the
 # bf16 kernel's 128-row q tile and its 64- and 128-key tiles (Sq != Sk
-# both ways), and G = 8 at H = 32
+# both ways), S at 63 and 65 around the f32 kernel's 64-row q tile, G = 8
+# at H = 32, and G = 5 at H = 40 (qwen2.5's heads)
 ATTN_SHAPES = [(sq, sk, h, kh)
                for sq, sk in ((128, 128), (256, 256), (64, 256), (1, 512),
                               (100, 100), (127, 127), (129, 129), (255, 255),
-                              (129, 255), (255, 127))
-               for h, kh in ((4, 4), (4, 2), (8, 1), (32, 4))] \
+                              (129, 255), (255, 127), (63, 63), (65, 65))
+               for h, kh in ((4, 4), (4, 2), (8, 1), (32, 4), (40, 8))] \
     + [(1000, 1000, 16, 8)]
 
 
@@ -242,6 +244,29 @@ def test_flash_attention_kernel_window_matches_plain(cuda, window, dh, causal,
                                                      dtype):
     _check_attention(*_qkv(cuda, 2, 1000, 1000, 16, 8, dh, dtype, seed=1),
                      causal=causal, window=window)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_kernel_window_masks_whole_key_tiles(cuda, dh, causal,
+                                                             dtype):
+    """Window 8: every q tile loads the key tile below its own, and in it
+    all keys are masked for most of the tile's rows (row q0 + r sees none
+    of it once r >= 7), on top of the window's edge inside the diagonal
+    tile; S = 300 leaves a ragged last tile."""
+    _check_attention(*_qkv(cuda, 2, 300, 300, 8, 2, dh, dtype, seed=3),
+                     causal=causal, window=8)
+
+
+@pytest.mark.parametrize("dh", [64, 128])
+def test_flash_attention_kernel_f32_long_sequence(cuda, dh):
+    """S = 16,384: the last q tile walks 256 (Dh 64) or 512 key tiles.  The
+    tensor cores' accumulator truncates, so the f32 kernel sums each tile's
+    P.V from zero and adds it to the output in f32; its error must not grow
+    out of F32_TOL with the number of tiles."""
+    _check_attention(*_qkv(cuda, 1, 16384, 16384, 2, 1, dh, torch.float32,
+                           seed=4), causal=True)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

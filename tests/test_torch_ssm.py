@@ -26,6 +26,7 @@ from repro.kernels import ref as jref
 from repro.models import ssm as jssm
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ssd_scan import ssd_scan
+from torch_ref import mm_tf32
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 SEQ_TOL = dict(rtol=2e-4, atol=2e-4)
@@ -182,23 +183,6 @@ def test_ssd_scan_rejects_what_it_does_not_take(bad):
 SSD_SCALE_TOL, SSD_REL_TOL = 1e-4, 2e-4     # as chip_smoke.py, for f32
 
 
-def _tf32(v):
-    """Round float32 to TF32 on the bit pattern: add half of the 13 dropped
-    bits' range to the magnitude and clear them (ties away from zero)."""
-    bits = v.contiguous().view(torch.int32)
-    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
-
-
-def _mm_tf32(a, b, passes):
-    """a @ b with TF32 operands and f32 sums: big . big alone, or with
-    small . big and big . small before it (small . small dropped)."""
-    a_big, b_big = _tf32(a), _tf32(b)
-    if passes == 1:
-        return a_big @ b_big
-    a_small, b_small = _tf32(a - a_big), _tf32(b - b_big)
-    return a_small @ b_big + a_big @ b_small + a_big @ b_big
-
-
 def _ssd_tiles_tf32(x, dt, a_neg, bm, cm, s0, passes, q=64):
     """K4's arithmetic: tiles of q rows, products in TF32 (``passes``), the
     cumulative sums, exps, masks and decays in f32.  Returns (y, state)."""
@@ -220,13 +204,13 @@ def _ssd_tiles_tf32(x, dt, a_neg, bm, cm, s0, passes, q=64):
     for t0 in range(0, s + pad, q):
         cum = torch.cumsum(da[..., t0:t0 + q], -1)        # [B, H, q]
         c_t, b_t, x_t = (t[:, :, t0:t0 + q] for t in (ch, bh, xw))
-        scores = _mm_tf32(c_t, b_t.transpose(-1, -2), passes)
+        scores = mm_tf32(c_t, b_t.transpose(-1, -2), passes)
         decay = (cum[..., :, None] - cum[..., None, :]).masked_fill(~tri, 0)
         att = torch.where(tri, scores * torch.exp(decay), 0.0)
-        ys.append(_mm_tf32(c_t, state.transpose(-1, -2), passes)
-                  * torch.exp(cum)[..., None] + _mm_tf32(att, x_t, passes))
+        ys.append(mm_tf32(c_t, state.transpose(-1, -2), passes)
+                  * torch.exp(cum)[..., None] + mm_tf32(att, x_t, passes))
         seg = cum[..., -1:]
-        state = state * torch.exp(seg)[..., None] + _mm_tf32(
+        state = state * torch.exp(seg)[..., None] + mm_tf32(
             (x_t * torch.exp(seg - cum)[..., None]).transpose(-1, -2), b_t,
             passes)
     return torch.cat(ys, 2)[:, :, :s].permute(0, 2, 1, 3), state

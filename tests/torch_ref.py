@@ -2,7 +2,9 @@
 
 * numpy <-> tensor conversion of parameter dicts;
 * the reference's draws recipe, replayed for the port;
-* a child-process runner for the reference fleet.
+* a child-process runner for the reference fleet;
+* TF32 rounding and 3xTF32 products in plain torch, for the CPU emulations
+  of the tensor-core kernels' arithmetic (K3 f32, K4).
 
 The reference's fleet driver imports ``jax.experimental.enable_x64``, which
 the installed jax no longer has.  The child process sets the shim
@@ -225,3 +227,21 @@ def prefixed(blob: dict, prefix: str) -> dict:
 def tensors(tree: dict, dtype=torch.float32) -> dict:
     return {k: torch.as_tensor(np.asarray(v), dtype=dtype)
             for k, v in tree.items()}
+
+
+def tf32(v: torch.Tensor) -> torch.Tensor:
+    """Round float32 to TF32 on the bit pattern: add half of the 13 dropped
+    bits' range to the magnitude and clear them (ties away from zero), as
+    the kernels' ``to_tf32`` does."""
+    bits = v.contiguous().view(torch.int32)
+    return ((bits + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
+    """a @ b with TF32 operands and f32 sums: big . big alone, or with
+    small . big and big . small before it (small . small dropped)."""
+    a_big, b_big = tf32(a), tf32(b)
+    if passes == 1:
+        return a_big @ b_big
+    a_small, b_small = tf32(a - a_big), tf32(b - b_big)
+    return a_small @ b_big + a_big @ b_small + a_big @ b_big
