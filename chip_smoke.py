@@ -51,7 +51,25 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      uplink): the params must agree to the f32 tolerance (an int8 wire is
      left out: a reordered f32 sum may move one gradient element across a
      quantizer boundary, a whole quantum, in later rounds);
-  5. the LM serve path at full width through
+  5. the Fig.-2 path closed: (a) the ``sca`` design of the ported solver
+     (``repro_torch.solvers``, float64 on the card) at the full-width
+     Fig.-2 world against the reference's default design committed in
+     ``experiments/fig2_reference/sca_design.json``: gamma, alpha and the
+     chi thresholds within 1e-6 relative, the (P1) objective within 1e-9,
+     and the design's wall beside the SLSQP design's (the schemes are
+     designed once, before phase 3, and phases 3-5 use them); (b) ``repro_torch.curves``'s gate at full
+     width: ``fig2.run`` for seeds 0-3, 150 rounds, an eval every 10, in
+     both protocols -- minibatch 128 on the fused f32 path (K1 once per
+     round, 150 a run, the plain versions never) and the paper's full
+     batch (aggregated leaf by leaf: no OTA kernel and no plain OTA
+     version, by design) -- each scheme's final accuracy, final global
+     loss and mean accuracy over the seeds held against the reference's
+     committed curves (``experiments/fig2_reference``); (c) kill and
+     resume: the minibatch fleet for 30 rounds stopped after its first
+     chunk (``max_chunks=1``) and resumed from its checkpoint, bitwise
+     equal (params, traces, evals) to an uninterrupted run, K1 once per
+     round each invocation ran;
+  6. the LM serve path at full width through
      ``python -m repro_torch.launch.serve`` (qwen1.5-0.5b, 24 layers, bf16,
      batch 8, prompt 1,024, 32 decode tokens): K3 must launch 24 times per
      prefill and K3's plain version never; finite logits, tokens in range;
@@ -66,7 +84,7 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      2-layer sliding-window run (window 256 < prompt) decoding through the
      ring cache, its tokens held against a full forward over the generated
      sequence;
-  6. the Mamba-2 serve path at full width through the same entry point
+  7. the Mamba-2 serve path at full width through the same entry point
      (mamba2-1.3b, 48 layers, bf16, batch 8, prompt 1,024, 32 decode
      tokens): K4 must launch 48 times per prefill and K4's plain version,
      K3 and the OTA kernels never; finite logits, tokens in range; then
@@ -80,7 +98,7 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      tokens of K4 on vs off and of the state check (which holds K4's final
      state, the conv stash and the plain decode together) to the share of
      equal tokens;
-  7. one JSON line ``{"kernels": [...]}`` (K3 twice: bf16 with the bf16
+  8. one JSON line ``{"kernels": [...]}`` (K3 twice: bf16 with the bf16
      serve run's launches, f32 with the f32 run's), then the last line
      ``{"ok": true, "device": {...}}``.
 
@@ -153,6 +171,12 @@ SWA = dict(n_layers=2, window=256)   # over the arch's long-context variant
 # largest magnitude) and greedy tokens to a share that agrees
 DRIFT_LOGITS_SHARE = 0.05
 EQUAL_TOKENS_MIN = 0.9
+# phase 5: the reference's default sca design is held to 1e-6 relative in
+# gamma, alpha and the thresholds and 1e-9 in the (P1) objective (the CPU
+# port lands 5e-9 and 2e-16 from it; tests/test_torch_solvers.py); the
+# curves at the reference's Fig.-2 protocol, over its seeds 0-3
+SCA_RTOL, SCA_OBJECTIVE_RTOL = 1e-6, 1e-9
+CURVE_SEEDS, RESUME_ROUNDS = (0, 1, 2, 3), 30
 
 
 class SmokeFailure(Exception):
@@ -402,14 +426,44 @@ def round_ms(res):
     return 1e3 * sum(sec for _, sec in later) / sum(r for r, _ in later)
 
 
-def phase_main_path(torch, np, dev):
+def design_world(torch, dev):
+    """paper_mlp's Fig.-2 world (data seed 0; the designs do not depend on
+    it) and its seven schemes, designed once for phases 3-5.  ``sca`` is
+    the ported solver's design on the card, timed; the SLSQP design it
+    replaced as the default (``method="scipy"``, on the host) is timed
+    beside it, and only timed."""
+    from repro_torch import fig2, tasks
+    from repro_torch.core import power_control as pcm
+    task = tasks.get("paper_mlp", expect_runtime="fleet")
+    dep, prm, td = fig2.build_world(task, 0)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    sca = fig2.make_schemes(task, dep, prm, ["sca"], device=dev)[0]
+    torch.cuda.synchronize()
+    walls = {"torch_card": time.time() - t0}
+    t0 = time.time()
+    pcm.make_sca(dep, prm.replace(eta=task.eta_for("sca", float(prm.eta))),
+                 method="scipy")
+    walls["scipy_host"] = time.time() - t0
+    rest = [n for n in fig2.SCHEMES if n != "sca"]
+    others = dict(zip(rest, fig2.make_schemes(task, dep, prm, rest,
+                                              device=dev)))
+    schemes = [sca if n == "sca" else others[n] for n in fig2.SCHEMES]
+    print(f"  schemes designed once for phases 3-5: sca (torch f64 solver, "
+          f"card) {walls['torch_card']:.3f} s; the SLSQP design (host) "
+          f"{walls['scipy_host']:.3f} s", flush=True)
+    return {"task": task, "dep": dep, "prm": prm, "td": td,
+            "schemes": schemes, "design_s": walls}
+
+
+def phase_main_path(torch, np, dev, world):
     """Phase 3: the port's main path at full width, then its other paths."""
     from repro_torch import fig2
     from repro_torch.fl.driver import run_fleet_task
-    from repro_torch.tasks.image import make_paper_mlp
     zero_counts()
     hist, res = fig2.run(num_rounds=ROUNDS, eval_every=EVERY, seed=0,
-                         batch_size=BATCH, uplink_dtype="f32", device=dev)
+                         batch_size=BATCH, uplink_dtype="f32",
+                         designs=world["schemes"], device=dev)
     torch.cuda.synchronize()
     main = counts()
     print(f"  main path (fused, f32 uplink): counts {main}", flush=True)
@@ -434,9 +488,8 @@ def phase_main_path(torch, np, dev):
           f"synchronized; first chunk excluded); run wall {res.wall:.2f} s",
           flush=True)
 
-    task = make_paper_mlp()
-    dep, prm, td = fig2.build_world(task, 0)
-    schemes = fig2.make_schemes(task, dep, prm)
+    task, dep, td, schemes = (world[k] for k in ("task", "dep", "td",
+                                                 "schemes"))
     paths = {}
     for label, kw, kernel in (
             ("unfused_f32", {"fuse_round": False}, "ota_aggregate"),
@@ -461,13 +514,14 @@ def phase_main_path(torch, np, dev):
         check_result(torch, np, r, SHORT, label)
         paths[label] = cnt
         walls[label] = round_ms(r)
-    return main, paths, walls, (task, dep, td, schemes)
+    return main, paths, walls
 
 
 def phase_kernels_vs_plain_path(torch, dev, world):
     """Phase 4: same draws, kernels on vs forced off, 3 rounds."""
     from repro_torch.fl.driver import run_fleet_task
-    task, dep, td, schemes = world
+    task, dep, td, schemes = (world[k] for k in ("task", "dep", "td",
+                                                 "schemes"))
     worst = {}
     for label, kw in (("fused", {}), ("unfused", {"fuse_round": False})):
         run = task.run_config(num_rounds=3, eval_every=3, seed=0,
@@ -487,6 +541,133 @@ def phase_kernels_vs_plain_path(torch, dev, world):
         print(f"  {label}: 3 rounds, kernels on vs off, max |dparams| "
               f"{err:.3e} (tol {F32_TOL})", flush=True)
     return worst
+
+
+def phase_curves(torch, np, dev, world):
+    """Phase 5: the sca design against the reference's, the curves' gate in
+    both protocols, and kill and resume, all at full width."""
+    import tempfile
+    from repro_torch import curves, fig2
+    from repro_torch.core import theory
+    from repro_torch.fl.driver import run_fleet_task
+
+    def _rel(got, want):
+        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+        return float(np.max(np.abs(got - want) / np.abs(want)))
+    with open(ROOT / "experiments" / "fig2_reference" / "sca_design.json") as f:
+        want = json.load(f)
+    task, dep, prm, td, designs = (world[k] for k in ("task", "dep", "prm",
+                                                      "td", "schemes"))
+    check(task.param_dim == int(want["d"]) == MAIN[2],
+          f"paper_mlp d {task.param_dim} vs the design's {want['d']}")
+    prm_sca = prm.replace(eta=task.eta_for("sca", float(prm.eta)))
+    check(prm_sca.eta == float(want["eta"]), "sca's eta differs")
+    sca = designs[fig2.SCHEMES.index("sca")]
+    design_s = world["design_s"]
+    errs = {"gamma": _rel(sca.gamma, want["gamma"]),
+            "alpha": _rel(sca.alpha, want["alpha"]),
+            "thresholds": _rel(sca.thresholds, want["thresholds"]),
+            "objective": _rel(theory.p1_objective(sca.gamma, prm_sca),
+                              want["objective"])}
+    print(f"  sca design on the card (repro_torch.solvers, f64): wall "
+          f"{design_s['torch_card']:.3f} s (SLSQP on the host "
+          f"{design_s['scipy_host']:.3f} s); relative error against the reference's "
+          f"default design {json.dumps(errs)} (tol {SCA_RTOL}, objective "
+          f"{SCA_OBJECTIVE_RTOL})", flush=True)
+    for name in ("gamma", "alpha", "thresholds"):
+        check(errs[name] <= SCA_RTOL, f"sca {name} off the reference's by "
+              f"{errs[name]:.3e}")
+    check(errs["objective"] <= SCA_OBJECTIVE_RTOL, "sca objective off the "
+          f"reference's by {errs['objective']:.3e}")
+
+    report, walls = {}, {}
+    for protocol, batch in curves.PROTOCOLS.items():
+        runs = []
+
+        def after(seed, res, protocol=protocol, runs=runs):
+            torch.cuda.synchronize()
+            runs.append((seed, counts(), round_ms(res), res.wall))
+            zero_counts()
+            check_result(torch, np, res, curves.ROUNDS,
+                         f"{protocol} seed {seed}")
+        zero_counts()
+        port = curves.run_port(protocol, CURVE_SEEDS, dev, designs,
+                               after_run=after)
+        for seed, cnt, ms, wall in runs:
+            print(f"  {protocol} seed {seed}: {curves.ROUNDS} rounds, round "
+                  f"wall {ms:.3f} ms, run wall {wall:.2f} s, counts {cnt}",
+                  flush=True)
+            ota = {k: cnt[k] for k in ("ota_round_step", "ota_aggregate",
+                                       "plain_round_step", "plain_aggregate")}
+            if batch:
+                check(ota == {"ota_round_step": curves.ROUNDS,
+                              "ota_aggregate": 0, "plain_round_step": 0,
+                              "plain_aggregate": 0},
+                      f"{protocol} seed {seed}: K1 must launch once a round "
+                      f"and nothing else of the OTA tail run: {ota}")
+            else:
+                check(not any(ota.values()),
+                      f"{protocol} seed {seed}: the per-leaf tail ran an "
+                      f"OTA kernel or its plain version: {ota}")
+        if not batch:
+            print(f"  {protocol}: no OTA kernel launched, by design (the "
+                  "paper's protocol aggregates leaf by leaf)", flush=True)
+        walls[protocol] = [ms for _, _, ms, _ in runs]
+        rows = curves.gate(port, curves.load_reference(protocol,
+                                                       CURVE_SEEDS))
+        print(curves.table(rows, f"  {protocol}: port (this card) vs "
+                           f"reference (CPU), seeds {list(CURVE_SEEDS)}, "
+                           f"{curves.ROUNDS} rounds"), flush=True)
+        report[protocol] = rows
+    fails = [f"{p}/{r['scheme']}/{r['stat']}" for p, rows in report.items()
+             for r in rows if not r["ok"]]
+    check(not fails, f"curves outside the gate: {fails}")
+
+    run = task.run_config(num_rounds=RESUME_ROUNDS, eval_every=EVERY, seed=0,
+                          batch_size=BATCH)
+    kw = dict(task_data=td, flat=True, device=dev)
+    launched = {}
+    zero_counts()
+    whole = run_fleet_task(task, designs, dep.gains, run, **kw)
+    torch.cuda.synchronize()
+    launched["whole"] = counts()["ota_round_step"]
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "fleet")
+        zero_counts()
+        first = run_fleet_task(task, designs, dep.gains, run,
+                               checkpoint_path=path, max_chunks=1, **kw)
+        torch.cuda.synchronize()
+        launched["first"] = counts()["ota_round_step"]
+        zero_counts()
+        rest = run_fleet_task(task, designs, dep.gains, run,
+                              checkpoint_path=path, resume=True, **kw)
+        torch.cuda.synchronize()
+        launched["resumed"] = counts()["ota_round_step"]
+    executed = {"whole": RESUME_ROUNDS,
+                "first": sum(n for n, _ in first.chunk_walls),
+                "resumed": sum(n for n, _ in rest.chunk_walls)}
+    check(executed["first"] + executed["resumed"] == RESUME_ROUNDS
+          and executed["first"] < RESUME_ROUNDS, f"rounds run {executed}")
+    check(launched == executed, f"K1 launches {launched} vs rounds run "
+          f"{executed}")
+    bitwise = {"params": all(torch.equal(whole.params[k], rest.params[k])
+                             for k in whole.params),
+               "traces": set(whole.traces) == set(rest.traces) and all(
+                   np.array_equal(whole.traces[k], rest.traces[k])
+                   for k in whole.traces),
+               "evals": [t for t, _ in whole.evals]
+               == [t for t, _ in rest.evals] and all(
+                   np.array_equal(a[k], b[k])
+                   for (_, a), (_, b) in zip(whole.evals, rest.evals)
+                   for k in a)}
+    print(f"  kill and resume: {RESUME_ROUNDS} rounds, stopped after chunk 1 "
+          f"and resumed; rounds run {executed}, K1 launches {launched}; "
+          f"bitwise equal to the uninterrupted run {json.dumps(bitwise)}",
+          flush=True)
+    check(all(bitwise.values()), f"resumed run differs: {bitwise}")
+    return {"design_s": design_s, "design_err": errs, "round_ms": walls,
+            "gate": {p: all(r["ok"] for r in rows)
+                     for p, rows in report.items()}}
 
 
 def attention_on_vs_off(torch, res, cfg):
@@ -834,13 +1015,17 @@ def main() -> int:
     ares = phase_attention_kernel(torch, dev, card)
     sres = phase_ssd_kernel(torch, dev, card)
     print("[3] fleet main path at full width", flush=True)
-    main_counts, path_counts, walls, world = phase_main_path(torch, np, dev)
+    world = design_world(torch, dev)
+    main_counts, path_counts, walls = phase_main_path(torch, np, dev, world)
     print("[4] fleet kernels on vs forced off, same draws", flush=True)
     phase_kernels_vs_plain_path(torch, dev, world)
-    print("[5] LM serve path at full width", flush=True)
+    print("[5] the Fig.-2 path: sca design, curves gate, kill and resume",
+          flush=True)
+    curve_stats = phase_curves(torch, np, dev, world)
+    print("[6] LM serve path at full width", flush=True)
     serve_stats, serve_counts, f32_counts, drift, swa = phase_serve(torch,
                                                                      dev)
-    print("[6] Mamba-2 serve path at full width", flush=True)
+    print("[7] Mamba-2 serve path at full width", flush=True)
     ssd_stats, ssd_counts, ssd_drift = phase_serve_ssd(torch, dev)
 
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
@@ -866,10 +1051,11 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[7] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[8] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[7] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[7] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print(f"[8] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[8] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[8] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "

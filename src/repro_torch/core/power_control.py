@@ -108,11 +108,30 @@ def _make_truncated(name: str, gamma: np.ndarray,
         thresholds=theory.chi_threshold(gamma, prm), n0=prm.n0)
 
 
-def make_sca(deployment: Deployment, prm: OTAParams,
+def make_sca(deployment: Deployment, prm: OTAParams, method: str = "torch",
              **kw) -> TruncatedInversion:
-    """The paper's SCA design, solved by the scipy SLSQP loop
-    (``core.sca.solve_sca``; the reference's ``method="scipy"``)."""
-    return _make_truncated("sca", sca_mod.solve_sca(prm, **kw).gamma, prm)
+    """The paper's SCA design.  ``method="torch"`` (default; ``"jax"`` is
+    accepted as an alias, the reference's name for its default) runs the
+    batched float64 solver (``repro_torch.solvers``) on ``device=``
+    (default: the card); ``method="scipy"`` runs the host SLSQP oracle
+    (``core.sca.solve_sca``).  The solve's ``SCAResult`` is attached as
+    ``sca_result``."""
+    if method == "scipy":
+        res = sca_mod.solve_sca(prm, **kw)
+    elif method in ("torch", "jax"):
+        from repro_torch import solvers  # deferred: keep core light
+        # the legacy solve_sca budget kwargs map onto SolverConfig
+        legacy = {k: kw.pop(k) for k in ("max_iters", "tol", "backtracks")
+                  if k in kw}
+        cfg = kw.pop("cfg", solvers.DEFAULT_CONFIG)
+        if legacy:
+            cfg = dataclasses.replace(cfg, **legacy)
+        res = solvers.solve(prm, cfg=cfg, **kw)
+    else:
+        raise ValueError(f"unknown sca method {method!r} (torch|jax|scipy)")
+    pc = _make_truncated("sca", res.gamma, prm)
+    pc.sca_result = res  # attach for inspection
+    return pc
 
 
 def make_lcpc(deployment: Deployment, prm: OTAParams,

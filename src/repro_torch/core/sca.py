@@ -1,7 +1,8 @@
 """Successive convex approximation for the OTA power-control design (P1).
 
 A copy of ``repro.core.sca``'s scipy SLSQP solver, kept so the port never
-imports the JAX package; ``power_control.make_sca`` runs it.
+imports the JAX package; ``power_control.make_sca(method="scipy")`` runs
+it.
 
 Paper §III-B: minimize over pre-scalers {gamma_m}
 

@@ -6,9 +6,18 @@ the evals come on ``engine.chunk_lengths``' cadence.  Each round's random
 numbers come from a draws provider (``fl.draws``): by default
 ``DeviceDraws`` on the run's device, keyed per (seed, round) and broadcast
 over the K schemes, as the reference keys them.
+
+With ``checkpoint_path`` the fleet is saved at every chunk boundary
+(``checkpoint.checkpoint``): params, the traces and evals so far, the chunk
+and round cursors, and an identity of the run.  ``resume=True`` continues
+from that checkpoint and ends bitwise equal to an uninterrupted run: the
+draws are keyed per (seed, round), so no RNG state needs saving.
+``max_chunks`` stops a run (checkpoint saved) after that many chunks.
 """
 from __future__ import annotations
 
+import dataclasses
+import hashlib
 import time
 from typing import Callable, Optional, Sequence
 
@@ -16,6 +25,7 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.device import resolve_device
 from repro_torch.fl.draws import DeviceDraws
 from repro_torch.fl.engine import FLResult, chunk_lengths, make_round_body
@@ -26,6 +36,89 @@ def _sync(device: torch.device) -> None:
         torch.cuda.synchronize(device)
 
 
+def _digest(*arrays) -> str:
+    h = hashlib.sha1()
+    for a in arrays:
+        a = np.ascontiguousarray(a.detach().cpu().numpy()
+                                 if isinstance(a, torch.Tensor)
+                                 else np.asarray(a))
+        h.update(str(a.dtype).encode())
+        h.update(str(a.shape).encode())
+        h.update(a.tobytes())
+    return h.hexdigest()[:16]
+
+
+def _scheme_digest(pc) -> str:
+    """The scheme's name and design leaves (gamma, alpha, thresholds, ...),
+    hashed: a resume against another design is refused."""
+    leaves = [getattr(pc, f.name) for f in dataclasses.fields(pc)
+              if not f.name.startswith("_")]
+    return _digest(*[np.asarray(repr(v) if isinstance(v, str) or v is None
+                                else v) for v in leaves])
+
+
+def _fleet_identity(names, seeds, run, etas, flat, fuse_round, uplink_dtype,
+                    d, task_name, schemes, gains, data) -> dict:
+    """Everything that must match for a resumed run to be bitwise equal to
+    the uninterrupted one: the schemes (names and design leaves), seeds,
+    etas, the run config, the round tail (``flat``, ``fuse_round``, the
+    uplink dtype), the model size D, the task, and the world (gains and
+    data, hashed)."""
+    return {"names": list(names), "seeds": list(seeds),
+            "schemes": [_scheme_digest(pc) for pc in schemes],
+            "etas": [float(e) for e in np.asarray(etas)],
+            "run": dataclasses.asdict(run),
+            "flat": bool(flat), "fuse_round": fuse_round,
+            "uplink_dtype": str(uplink_dtype), "d": int(d),
+            "task": task_name, "gains": _digest(gains),
+            "data": _digest(*data)}
+
+
+def _traces(metric_rounds, prior: dict, k: int, s_axis: int) -> dict:
+    """The per-round metrics as numpy [K, S, T]: ``prior`` (restored from a
+    checkpoint) followed by this invocation's rounds."""
+    if not metric_rounds:
+        return dict(prior)
+    out = {}
+    for name in metric_rounds[0]:
+        new = torch.stack([m[name] for m in metric_rounds], dim=-1) \
+            .reshape(k, s_axis, -1).cpu().numpy()
+        out[name] = np.concatenate([prior[name], new], axis=-1) \
+            if name in prior else new
+    return out
+
+
+def _save(path, chunks_done, t, params_b, traces, evals, identity) -> None:
+    state = {"params": params_b, "traces": traces}
+    if evals:
+        state["evals_t"] = np.asarray([tt for tt, _ in evals], np.int64)
+        state["evals"] = {name: np.stack([ev[name] for _, ev in evals])
+                          for name in evals[0][1]}
+    ckpt.save(path, state, meta={"chunks_done": chunks_done,
+                                 "rounds_done": t, **identity})
+
+
+def _load(path, params_b, identity):
+    meta = ckpt.load_meta(path)
+    mismatch = {key: (meta.get(key), want) for key, want in identity.items()
+                if meta.get(key) != want}
+    if mismatch:
+        raise ValueError(f"checkpoint {path!r} does not match this fleet "
+                         f"(saved vs running): {mismatch}")
+    flat = ckpt.load_flat(path)
+    params_b = ckpt.restore_flat(flat, {"params": params_b})["params"]
+    traces = {key[len("traces/"):]: v for key, v in flat.items()
+              if key.startswith("traces/")}
+    evals = []
+    if "evals_t" in flat:
+        ev_names = [key[len("evals/"):] for key in flat
+                    if key.startswith("evals/")]
+        evals = [(int(tt), {nm: flat[f"evals/{nm}"][i] for nm in ev_names})
+                 for i, tt in enumerate(flat["evals_t"])]
+    return (int(meta["chunks_done"]), int(meta["rounds_done"]), params_b,
+            traces, evals)
+
+
 def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
               data: tuple, run, eval_fn: Optional[Callable] = None, *,
               etas=None, seeds: Optional[Sequence[int]] = None,
@@ -33,6 +126,9 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
               uplink_dtype: Optional[str] = None,
               fuse_round: Optional[bool] = None, draws=None,
               use_kernel: Optional[bool] = None,
+              checkpoint_path: Optional[str] = None, resume: bool = False,
+              max_chunks: Optional[int] = None,
+              task_name: Optional[str] = None,
               device=None) -> FLResult:
     """A [K-scheme x S-seed] experiment grid on one device.
 
@@ -46,6 +142,19 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
     ``RoundDraws``) replaces the default ``DeviceDraws``; ``use_kernel``
     passes to the kernel dispatch.  ``device=None`` means CUDA and raises
     without it.
+
+    checkpoint_path  save the fleet at every chunk boundary (an npz; see
+                     the module docstring).
+    resume           continue from ``checkpoint_path`` if it exists: the
+                     chunks it holds are skipped, and the result is
+                     bitwise equal to an uninterrupted run's.  A
+                     checkpoint of another run (its identity differs:
+                     schemes, seeds, etas, run config, round tail, D, task,
+                     world) raises a ValueError.
+    max_chunks       stop, with the checkpoint saved, after this many
+                     chunks of this invocation.
+    task_name        joins the checkpoint's identity (``run_fleet_task``
+                     passes the task's name).
     """
     t0 = time.time()
     dev = resolve_device(device)
@@ -79,11 +188,26 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                             batch, shard_len, dev)
     eval_b = vmap(eval_fn) if eval_fn is not None else None
 
-    metric_rounds, evals, chunk_walls = [], [], []
-    t = 0
+    metric_rounds, evals, chunk_walls, prior_traces = [], [], [], {}
+    lengths = chunk_lengths(run.num_rounds, run.eval_every,
+                            eval_fn is not None)
+    identity = None
+    if checkpoint_path is not None:
+        identity = _fleet_identity(
+            names, seeds, run, etas, flat, body.fuse, body.uplink_dtype,
+            sum(v.numel() for v in params.values()), task_name, schemes,
+            gains, data)
+    start_chunk, t = 0, 0
+    if resume and checkpoint_path is not None \
+            and ckpt.exists(checkpoint_path):
+        start_chunk, t, params_b, prior_traces, evals = _load(
+            checkpoint_path, params_b, identity)
+        if log:
+            print(f"# resumed fleet from {checkpoint_path} at chunk "
+                  f"{start_chunk} (round {t})", flush=True)
     with torch.no_grad():
-        for length in chunk_lengths(run.num_rounds, run.eval_every,
-                                    eval_fn is not None):
+        for ci in range(start_chunk, len(lengths)):
+            length = lengths[ci]
             tc = time.time()
             for _ in range(length):
                 params_b, metrics = body(schemes, eta_c, params_b, draws(t),
@@ -101,11 +225,14 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                     print({"round": t - 1,
                            **{nm: round(float(ev[lead][i, 0]), 4)
                               for i, nm in enumerate(names)}}, flush=True)
-    traces = {}
-    if metric_rounds:
-        traces = {name: torch.stack([m[name] for m in metric_rounds], dim=-1)
-                  .reshape(k, s_axis, -1).cpu().numpy()
-                  for name in metric_rounds[0]}
+            if checkpoint_path is not None:
+                _save(checkpoint_path, ci + 1, t, params_b,
+                      _traces(metric_rounds, prior_traces, k, s_axis),
+                      evals, identity)
+            if max_chunks is not None and ci + 1 - start_chunk >= max_chunks \
+                    and ci + 1 < len(lengths):
+                break        # stopped on purpose; resume=True continues
+    traces = _traces(metric_rounds, prior_traces, k, s_axis)
     return FLResult(
         params={name: v.reshape((k, s_axis) + tuple(v.shape[1:]))
                 for name, v in params_b.items()},
@@ -121,7 +248,9 @@ def run_fleet_task(task, schemes, gains: np.ndarray, run=None, *,
     """Task-first fleet entry point: loss, params, data, eval and the run
     config come from ``task`` (``tasks.base.Task``) unless given.  ``seed``
     (default run.seed) feeds both the data build and the param init;
-    ``etas`` default to the task's per-scheme step sizes."""
+    ``etas`` default to the task's per-scheme step sizes.  The rest
+    (``checkpoint_path``, ``resume``, ``max_chunks``, ...) passes to
+    ``run_fleet``."""
     dev = resolve_device(device)
     run = run if run is not None else task.run_config()
     seed = run.seed if seed is None else seed
@@ -133,4 +262,5 @@ def run_fleet_task(task, schemes, gains: np.ndarray, run=None, *,
     if etas is None:
         etas = [task.eta_for(pc.name, run.eta) for pc in schemes]
     return run_fleet(task.loss_fn, params, schemes, gains, td.train, run,
-                     eval_fn, etas=etas, device=dev, **driver_kw)
+                     eval_fn, etas=etas, device=dev, task_name=task.name,
+                     **driver_kw)

@@ -62,7 +62,9 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
 
     ``uplink_dtype`` (default ``run.uplink_dtype``) and ``fuse_round``
     (default: fused exactly when ``flat``) follow the reference;
-    ``use_kernel`` passes to the kernel dispatch (None: by device).
+    ``use_kernel`` passes to the kernel dispatch (None: by device).  The
+    body carries the tail it resolved as ``body.fuse`` and
+    ``body.uplink_dtype``.
     """
     if uplink_dtype is None:
         uplink_dtype = getattr(run, "uplink_dtype", "f32") or "f32"
@@ -122,6 +124,7 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
         }
         return params, metrics
 
+    body.fuse, body.uplink_dtype = fuse, uplink_dtype
     return body
 
 

@@ -40,7 +40,6 @@ from repro_torch.kernels import build, ref
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 HEAD_DIMS = (64, 128)
-MAX_GRID_YZ = 65535            # heads and batch ride gridDim.y and .z
 ALIGN = 16                     # bytes; TMA needs each base 16-byte aligned
 
 
@@ -82,8 +81,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     sk, kh = k.shape[1], k.shape[2]
     if dh not in HEAD_DIMS:
         raise ValueError(f"head_dim {dh} not in {HEAD_DIMS}")
-    if h > MAX_GRID_YZ or b > MAX_GRID_YZ:
-        raise ValueError(f"{h} heads or batch {b} over {MAX_GRID_YZ}")
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")

@@ -44,6 +44,8 @@ class Task:
     _make_eval: Callable                 # (TaskData, device) -> eval_fn
     scheme_etas: dict = dataclasses.field(default_factory=dict)
     artifact_tag: str = ""
+    # which runtime consumes the bundle: "fleet" (run_fleet_task)
+    runtime: str = "fleet"
 
     def build_data(self, seed: int = 0) -> TaskData:
         return self._build_data(seed)

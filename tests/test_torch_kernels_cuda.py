@@ -270,6 +270,15 @@ def test_flash_attention_kernel_f32_long_sequence(cuda, dh):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_batch_over_65535(cuda, dtype):
+    """B = 65,536 rows of one head: more than a grid's y or z axis holds.
+    Both kernels run one flat grid (its size checked in the entry), so the
+    wrapper takes any batch and head count, as the reference does."""
+    _check_attention(*_qkv(cuda, 65536, 16, 16, 1, 1, 64, dtype, seed=5),
+                     causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("sq,sk", [(128, 128), (100, 300), (300, 100),
                                    (129, 255), (255, 129)])
 def test_flash_attention_kernel_noncausal_ragged_keys(cuda, sq, sk, dtype):

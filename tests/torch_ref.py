@@ -2,7 +2,12 @@
 
 * numpy <-> tensor conversion of parameter dicts;
 * the reference's draws recipe, replayed for the port;
-* a child-process runner for the reference fleet;
+* child-process runners for the reference: its fleet, its default ``sca``
+  design, its solvers (``repro.solvers``), its task registry, and one
+  seed of its Fig.-2 run (``benchmarks.fig2.run(..., save=False)``);
+* ``python -m tests.torch_ref``, which writes the reference's Fig.-2
+  curves and ``sca`` design under ``experiments/fig2_reference/`` for the
+  port's curve check (``repro_torch.curves``);
 * TF32 rounding and 3xTF32 products in plain torch, for the CPU emulations
   of the tensor-core kernels' arithmetic (K3 f32, K4).
 
@@ -22,6 +27,11 @@ from pathlib import Path
 
 import numpy as np
 import torch
+
+# the curve check's protocols (the paper's full batch, aggregated leaf by
+# leaf; minibatch 128 on the flat, fused path) and where the reference's
+# curves live
+from repro_torch.curves import PROTOCOLS, REFERENCE as FIG2_REF_DIR
 
 ROOT = Path(__file__).resolve().parents[1]
 SCHEME_FIELDS = ("gamma", "alpha", "p", "thresholds", "noise_over_alpha",
@@ -174,6 +184,199 @@ np.savez(cfg["out"], gamma=np.asarray(pc.gamma, np.float64),
 '''
 
 
+# The reference's solvers (``repro.solvers``) at the cases of
+# tests/test_solvers.py: theory parity (three families, dropout), Marcum
+# Q_1, ``solve`` at the Fig.-2 world, at test_solvers' 10-device world, off
+# Rayleigh and with a legacy budget, and ``solve_batch`` on its batch.  The
+# scenarios' fields are saved beside the results, so the port rebuilds
+# exactly the same OTAParams.
+_SOLVERS_CHILD = r'''
+import dataclasses, json, sys
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+import jax.numpy as jnp
+from jax.experimental import enable_x64
+from repro import solvers
+from repro.core import channel
+from repro.core.channel import FadingSpec
+from repro.core.theory import OTAParams
+from repro.solvers import theory_jax as tj
+
+FIELDS = ("d", "gmax", "es", "n0", "gains", "sigma_sq", "eta", "lsmooth",
+          "kappa_sq", "dropout")
+out = {}
+
+def prm_of(gains, d=10000, gmax=10.0, sigma=0.0, eta=0.05, kappa_sq=4.0,
+           fading=None, dropout=0.0):           # tests/helpers.py::make_prm
+    gains = np.asarray(gains, dtype=np.float64)
+    w = channel.WirelessConfig(num_devices=len(gains))
+    return OTAParams(d=d, gmax=gmax, es=w.energy_per_sample, n0=w.noise_psd,
+                     gains=gains, sigma_sq=np.full(len(gains), sigma),
+                     eta=eta, lsmooth=1.0, kappa_sq=kappa_sq, fading=fading,
+                     dropout=dropout)
+
+def random_prm(seed, n, family):                # tests/test_solvers.py
+    rng = np.random.default_rng(seed)
+    gains = channel.average_gain(rng.uniform(80.0, 1750.0, size=n))
+    fading = None
+    if family == "rician":
+        fading = FadingSpec(family="rician",
+                            rician_k=rng.uniform(0.2, 12.0, size=n))
+    elif family == "nakagami":
+        fading = FadingSpec(family="nakagami",
+                            nakagami_m=rng.uniform(0.6, 4.0, size=n))
+    return prm_of(gains, d=814090, sigma=float(rng.uniform(0.0, 2.0)),
+                  kappa_sq=float(rng.uniform(0.5, 16.0)), fading=fading)
+
+def save_prm(tag, prm):
+    for f in FIELDS:
+        out["%s/prm/%s" % (tag, f)] = np.asarray(getattr(prm, f), np.float64)
+    fam = "rayleigh" if prm.fading is None else prm.fading.family
+    out["%s/prm/family" % tag] = np.asarray(fam)
+    if fam == "rician":
+        out["%s/prm/fparam" % tag] = np.asarray(prm.fading.rician_k)
+    elif fam == "nakagami":
+        out["%s/prm/fparam" % tag] = np.asarray(prm.fading.nakagami_m)
+
+for tag, (seed, n, family, dropout) in cfg["theory"].items():
+    prm = random_prm(seed, n, family).replace(dropout=dropout)
+    save_prm(tag, prm)
+    with enable_x64():
+        pj = tj.from_ota(prm)
+        gm = tj.gamma_max(pj)
+        gamma = 0.7 * gm
+        out[tag + "/gamma_max"] = np.asarray(gm)
+        out[tag + "/alpha_max"] = np.asarray(tj.alpha_max(pj))
+        out[tag + "/gamma"] = np.asarray(gamma)
+        out[tag + "/alpha_of_gamma"] = np.asarray(tj.alpha_of_gamma(gamma, pj))
+        out[tag + "/log_alpha_of_gamma"] = np.asarray(
+            tj.log_alpha_of_gamma(gamma, pj))
+        out[tag + "/chi_threshold"] = np.asarray(tj.chi_threshold(gamma, pj))
+        for k, v in tj.zeta_terms(gamma, pj).items():
+            out[tag + "/zeta/" + k] = np.asarray(v)
+        _, _, pm = tj.participation(gamma, pj)
+        out[tag + "/bias_term"] = np.asarray(tj.bias_term(pm, pj))
+        out[tag + "/p1_objective"] = np.asarray(tj.p1_objective(gamma, pj))
+
+with enable_x64():
+    a = jnp.asarray([0.0, 0.3, 1.0, 3.0, 7.0], jnp.float64)[:, None]
+    b = jnp.asarray([0.1, 0.5, 1.0, 2.0, 5.0], jnp.float64)[None, :]
+    out["marcum/a"] = np.asarray(jnp.broadcast_to(a, (5, 5)))
+    out["marcum/b"] = np.asarray(jnp.broadcast_to(b, (5, 5)))
+    out["marcum/q"] = np.asarray(tj.marcum_q1(jnp.broadcast_to(a, (5, 5)),
+                                              jnp.broadcast_to(b, (5, 5))))
+
+def fig2_world():
+    w = channel.WirelessConfig(num_devices=10, seed=0)
+    dep = channel.deploy(w)
+    return OTAParams(d=814090, gmax=10.0, es=w.energy_per_sample,
+                     n0=w.noise_psd, gains=dep.gains, sigma_sq=np.zeros(10),
+                     eta=0.06, lsmooth=1.0, kappa_sq=4.0)
+
+solve_cases = {
+    "fig2_world": (fig2_world(), {}),
+    "prm10": (prm_of(channel.deploy(channel.WirelessConfig(
+        num_devices=10, seed=0)).gains, d=814090), {}),
+    "rician": (random_prm(1, 8, "rician"), {}),
+    "nakagami": (random_prm(1, 8, "nakagami"), {}),
+    "legacy_budget": (prm_of(channel.deploy(channel.WirelessConfig(
+        num_devices=8, seed=2)).gains, d=10000),
+        {"max_iters": 8, "tol": 1e-5}),
+}
+for tag in cfg["solve"]:
+    prm, budget = solve_cases[tag]
+    save_prm(tag, prm)
+    res = solvers.solve(prm, cfg=dataclasses.replace(solvers.DEFAULT_CONFIG,
+                                                     **budget))
+    for f in ("gamma", "p", "alpha", "objective", "history", "converged"):
+        out[tag + "/" + f] = np.asarray(getattr(res, f))
+
+# the reference against itself: one gain moved by one ulp
+prm = fig2_world()
+gains = prm.gains.copy()
+gains[3] = np.nextafter(gains[3], 1.0)
+res = solvers.solve(prm.replace(gains=gains))
+for f in ("gamma", "alpha", "objective", "history"):
+    out["fig2_world_ulp/" + f] = np.asarray(getattr(res, f))
+
+prms = [random_prm(s, 8, "rayleigh") for s in range(cfg["batch"])]
+for i, prm in enumerate(prms):
+    save_prm("batch%d" % i, prm)
+br = solvers.solve_batch(prms)
+for f in ("gamma", "p", "alpha", "objective", "history", "converged"):
+    out["batch/" + f] = np.asarray(getattr(br, f))
+np.savez(cfg["out"], **out)
+'''
+
+# theory parity cases: tag -> (seed, N, family, dropout)
+THEORY_CASES = {f"{fam}-{seed}-{n}": (seed, n, fam, 0.0)
+                for fam in ("rayleigh", "rician", "nakagami")
+                for seed, n in ((0, 5), (7, 10))}
+THEORY_CASES.update({f"{fam}-dropout": (3, 8, fam, 0.15)
+                     for fam in ("rayleigh", "rician", "nakagami")})
+SOLVE_CASES = ("fig2_world", "prm10", "rician", "nakagami", "legacy_budget")
+BATCH_ROWS = 5
+
+
+def run_reference_solvers(out_path: Path, timeout: float = 900.0) -> dict:
+    """``repro.solvers`` (theory_jax, solve, solve_batch) at the cases of
+    tests/test_solvers.py, in a child process; see ``_SOLVERS_CHILD``."""
+    cfg = dict(theory={k: list(v) for k, v in THEORY_CASES.items()},
+               solve=list(SOLVE_CASES), batch=BATCH_ROWS, out=str(out_path))
+    return _run_child(_SOLVERS_CHILD, cfg, "reference solvers", timeout)
+
+
+def ota_params(blob: dict, tag: str):
+    """The port's ``OTAParams`` of a scenario the solvers child saved."""
+    from repro_torch.core.channel import FadingSpec
+    from repro_torch.core.theory import OTAParams
+    f = prefixed(blob, f"{tag}/prm")
+    family = str(f["family"])
+    fading = None
+    if family == "rician":
+        fading = FadingSpec(family="rician", rician_k=f["fparam"])
+    elif family == "nakagami":
+        fading = FadingSpec(family="nakagami", nakagami_m=f["fparam"])
+    return OTAParams(d=int(f["d"]), gmax=float(f["gmax"]), es=float(f["es"]),
+                     n0=float(f["n0"]), gains=f["gains"],
+                     sigma_sq=f["sigma_sq"], eta=float(f["eta"]),
+                     lsmooth=float(f["lsmooth"]),
+                     kappa_sq=float(f["kappa_sq"]), fading=fading,
+                     dropout=float(f["dropout"]))
+
+
+_TASKS_CHILD = r'''
+import json, sys
+cfg = json.loads(sys.argv[1])
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+from repro import tasks
+
+t = tasks.get("paper_mlp")
+out = {"names": list(tasks.names()),
+       "fleet": list(tasks.names(runtime="fleet")),
+       "steps": list(tasks.names(runtime="steps")),
+       "paper_mlp": {"num_devices": t.num_devices, "param_dim": t.param_dim,
+                     "defaults": t.defaults, "scheme_etas": t.scheme_etas,
+                     "runtime": t.runtime},
+       "paper_mlp_small": tasks.get("paper_mlp", hidden=16).param_dim}
+with open(cfg["out"], "w") as f:
+    json.dump(out, f)
+'''
+
+
+def run_reference_tasks(out_path: Path, timeout: float = 300.0) -> dict:
+    """The reference's task registry (``repro.tasks``): its names, by
+    runtime, and paper_mlp's bundle constants, in a child process."""
+    _child(_TASKS_CHILD, {"out": str(out_path)}, "reference tasks", timeout)
+    with open(out_path) as f:
+        return json.load(f)
+
+
 def run_reference_fleet(out_path: Path, *, hidden: int = 16,
                         samples_per_class: int = 40, batch: int = 8,
                         rounds: int = 4, every: int = 2, seeds=(0, 1),
@@ -208,14 +411,52 @@ def run_reference_sca(out_path: Path, timeout: float = 300.0) -> dict:
 def _run_child(script: str, cfg: dict, what: str, timeout: float) -> dict:
     """Run ``script`` with the shim in a child process (JAX on the CPU) and
     return the arrays it saved to ``cfg["out"]``."""
+    _child(script, cfg, what, timeout)
+    with np.load(cfg["out"]) as f:
+        return {k: f[k] for k in f.files}
+
+
+def _child(script: str, cfg: dict, what: str, timeout: float) -> None:
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
     proc = subprocess.run([sys.executable, "-c", script, json.dumps(cfg)],
                           env=env, cwd=str(ROOT), capture_output=True,
                           text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"{what} failed:\n{proc.stderr[-4000:]}")
-    with np.load(cfg["out"]) as f:
-        return {k: f[k] for k in f.files}
+
+
+# The reference's Fig.-2 run of one seed and one protocol.  ``save=False``
+# is load-bearing: with ``save=True`` ``benchmarks.fig2.run`` would
+# overwrite the committed experiments/fig2/histories_seed0.json.
+_FIG2_CHILD = r'''
+import json, sys, time
+cfg = json.loads(sys.argv[1])
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+from benchmarks import fig2
+
+t0 = time.time()
+hist = fig2.run(num_rounds=cfg["rounds"], eval_every=cfg["every"],
+                seed=cfg["seed"], batch_size=cfg["batch"], save=False)
+with open(cfg["out"], "w") as f:
+    json.dump({"histories": hist, "cpu_wall_s": time.time() - t0}, f)
+'''
+
+
+
+def run_reference_fig2(out_path: Path, *, seed: int, batch: int,
+                       rounds: int = 150, every: int = 10,
+                       timeout: float = 3600.0) -> dict:
+    """``benchmarks.fig2.run(..., save=False)`` for one seed and one
+    protocol (``batch`` 0: full batch; > 0: minibatch, flat) in a child
+    process.  Returns ``{"histories": {scheme: [eval rows]}, "cpu_wall_s":
+    the child's wall on the CPU}``."""
+    cfg = dict(seed=int(seed), batch=int(batch), rounds=int(rounds),
+               every=int(every), out=str(out_path))
+    _child(_FIG2_CHILD, cfg, "reference fig2", timeout)
+    with open(out_path) as f:
+        return json.load(f)
 
 
 def prefixed(blob: dict, prefix: str) -> dict:
@@ -245,3 +486,68 @@ def mm_tf32(a: torch.Tensor, b: torch.Tensor, passes: int) -> torch.Tensor:
         return a_big @ b_big
     a_small, b_small = tf32(a - a_big), tf32(b - b_big)
     return a_small @ b_big + a_big @ b_small + a_big @ b_big
+
+
+def _write_json(path: Path, obj) -> None:
+    path.parent.mkdir(parents=True, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(obj, f, indent=1)
+
+
+def write_sca_design(out_dir: Path = FIG2_REF_DIR) -> None:
+    """experiments/fig2_reference/sca_design.json: the reference's default
+    ``sca`` design at the full-width Fig.-2 world (``run_reference_sca``),
+    so the card can hold the port's solver without JAX."""
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        got = run_reference_sca(Path(tmp) / "sca.npz")
+    _write_json(out_dir / "sca_design.json",
+                {k: np.asarray(v).tolist() for k, v in got.items()})
+
+
+def _fig2_job(job) -> str:
+    protocol, seed, rounds, every, out_dir = job
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        got = run_reference_fig2(Path(tmp) / "hist.json", seed=seed,
+                                 batch=PROTOCOLS[protocol], rounds=rounds,
+                                 every=every)
+    _write_json(Path(out_dir) / protocol / f"histories_seed{seed}.json",
+                got["histories"])
+    return (f"{protocol} seed {seed}: {got['cpu_wall_s']:.1f} s "
+            f"(reference on the CPU)")
+
+
+def main(argv=None) -> None:
+    """Regenerate the reference curves the port's curve check holds against:
+
+        PYTHONPATH=src python -m tests.torch_ref [--seeds 0 1 2 3]
+            [--protocols full_batch minibatch128] [--rounds 150]
+            [--every 10] [--jobs 3] [--sca-design]
+
+    writes experiments/fig2_reference/<protocol>/histories_seed<s>.json
+    (and sca_design.json with ``--sca-design``)."""
+    import argparse
+    from concurrent.futures import ThreadPoolExecutor
+    ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
+    ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
+    ap.add_argument("--protocols", nargs="+", default=list(PROTOCOLS),
+                    choices=list(PROTOCOLS))
+    ap.add_argument("--rounds", type=int, default=150)
+    ap.add_argument("--every", type=int, default=10)
+    ap.add_argument("--jobs", type=int, default=3)
+    ap.add_argument("--sca-design", action="store_true")
+    ap.add_argument("--out", default=str(FIG2_REF_DIR))
+    a = ap.parse_args(argv)
+    if a.sca_design:
+        write_sca_design(Path(a.out))
+        print("sca_design.json written", flush=True)
+    jobs = [(p, s, a.rounds, a.every, a.out)
+            for p in a.protocols for s in a.seeds]
+    with ThreadPoolExecutor(max_workers=a.jobs) as pool:
+        for line in pool.map(_fig2_job, jobs):
+            print(line, flush=True)
+
+
+if __name__ == "__main__":
+    main()
