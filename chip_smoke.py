@@ -98,8 +98,37 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      tokens of K4 on vs off and of the state check (which holds K4's final
      state, the conv stash and the plain decode together) to the share of
      equal tokens;
-  8. one JSON line ``{"kernels": [...]}`` (K3 twice: bf16 with the bf16
-     serve run's launches, f32 with the f32 run's), then the last line
+  8. the heterogeneous-wireless path (``repro_torch.scenario_sweep``):
+     (a) the theory sweep over all ten registered scenarios x (sca, lcpc,
+     zero_bias), the sca designs one batched solve per fading family on
+     the card, each row's bias, variance and objective within 1e-6
+     relative of the reference's (``experiments/scenario_reference/
+     theory_seed0.json``), and the grid's four sca designs within 1e-6 of
+     the reference's per-scenario designs; (b) the full-width grid:
+     paper_mlp (d = 814,090), the four ``SWEEP_FAMILIES`` x (sca, lcpc,
+     zero_bias) x seeds 0-3 = 48 cells, full batch, flat, fused f32 tail,
+     100 rounds with an eval every 20 -- K1 once a round, nothing else of
+     the OTA tail -- then the same grid at seeds 4-7, and each (scenario,
+     scheme)'s curve statistics over seeds 0-7 held by ``curves.gate``
+     against the reference's committed grid (``scenario_sweep.GATE_SEEDS``
+     says why eight); (c) bitwise:
+     the R = 1 grid vs the disk_rayleigh fleet, the grid vs its four
+     per-scenario fleets, 10 grid rounds with K1 forced off vs on, and 5
+     unfused rounds (K2 once a round) with K2 forced off vs on; K1 alone
+     against its plain version at C = 48 with whole cells of s = 0 and
+     per-cell noise scales over four decades, bitwise, timed; (d)
+     ``adaptive_sca`` on disk_markov at full width, seeds 0-3, 30 rounds
+     with an eval every 10: a redesign at each chunk end before the last
+     round (the reference's cadence ends chunks after rounds 0, 10, 20 and
+     29: three redesigns), each moving the design by more than 1e-3
+     relative and differently per seed, and the final state's
+     redesign on the card within 1e-6 of the same call on the machine's
+     CPU; (e) kill after chunk 1 and resume, bitwise (params, traces,
+     evals, fading state), on a disk_markov fleet and on the grid; every
+     wall printed beside the card's name and power limit;
+  9. one JSON line ``{"kernels": [...]}`` (K3 twice: bf16 with the bf16
+     serve run's launches, f32 with the f32 run's; K1 f32 twice: the
+     Fig.-2 main path's and the grid's), then the last line
      ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
@@ -177,6 +206,13 @@ EQUAL_TOKENS_MIN = 0.9
 # curves at the reference's Fig.-2 protocol, over its seeds 0-3
 SCA_RTOL, SCA_OBJECTIVE_RTOL = 1e-6, 1e-9
 CURVE_SEEDS, RESUME_ROUNDS = (0, 1, 2, 3), 30
+# phase 8: the scenario path.  The theory rows against the reference's at
+# 1e-6 relative (the solver lands ~1e-8 from the reference's designs, the
+# rows move less); the adaptive fleet's length, cadence and the design move
+# it must show (the grid's settings are ``scenario_sweep``'s)
+THEORY_RTOL = 1e-6
+ADAPTIVE_ROUNDS, ADAPTIVE_EVERY, ADAPTIVE_MOVE = 30, 10, 1e-3
+GRID_CELLS = 48                            # 4 scenarios x 3 schemes x 4 seeds
 
 
 class SmokeFailure(Exception):
@@ -551,9 +587,6 @@ def phase_curves(torch, np, dev, world):
     from repro_torch.core import theory
     from repro_torch.fl.driver import run_fleet_task
 
-    def _rel(got, want):
-        got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
-        return float(np.max(np.abs(got - want) / np.abs(want)))
     with open(ROOT / "experiments" / "fig2_reference" / "sca_design.json") as f:
         want = json.load(f)
     task, dep, prm, td, designs = (world[k] for k in ("task", "dep", "prm",
@@ -564,10 +597,10 @@ def phase_curves(torch, np, dev, world):
     check(prm_sca.eta == float(want["eta"]), "sca's eta differs")
     sca = designs[fig2.SCHEMES.index("sca")]
     design_s = world["design_s"]
-    errs = {"gamma": _rel(sca.gamma, want["gamma"]),
-            "alpha": _rel(sca.alpha, want["alpha"]),
-            "thresholds": _rel(sca.thresholds, want["thresholds"]),
-            "objective": _rel(theory.p1_objective(sca.gamma, prm_sca),
+    errs = {"gamma": _rel(np, sca.gamma, want["gamma"]),
+            "alpha": _rel(np, sca.alpha, want["alpha"]),
+            "thresholds": _rel(np, sca.thresholds, want["thresholds"]),
+            "objective": _rel(np, theory.p1_objective(sca.gamma, prm_sca),
                               want["objective"])}
     print(f"  sca design on the card (repro_torch.solvers, f64): wall "
           f"{design_s['torch_card']:.3f} s (SLSQP on the host "
@@ -668,6 +701,231 @@ def phase_curves(torch, np, dev, world):
     return {"design_s": design_s, "design_err": errs, "round_ms": walls,
             "gate": {p: all(r["ok"] for r in rows)
                      for p, rows in report.items()}}
+
+
+def _rel(np, got, want):
+    got, want = np.asarray(got, np.float64), np.asarray(want, np.float64)
+    return float(np.max(np.abs(got - want) / np.abs(want)))
+
+
+def k1_value_patterns(torch, dev, card):
+    """K1 against its plain version at the grid's C = 48 cells with the
+    values the scenarios bring: whole cells of s = 0 (every device
+    dropped), dropped devices inside cells, and per-cell noise scales
+    spread over four decades; bitwise, with times."""
+    from repro_torch.card import peaks
+    from repro_torch.kernels import ref, round_step
+    from repro_torch.profile_ota import draw
+    _, (bw, f32_peak, _) = peaks(card)
+    gen = torch.Generator(device=dev).manual_seed(8)
+    c, n, d = GRID_CELLS, MAIN[1], MAIN[2]
+    g, s, z, ns, p, eta = draw((c, n, d), dev, gen)
+    s[::4] = 0.0                                   # whole cells dropped
+    s[1::4, ::3] = 0.0                             # dropped devices
+    ns = 10.0 ** (4.0 * torch.rand((c,), generator=gen, device=dev) - 3.0)
+    args = (g, torch.ones_like(s), s, z, ns, p, eta)
+
+    def kern():
+        return round_step.ota_round_step(*args)
+
+    def plain():
+        return ref.ota_round_step_ref(g, s, z, ns, p, eta, None)
+    got, want = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got - want).abs()
+    row = {"max_abs_err": float(err.max()),
+           "bitwise": bool(torch.equal(got, want)),
+           **ota_timing(kern, plain, nbytes(*args) + c * d * 4,
+                        c * d * (3 * n + 4), bw, f32_peak)}
+    print(f"  K1 f32 at the grid's C={c}, N={n}, D={d}, whole cells of "
+          f"s = 0, per-cell noise scales 1e-3..10: {json.dumps(row)}",
+          flush=True)
+    check(row["bitwise"], "K1 is not bitwise its plain version on the "
+          "scenario value patterns")
+    return row
+
+
+def _ota_counts():
+    return {k: v for k, v in counts().items()
+            if k in ("ota_round_step", "ota_aggregate", "plain_round_step",
+                     "plain_aggregate")}
+
+
+def phase_scenarios(torch, np, dev, card, card_line):
+    """Phase 8: the heterogeneous-wireless path -- the theory sweep over
+    every registered scenario, the full-width grid through K1 and its
+    identities, K1/K2 forced off, the adaptive scheme's redesigns, and
+    kill and resume on a Gauss-Markov fleet and on the grid."""
+    import dataclasses
+    import tempfile
+    from repro_torch import curves, scenario_sweep as ss, tasks
+    from repro_torch.core import power_control as pcm, scenarios as scn
+    from repro_torch.fl.driver import run_fleet_task
+    from repro_torch.fl.engine import chunk_lengths
+    walls = {}
+    t_phase = time.time()
+    world = ss.design(scn.scenario_names(), device=dev)
+    walls["sca_designs_s"] = {fam: sec for fam, _, sec in world["sca_calls"]}
+    for fam, group, sec in world["sca_calls"]:
+        print(f"  sca designs, {fam} ({', '.join(group)}): one batched solve "
+              f"on the card, {sec:.3f} s [{card_line}]", flush=True)
+    ref = ss.load_theory_reference(0)
+    errs = ss.theory_errors(ss.sweep(world), ref)
+    worst = max(errs, key=errs.get)
+    design_err = {n: _rel(np, world[n]["schemes"][0].gamma,
+                          ref["sca_designs"][n]["gamma"])
+                  for n in scn.SWEEP_FAMILIES}
+    print(f"  theory rows of {len(errs)} (scenario, scheme) pairs: largest "
+          f"relative error of bias / variance / objective {errs[worst]:.3e} "
+          f"({worst}; tol {THEORY_RTOL}); the grid's sca designs against "
+          f"the reference's per-scenario designs {json.dumps(design_err)}",
+          flush=True)
+    check(len(errs) == 30 and errs[worst] <= THEORY_RTOL,
+          f"theory rows off the reference's: {worst} {errs[worst]:.3e}")
+    check(max(design_err.values()) <= THEORY_RTOL,
+          f"grid sca designs off the reference's: {design_err}")
+    walls["theory_s"] = time.time() - t_phase
+
+    task = tasks.get("paper_mlp", expect_runtime="fleet")
+    check(ss.run_config(task, ss.ROUNDS, ss.EVERY).batch_size == 0,
+          "the grid runs paper_mlp's full batch")
+    rep = ss.grid(world, task, device=dev)
+    res, checks = rep["result"], ss.grid_ok(rep)
+    grid_counts = rep["counts"]["grid"]
+    walls.update(rep["walls"], grid_round_ms=round_ms(res),
+                 grid_more_seeds_round_ms=round_ms(rep["more"]))
+    k_total = len(res.names)
+    check(k_total * len(res.seeds) == GRID_CELLS
+          and res.params["w1"].shape[:2] == (k_total, len(ss.SEEDS)),
+          f"grid cells {k_total} x {len(res.seeds)}")
+    check(all(bool(torch.isfinite(v).all()) for v in res.params.values()),
+          "grid params not finite")
+    more = rep["more"].seeds
+    print(f"  grid {len(scn.SWEEP_FAMILIES)} x {len(ss.SCHEMES)} x "
+          f"{len(ss.SEEDS)} = {GRID_CELLS} cells, d = {task.param_dim}, full "
+          f"batch, fused f32 tail, {ss.ROUNDS} rounds: counts "
+          f"{grid_counts}, round wall {walls['grid_round_ms']:.3f} ms, run "
+          f"wall {res.wall:.2f} s; the gate's other seeds {list(more)}: a "
+          f"second 48-cell grid, round wall "
+          f"{walls['grid_more_seeds_round_ms']:.3f} ms [{card_line}]",
+          flush=True)
+    print(curves.table(rep["gate"], f"  grid: port (this card) vs reference "
+                       f"(CPU), seeds {list(res.seeds + more)}, {ss.ROUNDS} "
+                       "rounds"), flush=True)
+    print(f"  bitwise: R = 1 grid vs the disk_rayleigh fleet, the grid vs "
+          f"its 4 scenario fleets, {ss.IDENTITY_ROUNDS} grid rounds with K1 "
+          f"forced off vs on, {ss.UNFUSED_ROUNDS} unfused rounds with K2 off "
+          f"vs on (K2 counts {rep['counts']['unfused']}): "
+          f"{json.dumps(rep['identities'])}", flush=True)
+    check(checks["grid_launches"],
+          f"the grid must launch K1 once a round: {grid_counts}")
+    misses = [f"{r['scheme']}/{r['stat']}" for r in rep["gate"]
+              if not r["ok"]]
+    check(checks["gate"], f"grid curves outside the gate: {misses}")
+    check(checks["identities"], f"a grid identity failed: "
+          f"{rep['identities']}")
+    check(checks["unfused_launches"], f"the unfused grid must launch K2 "
+          f"once a round: {rep['counts']['unfused']}")
+    td = task.build_data(0)
+    base = dict(task_data=td, params=task.init_params(0, dev),
+                eval_fn=task.make_eval(td, dev), device=dev)
+    k1_row = k1_value_patterns(torch, dev, card)
+
+    t0 = time.time()
+    mk = world["disk_markov"]
+    fading = scn.make_fading_process(mk["dep"], mk["scenario"].dynamics)
+    redesign_s = []
+    pc = pcm.make_adaptive_sca(mk["dep"], mk["prm"],
+                               base=mk["schemes"][0], device=dev)
+    hook = pc.redesign_fn
+
+    def timed(scheme, proc, state):
+        torch.cuda.synchronize()
+        ts = time.time()
+        out = hook(scheme, proc, state)
+        torch.cuda.synchronize()
+        redesign_s.append(time.time() - ts)
+        return out
+    pc = dataclasses.replace(pc, redesign_fn=timed)
+    arun = ss.run_config(task, ADAPTIVE_ROUNDS, ADAPTIVE_EVERY)
+    zero_counts()
+    ares = run_fleet_task(task, [pc], mk["dep"].gains, arun, etas=[ss.ETA],
+                          seeds=ss.SEEDS, fading=fading, flat=True, **base)
+    torch.cuda.synchronize()
+    a_counts = _ota_counts()
+    gam = [g for _, g in ares.designs]
+    moves = [_rel(np, b, a) for a, b in zip(gam, gam[1:])]
+    seed_spread = [float(np.max(np.abs(g[0] - g[0, :1]) / np.abs(g[0, :1])))
+                   for g in gam[1:]]
+    state = ares.fading_state[0].expand((1,) + tuple(
+        ares.fading_state.shape[1:]))
+    ts = time.time()
+    on_card = hook(pc, fading, state)
+    torch.cuda.synchronize()
+    card_s = time.time() - ts
+    ts = time.time()
+    on_cpu = hook(pc, fading, state.cpu())
+    cpu_s = time.time() - ts
+    cpu_err = {f: _rel(np, getattr(on_card, f), getattr(on_cpu, f))
+               for f in ("gamma", "alpha")}
+    walls.update(adaptive_s=time.time() - t0,
+                 adaptive_round_ms=round_ms(ares), redesign_s=redesign_s,
+                 final_redesign_card_s=card_s, final_redesign_cpu_s=cpu_s)
+    print(f"  adaptive_sca on disk_markov, {ADAPTIVE_ROUNDS} rounds, "
+          f"S = {len(ss.SEEDS)}: designs at rounds "
+          f"{[t for t, _ in ares.designs]}, moves between chunks "
+          f"{moves}, spread across seeds {seed_spread}; redesign walls "
+          f"{[round(x, 3) for x in redesign_s]} s; round wall "
+          f"{walls['adaptive_round_ms']:.3f} ms; counts {a_counts}; the final "
+          f"state's redesign on the card {card_s:.3f} s vs this machine's CPU "
+          f"{cpu_s:.3f} s, relative difference {json.dumps(cpu_err)} "
+          f"[{card_line}]", flush=True)
+    # a redesign at every chunk boundary before the last round: the
+    # reference's cadence ends chunks after rounds 0, 10, 20 and 29
+    n_redesigns = len(chunk_lengths(ADAPTIVE_ROUNDS, ADAPTIVE_EVERY, True)) - 1
+    check(len(ares.designs) == n_redesigns + 1
+          and len(redesign_s) == n_redesigns,
+          f"adaptive designs {[t for t, _ in ares.designs]}")
+    check(min(moves) > ADAPTIVE_MOVE and min(seed_spread) > ADAPTIVE_MOVE,
+          f"adaptive designs did not move: {moves}, {seed_spread}")
+    check(max(cpu_err.values()) <= THEORY_RTOL,
+          f"redesign on the card vs the CPU: {cpu_err}")
+    check(a_counts["ota_round_step"] == ADAPTIVE_ROUNDS,
+          f"adaptive fleet K1 counts {a_counts}")
+
+    t0 = time.time()
+    resumes = {}
+    rrun = ss.run_config(task, RESUME_ROUNDS, EVERY)
+    for label, fleet in (
+            ("disk_markov", lambda **kw: ss.scenario_fleet(
+                task, world, "disk_markov", rrun, ss.SEEDS, **kw)),
+            ("grid", lambda **kw: ss.grid_fleet(
+                task, world, scn.SWEEP_FAMILIES, rrun, ss.SEEDS, **kw))):
+        whole = fleet(**base)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = str(Path(tmp) / "fleet")
+            first = fleet(checkpoint_path=path, max_chunks=1, **base)
+            rest = fleet(checkpoint_path=path, resume=True, **base)
+        done = (sum(n for n, _ in first.chunk_walls),
+                sum(n for n, _ in rest.chunk_walls))
+        same = {"params_traces": ss.bitwise(rest, whole),
+                "evals": all(np.array_equal(a[k], b[k])
+                             for (_, a), (_, b) in zip(whole.evals,
+                                                       rest.evals)
+                             for k in a)
+                and len(whole.evals) == len(rest.evals),
+                "fading_state": torch.equal(whole.fading_state,
+                                            rest.fading_state)}
+        resumes[label] = same
+        print(f"  kill and resume, {label}: {RESUME_ROUNDS} rounds, rounds "
+              f"run {done}; bitwise {json.dumps(same)}", flush=True)
+        check(done[0] < RESUME_ROUNDS and sum(done) == RESUME_ROUNDS
+              and all(same.values()), f"{label} resume: {done} {same}")
+    walls["resume_s"] = time.time() - t0
+    walls["phase_s"] = time.time() - t_phase
+    print(f"  phase 8 walls [{card_line}]: {json.dumps(walls)}", flush=True)
+    return {"grid_k1": grid_counts["ota_round_step"], "k1_row": k1_row,
+            "walls": walls}
 
 
 def attention_on_vs_off(torch, res, cfg):
@@ -1027,6 +1285,9 @@ def main() -> int:
                                                                      dev)
     print("[7] Mamba-2 serve path at full width", flush=True)
     ssd_stats, ssd_counts, ssd_drift = phase_serve_ssd(torch, dev)
+    print("[8] the heterogeneous-wireless path: scenarios, the grid through "
+          "K1, adaptive_sca", flush=True)
+    scen = phase_scenarios(torch, np, dev, card, card_line)
 
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
@@ -1043,6 +1304,8 @@ def main() -> int:
                  f32_counts["flash_attention"], ares["main_f32"]))
     rows.append(("ssd_scan[f32]", "ssd_scan", ssd_counts["ssd_scan"],
                  sres[SSD_MAIN[0]]))
+    rows.append((f"ota_round_step[f32, grid C={GRID_CELLS}]",
+                 "ota_round_step", scen["grid_k1"], scen["k1_row"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -1051,11 +1314,12 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[8] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[9] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[8] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[8] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[8] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print(f"[9] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[9] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[9] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[9] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "

@@ -1,9 +1,10 @@
 """Wireless channel model for OTA-FL (paper §II), numpy only.
 
 A copy of the part of ``repro.core.channel`` the port's power-control
-designs need: the deployment (``deploy``, ``WirelessConfig``,
-``Deployment``), the fading-family description (``FadingSpec``,
-``RAYLEIGH``) and the magnitude survival function ``fading_magnitude_sf``.
+designs and scenarios need: the deployment (``deploy``, ``WirelessConfig``,
+``Deployment`` with its scenario fields), the fading-family description
+(``FadingSpec``, ``RAYLEIGH``) and the magnitude survival function
+``fading_magnitude_sf``.
 Flat Rayleigh fading h_{m,t} ~ CN(0, Lambda_m), with Lambda_m from the
 log-distance path-loss model of §IV:
 
@@ -115,14 +116,27 @@ class WirelessConfig:
 
 @dataclasses.dataclass(frozen=True)
 class Deployment:
-    """A realized device deployment: distances and average gains."""
+    """A realized device deployment: distances and average gains.
+
+    ``fading`` (None = Rayleigh, the paper baseline) carries the small-scale
+    family so power-control designs built from this deployment use the right
+    statistical-CSI formulas; ``shadowing_db`` keeps the realized log-normal
+    shadowing offsets (already folded into ``gains``) for inspection.
+    """
     cfg: WirelessConfig
     distances: np.ndarray    # [N] meters
     gains: np.ndarray        # [N] Lambda_m (linear)
+    fading: Optional[FadingSpec] = None
+    shadowing_db: Optional[np.ndarray] = None   # [N] dB, already in gains
+    p_dropout: float = 0.0   # per-round device dropout prob (scenario dynamics)
 
     @property
     def num_devices(self) -> int:
         return int(self.gains.shape[0])
+
+    @property
+    def fading_spec(self) -> FadingSpec:
+        return self.fading if self.fading is not None else RAYLEIGH
 
 
 def deploy(cfg: WirelessConfig, distances: Optional[np.ndarray] = None) -> Deployment:

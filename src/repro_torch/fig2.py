@@ -96,11 +96,13 @@ def run(num_rounds: int = 150, eval_every: int = 10, seed: int = 0,
         schemes=SCHEMES, batch_size: int = BENCH_BATCH, task="paper_mlp",
         uplink_dtype: str = "f32", fuse_round=None, log: bool = False,
         save: bool = True, out_dir=None, checkpoint_path=None,
-        resume: bool = False, max_chunks=None, designs=None, device=None):
+        resume: bool = False, max_chunks=None, designs=None, fading=None,
+        device=None):
     """Histories of every scheme on ``task`` (a registered name or a Task;
     default paper_mlp at full width); returns (histories, FLResult).
     ``batch_size > 0`` runs the flat minibatch mode, 0 the full-batch
-    per-leaf mode.  ``checkpoint_path`` / ``resume`` / ``max_chunks`` pass
+    per-leaf mode.  ``checkpoint_path`` / ``resume`` / ``max_chunks`` and
+    ``fading`` (a ``core.scenarios`` process on this world's gains) pass
     to the driver.  ``designs``: the schemes already designed for this
     task's world (``make_schemes``), which does not depend on the data
     seed, so a sweep over seeds designs them once."""
@@ -115,7 +117,8 @@ def run(num_rounds: int = 150, eval_every: int = 10, seed: int = 0,
     res = run_fleet_task(task, pcs, dep.gains, run_cfg, task_data=td,
                          flat=batch_size > 0, fuse_round=fuse_round,
                          log=log, checkpoint_path=checkpoint_path,
-                         resume=resume, max_chunks=max_chunks, device=dev)
+                         resume=resume, max_chunks=max_chunks, fading=fading,
+                         device=dev)
     hist = histories(res)
     if save:
         out = Path(out_dir) if out_dir is not None else artifact_dir(task)

@@ -7,9 +7,18 @@ numbers come from a draws provider (``fl.draws``): by default
 ``DeviceDraws`` on the run's device, keyed per (seed, round) and broadcast
 over the K schemes, as the reference keys them.
 
+The channel is i.i.d. Rayleigh on ``gains`` by default; ``fading`` (a
+``core.scenarios.FadingProcess``) makes it a scenario's process, whose
+state [1, S, N] the rounds carry; ``scenarios`` (a ``ScenarioStack`` of R
+deployments) makes the fleet the [R x K x S] grid, cell (r, k, s) bitwise
+the (k, s) cell of a fleet on scenario r alone.  Adaptive schemes
+(``AdaptiveSCA``) are re-designed between chunks from the live fading
+state, and the chunks then end at the eval cadence.
+
 With ``checkpoint_path`` the fleet is saved at every chunk boundary
-(``checkpoint.checkpoint``): params, the traces and evals so far, the chunk
-and round cursors, and an identity of the run.  ``resume=True`` continues
+(``checkpoint.checkpoint``): params, the fading state, an adaptive fleet's
+live designs and design trace, the traces and evals so far, the chunk and
+round cursors, and an identity of the run.  ``resume=True`` continues
 from that checkpoint and ends bitwise equal to an uninterrupted run: the
 draws are keyed per (seed, round), so no RNG state needs saving.
 ``max_chunks`` stops a run (checkpoint saved) after that many chunks.
@@ -48,29 +57,44 @@ def _digest(*arrays) -> str:
     return h.hexdigest()[:16]
 
 
+_DESIGN_FIELDS = ("gamma", "alpha", "p", "thresholds", "noise_over_alpha")
+
+
 def _scheme_digest(pc) -> str:
     """The scheme's name and design leaves (gamma, alpha, thresholds, ...),
-    hashed: a resume against another design is refused."""
+    hashed: a resume against another design is refused.  Hooks (an
+    adaptive scheme's redesign) are code, not design, and are left out."""
     leaves = [getattr(pc, f.name) for f in dataclasses.fields(pc)
-              if not f.name.startswith("_")]
+              if not f.name.startswith("_")
+              and not callable(getattr(pc, f.name))]
     return _digest(*[np.asarray(repr(v) if isinstance(v, str) or v is None
                                 else v) for v in leaves])
 
 
 def _fleet_identity(names, seeds, run, etas, flat, fuse_round, uplink_dtype,
-                    d, task_name, schemes, gains, data) -> dict:
+                    d, task_name, schemes, gains, data, fading=None,
+                    scenarios=None) -> dict:
     """Everything that must match for a resumed run to be bitwise equal to
     the uninterrupted one: the schemes (names and design leaves), seeds,
     etas, the run config, the round tail (``flat``, ``fuse_round``, the
     uplink dtype), the model size D, the task, and the world (gains and
-    data, hashed)."""
-    return {"names": list(names), "seeds": list(seeds),
+    data, hashed; the fading process's descriptor; a grid's scenario names
+    and its stack's digest).  On a grid the gains digest covers the
+    stack's [R, N] gains."""
+    return {"fading": "none" if fading is None else fading.describe(),
+            "scenarios": ("none" if scenarios is None
+                          else list(scenarios.names)),
+            "scenario_world": ("none" if scenarios is None
+                               else scenarios.describe()),
+            "names": list(names), "seeds": list(seeds),
             "schemes": [_scheme_digest(pc) for pc in schemes],
             "etas": [float(e) for e in np.asarray(etas)],
             "run": dataclasses.asdict(run),
             "flat": bool(flat), "fuse_round": fuse_round,
             "uplink_dtype": str(uplink_dtype), "d": int(d),
-            "task": task_name, "gains": _digest(gains),
+            "task": task_name,
+            "gains": _digest(gains if gains is not None
+                             else scenarios.gains),
             "data": _digest(*data)}
 
 
@@ -88,8 +112,17 @@ def _traces(metric_rounds, prior: dict, k: int, s_axis: int) -> dict:
     return out
 
 
-def _save(path, chunks_done, t, params_b, traces, evals, identity) -> None:
+def _save(path, chunks_done, t, params_b, fstate, schemes, designs,
+          traces, evals, identity) -> None:
     state = {"params": params_b, "traces": traces}
+    if fstate is not None:
+        state["fstate"] = fstate
+    if designs is not None:
+        state["design"] = {str(i): {f: np.asarray(getattr(pc, f))
+                                    for f in _DESIGN_FIELDS}
+                           for i, pc in enumerate(schemes)}
+        state["designs_t"] = np.asarray([tt for tt, _ in designs], np.int64)
+        state["designs_g"] = np.stack([g for _, g in designs])
     if evals:
         state["evals_t"] = np.asarray([tt for tt, _ in evals], np.int64)
         state["evals"] = {name: np.stack([ev[name] for _, ev in evals])
@@ -98,7 +131,7 @@ def _save(path, chunks_done, t, params_b, traces, evals, identity) -> None:
                                  "rounds_done": t, **identity})
 
 
-def _load(path, params_b, identity):
+def _load(path, params_b, fstate, schemes, adaptive, identity):
     meta = ckpt.load_meta(path)
     mismatch = {key: (meta.get(key), want) for key, want in identity.items()
                 if meta.get(key) != want}
@@ -106,7 +139,19 @@ def _load(path, params_b, identity):
         raise ValueError(f"checkpoint {path!r} does not match this fleet "
                          f"(saved vs running): {mismatch}")
     flat = ckpt.load_flat(path)
-    params_b = ckpt.restore_flat(flat, {"params": params_b})["params"]
+    like = {"params": params_b}
+    if fstate is not None:
+        like["fstate"] = fstate
+    got = ckpt.restore_flat(flat, like)
+    params_b, fstate = got["params"], got.get("fstate")
+    designs = None
+    if adaptive:
+        schemes = [dataclasses.replace(
+            pc, _f32={}, **{f: flat[f"design/{i}/{f}"]
+                            for f in _DESIGN_FIELDS})
+            for i, pc in enumerate(schemes)]
+        designs = [(int(tt), flat["designs_g"][i])
+                   for i, tt in enumerate(flat["designs_t"])]
     traces = {key[len("traces/"):]: v for key, v in flat.items()
               if key.startswith("traces/")}
     evals = []
@@ -116,7 +161,33 @@ def _load(path, params_b, identity):
         evals = [(int(tt), {nm: flat[f"evals/{nm}"][i] for nm in ev_names})
                  for i, tt in enumerate(flat["evals_t"])]
     return (int(meta["chunks_done"]), int(meta["rounds_done"]), params_b,
-            traces, evals)
+            fstate, schemes, designs, traces, evals)
+
+
+def _scheme_n(pc) -> int:
+    return int(np.asarray(pc.p).shape[-1])
+
+
+def _redesign(schemes, fading, fstate, s_axis):
+    """Every adaptive scheme re-designed from the live state: ONE batched
+    solve over the K * S rows (the state of the seed rows, tiled over the
+    K schemes, as the reference's [K, S] carry holds it), through the
+    first scheme's hook.  Returns the schemes and the gamma [K, S, N]."""
+    k = len(schemes)
+    state = fstate[0].expand((k,) + tuple(fstate.shape[1:]))
+    new = schemes[0].redesign_fn(schemes[0], fading, state)
+    if new is not schemes[0]:
+        schemes = [dataclasses.replace(
+            pc, _f32={}, **{f: np.asarray(getattr(new, f))[i]
+                            for f in _DESIGN_FIELDS})
+            for i, pc in enumerate(schemes)]
+    return schemes, _gammas(schemes, s_axis)
+
+
+def _gammas(schemes, s_axis) -> np.ndarray:
+    return np.stack([np.broadcast_to(np.asarray(pc.gamma, np.float64),
+                                     (s_axis, _scheme_n(pc)))
+                     for pc in schemes])
 
 
 def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
@@ -128,7 +199,7 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
               use_kernel: Optional[bool] = None,
               checkpoint_path: Optional[str] = None, resume: bool = False,
               max_chunks: Optional[int] = None,
-              task_name: Optional[str] = None,
+              task_name: Optional[str] = None, fading=None, scenarios=None,
               device=None) -> FLResult:
     """A [K-scheme x S-seed] experiment grid on one device.
 
@@ -155,12 +226,47 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                      chunks of this invocation.
     task_name        joins the checkpoint's identity (``run_fleet_task``
                      passes the task's name).
+    fading           a ``core.scenarios.FadingProcess``: the channel of
+                     every round (its state is carried and checkpointed);
+                     adaptive schemes re-design on it between chunks.
+    scenarios        a ``core.scenarios.ScenarioStack`` of R deployments:
+                     the [R x K x S] grid.  ``schemes`` are then the R * K
+                     schemes scenario-major (scenario r's at rows r K ..
+                     r K + K - 1, each designed against ITS gains);
+                     ``gains`` and ``fading`` must be None and no scheme
+                     adaptive; ``FLResult.names`` are "scenario/scheme".
     """
     t0 = time.time()
     dev = resolve_device(device)
     schemes = list(schemes)
     names = tuple(pc.name for pc in schemes)
     k = len(names)
+    hooks = [getattr(pc, "redesign_fn", None) is not None for pc in schemes]
+    if any(hooks) and not all(hooks):
+        raise ValueError("adaptive (redesign_fn) schemes re-design between "
+                         "chunks and run only with other adaptive schemes")
+    if scenarios is not None:
+        rows = len(scenarios)
+        if fading is not None:
+            raise ValueError("scenario grids own the channel process; "
+                             "pass fading=None")
+        if gains is not None:
+            raise ValueError("scenario grids own the gains; pass gains=None")
+        if any(hooks):
+            raise ValueError("adaptive (redesign_fn) schemes are not "
+                             "supported on scenario grids")
+        if k % rows:
+            raise ValueError(f"{k} schemes don't tile over {rows} scenarios "
+                             f"(need a multiple of {rows})")
+        if scenarios.num_devices != _scheme_n(schemes[0]):
+            raise ValueError(
+                f"scenario stack is a {scenarios.num_devices}-device world "
+                f"but the schemes are designed for {_scheme_n(schemes[0])}")
+        names = tuple(f"{sn}/{nm}" for sn, nm in
+                      zip(np.repeat(list(scenarios.names), k // rows), names))
+    adaptive = any(hooks) and fading is not None
+    proc = scenarios if scenarios is not None \
+        else None if fading is None else fading.as_stack()     # R rows
     seeds = tuple(int(s) for s in (seeds if seeds is not None
                                    else (run.seed,)))
     s_axis = len(seeds)
@@ -185,23 +291,28 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
     if draws is None:
         draws = DeviceDraws(seeds, gains,
                             [params[name].numel() for name in sorted(params)],
-                            batch, shard_len, dev)
+                            batch, shard_len, dev, fading=proc)
+    fstate = None
+    if proc is not None and hasattr(draws, "init"):
+        fstate = proc.init_grid(draws.init())                  # [R, S, N]
     eval_b = vmap(eval_fn) if eval_fn is not None else None
 
     metric_rounds, evals, chunk_walls, prior_traces = [], [], [], {}
+    designs = [(0, _gammas(schemes, s_axis))] if adaptive else None
     lengths = chunk_lengths(run.num_rounds, run.eval_every,
-                            eval_fn is not None)
+                            eval_fn is not None or adaptive)
     identity = None
     if checkpoint_path is not None:
         identity = _fleet_identity(
             names, seeds, run, etas, flat, body.fuse, body.uplink_dtype,
             sum(v.numel() for v in params.values()), task_name, schemes,
-            gains, data)
+            gains, data, fading, scenarios)
     start_chunk, t = 0, 0
     if resume and checkpoint_path is not None \
             and ckpt.exists(checkpoint_path):
-        start_chunk, t, params_b, prior_traces, evals = _load(
-            checkpoint_path, params_b, identity)
+        (start_chunk, t, params_b, fstate, schemes, designs, prior_traces,
+         evals) = _load(checkpoint_path, params_b, fstate, schemes, adaptive,
+                        identity)
         if log:
             print(f"# resumed fleet from {checkpoint_path} at chunk "
                   f"{start_chunk} (round {t})", flush=True)
@@ -210,12 +321,16 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
             length = lengths[ci]
             tc = time.time()
             for _ in range(length):
-                params_b, metrics = body(schemes, eta_c, params_b, draws(t),
-                                         (x_dev, y_dev), cell_seed)
+                params_b, fstate, metrics = body(
+                    schemes, eta_c, params_b, fstate, draws(t),
+                    (x_dev, y_dev), cell_seed, proc)
                 metric_rounds.append(metrics)
                 t += 1
             _sync(dev)
             chunk_walls.append((length, time.time() - tc))
+            if adaptive and t < run.num_rounds:
+                schemes, gam = _redesign(schemes, fading, fstate, s_axis)
+                designs.append((t, gam))
             if eval_b is not None:
                 ev = {name: v.reshape(k, s_axis).cpu().numpy()
                       for name, v in eval_b(params_b).items()}
@@ -226,9 +341,9 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                            **{nm: round(float(ev[lead][i, 0]), 4)
                               for i, nm in enumerate(names)}}, flush=True)
             if checkpoint_path is not None:
-                _save(checkpoint_path, ci + 1, t, params_b,
-                      _traces(metric_rounds, prior_traces, k, s_axis),
-                      evals, identity)
+                _save(checkpoint_path, ci + 1, t, params_b, fstate, schemes,
+                      designs, _traces(metric_rounds, prior_traces, k,
+                                       s_axis), evals, identity)
             if max_chunks is not None and ci + 1 - start_chunk >= max_chunks \
                     and ci + 1 < len(lengths):
                 break        # stopped on purpose; resume=True continues
@@ -237,7 +352,9 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
         params={name: v.reshape((k, s_axis) + tuple(v.shape[1:]))
                 for name, v in params_b.items()},
         traces=traces, evals=evals, names=names, seeds=seeds,
-        wall=time.time() - t0, chunk_walls=chunk_walls)
+        wall=time.time() - t0, chunk_walls=chunk_walls, fading_state=fstate,
+        designs=designs,
+        scenario_names=None if scenarios is None else tuple(scenarios.names))
 
 
 def run_fleet_task(task, schemes, gains: np.ndarray, run=None, *,
@@ -249,8 +366,8 @@ def run_fleet_task(task, schemes, gains: np.ndarray, run=None, *,
     config come from ``task`` (``tasks.base.Task``) unless given.  ``seed``
     (default run.seed) feeds both the data build and the param init;
     ``etas`` default to the task's per-scheme step sizes.  The rest
-    (``checkpoint_path``, ``resume``, ``max_chunks``, ...) passes to
-    ``run_fleet``."""
+    (``fading``, ``scenarios``, ``checkpoint_path``, ``resume``,
+    ``max_chunks``, ...) passes to ``run_fleet``."""
     dev = resolve_device(device)
     run = run if run is not None else task.run_config()
     seed = run.seed if seed is None else seed

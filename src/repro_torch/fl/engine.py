@@ -3,15 +3,26 @@
 The reference compiles its rounds into ``lax.scan`` chunks and vmaps them
 over the [K scheme x S seed] grid.  PyTorch runs eagerly, so here the grid
 is a leading cell axis C = K * S on every tensor (cell c is scheme c // S,
-seed c % S), and ``fl.driver`` runs the rounds as a Python loop.  A round:
+seed c % S), and ``fl.driver`` runs the rounds as a Python loop.  A
+[R scenario x K scheme x S seed] grid is the same fleet over the R * K
+schemes listed scenario-major: cell (r, k, s) is cell (r K + k) S + s.  A
+round:
 
   1. per-device gradients over [C, N] (``torch.func.vmap`` of
-     ``torch.func.grad``), clipped to G_max;
-  2. every scheme's ``round_coeffs`` on the round's fading (one row per
-     seed, shared by the K schemes);
-  3. the round tail: fused (kernel K1: uplink, superposition, noise and
-     SGD step in one launch), or unfused (kernel K2 on the flat path, or
-     the per-leaf oracle) followed by the SGD step.
+     ``torch.func.grad``), clipped to G_max; on a scenario grid, one
+     scenario's cells at a time, so each scenario's cells run the same
+     kernels at the same shapes as that scenario's own fleet (the GEMM
+     libraries pick their algorithm by shape; this is what keeps every
+     grid cell bitwise the per-scenario fleet's);
+  2. the round's fading: h [S, N] from the draws, or one row per scenario
+     [R, S, N] from the step of the fleet's ``ScenarioStack`` (a
+     ``FadingProcess`` is a stack of R = 1), whose state [R, S, N] the
+     round carries;
+  3. every scheme's ``round_coeffs`` on its scenario row's fading (one row
+     per seed, shared by the scenario's schemes);
+  4. the round tail: fused (kernel K1: uplink, superposition, noise and
+     SGD step in one launch over all C cells), or unfused (kernel K2 on the
+     flat path, or the per-leaf oracle) followed by the SGD step.
 """
 from __future__ import annotations
 
@@ -37,6 +48,12 @@ class FLResult:
     wall          total wall-clock seconds, set-up included
     chunk_walls   [(rounds, seconds)] per chunk, round loop only (the eval
                   after it excluded), each ended by a device synchronize
+    fading_state  the final fading state [R, S, N] (None without a process)
+    designs       an adaptive fleet's design trace: [(round, gamma
+                  [K, S, N])], design g in effect from that round (None
+                  for other fleets)
+    scenario_names  the scenario axis of a grid run, length R (None
+                  otherwise); ``names`` are then "scenario/scheme", R * K
     """
     params: dict
     traces: dict
@@ -45,6 +62,9 @@ class FLResult:
     seeds: tuple
     wall: float
     chunk_walls: list = dataclasses.field(default_factory=list)
+    fading_state: Optional[torch.Tensor] = None
+    designs: Optional[list] = None
+    scenario_names: Optional[tuple] = None
 
 
 def make_round_body(loss_fn: Callable, run, flat: bool = False,
@@ -53,12 +73,21 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
                     use_kernel: Optional[bool] = None) -> Callable:
     """One FL round over the whole fleet:
 
-        body(schemes, eta, params, draws, data, cell_seed) -> (params, metrics)
+        body(schemes, eta, params, fstate, draws, data, cell_seed,
+             proc=None) -> (params, fstate, metrics)
 
-    ``schemes``: the K power-control schemes; ``eta`` [C] f32 step sizes;
-    ``params``: leaves [C, ...]; ``draws``: the round's ``RoundDraws`` (rows
-    per seed); ``data``: the stacked device shards (x [N, Dn, ...],
+    ``schemes``: the power-control schemes (R * K on a scenario grid,
+    scenario-major); ``eta`` [C] f32 step sizes; ``params``: leaves
+    [C, ...]; ``fstate``: the fading state [R, S, N] (None without a
+    process); ``draws``: the round's ``RoundDraws`` or ``FadingDraws``
+    (rows per seed); ``data``: the stacked device shards (x [N, Dn, ...],
     y [N, Dn] int64); ``cell_seed`` [C]: the seed row of each cell.
+
+    The channel: when the draws carry innovations (``FadingDraws``),
+    ``proc`` (a ``core.scenarios.ScenarioStack`` of R rows) steps the state
+    on them; otherwise h is the draws' own ([S, N], or a replayed per-row
+    [R, S, N]).  The gradients run one scenario row's cells at a time
+    (``gradients``).
 
     ``uplink_dtype`` (default ``run.uplink_dtype``) and ``fuse_round``
     (default: fused exactly when ``flat``) follow the reference;
@@ -78,31 +107,27 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
     if fuse and not flat:
         raise ValueError("fuse_round=True requires flat=True")
 
-    def device_grad(params, x, y):
-        g = grad(loss_fn)(params, (x, y))
-        if run.clip_to_gmax:
-            return clip_by_global_norm(g, run.gmax)
-        norm = torch.sqrt(sum(torch.sum(torch.square(g[k]))
-                              for k in sorted(g)))
-        return g, norm
+    gradients = make_gradients(loss_fn, run)
 
-    per_device = vmap(device_grad, in_dims=(None, 0, 0))
-    per_cell_batch = vmap(per_device, in_dims=(0, 0, 0))       # minibatch
-    per_cell_full = vmap(per_device, in_dims=(0, None, None))  # full batch
+    def channel(fstate, draws, proc):
+        """(fstate, h [R, S, N]) of the round."""
+        fade = getattr(draws, "fade", None)
+        if fade is not None:
+            return proc.step(fstate, fade)
+        return fstate, (draws.h if draws.h.dim() == 3 else draws.h[None])
 
-    def body(schemes, eta, params, draws, data, cell_seed):
+    def body(schemes, eta, params, fstate, draws, data, cell_seed,
+             proc=None):
         x_dev, y_dev = data
         c = eta.shape[0]
-        if draws.idx is not None:
-            dev_ix = torch.arange(x_dev.shape[0],
-                                  device=x_dev.device)[None, :, None]
-            xb = x_dev[dev_ix, draws.idx][cell_seed]      # [C, N, B, ...]
-            yb = y_dev[dev_ix, draws.idx][cell_seed]
-            grads, norms = per_cell_batch(params, xb, yb)
-        else:
-            grads, norms = per_cell_full(params, x_dev, y_dev)
-        coeffs = [pc.round_coeffs(draws.h, draws.coin) for pc in schemes]
-        s = torch.stack([sc for sc, _ in coeffs]).reshape(c, -1)    # [C, N]
+        fstate, h_rows = channel(fstate, draws, proc)
+        rows = h_rows.shape[0]
+        grads, norms = gradients(params, x_dev, y_dev, draws.idx, cell_seed,
+                                 rows)
+        k_row = len(schemes) // rows
+        coeffs = [pc.round_coeffs(h_rows[j // k_row], draws.coin)
+                  for j, pc in enumerate(schemes)]
+        s = torch.stack([sc_ for sc_, _ in coeffs]).reshape(c, -1)  # [C, N]
         ns = torch.stack([n for _, n in coeffs]).reshape(c)         # [C]
         z = draws.z[cell_seed]                                      # [C, D]
         if fuse:
@@ -122,10 +147,61 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
             "active_devices": torch.sum((s > 0).float(), dim=-1),
             "noise_scale": ns.float(),
         }
-        return params, metrics
+        return params, fstate, metrics
 
     body.fuse, body.uplink_dtype = fuse, uplink_dtype
     return body
+
+
+def make_gradients(loss_fn: Callable, run) -> Callable:
+    """Per-device gradients of every cell, clipped to G_max:
+
+        gradients(params, x_dev, y_dev, idx, cell_seed, rows=1)
+            -> (grads {leaf: [C, N, ...]}, norms [C, N])
+
+    ``idx`` [S, N, B] picks each seed's minibatch (None: full batch).  The
+    C cells are ``rows`` equal blocks (a grid's scenarios), and each block
+    is one ``torch.func.vmap`` over its cells and devices, so a scenario's
+    cells run at the shapes of that scenario's own fleet."""
+    def device_grad(params, x, y):
+        g = grad(loss_fn)(params, (x, y))
+        if run.clip_to_gmax:
+            return clip_by_global_norm(g, run.gmax)
+        norm = torch.sqrt(sum(torch.sum(torch.square(g[k]))
+                              for k in sorted(g)))
+        return g, norm
+
+    per_device = vmap(device_grad, in_dims=(None, 0, 0))
+    per_cell_batch = vmap(per_device, in_dims=(0, 0, 0))       # minibatch
+    per_cell_full = vmap(per_device, in_dims=(0, None, None))  # full batch
+
+    def block(params, x_dev, y_dev, idx, cell_seed):
+        if idx is not None:
+            dev_ix = torch.arange(x_dev.shape[0],
+                                  device=x_dev.device)[None, :, None]
+            xb = x_dev[dev_ix, idx][cell_seed]            # [C, N, B, ...]
+            yb = y_dev[dev_ix, idx][cell_seed]
+            return per_cell_batch(params, xb, yb)
+        return per_cell_full(params, x_dev, y_dev)
+
+    def gradients(params, x_dev, y_dev, idx, cell_seed, rows=1):
+        per = cell_seed.shape[0] // rows
+        parts = [block({k: v[r * per:(r + 1) * per]
+                        for k, v in params.items()}, x_dev, y_dev, idx,
+                       cell_seed[r * per:(r + 1) * per])
+                 for r in range(rows)]
+        return _cat([g for g, _ in parts]), _cat([n for _, n in parts])
+
+    return gradients
+
+
+def _cat(parts):
+    """Concatenate blocks along the cell axis (one block as it is)."""
+    if len(parts) == 1:
+        return parts[0]
+    if isinstance(parts[0], dict):
+        return {k: torch.cat([p[k] for p in parts]) for k in parts[0]}
+    return torch.cat(parts)
 
 
 def chunk_lengths(num_rounds: int, eval_every: int, with_eval: bool) -> list:

@@ -155,6 +155,6 @@ def test_union_fleet_coeffs_match(worlds):
 def test_unknown_scheme_raises():
     dep, prm = _world(tch, TPrm, 100)
     with pytest.raises(ValueError):
-        tpc.make_power_control("adaptive_sca", dep, prm)
+        tpc.make_power_control("adaptive_lcpc", dep, prm)
     with pytest.raises(ValueError):
         tpc.scheme_from_jax("nope", {})

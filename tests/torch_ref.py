@@ -35,7 +35,7 @@ from repro_torch.curves import PROTOCOLS, REFERENCE as FIG2_REF_DIR
 
 ROOT = Path(__file__).resolve().parents[1]
 SCHEME_FIELDS = ("gamma", "alpha", "p", "thresholds", "noise_over_alpha",
-                 "n0", "mask", "bmax", "gmax")
+                 "n0", "mask", "bmax", "gmax", "dropout_aware")
 CHUNK_CASES = ((30, 10, 1), (31, 10, 1), (4, 2, 1), (7, 3, 0), (1, 5, 1))
 FIG2_SCHEMES = ("ideal", "opc", "sca", "lcpc", "vanilla", "bbfl_interior",
                 "bbfl_alternative")
@@ -459,6 +459,347 @@ def run_reference_fig2(out_path: Path, *, seed: int, batch: int,
         return json.load(f)
 
 
+# The reference's scenario sweep (``benchmarks.scenario_sweep``): the
+# Theorem-1 rows of every registered scenario x (sca, lcpc, zero_bias) at
+# the sweep's defaults, and each scenario's ``sca`` design, recorded as the
+# sweep makes it (the default solver, one solve per scenario).
+_SCN_THEORY_CHILD = r'''
+import json, sys, time
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+from benchmarks import scenario_sweep as ss
+from repro.core import scenarios as scn
+
+designs, orig = [], ss.pcm.make_power_control
+
+def recording(name, dep, prm, **kw):
+    pc = orig(name, dep, prm, **kw)
+    if name == "sca":
+        designs.append({f: np.asarray(getattr(pc, f), np.float64).tolist()
+                        for f in ("gamma", "alpha", "p", "thresholds")})
+    return pc
+
+ss.pcm.make_power_control = recording
+names = list(scn.scenario_names())
+t0 = time.time()
+rows = ss.sweep(names, seed=cfg["seed"])
+with open(cfg["out"], "w") as f:
+    json.dump({"scenarios": names, "schemes": list(ss.SCHEMES),
+               "seed": cfg["seed"], "d": 814090, "gmax": 10.0, "eta": 0.05,
+               "kappa_sq": 4.0, "rows": rows,
+               "sca_designs": dict(zip(names, designs)),
+               "cpu_wall_s": time.time() - t0}, f, indent=1)
+'''
+
+# One seed of the reference's [scenario x scheme x seed] grid fleet
+# (``benchmarks.scenario_sweep._grid_fleet``) at full width: paper_mlp, the
+# task's own batch (full batch), eta 0.05, flat.  The grid shares ONE
+# initial parameter draw across all its cells, which its seeds do not vary;
+# the child starts from the port's draw (``cfg["params"]``, written by the
+# parent from ``repro_torch``'s ``task.init_params(0)``), so that the
+# curve check compares the two engines from the same weights rather than
+# two fixed init draws.
+_SCN_GRID_CHILD = r'''
+import json, sys, time
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+from benchmarks import scenario_sweep as ss
+from repro import tasks
+
+t0 = time.time()
+task = tasks.get("paper_mlp", expect_runtime="fleet")
+td = task.build_data(0)
+run = task.run_config(eta=0.05, num_rounds=cfg["rounds"],
+                      eval_every=cfg["every"], seed=0,
+                      batch_size=int(task.defaults.get("batch_size", 0)))
+with np.load(cfg["params"]) as f:
+    params0 = {k: jax.numpy.asarray(f[k]) for k in f.files}
+res = ss._grid_fleet(task, tuple(cfg["scenarios"]), tuple(cfg["schemes"]),
+                     run, (cfg["seed"],), task_data=td, params=params0,
+                     eval_fn=task.make_eval(td))
+hist = {name: [{"round": int(t), "acc": float(ev["acc"][i, 0]),
+                "global_loss": float(ev["global_loss"][i, 0])}
+               for t, ev in res.evals]
+        for i, name in enumerate(res.names)}
+with open(cfg["out"], "w") as f:
+    json.dump({"histories": hist, "cpu_wall_s": time.time() - t0}, f)
+'''
+
+# The reference's scenario layer at every registered scenario: ``realize``
+# and ``make_ota_params``; the standalone ``FadingProcess`` stepped from a
+# seed's key as the driver steps it, with the random numbers each step
+# consumed, pulled with the step's own keys (the normals of
+# ``ota.draw_fading``, Nakagami's Gamma variates and phase uniforms, the
+# dropout uniforms and keep mask); and ``AdaptiveSCA``'s redesign of a
+# given state (the default solver) for the scenarios named in
+# ``cfg["redesign"]``.
+_SCN_WORLDS_CHILD = r'''
+import json, sys
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+from jax import random as jr
+from repro.core import power_control as pcm, scenarios as scn
+from repro.fl.engine import FADING_INIT_SALT
+
+FIELDS = ("d", "gmax", "es", "n0", "gains", "sigma_sq", "eta", "lsmooth",
+          "kappa_sq", "dropout")
+out = {}
+for name in scn.scenario_names():
+    sc = scn.get_scenario(name)
+    dep = scn.realize(sc, seed=cfg["seed"])
+    n = dep.num_devices
+    out[name + "/distances"] = dep.distances
+    out[name + "/gains"] = dep.gains
+    out[name + "/shadowing_db"] = (np.zeros(0) if dep.shadowing_db is None
+                                   else dep.shadowing_db)
+    out[name + "/p_dropout"] = np.float64(dep.p_dropout)
+    prm = scn.make_ota_params(dep, d=cfg["d"], gmax=10.0, eta=0.05,
+                              kappa_sq=4.0)
+    for f in FIELDS:
+        out["%s/prm/%s" % (name, f)] = np.asarray(getattr(prm, f), np.float64)
+    out[name + "/prm/family"] = np.asarray(
+        "rayleigh" if prm.fading is None else prm.fading.family)
+    fp = scn.make_fading_process(dep, sc.dynamics)
+    key = jr.PRNGKey(cfg["seed"])
+    ikey = jr.fold_in(key, FADING_INIT_SALT)
+    state = fp.init(ikey)
+    kr, ki = jr.split(ikey)
+    out[name + "/init/n_re"] = np.asarray(jr.normal(kr, (n,)))
+    out[name + "/init/n_im"] = np.asarray(jr.normal(ki, (n,)))
+    out[name + "/init/state"] = np.asarray(state)
+    dynamic = fp.rho > 0.0 or fp.p_dropout > 0.0
+    for t in range(cfg["steps"]):
+        key, sub = jr.split(key)
+        new_state, h = fp.step(state, sub)
+        k_fade, k_drop = jr.split(sub) if dynamic else (sub, None)
+        p = "%s/step%d/" % (name, t)
+        if fp.family == "nakagami":
+            kp, kph = jr.split(k_fade)
+            out[p + "gamma"] = np.asarray(jr.gamma(kp, fp.m, shape=(n,)))
+            out[p + "phase_u"] = np.asarray(jr.uniform(kph, (n,)))
+        else:
+            kr, ki = jr.split(k_fade)
+            out[p + "n_re"] = np.asarray(jr.normal(kr, (n,)))
+            out[p + "n_im"] = np.asarray(jr.normal(ki, (n,)))
+        if fp.p_dropout > 0.0:
+            out[p + "drop_u"] = np.asarray(jr.uniform(k_drop, (n,)))
+            out[p + "keep"] = np.asarray(
+                jr.bernoulli(k_drop, 1.0 - fp.p_dropout, (n,)))
+        out[p + "state_in"] = np.asarray(state)
+        out[p + "state"] = np.asarray(new_state)
+        out[p + "h"] = np.asarray(h)
+        state = new_state
+    if name in cfg["redesign"]:
+        pc = pcm.make_adaptive_sca(dep, prm)
+        keys = jr.split(jr.PRNGKey(7), cfg["redesign_rows"])
+        st = np.asarray(fp.init_batch(keys))
+        new = pc.redesign_fn(pc, fp, st)
+        out[name + "/redesign/state"] = st
+        for f in ("gamma", "alpha", "p", "thresholds", "noise_over_alpha"):
+            out[name + "/redesign/" + f] = np.asarray(getattr(new, f),
+                                                      np.float64)
+np.savez(cfg["out"], **out)
+'''
+
+# The reference's fleets on scenario worlds (shrunk paper_mlp, minibatch,
+# flat): a grid over ``cfg["grid"]`` x (sca, lcpc, zero_bias) through
+# ``run_fleet(scenarios=...)`` (and the same grid at full batch, the
+# card's protocol), and one fleet per ``cfg["fleets"]``
+# scenario on its fading process with the Fig.-2 schemes (the global-CSI
+# ones dropout-aware where the scenario drops devices).  Beside each: the
+# per-row h it consumed, [T, R, S, N], from the driver's key recipe (the
+# standalone process of each row; the reference pins the stack rows
+# bitwise to them), the noise and minibatch draws, and the designs.
+_SCN_FLEETS_CHILD = r'''
+import json, sys
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+from jax import random as jr
+from repro.core import ota, power_control as pcm, scenarios as scn
+from repro.fl import driver
+from repro.fl.engine import FADING_INIT_SALT
+from repro.tasks.image import make_paper_mlp
+sys.path.insert(0, cfg["tests"])
+import torch_ref
+
+task = make_paper_mlp(hidden=cfg["hidden"],
+                      samples_per_class=cfg["samples_per_class"])
+td = task.build_data(0)
+params0 = task.init_params(0)
+seeds, T = cfg["seeds"], cfg["rounds"]
+run = task.run_config(eta=0.05, num_rounds=T, eval_every=cfg["every"],
+                      seed=0, batch_size=cfg["batch"])
+out = {}
+for k, v in params0.items():
+    out["params0/" + k] = np.asarray(v)
+
+def world(name, schemes):
+    sc = scn.get_scenario(name)
+    dep = scn.realize(sc, seed=0)
+    prm = scn.make_ota_params(dep, d=task.param_dim, gmax=10.0, eta=0.05,
+                              kappa_sq=4.0)
+    pcs = [pcm.make_power_control(s, dep, prm, **(
+        {"method": "scipy"} if s == "sca" else {})) for s in schemes]
+    return sc, dep, pcs
+
+def row_h(names):
+    """[T, R, S, N]: each row's standalone process on the driver's keys."""
+    hs = []
+    for name in names:
+        sc = scn.get_scenario(name)
+        fp = scn.make_fading_process(scn.realize(sc, seed=0), sc.dynamics)
+        per_seed = []
+        for s in seeds:
+            key = jr.PRNGKey(s)
+            state = fp.init(jr.fold_in(key, FADING_INIT_SALT))
+            h_t = []
+            for _ in range(T):
+                key, sub = jr.split(key)
+                k_fade = jr.split(sub, 3)[0]
+                state, h = fp.step(state, k_fade)
+                h_t.append(np.asarray(h))
+            per_seed.append(h_t)
+        hs.append(per_seed)
+    return np.transpose(np.asarray(hs), (2, 0, 1, 3))
+
+def save(tag, res, pcs):
+    for k, v in res.params.items():
+        out["%s/params/%s" % (tag, k)] = np.asarray(v)
+    for k, v in res.traces.items():
+        out["%s/traces/%s" % (tag, k)] = np.asarray(v)
+    out["%s/evals_t" % tag] = np.asarray([t for t, _ in res.evals])
+    for k in res.evals[0][1]:
+        out["%s/evals/%s" % (tag, k)] = np.stack(
+            [np.asarray(ev[k]) for _, ev in res.evals])
+    for i, pc in enumerate(pcs):
+        for f, v in torch_ref.scheme_fields(pc).items():
+            out["%s/scheme%d/%s" % (tag, i, f)] = v
+        out["%s/scheme%d/name" % (tag, i)] = np.asarray(pc.name)
+
+pcs = []
+for name in cfg["grid"]:
+    pcs += world(name, cfg["grid_schemes"])[2]
+stack = scn.stack_scenarios(cfg["grid"], seed=0)
+res = driver.run_fleet_task(task, pcs, None, run, task_data=td,
+                            params=params0, seeds=tuple(seeds), flat=True,
+                            etas=[0.05] * len(pcs), scenarios=stack)
+save("grid", res, pcs)
+full = task.run_config(eta=0.05, num_rounds=T, eval_every=cfg["every"],
+                       seed=0, batch_size=0)
+res = driver.run_fleet_task(task, pcs, None, full, task_data=td,
+                            params=params0, seeds=tuple(seeds), flat=True,
+                            etas=[0.05] * len(pcs), scenarios=stack)
+save("grid_full_batch", res, pcs)
+out["grid/names"] = np.asarray(res.names)
+out["grid/h"] = row_h(cfg["grid"])
+for name in cfg["fleets"]:
+    sc, dep, fl_pcs = world(name, cfg["fleet_schemes"])
+    res = driver.run_fleet_task(
+        task, fl_pcs, dep.gains, run, task_data=td, params=params0,
+        seeds=tuple(seeds), flat=True, etas=[0.05] * len(fl_pcs),
+        fading=scn.make_fading_process(dep, sc.dynamics))
+    save(name, res, fl_pcs)
+    out[name + "/h"] = row_h([name])
+sizes = [int(np.asarray(params0[k]).size) for k in sorted(params0)]
+x_dev = td.train[0]
+draws = torch_ref.reference_draws(jr, ota, np.ones(x_dev.shape[0]), seeds,
+                                  T, sizes, x_dev.shape[0], cfg["batch"],
+                                  x_dev.shape[1])
+for k in ("z", "idx", "coin"):
+    out["draws/" + k] = draws[k]
+np.savez(cfg["out"], **out)
+'''
+
+SCN_GRID_TEST = ("disk_rayleigh", "disk_rician", "disk_nakagami",
+                 "urban_canyon")
+SCN_FLEET_TEST = ("disk_dropout", "urban_canyon")
+
+
+def run_reference_scenario_worlds(out_path: Path, *, seed: int = 0,
+                                  steps: int = 3, d: int = 814090,
+                                  redesign=("disk_markov",),
+                                  redesign_rows: int = 2,
+                                  timeout: float = 900.0) -> dict:
+    """The reference's scenario layer in a child process: per registered
+    scenario, its deployment, OTA params and ``steps`` fading steps with
+    the random numbers they consumed; the redesign of a given state for
+    the ``redesign`` scenarios.  See ``_SCN_WORLDS_CHILD``."""
+    cfg = dict(seed=seed, steps=steps, d=d, redesign=list(redesign),
+               redesign_rows=redesign_rows, out=str(out_path))
+    return _run_child(_SCN_WORLDS_CHILD, cfg, "reference scenario worlds",
+                      timeout)
+
+
+def run_reference_scenario_fleets(out_path: Path, *, hidden: int = 16,
+                                  samples_per_class: int = 40,
+                                  batch: int = 8, rounds: int = 4,
+                                  every: int = 2, seeds=(0, 1),
+                                  grid=SCN_GRID_TEST,
+                                  fleets=SCN_FLEET_TEST,
+                                  timeout: float = 900.0) -> dict:
+    """The reference's grid and scenario fleets on a shrunk paper_mlp, in
+    a child process.  See ``_SCN_FLEETS_CHILD``."""
+    cfg = dict(hidden=hidden, samples_per_class=samples_per_class,
+               batch=batch, rounds=rounds, every=every, seeds=list(seeds),
+               grid=list(grid), grid_schemes=list(SCN_SCHEMES),
+               fleets=list(fleets), fleet_schemes=list(FIG2_SCHEMES),
+               tests=str(ROOT / "tests"), out=str(out_path))
+    return _run_child(_SCN_FLEETS_CHILD, cfg, "reference scenario fleets",
+                      timeout)
+
+
+SCN_REF_DIR = ROOT / "experiments" / "scenario_reference"
+SCN_FAMILIES = ("disk_rayleigh", "disk_rician", "disk_shadowed",
+                "two_cluster")
+SCN_SCHEMES = ("sca", "lcpc", "zero_bias")
+SCN_ROUNDS, SCN_EVERY = 100, 20
+
+
+def write_scenario_theory(out_dir: Path = SCN_REF_DIR, seed: int = 0) -> str:
+    """experiments/scenario_reference/theory_seed<seed>.json: the
+    reference's sweep over every registered scenario, with its designs."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / f"theory_seed{seed}.json"
+    _child(_SCN_THEORY_CHILD, {"seed": seed, "out": str(path)},
+           "reference scenario theory", 3600.0)
+    with open(path) as f:
+        wall = json.load(f)["cpu_wall_s"]
+    return f"theory seed {seed}: {wall:.1f} s (reference on the CPU)"
+
+
+def _scn_grid_job(job) -> str:
+    seed, out_dir = job
+    import tempfile
+    from repro_torch import tasks
+    task = tasks.get("paper_mlp", expect_runtime="fleet")
+    with tempfile.TemporaryDirectory() as tmp:
+        out, params = Path(tmp) / "grid.json", Path(tmp) / "params0.npz"
+        np.savez(params, **to_numpy(task.init_params(0, torch.device("cpu"))))
+        _child(_SCN_GRID_CHILD, dict(seed=int(seed), rounds=SCN_ROUNDS,
+                                     every=SCN_EVERY,
+                                     scenarios=list(SCN_FAMILIES),
+                                     schemes=list(SCN_SCHEMES),
+                                     params=str(params), out=str(out)),
+               "reference scenario grid", 7200.0)
+        with open(out) as f:
+            got = json.load(f)
+    _write_json(Path(out_dir) / "grid" / f"histories_seed{seed}.json",
+                got["histories"])
+    return f"grid seed {seed}: {got['cpu_wall_s']:.1f} s (reference on the CPU)"
+
+
 def prefixed(blob: dict, prefix: str) -> dict:
     """The entries of ``blob`` under ``prefix/``, prefix stripped."""
     p = prefix + "/"
@@ -526,7 +867,11 @@ def main(argv=None) -> None:
             [--every 10] [--jobs 3] [--sca-design]
 
     writes experiments/fig2_reference/<protocol>/histories_seed<s>.json
-    (and sca_design.json with ``--sca-design``)."""
+    (and sca_design.json with ``--sca-design``).  With
+    ``--scenarios all|theory|grid`` it writes experiments/
+    scenario_reference/ instead: theory_seed0.json (every registered
+    scenario) and grid/histories_seed<s>.json for each of ``--seeds``
+    (the card's gate reads seeds 0-7)."""
     import argparse
     from concurrent.futures import ThreadPoolExecutor
     ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
@@ -537,8 +882,25 @@ def main(argv=None) -> None:
     ap.add_argument("--every", type=int, default=10)
     ap.add_argument("--jobs", type=int, default=3)
     ap.add_argument("--sca-design", action="store_true")
-    ap.add_argument("--out", default=str(FIG2_REF_DIR))
+    ap.add_argument("--scenarios", choices=("all", "theory", "grid"),
+                    nargs="?", const="all", default=None,
+                    help="write experiments/scenario_reference/ instead: the "
+                         "theory sweep of every registered scenario, and/or "
+                         "the full-width grid's histories for --seeds")
+    ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
+    if a.scenarios:
+        out = Path(a.out) if a.out else SCN_REF_DIR
+        jobs = [(s, out) for s in a.seeds] \
+            if a.scenarios in ("all", "grid") else []
+        with ThreadPoolExecutor(max_workers=a.jobs) as pool:
+            futs = [pool.submit(_scn_grid_job, j) for j in jobs]
+            if a.scenarios in ("all", "theory"):
+                print(write_scenario_theory(out), flush=True)
+            for fut in futs:
+                print(fut.result(), flush=True)
+        return
+    a.out = a.out or str(FIG2_REF_DIR)
     if a.sca_design:
         write_sca_design(Path(a.out))
         print("sca_design.json written", flush=True)
