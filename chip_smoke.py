@@ -126,10 +126,37 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      CPU; (e) kill after chunk 1 and resume, bitwise (params, traces,
      evals, fading state), on a disk_markov fleet and on the grid; every
      wall printed beside the card's name and power limit;
-  9. one JSON line ``{"kernels": [...]}`` (K3 twice: bf16 with the bf16
-     serve run's launches, f32 with the f32 run's; K1 f32 twice: the
-     Fig.-2 main path's and the grid's), then the last line
-     ``{"ok": true, "device": {...}}``.
+  9. the single-run API at full width (paper_mlp, ``sca``): ``run_fl``
+     for 30 rounds at minibatch 128 through K1 (once a round, the plain
+     version never) and at full batch, each bitwise the K = S = 1
+     ``run_fleet`` cell; ``run_fl_legacy`` (numpy minibatch stream, the
+     batch copied host -> device every round) at full batch bitwise
+     ``run_fl``; ``fig2.benchmark`` (``--bench``) at the reference's
+     settings, 7 schemes x 150 rounds, an eval every 15: legacy full
+     batch, fleet full batch, fleet minibatch 128 (K1 150 times), its
+     ``wall_s`` and ``speedup`` printed;
+ 10. population mode at full width: (a) ``fig2.make_population
+     (1_000_000)``'s cohorts of 50 at ticks 0-4 for seeds 0-1 and their
+     gains bitwise the reference's committed ones
+     (``experiments/population_reference/population.json``); (b)
+     ``fig2.population_benchmark``: ``adaptive_sca``, cohort 50, minibatch
+     128, fused f32 tail, 48 rounds, an eval every 16, a cohort (and a
+     cohort redesign on the host) every 16 rounds, with stream on and off:
+     bitwise in params, traces, cohorts and designs, K1 48 times per run
+     and its plain version never, the stream/serial walls and staging
+     walls printed; (c) the tick-0 cohort redesign within 1e-6 in gamma of
+     the reference's; (d) full participation: the 10-device deployment as
+     a population, cohort 10, ``sca``, 6 rounds, bitwise the plain fleet
+     through K1; (e) a 200-device Gauss-Markov population (rho 0.95),
+     cohort 50, a cohort every 4 rounds, 24 rounds, ``sca``: devices
+     re-enter (counted), and a run stopped after 2 chunks and resumed is
+     bitwise the uninterrupted one, re-entry table (``pop_last``,
+     ``pop_state``) included; K1 at the cohort fleet's C = 1, N = 50,
+     bitwise its plain version, timed;
+ 11. one JSON line ``{"kernels": [...]}`` (K3 twice: bf16 with the bf16
+     serve run's launches, f32 with the f32 run's; K1 f32 three times: the
+     Fig.-2 main path's, the grid's and the cohort fleet's), then the last
+     line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
 fleet's reference is full float32.
@@ -213,6 +240,20 @@ CURVE_SEEDS, RESUME_ROUNDS = (0, 1, 2, 3), 30
 THEORY_RTOL = 1e-6
 ADAPTIVE_ROUNDS, ADAPTIVE_EVERY, ADAPTIVE_MOVE = 30, 10, 1e-3
 GRID_CELLS = 48                            # 4 scenarios x 3 schemes x 4 seeds
+
+
+# phase 9: the single-run API and fig2 --bench at the reference's settings
+# (150 rounds, an eval every 15; its three runs take ~10-20 s here)
+SINGLE_ROUNDS, BENCH_ROUNDS, BENCH_EVERY = 30, 150, 15
+# phase 10: the population benchmark at cohort_rounds 16 (its default of 1
+# would take 96 cohort redesigns of 4-15 s each: it runs on its own as
+# ``python -m repro_torch.fig2 --bench --population 1000000``), the
+# full-participation identity's 6 rounds, and the re-entry run
+POP_SIZE, POP_COHORT, POP_ROUNDS, POP_EVERY = 1_000_000, 50, 48, 16
+POP_COHORT_ROUNDS, FULL_ROUNDS = 16, 6
+REENTRY = dict(size=200, rho=0.95, cohort=50, cohort_rounds=4, rounds=24,
+               every=8, max_chunks=2)
+REDESIGN_RTOL = 1e-6
 
 
 class SmokeFailure(Exception):
@@ -713,16 +754,30 @@ def k1_value_patterns(torch, dev, card):
     values the scenarios bring: whole cells of s = 0 (every device
     dropped), dropped devices inside cells, and per-cell noise scales
     spread over four decades; bitwise, with times."""
+    def patterns(s, ns, gen):
+        s[::4] = 0.0                               # whole cells dropped
+        s[1::4, ::3] = 0.0                         # dropped devices
+        ns = 10.0 ** (4.0 * torch.rand((s.shape[0],), generator=gen,
+                                       device=s.device) - 3.0)
+        return s, ns
+    return k1_row(torch, dev, card, (GRID_CELLS, MAIN[1], MAIN[2]),
+                  "the grid's (whole cells of s = 0, per-cell noise "
+                  "scales 1e-3..10)", 8, patterns)
+
+
+def k1_row(torch, dev, card, shape, label, seed, patterns=None):
+    """K1 against its plain version at ``shape`` (C, N, D), bitwise, with
+    times, its bound and the achieved rate.  ``patterns(s, ns, gen)``,
+    where given, edits the drawn values first and returns (s, ns)."""
     from repro_torch.card import peaks
     from repro_torch.kernels import ref, round_step
     from repro_torch.profile_ota import draw
     _, (bw, f32_peak, _) = peaks(card)
-    gen = torch.Generator(device=dev).manual_seed(8)
-    c, n, d = GRID_CELLS, MAIN[1], MAIN[2]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    c, n, d = shape
     g, s, z, ns, p, eta = draw((c, n, d), dev, gen)
-    s[::4] = 0.0                                   # whole cells dropped
-    s[1::4, ::3] = 0.0                             # dropped devices
-    ns = 10.0 ** (4.0 * torch.rand((c,), generator=gen, device=dev) - 3.0)
+    if patterns is not None:
+        s, ns = patterns(s, ns, gen)
     args = (g, torch.ones_like(s), s, z, ns, p, eta)
 
     def kern():
@@ -732,17 +787,238 @@ def k1_value_patterns(torch, dev, card):
         return ref.ota_round_step_ref(g, s, z, ns, p, eta, None)
     got, want = kern(), plain()
     torch.cuda.synchronize()
-    err = (got - want).abs()
-    row = {"max_abs_err": float(err.max()),
+    row = {"max_abs_err": float((got - want).abs().max()),
            "bitwise": bool(torch.equal(got, want)),
            **ota_timing(kern, plain, nbytes(*args) + c * d * 4,
                         c * d * (3 * n + 4), bw, f32_peak)}
-    print(f"  K1 f32 at the grid's C={c}, N={n}, D={d}, whole cells of "
-          f"s = 0, per-cell noise scales 1e-3..10: {json.dumps(row)}",
+    print(f"  K1 f32 at {label} C={c}, N={n}, D={d}: {json.dumps(row)}",
           flush=True)
-    check(row["bitwise"], "K1 is not bitwise its plain version on the "
-          "scenario value patterns")
+    check(row["bitwise"], f"K1 is not bitwise its plain version at {label}")
     return row
+
+
+def phase_single_run(torch, np, dev, world, card_line):
+    """Phase 9: ``run_fl`` (K = S = 1) through K1 against the one-cell
+    fleet, the legacy host loop at full batch against ``run_fl``, and
+    ``fig2.benchmark`` at the reference's settings."""
+    from repro_torch import fig2
+    from repro_torch.fl.driver import run_fleet
+    from repro_torch.fl.server import run_fl, run_fl_legacy
+    task, dep, td, designs = (world[k] for k in ("task", "dep", "td",
+                                                 "schemes"))
+    sca = designs[fig2.SCHEMES.index("sca")]
+    p0, ev = task.init_params(0, dev), task.make_eval(td, dev)
+    walls, out = {}, {}
+    for label, batch, flat in (("minibatch", BATCH, True),
+                               ("full_batch", 0, False)):
+        run = task.run_config(eta=task.eta_for("sca", 0.05),
+                              num_rounds=SINGLE_ROUNDS, eval_every=EVERY,
+                              seed=0, batch_size=batch)
+        zero_counts()
+        params, hist = run_fl(task.loss_fn, p0, sca, dep.gains, td.train,
+                              run, ev, flat=flat, device=dev)
+        torch.cuda.synchronize()
+        cnt = _ota_counts()
+        res = run_fleet(task.loss_fn, p0, [sca], dep.gains, td.train, run,
+                        ev, flat=flat, seeds=(0,), device=dev)
+        same = all(torch.equal(params[k], res.params[k][0, 0])
+                   for k in params) and all(
+            np.array_equal(hist.traces[k], v[0, 0])
+            for k, v in res.traces.items())
+        print(f"  run_fl sca, {label}, {SINGLE_ROUNDS} rounds: counts {cnt}; "
+              f"bitwise the K = S = 1 run_fleet cell: {same}; final acc "
+              f"{hist[-1]['acc']:.4f}", flush=True)
+        check(same, f"run_fl ({label}) differs from its one-cell fleet")
+        want = {"ota_round_step": SINGLE_ROUNDS if flat else 0,
+                "ota_aggregate": 0, "plain_round_step": 0,
+                "plain_aggregate": 0}
+        check(cnt == want, f"run_fl ({label}) counts {cnt}, want {want}")
+        out[label] = (params, hist, run, cnt)
+    params, hist, run, _ = out["full_batch"]
+    torch.cuda.synchronize()
+    t0 = time.time()
+    lparams, lhist = run_fl_legacy(task.loss_fn, p0, sca, dep.gains,
+                                   td.train, run, ev, device=dev)
+    torch.cuda.synchronize()
+    walls["legacy_full_batch_s"] = time.time() - t0
+    same = all(torch.equal(params[k], lparams[k]) for k in params) and all(
+        a[k] == b[k] for a, b in zip(hist, lhist)
+        for k in ("acc", "global_loss", "round", "active")) \
+        and len(hist) == len(lhist)
+    print(f"  run_fl_legacy sca, full batch, {SINGLE_ROUNDS} rounds (the "
+          f"batch copied host -> device every round): bitwise run_fl: "
+          f"{same}, {walls['legacy_full_batch_s']:.3f} s", flush=True)
+    check(same, "run_fl_legacy at full batch differs from run_fl")
+
+    zero_counts()
+    t0 = time.time()
+    rep = fig2.benchmark(num_rounds=BENCH_ROUNDS, eval_every=BENCH_EVERY,
+                         seed=0, batch_size=BATCH, task=task, log=False,
+                         designs=designs, device=dev)
+    torch.cuda.synchronize()
+    cnt = _ota_counts()
+    walls["bench_s"] = time.time() - t0
+    print(f"  fig2 --bench, {len(fig2.SCHEMES)} schemes x {BENCH_ROUNDS} "
+          f"rounds, an eval every {BENCH_EVERY}: wall_s "
+          f"{json.dumps(rep['wall_s'])}; speedup "
+          f"{json.dumps(rep['speedup'])}; legacy vs fleet at full batch, "
+          f"max |delta| {json.dumps(rep['equivalence']['max_abs_delta'])} "
+          f"(read: the fleet's 7-cell GEMMs may round apart from the "
+          f"legacy's one-cell ones); counts {cnt} [{card_line}]", flush=True)
+    check(cnt == {"ota_round_step": BENCH_ROUNDS, "ota_aggregate": 0,
+                  "plain_round_step": 0, "plain_aggregate": 0},
+          f"fig2 --bench: only its minibatch fleet launches K1, once a "
+          f"round: {cnt}")
+    check(all(np.isfinite(v) and v > 0 for block in ("wall_s", "speedup")
+              for v in rep[block].values()), "fig2 --bench walls")
+    walls.update(bench_wall_s=rep["wall_s"], bench_speedup=rep["speedup"],
+                 bench_max_abs_delta=rep["equivalence"]["max_abs_delta"])
+    return walls
+
+
+def phase_population(torch, np, dev, card, card_line, world):
+    """Phase 10: population mode at full width -- the reference's cohorts
+    of the 1M-device population, the population benchmark (adaptive_sca,
+    stream against serial, the full-participation identity) through K1,
+    the tick-0 cohort redesign against the reference's, and re-entry with
+    kill and resume on a Gauss-Markov population."""
+    import tempfile
+    from repro_torch import fig2, scenario_sweep as ss
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.core import power_control as pcm, scenarios as scn
+    from repro_torch.fl.driver import run_fleet_task
+    t_phase = time.time()
+    with open(ROOT / "experiments" / "population_reference"
+              / "population.json") as f:
+        ref = json.load(f)
+    t0 = time.time()
+    pop = fig2.make_population(POP_SIZE)
+    same = {}
+    for key, c in ref["cohorts"].items():
+        seed, tick = map(int, key.split("/"))
+        idx = pop.draw_cohort(ref["cohort"], tick, seed)
+        same[key] = bool(np.array_equal(idx, c["idx"]) and np.array_equal(
+            pop.gains_of(idx), np.asarray(c["gains"], np.float64)))
+    print(f"  (a) make_population({POP_SIZE}): cohorts of {ref['cohort']} at "
+          f"(seed/tick) {sorted(same)} and their gains bitwise the "
+          f"reference's: {json.dumps(same)}; {time.time() - t0:.3f} s",
+          flush=True)
+    check(pop.describe() == ref["describe"] and all(same.values()),
+          f"cohorts differ from the reference's: {same}")
+
+    task = world["task"]
+    sca10 = world["schemes"][fig2.SCHEMES.index("sca")]
+    zero_counts()
+    rep = fig2.population_benchmark(
+        task=task, size=POP_SIZE, cohort=POP_COHORT, num_rounds=POP_ROUNDS,
+        eval_every=POP_EVERY, cohort_rounds=POP_COHORT_ROUNDS, seed=0,
+        batch_size=BATCH, log=False, full_schemes=[sca10], device=dev)
+    torch.cuda.synchronize()
+    cnt = _ota_counts()
+    res = rep.pop("result")
+    print(f"  (b) population_benchmark: adaptive_sca, cohort {POP_COHORT}, "
+          f"minibatch {BATCH}, fused f32 tail, {POP_ROUNDS} rounds, an eval "
+          f"every {POP_EVERY}, cohort_rounds {POP_COHORT_ROUNDS}: designs at "
+          f"rounds {[t for t, _ in res.designs]}; wall_s "
+          f"{json.dumps(rep['wall_s'])}; stage walls per chunk "
+          f"{json.dumps(rep['stage_chunks_s'])}; round ms "
+          f"{json.dumps(rep['round_ms'])}; rounds/s "
+          f"{rep['rounds_per_sec']:.3f}; overlap saving "
+          f"{rep['overlap_saving_s']:.3f} s; stream bitwise serial "
+          f"{rep['stream_bitwise']}; launches {json.dumps(rep['launches'])};"
+          f" counts {cnt} [{card_line}]", flush=True)
+    print(f"  (d) full participation (the 10-device deployment as a "
+          f"population, cohort 10, sca, {FULL_ROUNDS} rounds, minibatch "
+          f"{BATCH}) bitwise the plain fleet: {rep['full_cohort_bitwise']}",
+          flush=True)
+    check(rep["stream_bitwise"], "stream and serial differ")
+    check(rep["full_cohort_bitwise"], "full participation differs from "
+          "the plain fleet")
+    for label in ("stream", "serial"):
+        check(rep["launches"][label] == {"ota_round_step": POP_ROUNDS,
+                                         "plain_round_step": 0},
+              f"{label}: K1 must launch once a round and its plain version "
+              f"never: {rep['launches'][label]}")
+    check(rep["launches"]["full_participation"]["ota_round_step"]
+          == 2 * FULL_ROUNDS, f"full participation K1 {rep['launches']}")
+    check(cnt["ota_round_step"] == 2 * POP_ROUNDS + 2 * FULL_ROUNDS
+          and cnt["plain_round_step"] == 0 and cnt["ota_aggregate"] == 0,
+          f"population phase counts {cnt}")
+    check(len(res.designs) == POP_ROUNDS // POP_COHORT_ROUNDS,
+          f"one cohort redesign per tick: {[t for t, _ in res.designs]}")
+
+    want = np.asarray(ref["redesigns"]["0/0"]["gamma"])
+    err = _rel(np, res.designs[0][1][0, 0], want)
+    print(f"  (c) the tick-0 cohort redesign (host f64 solver) against the "
+          f"reference's: {err:.3e} relative in gamma (tol {REDESIGN_RTOL})",
+          flush=True)
+    check(err <= REDESIGN_RTOL, f"tick-0 cohort redesign off by {err:.3e}")
+
+    t0 = time.time()
+    r = REENTRY
+    dep, prm, td = fig2.build_world(task, 0, num_devices=r["cohort"])
+    prm = prm.replace(eta=task.eta_for("sca", float(prm.eta)))
+    sca = pcm.make_sca(dep, prm, method="scipy")
+    gm = scn.Population(spec=scn.PopulationSpec(
+        size=r["size"], shadowing=scn.ShadowingSpec(),
+        dynamics=scn.DynamicsSpec(rho=r["rho"])))
+    run = task.run_config(num_rounds=r["rounds"], eval_every=r["every"],
+                          seed=0, batch_size=BATCH)
+    kw = dict(task_data=td, flat=True, device=dev, population=gm,
+              cohort_size=r["cohort"], cohort_rounds=r["cohort_rounds"])
+    launched = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        runs = {}
+        for label, extra in (
+                ("whole", dict(checkpoint_path=str(Path(tmp) / "whole"))),
+                ("first", dict(checkpoint_path=str(Path(tmp) / "fleet"),
+                               max_chunks=r["max_chunks"])),
+                ("resumed", dict(checkpoint_path=str(Path(tmp) / "fleet"),
+                                 resume=True))):
+            zero_counts()
+            runs[label] = run_fleet_task(task, [sca], dep.gains, run, **kw,
+                                         **extra)
+            torch.cuda.synchronize()
+            launched[label] = counts()["ota_round_step"]
+        a = ckpt.load_flat(str(Path(tmp) / "whole"))
+        b = ckpt.load_flat(str(Path(tmp) / "fleet"))
+    whole, first, rest = runs["whole"], runs["first"], runs["resumed"]
+    executed = {k: sum(n for n, _ in v.chunk_walls) for k, v in runs.items()}
+    slots = sum(i.size for _, i in whole.cohorts)
+    distinct = len(np.unique(np.concatenate([i[0] for _, i in
+                                             whole.cohorts])))
+    bitwise = {"params_traces": ss.bitwise(whole, rest),
+               "evals": len(whole.evals) == len(rest.evals) and all(
+                   np.array_equal(x[k], y[k]) for (_, x), (_, y)
+                   in zip(whole.evals, rest.evals) for k in x),
+               "fading_state": torch.equal(whole.fading_state,
+                                           rest.fading_state),
+               "cohorts": np.array_equal(a["cohorts_idx"], b["cohorts_idx"]),
+               "pop_last": np.array_equal(a["pop_last"], b["pop_last"]),
+               "pop_state": np.array_equal(a["pop_state"], b["pop_state"])}
+    print(f"  (e) re-entry: a {r['size']}-device Gauss-Markov population "
+          f"(rho {r['rho']}), cohort {r['cohort']}, cohort_rounds "
+          f"{r['cohort_rounds']}, {r['rounds']} rounds, sca: "
+          f"{len(whole.cohorts)} cohorts, {slots} cohort slots over "
+          f"{distinct} distinct devices -- {slots - distinct} re-entries; "
+          f"stopped after {r['max_chunks']} chunks and resumed: rounds run "
+          f"{executed}, K1 launches {launched}; bitwise "
+          f"{json.dumps(bitwise)}; {time.time() - t0:.2f} s", flush=True)
+    check(slots > distinct, "no device re-entered")
+    check(executed["first"] < r["rounds"] and executed["first"]
+          + executed["resumed"] == r["rounds"] and launched == executed,
+          f"rounds run {executed}, K1 launches {launched}")
+    check(all(bitwise.values()), f"resumed population run differs: "
+          f"{bitwise}")
+    k1 = k1_row(torch, dev, card, (1, POP_COHORT, MAIN[2]),
+                "the cohort fleet's", 10)
+    walls = {"phase_s": time.time() - t_phase, **rep["wall_s"],
+             "round_ms": rep["round_ms"],
+             "overlap_saving_s": rep["overlap_saving_s"],
+             "stage_chunks_s": rep["stage_chunks_s"]}
+    print(f"  phase 10 walls [{card_line}]: {json.dumps(walls)}", flush=True)
+    return {"k1_launches": rep["launches"]["stream"]["ota_round_step"],
+            "k1_row": k1, "walls": walls}
 
 
 def _ota_counts():
@@ -1288,6 +1564,12 @@ def main() -> int:
     print("[8] the heterogeneous-wireless path: scenarios, the grid through "
           "K1, adaptive_sca", flush=True)
     scen = phase_scenarios(torch, np, dev, card, card_line)
+    print("[9] the single-run API: run_fl, run_fl_legacy, fig2 --bench",
+          flush=True)
+    single = phase_single_run(torch, np, dev, world, card_line)
+    print("[10] population mode: a 1M-device population, streamed cohorts, "
+          "adaptive_sca's cohort redesign, through K1", flush=True)
+    popr = phase_population(torch, np, dev, card, card_line, world)
 
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
@@ -1306,6 +1588,8 @@ def main() -> int:
                  sres[SSD_MAIN[0]]))
     rows.append((f"ota_round_step[f32, grid C={GRID_CELLS}]",
                  "ota_round_step", scen["grid_k1"], scen["k1_row"]))
+    rows.append((f"ota_round_step[f32, cohort C=1 N={POP_COHORT}]",
+                 "ota_round_step", popr["k1_launches"], popr["k1_row"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -1314,12 +1598,14 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[9] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[11] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[9] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[9] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[9] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[9] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print(f"[11] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[11] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[11] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[11] single run: {json.dumps(single)}", flush=True)
+    print(f"[11] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[11] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "

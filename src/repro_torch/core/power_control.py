@@ -203,8 +203,15 @@ class AdaptiveSCA(TruncatedInversion):
     design, whose leaves take the state's leading axes.  On static CSI
     (no process, or rho = 0) it returns the scheme unchanged.
 
-    ``redesign_cohort_fn`` (the population layer's hook) is not ported
-    yet and stays None."""
+    ``redesign_cohort_fn(scheme, gains, device="cpu")`` is the
+    population-mode sibling: it re-solves (P1) on an incoming cohort's
+    STATIONARY statistical CSI (``gains`` [..., N], any leading batch
+    axes; the family and its scalar parameter from the design's ``prm``)
+    and returns the scheme with design leaves of those leading axes.  It
+    is pure in ``gains`` -- no live fading state, no current design --
+    which is what lets the driver stage it for the next cohort while the
+    current chunk runs; ``device`` is where the f64 solver runs (the
+    driver's staging lane: the host)."""
     redesign_fn: Optional[object] = None
     redesign_cohort_fn: Optional[object] = None
 
@@ -223,7 +230,7 @@ def make_adaptive_sca(deployment: Deployment, prm: OTAParams,
     and ``device`` go to the solver; the redesign solves on the fading
     state's device.  When K adaptive schemes share a fleet, the first one's
     hook serves every row with its ``prm``'s constants, as the
-    reference's."""
+    reference's; so does ``redesign_cohort_fn``."""
     from repro_torch import solvers
     cfg = kw.pop("cfg", solvers.DEFAULT_CONFIG)
     base = kw.pop("base", None)
@@ -264,10 +271,48 @@ def make_adaptive_sca(deployment: Deployment, prm: OTAParams,
             thresholds=np.asarray(theory.chi_threshold(gamma, prm)),
             noise_over_alpha=np.sqrt(prm.n0) / alpha, _f32={})
 
+    # population cohorts: the same solver on the incoming cohort's
+    # stationary gains (family from prm, scalar parameter)
+    family = "rayleigh" if prm.is_rayleigh else prm.fading.family
+    fparam = 1.0
+    if family == "rician":
+        fparam = float(np.asarray(prm.fading.rician_k))
+    elif family == "nakagami":
+        fparam = float(np.asarray(prm.fading.nakagami_m))
+
+    def redesign_cohort(pc: AdaptiveSCA, gains, device="cpu"):
+        n = prm.num_devices
+        g = np.asarray(gains, np.float64)
+        if g.shape[-1] != n:
+            raise ValueError(f"cohort gains have {g.shape[-1]} devices but "
+                             f"the design was built for {n}")
+        batch = g.shape[:-1]
+        rows = int(np.prod(batch, dtype=np.int64))
+
+        def row(v):
+            return torch.full((rows,), float(v), dtype=torch.float64)
+        prm_b = solvers.SolverParams(
+            d=row(prm.d), gmax=row(prm.gmax), es=row(prm.es),
+            n0=row(prm.n0), gains=torch.as_tensor(g.reshape(rows, n)),
+            sigma_sq=torch.as_tensor(np.broadcast_to(
+                np.asarray(prm.sigma_sq, np.float64), (rows, n)).copy()),
+            eta=row(prm.eta), lsmooth=row(prm.lsmooth),
+            kappa_sq=row(prm.kappa_sq), dropout=row(prm.dropout),
+            fading_param=torch.full((rows, n), fparam, dtype=torch.float64),
+            family=family)
+        out = solvers.solve_batch(prm_b, cfg, device=device)
+        gamma = out.gamma.reshape(batch + (n,))
+        alpha = out.alpha.reshape(batch)
+        return dataclasses.replace(
+            pc, gamma=gamma, alpha=alpha, p=out.p.reshape(batch + (n,)),
+            thresholds=np.asarray(theory.chi_threshold(gamma, prm)),
+            noise_over_alpha=np.sqrt(prm.n0) / alpha, _f32={})
+
     return AdaptiveSCA(
         name="adaptive_sca", gamma=b.gamma, alpha=b.alpha, p=b.p,
         thresholds=b.thresholds, n0=prm.n0,
-        noise_over_alpha=b.noise_over_alpha, redesign_fn=redesign)
+        noise_over_alpha=b.noise_over_alpha, redesign_fn=redesign,
+        redesign_cohort_fn=redesign_cohort)
 
 
 # ---------------------------------------------------------------------------

@@ -177,3 +177,32 @@ def solve_sca(prm: OTAParams, gamma0: Optional[np.ndarray] = None,
 
     return SCAResult(gamma=gamma, p=pm, alpha=a, objective=obj,
                      history=history, converged=converged, iterations=it)
+
+
+def solve_direct(prm: OTAParams, num_starts: int = 8,
+                 seed: int = 0) -> SCAResult:
+    """Direct multi-start box-constrained minimization of the true (P1)
+    objective over gamma_hat in (0,1]^N.  Used as an oracle to validate the
+    SCA solution quality in tests/benchmarks (not part of the paper's method).
+    """
+    gmax_arr = theory.gamma_max(prm)
+    rng = np.random.default_rng(seed)
+    n = prm.num_devices
+
+    def f(gh):
+        return theory.p1_objective(np.maximum(gh, 1e-6) * gmax_arr, prm)
+
+    best = None
+    starts = [np.ones(n), np.full(n, 0.5)]
+    starts += [rng.uniform(0.05, 1.0, size=n) for _ in range(num_starts - 2)]
+    for x0 in starts:
+        res = minimize(f, x0, method="L-BFGS-B",
+                       bounds=[(1e-6, 1.0)] * n,
+                       options={"maxiter": 500})
+        if best is None or res.fun < best.fun:
+            best = res
+    gamma = np.maximum(best.x, 1e-6) * gmax_arr
+    pm, a = _coupled_state(gamma, prm)
+    return SCAResult(gamma=gamma, p=pm, alpha=a,
+                     objective=theory.p1_objective(gamma, prm),
+                     history=[best.fun], converged=True, iterations=1)

@@ -1,5 +1,5 @@
 """Scenario engine for heterogeneous wireless deployments, ported from
-``repro.core.scenarios`` (its population layer waits for a later slice).
+``repro.core.scenarios``, with its population layer.
 
 A ``Scenario`` composes one choice per heterogeneity axis:
 
@@ -16,7 +16,10 @@ A ``Scenario`` composes one choice per heterogeneity axis:
 bitwise the reference's), which every power-control design consumes.
 ``make_fading_process`` builds the matching per-round sampler and
 ``stack_scenarios`` C of them as one ``ScenarioStack``, the channel of the
-[scenario x scheme x seed] grid fleet.
+[scenario x scheme x seed] grid fleet.  ``Population`` is a lazily
+materialized universe of up to ~1M devices from which a fleet in
+population mode draws a cohort per chunk (numpy uint64 hashes and
+``default_rng``, bitwise the reference's).
 
 Randomness.  Torch cannot reproduce JAX's key streams, so the samplers take
 a round's innovations (``ota.Innovations``: the scattered normals, the
@@ -289,6 +292,36 @@ class FadingProcess:
             None if state is None else state[None], innov)
         return (None if state is None else state[0]), h[0]
 
+    def cohort_stack(self, n: int) -> "ScenarioStack":
+        """This process over cohorts of ``n`` devices whose gains change
+        from cohort to cohort (a population's, ``gains=None``): a one-row
+        stack whose per-device parameters come with every step as operands
+        (``cohort_operands``), never cached."""
+        key = ("cohort", int(n))
+        if key not in self._cache:
+            def per_device(v, fill):
+                return np.broadcast_to(np.asarray(
+                    fill if v is None else v, np.float64), (n,)).copy()
+            proc = dataclasses.replace(
+                self, gains=np.ones(n), _cache={},
+                k_factor=per_device(self.k_factor, 0.0)
+                if self.family == "rician" else None,
+                m=per_device(self.m, 1.0)
+                if self.family == "nakagami" else None)
+            self._cache[key] = stack_processes([proc], ("cohort",))
+        return self._cache[key]
+
+    def cohort_operands(self, gains) -> dict:
+        """A cohort's per-device parameters, float32 numpy [..., N] made on
+        the host from its gains [..., N] as the stack makes its own:
+        ``gains``, ``scale`` and ``los`` (``ota.fading_scales``)."""
+        g = np.asarray(gains, np.float64)
+        k = None if self.family != "rician" \
+            else np.broadcast_to(np.asarray(self.k_factor, np.float64),
+                                 g.shape)
+        scale, los = ota.fading_scales(g, k)
+        return {"gains": g.astype(np.float32), "scale": scale, "los": los}
+
     def describe(self) -> str:
         return (f"FadingProcess(family={self.family},rho={float(self.rho)}"
                 f",p_dropout={float(self.p_dropout)})")
@@ -375,11 +408,18 @@ class ScenarioStack:
         p = self._params(innov.n_re.device, innov.n_re.dim() - 1)
         return ota.gaussian_fading(innov.n_re, innov.n_im, p["scale"])
 
-    def step(self, state: Optional[torch.Tensor], innov: ota.Innovations):
+    def step(self, state: Optional[torch.Tensor], innov: ota.Innovations,
+             cohort: Optional[dict] = None):
         """One round for every row: states [C, ..., N] (None if no row is
         Gauss-Markov), innovations [..., N]; returns (states, h [C, ...,
-        N])."""
+        N]).  ``cohort`` (a one-row stack's, ``FadingProcess.cohort_stack``)
+        holds the devices' ``gains``, ``scale`` and ``los`` as tensors
+        [..., N] in place of the stack's own: with the stack's values it
+        is bitwise the plain step (the reference's ``step_cohort``)."""
         p = self._params(innov.n_re.device, innov.n_re.dim() - 1)
+        if cohort is not None:
+            p = dict(p, **{k: cohort[k][None]
+                           for k in ("gains", "scale", "los")})
         w_re, w_im = innov.n_re * p["scale"], innov.n_im * p["scale"]
         h = torch.complex(p["los"] + w_re, w_im)               # i.i.d. rows
         if self.needs_markov:
@@ -500,6 +540,312 @@ def scenario_fading_process(scenario: Scenario,
     if dep is None:
         dep = realize(scenario)
     return make_fading_process(dep, scenario.dynamics)
+
+
+# ---------------------------------------------------------------------------
+# Population layer: a parametric device universe of up to ~1M devices,
+# materialized lazily per cohort draw.  Per-device large-scale parameters
+# are pure counter-based hashes of (population seed, device index), so
+# nothing is stored per device until a cohort indexes in; cohort draws are
+# pure functions of (population seed, run seed, tick), so a resumed stream
+# redraws identical cohorts without any RNG cursor.  numpy throughout:
+# bitwise the reference's.
+# ---------------------------------------------------------------------------
+
+_COHORT_SALT = 0xC040  # draw_cohort rng lane
+_AGE_SALT = 0xA6ED     # stage_states innovation lane
+
+# hash lanes per derived per-device quantity (normals consume lane, lane+1)
+_LANE_GEOM, _LANE_CLUSTER, _LANE_SHADOW = 0, 1, 2
+_LANE_TRAFFIC, _LANE_SPREAD = 4, 6
+
+
+def _splitmix64(x: np.ndarray) -> np.ndarray:
+    """Vectorized splitmix64 finalizer: well-mixed uint64 from uint64."""
+    x = np.asarray(x, np.uint64)
+    with np.errstate(over="ignore"):
+        x = x + np.uint64(0x9E3779B97F4A7C15)
+        x = (x ^ (x >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        x = (x ^ (x >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return x ^ (x >> np.uint64(31))
+
+
+def _hash_u01(seed: int, idx: np.ndarray, lane: int) -> np.ndarray:
+    """Uniform(0, 1) doubles, a pure function of (seed, device idx, lane)."""
+    x = np.asarray(idx, np.uint64)
+    with np.errstate(over="ignore"):
+        x = x * np.uint64(0xD1342543DE82EF95)
+        x = x ^ (np.uint64(seed & 0xFFFFFFFFFFFFFFFF)
+                 * np.uint64(0x9E3779B97F4A7C15))
+        x = x + np.uint64(lane) * np.uint64(0xBF58476D1CE4E5B9)
+    x = _splitmix64(_splitmix64(x))
+    return (x >> np.uint64(11)).astype(np.float64) * 2.0 ** -53
+
+
+def _hash_normal(seed: int, idx: np.ndarray, lane: int) -> np.ndarray:
+    """Standard normals via Box-Muller on lanes (lane, lane + 1)."""
+    u1 = np.maximum(_hash_u01(seed, idx, lane), 2.0 ** -53)
+    u2 = _hash_u01(seed, idx, lane + 1)
+    return np.sqrt(-2.0 * np.log(u1)) * np.cos(2.0 * np.pi * u2)
+
+
+SAMPLINGS = ("uniform", "traffic")
+
+
+@dataclasses.dataclass(frozen=True)
+class PopulationSpec:
+    """A parametric device population: the Scenario axes minus per-device
+    realization, plus a sampling model for cohort draws.
+
+    sampling       "uniform" -- every device equally likely per round;
+                   "traffic" -- arrival-weighted: device weights are
+                   log-normal(0, traffic_sigma^2) (heavy-tailed activity,
+                   the Gumbel-top-k draw in ``Population.draw_cohort``).
+    seed           the population's own seed: all per-device hashes and
+                   cohort draws derive from it (independent of run seeds).
+    """
+    size: int = 1_000_000
+    geometry: GeometrySpec = GeometrySpec()
+    shadowing: Optional[ShadowingSpec] = None
+    fading: FadingSpec = RAYLEIGH
+    dynamics: DynamicsSpec = DynamicsSpec()
+    wireless: WirelessConfig = WirelessConfig()
+    sampling: str = "uniform"
+    traffic_sigma: float = 1.0
+    seed: int = 0
+
+    def __post_init__(self):
+        if self.size <= 0:
+            raise ValueError("population size must be positive")
+        if self.sampling not in SAMPLINGS:
+            raise ValueError(f"unknown sampling {self.sampling!r}; "
+                             f"available: {SAMPLINGS}")
+        for pname in ("rician_k", "nakagami_m"):
+            if np.asarray(getattr(self.fading, pname)).ndim > 0:
+                raise ValueError(
+                    f"parametric populations need a scalar {pname} (per-"
+                    f"device arrays cannot be materialized lazily)")
+
+
+@dataclasses.dataclass
+class Population:
+    """Lazily materialized device population.
+
+    Two flavours share one interface:
+
+    * parametric -- built from a :class:`PopulationSpec`; ``gains_of(idx)``
+      hashes (seed, idx) into geometry/shadowing and is O(len(idx)),
+      whatever ``size`` says, so 1M devices cost nothing until drawn;
+    * tabular -- explicit [P] gains (``from_deployment``), the anchor for
+      the cohort == population bitwise-equivalence contract.
+
+    ``draw_cohort(n, tick, seed)`` is a pure function of its arguments
+    (counter-based ``np.random.default_rng`` keying; Gumbel-top-k without
+    replacement under traffic weighting), so streaming resume re-derives
+    every draw instead of checkpointing an RNG cursor.  The Gauss-Markov
+    re-entry table (``init_table`` / ``stage_states`` / ``commit_states``)
+    ages a returning device's scattered state by its absence:
+    d = rho^m d0 + sqrt(1 - rho^(2m)) w over m missed rounds -- m = 0 is an
+    exact pass-through (back-to-back cohorts keep their trajectory) and a
+    never-seen device gets a fresh stationary draw.
+    """
+    spec: Optional[PopulationSpec] = None
+    gains_table: Optional[np.ndarray] = None      # [P] tabular gains
+    weights_table: Optional[np.ndarray] = None    # [P] tabular weights
+    fading: FadingSpec = RAYLEIGH
+    dynamics: DynamicsSpec = DynamicsSpec()
+    seed: int = 0
+    name: str = "population"
+
+    def __post_init__(self):
+        if (self.spec is None) == (self.gains_table is None):
+            raise ValueError("exactly one of spec / gains_table required")
+        if self.spec is not None:
+            self.fading = self.spec.fading
+            self.dynamics = self.spec.dynamics
+            self.seed = self.spec.seed
+        else:
+            self.gains_table = np.asarray(self.gains_table, np.float64)
+            for pname in ("rician_k", "nakagami_m"):
+                if np.asarray(getattr(self.fading, pname)).ndim > 0:
+                    raise ValueError(f"populations need a scalar {pname}")
+        if self.fading.family == "nakagami" and self.dynamics.rho > 0:
+            raise ValueError("Gauss-Markov dynamics unsupported for nakagami")
+        self._weights = None
+
+    @classmethod
+    def from_deployment(cls, dep: Deployment,
+                        dynamics: Optional[DynamicsSpec] = None,
+                        weights: Optional[np.ndarray] = None) -> "Population":
+        """Wrap a realized Deployment as a (tabular) population -- with
+        cohort_size == dep.num_devices this reproduces the full-
+        participation fleet bitwise."""
+        return cls(gains_table=np.asarray(dep.gains, np.float64),
+                   weights_table=weights, fading=dep.fading_spec,
+                   dynamics=(dynamics if dynamics is not None
+                             else DynamicsSpec(p_dropout=dep.p_dropout)),
+                   name=f"deployment[{dep.num_devices}]")
+
+    @property
+    def size(self) -> int:
+        return (self.spec.size if self.spec is not None
+                else int(self.gains_table.shape[0]))
+
+    # -- lazy per-device parameters -------------------------------------
+
+    def distances_of(self, idx: np.ndarray) -> np.ndarray:
+        """Parametric geometry at device indices (hash-derived)."""
+        if self.spec is None:
+            raise ValueError("tabular populations have no geometry")
+        geom, cfg, p = self.spec.geometry, self.spec.wireless, self.size
+        idx = np.asarray(idx, np.int64)
+        u = _hash_u01(self.seed, idx, _LANE_GEOM)
+        if geom.kind == "disk":
+            dist = cfg.r_max * np.sqrt(u)
+        elif geom.kind == "ring":
+            dist = np.sqrt(geom.r_min**2 + u * (cfg.r_max**2 - geom.r_min**2))
+        elif geom.kind == "two_cluster":
+            near = _hash_u01(self.seed, idx, _LANE_CLUSTER) < geom.near_frac
+            centers = np.where(near, geom.near_center, geom.far_center)
+            dist = centers + (_hash_normal(self.seed, idx, _LANE_SPREAD)
+                              * geom.cluster_spread)
+            dist = np.minimum(dist, cfg.r_max)
+        else:  # grid: deterministic linspace over the whole population
+            lo = max(geom.r_min, 1.0)
+            dist = lo + idx * (cfg.r_max - lo) / max(p - 1, 1)
+        return np.maximum(dist, 1.0)
+
+    def gains_of(self, idx: np.ndarray) -> np.ndarray:
+        """Average channel gains at device indices, [len(idx)] float64."""
+        idx = np.asarray(idx, np.int64)
+        if self.spec is None:
+            return self.gains_table[idx]
+        cfg = self.spec.wireless
+        gains = channel.average_gain(self.distances_of(idx), cfg.pl0_db,
+                                     cfg.pl_exponent)
+        if self.spec.shadowing is not None \
+                and self.spec.shadowing.sigma_db > 0:
+            db = (_hash_normal(self.seed, idx, _LANE_SHADOW)
+                  * self.spec.shadowing.sigma_db)
+            gains = gains * 10.0 ** (-db / 10.0)
+        return gains
+
+    def weights(self) -> Optional[np.ndarray]:
+        """[P] sampling weights (None = uniform).  Materialized once and
+        cached -- the only O(P) array a parametric population ever builds."""
+        if self.spec is not None and self.spec.sampling == "uniform":
+            return None
+        if self._weights is None:
+            if self.spec is not None:
+                z = _hash_normal(self.seed,
+                                 np.arange(self.size, dtype=np.int64),
+                                 _LANE_TRAFFIC)
+                self._weights = np.exp(self.spec.traffic_sigma * z)
+            else:
+                self._weights = (None if self.weights_table is None
+                                 else np.asarray(self.weights_table,
+                                                 np.float64))
+        return self._weights
+
+    # -- cohort draws ----------------------------------------------------
+
+    def draw_cohort(self, n: int, tick: int, seed: int = 0) -> np.ndarray:
+        """Sorted [n] device indices for cohort ``tick`` of run ``seed``.
+
+        Pure in (population seed, seed, tick): counter-based rng keying, no
+        mutable stream -- a resumed driver re-derives any draw.  n == size
+        returns arange (the full-participation identity path).  Weighted
+        sampling is Gumbel-top-k on log-weights -- exact sampling without
+        replacement proportional to weights at each slot.
+        """
+        p = self.size
+        if not 0 < n <= p:
+            raise ValueError(f"cohort size {n} not in [1, {p}]")
+        if n == p:
+            return np.arange(p, dtype=np.int64)
+        rng = np.random.default_rng(
+            (self.seed, int(seed), int(tick), _COHORT_SALT))
+        w = self.weights()
+        if w is None:
+            idx = rng.choice(p, size=n, replace=False)
+        else:
+            keys = np.log(w) + rng.gumbel(size=p)
+            idx = np.argpartition(keys, p - n)[p - n:]
+        return np.sort(idx.astype(np.int64))
+
+    # -- Gauss-Markov re-entry state ------------------------------------
+
+    def init_table(self, num_rows: int) -> dict:
+        """Host-side per-(seed-row, device) fading memory: round last seen
+        (-1 = never) and the scattered state as of that round."""
+        return {"last": np.full((num_rows, self.size), -1, np.int64),
+                "state": np.zeros((num_rows, self.size), np.complex64)}
+
+    def stage_states(self, table: dict, row: int, idx: np.ndarray, t0: int,
+                     seed: int = 0) -> np.ndarray:
+        """Scattered states for cohort ``idx`` entering at round ``t0``,
+        aged from the table by each device's absence (see class docstring).
+        Pure in (table contents, row, idx, t0, seed) -- recomputed
+        identically on resume.  [len(idx)] complex64."""
+        rho = float(self.dynamics.rho)
+        idx = np.asarray(idx, np.int64)
+        last = table["last"][row, idx]
+        old = table["state"][row, idx].astype(np.complex128)
+        missed = np.maximum(t0 - 1 - last, 0)
+        decay = np.where(last < 0, 0.0,
+                         rho ** missed if rho > 0.0 else (missed == 0))
+        rng = np.random.default_rng(
+            (self.seed, int(seed), int(t0), _AGE_SALT))
+        z = rng.standard_normal((2, idx.shape[0]))
+        k = float(np.asarray(self.fading.rician_k)) \
+            if self.fading.family == "rician" else 0.0
+        diffuse = self.gains_of(idx) / (k + 1.0)
+        w = (z[0] + 1j * z[1]) * np.sqrt(diffuse / 2.0)
+        state = decay * old + np.sqrt(np.maximum(1.0 - decay**2, 0.0)) * w
+        return state.astype(np.complex64)
+
+    def commit_states(self, table: dict, row: int, idx: np.ndarray,
+                      t_end: int, state: np.ndarray) -> None:
+        """Write a finished chunk's final states back: cohort ``idx`` was
+        last seen at round ``t_end`` with scattered state ``state``."""
+        idx = np.asarray(idx, np.int64)
+        table["last"][row, idx] = int(t_end)
+        table["state"][row, idx] = np.asarray(state, np.complex64)
+
+    # -- glue ------------------------------------------------------------
+
+    def fading_process(self) -> Optional[FadingProcess]:
+        """The cohort-run per-round sampler (its ``cohort_stack`` steps on
+        the staged cohort's gains); None when the population is the paper's
+        i.i.d.-Rayleigh baseline -- the fleet's fading=None fast path,
+        which is what the bitwise full-participation contract pins."""
+        dyn = self.dynamics
+        if self.fading.family == "rayleigh" and dyn == DynamicsSpec():
+            return None
+        k_factor = m = None
+        if self.fading.family == "rician":
+            k_factor = np.asarray(float(np.asarray(self.fading.rician_k)))
+        if self.fading.family == "nakagami":
+            m = np.asarray(float(np.asarray(self.fading.nakagami_m)))
+        return FadingProcess(gains=None, family=self.fading.family,
+                             k_factor=k_factor, m=m, rho=dyn.rho,
+                             p_dropout=dyn.p_dropout)
+
+    def describe(self) -> str:
+        """Stable identity string for fleet checkpoints (a resume against
+        a different population must be rejected, not silently mixed)."""
+        dyn = self.dynamics
+        tail = (f"fading={self.fading.family},rho={dyn.rho}"
+                f",drop={dyn.p_dropout},seed={self.seed}")
+        if self.spec is not None:
+            sp = self.spec
+            return (f"pop(size={sp.size},geom={sp.geometry.kind},"
+                    f"shadow={sp.shadowing is not None},"
+                    f"sampling={sp.sampling},sigma={sp.traffic_sigma},{tail})")
+        h = hashlib.sha1(self.gains_table.tobytes()).hexdigest()[:12]
+        w = self.weights()
+        wh = "none" if w is None else hashlib.sha1(w.tobytes()).hexdigest()[:12]
+        return f"pop(table={h},weights={wh},{tail})"
 
 
 # ---------------------------------------------------------------------------

@@ -229,6 +229,27 @@ def p1_objective(gamma: np.ndarray, p: OTAParams) -> float:
     return 2.0 * p.eta * p.lsmooth * z + bias_term(pm, p)
 
 
+def theorem1_bound(gamma: np.ndarray, p: OTAParams, init_gap: float,
+                   num_rounds: int) -> dict:
+    """Full Theorem-1 bound, split into its three components.
+
+    init_gap = max_m (f_m(w0) - f_m^inf).
+    """
+    z = zeta_terms(gamma, p)
+    _, _, pm = participation(gamma, p)
+    opt = 4.0 * init_gap / (p.eta * num_rounds)
+    var = 2.0 * p.eta * p.lsmooth * z["total"]
+    bias = bias_term(pm, p)
+    return {"optimization": opt, "variance": var, "bias": bias,
+            "total": opt + var + bias, "zeta": z, "p": pm}
+
+
+def uniform_feasible(p: OTAParams) -> bool:
+    """Whether the zero-bias point p_m = 1/N is feasible, i.e. there exists
+    alpha with alpha/N <= alpha_{m,max} for all m: alpha <= N * min alpha_max."""
+    return bool(np.min(alpha_max(p)) > 0)
+
+
 def zero_bias_gamma(p: OTAParams, slack: float = 1.0) -> np.ndarray:
     """Pre-scalers enforcing zero average bias (p_m = 1/N exactly).
 

@@ -76,7 +76,10 @@ class DeviceDraws:
     """Production draws, generated on ``device`` from (seed, round).
     ``fading`` (a ``FadingProcess`` or ``ScenarioStack``; ``gains`` may
     then be None) makes the rounds ``FadingDraws`` with the innovations
-    its rows need."""
+    its rows need.  In population mode the i.i.d. channel's scale changes
+    with every cohort: ``set_scale`` takes the chunk's [S, N] scales, one
+    row per seed (the keys stay (seed, round), as the reference's cohort
+    round splits its key as its plain round does)."""
 
     def __init__(self, seeds: Sequence[int], gains: Optional[np.ndarray],
                  leaf_sizes: Sequence[int], batch_size: int, shard_len: int,
@@ -93,6 +96,11 @@ class DeviceDraws:
         self.fading = fading
         self._gen = torch.Generator(device=device)
 
+    def set_scale(self, scale: torch.Tensor) -> None:
+        """The i.i.d. channel's scale sqrt(Lambda / 2): [N], or [S, N] with
+        row s for seed row s (a population's cohorts)."""
+        self.scale = scale
+
     def init(self) -> ota.Innovations:
         """The innovations of the initial fading state: [S, N] normals."""
         gen, n_re, n_im = self._gen, [], []
@@ -107,11 +115,13 @@ class DeviceDraws:
         hs, n_re, n_im, zs, idxs, coins, drops, gammas = ([] for _ in
                                                           range(8))
         gen = self._gen
-        for seed in self.seeds:
+        for row, seed in enumerate(self.seeds):
             gen.manual_seed(round_seed(seed, t))
             re, im = ota.draw_normals((n,), gen, dev)
             if fading is None:
-                hs.append(ota.gaussian_fading(re, im, self.scale))
+                scale = self.scale if self.scale.dim() == 1 \
+                    else self.scale[row]
+                hs.append(ota.gaussian_fading(re, im, scale))
             else:
                 n_re.append(re), n_im.append(im)
             zs.append(torch.cat([torch.randn(size, generator=gen,

@@ -22,22 +22,56 @@ round cursors, and an identity of the run.  ``resume=True`` continues
 from that checkpoint and ends bitwise equal to an uninterrupted run: the
 draws are keyed per (seed, round), so no RNG state needs saving.
 ``max_chunks`` stops a run (checkpoint saved) after that many chunks.
+
+Population mode: pass a ``core.scenarios.Population`` and each chunk runs
+on a drawn cohort of ``cohort_size`` devices out of up to ~1M, with the
+draw, the gains and ``adaptive_sca``'s cohort redesign staged on the host
+WHILE the previous chunk runs on the card (double-buffered; ``stream=False``
+serializes the same stages -- identical numbers, different walls).
+Staging is pure in (population, run seed, tick), never in chunk outputs,
+which is why overlap cannot change results and why resume needs no RNG
+cursor.  The staging lane is one host thread: numpy and the CPU f64
+solver, nothing on the card (work it enqueued on the default stream would
+wait behind the chunk); the chunk's small cohort operands go to the card
+from the main thread when the chunk starts.  A Gauss-Markov population
+carries each device's state across cohorts in a host re-entry table
+(``Population.stage_states`` before a chunk, ``commit_states`` after).
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import time
-from typing import Callable, Optional, Sequence
+from concurrent.futures import ThreadPoolExecutor
+from typing import Callable, NamedTuple, Optional, Sequence
 
 import numpy as np
 import torch
 from torch.func import vmap
 
 from repro_torch.checkpoint import checkpoint as ckpt
+from repro_torch.core import ota
 from repro_torch.device import resolve_device
 from repro_torch.fl.draws import DeviceDraws
 from repro_torch.fl.engine import FLResult, chunk_lengths, make_round_body
+
+
+# the reference's run_fleet keywords whose modules are not ported yet
+NOT_PORTED = {"telemetry": "ROADMAP.md §1, module 7 (telemetry)",
+              "placement": "ROADMAP.md §1, module 12 (multi-device "
+                           "placement)"}
+
+
+class _Staged(NamedTuple):
+    """One staged cohort: everything chunk ``ci`` needs that can be
+    computed before chunk ``ci - 1`` finishes (the double buffer); host
+    arrays only."""
+    ci: int
+    tick: int
+    idx: np.ndarray      # [S, N] drawn device indices (per seed row)
+    gains: np.ndarray    # [S, N] their average gains
+    design: object       # the cohort-redesigned scheme (None if none)
+    wall: float
 
 
 def _sync(device: torch.device) -> None:
@@ -73,15 +107,22 @@ def _scheme_digest(pc) -> str:
 
 def _fleet_identity(names, seeds, run, etas, flat, fuse_round, uplink_dtype,
                     d, task_name, schemes, gains, data, fading=None,
-                    scenarios=None) -> dict:
+                    scenarios=None, population=None, cohort_size=None,
+                    cohort_rounds=None) -> dict:
     """Everything that must match for a resumed run to be bitwise equal to
     the uninterrupted one: the schemes (names and design leaves), seeds,
     etas, the run config, the round tail (``flat``, ``fuse_round``, the
     uplink dtype), the model size D, the task, and the world (gains and
     data, hashed; the fading process's descriptor; a grid's scenario names
-    and its stack's digest).  On a grid the gains digest covers the
-    stack's [R, N] gains."""
-    return {"fading": "none" if fading is None else fading.describe(),
+    and its stack's digest; the population's descriptor and the cohort
+    schedule).  On a grid the gains digest covers the stack's [R, N]
+    gains.  ``stream`` is not identity: overlap changes walls, never
+    numbers."""
+    return {"population": ("none" if population is None
+                           else population.describe()),
+            "cohort_size": int(cohort_size or 0),
+            "cohort_rounds": int(cohort_rounds or 0),
+            "fading": "none" if fading is None else fading.describe(),
             "scenarios": ("none" if scenarios is None
                           else list(scenarios.names)),
             "scenario_world": ("none" if scenarios is None
@@ -113,11 +154,11 @@ def _traces(metric_rounds, prior: dict, k: int, s_axis: int) -> dict:
 
 
 def _save(path, chunks_done, t, params_b, fstate, schemes, designs,
-          traces, evals, identity) -> None:
+          traces, evals, identity, pop_table=None, cohorts=None) -> None:
     state = {"params": params_b, "traces": traces}
     if fstate is not None:
         state["fstate"] = fstate
-    if designs is not None:
+    if designs:
         state["design"] = {str(i): {f: np.asarray(getattr(pc, f))
                                     for f in _DESIGN_FIELDS}
                            for i, pc in enumerate(schemes)}
@@ -127,11 +168,20 @@ def _save(path, chunks_done, t, params_b, fstate, schemes, designs,
         state["evals_t"] = np.asarray([tt for tt, _ in evals], np.int64)
         state["evals"] = {name: np.stack([ev[name] for _, ev in evals])
                           for name in evals[0][1]}
+    if pop_table is not None:
+        # the population cursor: which devices the stream has seen, and
+        # their Gauss-Markov states (cohort draws re-derive from the tick)
+        state["pop_last"] = pop_table["last"]
+        state["pop_state"] = pop_table["state"]
+    if cohorts:
+        state["cohorts_t"] = np.asarray([tt for tt, _ in cohorts], np.int64)
+        state["cohorts_idx"] = np.stack([i for _, i in cohorts])
     ckpt.save(path, state, meta={"chunks_done": chunks_done,
                                  "rounds_done": t, **identity})
 
 
-def _load(path, params_b, fstate, schemes, adaptive, identity):
+def _load(path, params_b, fstate, schemes, adaptive, identity,
+          pop_table=None):
     meta = ckpt.load_meta(path)
     mismatch = {key: (meta.get(key), want) for key, want in identity.items()
                 if meta.get(key) != want}
@@ -146,12 +196,21 @@ def _load(path, params_b, fstate, schemes, adaptive, identity):
     params_b, fstate = got["params"], got.get("fstate")
     designs = None
     if adaptive:
-        schemes = [dataclasses.replace(
-            pc, _f32={}, **{f: flat[f"design/{i}/{f}"]
-                            for f in _DESIGN_FIELDS})
-            for i, pc in enumerate(schemes)]
-        designs = [(int(tt), flat["designs_g"][i])
-                   for i, tt in enumerate(flat["designs_t"])]
+        designs = []
+        if "designs_t" in flat:
+            schemes = [dataclasses.replace(
+                pc, _f32={}, **{f: flat[f"design/{i}/{f}"]
+                                for f in _DESIGN_FIELDS})
+                for i, pc in enumerate(schemes)]
+            designs = [(int(tt), flat["designs_g"][i])
+                       for i, tt in enumerate(flat["designs_t"])]
+    if pop_table is not None and "pop_last" in flat:
+        pop_table["last"][...] = flat["pop_last"]
+        pop_table["state"][...] = flat["pop_state"]
+    cohorts = None
+    if "cohorts_t" in flat:
+        cohorts = [(int(tt), np.asarray(flat["cohorts_idx"][i]))
+                   for i, tt in enumerate(flat["cohorts_t"])]
     traces = {key[len("traces/"):]: v for key, v in flat.items()
               if key.startswith("traces/")}
     evals = []
@@ -161,7 +220,7 @@ def _load(path, params_b, fstate, schemes, adaptive, identity):
         evals = [(int(tt), {nm: flat[f"evals/{nm}"][i] for nm in ev_names})
                  for i, tt in enumerate(flat["evals_t"])]
     return (int(meta["chunks_done"]), int(meta["rounds_done"]), params_b,
-            fstate, schemes, designs, traces, evals)
+            fstate, schemes, designs, traces, evals, cohorts)
 
 
 def _scheme_n(pc) -> int:
@@ -184,6 +243,38 @@ def _redesign(schemes, fading, fstate, s_axis):
     return schemes, _gammas(schemes, s_axis)
 
 
+def _cohort_schemes(schemes, new):
+    """The K schemes with the cohort redesign's leaves ([S, N], [S]): one
+    solve over the S seed rows serves every scheme, as the first scheme's
+    hook serves every row of an adaptive fleet."""
+    return [dataclasses.replace(pc, _f32={}, **{f: np.asarray(getattr(new, f))
+                                                for f in _DESIGN_FIELDS})
+            for pc in schemes]
+
+
+def _cohort_operands(staged, x_dev, y_dev, batch, fading, dev):
+    """The chunk's cohort operands on the card (made in the main thread):
+    the data each active device trains on and, on a fading process, the
+    cohort's gains, scale and LOS; returns (data, cohort, scale), scale
+    being the i.i.d. channel's [S, N] (None on a process)."""
+    di = staged.idx % x_dev.shape[0]                          # [S, N]
+    shared = bool((di == di[:1]).all())
+    cohort = {"data_idx": torch.as_tensor(di, device=dev),
+              "per_seed": batch == 0 and not shared, "fade": None}
+    data = (x_dev, y_dev)
+    if batch == 0:        # full batch: gather once, shared where it can be
+        rows = torch.as_tensor(di[0] if shared else di, device=dev)
+        data = (x_dev[rows], y_dev[rows])
+    scale = None
+    if fading is None:
+        scale = torch.as_tensor(ota.fading_scales(staged.gains)[0],
+                                device=dev)
+    else:
+        cohort["fade"] = {k: torch.as_tensor(v, device=dev) for k, v in
+                          fading.cohort_operands(staged.gains).items()}
+    return data, cohort, scale
+
+
 def _gammas(schemes, s_axis) -> np.ndarray:
     return np.stack([np.broadcast_to(np.asarray(pc.gamma, np.float64),
                                      (s_axis, _scheme_n(pc)))
@@ -200,7 +291,9 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
               checkpoint_path: Optional[str] = None, resume: bool = False,
               max_chunks: Optional[int] = None,
               task_name: Optional[str] = None, fading=None, scenarios=None,
-              device=None) -> FLResult:
+              population=None, cohort_size: Optional[int] = None,
+              cohort_rounds: Optional[int] = None, stream: bool = True,
+              telemetry=None, placement=None, device=None) -> FLResult:
     """A [K-scheme x S-seed] experiment grid on one device.
 
     ``schemes``: K power-control schemes; ``params``: the initial parameter
@@ -221,7 +314,8 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                      bitwise equal to an uninterrupted run's.  A
                      checkpoint of another run (its identity differs:
                      schemes, seeds, etas, run config, round tail, D, task,
-                     world) raises a ValueError.
+                     world, population and cohort schedule) raises a
+                     ValueError.
     max_chunks       stop, with the checkpoint saved, after this many
                      chunks of this invocation.
     task_name        joins the checkpoint's identity (``run_fleet_task``
@@ -235,7 +329,28 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                      r K + K - 1, each designed against ITS gains);
                      ``gains`` and ``fading`` must be None and no scheme
                      adaptive; ``FLResult.names`` are "scenario/scheme".
+                     Exclusive with ``population``.
+    population       a ``core.scenarios.Population``: each chunk runs on a
+                     drawn cohort.  Data shards go by device index mod the
+                     shard count; the gains come from the population.
+                     ``fading`` defaults to the population's own process
+                     (``Population.fading_process``).
+    cohort_size      active devices per round, default (and necessarily)
+                     the schemes' device count.
+    cohort_rounds    redraw cadence in rounds; None: once per chunk (the
+                     eval cadence).  A cohort never straddles a chunk.
+    stream           stage the next cohort (draw, gains, the adaptive
+                     cohort redesign) on a host thread while the current
+                     chunk runs; False stages the same serially -- bitwise
+                     the same results.
+    telemetry, placement  the reference's run tracing and multi-device
+                     placement: not ported yet (NotImplementedError).
     """
+    for kw, value in (("telemetry", telemetry), ("placement", placement)):
+        if value is not None:
+            raise NotImplementedError(
+                f"run_fleet({kw}=...) is not ported yet; see "
+                f"{NOT_PORTED[kw]}")
     t0 = time.time()
     dev = resolve_device(device)
     schemes = list(schemes)
@@ -245,8 +360,13 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
     if any(hooks) and not all(hooks):
         raise ValueError("adaptive (redesign_fn) schemes re-design between "
                          "chunks and run only with other adaptive schemes")
+    pop_mode = population is not None
     if scenarios is not None:
         rows = len(scenarios)
+        if pop_mode:
+            raise ValueError("scenario grids and population mode are "
+                             "exclusive (a cohort would need per-scenario "
+                             "device worlds)")
         if fading is not None:
             raise ValueError("scenario grids own the channel process; "
                              "pass fading=None")
@@ -264,9 +384,30 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                 f"but the schemes are designed for {_scheme_n(schemes[0])}")
         names = tuple(f"{sn}/{nm}" for sn, nm in
                       zip(np.repeat(list(scenarios.names), k // rows), names))
-    adaptive = any(hooks) and fading is not None
-    proc = scenarios if scenarios is not None \
-        else None if fading is None else fading.as_stack()     # R rows
+    n_cohort = cadence = None
+    if pop_mode:
+        n_cohort = int(cohort_size) if cohort_size else _scheme_n(schemes[0])
+        if not 0 < n_cohort <= population.size:
+            raise ValueError(f"cohort size {n_cohort} not in "
+                             f"[1, {population.size}]")
+        if _scheme_n(schemes[0]) != n_cohort:
+            raise ValueError(
+                f"schemes are designed for {_scheme_n(schemes[0])} devices "
+                f"but the cohort draws {n_cohort} -- build the power "
+                f"control for the cohort-sized world")
+        cadence = int(cohort_rounds) if cohort_rounds else None
+        if fading is None:
+            fading = population.fading_process()
+    adaptive = any(hooks) and fading is not None and not pop_mode
+    redesign_cohort = getattr(schemes[0], "redesign_cohort_fn", None)
+    pop_adaptive = pop_mode and redesign_cohort is not None
+    if scenarios is not None:
+        proc = scenarios
+    elif fading is None:
+        proc = None
+    else:                                                      # R = 1 row
+        proc = fading.cohort_stack(n_cohort) if pop_mode \
+            else fading.as_stack()
     seeds = tuple(int(s) for s in (seeds if seeds is not None
                                    else (run.seed,)))
     s_axis = len(seeds)
@@ -289,72 +430,162 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                 .expand((c,) + tuple(v.shape)).clone()
                 for name, v in params.items()}
     if draws is None:
-        draws = DeviceDraws(seeds, gains,
+        draws = DeviceDraws(seeds, np.ones(n_cohort) if pop_mode else gains,
                             [params[name].numel() for name in sorted(params)],
                             batch, shard_len, dev, fading=proc)
-    fstate = None
-    if proc is not None and hasattr(draws, "init"):
+    fstate, pop_table = None, None
+    if pop_mode:
+        if fading is not None:     # states staged per chunk from the table
+            pop_table = population.init_table(s_axis)
+    elif proc is not None and hasattr(draws, "init"):
         fstate = proc.init_grid(draws.init())                  # [R, S, N]
     eval_b = vmap(eval_fn) if eval_fn is not None else None
 
     metric_rounds, evals, chunk_walls, prior_traces = [], [], [], {}
-    designs = [(0, _gammas(schemes, s_axis))] if adaptive else None
+    designs = [(0, _gammas(schemes, s_axis))] if adaptive \
+        else [] if pop_adaptive else None
+    cohorts = [] if pop_mode else None
     lengths = chunk_lengths(run.num_rounds, run.eval_every,
-                            eval_fn is not None or adaptive)
+                            eval_fn is not None or adaptive or pop_adaptive,
+                            cadence)
+    starts = np.concatenate([[0], np.cumsum(lengths)])[:-1].astype(int)
+
+    def tick_of(ci: int) -> int:
+        return int(starts[ci]) // cadence if cadence else ci
+
+    def stage(ci: int, base) -> _Staged:
+        # pure in (population, seeds, tick) and the schemes' constants,
+        # never in chunk outputs: running it beside the chunk (stream)
+        # cannot change a number.  Host only: numpy and the CPU solver.
+        ts = time.time()
+        tick = tick_of(ci)
+        idx = np.stack([population.draw_cohort(n_cohort, tick, s)
+                        for s in seeds])                          # [S, N]
+        gains_sn = np.stack([population.gains_of(r) for r in idx])
+        new = None
+        if pop_adaptive and (ci == 0 or tick != tick_of(ci - 1)):
+            new = redesign_cohort(base, gains_sn, device="cpu")
+        return _Staged(ci, tick, idx, gains_sn, new, time.time() - ts)
+
     identity = None
     if checkpoint_path is not None:
         identity = _fleet_identity(
             names, seeds, run, etas, flat, body.fuse, body.uplink_dtype,
             sum(v.numel() for v in params.values()), task_name, schemes,
-            gains, data, fading, scenarios)
+            gains, data, fading, scenarios, population, n_cohort, cadence)
     start_chunk, t = 0, 0
     if resume and checkpoint_path is not None \
             and ckpt.exists(checkpoint_path):
         (start_chunk, t, params_b, fstate, schemes, designs, prior_traces,
-         evals) = _load(checkpoint_path, params_b, fstate, schemes, adaptive,
-                        identity)
+         evals, loaded_cohorts) = _load(checkpoint_path, params_b, fstate,
+                                        schemes, adaptive or pop_adaptive,
+                                        identity, pop_table)
+        if loaded_cohorts is not None:
+            cohorts = loaded_cohorts
         if log:
             print(f"# resumed fleet from {checkpoint_path} at chunk "
                   f"{start_chunk} (round {t})", flush=True)
-    with torch.no_grad():
-        for ci in range(start_chunk, len(lengths)):
-            length = lengths[ci]
-            tc = time.time()
-            for _ in range(length):
-                params_b, fstate, metrics = body(
-                    schemes, eta_c, params_b, fstate, draws(t),
-                    (x_dev, y_dev), cell_seed, proc)
-                metric_rounds.append(metrics)
-                t += 1
-            _sync(dev)
-            chunk_walls.append((length, time.time() - tc))
-            if adaptive and t < run.num_rounds:
-                schemes, gam = _redesign(schemes, fading, fstate, s_axis)
-                designs.append((t, gam))
-            if eval_b is not None:
-                ev = {name: v.reshape(k, s_axis).cpu().numpy()
-                      for name, v in eval_b(params_b).items()}
-                evals.append((t - 1, ev))
-                if log:
-                    lead = next(iter(ev))
-                    print({"round": t - 1,
-                           **{nm: round(float(ev[lead][i, 0]), 4)
-                              for i, nm in enumerate(names)}}, flush=True)
-            if checkpoint_path is not None:
-                _save(checkpoint_path, ci + 1, t, params_b, fstate, schemes,
-                      designs, _traces(metric_rounds, prior_traces, k,
-                                       s_axis), evals, identity)
-            if max_chunks is not None and ci + 1 - start_chunk >= max_chunks \
-                    and ci + 1 < len(lengths):
-                break        # stopped on purpose; resume=True continues
+    last_tick = tick_of(start_chunk - 1) if pop_mode and start_chunk > 0 \
+        else None
+    executor = ThreadPoolExecutor(max_workers=1) if pop_mode and stream \
+        else None
+    staged = next_fut = None
+    stage_walls = [] if pop_mode else None
+    wall_compile, first = 0.0, True
+    chunk_data, cohort_op = (x_dev, y_dev), None
+    try:
+        with torch.no_grad():
+            for ci in range(start_chunk, len(lengths)):
+                length = lengths[ci]
+                if pop_mode:
+                    if next_fut is not None:
+                        staged, next_fut = next_fut.result(), None
+                    if staged is None or staged.ci != ci:
+                        staged = stage(ci, schemes[0])
+                    stage_walls.append(staged.wall)
+                    t_start = int(starts[ci])
+                    if staged.tick != last_tick:
+                        last_tick = staged.tick
+                        cohorts.append((t_start, staged.idx))
+                        if pop_adaptive:
+                            schemes = _cohort_schemes(schemes, staged.design)
+                            designs.append((t_start,
+                                            _gammas(schemes, s_axis)))
+                    if fading is not None:
+                        # re-entry reads the table the previous chunk
+                        # committed, so it stays in the main thread
+                        fstate = torch.as_tensor(np.stack([
+                            population.stage_states(pop_table, si,
+                                                    staged.idx[si], t_start,
+                                                    seed=seeds[si])
+                            for si in range(s_axis)])[None], device=dev)
+                    chunk_data, cohort_op, scale = _cohort_operands(
+                        staged, x_dev, y_dev, batch, fading, dev)
+                    if scale is not None and hasattr(draws, "set_scale"):
+                        draws.set_scale(scale)
+                    will_stop = (max_chunks is not None
+                                 and ci + 1 - start_chunk >= max_chunks
+                                 and ci + 1 < len(lengths))
+                    if executor is not None and ci + 1 < len(lengths) \
+                            and not will_stop:
+                        # the double buffer: stage chunk ci + 1 while
+                        # chunk ci runs
+                        next_fut = executor.submit(stage, ci + 1, schemes[0])
+                tc = time.time()
+                for _ in range(length):
+                    params_b, fstate, metrics = body(
+                        schemes, eta_c, params_b, fstate, draws(t),
+                        chunk_data, cell_seed, proc, cohort_op)
+                    metric_rounds.append(metrics)
+                    t += 1
+                _sync(dev)
+                chunk_walls.append((length, time.time() - tc))
+                if first:
+                    wall_compile, first = time.time() - t0, False
+                if pop_table is not None:
+                    # scheme rows share the state: commit seed row s's
+                    fs = fstate[0].cpu().numpy()
+                    for si in range(s_axis):
+                        population.commit_states(pop_table, si,
+                                                 staged.idx[si], t - 1,
+                                                 fs[si])
+                if adaptive and t < run.num_rounds:
+                    schemes, gam = _redesign(schemes, fading, fstate, s_axis)
+                    designs.append((t, gam))
+                if eval_b is not None:
+                    ev = {name: v.reshape(k, s_axis).cpu().numpy()
+                          for name, v in eval_b(params_b).items()}
+                    evals.append((t - 1, ev))
+                    if log:
+                        lead = next(iter(ev))
+                        print({"round": t - 1,
+                               **{nm: round(float(ev[lead][i, 0]), 4)
+                                  for i, nm in enumerate(names)}},
+                              flush=True)
+                if checkpoint_path is not None:
+                    _save(checkpoint_path, ci + 1, t, params_b,
+                          None if pop_mode else fstate, schemes, designs,
+                          _traces(metric_rounds, prior_traces, k, s_axis),
+                          evals, identity, pop_table, cohorts)
+                if max_chunks is not None \
+                        and ci + 1 - start_chunk >= max_chunks \
+                        and ci + 1 < len(lengths):
+                    break    # stopped on purpose; resume=True continues
+    finally:
+        if executor is not None:
+            executor.shutdown(wait=True)
     traces = _traces(metric_rounds, prior_traces, k, s_axis)
+    wall = time.time() - t0
     return FLResult(
         params={name: v.reshape((k, s_axis) + tuple(v.shape[1:]))
                 for name, v in params_b.items()},
         traces=traces, evals=evals, names=names, seeds=seeds,
-        wall=time.time() - t0, chunk_walls=chunk_walls, fading_state=fstate,
+        wall=wall, chunk_walls=chunk_walls, fading_state=fstate,
         designs=designs,
-        scenario_names=None if scenarios is None else tuple(scenarios.names))
+        scenario_names=None if scenarios is None else tuple(scenarios.names),
+        wall_compile=wall_compile, wall_exec=wall - wall_compile,
+        wall_stage=float(sum(stage_walls or ())), cohorts=cohorts,
+        stage_walls=stage_walls)
 
 
 def run_fleet_task(task, schemes, gains: np.ndarray, run=None, *,
@@ -366,8 +597,8 @@ def run_fleet_task(task, schemes, gains: np.ndarray, run=None, *,
     config come from ``task`` (``tasks.base.Task``) unless given.  ``seed``
     (default run.seed) feeds both the data build and the param init;
     ``etas`` default to the task's per-scheme step sizes.  The rest
-    (``fading``, ``scenarios``, ``checkpoint_path``, ``resume``,
-    ``max_chunks``, ...) passes to ``run_fleet``."""
+    (``fading``, ``scenarios``, ``population``, ``checkpoint_path``,
+    ``resume``, ``max_chunks``, ...) passes to ``run_fleet``."""
     dev = resolve_device(device)
     run = run if run is not None else task.run_config()
     seed = run.seed if seed is None else seed

@@ -17,7 +17,9 @@ round:
   2. the round's fading: h [S, N] from the draws, or one row per scenario
      [R, S, N] from the step of the fleet's ``ScenarioStack`` (a
      ``FadingProcess`` is a stack of R = 1), whose state [R, S, N] the
-     round carries;
+     round carries; in population mode the round runs on the chunk's
+     cohort (``cohort``): its devices' data shards and, on a process, its
+     gains, scale and LOS as operands of the step;
   3. every scheme's ``round_coeffs`` on its scenario row's fading (one row
      per seed, shared by the scenario's schemes);
   4. the round tail: fused (kernel K1: uplink, superposition, noise and
@@ -54,6 +56,16 @@ class FLResult:
                   for other fleets)
     scenario_names  the scenario axis of a grid run, length R (None
                   otherwise); ``names`` are then "scenario/scheme", R * K
+    wall_compile  seconds through the end of the first chunk (set-up and
+                  the first launches), device-synchronized
+    wall_exec     wall - wall_compile
+    wall_stage    seconds spent staging cohorts (draw, gains, the cohort
+                  redesign) in population mode; with ``stream`` it
+                  overlaps the chunks
+    cohorts       population mode's cohort trace: [(round, idx [S, N])],
+                  those devices active from that round (None otherwise)
+    stage_walls   per-chunk staging seconds of the chunks this invocation
+                  ran (population mode; None otherwise)
     """
     params: dict
     traces: dict
@@ -65,6 +77,11 @@ class FLResult:
     fading_state: Optional[torch.Tensor] = None
     designs: Optional[list] = None
     scenario_names: Optional[tuple] = None
+    wall_compile: float = 0.0
+    wall_exec: float = 0.0
+    wall_stage: float = 0.0
+    cohorts: Optional[list] = None
+    stage_walls: Optional[list] = None
 
 
 def make_round_body(loss_fn: Callable, run, flat: bool = False,
@@ -74,7 +91,7 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
     """One FL round over the whole fleet:
 
         body(schemes, eta, params, fstate, draws, data, cell_seed,
-             proc=None) -> (params, fstate, metrics)
+             proc=None, cohort=None) -> (params, fstate, metrics)
 
     ``schemes``: the power-control schemes (R * K on a scenario grid,
     scenario-major); ``eta`` [C] f32 step sizes; ``params``: leaves
@@ -88,6 +105,14 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
     on them; otherwise h is the draws' own ([S, N], or a replayed per-row
     [R, S, N]).  The gradients run one scenario row's cells at a time
     (``gradients``).
+
+    ``cohort`` (population mode: the chunk's operands, made by
+    ``fl.driver``) holds ``data_idx`` [S, N], each active device's data shard, which a
+    minibatch gathers through; ``per_seed``, True when ``data`` is the
+    full batch gathered per seed row ([S, N, Dn, ...]: the seed rows hold
+    different cohorts), False when it is gathered once and shared
+    ([N, Dn, ...], which keeps the plain path's GEMM shapes); and ``fade``,
+    the cohort's gains, scale and LOS [S, N] for a process's step.
 
     ``uplink_dtype`` (default ``run.uplink_dtype``) and ``fuse_round``
     (default: fused exactly when ``flat``) follow the reference;
@@ -109,21 +134,22 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
 
     gradients = make_gradients(loss_fn, run)
 
-    def channel(fstate, draws, proc):
+    def channel(fstate, draws, proc, cohort):
         """(fstate, h [R, S, N]) of the round."""
         fade = getattr(draws, "fade", None)
         if fade is not None:
-            return proc.step(fstate, fade)
+            return proc.step(fstate, fade,
+                             None if cohort is None else cohort["fade"])
         return fstate, (draws.h if draws.h.dim() == 3 else draws.h[None])
 
     def body(schemes, eta, params, fstate, draws, data, cell_seed,
-             proc=None):
+             proc=None, cohort=None):
         x_dev, y_dev = data
         c = eta.shape[0]
-        fstate, h_rows = channel(fstate, draws, proc)
+        fstate, h_rows = channel(fstate, draws, proc, cohort)
         rows = h_rows.shape[0]
         grads, norms = gradients(params, x_dev, y_dev, draws.idx, cell_seed,
-                                 rows)
+                                 rows, cohort)
         k_row = len(schemes) // rows
         coeffs = [pc.round_coeffs(h_rows[j // k_row], draws.coin)
                   for j, pc in enumerate(schemes)]
@@ -156,13 +182,16 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
 def make_gradients(loss_fn: Callable, run) -> Callable:
     """Per-device gradients of every cell, clipped to G_max:
 
-        gradients(params, x_dev, y_dev, idx, cell_seed, rows=1)
-            -> (grads {leaf: [C, N, ...]}, norms [C, N])
+        gradients(params, x_dev, y_dev, idx, cell_seed, rows=1,
+                  cohort=None) -> (grads {leaf: [C, N, ...]}, norms [C, N])
 
     ``idx`` [S, N, B] picks each seed's minibatch (None: full batch).  The
     C cells are ``rows`` equal blocks (a grid's scenarios), and each block
     is one ``torch.func.vmap`` over its cells and devices, so a scenario's
-    cells run at the shapes of that scenario's own fleet."""
+    cells run at the shapes of that scenario's own fleet.  ``cohort``
+    (population mode, see ``make_round_body``): a minibatch gathers
+    through its ``data_idx``; a full batch gathered per seed row runs per
+    cell, one gathered once runs as the plain path."""
     def device_grad(params, x, y):
         g = grad(loss_fn)(params, (x, y))
         if run.clip_to_gmax:
@@ -175,20 +204,25 @@ def make_gradients(loss_fn: Callable, run) -> Callable:
     per_cell_batch = vmap(per_device, in_dims=(0, 0, 0))       # minibatch
     per_cell_full = vmap(per_device, in_dims=(0, None, None))  # full batch
 
-    def block(params, x_dev, y_dev, idx, cell_seed):
+    def block(params, x_dev, y_dev, idx, cell_seed, cohort):
         if idx is not None:
             dev_ix = torch.arange(x_dev.shape[0],
-                                  device=x_dev.device)[None, :, None]
+                                  device=x_dev.device)[None, :, None] \
+                if cohort is None else cohort["data_idx"][..., None]
             xb = x_dev[dev_ix, idx][cell_seed]            # [C, N, B, ...]
             yb = y_dev[dev_ix, idx][cell_seed]
             return per_cell_batch(params, xb, yb)
+        if cohort is not None and cohort["per_seed"]:     # [S, N, Dn, ...]
+            return per_cell_batch(params, x_dev[cell_seed],
+                                  y_dev[cell_seed])
         return per_cell_full(params, x_dev, y_dev)
 
-    def gradients(params, x_dev, y_dev, idx, cell_seed, rows=1):
+    def gradients(params, x_dev, y_dev, idx, cell_seed, rows=1,
+                  cohort=None):
         per = cell_seed.shape[0] // rows
         parts = [block({k: v[r * per:(r + 1) * per]
                         for k, v in params.items()}, x_dev, y_dev, idx,
-                       cell_seed[r * per:(r + 1) * per])
+                       cell_seed[r * per:(r + 1) * per], cohort)
                  for r in range(rows)]
         return _cat([g for g, _ in parts]), _cat([n for _, n in parts])
 
@@ -204,12 +238,19 @@ def _cat(parts):
     return torch.cat(parts)
 
 
-def chunk_lengths(num_rounds: int, eval_every: int, with_eval: bool) -> list:
+def chunk_lengths(num_rounds: int, eval_every: int, with_eval: bool,
+                  cohort_rounds: Optional[int] = None) -> list:
     """Chunk lengths whose boundaries hit the eval cadence (t % eval_every
-    == 0 or t == num_rounds - 1), as ``repro.fl.engine.chunk_lengths``."""
+    == 0 or t == num_rounds - 1), as ``repro.fl.engine.chunk_lengths``.
+    ``cohort_rounds`` adds population-cohort boundaries: the active set
+    changes before every round t with t % cohort_rounds == 0, so chunks
+    also end at rounds c * cohort_rounds - 1 (a cohort never straddles a
+    chunk)."""
     if num_rounds <= 0:
         return []
     pts = set(range(0, num_rounds, eval_every)) if with_eval else set()
+    if cohort_rounds:
+        pts |= set(range(cohort_rounds - 1, num_rounds, cohort_rounds))
     if not pts:
         return [num_rounds]
     pts = sorted(pts | {num_rounds - 1})

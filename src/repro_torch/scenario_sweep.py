@@ -3,7 +3,8 @@ scheme, a fleet per scenario, and the [scenario x scheme x seed] grid
 fleet, ported from ``benchmarks/scenario_sweep.py``.
 
     python -m repro_torch.scenario_sweep [--all] [--train] [--grid]
-        [--false-alarm] [--json PATH] [--device cuda]
+        [--false-alarm] [--rss-probe] [--json PATH]
+        [--device cuda]
 
 For every scenario (``scenarios.SWEEP_FAMILIES``; ``--all`` the whole
 registry) and every statistical-CSI scheme (sca, lcpc, zero_bias) it
@@ -26,7 +27,12 @@ identities, and ``curves.gate`` against the reference's committed grid
 (``experiments/scenario_reference``) over seeds 0-7; it exits nonzero on a
 miss.  ``--false-alarm`` prints how often that gate misses when the port
 and the reference agree in distribution, at four and at eight seeds a
-side (``gate_false_alarm``, on the CPU).  The settings are the
+side (``gate_false_alarm``, on the CPU).  ``--rss-probe`` runs the
+48-cell grid for ``RSS_PROBE_ROUNDS`` (20) rounds in a fresh child process
+and prints its peak host RSS and peak device memory (``rss_probe``: the
+reference's probe compares buffer donation on and off; the port has no
+donation -- a round's old tensors are freed when their references drop --
+so it reports the one run).  The settings are the
 reference's: eta 0.05 for every scheme, kappa^2 4, 100 rounds, an eval
 every 20, deployment seed 0.  JSON (the rows, the grid's identities, gate
 and histories) is written only where ``--json`` points.
@@ -373,6 +379,54 @@ def gate_false_alarm(ref: Sequence[dict], n_seeds: int,
     return {"per_comparison": rates, "any": float(miss_any.mean())}
 
 
+RSS_PROBE_ROUNDS = 20
+
+
+def _rss_probe_child(device) -> None:
+    """Child side of ``rss_probe``: design the grid's world, run it at
+    seeds 0-3 for ``RSS_PROBE_ROUNDS`` rounds, print the high-water
+    marks."""
+    import resource
+    from repro_torch.device import resolve_device
+    dev = resolve_device(device)
+    task = _task("paper_mlp")
+    world = design(scn.SWEEP_FAMILIES, device=dev)
+    td = task.build_data(0)
+    t0 = time.time()
+    grid_fleet(task, world, scn.SWEEP_FAMILIES,
+               run_config(task, RSS_PROBE_ROUNDS, RSS_PROBE_ROUNDS), SEEDS,
+               task_data=td, params=task.init_params(0, dev),
+               eval_fn=task.make_eval(td, dev), device=dev)
+    out = {"rounds": RSS_PROBE_ROUNDS, "grid_s": time.time() - t0,
+           "peak_rss_mb":
+               resource.getrusage(resource.RUSAGE_SELF).ru_maxrss / 1024.0}
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+        out["peak_device_mb"] = torch.cuda.max_memory_allocated(dev) / 2**20
+        out["device_total_mb"] = \
+            torch.cuda.get_device_properties(dev).total_memory / 2**20
+    print("RSS_PROBE " + json.dumps(out), flush=True)
+
+
+def rss_probe(device=None) -> dict:
+    """Peak host RSS and peak device memory of the 48-cell grid, from a
+    fresh process (a high-water mark means something only process-wide)."""
+    import os
+    import subprocess
+    cmd = [sys.executable, "-m", "repro_torch.scenario_sweep",
+           "--rss-probe-child"]
+    if device is not None:
+        cmd += ["--device", str(device)]
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    proc = subprocess.run(cmd, capture_output=True, text=True, env=env,
+                          cwd=str(ROOT))
+    line = next((ln for ln in proc.stdout.splitlines()
+                 if ln.startswith("RSS_PROBE ")), None)
+    if proc.returncode != 0 or line is None:
+        raise RuntimeError(f"rss probe failed:\n{proc.stderr[-3000:]}")
+    return json.loads(line[len("RSS_PROBE "):])
+
+
 def _fmt(v):
     return f"{v:.4g}" if isinstance(v, float) else str(v)
 
@@ -388,9 +442,25 @@ def main(argv=None) -> int:
                          "identities and the gate)")
     ap.add_argument("--false-alarm", action="store_true",
                     help="print the grid gate's false-alarm rates and exit")
+    ap.add_argument("--rss-probe", action="store_true",
+                    help="peak host RSS and device memory of the grid "
+                         "(a child process) and exit")
+    ap.add_argument("--rss-probe-child", action="store_true",
+                    help=argparse.SUPPRESS)
     ap.add_argument("--json", default=None, help="write the results here")
     ap.add_argument("--device", default=None)
     a = ap.parse_args(argv)
+    if a.rss_probe_child:
+        _rss_probe_child(a.device)
+        return 0
+    if a.rss_probe:
+        out = rss_probe(a.device)
+        print(json.dumps(out), flush=True)
+        if a.json:
+            Path(a.json).parent.mkdir(parents=True, exist_ok=True)
+            with open(a.json, "w") as f:
+                json.dump({"rss_probe": out}, f, indent=1)
+        return 0
     if a.false_alarm:
         ref = load_reference(GATE_SEEDS)
         for n in (len(SEEDS), len(GATE_SEEDS)):

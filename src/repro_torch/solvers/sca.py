@@ -85,7 +85,10 @@ def project_simplex(v: torch.Tensor) -> torch.Tensor:
     idx = torch.arange(1, n + 1, dtype=v.dtype, device=v.device)
     cond = u - css / idx > 0
     rho = torch.sum(cond, dim=-1)
-    theta = torch.gather(css, -1, (rho - 1)[..., None])[..., 0] \
+    # rho = 0 only on a non-finite row (an overflowed inner step); index
+    # -1 then wraps to the last entry, as the reference's take_along_axis
+    # does, and the row stays non-finite for the backtracking to reject
+    theta = torch.gather(css, -1, ((rho - 1) % n)[..., None])[..., 0] \
         / rho.to(v.dtype)
     return torch.clamp(v - theta[..., None], min=0.0)
 

@@ -368,7 +368,8 @@ def test_redesign_is_a_noop_on_static_csi():
     state = torch.zeros((2, 10), dtype=torch.complex64)
     assert pc.redesign_fn(pc, iid, state) is pc
     assert pc.redesign_fn(pc, None, state) is pc
-    assert pc.redesign_cohort_fn is None
+    # the population layer's hook (tests/test_torch_population.py)
+    assert callable(pc.redesign_cohort_fn)
 
 
 def test_adaptive_sca_by_name():

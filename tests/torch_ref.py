@@ -7,7 +7,8 @@
   seed of its Fig.-2 run (``benchmarks.fig2.run(..., save=False)``);
 * ``python -m tests.torch_ref``, which writes the reference's Fig.-2
   curves and ``sca`` design under ``experiments/fig2_reference/`` for the
-  port's curve check (``repro_torch.curves``);
+  port's curve check (``repro_torch.curves``), its scenario data
+  (``--scenarios``) and its population data (``--population``);
 * TF32 rounding and 3xTF32 products in plain torch, for the CPU emulations
   of the tensor-core kernels' arithmetic (K3 f32, K4).
 
@@ -800,6 +801,224 @@ def _scn_grid_job(job) -> str:
     return f"grid seed {seed}: {got['cpu_wall_s']:.1f} s (reference on the CPU)"
 
 
+# The reference's population mode and single-run API on a shrunk paper_mlp
+# (hidden 16, minibatch or full batch).  Part "population":
+# ``run_fleet(population=...)`` of the cohort-sized (10-device) Fig.-2
+# world's (sca, lcpc, zero_bias) over a parametric traffic-weighted
+# population, with its cohort trace and the h it consumed, rebuilt from the
+# driver's keys on each round's cohort gains ([T, S, N]);
+# ``AdaptiveSCA.redesign_cohort_fn`` on the tick-0 cohorts' gains; and
+# ``engine.chunk_lengths`` with cohort boundaries.  Part "run_fl":
+# ``run_fl`` of sca at seed 0 with its draws, and the legacy loop's host
+# minibatches (``server._sample_batches``).
+_POP_CHILD = r"""
+import json, sys
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+from jax import random as jr
+from repro.core import channel, ota, power_control as pcm, scenarios as scn
+from repro.core.theory import OTAParams
+from repro.fl import driver, server
+from repro.tasks.image import make_paper_mlp
+sys.path.insert(0, cfg["tests"])
+import torch_ref
+
+task = make_paper_mlp(hidden=cfg["hidden"],
+                      samples_per_class=cfg["samples_per_class"])
+td = task.build_data(0)
+params0 = task.init_params(0)
+w = channel.WirelessConfig(num_devices=cfg["cohort"], seed=0)
+dep = channel.deploy(w)
+prm = OTAParams(d=task.param_dim, gmax=10.0, es=w.energy_per_sample,
+                n0=w.noise_psd, gains=dep.gains,
+                sigma_sq=np.zeros(cfg["cohort"]), eta=0.05, lsmooth=1.0,
+                kappa_sq=4.0)
+pcs = [pcm.make_power_control(n, dep, prm, **(
+    {"method": "scipy"} if n == "sca" else {})) for n in cfg["schemes"]]
+pop = scn.Population(spec=scn.PopulationSpec(
+    size=cfg["size"], shadowing=scn.ShadowingSpec(), sampling="traffic",
+    seed=cfg["pop_seed"]))
+seeds, T = cfg["seeds"], cfg["rounds"]
+out = {"gains": dep.gains}
+for k, v in params0.items():
+    out["params0/" + k] = np.asarray(v)
+for i, pc in enumerate(pcs):
+    for f, v in torch_ref.scheme_fields(pc).items():
+        out["scheme%d/%s" % (i, f)] = v
+    out["scheme%d/name" % i] = np.asarray(pc.name)
+sizes = [int(np.asarray(params0[k]).size) for k in sorted(params0)]
+x_dev, y_dev = td.train
+if "population" in cfg["parts"]:
+    for tag, batch, flat in (("minibatch", cfg["batch"], True),
+                             ("full_batch", 0, False)):
+        run = task.run_config(eta=0.05, num_rounds=T,
+                              eval_every=cfg["every"], seed=0,
+                              batch_size=batch)
+        res = driver.run_fleet_task(
+            task, pcs, dep.gains, run, task_data=td, params=params0,
+            seeds=tuple(seeds), flat=flat, etas=[0.05] * len(pcs),
+            population=pop, cohort_size=cfg["cohort"],
+            cohort_rounds=cfg["cohort_rounds"], stream=False)
+        for k, v in res.params.items():
+            out["%s/params/%s" % (tag, k)] = np.asarray(v)
+        for k, v in res.traces.items():
+            out["%s/traces/%s" % (tag, k)] = np.asarray(v)
+        out["%s/evals_t" % tag] = np.asarray([t for t, _ in res.evals])
+        for k in res.evals[0][1]:
+            out["%s/evals/%s" % (tag, k)] = np.stack(
+                [np.asarray(ev[k]) for _, ev in res.evals])
+        out["%s/cohorts_t" % tag] = np.asarray([t for t, _ in res.cohorts])
+        out["%s/cohorts_idx" % tag] = np.stack([i for _, i in res.cohorts])
+    cohorts = res.cohorts
+    hs = []
+    for si, s in enumerate(seeds):
+        key, h_t = jr.PRNGKey(s), []
+        for t in range(T):
+            key, sub = jr.split(key)
+            idx = [i for t0, i in cohorts if t0 <= t][-1][si]
+            h_t.append(np.asarray(ota.draw_fading(
+                jr.split(sub, 3)[0], jax.numpy.asarray(pop.gains_of(idx)))))
+        hs.append(h_t)
+    out["h"] = np.swapaxes(np.asarray(hs), 0, 1)             # [T, S, N]
+    draws = torch_ref.reference_draws(jr, ota, np.ones(cfg["cohort"]),
+                                      seeds, T, sizes, cfg["cohort"],
+                                      cfg["batch"], x_dev.shape[1])
+    for k in ("z", "idx", "coin"):
+        out["draws/" + k] = draws[k]
+    # the cohort redesign of the tick-0 cohorts
+    ad = pcm.make_adaptive_sca(dep, prm)
+    g0 = np.stack([pop.gains_of(pop.draw_cohort(cfg["cohort"], 0, s))
+                   for s in seeds])
+    new = ad.redesign_cohort_fn(ad, g0)
+    out["redesign/gains"] = g0
+    for f in ("gamma", "alpha", "p", "thresholds", "noise_over_alpha"):
+        out["redesign/" + f] = np.asarray(getattr(new, f), np.float64)
+    from repro.fl.engine import chunk_lengths
+    for case in cfg["chunk_cases"]:
+        out["chunk_lengths/%d-%d-%d" % tuple(case)] = np.asarray(
+            chunk_lengths(case[0], case[1], True, cohort_rounds=case[2]),
+            np.int64)
+if "run_fl" in cfg["parts"]:
+    # run_fl: sca, seed 0, on the 10-device data world, with its draws
+    single = torch_ref.reference_draws(jr, ota, dep.gains, [0], T, sizes,
+                                       x_dev.shape[0], cfg["batch"],
+                                       x_dev.shape[1])
+    for k, v in single.items():
+        out["run_fl/draws/" + k] = v
+    for tag, batch, flat in (("minibatch", cfg["batch"], True),
+                             ("full_batch", 0, False)):
+        run = task.run_config(eta=0.05, num_rounds=T,
+                              eval_every=cfg["every"], seed=0,
+                              batch_size=batch)
+        p, hist = server.run_fl(task.loss_fn, params0, pcs[0], dep.gains,
+                                td.train, run, task.make_eval(td),
+                                flat=flat)
+        for k, v in p.items():
+            out["run_fl/%s/params/%s" % (tag, k)] = np.asarray(v)
+        for k, v in hist.traces.items():
+            out["run_fl/%s/traces/%s" % (tag, k)] = np.asarray(v)
+        for k in ("acc", "global_loss", "round", "active"):
+            out["run_fl/%s/hist/%s" % (tag, k)] = np.asarray(
+                [r[k] for r in hist])
+    # the legacy loop's host minibatches
+    rng = np.random.default_rng(cfg["legacy_seed"])
+    for t in range(T):
+        xb, yb = server._sample_batches(x_dev, y_dev, cfg["batch"], rng)
+        out["legacy/xb%d" % t], out["legacy/yb%d" % t] = xb, yb
+np.savez(cfg["out"], **out)
+"""
+
+POP_SCHEMES = ("sca", "lcpc", "zero_bias")
+# (num_rounds, eval_every, cohort_rounds): tests/test_population.py's cases
+POP_CHUNK_CASES = ((9, 3, 3), (10, 4, 3), (12, 5, 4), (7, 10, 2), (6, 2, 6))
+
+
+def run_reference_population(out_path: Path, *, hidden: int = 16,
+                             samples_per_class: int = 40, batch: int = 8,
+                             rounds: int = 4, every: int = 2,
+                             cohort_rounds: int = 2, cohort: int = 10,
+                             size: int = 2000, pop_seed: int = 3,
+                             seeds=(0, 1), parts=("population",),
+                             legacy_seed: int = 0,
+                             timeout: float = 900.0) -> dict:
+    """The reference's population fleet and cohort redesign (part
+    "population"), or its ``run_fl`` and legacy host minibatches (part
+    "run_fl"), on a shrunk paper_mlp, in a child process; see
+    ``_POP_CHILD``."""
+    cfg = dict(parts=list(parts), legacy_seed=legacy_seed,
+               chunk_cases=[list(c) for c in POP_CHUNK_CASES],
+               hidden=hidden, samples_per_class=samples_per_class,
+               batch=batch, rounds=rounds, every=every,
+               cohort_rounds=cohort_rounds, cohort=cohort, size=size,
+               pop_seed=pop_seed, seeds=list(seeds),
+               schemes=list(POP_SCHEMES), tests=str(ROOT / "tests"),
+               out=str(out_path))
+    return _run_child(_POP_CHILD, cfg, "reference population", timeout)
+
+
+# The reference data the card's phase 10 reads: the cohorts of
+# ``benchmarks.fig2.make_population(1_000_000)`` at ticks 0-4 for seeds
+# 0-1 (cohort 50) with their gains, and the cohort redesigns of seed 0 at
+# ticks 0 and 4 in the population benchmark's world
+# (``fig2.build_world(task, 0, num_devices=50)``, ``make_schemes(...,
+# ["adaptive_sca"])``); tick 4's cohort holds a device so weak (gain
+# 3e-15) that the solver's first inner stage overflows.
+_POP_REF_CHILD = r"""
+import json, sys, time
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+from benchmarks import fig2
+from repro import tasks
+
+t0 = time.time()
+pop = fig2.make_population(cfg["size"])
+cohorts = {}
+for s in cfg["seeds"]:
+    for tick in cfg["ticks"]:
+        idx = pop.draw_cohort(cfg["cohort"], tick, s)
+        cohorts["%d/%d" % (s, tick)] = {"idx": idx.tolist(),
+                                        "gains": pop.gains_of(idx).tolist()}
+task = tasks.get("paper_mlp", expect_runtime="fleet")
+dep, prm, _ = fig2.build_world(task, 0, num_devices=cfg["cohort"])
+pc = fig2.make_schemes(task, dep, prm, ["adaptive_sca"])[0]
+redesigns = {}
+for key in cfg["redesigns"]:
+    g = np.asarray(cohorts[key]["gains"])
+    new = pc.redesign_cohort_fn(pc, g[None])
+    redesigns[key] = {k: np.asarray(getattr(new, k),
+                                    np.float64).reshape(-1).tolist()
+                      for k in ("gamma", "alpha", "p")}
+with open(cfg["out"], "w") as f:
+    json.dump({"size": cfg["size"], "cohort": cfg["cohort"],
+               "seeds": cfg["seeds"], "ticks": cfg["ticks"],
+               "describe": pop.describe(), "cohorts": cohorts,
+               "redesigns": redesigns,
+               "cpu_wall_s": time.time() - t0}, f, indent=1)
+"""
+
+POP_REF_DIR = ROOT / "experiments" / "population_reference"
+
+
+def write_population_reference(out_dir: Path = POP_REF_DIR) -> str:
+    """experiments/population_reference/population.json (see
+    ``_POP_REF_CHILD``)."""
+    out_dir.mkdir(parents=True, exist_ok=True)
+    path = out_dir / "population.json"
+    _child(_POP_REF_CHILD, dict(size=1_000_000, cohort=50, seeds=[0, 1],
+                                ticks=[0, 1, 2, 3, 4],
+                                redesigns=["0/0", "0/4"], out=str(path)),
+           "reference population", 3600.0)
+    with open(path) as f:
+        wall = json.load(f)["cpu_wall_s"]
+    return f"population reference: {wall:.1f} s (reference on the CPU)"
+
+
 def prefixed(blob: dict, prefix: str) -> dict:
     """The entries of ``blob`` under ``prefix/``, prefix stripped."""
     p = prefix + "/"
@@ -871,7 +1090,8 @@ def main(argv=None) -> None:
     ``--scenarios all|theory|grid`` it writes experiments/
     scenario_reference/ instead: theory_seed0.json (every registered
     scenario) and grid/histories_seed<s>.json for each of ``--seeds``
-    (the card's gate reads seeds 0-7)."""
+    (the card's gate reads seeds 0-7).  With ``--population`` it writes
+    experiments/population_reference/population.json."""
     import argparse
     from concurrent.futures import ThreadPoolExecutor
     ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
@@ -887,8 +1107,16 @@ def main(argv=None) -> None:
                     help="write experiments/scenario_reference/ instead: the "
                          "theory sweep of every registered scenario, and/or "
                          "the full-width grid's histories for --seeds")
+    ap.add_argument("--population", action="store_true",
+                    help="write experiments/population_reference/ instead: "
+                         "the reference's 1M-device population cohorts "
+                         "and its tick-0 cohort redesign")
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
+    if a.population:
+        print(write_population_reference(
+            Path(a.out) if a.out else POP_REF_DIR), flush=True)
+        return
     if a.scenarios:
         out = Path(a.out) if a.out else SCN_REF_DIR
         jobs = [(s, out) for s in a.seeds] \
