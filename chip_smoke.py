@@ -153,10 +153,38 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      bitwise the uninterrupted one, re-entry table (``pop_last``,
      ``pop_state``) included; K1 at the cohort fleet's C = 1, N = 50,
      bitwise its plain version, timed;
- 11. one JSON line ``{"kernels": [...]}`` (K3 twice: bf16 with the bf16
-     serve run's launches, f32 with the f32 run's; K1 f32 three times: the
-     Fig.-2 main path's, the grid's and the cohort fleet's), then the last
-     line ``{"ok": true, "device": {...}}``.
+ 11. the cifar_conv fleet with run telemetry at full width (d = 268,650,
+     N = 10, Dirichlet 0.3 shards padded to the largest, minibatch 32,
+     K1 at [7, 10, 268,650]): (a) ``fig2.build_world("cifar_conv")``, its
+     seven schemes designed at the task's step sizes, ``sca`` within 1e-6
+     of the reference's committed design
+     (``experiments/cifar_reference/sca_design.json``); (b) the curves:
+     ``curves.run_port`` of cifar_conv, 150 rounds, an eval every 10, K1
+     once a round, held by ``curves.gate`` against the reference's curves
+     at seeds 0-3, or 0-7 when the gate's false-alarm rate over its 21
+     comparisons at four seeds a side (printed) is over 10 %; (c) ``fig2.run
+     (task="cifar_conv", telemetry=True)`` -- the path of ``fig2 --task
+     cifar_conv --telemetry`` -- for 30 rounds with a checkpoint: params,
+     the non-``bv_`` traces and the evals bitwise telemetry off, one
+     ``chunk_exec`` per chunk, ``python -m repro_torch.telemetry.report``
+     exits 0 and prints every section; (d) kill after chunk 1 and resume
+     under telemetry: bitwise the uninterrupted run, one run id, no
+     duplicate chunk span; (e) K1 (5 fused rounds) and K2 (5 unfused
+     rounds) forced off vs on, bitwise; K1 against its plain version at
+     the cifar shape, bitwise, timed beside its byte bound; (f) a short
+     ``adaptive_sca`` population run under telemetry, stream on (the
+     phase-10 world made Gauss-Markov, two cohorts): ``sca_solve`` events
+     tagged with their chunk, ``cohort`` events with each drawn device's
+     staleness, ``stage`` and ``stage_wait`` events; (g) the cifar
+     round's kernel launches, device time and busy share
+     (``profile_round.profile``), telemetry off, two runs of its fleet
+     bitwise equal (cuDNN deterministic), and its gradients alone timed
+     with deterministic cuDNN and with cuDNN's default algorithms (what the
+     determinism costs); its walls on one line;
+ 12. one JSON line ``{"kernels": [...]}`` (K3 twice: bf16 with the bf16
+     serve run's launches, f32 with the f32 run's; K1 f32 four times: the
+     Fig.-2 main path's, the grid's, the cohort fleet's and the cifar
+     fleet's), then the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
 fleet's reference is full float32.
@@ -254,6 +282,23 @@ POP_COHORT_ROUNDS, FULL_ROUNDS = 16, 6
 REENTRY = dict(size=200, rho=0.95, cohort=50, cohort_rounds=4, rounds=24,
                every=8, max_chunks=2)
 REDESIGN_RTOL = 1e-6
+# phase 11: the cifar_conv fleet with run telemetry.  Its world is
+# paper_mlp's deployment with the convnet's d (268,650); K1 reads
+# [C, N, D] = [7, 10, 268,650]; its curves run at the reference's cadence
+# and the task's minibatch 32.  The gate widens from seeds 0-3 to 0-7 when
+# its false-alarm rate at four seeds a side is over CIFAR_FALSE_ALARM_MAX
+# (scenario_sweep.gate_false_alarm on the reference's curves)
+CIFAR = (7, 10, 268_650)
+CIFAR_BATCH, CIFAR_PROTOCOL = 32, "minibatch32"
+CIFAR_FALSE_ALARM_MAX = 0.10
+TEL_ROUNDS = 30
+# the population run under telemetry: the phase-10 world made Gauss-Markov
+# (so each cohort event carries the staleness of its devices off the
+# re-entry table), adaptive_sca, stream on, two cohorts of 50
+POP_TEL = dict(rho=0.95, rounds=8, every=4, cohort_rounds=4)
+REPORT_SECTIONS = ("== run ", "== staging-lane timeline", "== SCA solver",
+                   "== bias--variance trajectory", "== cohort staleness",
+                   "== recompilation audit")
 
 
 class SmokeFailure(Exception):
@@ -801,7 +846,7 @@ def phase_single_run(torch, np, dev, world, card_line):
     """Phase 9: ``run_fl`` (K = S = 1) through K1 against the one-cell
     fleet, the legacy host loop at full batch against ``run_fl``, and
     ``fig2.benchmark`` at the reference's settings."""
-    from repro_torch import fig2
+    from repro_torch import fig2, validate_bench
     from repro_torch.fl.driver import run_fleet
     from repro_torch.fl.server import run_fl, run_fl_legacy
     task, dep, td, designs = (world[k] for k in ("task", "dep", "td",
@@ -871,6 +916,11 @@ def phase_single_run(torch, np, dev, world, card_line):
           f"round: {cnt}")
     check(all(np.isfinite(v) and v > 0 for block in ("wall_s", "speedup")
               for v in rep[block].values()), "fig2 --bench walls")
+    errors = validate_bench.validate_summary(
+        fig2.bench_summary(rep, task.name, "chip_smoke phase 9"))
+    print(f"  its summary against bench_schema.json: {errors or 'valid'}",
+          flush=True)
+    check(not errors, f"fig2 --bench summary violates the schema: {errors}")
     walls.update(bench_wall_s=rep["wall_s"], bench_speedup=rep["speedup"],
                  bench_max_abs_delta=rep["equivalence"]["max_abs_delta"])
     return walls
@@ -883,7 +933,7 @@ def phase_population(torch, np, dev, card, card_line, world):
     the tick-0 cohort redesign against the reference's, and re-entry with
     kill and resume on a Gauss-Markov population."""
     import tempfile
-    from repro_torch import fig2, scenario_sweep as ss
+    from repro_torch import fig2, scenario_sweep as ss, validate_bench
     from repro_torch.checkpoint import checkpoint as ckpt
     from repro_torch.core import power_control as pcm, scenarios as scn
     from repro_torch.fl.driver import run_fleet_task
@@ -915,6 +965,8 @@ def phase_population(torch, np, dev, card, card_line, world):
         batch_size=BATCH, log=False, full_schemes=[sca10], device=dev)
     torch.cuda.synchronize()
     cnt = _ota_counts()
+    errors = validate_bench.validate_summary(
+        fig2.bench_summary(rep, task.name, "chip_smoke phase 10"))
     res = rep.pop("result")
     print(f"  (b) population_benchmark: adaptive_sca, cohort {POP_COHORT}, "
           f"minibatch {BATCH}, fused f32 tail, {POP_ROUNDS} rounds, an eval "
@@ -931,6 +983,10 @@ def phase_population(torch, np, dev, card, card_line, world):
           f"population, cohort 10, sca, {FULL_ROUNDS} rounds, minibatch "
           f"{BATCH}) bitwise the plain fleet: {rep['full_cohort_bitwise']}",
           flush=True)
+    print(f"  its summary against bench_schema.json: {errors or 'valid'}",
+          flush=True)
+    check(not errors, f"population benchmark summary violates the schema: "
+          f"{errors}")
     check(rep["stream_bitwise"], "stream and serial differ")
     check(rep["full_cohort_bitwise"], "full participation differs from "
           "the plain fleet")
@@ -1019,6 +1075,326 @@ def phase_population(torch, np, dev, card, card_line, world):
     print(f"  phase 10 walls [{card_line}]: {json.dumps(walls)}", flush=True)
     return {"k1_launches": rep["launches"]["stream"]["ota_round_step"],
             "k1_row": k1, "walls": walls}
+
+
+def cifar_world(torch, np, dev):
+    """cifar_conv's world (``fig2.build_world``, data seed 0) and its seven
+    schemes designed at the task's step sizes, ``sca`` on the card (timed)
+    and held against the reference's committed design."""
+    from repro_torch import fig2
+    from repro_torch.core import theory
+    task = fig2._task("cifar_conv")
+    dep, prm, td = fig2.build_world(task, 0)
+    check(task.param_dim == CIFAR[2], f"cifar_conv d {task.param_dim}")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    schemes = fig2.make_schemes(task, dep, prm, device=dev)
+    torch.cuda.synchronize()
+    design_s = time.time() - t0
+    with open(ROOT / "experiments" / "cifar_reference"
+              / "sca_design.json") as f:
+        want = json.load(f)
+    prm_sca = prm.replace(eta=task.eta_for("sca", float(prm.eta)))
+    check(int(want["d"]) == CIFAR[2] and float(want["eta"]) == prm_sca.eta,
+          "the reference's cifar design is for another world")
+    sca = schemes[fig2.SCHEMES.index("sca")]
+    errs = {"gamma": _rel(np, sca.gamma, want["gamma"]),
+            "alpha": _rel(np, sca.alpha, want["alpha"]),
+            "thresholds": _rel(np, sca.thresholds, want["thresholds"]),
+            "objective": _rel(np, theory.p1_objective(sca.gamma, prm_sca),
+                              want["objective"])}
+    print(f"  (a) cifar_conv world: d = {task.param_dim}, shards "
+          f"{tuple(td.train[0].shape)} (Dirichlet 0.3, padded); the seven "
+          f"schemes designed in {design_s:.3f} s (sca: the torch f64 "
+          f"solver on the card); sca against the reference's committed "
+          f"design, relative: {json.dumps(errs)} (tol {SCA_RTOL}, "
+          f"objective {SCA_OBJECTIVE_RTOL})", flush=True)
+    for name in ("gamma", "alpha", "thresholds"):
+        check(errs[name] <= SCA_RTOL, f"cifar sca {name} off the "
+              f"reference's by {errs[name]:.3e}")
+    check(errs["objective"] <= SCA_OBJECTIVE_RTOL, "cifar sca objective off "
+          f"the reference's by {errs['objective']:.3e}")
+    return {"task": task, "dep": dep, "prm": prm, "td": td,
+            "schemes": schemes, "design_s": design_s, "design_err": errs}
+
+
+def cifar_curves(torch, np, dev, cw):
+    """The cifar curves through K1 (150 rounds, an eval every 10, minibatch
+    32) held by ``curves.gate`` against the reference's, at seeds 0-3, or
+    0-7 where the gate's false-alarm rate at four seeds a side is over
+    CIFAR_FALSE_ALARM_MAX."""
+    from repro_torch import curves, scenario_sweep as ss
+    reference, _ = curves.TASKS["cifar_conv"]
+    rates = {n: ss.gate_false_alarm(curves.load_reference(
+        CIFAR_PROTOCOL, range(n), reference), n)["any"] for n in (4, 8)}
+    seeds = tuple(range(8 if rates[4] > CIFAR_FALSE_ALARM_MAX else 4))
+    print(f"  (b) the gate's false-alarm rate over 21 comparisons at 4 "
+          f"seeds a side {rates[4]:.4f}, at 8 {rates[8]:.4f}: seeds "
+          f"{list(seeds)}", flush=True)
+    runs = []
+
+    def after(seed, res):
+        torch.cuda.synchronize()
+        runs.append((seed, _ota_counts(), round_ms(res), res.wall))
+        zero_counts()
+        check_result(torch, np, res, curves.ROUNDS, f"cifar seed {seed}")
+    zero_counts()
+    port = curves.run_port(CIFAR_PROTOCOL, seeds, dev, cw["schemes"],
+                           after_run=after, task="cifar_conv")
+    for seed, cnt, ms, wall in runs:
+        print(f"  cifar seed {seed}: {curves.ROUNDS} rounds, round wall "
+              f"{ms:.3f} ms, run wall {wall:.2f} s, counts {cnt}",
+              flush=True)
+        check(cnt == {"ota_round_step": curves.ROUNDS, "ota_aggregate": 0,
+                      "plain_round_step": 0, "plain_aggregate": 0},
+              f"cifar seed {seed}: K1 must launch once a round and nothing "
+              f"else of the OTA tail run: {cnt}")
+    rows = curves.gate(port, curves.load_reference(CIFAR_PROTOCOL, seeds,
+                                                   reference))
+    print(curves.table(rows, f"  cifar_conv {CIFAR_PROTOCOL}: port (this "
+                       f"card) vs reference (CPU), seeds {list(seeds)}, "
+                       f"{curves.ROUNDS} rounds"), flush=True)
+    fails = [f"{r['scheme']}/{r['stat']}" for r in rows if not r["ok"]]
+    check(not fails, f"cifar curves outside the gate: {fails}")
+    return {"seeds": list(seeds), "false_alarm": rates,
+            "round_ms": [ms for _, _, ms, _ in runs],
+            "gate_ok": f"{len(rows)}/{len(rows)}"}
+
+
+def _same_run(np, torch, a, b, bv=True):
+    """Params, traces (the ``bv_*`` ones only when ``bv``) and evals of two
+    fleet results, bitwise."""
+    keys = [k for k in a.traces if bv or not k.startswith("bv_")]
+    return (all(torch.equal(a.params[k], b.params[k]) for k in a.params)
+            and all(k in b.traces and np.array_equal(a.traces[k],
+                                                     b.traces[k])
+                    for k in keys)
+            and [t for t, _ in a.evals] == [t for t, _ in b.evals]
+            and all(np.array_equal(x[k], y[k]) for (_, x), (_, y)
+                    in zip(a.evals, b.evals) for k in x))
+
+
+def cifar_telemetry(torch, np, dev, cw):
+    """``fig2.run(task="cifar_conv", telemetry=True)`` (the path of ``fig2
+    --task cifar_conv --telemetry``) for TEL_ROUNDS rounds with a
+    checkpoint, against the same run with telemetry off; its report; and
+    its kill and resume under telemetry."""
+    import os
+    import subprocess as sp
+    import tempfile
+    from repro_torch import fig2
+    from repro_torch.telemetry import read_events
+    kw = dict(num_rounds=TEL_ROUNDS, eval_every=EVERY, seed=0,
+              batch_size=CIFAR_BATCH, task=cw["task"], save=False,
+              designs=cw["schemes"], device=dev)
+    out = {}
+    with tempfile.TemporaryDirectory() as tmp:
+        tmp = Path(tmp)
+        zero_counts()
+        _, off = fig2.run(**kw, checkpoint_path=str(tmp / "off" / "fleet"))
+        torch.cuda.synchronize()
+        cnt_off = counts()
+        zero_counts()
+        _, on = fig2.run(**kw, telemetry=True, out_dir=tmp / "on",
+                         checkpoint_path=str(tmp / "on" / "fleet"))
+        torch.cuda.synchronize()
+        cnt_on = counts()
+        events = read_events(str(tmp / "on"))
+        execs = [e["chunk"] for e in events if e["ev"] == "chunk_exec"]
+        proc = sp.run([sys.executable, "-m", "repro_torch.telemetry.report",
+                       str(tmp / "on")], capture_output=True, text=True,
+                      timeout=300, env={**os.environ,
+                                        "PYTHONPATH": str(SRC)})
+        report_ok = proc.returncode == 0 and all(
+            t in proc.stdout for t in REPORT_SECTIONS) \
+            and "bv_bias_power" in proc.stdout
+        first = fig2.run(**kw, telemetry=True, out_dir=tmp / "kill",
+                         checkpoint_path=str(tmp / "kill" / "fleet"),
+                         max_chunks=1)[1]
+        rest = fig2.run(**kw, telemetry=True, out_dir=tmp / "kill",
+                        checkpoint_path=str(tmp / "kill" / "fleet"),
+                        resume=True)[1]
+        kill_ev = read_events(str(tmp / "kill"))
+    kill_execs = [e["chunk"] for e in kill_ev if e["ev"] == "chunk_exec"]
+    same = _same_run(np, torch, on, off, bv=False)
+    bv = sorted(k for k in on.traces if k.startswith("bv_"))
+    resumed = _same_run(np, torch, on, rest)
+    out = {"round_ms_off": round_ms(off), "round_ms_on": round_ms(on),
+           "k1_launches": cnt_on["ota_round_step"]}
+    out["overhead_share"] = out["round_ms_on"] / out["round_ms_off"] - 1.0
+    print(f"  (c) fig2.run cifar_conv --telemetry, {TEL_ROUNDS} rounds with "
+          f"a checkpoint: params, the non-bv traces and the evals bitwise "
+          f"telemetry off: {same}; bv traces {bv}; {len(events)} events, "
+          f"chunk_exec of chunks {execs} ({len(on.chunk_walls)} chunks); "
+          f"round wall {out['round_ms_off']:.3f} ms off, "
+          f"{out['round_ms_on']:.3f} ms on ({100 * out['overhead_share']:+.1f}"
+          f" %); counts off {cnt_off}, on {cnt_on}; report exit "
+          f"{proc.returncode}, every section: {report_ok}", flush=True)
+    print("\n".join("    | " + line for line in proc.stdout.splitlines()
+                    [:40]), flush=True)
+    check(same, "telemetry on changed params, traces or evals")
+    check(bv == ["bv_bias_power", "bv_chan_power", "bv_noise_var",
+                 "bv_weight_dev"] and not any(k.startswith("bv_")
+                                              for k in off.traces),
+          f"bv traces: on {bv}, off {sorted(off.traces)}")
+    check(execs == list(range(len(on.chunk_walls))),
+          f"one chunk_exec per chunk: {execs}")
+    check(cnt_on["ota_round_step"] == cnt_off["ota_round_step"] == TEL_ROUNDS
+          and cnt_on["plain_round_step"] == 0,
+          f"K1 once a round with and without telemetry: {cnt_off}, "
+          f"{cnt_on}")
+    check(report_ok, f"telemetry.report: {proc.returncode} "
+          f"{proc.stderr[-2000:]}")
+    runs = {e["run"] for e in kill_ev}
+    print(f"  (d) kill after chunk 1 and resume under telemetry: bitwise the "
+          f"uninterrupted run (bv traces included): {resumed}; run ids "
+          f"{sorted(runs)}; chunk_exec of chunks {kill_execs}; "
+          f"{sum(e['ev'] == 'run_resume' for e in kill_ev)} run_resume",
+          flush=True)
+    check(sum(n for n, _ in first.chunk_walls) < TEL_ROUNDS,
+          "the first invocation ran every round")
+    check(resumed, "the resumed run differs from the uninterrupted one")
+    check(len(runs) == 1 and kill_execs == list(range(len(on.chunk_walls))),
+          f"one log after kill and resume: runs {runs}, chunks {kill_execs}")
+    return out
+
+
+def cifar_forced_off(torch, dev, cw):
+    """K1 (SHORT fused rounds) and K2 (SHORT unfused rounds) forced off vs
+    on, the cifar fleet, bitwise."""
+    from repro_torch.fl.driver import run_fleet_task
+    task, dep, td = cw["task"], cw["dep"], cw["td"]
+    run = task.run_config(num_rounds=SHORT, eval_every=SHORT, seed=0,
+                          batch_size=CIFAR_BATCH)
+    out = {}
+    for label, kw, kernel in (("fused", {}, "ota_round_step"),
+                              ("unfused", {"fuse_round": False},
+                               "ota_aggregate")):
+        zero_counts()
+        on = run_fleet_task(task, cw["schemes"], dep.gains, run,
+                            task_data=td, flat=True, device=dev, **kw)
+        torch.cuda.synchronize()
+        cnt = _ota_counts()
+        off = run_fleet_task(task, cw["schemes"], dep.gains, run,
+                             task_data=td, flat=True, device=dev,
+                             use_kernel=False, **kw)
+        same = all(torch.equal(on.params[k], off.params[k])
+                   for k in on.params)
+        print(f"  (e) cifar {label}, {SHORT} rounds, {kernel} forced off vs "
+              f"on: bitwise {same}; counts on {cnt}", flush=True)
+        check(cnt[kernel] == SHORT and sum(cnt.values()) == SHORT,
+              f"cifar {label}: {kernel} once a round, nothing else: {cnt}")
+        check(same, f"cifar {label}: kernels forced off differ")
+        out[label] = cnt[kernel]
+    return out
+
+
+def population_telemetry(torch, np, dev, world):
+    """A short ``adaptive_sca`` population run under telemetry, stream on:
+    the phase-10 world (1M devices, disk, 8 dB shadowing, traffic-weighted
+    cohorts of 50, paper_mlp) made Gauss-Markov, two cohorts."""
+    import tempfile
+    from repro_torch import fig2
+    from repro_torch.core import power_control as pcm, scenarios as scn
+    from repro_torch.fl.driver import run_fleet_task
+    from repro_torch.telemetry import Telemetry, read_events
+    task = world["task"]
+    p = POP_TEL
+    dep, prm, td = fig2.build_world(task, 0, num_devices=POP_COHORT)
+    prm = prm.replace(eta=task.eta_for("adaptive_sca", float(prm.eta)))
+    pcs = [pcm.make_adaptive_sca(dep, prm, base=pcm.make_sca(
+        dep, prm, method="scipy"))]
+    pop = scn.Population(spec=scn.PopulationSpec(
+        size=POP_SIZE, shadowing=scn.ShadowingSpec(), sampling="traffic",
+        dynamics=scn.DynamicsSpec(rho=p["rho"])))
+    run = task.run_config(num_rounds=p["rounds"], eval_every=p["every"],
+                          seed=0, batch_size=BATCH)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        zero_counts()
+        res = run_fleet_task(task, pcs, dep.gains, run, task_data=td,
+                             flat=True, population=pop,
+                             cohort_size=POP_COHORT,
+                             cohort_rounds=p["cohort_rounds"], stream=True,
+                             telemetry=Telemetry(run_dir=tmp,
+                                                 kappa_sq=float(prm.kappa_sq)),
+                             device=dev)
+        torch.cuda.synchronize()
+        cnt = _ota_counts()
+        events = read_events(tmp)
+    kinds = {}
+    for e in events:
+        kinds[e["ev"]] = kinds.get(e["ev"], 0) + 1
+    solves = [e for e in events if e["ev"] == "sca_solve"]
+    cohorts = [e for e in events if e["ev"] == "cohort"]
+    stages = [e for e in events if e["ev"] == "stage"]
+    waits = [e for e in events if e["ev"] == "stage_wait"]
+    stale = [np.asarray(e["staleness"]).shape for e in cohorts
+             if "staleness" in e]
+    print(f"  (f) population under telemetry: adaptive_sca on "
+          f"{POP_SIZE:,} Gauss-Markov devices (rho {p['rho']}), cohort "
+          f"{POP_COHORT}, {p['rounds']} rounds, a cohort every "
+          f"{p['cohort_rounds']}, stream on: events {json.dumps(kinds)}; "
+          f"sca_solve chunks {[e.get('chunk') for e in solves]}; cohort "
+          f"staleness shapes {stale}, never seen "
+          f"{[e.get('never_seen') for e in cohorts]}; stage chunks "
+          f"{[e['chunk'] for e in stages]}, stage_wait chunks "
+          f"{[e['chunk'] for e in waits]}; counts {cnt}; "
+          f"{time.time() - t0:.2f} s", flush=True)
+    check(len(solves) == len(cohorts) == 2 and all(
+        isinstance(e.get("chunk"), int) for e in solves),
+        "one sca_solve per fresh cohort, tagged with its chunk")
+    check(len(stale) == len(cohorts) and all(
+        sh == (1, POP_COHORT) for sh in stale), "cohorts carry staleness")
+    check(stages and waits and len(waits) == len(stages) - 1,
+          "stage and stage_wait events")
+    check(cnt["ota_round_step"] == p["rounds"]
+          and cnt["plain_round_step"] == 0, f"population K1 {cnt}")
+    check(len(res.designs) == 2, "two cohort redesigns")
+    return kinds
+
+
+def phase_cifar(torch, np, dev, card, card_line, world):
+    """Phase 11: the cifar_conv fleet with run telemetry at full width."""
+    from repro_torch import fig2
+    from repro_torch.profile_round import fig2_fleet, profile
+    t_phase = time.time()
+    cw = cifar_world(torch, np, dev)
+    curves_stats = cifar_curves(torch, np, dev, cw)
+    tel = cifar_telemetry(torch, np, dev, cw)
+    forced = cifar_forced_off(torch, dev, cw)
+    k1 = k1_row(torch, dev, card, CIFAR, "the cifar fleet's", 12)
+    pop = population_telemetry(torch, np, dev, world)
+    fleet, _, _, grad_ms = fig2_fleet(cw["task"], SHORT, CIFAR_BATCH, dev,
+                                      schemes=cw["schemes"])
+    prof = profile(fleet, SHORT)
+    det, dflt = grad_ms["deterministic_True"], grad_ms["deterministic_False"]
+    print(f"  (g) the cifar round, telemetry off, {SHORT} rounds under "
+          f"torch.profiler: {prof['launches_per_round']:.1f} kernel "
+          f"launches a round, device {prof['device_ms_per_round']:.3f} ms, "
+          f"wall {prof['round_wall_ms']:.3f} ms, busy "
+          f"{prof['busy_share']:.3f}; two runs apart by "
+          f"{prof['repeat_max_abs_diff']:.3e} (deterministic cuDNN); top "
+          f"kernels {json.dumps(prof['top'][:6])} [{card_line}]",
+          flush=True)
+    print(f"  (g) the round's gradients alone (CUDA events): "
+          f"{det['ms']:.3f} ms with deterministic cuDNN, {dflt['ms']:.3f} "
+          f"ms with cuDNN's default algorithms "
+          f"({100 * (det['ms'] / dflt['ms'] - 1):+.1f} %); two calls apart "
+          f"by {det['repeat_max_abs_diff']:.3e} and "
+          f"{dflt['repeat_max_abs_diff']:.3e}", flush=True)
+    check(prof["repeat_max_abs_diff"] == 0.0
+          and det["repeat_max_abs_diff"] == 0.0,
+          "two runs of the same cifar fleet differ")
+    walls = {"phase_s": time.time() - t_phase, "design_s": cw["design_s"],
+             "curves": curves_stats, "telemetry": tel,
+             "launches_per_round": prof["launches_per_round"],
+             "gradients_ms": grad_ms,
+             "device_ms_per_round": prof["device_ms_per_round"],
+             "busy_share": prof["busy_share"]}
+    print(f"  phase 11 walls [{card_line}]: {json.dumps(walls)}", flush=True)
+    return {"k1_launches": tel["k1_launches"], "k1_row": k1,
+            "forced": forced, "walls": walls, "events": pop}
 
 
 def _ota_counts():
@@ -1570,6 +1946,9 @@ def main() -> int:
     print("[10] population mode: a 1M-device population, streamed cohorts, "
           "adaptive_sca's cohort redesign, through K1", flush=True)
     popr = phase_population(torch, np, dev, card, card_line, world)
+    print("[11] the cifar_conv fleet with run telemetry: fig2 --task "
+          "cifar_conv --telemetry through K1", flush=True)
+    cifar = phase_cifar(torch, np, dev, card, card_line, world)
 
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
@@ -1590,6 +1969,8 @@ def main() -> int:
                  "ota_round_step", scen["grid_k1"], scen["k1_row"]))
     rows.append((f"ota_round_step[f32, cohort C=1 N={POP_COHORT}]",
                  "ota_round_step", popr["k1_launches"], popr["k1_row"]))
+    rows.append((f"ota_round_step[f32, cifar C={CIFAR[0]} D={CIFAR[2]}]",
+                 "ota_round_step", cifar["k1_launches"], cifar["k1_row"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -1598,14 +1979,16 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[11] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[12] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[11] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[11] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[11] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[11] single run: {json.dumps(single)}", flush=True)
-    print(f"[11] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[11] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print(f"[12] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[12] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[12] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[12] single run: {json.dumps(single)}", flush=True)
+    print(f"[12] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[12] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+          flush=True)
+    print(f"[12] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "

@@ -263,7 +263,7 @@ def make_adaptive_sca(deployment: Deployment, prm: OTAParams,
             sigma_sq=f64(prm.sigma_sq).expand(rows, n), eta=row(prm.eta),
             lsmooth=row(prm.lsmooth), kappa_sq=row(prm.kappa_sq),
             dropout=row(prm.dropout), fading_param=k_eff, family="rician")
-        out = solvers.solve_batch(prm_b, cfg, device=dev)
+        out = solvers.solve_batch_traced(prm_b, cfg, device=dev)
         gamma = out.gamma.reshape(batch + (n,))
         alpha = out.alpha.reshape(batch)
         return dataclasses.replace(
@@ -300,7 +300,7 @@ def make_adaptive_sca(deployment: Deployment, prm: OTAParams,
             kappa_sq=row(prm.kappa_sq), dropout=row(prm.dropout),
             fading_param=torch.full((rows, n), fparam, dtype=torch.float64),
             family=family)
-        out = solvers.solve_batch(prm_b, cfg, device=device)
+        out = solvers.solve_batch_traced(prm_b, cfg, device=device)
         gamma = out.gamma.reshape(batch + (n,))
         alpha = out.alpha.reshape(batch)
         return dataclasses.replace(

@@ -1,15 +1,19 @@
 """The port's Fig.-2 curves held against the reference's.
 
-    python -m repro_torch.curves [--seeds 0 1 2 3] [--json PATH]
-        [--device cuda]
+    python -m repro_torch.curves [--task paper_mlp|cifar_conv]
+        [--seeds 0 1 2 3] [--json PATH] [--device cuda]
 
-Runs ``repro_torch.fig2.run`` for every seed in each protocol (the paper's
-full batch, aggregated leaf by leaf; minibatch 128 on the fused f32 path,
-through kernel K1) at the reference's cadence (150 rounds, an eval every
-10 and at the last round), reads the reference's curves for the same seeds
-(``experiments/fig2_reference/<protocol>/histories_seed<s>.json``, written
-on the CPU by ``python -m tests.torch_ref``), prints a per-scheme table and
-exits nonzero when the gate fails.
+Runs ``repro_torch.fig2.run`` for every seed in each of the task's
+protocols at the reference's cadence (150 rounds, an eval every 10 and at
+the last round), reads the reference's curves for the same seeds from the
+task's reference directory (``<reference>/<protocol>/
+histories_seed<s>.json``, written on the CPU by ``python -m
+tests.torch_ref``), prints a per-scheme table and exits nonzero when the
+gate fails.  ``TASKS`` names each task's reference directory and
+protocols: paper_mlp's are the paper's full batch (aggregated leaf by
+leaf) and minibatch 128 on the fused f32 path (through kernel K1), in
+``experiments/fig2_reference``; cifar_conv's is its preferred minibatch 32
+on the fused path, in ``experiments/cifar_reference``.
 
 The gate.  The port draws its random numbers from torch generators, not
 JAX's threefry, so the port at seed s is not the reference at seed s: the
@@ -36,14 +40,19 @@ from typing import Callable, Optional, Sequence
 
 import numpy as np
 
-PROTOCOLS = {"full_batch": 0, "minibatch128": 128}
 ROUNDS, EVERY = 150, 10     # the reference's Fig.-2 cadence
 STATS = ("final_acc", "final_loss", "mean_acc")
 ACC_FLOOR = 0.01
 LOSS_FLOOR_SHARE = 0.02
 SIGMAS = 3.0
 ROOT = Path(__file__).resolve().parents[2]
-REFERENCE = ROOT / "experiments" / "fig2_reference"
+# each task's reference directory and protocols (name -> minibatch, 0 =
+# full batch)
+TASKS = {"paper_mlp": (ROOT / "experiments" / "fig2_reference",
+                       {"full_batch": 0, "minibatch128": 128}),
+         "cifar_conv": (ROOT / "experiments" / "cifar_reference",
+                        {"minibatch32": 32})}
+REFERENCE, PROTOCOLS = TASKS["paper_mlp"]
 
 
 def curve_stats(rows: Sequence[dict]) -> dict:
@@ -53,11 +62,14 @@ def curve_stats(rows: Sequence[dict]) -> dict:
             "mean_acc": float(np.mean([r["acc"] for r in rows]))}
 
 
-def load_reference(protocol: str, seeds: Sequence[int]) -> list:
-    """The reference's histories ({scheme: [eval rows]}) per seed."""
+def load_reference(protocol: str, seeds: Sequence[int],
+                   reference: Path = REFERENCE) -> list:
+    """The reference's histories ({scheme: [eval rows]}) per seed, from
+    ``reference`` (default paper_mlp's)."""
     out = []
     for s in seeds:
-        with open(REFERENCE / protocol / f"histories_seed{s}.json") as f:
+        with open(Path(reference) / protocol
+                  / f"histories_seed{s}.json") as f:
             out.append(json.load(f))
     return out
 
@@ -127,40 +139,42 @@ def table(rows: Sequence[dict], title: str = "") -> str:
 
 
 def run_port(protocol: str, seeds: Sequence[int], device=None, designs=None,
-             after_run: Optional[Callable] = None) -> list:
-    """``fig2.run`` for each seed of one protocol at the reference's
-    cadence (nothing saved); returns the histories.  The schemes are designed once (``designs``, default
-    ``fig2.make_schemes``): the world does not depend on the data seed.
-    ``after_run(seed, res)`` is called after each run, e.g. to read the
-    kernels' launch counts."""
+             after_run: Optional[Callable] = None,
+             task: str = "paper_mlp") -> list:
+    """``fig2.run`` of ``task`` for each seed of one of its protocols at
+    the reference's cadence (nothing saved); returns the histories.  The
+    schemes are designed once (``designs``, default ``design_schemes``):
+    the world does not depend on the data seed.  ``after_run(seed, res)``
+    is called after each run, e.g. to read the kernels' launch counts."""
     from repro_torch import fig2
     from repro_torch.device import resolve_device
     dev = resolve_device(device)
     if designs is None:
-        designs = design_schemes(dev)
+        designs = design_schemes(dev, task)
     out = []
     for s in seeds:
         hist, res = fig2.run(num_rounds=ROUNDS, eval_every=EVERY, seed=s,
-                             batch_size=PROTOCOLS[protocol],
-                             uplink_dtype="f32", save=False, designs=designs,
-                             device=dev)
+                             batch_size=TASKS[task][1][protocol],
+                             task=task, uplink_dtype="f32", save=False,
+                             designs=designs, device=dev)
         if after_run is not None:
             after_run(s, res)
         out.append(hist)
     return out
 
 
-def design_schemes(device):
-    """The seven Fig.-2 schemes at paper_mlp's world (data seed 0; the
+def design_schemes(device, task: str = "paper_mlp"):
+    """The seven Fig.-2 schemes at ``task``'s world (data seed 0; the
     world does not depend on it)."""
     from repro_torch import fig2, tasks
-    task = tasks.get("paper_mlp", expect_runtime="fleet")
+    task = tasks.get(task, expect_runtime="fleet")
     dep, prm, _ = fig2.build_world(task, 0)
     return fig2.make_schemes(task, dep, prm, device=device)
 
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--task", default="paper_mlp", choices=sorted(TASKS))
     ap.add_argument("--seeds", type=int, nargs="+", default=[0, 1, 2, 3])
     ap.add_argument("--json", default=None,
                     help="also write the gate's rows here")
@@ -168,11 +182,12 @@ def main(argv=None) -> int:
     a = ap.parse_args(argv)
     from repro_torch.device import resolve_device
     dev = resolve_device(a.device)
-    designs = design_schemes(dev)
+    designs = design_schemes(dev, a.task)
+    reference, protocols = TASKS[a.task]
     ok, report = True, {}
-    for protocol in PROTOCOLS:
-        port = run_port(protocol, a.seeds, dev, designs)
-        rows = gate(port, load_reference(protocol, a.seeds))
+    for protocol in protocols:
+        port = run_port(protocol, a.seeds, dev, designs, task=a.task)
+        rows = gate(port, load_reference(protocol, a.seeds, reference))
         print(table(rows, f"{protocol}: port vs reference, seeds "
                           f"{a.seeds}, {ROUNDS} rounds"), flush=True)
         report[protocol] = rows

@@ -6,7 +6,11 @@ caller asks for it (``device="cpu"``), as the tests do, and then every
 kernel wrapper takes its plain PyTorch version.
 
 On CUDA it also turns TF32 off for matmuls and cuDNN: the reference is
-full float32, and TF32 keeps only about three decimal digits.
+full float32, and TF32 keeps only about three decimal digits.  And it
+makes cuDNN deterministic (its default weight-gradient algorithm for the
+cifar convnet's convolutions sums with atomics, so two runs of one fleet
+differed by an ulp): a resumed, a telemetry-on or a kernels-off run is
+then bitwise the run it is held against.
 """
 from __future__ import annotations
 
@@ -28,6 +32,8 @@ def resolve_device(device: DeviceLike = None) -> torch.device:
         # current PyTorch, but cuDNN's TF32 defaults to on)
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cudnn.deterministic = True
+        torch.backends.cudnn.benchmark = False
     elif dev.type != "cpu":
         raise ValueError(f"unsupported device {dev}")
     return dev

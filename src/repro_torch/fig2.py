@@ -1,24 +1,29 @@
 """Fig.-2 reproduction on the port: test accuracy and global loss vs FL
 rounds for all seven schemes, run as ONE fleet on the GPU.
 
-    python -m repro_torch.fig2 [--task paper_mlp] [--rounds 150]
-        [--every 10] [--batch 128] [--uplink f32|bf16|int8] [--unfused]
+    python -m repro_torch.fig2 [--task paper_mlp|cifar_conv] [--rounds 150]
+        [--every 10] [--batch B] [--uplink f32|bf16|int8] [--unfused]
         [--seed 0] [--checkpoint] [--resume] [--max-chunks N]
-        [--legacy] [--bench] [--json PATH]
+        [--telemetry] [--legacy] [--bench] [--json PATH]
         [--population P --cohort N [--cohort-rounds R] [--no-stream]]
         [--device cuda]
 
 A port of the fleet branch of ``benchmarks/fig2.py::run``; the workload
 comes from the task registry (``repro_torch.tasks``).  The default is the
-minibatch / flat mode (``--batch 128``, the reference's ``--bench``
-batch), whose rounds go through kernel K1 (or K2 with ``--unfused``);
-``--batch 0`` is the paper's full-batch protocol, which aggregates leaf by
-leaf.  ``--checkpoint`` saves the fleet at every chunk boundary under the
-task's artifact directory, ``--resume`` continues from that checkpoint
-(bitwise equal to an uninterrupted run), and ``--max-chunks N`` stops after
-N chunks.  ``--legacy`` runs the historical host loop
-(``fl.server.run_fl_legacy``) one scheme at a time.  Writes
-``experiments/fig2_torch/histories_seed<seed>.json``.
+minibatch / flat mode, whose rounds go through kernel K1 (or K2 with
+``--unfused``), at the task's preferred minibatch (cifar_conv: 32); a task
+whose preferred mode is the full batch (paper_mlp) runs minibatch 128,
+the reference's ``--bench`` batch, unless ``--batch 0`` asks for the
+paper's full-batch protocol, which aggregates leaf by leaf.
+``--checkpoint`` saves the fleet at every chunk boundary under the task's
+artifact directory, ``--resume`` continues from that checkpoint (bitwise
+equal to an uninterrupted run), and ``--max-chunks N`` stops after N
+chunks.  ``--telemetry`` writes the event log (``events.jsonl``) and the
+``bv_*`` diagnostic traces into the task's artifact directory; render it
+with ``python -m repro_torch.telemetry.report <dir>``.  ``--legacy`` runs
+the historical host loop (``fl.server.run_fl_legacy``) one scheme at a
+time.  Writes ``experiments/<artifact tag>/histories_seed<seed>.json``
+(paper_mlp: ``fig2_torch``; cifar_conv: ``cifar``).
 
 ``--population P`` runs the fleet in population mode: each chunk on a
 ``--cohort``-sized draw from a P-device parametric population
@@ -33,7 +38,10 @@ minibatch 128, with ``wall_s``, ``speedup`` and ``equivalence`` in the
 keys of ``benchmarks/bench_schema.json``.  ``--bench --population P``
 runs ``population_benchmark`` instead: ``adaptive_sca`` on P devices,
 stream vs serial, and the full-participation identity.  Both write JSON
-only to ``--json`` (nothing when it is not given).
+only to ``--json`` (nothing when it is not given): the report condensed to
+the schema's summary (``bench_summary``), checked by
+``repro_torch.validate_bench`` before it is written, and the whole report
+beside it (``<name>.report.json``).
 """
 from __future__ import annotations
 
@@ -46,7 +54,7 @@ from pathlib import Path
 import numpy as np
 import torch
 
-from repro_torch import tasks
+from repro_torch import tasks, validate_bench
 from repro_torch.core import channel, power_control as pcm
 from repro_torch.core import scenarios as scn
 from repro_torch.core.theory import OTAParams
@@ -56,6 +64,7 @@ from repro_torch.fl.server import run_fl_legacy
 from repro_torch.kernels import ref, round_step
 from repro_torch.kernels.ops import UPLINK_DTYPES
 from repro_torch.scenario_sweep import bitwise
+from repro_torch.telemetry import Telemetry
 
 SCHEMES = ["ideal", "opc", "sca", "lcpc", "vanilla", "bbfl_interior",
            "bbfl_alternative"]
@@ -72,6 +81,12 @@ def _task(task):
         raise ValueError(f"task {task.name!r} is a {task.runtime!r}-runtime "
                          f"workload; this benchmark needs a fleet task")
     return task
+
+
+def default_batch(task) -> int:
+    """The task's preferred minibatch, or ``BENCH_BATCH`` for a task whose
+    preferred mode is the full batch (paper_mlp's 0)."""
+    return int(task.defaults.get("batch_size", 0)) or BENCH_BATCH
 
 
 def artifact_dir(task) -> Path:
@@ -133,16 +148,21 @@ def histories(res) -> dict:
 
 
 def run(num_rounds: int = 150, eval_every: int = 10, seed: int = 0,
-        schemes=SCHEMES, batch_size: int = BENCH_BATCH, task="paper_mlp",
+        schemes=SCHEMES, batch_size=None, task="paper_mlp",
         uplink_dtype: str = "f32", fuse_round=None, log: bool = False,
         save: bool = True, out_dir=None, checkpoint_path=None,
         resume: bool = False, max_chunks=None, designs=None, fading=None,
         engine: str = "fleet", population: int = 0, cohort=None,
-        cohort_rounds=None, stream: bool = True, device=None):
+        cohort_rounds=None, stream: bool = True, telemetry=None,
+        device=None):
     """Histories of every scheme on ``task`` (a registered name or a Task;
     default paper_mlp at full width); returns (histories, FLResult) (the
     FLResult is None for the legacy engine).  ``batch_size > 0`` runs the
-    flat minibatch mode, 0 the full-batch per-leaf mode.
+    flat minibatch mode, 0 the full-batch per-leaf mode, None
+    ``default_batch(task)``.  ``telemetry`` (fleet engine only): True
+    writes the event log and the ``bv_*`` traces into the task's artifact
+    dir (``out_dir`` when given) with the world's kappa^2; a run-dir string
+    or a ``telemetry.Telemetry`` passes to the driver as it is.
     ``checkpoint_path`` / ``resume`` / ``max_chunks`` and ``fading`` (a
     ``core.scenarios`` process on this world's gains) pass to the driver.
     ``designs``: the schemes already designed for this task's world
@@ -154,6 +174,11 @@ def run(num_rounds: int = 150, eval_every: int = 10, seed: int = 0,
     schemes designed for the cohort-sized world."""
     dev = resolve_device(device)
     task = _task(task)
+    if batch_size is None:
+        batch_size = default_batch(task)
+    telemetry = telemetry or None
+    if telemetry is not None and engine != "fleet":
+        raise ValueError("telemetry needs the fleet engine")
     if engine == "legacy":
         fleet_only = {"uplink_dtype": uplink_dtype != "f32",
                       "fuse_round": fuse_round is not None,
@@ -174,6 +199,10 @@ def run(num_rounds: int = 150, eval_every: int = 10, seed: int = 0,
                       cohort_size=cohort, cohort_rounds=cohort_rounds,
                       stream=stream)
     dep, prm, td = build_world(task, seed, num_devices=cohort)
+    if telemetry is True:
+        telemetry = Telemetry(run_dir=str(out_dir if out_dir is not None
+                                          else artifact_dir(task)),
+                              kappa_sq=float(prm.kappa_sq))
     run_cfg = task.run_config(num_rounds=num_rounds, eval_every=eval_every,
                               seed=seed, batch_size=batch_size,
                               uplink_dtype=uplink_dtype)
@@ -196,7 +225,8 @@ def run(num_rounds: int = 150, eval_every: int = 10, seed: int = 0,
                              flat=batch_size > 0, fuse_round=fuse_round,
                              log=log, checkpoint_path=checkpoint_path,
                              resume=resume, max_chunks=max_chunks,
-                             fading=fading, device=dev, **pop_kw)
+                             fading=fading, telemetry=telemetry, device=dev,
+                             **pop_kw)
         hist = histories(res)
     else:
         raise ValueError(f"unknown engine {engine!r}")
@@ -407,6 +437,42 @@ def population_benchmark(task="paper_mlp", size: int = 1_000_000,
     return report
 
 
+def bench_summary(report: dict, task_name: str, source: str) -> dict:
+    """A ``--bench`` report condensed to the summary that
+    ``bench_schema.json`` describes (the reference's
+    ``write_bench_summary``): the engine benchmark's grid, walls and
+    speedups, or the population benchmark as its ``population`` section."""
+    summary = {"source": source, "task": task_name}
+    if "population" in report.get("config", {}):
+        summary["population"] = {k: v for k, v in report.items()
+                                 if k != "result"}
+        return summary
+    summary["grid"] = {k: report["grid"][k]
+                       for k in ("num_rounds", "eval_every",
+                                 "bench_batch_size", "backend", "device")}
+    summary["wall_s"] = report["wall_s"]
+    summary["speedup"] = report["speedup"]
+    return summary
+
+
+def write_bench(report: dict, task_name: str, path: str) -> None:
+    """Write ``bench_summary(report)`` to ``path`` once
+    ``validate_bench`` passes it (a ValueError names the violations), and
+    the whole report beside it as ``<stem>.report.json``."""
+    path = Path(path).resolve()
+    summary = bench_summary(report, task_name, "repro_torch.fig2 --bench")
+    errors = validate_bench.validate_summary(summary)
+    if errors:
+        raise ValueError(f"{path.name} would violate the bench schema: "
+                         f"{errors}")
+    os.makedirs(path.parent, exist_ok=True)
+    with open(path, "w") as f:
+        json.dump(summary, f, indent=1)
+    with open(path.with_name(path.stem + ".report.json"), "w") as f:
+        json.dump({k: v for k, v in report.items() if k != "result"}, f,
+                  indent=1)
+
+
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--task", default="paper_mlp",
@@ -442,14 +508,19 @@ def main(argv=None) -> None:
     ap.add_argument("--no-stream", action="store_true",
                     help="stage cohorts serially instead of beside the "
                          "running chunk (identical numbers)")
+    ap.add_argument("--telemetry", action="store_true",
+                    help="write events.jsonl and the bias-variance traces "
+                         "into the task's artifact dir; render with "
+                         "python -m repro_torch.telemetry.report <dir>")
     ap.add_argument("--rounds", type=int, default=None,
                     help="default 150; 48 under --bench --population")
     ap.add_argument("--every", type=int, default=None,
                     help="eval cadence (default 10; 15 under --bench, 16 "
                          "under --bench --population)")
     ap.add_argument("--batch", type=int, default=None,
-                    help=f"minibatch size, 0 = full batch (default "
-                         f"{BENCH_BATCH})")
+                    help="minibatch size, 0 = full batch (default: the "
+                         "task's preferred size, or "
+                         f"{BENCH_BATCH} where that is the full batch)")
     ap.add_argument("--uplink", default="f32", choices=UPLINK_DTYPES)
     ap.add_argument("--unfused", action="store_true")
     ap.add_argument("--seed", type=int, default=0)
@@ -467,7 +538,12 @@ def main(argv=None) -> None:
     if a.legacy and (a.uplink != "f32" or a.unfused):
         raise SystemExit("--uplink/--unfused apply to the fleet; the legacy "
                          "loop runs f32, fused; drop --legacy")
-    batch = BENCH_BATCH if a.batch is None else a.batch
+    if a.telemetry and (a.legacy or a.bench):
+        raise SystemExit("--telemetry applies to the fleet run only; drop "
+                         "--legacy/--bench")
+    # --bench runs the reference's bench batch whatever the task prefers
+    batch = a.batch if a.batch is not None \
+        else BENCH_BATCH if a.bench else default_batch(task)
     if a.bench:
         if a.population:
             report = population_benchmark(
@@ -475,17 +551,14 @@ def main(argv=None) -> None:
                 num_rounds=a.rounds or 48, eval_every=a.every or 16,
                 cohort_rounds=a.cohort_rounds or 1, seed=a.seed,
                 batch_size=batch, device=a.device)
-            report.pop("result")
         else:
             report = benchmark(num_rounds=a.rounds or 150,
                                eval_every=a.every or 15, seed=a.seed,
                                batch_size=batch, task=task, device=a.device)
         if a.json:
-            os.makedirs(os.path.dirname(os.path.abspath(a.json)),
-                        exist_ok=True)
-            with open(a.json, "w") as f:
-                json.dump(report, f, indent=1)
-            print(f"# wrote {a.json}", flush=True)
+            write_bench(report, task.name, a.json)
+            print(f"# wrote {a.json} (schema-checked) and its "
+                  ".report.json", flush=True)
         return
     ckpt_path = None
     if a.checkpoint or a.resume:
@@ -499,7 +572,7 @@ def main(argv=None) -> None:
                     engine="legacy" if a.legacy else "fleet",
                     population=a.population, cohort=a.cohort,
                     cohort_rounds=a.cohort_rounds, stream=not a.no_stream,
-                    device=a.device)
+                    telemetry=a.telemetry, device=a.device)
     for name, h in hist.items():
         print(f"{name:>17}: acc {h[-1]['acc']:.4f}  "
               f"global_loss {h[-1]['global_loss']:.4f}")

@@ -36,9 +36,18 @@ wait behind the chunk); the chunk's small cohort operands go to the card
 from the main thread when the chunk starts.  A Gauss-Markov population
 carries each device's state across cohorts in a host re-entry table
 (``Population.stage_states`` before a chunk, ``commit_states`` after).
+
+Telemetry (``telemetry=``): the reference's event log at the reference's
+points -- ``run_start`` / ``run_resume``, ``fleet_config``, ``stage``,
+``stage_wait`` and ``cohort`` in population mode, ``chunk_exec`` per chunk,
+the ``redesign``, ``eval`` and ``ckpt_save`` spans, the solver's
+``sca_solve`` on the redesign paths (tagged with their chunk, from the
+staging thread too), ``run_end`` -- and the per-round ``bv_*`` traces.
+The port runs eagerly and emits no ``chunk_compile``.
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import hashlib
 import time
@@ -49,16 +58,17 @@ import numpy as np
 import torch
 from torch.func import vmap
 
+from repro_torch import telemetry as tlm
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import ota
 from repro_torch.device import resolve_device
 from repro_torch.fl.draws import DeviceDraws
 from repro_torch.fl.engine import FLResult, chunk_lengths, make_round_body
+from repro_torch.solvers import sca as sca_solver
 
 
 # the reference's run_fleet keywords whose modules are not ported yet
-NOT_PORTED = {"telemetry": "ROADMAP.md §1, module 7 (telemetry)",
-              "placement": "ROADMAP.md §1, module 12 (multi-device "
+NOT_PORTED = {"placement": "ROADMAP.md §1, module 12 (multi-device "
                            "placement)"}
 
 
@@ -275,6 +285,21 @@ def _cohort_operands(staged, x_dev, y_dev, batch, fading, dev):
     return data, cohort, scale
 
 
+def _cohort_event(tracer, ci, t_start, staged, pop_table) -> None:
+    """The ``cohort`` event of a fresh tick; on a fading process, each
+    drawn device's staleness off the re-entry table BEFORE staging touches
+    it: rounds since it last took part (-1 = never)."""
+    rec = {"chunk": ci, "t": t_start, "tick": staged.tick,
+           "cohort_size": int(staged.idx.shape[1])}
+    if pop_table is not None:
+        seen = np.stack([pop_table["last"][si, staged.idx[si]]
+                         for si in range(staged.idx.shape[0])])
+        rec["staleness"] = np.where(seen < 0, -1,
+                                    np.maximum(t_start - 1 - seen, 0))
+        rec["never_seen"] = int(np.sum(seen < 0))
+    tracer.event("cohort", **rec)
+
+
 def _gammas(schemes, s_axis) -> np.ndarray:
     return np.stack([np.broadcast_to(np.asarray(pc.gamma, np.float64),
                                      (s_axis, _scheme_n(pc)))
@@ -343,14 +368,20 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                      cohort redesign) on a host thread while the current
                      chunk runs; False stages the same serially -- bitwise
                      the same results.
-    telemetry, placement  the reference's run tracing and multi-device
-                     placement: not ported yet (NotImplementedError).
+    telemetry        a ``telemetry.Telemetry`` (or a bare run-dir string):
+                     the event log ``events.jsonl`` in its run dir (the
+                     reference's events at the reference's points; a
+                     resumed run prunes the log to its completed chunks and
+                     keeps the run id) and the ``bv_*`` diagnostic traces.
+                     Params, the other traces and the evals are bitwise
+                     those of the run without it.
+    placement        the reference's multi-device placement: not ported yet
+                     (NotImplementedError).
     """
-    for kw, value in (("telemetry", telemetry), ("placement", placement)):
-        if value is not None:
-            raise NotImplementedError(
-                f"run_fleet({kw}=...) is not ported yet; see "
-                f"{NOT_PORTED[kw]}")
+    if placement is not None:
+        raise NotImplementedError(
+            "run_fleet(placement=...) is not ported yet; see "
+            f"{NOT_PORTED['placement']}")
     t0 = time.time()
     dev = resolve_device(device)
     schemes = list(schemes)
@@ -420,8 +451,28 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                             device=dev)
     cell_seed = torch.arange(c, device=dev) % s_axis
 
+    tel = tlm.Telemetry(run_dir=telemetry) if isinstance(telemetry, str) \
+        else telemetry
+    resuming = bool(resume and checkpoint_path is not None
+                    and ckpt.exists(checkpoint_path))
+    # fresh=False keeps the existing log: the resumed process reads the run
+    # id back and ``tracer.resume`` prunes the superseded suffix
+    tracer = tlm.Tracer(tel.run_dir, fresh=not resuming) \
+        if tel is not None and tel.trace else None
+    metrics_hook = tlm.make_metrics_hook(tel.kappa_sq) \
+        if tel is not None and tel.diagnostics else None
+
+    def span(kind, **fields):
+        return tracer.span(kind, **fields) if tracer is not None \
+            else contextlib.nullcontext()
+
+    def ctx(**fields):
+        return tracer.ctx(**fields) if tracer is not None \
+            else contextlib.nullcontext()
+
     body = make_round_body(loss_fn, run, flat=flat, uplink_dtype=uplink_dtype,
-                           fuse_round=fuse_round, use_kernel=use_kernel)
+                           fuse_round=fuse_round, use_kernel=use_kernel,
+                           metrics_hook=metrics_hook)
     x_dev = torch.as_tensor(data[0], dtype=torch.float32, device=dev)
     y_dev = torch.as_tensor(data[1], device=dev).long()
     shard_len = int(x_dev.shape[1])
@@ -457,15 +508,23 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
         # pure in (population, seeds, tick) and the schemes' constants,
         # never in chunk outputs: running it beside the chunk (stream)
         # cannot change a number.  Host only: numpy and the CPU solver.
+        # The tracer's ctx tags the solver's events (in the staging thread
+        # too) with this chunk, which is what lets a resume prune them.
         ts = time.time()
-        tick = tick_of(ci)
-        idx = np.stack([population.draw_cohort(n_cohort, tick, s)
-                        for s in seeds])                          # [S, N]
-        gains_sn = np.stack([population.gains_of(r) for r in idx])
-        new = None
-        if pop_adaptive and (ci == 0 or tick != tick_of(ci - 1)):
-            new = redesign_cohort(base, gains_sn, device="cpu")
-        return _Staged(ci, tick, idx, gains_sn, new, time.time() - ts)
+        with ctx(chunk=ci):
+            tick = tick_of(ci)
+            idx = np.stack([population.draw_cohort(n_cohort, tick, s)
+                            for s in seeds])                      # [S, N]
+            gains_sn = np.stack([population.gains_of(r) for r in idx])
+            new = None
+            if pop_adaptive and (ci == 0 or tick != tick_of(ci - 1)):
+                new = redesign_cohort(base, gains_sn, device="cpu")
+        staged = _Staged(ci, tick, idx, gains_sn, new, time.time() - ts)
+        if tracer is not None:
+            tracer.event("stage", chunk=ci, tick=tick,
+                         dur=round(staged.wall, 6),
+                         redesigned=new is not None)
+        return staged
 
     identity = None
     if checkpoint_path is not None:
@@ -474,8 +533,7 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
             sum(v.numel() for v in params.values()), task_name, schemes,
             gains, data, fading, scenarios, population, n_cohort, cadence)
     start_chunk, t = 0, 0
-    if resume and checkpoint_path is not None \
-            and ckpt.exists(checkpoint_path):
+    if resuming:
         (start_chunk, t, params_b, fstate, schemes, designs, prior_traces,
          evals, loaded_cohorts) = _load(checkpoint_path, params_b, fstate,
                                         schemes, adaptive or pop_adaptive,
@@ -485,6 +543,20 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
         if log:
             print(f"# resumed fleet from {checkpoint_path} at chunk "
                   f"{start_chunk} (round {t})", flush=True)
+    if tracer is not None:
+        if resuming:
+            # drop the events of chunks this process re-runs: the log
+            # describes ONE execution (no duplicate chunk spans)
+            tracer.resume(start_chunk)
+        tracer.event("fleet_config", names=list(names), seeds=list(seeds),
+                     num_rounds=int(run.num_rounds),
+                     eval_every=int(run.eval_every), placement="vmap",
+                     chunks=len(lengths),
+                     population=(int(population.size) if pop_mode else None),
+                     cohort_size=n_cohort, cohort_rounds=cadence,
+                     scenarios=(list(scenarios.names) if scenarios is not None
+                                else None),
+                     stream=bool(stream), start_chunk=start_chunk)
     last_tick = tick_of(start_chunk - 1) if pop_mode and start_chunk > 0 \
         else None
     executor = ThreadPoolExecutor(max_workers=1) if pop_mode and stream \
@@ -492,14 +564,23 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
     staged = next_fut = None
     stage_walls = [] if pop_mode else None
     wall_compile, first = 0.0, True
+    chunks_done = start_chunk
     chunk_data, cohort_op = (x_dev, y_dev), None
+    prev_hook = None if tracer is None else sca_solver.set_trace_hook(
+        lambda rec: tracer.event("sca_solve", **rec))
     try:
         with torch.no_grad():
             for ci in range(start_chunk, len(lengths)):
                 length = lengths[ci]
                 if pop_mode:
                     if next_fut is not None:
+                        tw = time.monotonic()
                         staged, next_fut = next_fut.result(), None
+                        if tracer is not None:
+                            # how long the driver sat on the double buffer
+                            # (0 when the stage hid behind the last chunk)
+                            tracer.event("stage_wait", chunk=staged.ci,
+                                         dur=round(time.monotonic() - tw, 6))
                     if staged is None or staged.ci != ci:
                         staged = stage(ci, schemes[0])
                     stage_walls.append(staged.wall)
@@ -511,6 +592,9 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                             schemes = _cohort_schemes(schemes, staged.design)
                             designs.append((t_start,
                                             _gammas(schemes, s_axis)))
+                        if tracer is not None:
+                            _cohort_event(tracer, ci, t_start, staged,
+                                          pop_table)
                     if fading is not None:
                         # re-entry reads the table the previous chunk
                         # committed, so it stays in the main thread
@@ -531,7 +615,7 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                         # the double buffer: stage chunk ci + 1 while
                         # chunk ci runs
                         next_fut = executor.submit(stage, ci + 1, schemes[0])
-                tc = time.time()
+                tc, t_ex, t_chunk = time.time(), time.monotonic(), t
                 for _ in range(length):
                     params_b, fstate, metrics = body(
                         schemes, eta_c, params_b, fstate, draws(t),
@@ -540,6 +624,10 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                     t += 1
                 _sync(dev)
                 chunk_walls.append((length, time.time() - tc))
+                if tracer is not None:
+                    tracer.event("chunk_exec", chunk=ci, length=int(length),
+                                 t_start=t_chunk, cache_size=None,
+                                 dur=round(time.monotonic() - t_ex, 6))
                 if first:
                     wall_compile, first = time.time() - t0, False
                 if pop_table is not None:
@@ -550,11 +638,14 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                                                  staged.idx[si], t - 1,
                                                  fs[si])
                 if adaptive and t < run.num_rounds:
-                    schemes, gam = _redesign(schemes, fading, fstate, s_axis)
+                    with ctx(chunk=ci), span("redesign", chunk=ci, t=t):
+                        schemes, gam = _redesign(schemes, fading, fstate,
+                                                 s_axis)
                     designs.append((t, gam))
                 if eval_b is not None:
-                    ev = {name: v.reshape(k, s_axis).cpu().numpy()
-                          for name, v in eval_b(params_b).items()}
+                    with span("eval", chunk=ci, t=t - 1):
+                        ev = {name: v.reshape(k, s_axis).cpu().numpy()
+                              for name, v in eval_b(params_b).items()}
                     evals.append((t - 1, ev))
                     if log:
                         lead = next(iter(ev))
@@ -563,19 +654,28 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                                   for i, nm in enumerate(names)}},
                               flush=True)
                 if checkpoint_path is not None:
-                    _save(checkpoint_path, ci + 1, t, params_b,
-                          None if pop_mode else fstate, schemes, designs,
-                          _traces(metric_rounds, prior_traces, k, s_axis),
-                          evals, identity, pop_table, cohorts)
+                    with span("ckpt_save", chunk=ci):
+                        _save(checkpoint_path, ci + 1, t, params_b,
+                              None if pop_mode else fstate, schemes, designs,
+                              _traces(metric_rounds, prior_traces, k,
+                                      s_axis),
+                              evals, identity, pop_table, cohorts)
+                chunks_done = ci + 1
                 if max_chunks is not None \
                         and ci + 1 - start_chunk >= max_chunks \
                         and ci + 1 < len(lengths):
                     break    # stopped on purpose; resume=True continues
     finally:
+        if tracer is not None:
+            sca_solver.set_trace_hook(prev_hook)
         if executor is not None:
             executor.shutdown(wait=True)
     traces = _traces(metric_rounds, prior_traces, k, s_axis)
     wall = time.time() - t0
+    wall_stage = float(sum(stage_walls or ()))
+    if tracer is not None:
+        tracer.event("run_end", rounds_done=int(t), chunks_done=chunks_done,
+                     wall_s=round(wall, 3), wall_stage=round(wall_stage, 3))
     return FLResult(
         params={name: v.reshape((k, s_axis) + tuple(v.shape[1:]))
                 for name, v in params_b.items()},
@@ -584,7 +684,7 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
         designs=designs,
         scenario_names=None if scenarios is None else tuple(scenarios.names),
         wall_compile=wall_compile, wall_exec=wall - wall_compile,
-        wall_stage=float(sum(stage_walls or ())), cohorts=cohorts,
+        wall_stage=wall_stage, cohorts=cohorts,
         stage_walls=stage_walls)
 
 

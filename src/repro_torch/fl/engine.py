@@ -87,7 +87,8 @@ class FLResult:
 def make_round_body(loss_fn: Callable, run, flat: bool = False,
                     uplink_dtype: Optional[str] = None,
                     fuse_round: Optional[bool] = None,
-                    use_kernel: Optional[bool] = None) -> Callable:
+                    use_kernel: Optional[bool] = None,
+                    metrics_hook: Optional[Callable] = None) -> Callable:
     """One FL round over the whole fleet:
 
         body(schemes, eta, params, fstate, draws, data, cell_seed,
@@ -119,6 +120,13 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
     ``use_kernel`` passes to the kernel dispatch (None: by device).  The
     body carries the tail it resolved as ``body.fuse`` and
     ``body.uplink_dtype``.
+
+    ``metrics_hook`` (``telemetry.make_metrics_hook``) extends the round's
+    metrics: called as ``hook(s=, noise_scale=, h=, params=)`` with the
+    realized coefficients s [C, N] and noise scales [C], each cell's
+    channel [C, N] and the updated params, it returns extra [C] traces.
+    Left at None, the body issues exactly the launches it issues without
+    it.
     """
     if uplink_dtype is None:
         uplink_dtype = getattr(run, "uplink_dtype", "f32") or "f32"
@@ -173,6 +181,12 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
             "active_devices": torch.sum((s > 0).float(), dim=-1),
             "noise_scale": ns.float(),
         }
+        if metrics_hook is not None:
+            h_cells = torch.stack([h_rows[j // k_row]
+                                   for j in range(len(schemes))])
+            metrics.update(metrics_hook(s=s, noise_scale=ns,
+                                        h=h_cells.reshape(c, -1),
+                                        params=params))
         return params, fstate, metrics
 
     body.fuse, body.uplink_dtype = fuse, uplink_dtype

@@ -28,7 +28,8 @@ sum over rows (each row's objective depends on its own row only).
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Sequence, Union
+import time
+from typing import Callable, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -352,3 +353,39 @@ def solve_batch(prms: Union[Sequence[OTAParams], SolverParams],
     return BatchResult(gamma=out["gamma"], p=out["p"], alpha=out["alpha"],
                        objective=out["objective"], history=out["history"],
                        converged=out["converged"])
+
+
+# Per-solve telemetry hook, as the reference's ``sca_jax.set_trace_hook``.
+# The driver installs one around telemetry-enabled runs; unset (the
+# default) the solve path is untouched.
+_TRACE_HOOK: Optional[Callable] = None
+
+
+def set_trace_hook(hook: Optional[Callable]) -> Optional[Callable]:
+    """Install ``hook(record: dict)``, called once per redesign solve
+    (``solve_batch_traced``) with {batch, iters, objective_mean,
+    converged, dur}.  Returns the previous hook, for the caller to restore
+    (try/finally)."""
+    global _TRACE_HOOK
+    prev = _TRACE_HOOK
+    _TRACE_HOOK = hook
+    return prev
+
+
+def solve_batch_traced(prms: Union[Sequence[OTAParams], SolverParams],
+                       cfg: SolverConfig = DEFAULT_CONFIG,
+                       device: DeviceLike = None) -> BatchResult:
+    """``solve_batch`` on the in-training redesign paths (``AdaptiveSCA``'s
+    redesign and its cohort redesign), which fire the trace hook, as the
+    reference's ``solve_batch_device`` does; the initial designs call
+    ``solve_batch`` and fire nothing."""
+    hook = _TRACE_HOOK
+    t0 = time.monotonic() if hook is not None else 0.0
+    out = solve_batch(prms, cfg, device)
+    if hook is not None:
+        hook({"batch": int(out.objective.shape[0]),
+              "iters": int(cfg.max_iters),
+              "objective_mean": float(np.mean(out.objective)),
+              "converged": int(np.sum(out.converged)),
+              "dur": round(time.monotonic() - t0, 6)})
+    return out

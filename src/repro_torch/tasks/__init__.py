@@ -10,9 +10,11 @@ Built-in tasks register here; a workload plugs in by calling
 :class:`~repro_torch.tasks.base.Task`.
 """
 from repro_torch.tasks.base import Task, TaskData
-from repro_torch.tasks.image import make_paper_mlp
+from repro_torch.tasks.image import make_cifar_conv, make_paper_mlp
 from repro_torch.tasks.registry import get, names, register
 
 register("paper_mlp", make_paper_mlp)
+register("cifar_conv", make_cifar_conv)
 
-__all__ = ["Task", "TaskData", "get", "names", "register", "make_paper_mlp"]
+__all__ = ["Task", "TaskData", "get", "names", "register", "make_cifar_conv",
+           "make_paper_mlp"]

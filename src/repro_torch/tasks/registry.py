@@ -6,9 +6,8 @@ parallel config system.  Each registration records which runtime consumes
 the bundle ("fleet" for ``run_fleet_task`` workloads), so a consumer can
 refuse a task it cannot run before building it.
 
-The reference also registers ``cifar_conv`` (a fleet task) and
-``token_stream`` (``tasks/lm.py``, the LM train path's task); the port has
-neither yet, and ``get`` says so.
+The reference also registers ``token_stream`` (``tasks/lm.py``, the LM
+train path's task); the port does not have it yet, and ``get`` says so.
 """
 from __future__ import annotations
 
@@ -20,8 +19,7 @@ _FACTORIES: Dict[str, Tuple[Callable[..., Task], str]] = {}
 
 # the reference's tasks that are not ported yet, and where ROADMAP.md
 # queues them
-NOT_PORTED = {"cifar_conv": "ROADMAP.md §1, module 8 (cifar_conv)",
-              "token_stream": "ROADMAP.md §1, module 10 (the LM train path)"}
+NOT_PORTED = {"token_stream": "ROADMAP.md §1, module 10 (the LM train path)"}
 
 
 def register(name: str, factory: Callable[..., Task],

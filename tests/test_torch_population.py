@@ -465,10 +465,9 @@ def test_refusals(task, td, world, tmp_path):
         tdriver.run_fleet_task(task, pcs, None, run, **kw,
                                scenarios=scn.stack_scenarios(
                                    ["disk_rayleigh"]))
-    for key in ("telemetry", "placement"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tdriver.run_fleet_task(task, pcs, dep.gains, run, **kw,
-                                   **{key: "on"})
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tdriver.run_fleet_task(task, pcs, dep.gains, run, **kw,
+                               placement="on")
     path = str(tmp_path / "fleet")
     tdriver.run_fleet_task(task, pcs, dep.gains, run, **kw,
                            checkpoint_path=path, max_chunks=1)

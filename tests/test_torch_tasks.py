@@ -1,7 +1,9 @@
 """The port's task registry (``repro_torch.tasks``) against the
 reference's (``repro.tasks``, read in a child process), the Fig.-2 entry
 point's ``--task``, and the curve gate of ``repro_torch.curves`` on
-synthetic histories."""
+synthetic histories, and the committed reference data the card reads."""
+import json
+
 import numpy as np
 import pytest
 
@@ -19,7 +21,7 @@ def ref(tmp_path_factory):
 def test_names_cover_the_reference(ref):
     """Every task the reference registers is ported or named as not ported
     (with where ROADMAP queues it)."""
-    assert tasks.names() == ("paper_mlp",)
+    assert tasks.names() == ("cifar_conv", "paper_mlp")
     assert set(tasks.names()) | set(registry.NOT_PORTED) == set(ref["names"])
     assert set(tasks.names(runtime="fleet")) <= set(ref["fleet"])
     assert tasks.names(runtime="steps") == ()
@@ -35,6 +37,22 @@ def test_paper_mlp_matches_reference(ref):
     assert t.scheme_etas == want["scheme_etas"]
     assert tasks.get("paper_mlp", hidden=16).param_dim \
         == ref["paper_mlp_small"]
+
+
+def test_cifar_conv_matches_reference(ref):
+    t = tasks.get("cifar_conv", expect_runtime="fleet")
+    want = ref["cifar_conv"]
+    assert t.name == "cifar_conv" and t.runtime == want["runtime"] == "fleet"
+    assert t.num_devices == want["num_devices"]
+    assert t.param_dim == want["param_dim"] == 268_650
+    assert t.defaults == want["defaults"]
+    assert t.scheme_etas == want["scheme_etas"]
+    assert t.artifact_tag == want["artifact_tag"] == "cifar"
+    assert tasks.get("cifar_conv", **torch_ref.CIFAR_SMOKE_KW).param_dim \
+        == ref["cifar_conv_small"]
+    assert fig2.artifact_dir(t).name == "cifar"
+    assert fig2.default_batch(t) == 32
+    assert fig2.default_batch(tasks.get("paper_mlp")) == fig2.BENCH_BATCH
 
 
 @pytest.mark.parametrize("name", sorted(registry.NOT_PORTED))
@@ -65,7 +83,7 @@ def test_factory_must_build_its_name():
         del registry._FACTORIES["misnamed_for_test"]
 
 
-@pytest.mark.parametrize("name", ["cifar_conv", "nope"])
+@pytest.mark.parametrize("name", ["token_stream", "nope"])
 def test_fig2_cli_refuses_unknown_task(name):
     with pytest.raises(SystemExit, match=name):
         fig2.main(["--task", name, "--device", "cpu"])
@@ -130,6 +148,23 @@ def test_reference_curves_are_committed():
     schemes."""
     for protocol in curves.PROTOCOLS:
         hists = curves.load_reference(protocol, range(8))
+        for h in hists:
+            assert tuple(h) == tuple(fig2.SCHEMES)
+            for rows in h.values():
+                assert [r["round"] for r in rows] == list(range(0, 150, 10)) \
+                    + [149]
+        assert all(r["ok"] for r in curves.gate(hists, hists))
+
+
+def test_cifar_reference_is_committed():
+    """The reference's cifar_conv data the card's phase 11 reads: its sca
+    design at d = 268,650, and its curves at minibatch 32, seeds 0-7, 16
+    eval points of the seven Fig.-2 schemes."""
+    reference, protocols = curves.TASKS["cifar_conv"]
+    design = json.loads((reference / "sca_design.json").read_text())
+    assert int(design["d"]) == 268_650 and len(design["gamma"]) == 10
+    for protocol in protocols:
+        hists = curves.load_reference(protocol, range(8), reference)
         for h in hists:
             assert tuple(h) == tuple(fig2.SCHEMES)
             for rows in h.values():

@@ -32,7 +32,9 @@ import torch
 # the curve check's protocols (the paper's full batch, aggregated leaf by
 # leaf; minibatch 128 on the flat, fused path) and where the reference's
 # curves live
-from repro_torch.curves import PROTOCOLS, REFERENCE as FIG2_REF_DIR
+from repro_torch.curves import PROTOCOLS, REFERENCE as FIG2_REF_DIR, TASKS
+
+CIFAR_REF_DIR, CIFAR_PROTOCOLS = TASKS["cifar_conv"]
 
 ROOT = Path(__file__).resolve().parents[1]
 SCHEME_FIELDS = ("gamma", "alpha", "p", "thresholds", "noise_over_alpha",
@@ -165,15 +167,15 @@ import numpy as np
 import jax
 import jax.experimental
 jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+from repro import tasks
 from repro.core import channel, power_control as pcm, theory
 from repro.core.theory import OTAParams
-from repro.tasks.image import make_paper_mlp
 
-task = make_paper_mlp()
+task = tasks.get(cfg["task"])
 wcfg = channel.WirelessConfig(num_devices=task.num_devices, seed=0)
 dep = channel.deploy(wcfg)
-prm = OTAParams(d=task.param_dim, gmax=10.0, es=wcfg.energy_per_sample,
-                n0=wcfg.noise_psd, gains=dep.gains,
+prm = OTAParams(d=task.param_dim, gmax=float(task.defaults["gmax"]),
+                es=wcfg.energy_per_sample, n0=wcfg.noise_psd, gains=dep.gains,
                 sigma_sq=np.zeros(wcfg.num_devices), eta=0.05, lsmooth=1.0,
                 kappa_sq=4.0).replace(eta=task.eta_for("sca", 0.05))
 pc = pcm.make_power_control("sca", dep, prm)      # the default solver
@@ -357,14 +359,17 @@ import jax.experimental
 jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
 from repro import tasks
 
-t = tasks.get("paper_mlp")
 out = {"names": list(tasks.names()),
        "fleet": list(tasks.names(runtime="fleet")),
        "steps": list(tasks.names(runtime="steps")),
-       "paper_mlp": {"num_devices": t.num_devices, "param_dim": t.param_dim,
-                     "defaults": t.defaults, "scheme_etas": t.scheme_etas,
-                     "runtime": t.runtime},
-       "paper_mlp_small": tasks.get("paper_mlp", hidden=16).param_dim}
+       "paper_mlp_small": tasks.get("paper_mlp", hidden=16).param_dim,
+       "cifar_conv_small": tasks.get("cifar_conv",
+                                     **cfg["cifar_kw"]).param_dim}
+for name in ("paper_mlp", "cifar_conv"):
+    t = tasks.get(name)
+    out[name] = {"num_devices": t.num_devices, "param_dim": t.param_dim,
+                 "defaults": t.defaults, "scheme_etas": t.scheme_etas,
+                 "runtime": t.runtime, "artifact_tag": t.artifact_tag}
 with open(cfg["out"], "w") as f:
     json.dump(out, f)
 '''
@@ -373,7 +378,8 @@ with open(cfg["out"], "w") as f:
 def run_reference_tasks(out_path: Path, timeout: float = 300.0) -> dict:
     """The reference's task registry (``repro.tasks``): its names, by
     runtime, and paper_mlp's bundle constants, in a child process."""
-    _child(_TASKS_CHILD, {"out": str(out_path)}, "reference tasks", timeout)
+    _child(_TASKS_CHILD, {"out": str(out_path), "cifar_kw": CIFAR_SMOKE_KW},
+           "reference tasks", timeout)
     with open(out_path) as f:
         return json.load(f)
 
@@ -399,14 +405,16 @@ def run_reference_fleet(out_path: Path, *, hidden: int = 16,
     return _run_child(_CHILD, cfg, "reference fleet", timeout)
 
 
-def run_reference_sca(out_path: Path, timeout: float = 300.0) -> dict:
+def run_reference_sca(out_path: Path, timeout: float = 300.0,
+                      task: str = "paper_mlp") -> dict:
     """The reference's default SCA design (``make_power_control("sca",
-    ...)``, the batched JAX solver) in a child process, at the full-width
-    Fig.-2 world: paper_mlp (d = 814,090), the fig2 deployment, eta =
-    ``task.eta_for("sca", 0.05)``.  Returns gamma, alpha, thresholds, the
-    (P1) objective (``repro.core.theory.p1_objective``), d and eta."""
-    return _run_child(_SCA_CHILD, {"out": str(out_path)}, "reference sca",
-                      timeout)
+    ...)``, the batched JAX solver) in a child process, at ``task``'s
+    full-width Fig.-2 world: the task's d (paper_mlp 814,090, cifar_conv
+    268,650), the fig2 deployment, eta = ``task.eta_for("sca", 0.05)``.
+    Returns gamma, alpha, thresholds, the (P1) objective
+    (``repro.core.theory.p1_objective``), d and eta."""
+    return _run_child(_SCA_CHILD, {"out": str(out_path), "task": task},
+                      "reference sca", timeout)
 
 
 def _run_child(script: str, cfg: dict, what: str, timeout: float) -> dict:
@@ -439,7 +447,8 @@ from benchmarks import fig2
 
 t0 = time.time()
 hist = fig2.run(num_rounds=cfg["rounds"], eval_every=cfg["every"],
-                seed=cfg["seed"], batch_size=cfg["batch"], save=False)
+                seed=cfg["seed"], batch_size=cfg["batch"], task=cfg["task"],
+                save=False)
 with open(cfg["out"], "w") as f:
     json.dump({"histories": hist, "cpu_wall_s": time.time() - t0}, f)
 '''
@@ -448,13 +457,14 @@ with open(cfg["out"], "w") as f:
 
 def run_reference_fig2(out_path: Path, *, seed: int, batch: int,
                        rounds: int = 150, every: int = 10,
+                       task: str = "paper_mlp",
                        timeout: float = 3600.0) -> dict:
-    """``benchmarks.fig2.run(..., save=False)`` for one seed and one
-    protocol (``batch`` 0: full batch; > 0: minibatch, flat) in a child
-    process.  Returns ``{"histories": {scheme: [eval rows]}, "cpu_wall_s":
-    the child's wall on the CPU}``."""
+    """``benchmarks.fig2.run(..., save=False)`` of ``task`` for one seed and
+    one protocol (``batch`` 0: full batch; > 0: minibatch, flat) in a
+    child process.  Returns ``{"histories": {scheme: [eval rows]},
+    "cpu_wall_s": the child's wall on the CPU}``."""
     cfg = dict(seed=int(seed), batch=int(batch), rounds=int(rounds),
-               every=int(every), out=str(out_path))
+               every=int(every), task=task, out=str(out_path))
     _child(_FIG2_CHILD, cfg, "reference fig2", timeout)
     with open(out_path) as f:
         return json.load(f)
@@ -1019,6 +1029,158 @@ def write_population_reference(out_dir: Path = POP_REF_DIR) -> str:
     return f"population reference: {wall:.1f} s (reference on the CPU)"
 
 
+# The reference's cifar_conv fleet and run telemetry, at the smoke widths
+# of tests/test_tasks.py (SMOKE_KW): a [2 scheme x 2 seed] cifar fleet on
+# the fused flat path with telemetry on and a checkpoint in its run dir,
+# its draws (the port replays them), and a kill-and-resume pair of the same
+# fleet in another run dir; then a population fleet with ``adaptive_sca``
+# on a Gauss-Markov population (stream off, so its events come in one
+# order) under telemetry.  Each run dir's ``events.jsonl`` and the
+# reference's ``repro.telemetry.report`` text of it are returned.
+_TEL_CHILD = r"""
+import contextlib, io, json, os, sys
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+from jax import random as jr
+from repro import tasks
+from repro.core import channel, ota, power_control as pcm, scenarios as scn
+from repro.core.theory import OTAParams
+from repro.fl import driver
+from repro.telemetry import Telemetry, read_events
+from repro.telemetry import report as treport
+sys.path.insert(0, cfg["tests"])
+import torch_ref
+
+out = {}
+
+
+def world(task, n):
+    w = channel.WirelessConfig(num_devices=n, seed=0)
+    dep = channel.deploy(w)
+    prm = OTAParams(d=task.param_dim, gmax=10.0, es=w.energy_per_sample,
+                    n0=w.noise_psd, gains=dep.gains, sigma_sq=np.zeros(n),
+                    eta=0.05, lsmooth=1.0, kappa_sq=4.0)
+    return dep, prm
+
+
+def record(tag, run_dir):
+    out[tag + "/events"] = np.asarray(json.dumps(read_events(run_dir)))
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        treport.report(run_dir)
+    out[tag + "/report"] = np.asarray(buf.getvalue())
+
+
+def save_result(tag, res):
+    for k, v in res.params.items():
+        out["%s/params/%s" % (tag, k)] = np.asarray(v)
+    for k, v in res.traces.items():
+        out["%s/traces/%s" % (tag, k)] = np.asarray(v)
+    out["%s/evals_t" % tag] = np.asarray([t for t, _ in res.evals])
+    for k in res.evals[0][1]:
+        out["%s/evals/%s" % (tag, k)] = np.stack(
+            [np.asarray(ev[k]) for _, ev in res.evals])
+
+
+task = tasks.get("cifar_conv", **cfg["cifar_kw"])
+td = task.build_data(0)
+params0 = task.init_params(0)
+dep, prm = world(task, task.num_devices)
+pcs = [pcm.make_power_control(n, dep, prm.replace(eta=task.eta_for(n, 0.05)),
+                              **({"method": "scipy"} if n == "sca" else {}))
+       for n in cfg["schemes"]]
+out["gains"] = dep.gains
+for k, v in params0.items():
+    out["params0/" + k] = np.asarray(v)
+for pc in pcs:
+    for f, v in torch_ref.scheme_fields(pc).items():
+        out["scheme/%s/%s" % (pc.name, f)] = v
+run = task.run_config(num_rounds=cfg["rounds"], eval_every=cfg["every"],
+                      seed=0, batch_size=cfg["batch"])
+kw = dict(task_data=td, params=params0, seeds=tuple(cfg["seeds"]),
+          flat=True)
+tel = Telemetry(run_dir=os.path.join(cfg["dir"], "cifar"), kappa_sq=4.0)
+res = driver.run_fleet_task(task, pcs, dep.gains, run, telemetry=tel,
+                            checkpoint_path=os.path.join(tel.run_dir,
+                                                         "fleet"), **kw)
+save_result("cifar", res)
+record("cifar", tel.run_dir)
+sizes = [int(np.asarray(params0[k]).size) for k in sorted(params0)]
+x_dev = td.train[0]
+draws = torch_ref.reference_draws(jr, ota, dep.gains, cfg["seeds"],
+                                  cfg["rounds"], sizes, x_dev.shape[0],
+                                  cfg["batch"], x_dev.shape[1])
+for k, v in draws.items():
+    out["draws/" + k] = v
+if "telemetry" not in cfg["parts"]:
+    np.savez(cfg["out"], **out)
+    sys.exit(0)
+resume_dir = os.path.join(cfg["dir"], "resume")
+for extra in (dict(max_chunks=1), dict(resume=True)):
+    driver.run_fleet_task(task, pcs, dep.gains, run, telemetry=resume_dir,
+                          checkpoint_path=os.path.join(resume_dir, "fleet"),
+                          **kw, **extra)
+record("resume", resume_dir)
+
+mlp = tasks.get("paper_mlp", hidden=16, samples_per_class=40)
+mtd = mlp.build_data(0)
+pdep, pprm = world(mlp, cfg["cohort"])
+ad = pcm.make_adaptive_sca(pdep, pprm)
+for f, v in torch_ref.scheme_fields(ad).items():
+    out["adaptive/" + f] = v
+pop = scn.Population(spec=scn.PopulationSpec(
+    size=cfg["size"], shadowing=scn.ShadowingSpec(), sampling="traffic",
+    dynamics=scn.DynamicsSpec(rho=cfg["rho"]), seed=cfg["pop_seed"]))
+prun = mlp.run_config(eta=0.05, num_rounds=cfg["pop_rounds"],
+                      eval_every=cfg["pop_every"], seed=0,
+                      batch_size=cfg["batch"])
+pop_dir = os.path.join(cfg["dir"], "population")
+driver.run_fleet_task(mlp, [ad], pdep.gains, prun, task_data=mtd,
+                      params=mlp.init_params(0), seeds=tuple(cfg["seeds"]),
+                      flat=True, population=pop, cohort_size=cfg["cohort"],
+                      cohort_rounds=cfg["cohort_rounds"], stream=False,
+                      telemetry=Telemetry(run_dir=pop_dir, kappa_sq=4.0),
+                      checkpoint_path=os.path.join(pop_dir, "fleet"))
+record("population", pop_dir)
+np.savez(cfg["out"], **out)
+"""
+
+TEL_SCHEMES = ("ideal", "sca")
+# tests/test_tasks.py's SMOKE_KW["cifar_conv"]
+CIFAR_SMOKE_KW = dict(channels=(8, 16), hidden=32, samples_per_class=20,
+                      test_per_class=10, alpha=1.0)
+# the telemetry population run: a Gauss-Markov population (so the cohort
+# events carry staleness off the re-entry table), adaptive_sca re-designed
+# on every fresh cohort
+TEL_POP = dict(size=200, rho=0.95, pop_seed=3, cohort=10, cohort_rounds=2,
+               pop_rounds=4, pop_every=2)
+
+
+def run_reference_telemetry(out_dir: Path, *, rounds: int = 4,
+                            every: int = 2, batch: int = 8, seeds=(0, 1),
+                            telemetry: bool = True,
+                            timeout: float = 900.0) -> dict:
+    """The reference's cifar_conv fleet and run telemetry (see
+    ``_TEL_CHILD``) in a child process; the run dirs are written under
+    ``out_dir``.  Keys: ``gains``, ``params0/*``, ``scheme/<name>/*``,
+    ``cifar/{params,traces,evals}/*``, ``cifar/evals_t``, ``draws/*`` and,
+    for each run dir tag (cifar; with ``telemetry``, also resume and
+    population), ``<tag>/events`` (JSON text) and ``<tag>/report`` (the
+    reference's report text); with ``telemetry``, ``adaptive/*``.
+    ``telemetry=False`` stops after the cifar fleet."""
+    cfg = dict(dir=str(out_dir), out=str(Path(out_dir) / "ref.npz"),
+               parts=["cifar"] + (["telemetry"] if telemetry else []),
+               rounds=rounds, every=every, batch=batch, seeds=list(seeds),
+               schemes=list(TEL_SCHEMES),
+               cifar_kw={k: list(v) if isinstance(v, tuple) else v
+                         for k, v in CIFAR_SMOKE_KW.items()},
+               tests=str(ROOT / "tests"), **TEL_POP)
+    return _run_child(_TEL_CHILD, cfg, "reference telemetry", timeout)
+
+
 def prefixed(blob: dict, prefix: str) -> dict:
     """The entries of ``blob`` under ``prefix/``, prefix stripped."""
     p = prefix + "/"
@@ -1054,24 +1216,26 @@ def _write_json(path: Path, obj) -> None:
         json.dump(obj, f, indent=1)
 
 
-def write_sca_design(out_dir: Path = FIG2_REF_DIR) -> None:
-    """experiments/fig2_reference/sca_design.json: the reference's default
-    ``sca`` design at the full-width Fig.-2 world (``run_reference_sca``),
-    so the card can hold the port's solver without JAX."""
+def write_sca_design(out_dir: Path = FIG2_REF_DIR,
+                     task: str = "paper_mlp") -> None:
+    """<out_dir>/sca_design.json: the reference's default ``sca`` design at
+    ``task``'s full-width Fig.-2 world (``run_reference_sca``), so the card
+    can hold the port's solver without JAX."""
     import tempfile
     with tempfile.TemporaryDirectory() as tmp:
-        got = run_reference_sca(Path(tmp) / "sca.npz")
+        got = run_reference_sca(Path(tmp) / "sca.npz", task=task)
     _write_json(out_dir / "sca_design.json",
                 {k: np.asarray(v).tolist() for k, v in got.items()})
 
 
 def _fig2_job(job) -> str:
-    protocol, seed, rounds, every, out_dir = job
+    protocol, seed, rounds, every, out_dir, task = job
     import tempfile
+    batch = TASKS[task][1][protocol]
     with tempfile.TemporaryDirectory() as tmp:
         got = run_reference_fig2(Path(tmp) / "hist.json", seed=seed,
-                                 batch=PROTOCOLS[protocol], rounds=rounds,
-                                 every=every)
+                                 batch=batch, rounds=rounds, every=every,
+                                 task=task, timeout=3 * 3600.0)
     _write_json(Path(out_dir) / protocol / f"histories_seed{seed}.json",
                 got["histories"])
     return (f"{protocol} seed {seed}: {got['cpu_wall_s']:.1f} s "
@@ -1091,7 +1255,13 @@ def main(argv=None) -> None:
     scenario_reference/ instead: theory_seed0.json (every registered
     scenario) and grid/histories_seed<s>.json for each of ``--seeds``
     (the card's gate reads seeds 0-7).  With ``--population`` it writes
-    experiments/population_reference/population.json."""
+    experiments/population_reference/population.json.  With ``--cifar``
+    it writes experiments/cifar_reference/: the reference's cifar_conv
+    curves (``benchmarks.fig2.run(task="cifar_conv", save=False)`` at its
+    minibatch 32, ``minibatch32/histories_seed<s>.json`` for each of
+    ``--seeds``) and its ``sca`` design (``sca_design.json``); the
+    reference's convolutions on the CPU take ~30 min a seed, so
+    ``--jobs`` defaults to 1 there."""
     import argparse
     from concurrent.futures import ThreadPoolExecutor
     ap = argparse.ArgumentParser(description=main.__doc__.splitlines()[0])
@@ -1100,7 +1270,9 @@ def main(argv=None) -> None:
                     choices=list(PROTOCOLS))
     ap.add_argument("--rounds", type=int, default=150)
     ap.add_argument("--every", type=int, default=10)
-    ap.add_argument("--jobs", type=int, default=3)
+    ap.add_argument("--jobs", type=int, default=None,
+                    help="reference runs at once (default 3; 1 with "
+                         "--cifar)")
     ap.add_argument("--sca-design", action="store_true")
     ap.add_argument("--scenarios", choices=("all", "theory", "grid"),
                     nargs="?", const="all", default=None,
@@ -1111,8 +1283,14 @@ def main(argv=None) -> None:
                     help="write experiments/population_reference/ instead: "
                          "the reference's 1M-device population cohorts "
                          "and its tick-0 cohort redesign")
+    ap.add_argument("--cifar", action="store_true",
+                    help="write experiments/cifar_reference/ instead: the "
+                         "reference's cifar_conv curves for --seeds and its "
+                         "sca design")
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
+    if a.jobs is None:
+        a.jobs = 1 if a.cifar else 3
     if a.population:
         print(write_population_reference(
             Path(a.out) if a.out else POP_REF_DIR), flush=True)
@@ -1128,12 +1306,17 @@ def main(argv=None) -> None:
             for fut in futs:
                 print(fut.result(), flush=True)
         return
+    task, protocols = "paper_mlp", a.protocols
+    if a.cifar:
+        task, protocols = "cifar_conv", list(CIFAR_PROTOCOLS)
+        a.out = a.out or str(CIFAR_REF_DIR)
+        a.sca_design = True
     a.out = a.out or str(FIG2_REF_DIR)
     if a.sca_design:
-        write_sca_design(Path(a.out))
+        write_sca_design(Path(a.out), task)
         print("sca_design.json written", flush=True)
-    jobs = [(p, s, a.rounds, a.every, a.out)
-            for p in a.protocols for s in a.seeds]
+    jobs = [(p, s, a.rounds, a.every, a.out, task)
+            for p in protocols for s in a.seeds]
     with ThreadPoolExecutor(max_workers=a.jobs) as pool:
         for line in pool.map(_fig2_job, jobs):
             print(line, flush=True)
