@@ -27,16 +27,20 @@ Phases (any failure exits nonzero, and nothing is swallowed):
          achieved GB/s and share of the byte bound beside its time;
        - K3 ``flash_attention`` at the serve path's prefill (B 8, S 1024,
          H = KH = 16, Dh 64, bf16, causal), at qwen3's heads (H 16, KH 8,
-         Dh 128), with window 256, at ragged S = 1000, and in f32 (the
-         serve path's prefill in f32, qwen3's heads, window 256) -- f32 to
+         Dh 128), with window 256, at ragged S = 1000, at the prefills of
+         granite-8b (H 32, KH 8, Dh 128), qwen2.5-14b (H 40) and
+         chameleon-34b (H 64), at the qwen train run's eval (B 4, S 128),
+         and in f32 (the serve path's prefill in f32, qwen3's heads,
+         window 256) -- f32 to
          2e-5, bf16 to two bf16 ulps plus 1e-2; the shapes, the bound and
          the ``scaled_dot_product_attention`` call timed beside it are
          ``repro_torch.profile_attention``'s; the f32 bound takes the
          cheaper of the FMA units and 3xTF32;
        - K4 ``ssd_scan`` at the mamba2 prefill's scan (B 8, S 1024, H 64,
          P 64, N 128, G 1, f32, chunk 128), at ragged S = 1000, with
-         G = 2 and a nonzero state0, with bf16 inputs, and at the smoke
-         model's P = N = 32 -- y and the final state to 1e-4 of their
+         G = 2 and a nonzero state0, with bf16 inputs, at the smoke
+         model's P = N = 32, and at the mamba2 train run's eval (B 4,
+         S 128) -- y and the final state to 1e-4 of their
          largest magnitude plus 2e-4 relative (bf16 y: 1.6e-2); its
          bound takes the cheaper of the f32 FMA units and 3xTF32 on the
          tensor cores; no PyTorch call computes the scan, so no library
@@ -181,10 +185,37 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      bitwise equal (cuDNN deterministic), and its gradients alone timed
      with deterministic cuDNN and with cuDNN's default algorithms (what the
      determinism costs); its walls on one line;
- 12. one JSON line ``{"kernels": [...]}`` (K3 twice: bf16 with the bf16
-     serve run's launches, f32 with the f32 run's; K1 f32 four times: the
-     Fig.-2 main path's, the grid's, the cohort fleet's and the cifar
-     fleet's), then the last line ``{"ok": true, "device": {...}}``.
+ 12. the three dense GQA archs ported by config (granite-8b, qwen2.5-14b,
+     chameleon-34b) through ``python -m repro_torch.launch.serve`` at full
+     width and depth in bf16, batch 8, prompt 1,024, 32 decode tokens,
+     random weights from seed 0: K3 once per layer per prefill (36, 48,
+     48) and its plain version never, finite logits, tokens in range, the
+     prefill ms, decode ms per token and peak device memory printed (a
+     batch that does not fit the card is halved until one does, and the
+     batch run is printed); then K3 on vs off in f32 on each arch's first
+     ``DENSE_F32_LAYERS`` layers (f32 chameleon does not fit the card), at
+     phase 6's f32 tolerances;
+ 13. the LM train path (``python -m repro_torch.launch.train``): (a)
+     qwen1.5-0.5b at its CLI's defaults (50 steps, seq 128, 4 clients x 1,
+     ``sca``, eta 0.02) and mamba2-1.3b for 10 steps, full width in bf16:
+     finite losses, qwen's last-10 mean below its first-10 mean, K3 (K4)
+     once per layer in the held-out eval and never in training, the plain
+     version once per layer in every training forward; (b) one f32 qwen
+     step against explicit per-client gradients, their OTA superposition
+     plus the same receiver noise, and the SGD step, the params at rtol
+     1e-5 / atol 1e-6; (c) the held-out eval through K3 (qwen) and K4
+     (mamba2) against the plain versions in f32: the loss within 1e-3
+     relative, the logits to phase 6's drift gate; (d) the reference
+     example's preset (d_model 512, 8 layers, 200 steps, eta 0.05, seeds
+     0-3) held by ``repro_torch.lm_curves.gate`` against the reference's
+     runs in ``experiments/lm_reference/``, after its false-alarm rate at
+     four seeds (printed) is checked to be at most 25 %;
+ 14. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+     run's launches, with each dense arch's serve run's and with the qwen
+     train run's eval's; K3 f32 with the f32 serve run's; K4 f32 with the
+     mamba2 serve run's and the mamba2 train run's eval's; K1 f32 four
+     times: the Fig.-2 main path's, the grid's, the cohort fleet's and the
+     cifar fleet's), then the last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
 fleet's reference is full float32.
@@ -223,13 +254,15 @@ REPLACES = {"ota_round_step": "src/repro/kernels/round_step.py:53",
 # prefill at full width in bf16 ("main") and in f32 ("main_f32"), qwen3's
 # heads, window 256, ragged S = 1000
 # K4 shapes: (label, B, S, H, P, N, G, dtype, state0, chunk); the first is
-# the mamba2 prefill's scan at full width
+# the mamba2 prefill's scan at full width, the last the mamba2 train run's
+# held-out eval (4 clients x 128 tokens)
 SSD_MAIN = ("main", 8, 1024, 64, 64, 128, 1, "f32", False, 128)
 SSD_SHAPES = [SSD_MAIN,
               ("ragged_s1000", 8, 1000, 64, 64, 128, 1, "f32", False, 128),
               ("g2_state0", 8, 1024, 64, 64, 128, 2, "f32", True, 128),
               ("bf16_state0", 8, 1024, 64, 64, 128, 1, "bf16", True, 128),
-              ("smoke_p32_n32", 2, 37, 16, 32, 32, 1, "f32", True, 32)]
+              ("smoke_p32_n32", 2, 37, 16, 32, 32, 1, "f32", True, 32),
+              ("train_eval", 4, 128, 64, 64, 128, 1, "f32", False, 128)]
 # K4 sums terms as large as its largest output, in another order and over
 # its own tile of 64 rows against the plain version's chunk of 128: f32
 # agrees to ~1e-5 of the largest |y|, so y and the state are held at 1e-4
@@ -299,6 +332,24 @@ POP_TEL = dict(rho=0.95, rounds=8, every=4, cohort_rounds=4)
 REPORT_SECTIONS = ("== run ", "== staging-lane timeline", "== SCA solver",
                    "== bias--variance trajectory", "== cohort staleness",
                    "== recompilation audit")
+# phase 12: the three dense GQA archs ported by config, served at full width
+# and depth in bf16 (halving the batch only if 8 x 1,024 does not fit the
+# card: the phase prints the batch it ran); K3 on vs off in f32 on their
+# first DENSE_F32_LAYERS layers (f32 chameleon-34b, 137 GB, does not fit)
+DENSE_ARCHS = ("granite-8b", "qwen2.5-14b", "chameleon-34b")
+DENSE_SERVE = dict(batch=8, prompt_len=1024, decode_tokens=32)
+DENSE_F32_LAYERS, DENSE_F32_DECODE = 4, 8
+# phase 13: the LM train path.  launch.train at its CLI's defaults (50
+# steps, seq 128, 4 clients x 1, sca, eta 0.02) for qwen1.5-0.5b, 10 steps
+# for mamba2-1.3b, full width in bf16; one f32 qwen step against the
+# explicit per-client aggregation at the CPU parity test's one-step
+# tolerance (the params: rtol 1e-5, atol 1e-6); the held-out eval through
+# K3 / K4 against the plain versions in f32: the logits to the drift gate,
+# the loss to LM_EVAL_LOSS_RTOL
+TRAIN_QWEN = ("--arch", "qwen1.5-0.5b")
+TRAIN_MAMBA = ("--arch", "mamba2-1.3b", "--steps", "10")
+STEP_TOL = dict(rtol=1e-5, atol=1e-6)
+LM_EVAL_LOSS_RTOL = 1e-3
 
 
 class SmokeFailure(Exception):
@@ -1604,9 +1655,9 @@ def attention_on_vs_off(torch, res, cfg):
 
 
 def check_serve_run(torch, res, cnt, label):
-    """One qwen serve run: K3 once per layer in each of its two prefills
+    """One GQA serve run: K3 once per layer in each of its two prefills
     (warm-up, timed), no plain attention, OTA kernel or K4; finite logits
-    and tokens in range."""
+    and tokens in range, of the run's shapes."""
     n_layers = res.cfg.n_layers
     check(res.stats["k3_launches_per_prefill"] == n_layers,
           f"{label}: K3 launched {res.stats['k3_launches_per_prefill']} "
@@ -1620,12 +1671,13 @@ def check_serve_run(torch, res, cnt, label):
           f"{label}: an OTA kernel ran on the serve path")
     check(cnt["ssd_scan"] == cnt["plain_ssd"] == 0,
           f"{label}: K4 or its plain version ran on the GQA serve path")
-    b, s, v = SERVE["batch"], SERVE["prompt_len"], res.cfg.padded_vocab
+    b, s, v = (res.stats["batch"], res.stats["prompt_len"],
+               res.cfg.padded_vocab)
     check(tuple(res.logits.shape) == (b, s, v),
           f"{label}: logits {res.logits.shape}")
     check(bool(torch.isfinite(res.logits).all()), f"{label}: logits not "
           "finite")
-    check(tuple(res.tokens.shape) == (b, SERVE["decode_tokens"]),
+    check(tuple(res.tokens.shape) == (b, res.stats["decode_tokens"]),
           f"{label}: tokens {res.tokens.shape}")
     check(int(res.tokens.min()) >= 0 and int(res.tokens.max()) < v,
           f"{label}: a token out of range")
@@ -1680,25 +1732,9 @@ def phase_serve(torch, dev):
     print(f"  serve (f32): counts {f32_cnt}", flush=True)
     check_serve_run(torch, r32, f32_cnt, "f32 serve")
     on, off, kernel = attention_on_vs_off(torch, r32, cfg32)
-    layer0_err = float((on - off).abs().max())
-    drift["f32"] = {"layer0_attention_max_abs_err": layer0_err,
-                    "layer0_attention_max_abs": float(off.abs().max()),
-                    "logits_max_abs_diff": kernel[0],
-                    "logits_max_abs": kernel[1],
-                    "equal_next_tokens": kernel[2],
-                    "prefill_ms": r32.stats["prefill_ms"],
-                    "decode_ms_per_token": r32.stats["decode_ms_per_token"]}
-    print(f"  serve (f32), K3 on vs off: {json.dumps(drift['f32'])} "
-          f"(tolerance: layer 0 within {F32_TOL}; logits within "
-          f"{DRIFT_LOGITS_SHARE} of max |logit|, greedy tokens equal at >= "
-          f"{EQUAL_TOKENS_MIN} of positions)", flush=True)
-    check(bool((on - off).abs().le(F32_TOL["atol"]
-                                   + F32_TOL["rtol"] * off.abs()).all()),
-          f"f32 layer 0 attention, K3 on vs off: max |d| {layer0_err}")
-    check(kernel[0] <= DRIFT_LOGITS_SHARE * kernel[1],
-          f"f32 logits drift {kernel[0]} over {DRIFT_LOGITS_SHARE} x "
-          f"{kernel[1]}")
-    check(kernel[2] >= EQUAL_TOKENS_MIN, f"f32 equal next tokens {kernel[2]}")
+    drift["f32"] = f32_gate(
+        torch, on, off, kernel, "serve", prefill_ms=r32.stats["prefill_ms"],
+        decode_ms_per_token=r32.stats["decode_ms_per_token"])
     del r32, on, off
 
     # sliding window shorter than the prompt: ring-cache decode
@@ -1847,6 +1883,305 @@ def phase_serve_ssd(torch, dev):
     return st, cnt, drift
 
 
+def f32_gate(torch, on, off, kernel, label, **extra):
+    """Phase 6's f32 gate on a K3 on-vs-off reading, printed first (with
+    ``extra``): layer 0's attention within F32_TOL, the logits within
+    DRIFT_LOGITS_SHARE of their largest magnitude, greedy tokens equal at
+    >= EQUAL_TOKENS_MIN.  Returns the reading."""
+    layer0_err = float((on - off).abs().max())
+    reading = {"layer0_attention_max_abs_err": layer0_err,
+               "layer0_attention_max_abs": float(off.abs().max()),
+               "logits_max_abs_diff": kernel[0], "logits_max_abs": kernel[1],
+               "equal_next_tokens": kernel[2], **extra}
+    print(f"  {label} (f32), K3 on vs off: {json.dumps(reading)} "
+          f"(tolerance: layer 0 within {F32_TOL}; logits within "
+          f"{DRIFT_LOGITS_SHARE} of max |logit|, greedy tokens equal at >= "
+          f"{EQUAL_TOKENS_MIN} of positions)", flush=True)
+    check(bool((on - off).abs().le(F32_TOL["atol"]
+                                   + F32_TOL["rtol"] * off.abs()).all()),
+          f"{label}: f32 layer 0 attention, K3 on vs off: max |d| "
+          f"{layer0_err}")
+    check(kernel[0] <= DRIFT_LOGITS_SHARE * kernel[1],
+          f"{label}: f32 logits drift {kernel[0]} over "
+          f"{DRIFT_LOGITS_SHARE} x {kernel[1]}")
+    check(kernel[2] >= EQUAL_TOKENS_MIN,
+          f"{label}: f32 equal next tokens {kernel[2]}")
+    return reading
+
+
+def serve_largest_batch(torch, dev, arch):
+    """``launch.serve`` of ``arch`` at DENSE_SERVE, halving the batch while
+    it runs out of device memory; returns (result, counts, peak bytes)."""
+    import gc
+    from repro_torch.launch import serve
+    batch = DENSE_SERVE["batch"]
+    while True:
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats(dev)
+        zero_counts()
+        argv = [f"--arch={arch}", f"--batch={batch}",
+                f"--prompt-len={DENSE_SERVE['prompt_len']}",
+                f"--decode-tokens={DENSE_SERVE['decode_tokens']}"]
+        try:
+            res = serve.main(argv)
+        except torch.cuda.OutOfMemoryError as e:
+            msg = str(e).splitlines()[0]
+            del e
+            print(f"  {arch}: batch {batch} x {DENSE_SERVE['prompt_len']} "
+                  f"does not fit the card ({msg})", flush=True)
+            check(batch > 1, f"{arch}: batch 1 does not fit the card")
+            batch //= 2
+            continue
+        torch.cuda.synchronize()
+        return res, counts(), torch.cuda.max_memory_allocated(dev)
+
+
+def phase_dense_archs(torch, dev):
+    """Phase 12: granite-8b, qwen2.5-14b and chameleon-34b served at full
+    width and depth through K3, then K3 on vs off in f32 on their first
+    layers."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    out = {}
+    for arch in DENSE_ARCHS:
+        res, cnt, peak = serve_largest_batch(torch, dev, arch)
+        print(f"  {arch} serve: counts {cnt}", flush=True)
+        check_serve_run(torch, res, cnt, f"{arch} serve")
+        st = dict(res.stats, peak_mem_gb=peak / 1e9,
+                  batch_fits=res.stats["batch"] == DENSE_SERVE["batch"])
+        del res
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg32 = configs.get_config(arch).replace(
+            param_dtype=torch.float32, compute_dtype=torch.float32,
+            n_layers=DENSE_F32_LAYERS)
+        zero_counts()
+        r32 = serve.run(cfg32, batch=st["batch"],
+                        prompt_len=DENSE_SERVE["prompt_len"],
+                        decode_tokens=DENSE_F32_DECODE, seed=0, device=dev)
+        torch.cuda.synchronize()
+        check_serve_run(torch, r32, counts(), f"{arch} f32")
+        on, off, kernel = attention_on_vs_off(torch, r32, cfg32)
+        st["f32_drift"] = f32_gate(torch, on, off, kernel,
+                                   f"{arch}, first {DENSE_F32_LAYERS} layers",
+                                   layers=DENSE_F32_LAYERS)
+        print(f"  {arch}: {json.dumps(st)}", flush=True)
+        out[arch] = (st, cnt)
+        del r32, on, off
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def check_train_run(np, res, cnt, n_layers, kernel, label):
+    """A launch.train run: finite losses; K3 or K4 (``kernel``) once per
+    layer in the held-out eval and never in training; the plain version
+    once per layer in every training step's forward; nothing else."""
+    steps = res.stats["steps"]
+    check(len(res.losses) == steps and bool(np.all(np.isfinite(res.losses)))
+          and bool(np.isfinite(res.held_out)),
+          f"{label}: losses not finite: {res.losses[:3]}... "
+          f"held out {res.held_out}")
+    plain = "plain_attention" if kernel == "flash_attention" else "plain_ssd"
+    other = "ssd_scan" if kernel == "flash_attention" else "flash_attention"
+    check(cnt[kernel] == n_layers and res.stats[
+        "k3_launches_eval" if kernel == "flash_attention"
+        else "k4_launches_eval"] == n_layers,
+          f"{label}: {kernel} launched {cnt[kernel]} times, not once per "
+          f"layer of the eval ({n_layers})")
+    check(res.stats["k3_launches_train"] == res.stats["k4_launches_train"]
+          == 0, f"{label}: a kernel launched in training")
+    check(cnt[plain] == steps * n_layers,
+          f"{label}: the plain version ran {cnt[plain]} times, not once per "
+          f"layer of {steps} training forwards")
+    check(cnt[other] == 0 and cnt["ota_round_step"] == cnt["ota_aggregate"]
+          == 0, f"{label}: another kernel ran: {cnt}")
+
+
+def step_vs_explicit(torch, dev, scheme, gains):
+    """Phase 13 (b): one full-width qwen1.5-0.5b train step in f32 against
+    explicit per-client gradients, their OTA superposition sum_m s_m g_m
+    plus noise_scale z (the same z) and the SGD step.  Returns the reading
+    (the params' max abs error, the update's largest magnitude and its
+    max abs error); the params are held at STEP_TOL."""
+    from repro_torch import configs
+    from repro_torch.launch import steps
+    from repro_torch.models.param import param_leaves, trainable
+    from repro_torch.models.registry import build_bundle
+    from repro_torch.tasks.lm import client_batches
+    cfg = configs.get_config("qwen1.5-0.5b").replace(
+        param_dtype=torch.float32, compute_dtype=torch.float32)
+    bundle = build_bundle(cfg, dev)
+    params = bundle.init(0)
+    n, seq, eta = len(gains), 128, 0.02
+    tokens = torch.as_tensor(client_batches(cfg.vocab_size, n, 1, seq, 1, 0)
+                             [0].reshape(-1, seq + 1), device=dev).long()
+    leaves = param_leaves(params)
+    draws = steps.DeviceStepDraws(1, gains, {k: v.shape for k, v in
+                                             leaves.items()}, dev)(0)
+    s, ns = scheme.round_coeffs(draws.h[None], draws.coin.reshape(1))
+    s, ns = s[0], ns[0]
+    agg = {k: torch.zeros_like(v) for k, v in leaves.items()}
+    for m in range(n):
+        view, lv = trainable(params)
+        with torch.enable_grad():
+            loss_m = bundle.loss(view, tokens[m:m + 1])
+            grads = torch.autograd.grad(loss_m, list(lv.values()))
+        for k, g in zip(lv, grads):
+            agg[k] += s[m] * g
+        del grads
+    with torch.no_grad():
+        want = {k: p - eta * (agg[k] + ns * draws.z[k])
+                for k, p in leaves.items()}
+        before = {k: p.clone() for k, p in leaves.items()}
+    del agg
+    step = steps.make_train_step(bundle, scheme, gains,
+                                 steps.TrainStepConfig(eta=eta))
+    _, metrics = step(params, tokens, draws)
+    torch.cuda.synchronize()
+    got = param_leaves(params)
+    ok, err, upd, upd_err = True, 0.0, 0.0, 0.0
+    with torch.no_grad():
+        for k, w in want.items():
+            d = (got[k] - w).abs()
+            ok &= bool((d <= STEP_TOL["atol"]
+                        + STEP_TOL["rtol"] * w.abs()).all())
+            err = max(err, float(d.max()))
+            du = before[k] - w
+            upd = max(upd, float(du.abs().max()))
+            upd_err = max(upd_err, float(((before[k] - got[k]) - du).abs()
+                                         .max()))
+    reading = {"params_max_abs_err": err, "update_max_abs": upd,
+               "update_max_abs_err": upd_err,
+               "active_clients": float(metrics["active_clients"]),
+               "noise_scale": float(metrics["noise_scale"]),
+               "loss": float(metrics["loss"]), "tol": STEP_TOL}
+    check(ok, f"the weighted-loss step disagrees with the explicit "
+          f"aggregation: {reading}")
+    check(upd > 0, "the step moved no parameter")
+    return params, bundle, reading
+
+
+def eval_on_vs_off(torch, dev, bundle, params, kernel):
+    """Phase 13 (c): the held-out eval (4 x 129 tokens of the task's
+    stream) through K3 / K4 against the plain versions on the same f32
+    params: the loss, and the logits to phase 6's drift gate."""
+    from repro_torch.models import transformer as tfm
+    from repro_torch.tasks.lm import client_batches
+    cfg = bundle.cfg
+    test = torch.as_tensor(client_batches(cfg.vocab_size, 4, 1, 128, 2, 0)
+                           [-1].reshape(-1, 129), device=dev).long()
+    with torch.no_grad():
+        zero_counts()
+        loss_on = float(bundle.loss(params, test, use_kernel=True))
+        torch.cuda.synchronize()
+        launches = counts()[kernel]
+        loss_off = float(bundle.loss(params, test, use_kernel=False))
+        on, _ = tfm.forward(params, test[:, :-1], cfg, use_kernel=True)
+        off, _ = tfm.forward(params, test[:, :-1], cfg, use_kernel=False)
+    reading = {"loss_kernel": loss_on, "loss_plain": loss_off,
+               "launches": launches,
+               "logits_max_abs_diff": float((on - off).abs().max()),
+               "logits_max_abs": float(off.abs().max()),
+               "equal_next_tokens": float((on.argmax(-1) == off.argmax(-1))
+                                          .float().mean())}
+    check(launches == cfg.n_layers,
+          f"eval {cfg.name}: {kernel} launched {launches} times")
+    check(abs(loss_on - loss_off) <= LM_EVAL_LOSS_RTOL * abs(loss_off),
+          f"eval {cfg.name}: loss {loss_on} through the kernel, {loss_off} "
+          "plain")
+    check(reading["logits_max_abs_diff"]
+          <= DRIFT_LOGITS_SHARE * reading["logits_max_abs"],
+          f"eval {cfg.name}: logits drift {reading}")
+    check(reading["equal_next_tokens"] >= EQUAL_TOKENS_MIN,
+          f"eval {cfg.name}: equal next tokens {reading}")
+    return reading
+
+
+def phase_train(torch, np, dev):
+    """Phase 13: the LM train path at full width, the weighted-loss step
+    against the explicit aggregation, the eval's kernels against their
+    plain versions, and the trajectories against the reference's."""
+    import gc
+    from repro_torch import configs, lm_curves
+    from repro_torch.launch import train
+    from repro_torch.models.registry import build_bundle
+    out = {}
+    # (a) the runs
+    zero_counts()
+    rq = train.main(list(TRAIN_QWEN))
+    torch.cuda.synchronize()
+    cq = counts()
+    print(f"  qwen1.5-0.5b train: counts {cq}", flush=True)
+    check_train_run(np, rq, cq, rq.task.aux["cfg"].n_layers,
+                    "flash_attention", "qwen1.5-0.5b train")
+    first, last = float(np.mean(rq.losses[:10])), float(
+        np.mean(rq.losses[-10:]))
+    check(last < first, f"qwen1.5-0.5b: the mean of the last 10 losses "
+          f"{last} is not below the first 10's {first}")
+    out["qwen"] = dict(rq.stats, first10=first, last10=last)
+    scheme, gains = rq.scheme, rq.gains
+    del rq
+    gc.collect()
+    torch.cuda.empty_cache()
+    zero_counts()
+    rm = train.main(list(TRAIN_MAMBA))
+    torch.cuda.synchronize()
+    cm = counts()
+    print(f"  mamba2-1.3b train: counts {cm}", flush=True)
+    check_train_run(np, rm, cm, rm.task.aux["cfg"].n_layers, "ssd_scan",
+                    "mamba2-1.3b train")
+    out["mamba2"] = rm.stats
+    del rm
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) the step against the explicit aggregation, (c) the eval's K3
+    params, bundle, reading = step_vs_explicit(torch, dev, scheme, gains)
+    print(f"  (b) f32 qwen step vs explicit per-client aggregation: "
+          f"{json.dumps(reading)}", flush=True)
+    out["step_vs_explicit"] = reading
+    out["eval_k3"] = eval_on_vs_off(torch, dev, bundle, params,
+                                    "flash_attention")
+    print(f"  (c) f32 qwen eval, K3 on vs off: {json.dumps(out['eval_k3'])} "
+          f"(loss within {LM_EVAL_LOSS_RTOL} relative; logits within "
+          f"{DRIFT_LOGITS_SHARE} of max |logit|, greedy tokens equal at >= "
+          f"{EQUAL_TOKENS_MIN})", flush=True)
+    del params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = configs.get_config("mamba2-1.3b").replace(
+        param_dtype=torch.float32, compute_dtype=torch.float32)
+    bundle = build_bundle(cfg, dev)
+    out["eval_k4"] = eval_on_vs_off(torch, dev, bundle, bundle.init(0),
+                                    "ssd_scan")
+    print(f"  (c) f32 mamba2 eval, K4 on vs off: "
+          f"{json.dumps(out['eval_k4'])}", flush=True)
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (d) the reference example's trajectories
+    ref = lm_curves.load_reference(lm_curves.SEEDS)
+    fa = lm_curves.false_alarm(ref, len(lm_curves.SEEDS))
+    print(f"  (d) the gate's false-alarm rate at {len(lm_curves.SEEDS)} "
+          f"seeds a side, from the reference's runs: {json.dumps(fa)}",
+          flush=True)
+    check(fa["any"] <= lm_curves.FALSE_ALARM_MAX,
+          f"the LM gate's false-alarm rate {fa['any']} is over "
+          f"{lm_curves.FALSE_ALARM_MAX}: widen it to more reference seeds")
+    t0 = time.time()
+    port = lm_curves.run_port(lm_curves.SEEDS, dev)
+    rows = lm_curves.gate(port, ref)
+    print(lm_curves.table(rows), flush=True)
+    check(all(r["ok"] for r in rows), "the LM trajectories miss the "
+          "reference's")
+    out["curves"] = {"rows": rows, "false_alarm": fa,
+                     "wall_s": time.time() - t0,
+                     "step_ms": [p["stats"]["step_ms"] for p in port]}
+    return out, cq, cm
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -1949,6 +2284,13 @@ def main() -> int:
     print("[11] the cifar_conv fleet with run telemetry: fig2 --task "
           "cifar_conv --telemetry through K1", flush=True)
     cifar = phase_cifar(torch, np, dev, card, card_line, world)
+    print("[12] granite-8b, qwen2.5-14b and chameleon-34b served at full "
+          "width through K3", flush=True)
+    dense = phase_dense_archs(torch, dev)
+    print("[13] the LM train path: OTA-FL weighted-loss training at full "
+          "width, the step against the explicit aggregation, the eval's "
+          "kernels, the reference's trajectories", flush=True)
+    trained, train_k3, train_k4 = phase_train(torch, np, dev)
 
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
@@ -1971,6 +2313,14 @@ def main() -> int:
                  "ota_round_step", popr["k1_launches"], popr["k1_row"]))
     rows.append((f"ota_round_step[f32, cifar C={CIFAR[0]} D={CIFAR[2]}]",
                  "ota_round_step", cifar["k1_launches"], cifar["k1_row"]))
+    for arch in DENSE_ARCHS:
+        rows.append((f"flash_attention[bf16, {arch}]", "flash_attention",
+                     dense[arch][1]["flash_attention"], ares[arch]))
+    rows.append(("flash_attention[bf16, qwen1.5-0.5b train eval]",
+                 "flash_attention", train_k3["flash_attention"],
+                 ares["train_eval"]))
+    rows.append(("ssd_scan[f32, mamba2-1.3b train eval]", "ssd_scan",
+                 train_k4["ssd_scan"], sres["train_eval"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -1979,16 +2329,29 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[12] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[14] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[12] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[12] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[12] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[12] single run: {json.dumps(single)}", flush=True)
-    print(f"[12] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[12] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[14] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[14] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[14] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[14] single run: {json.dumps(single)}", flush=True)
+    print(f"[14] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[14] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print(f"[12] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print("[14] dense archs: " + json.dumps(
+        {arch: {k: st[k] for k in ("batch", "prefill_ms",
+                                   "decode_ms_per_token", "peak_mem_gb",
+                                   "batch_fits")}
+         for arch, (st, _) in dense.items()}), flush=True)
+    print("[14] train: " + json.dumps(
+        {arch: {k: trained[arch][k] for k in (
+            "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
+            "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
+         for arch in ("qwen", "mamba2")}
+        | {"lm_curves_wall_s": trained["curves"]["wall_s"],
+           "lm_curves_step_ms": trained["curves"]["step_ms"]}),
+        flush=True)
+    print(f"[14] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "

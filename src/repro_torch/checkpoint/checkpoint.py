@@ -6,6 +6,15 @@ list indices), so restore round-trips through nested structures.
 
 ``restore_flat`` walks the CALLER's template, so an archive may carry
 extra keys the template does not name, and they are ignored.
+
+``save_lm`` / ``restore_lm`` keep a language model's ParamTree in the
+reference's stacked layout (``scan/u0/...`` leaves ``[n_rep, ...]``), so
+``repro.checkpoint.checkpoint.restore`` reads the port's archive and the
+port reads the reference's.  numpy has no bfloat16: bf16 leaves are
+written as float32, which holds them exactly, and a restore casts them
+back to their def's dtype (the reference's own npz holds a bf16 leaf's raw
+2-byte values, which its ``restore`` cannot cast; ``restore_lm`` reads
+them).
 """
 from __future__ import annotations
 
@@ -124,3 +133,54 @@ def load_meta(path: str) -> dict:
     """The meta stored inside the npz (atomic with the arrays)."""
     with np.load(_npz(path)) as npz:
         return json.loads(bytes(npz[_META_KEY]).decode())
+
+
+def save_lm(path: str, cfg, params, meta: dict | None = None) -> None:
+    """Save a language model's ParamTree in the reference's stacked layout
+    (``models.param.lm_params_to_stacked``); bf16 leaves as float32."""
+    from repro_torch.models.param import lm_params_to_stacked
+
+    def widen(tree):
+        if isinstance(tree, dict):
+            return {k: widen(v) for k, v in tree.items()}
+        if isinstance(tree, list):
+            return [widen(v) for v in tree]
+        return tree.float() if tree.dtype == torch.bfloat16 else tree
+    save(path, widen(lm_params_to_stacked(cfg, params)), meta)
+
+
+def _nest(flat: dict) -> dict:
+    """A flat {'/'-joined path: array} dict as nested dicts, a level whose
+    keys are all indices as a list."""
+    root: dict = {}
+    for key, arr in flat.items():
+        *parents, leaf = key.split("/")
+        node = root
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = arr
+
+    def listify(node):
+        if not isinstance(node, dict):
+            return node
+        node = {k: listify(v) for k, v in node.items()}
+        if node and all(k.isdigit() for k in node):
+            return [node[str(i)] for i in range(len(node))]
+        return node
+    return listify(root)
+
+
+def restore_lm(path: str, cfg, device: torch.device = torch.device("cpu")):
+    """A ParamTree on ``device`` from an archive in the reference's stacked
+    layout (the port's ``save_lm`` or the reference's ``save``); each leaf
+    in its def's dtype.  A missing, extra or misshapen leaf raises."""
+    from repro_torch.models.param import lm_params_from_jax
+
+    def readable(a: np.ndarray) -> np.ndarray:
+        # the reference's npz of a bf16 leaf holds its raw 2-byte values
+        if a.dtype.kind == "V" and a.dtype.itemsize == 2:
+            return torch.from_numpy(a.view(np.int16).copy()).view(
+                torch.bfloat16).float().numpy()
+        return a
+    flat = {k: readable(a) for k, a in load_flat(path).items()}
+    return lm_params_from_jax(cfg, _nest(flat)).to(device)

@@ -1,8 +1,10 @@
 """Architecture registry of the port: ``--arch <id>`` -> ModelConfig.
 
 Copies of the reference's registry (``repro.configs``) for the archs the
-port runs: the dense GQA decoders and mamba2.  Any other arch raises and names
-ROADMAP.md, where the reference's other archs are queued.
+port runs: the dense GQA decoders (qwen1.5, qwen3, granite, qwen2.5 and
+chameleon's token-in, token-out backbone) and mamba2.  Any other arch
+raises and names ROADMAP.md, where the reference's other archs are
+queued.
 """
 from __future__ import annotations
 
@@ -12,6 +14,9 @@ _MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
     "qwen3-1.7b": "repro_torch.configs.qwen3_17b",
     "mamba2-1.3b": "repro_torch.configs.mamba2_13b",
+    "granite-8b": "repro_torch.configs.granite_8b",
+    "qwen2.5-14b": "repro_torch.configs.qwen25_14b",
+    "chameleon-34b": "repro_torch.configs.chameleon_34b",
 }
 ARCH_IDS = tuple(_MODULES)
 

@@ -212,6 +212,25 @@ def add_receiver_noise(tree: dict, noise_scale: torch.Tensor,
     return out
 
 
+def add_receiver_noise_leaves(grads: dict, noise_scale: torch.Tensor,
+                              z: dict) -> dict:
+    """The reference's per-leaf form, ``g + (noise_scale * z_leaf)`` cast
+    to the leaf's dtype, one z per leaf: ``grads`` and ``z`` are dicts by
+    leaf name (the LM train step's leaves, any nesting flattened into
+    names; z float32), ``noise_scale`` a scalar tensor."""
+    return {k: g + (noise_scale * z[k]).to(g.dtype) for k, g in grads.items()}
+
+
+def per_client_loss_weights(s: torch.Tensor) -> torch.Tensor:
+    """Weights w_m = N s_m, so that mean_m(w_m f_m) = sum_m s_m f_m.
+
+    The gradient of the mean per-client loss is (1/N) sum_m grad f_m;
+    scaling client m's loss by N s_m makes that one gradient the OTA
+    superposition sum_m s_m grad f_m (the weighted-loss form of the
+    reference's train step)."""
+    return s.shape[0] * s
+
+
 def weighted_sum(stacked: dict, s: torch.Tensor) -> dict:
     """sum_m s_m * g_m over the device axis of every [C, N, ...] leaf.
 

@@ -1,9 +1,10 @@
-"""Synthetic image datasets (no downloads).
+"""Synthetic datasets (no downloads).
 
-Copies of ``repro.data.synthetic.mnist_like`` and ``cifar_like``, kept so
-the port never imports the JAX package; their arrays equal the
-reference's bit for bit.  Each class is a smoothed random template;
-samples are template + Gaussian pixel noise.
+Copies of ``repro.data.synthetic.mnist_like``, ``cifar_like`` and
+``token_stream``, kept so the port never imports the JAX package; their
+arrays equal the reference's bit for bit.  Each image class is a smoothed
+random template; samples are template + Gaussian pixel noise.  The token
+stream is Zipf-distributed with short-range repetitions.
 """
 from __future__ import annotations
 
@@ -112,3 +113,17 @@ def cifar_like(samples_per_class: int = 500,
     x_tr, y_tr = make(samples_per_class)
     x_te, y_te = make(test_per_class)
     return x_tr, y_tr, x_te, y_te
+
+
+def token_stream(num_tokens: int, vocab_size: int, seed: int = 0,
+                 order: float = 1.2) -> np.ndarray:
+    """Zipf-distributed token stream with short-range repetition structure."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab_size + 1, dtype=np.float64)
+    probs = ranks ** (-order)
+    probs /= probs.sum()
+    toks = rng.choice(vocab_size, size=num_tokens, p=probs).astype(np.int32)
+    # inject bigram structure: with prob .3, repeat the token 2 back
+    mask = rng.uniform(size=num_tokens) < 0.3
+    toks[2:][mask[2:]] = toks[:-2][mask[2:]]
+    return toks

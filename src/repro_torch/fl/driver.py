@@ -692,17 +692,26 @@ def run_fleet_task(task, schemes, gains: np.ndarray, run=None, *,
                    task_data=None, params: Optional[dict] = None,
                    eval_fn: Optional[Callable] = None, etas=None,
                    seed: Optional[int] = None, device=None,
+                   data_kw: Optional[dict] = None,
                    **driver_kw) -> FLResult:
     """Task-first fleet entry point: loss, params, data, eval and the run
     config come from ``task`` (``tasks.base.Task``) unless given.  ``seed``
     (default run.seed) feeds both the data build and the param init;
-    ``etas`` default to the task's per-scheme step sizes.  The rest
-    (``fading``, ``scenarios``, ``population``, ``checkpoint_path``,
-    ``resume``, ``max_chunks``, ...) passes to ``run_fleet``."""
+    ``data_kw`` are extra keywords for ``build_data``; ``etas`` default to
+    the task's per-scheme step sizes.  The rest (``fading``,
+    ``scenarios``, ``population``, ``checkpoint_path``, ``resume``,
+    ``max_chunks``, ...) passes to ``run_fleet``.  A ``"steps"``-runtime
+    task (the LM workload) is refused: it trains through
+    ``launch.train``."""
+    if task.runtime != "fleet":
+        raise ValueError(f"task {task.name!r} is a {task.runtime!r}-runtime "
+                         "workload; run_fleet_task takes fleet tasks (the "
+                         "LM task trains through repro_torch.launch.train)")
     dev = resolve_device(device)
     run = run if run is not None else task.run_config()
     seed = run.seed if seed is None else seed
-    td = task_data if task_data is not None else task.build_data(seed)
+    td = task_data if task_data is not None \
+        else task.build_data(seed, **(data_kw or {}))
     if params is None:
         params = task.init_params(seed, dev)
     if eval_fn is None:

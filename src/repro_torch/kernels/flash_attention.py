@@ -27,8 +27,12 @@ tile's P.V is summed from zero and added in f32, so the error does not
 grow with the sequence.
 
 The plain version is ``ref.attention_ref``.  The wrapper takes it for CPU
-tensors, and on the card only when asked (``use_kernel=False``, for
-comparison); a CUDA tensor otherwise reaches the kernel or raises.
+tensors, and on the card only when asked (``use_kernel=False``: the train
+path's forward, which autograd differentiates, and on-card comparison); a
+CUDA tensor otherwise reaches the kernel or raises.  The kernel has no
+backward: in grad mode, an input that requires grad raises rather than
+pass through a launch that records no autograd node (ROADMAP.md §1,
+module 10).
 """
 from __future__ import annotations
 
@@ -66,6 +70,20 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise TypeError(f"q, k, v in {q.dtype}, {k.dtype}, {v.dtype}")
 
 
+def check_no_grad(kernel: str, *tensors) -> None:
+    """Raise if autograd would need a backward of ``kernel``: grad mode is
+    on and an input requires grad.  The kernels are forward-only, and a
+    launch records no autograd node, so the loss would get no gradient
+    through them and nothing would say so."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in tensors):
+        raise RuntimeError(
+            f"{kernel} has no backward and an input requires grad: pass "
+            "use_kernel=False to differentiate the plain version, as the "
+            "train path does, or run under torch.no_grad() (ROADMAP.md §1, "
+            "module 10; §2 queues the backward kernels)")
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     use_kernel: bool = True) -> torch.Tensor:
@@ -75,6 +93,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     _check_inputs(q, k, v, window)
     if not q.is_cuda or not use_kernel:
         return ref.attention_ref(q, k, v, causal=causal, window=window)
+    check_no_grad("flash_attention (K3)", q, k, v)
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention takes {list(DTYPES)}, got {q.dtype}")
     b, sq, h, dh = q.shape

@@ -31,8 +31,11 @@ what the plain version uses.  Rows past S are masked in the kernel as the
 reference's padding with dt = 0, so a ragged S needs no padded copy.
 
 The plain version is ``ref.ssd_chunked``.  The wrapper takes it for CPU
-tensors, and on the card only when asked (``use_kernel=False``, for
-comparison); a CUDA tensor otherwise reaches the kernel or raises.
+tensors, and on the card only when asked (``use_kernel=False``: the train
+path's forward, which autograd differentiates, and on-card comparison); a
+CUDA tensor otherwise reaches the kernel or raises.  The kernel has no
+backward: in grad mode, an input that requires grad raises
+(``flash_attention.check_no_grad``).
 """
 from __future__ import annotations
 
@@ -41,6 +44,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.kernels.flash_attention import check_no_grad
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 DIMS = (32, 64, 96, 128)       # P and N the kernel is built for
@@ -88,6 +92,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
     if not x.is_cuda or not use_kernel:
         return ref.ssd_chunked(x, dt, a_neg, b_mat, c_mat, chunk,
                                state0=state0)
+    check_no_grad("ssd_scan (K4)", x, dt, a_neg, b_mat, c_mat, state0)
     if x.dtype not in DTYPES or not (x.dtype == dt.dtype == b_mat.dtype
                                      == c_mat.dtype):
         raise TypeError(f"ssd_scan takes x, dt, b_mat, c_mat all in one of "

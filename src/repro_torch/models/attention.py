@@ -95,8 +95,8 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str = "attn",
 
     kind: attn (full causal) | swa | local (sliding-window causal).
     decode: S == 1, reads and updates the cache.  ``use_kernel=False``
-    computes a prefill's attention with K3's plain version (on-card
-    comparison only).
+    computes a prefill's attention with K3's plain version: the train
+    path's forward, which autograd differentiates, and on-card comparison.
     """
     if kind not in ("attn", "swa", "local"):
         raise NotImplementedError(

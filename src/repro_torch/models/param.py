@@ -90,7 +90,8 @@ def params_from_jax(tree: Mapping[str, np.ndarray],
 class ParamTree(nn.Module):
     """A nested dict (and list) of tensors as a module, indexed like the
     reference's pytree: ``tree["layers"][3]["mixer"]["wq"]["w"]``.
-    Leaves are frozen parameters (serving computes no gradient)."""
+    Leaves are frozen parameters: serving computes no gradient, and the
+    train path differentiates a ``trainable`` view of them."""
 
     def __init__(self, tree: Mapping):
         super().__init__()
@@ -127,12 +128,95 @@ def tree_param_count(defs) -> int:
     return sum(n)
 
 
-def init_param_tree(defs: Mapping, seed: int,
-                    device: torch.device) -> ParamTree:
-    """Materialize a nested def tree on ``device`` from a generator there,
-    seeded with ``seed``; leaves drawn in the tree's insertion order."""
-    gen = torch.Generator(device=device).manual_seed(int(seed))
-    return ParamTree(_map_defs(defs, lambda d: _init_one(d, gen, device)))
+def init_param_tree(defs: Mapping, seed: int, device: torch.device,
+                    draw_device: Optional[torch.device] = None) -> ParamTree:
+    """Materialize a nested def tree on ``device`` from a generator on
+    ``draw_device`` (default ``device``), seeded with ``seed``; leaves
+    drawn in the tree's insertion order.  A CPU generator gives the same
+    numbers on every device (the LM task's init, which the reference's
+    trajectories start from)."""
+    draw = device if draw_device is None else torch.device(draw_device)
+    gen = torch.Generator(device=draw).manual_seed(int(seed))
+    return ParamTree(_map_defs(
+        defs, lambda d: _init_one(d, gen, draw).to(device)))
+
+
+def map_named(tree, fn, path=""):
+    """``fn(path, leaf)`` over a ParamTree (or nested dicts and lists of
+    tensors) as nested dicts and lists; paths are ``named_parameters``'s
+    names."""
+    if isinstance(tree, torch.Tensor):
+        return fn(path, tree)
+    pre = path + "." if path else ""
+    if isinstance(tree, (nn.ModuleList, list, tuple)):
+        return [map_named(v, fn, f"{pre}{i}") for i, v in enumerate(tree)]
+    items = (list(tree._parameters.items()) + list(tree._modules.items())
+             if isinstance(tree, nn.Module) else tree.items())
+    return {k: map_named(v, fn, pre + k) for k, v in items}
+
+
+def param_leaves(params) -> dict:
+    """The leaves of a ParamTree (or nested dicts and lists of tensors) by
+    name, ``named_parameters``'s names, in its order of insertion."""
+    leaves = {}
+
+    def one(path, p):
+        leaves[path] = p
+    map_named(params, one)
+    return leaves
+
+
+def trainable(params) -> tuple:
+    """(view, leaves): ``params`` as nested dicts and lists of tensors that
+    share the parameters' storage and require grad, and those tensors by
+    name (``named_parameters``'s names), for ``torch.autograd.grad``."""
+    leaves = {}
+
+    def one(path, p):
+        leaves[path] = p.detach().requires_grad_(True)
+        return leaves[path]
+    return map_named(params, one), leaves
+
+
+def layer_groups(cfg) -> tuple:
+    """(unit, n_rep, tail) over the port's per-layer entries: the
+    reference's ``layer_plan`` (``repro.models.transformer``), which groups
+    the layers as ``lead`` layers, a unit of ``len(block_pattern)`` layers
+    stacked ``n_rep`` times under ``scan``, and ``tail`` layers.  Only MoE
+    has lead layers, and the port runs no MoE."""
+    from repro_torch.models.transformer import layer_sigs
+    sigs = layer_sigs(cfg)
+    k = len(cfg.block_pattern)
+    unit, n_rep = sigs[:k], 0
+    while (n_rep + 1) * k <= len(sigs) and \
+            sigs[n_rep * k:(n_rep + 1) * k] == unit:
+        n_rep += 1
+    return unit, n_rep, sigs[n_rep * k:]
+
+
+def lm_params_to_stacked(cfg, params) -> dict:
+    """The inverse of ``lm_params_from_jax``: a ParamTree (or a tree of the
+    same layout, such as its gradients) in the reference's layout,
+    ``embed``, ``lead`` (empty), ``scan`` (``u0 .. u{k-1}``, leaves
+    stacked ``[n_rep, ...]``), ``tail``, ``ln_f``, ``unembed``, as nested
+    dicts and lists of tensors on the tree's device."""
+    unit, n_rep, _ = layer_groups(cfg)
+    tree = map_named(params, lambda _, t: t.detach())
+    layers, k = tree["layers"], len(unit)
+
+    def stack(group):
+        if isinstance(group[0], Mapping):
+            return {key: stack([g[key] for g in group]) for key in group[0]}
+        return torch.stack(group)
+    out = {"embed": tree["embed"], "lead": []}
+    if n_rep:
+        out["scan"] = {f"u{i}": stack(layers[i:n_rep * k:k])
+                       for i in range(k)}
+    out["tail"] = layers[n_rep * k:]
+    out["ln_f"] = tree["ln_f"]
+    if "unembed" in tree:
+        out["unembed"] = tree["unembed"]
+    return out
 
 
 def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:

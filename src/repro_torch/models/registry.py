@@ -2,10 +2,10 @@
 
 A copy of the decoder bundle of ``repro.models.registry``, for the dense
 GQA decoders and Mamba-2 alike.  A ``ModelBundle`` holds one config and
-its device, and exposes ``init``, ``prefill``, ``decode`` and
-``init_caches`` (per layer, a KV cache or a recurrent state).  The training loss waits for
-the LM train path, and the encoder-decoder bundle for its family
-(ROADMAP.md).
+its device, and exposes ``init``, ``loss`` (the next-token loss with
+per-sample weights, which the train step differentiates), ``prefill``,
+``decode`` and ``init_caches`` (per layer, a KV cache or a recurrent
+state).  The encoder-decoder bundle waits for its family (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -26,6 +26,9 @@ class ModelBundle:
     cfg: ModelConfig
     defs: Any
     device: torch.device
+    # (params, tokens [B, S + 1], sample_weights=None, use_kernel=False)
+    # -> scalar; params may be a ParamTree or its ``trainable`` view
+    loss: Callable
     prefill: Callable       # (params, tokens, caches) -> (logits, caches)
     decode: Callable        # (params, caches, token, pos) -> (logits, caches)
     init_caches: Callable   # (batch, max_len) -> per-layer caches or states
@@ -41,6 +44,10 @@ class ModelBundle:
 def _decoder_bundle(cfg: ModelConfig, device: torch.device) -> ModelBundle:
     defs = tfm.model_defs(cfg)
 
+    def loss(params, tokens, sample_weights=None, use_kernel=False):
+        return tfm.lm_loss(params, tokens, cfg, sample_weights=sample_weights,
+                           use_kernel=use_kernel)
+
     @torch.no_grad()
     def prefill(params, tokens, caches):
         return tfm.forward(params, tokens, cfg, caches=caches)
@@ -53,8 +60,9 @@ def _decoder_bundle(cfg: ModelConfig, device: torch.device) -> ModelBundle:
     def init_caches(batch: int, max_len: int):
         return tfm.init_caches(cfg, batch, max_len, device)
 
-    return ModelBundle(cfg=cfg, defs=defs, device=device, prefill=prefill,
-                       decode=decode, init_caches=init_caches,
+    return ModelBundle(cfg=cfg, defs=defs, device=device, loss=loss,
+                       prefill=prefill, decode=decode,
+                       init_caches=init_caches,
                        num_params=tree_param_count(defs))
 
 

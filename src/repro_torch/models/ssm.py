@@ -92,7 +92,8 @@ def ssd_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
               use_kernel: bool = True):
     """Mamba-2 mixer.  x [B, S, D] -> (y [B, S, D], state); the state, when
     given, is updated in place.  ``use_kernel=False`` computes a prefill's
-    scan with K4's plain version (on-card comparison only)."""
+    scan with K4's plain version: the train path's forward, which autograd
+    differentiates, and on-card comparison."""
     bsz, s, _ = x.shape
     d_inner, nheads, _ = _dims(cfg)
     g, n, hd = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim

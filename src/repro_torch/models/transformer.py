@@ -9,6 +9,13 @@ card and are dropped.  Mixers: attn | swa | local (GQA) and ssd (Mamba-2);
 FFN: dense (swiglu | geglu | gelu), or none after an ssd mixer when
 ``ffn_kind="none"`` (mamba2).  MoE, RG-LRU, MLA, MTP, frame inputs and the
 encoder-decoder raise, naming ROADMAP.md, where their port is queued.
+
+The loss (``softmax_xent``, ``lm_loss``) is the reference's next-token
+cross-entropy, with its per-sample weights, which the OTA-FL train step
+rides (``launch.steps``).  The train path differentiates the plain
+attention and SSD scan (``use_kernel=False``): the reference trains
+through its jnp forms, never a Pallas kernel, and K3 and K4 have no
+backward.
 """
 from __future__ import annotations
 
@@ -25,6 +32,10 @@ from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
 
 GQA_KINDS = ("attn", "swa", "local")
 MIXER_KINDS = GQA_KINDS + ("ssd",)
+# Sq * Sk past which the reference's ``grouped_attention`` takes its blocked
+# online-softmax scan (``repro/models/attention.py:80``); the port has not
+# ported that form, so the plain train forward refuses such lengths
+BLOCKED_ATTENTION = 2048 * 2048
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -124,3 +135,60 @@ def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
     w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
     return unembed(w, h, cfg), caches
+
+
+# ---------------------------------------------------------------------------
+# Loss
+# ---------------------------------------------------------------------------
+
+def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
+                 sample_weights: Optional[torch.Tensor] = None
+                 ) -> torch.Tensor:
+    """Mean cross-entropy, ignoring label == -1.  logits f32 [B, S, V].
+
+    sample_weights [B] (optional): per-sample loss weights, the mean over
+    the samples of w_b times sample b's mean token loss -- the OTA-FL
+    weighted loss rides these (``core.ota.per_client_loss_weights``).
+    ``vocab_size`` is the padded vocab the logits span (the reference's
+    signature; the gather needs no bound).
+    """
+    mask = (labels >= 0).float()
+    labels_safe = torch.clamp(labels, min=0).long()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
+    nll = (logz - gold) * mask
+    if sample_weights is not None:
+        w = sample_weights.float()
+        per_sample = torch.sum(nll, dim=-1) / torch.clamp(
+            torch.sum(mask, dim=-1), min=1)
+        return torch.mean(w * per_sample)
+    return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
+
+
+def lm_loss(params, tokens: torch.Tensor, cfg: ModelConfig, labels=None,
+            sample_weights: Optional[torch.Tensor] = None,
+            use_kernel: bool = False) -> torch.Tensor:
+    """Next-token LM loss over tokens [B, S + 1] (or inputs [B, S] with
+    ``labels``).  ``use_kernel=False`` (the train path) runs the plain
+    attention and SSD scan, which autograd differentiates; the held-out
+    eval passes True under ``torch.no_grad()``, through K3 and K4.  The
+    reference's MoE aux loss and MTP head raise, as their models do."""
+    if cfg.moe_num_experts or cfg.mtp_depth:
+        raise NotImplementedError(
+            f"{cfg.name}: the MoE aux loss and the MTP loss are not ported "
+            "to repro_torch yet (see ROADMAP.md, modules to port)")
+    if labels is None:
+        inputs, labels = tokens[:, :-1], tokens[:, 1:]
+    else:
+        inputs = tokens
+    s = inputs.shape[1]
+    kinds = {kind for kind, _ in layer_sigs(cfg)}
+    if not use_kernel and kinds & set(GQA_KINDS) \
+            and s * s > BLOCKED_ATTENTION:
+        raise NotImplementedError(
+            f"a train sequence of {s} tokens: the reference attends to it "
+            "with its blocked online-softmax scan (Sq * Sk > 2048^2), which "
+            "is not ported to repro_torch yet (see ROADMAP.md, modules to "
+            "port)")
+    logits, _ = forward(params, inputs, cfg, use_kernel=use_kernel)
+    return softmax_xent(logits, labels, cfg.padded_vocab, sample_weights)

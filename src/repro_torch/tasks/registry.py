@@ -3,11 +3,11 @@
 Factories, not instances: ``get("paper_mlp", hidden=16)`` builds a fresh
 Task with the overrides applied, so tests can shrink a workload without a
 parallel config system.  Each registration records which runtime consumes
-the bundle ("fleet" for ``run_fleet_task`` workloads), so a consumer can
-refuse a task it cannot run before building it.
-
-The reference also registers ``token_stream`` (``tasks/lm.py``, the LM
-train path's task); the port does not have it yet, and ``get`` says so.
+the bundle ("fleet" for ``run_fleet_task`` workloads, "steps" for the LM
+train step of ``launch.train``), so a consumer can refuse a task it cannot
+run before building it.  ``NOT_PORTED`` names the reference's tasks the
+port does not have, with where ROADMAP.md queues them; every task of the
+reference is ported now.
 """
 from __future__ import annotations
 
@@ -19,7 +19,7 @@ _FACTORIES: Dict[str, Tuple[Callable[..., Task], str]] = {}
 
 # the reference's tasks that are not ported yet, and where ROADMAP.md
 # queues them
-NOT_PORTED = {"token_stream": "ROADMAP.md §1, module 10 (the LM train path)"}
+NOT_PORTED: Dict[str, str] = {}
 
 
 def register(name: str, factory: Callable[..., Task],

@@ -199,12 +199,14 @@ def test_plain_version_not_called_on_cuda(cuda):
 # ragged S = 1000 at qwen3's heads; S at 127, 128, 129 and 255 around the
 # bf16 kernel's 128-row q tile and its 64- and 128-key tiles (Sq != Sk
 # both ways), S at 63 and 65 around the f32 kernel's 64-row q tile, G = 8
-# at H = 32, and G = 5 at H = 40 (qwen2.5's heads)
+# at H = 32, and the heads of granite-8b (32 over 8), qwen2.5-14b (40 over
+# 8, G = 5) and chameleon-34b (64 over 8)
 ATTN_SHAPES = [(sq, sk, h, kh)
                for sq, sk in ((128, 128), (256, 256), (64, 256), (1, 512),
                               (100, 100), (127, 127), (129, 129), (255, 255),
                               (129, 255), (255, 127), (63, 63), (65, 65))
-               for h, kh in ((4, 4), (4, 2), (8, 1), (32, 4), (40, 8))] \
+               for h, kh in ((4, 4), (4, 2), (8, 1), (32, 4), (32, 8),
+                             (40, 8), (64, 8))] \
     + [(1000, 1000, 16, 8)]
 
 
@@ -416,6 +418,36 @@ def test_ssd_scan_rejects_what_it_does_not_take(cuda):
         assert off.is_contiguous() and off.data_ptr() % 16
         with pytest.raises(ValueError):
             ssd_scan(off, dta, a_neg, bma, cma, chunk=32)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kernels_refuse_autograd(cuda, dtype):
+    """K3 and K4 have no backward: in grad mode an input that requires grad
+    raises (naming use_kernel=False) and launches nothing; under no_grad
+    the kernel runs; use_kernel=False takes the plain version, which
+    autograd differentiates."""
+    q, k, v = _qkv(cuda, 1, 64, 64, 4, 2, 64, dtype)
+    x, dt, a_neg, bm, cm, s0 = _ssd_inputs(cuda, 1, 64, 4, 64, 64, 1,
+                                           dtype, True)
+    for t in (k, dt):
+        t.requires_grad_(True)
+    launches = (flash_attention.launches, ssd_scan.launches)
+    with pytest.raises(RuntimeError, match="use_kernel=False"):
+        flash_attention(q, k, v)
+    with pytest.raises(RuntimeError, match="use_kernel=False"):
+        ssd_scan(x, dt, a_neg, bm, cm, chunk=32, state0=s0)
+    assert (flash_attention.launches, ssd_scan.launches) == launches
+    with torch.no_grad():
+        flash_attention(q, k, v)
+        ssd_scan(x, dt, a_neg, bm, cm, chunk=32, state0=s0)
+    assert (flash_attention.launches, ssd_scan.launches) \
+        == (launches[0] + 1, launches[1] + 1)
+    flash_attention(q, k, v, use_kernel=False).float().sum().backward()
+    y, st = ssd_scan(x, dt, a_neg, bm, cm, chunk=32, state0=s0,
+                     use_kernel=False)
+    (y.float().sum() + st.sum()).backward()
+    assert k.grad is not None and bool(torch.isfinite(k.grad).all())
+    assert dt.grad is not None and bool(torch.isfinite(dt.grad).all())
 
 
 def test_ssd_scan_plain_version_not_called_on_cuda(cuda):

@@ -9,9 +9,11 @@ bundle and serve step against
 reference's own ``PRNGKey(0)`` weights, carried across with
 ``lm_params_from_jax``, and the same numpy prompts of a ragged length
 (37): the prefill logits, then 8 greedy decode steps, their tokens and
-logits.  Six smoke variants: qwen1.5-0.5b (QKV bias), qwen3-1.7b
+logits.  Nine smoke variants: qwen1.5-0.5b (QKV bias), qwen3-1.7b
 (qk-norm, GQA G = 2), qwen1.5-0.5b's sliding-window variant with a
-16-slot ring cache, shorter than the prompt, and mamba2-1.3b three ways:
+16-slot ring cache, shorter than the prompt, the three dense archs ported
+by config alone (granite-8b, qwen2.5-14b with QKV bias, chameleon-34b
+with qk-norm), and mamba2-1.3b three ways:
 as it is (the prompt of 37 ragged against its chunk of 32, so the
 reference pads), with two SSD groups, and with a chunk of 64, longer than
 the prompt (one chunk of S).
@@ -24,7 +26,8 @@ so that the bias, norm and per-head paths are held too.
 Tolerance: float32 smoke configs, rtol 1e-4 / atol 1e-5 -- the same f32
 math through 2 layers, with matmul and reduction sums taken in another
 order by XLA and PyTorch (the observed gap is ~6e-6 on logits of ~4);
-greedy tokens must be equal.
+greedy tokens must be equal.  The full-width parameter counts of
+the archs equal the reference's.
 """
 import jax
 import jax.numpy as jnp
@@ -60,6 +63,9 @@ GQA_VARIANTS = {
     "qwen1.5-0.5b": ("qwen1.5-0.5b", False, {}),
     "qwen3-1.7b": ("qwen3-1.7b", False, {}),
     "qwen1.5-0.5b-swa16": ("qwen1.5-0.5b", True, dict(window=16)),
+    "granite-8b": ("granite-8b", False, {}),
+    "qwen2.5-14b": ("qwen2.5-14b", False, {}),
+    "chameleon-34b": ("chameleon-34b", False, {}),
 }
 SSD_VARIANTS = {
     "mamba2-1.3b": ("mamba2-1.3b", False, {}),
@@ -144,6 +150,19 @@ def test_param_count_at_full_width():
     assert tree_param_count(ttfm.model_defs(cfg)) == 619_832_320
     jcfg = jconfigs.get_config("qwen1.5-0.5b")
     assert jbuild(jcfg, tp=1, dp=1).num_params == 619_832_320
+
+
+@pytest.mark.parametrize("arch,n_params", [
+    ("granite-8b", 8_254_689_280), ("qwen2.5-14b", 14_770_033_664),
+    ("chameleon-34b", 34_293_436_416)])
+def test_dense_archs_param_count_at_full_width(arch, n_params):
+    """The archs ported by config alone: the port's full-width defs count
+    the reference bundle's parameters."""
+    cfg = tconfigs.get_config(arch)
+    assert tree_param_count(ttfm.model_defs(cfg)) == n_params
+    assert jbuild(jconfigs.get_config(arch), tp=1, dp=1).num_params \
+        == n_params
+    assert tbuild(cfg, CPU).num_params == n_params
 
 
 def test_init_draws_the_reference_laws():

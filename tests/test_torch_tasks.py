@@ -20,11 +20,14 @@ def ref(tmp_path_factory):
 
 def test_names_cover_the_reference(ref):
     """Every task the reference registers is ported or named as not ported
-    (with where ROADMAP queues it)."""
-    assert tasks.names() == ("cifar_conv", "paper_mlp")
+    (with where ROADMAP queues it); since the LM train path, all are
+    ported, under the reference's runtimes."""
+    assert tasks.names() == ("cifar_conv", "paper_mlp", "token_stream")
     assert set(tasks.names()) | set(registry.NOT_PORTED) == set(ref["names"])
-    assert set(tasks.names(runtime="fleet")) <= set(ref["fleet"])
-    assert tasks.names(runtime="steps") == ()
+    assert tasks.names(runtime="fleet") == tuple(ref["fleet"])
+    assert tasks.names(runtime="steps") == tuple(ref["steps"]) \
+        == ("token_stream",)
+    assert registry.NOT_PORTED == {}
 
 
 def test_paper_mlp_matches_reference(ref):
@@ -55,10 +58,31 @@ def test_cifar_conv_matches_reference(ref):
     assert fig2.default_batch(tasks.get("paper_mlp")) == fig2.BENCH_BATCH
 
 
-@pytest.mark.parametrize("name", sorted(registry.NOT_PORTED))
-def test_unported_task_names_roadmap(name):
+def test_token_stream_matches_reference(ref):
+    t = tasks.get("token_stream", expect_runtime="steps", device="cpu")
+    want = ref["token_stream"]
+    assert t.runtime == want["runtime"] == "steps"
+    assert t.num_devices == want["num_devices"]
+    assert t.param_dim == want["param_dim"]
+    assert t.defaults == want["defaults"]
+    assert t.scheme_etas == want["scheme_etas"]
+    assert t.artifact_tag == want["artifact_tag"] == "lm"
+    t = tasks.get("token_stream", device="cpu", **torch_ref.LM_TASK_KW)
+    assert t.param_dim == ref["token_stream_kw"]["param_dim"]
+    assert t.num_devices == ref["token_stream_kw"]["num_devices"] == 3
+
+
+def test_unported_task_names_roadmap():
+    """A name the registry lacks raises a KeyError that points at
+    ROADMAP.md; a name in ``NOT_PORTED`` would name where it is queued."""
     with pytest.raises(KeyError, match="ROADMAP"):
-        tasks.get(name)
+        tasks.get("no_such_task")
+    registry.NOT_PORTED["queued_for_test"] = "ROADMAP.md §1, module 99"
+    try:
+        with pytest.raises(KeyError, match="module 99"):
+            tasks.get("queued_for_test")
+    finally:
+        del registry.NOT_PORTED["queued_for_test"]
 
 
 @pytest.mark.parametrize("call,err,match", [

@@ -365,20 +365,31 @@ out = {"names": list(tasks.names()),
        "paper_mlp_small": tasks.get("paper_mlp", hidden=16).param_dim,
        "cifar_conv_small": tasks.get("cifar_conv",
                                      **cfg["cifar_kw"]).param_dim}
-for name in ("paper_mlp", "cifar_conv"):
+for name in ("paper_mlp", "cifar_conv", "token_stream"):
     t = tasks.get(name)
     out[name] = {"num_devices": t.num_devices, "param_dim": t.param_dim,
                  "defaults": t.defaults, "scheme_etas": t.scheme_etas,
                  "runtime": t.runtime, "artifact_tag": t.artifact_tag}
+lm = tasks.get("token_stream", **cfg["lm_kw"])
+out["token_stream_kw"] = {"param_dim": lm.param_dim,
+                          "num_devices": lm.num_devices}
 with open(cfg["out"], "w") as f:
     json.dump(out, f)
 '''
 
 
+# a token_stream task off its defaults: mamba2's smoke at d_model 128,
+# 3 layers, 3 clients
+LM_TASK_KW = dict(arch="mamba2-1.3b", d_model=128, n_layers=3, clients=3,
+                  per_client_batch=2, seq=16)
+
+
 def run_reference_tasks(out_path: Path, timeout: float = 300.0) -> dict:
     """The reference's task registry (``repro.tasks``): its names, by
-    runtime, and paper_mlp's bundle constants, in a child process."""
-    _child(_TASKS_CHILD, {"out": str(out_path), "cifar_kw": CIFAR_SMOKE_KW},
+    runtime, and its tasks' bundle constants (token_stream's also at
+    ``LM_TASK_KW``), in a child process."""
+    _child(_TASKS_CHILD, {"out": str(out_path), "cifar_kw": CIFAR_SMOKE_KW,
+                          "lm_kw": LM_TASK_KW},
            "reference tasks", timeout)
     with open(out_path) as f:
         return json.load(f)
@@ -1029,6 +1040,219 @@ def write_population_reference(out_dir: Path = POP_REF_DIR) -> str:
     return f"population reference: {wall:.1f} s (reference on the CPU)"
 
 
+# The reference's LM training run (``repro.launch.train.main``'s loop) at
+# the example's preset, one seed, from the port's initial weights of the
+# seed (an archive in the reference's stacked layout, read with the
+# reference's ``checkpoint.restore``); everything else is the reference's
+# own: the task's data, the world, the ``sca`` design of its default
+# solver, the step's key stream from PRNGKey(seed + 1), the jitted step and
+# the held-out eval.
+_LM_REF_CHILD = r"""
+import json, sys, time
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+import jax.numpy as jnp
+from repro import tasks
+from repro.checkpoint import checkpoint as ckpt
+from repro.core import power_control as pcm
+from repro.core.channel import WirelessConfig, deploy
+from repro.core.theory import OTAParams
+from repro.launch import steps as steps_lib
+
+p, seed = cfg["preset"], cfg["seed"]
+t0 = time.time()
+task = tasks.get("token_stream", expect_runtime="steps", arch=p["arch"],
+                 smoke=p["smoke"], d_model=p["d_model"],
+                 n_layers=p["n_layers"], clients=p["clients"],
+                 per_client_batch=p["per_client_batch"], seq=p["seq"])
+bundle = task.aux["bundle"]
+wcfg = WirelessConfig(num_devices=p["clients"], seed=seed)
+dep = deploy(wcfg)
+prm = OTAParams(d=bundle.num_params, gmax=10.0, es=wcfg.energy_per_sample,
+                n0=wcfg.noise_psd, gains=dep.gains,
+                sigma_sq=np.zeros(p["clients"]), eta=p["eta"], lsmooth=1.0,
+                kappa_sq=4.0)
+scheme = pcm.make_power_control(p["scheme"], dep, prm)
+step = steps_lib.make_train_step(bundle, scheme, dep.gains,
+                                 steps_lib.TrainStepConfig(eta=p["eta"]))
+step = jax.jit(step, donate_argnums=(0,))
+params = ckpt.restore(cfg["init"], task.init_params(seed))
+td = task.build_data(seed, steps=p["steps"])
+eval_fn = jax.jit(task.make_eval(td))
+key = jax.random.PRNGKey(seed + 1)
+losses, active = [], []
+for t in range(p["steps"]):
+    key, sub = jax.random.split(key)
+    batch = jnp.asarray(td.train[t].reshape(-1, p["seq"] + 1))
+    params, metrics = step(params, batch, sub)
+    losses.append(float(metrics["loss"]))
+    active.append(float(metrics["active_clients"]))
+held_out = float(eval_fn(params)["loss"])
+with open(cfg["out"], "w") as f:
+    json.dump({"seed": seed, "preset": p, "num_params": bundle.num_params,
+               "losses": losses, "active_clients": active,
+               "held_out_loss": held_out, "p": np.asarray(scheme.p).tolist(),
+               "cpu_wall_s": time.time() - t0}, f, indent=1)
+"""
+
+LM_REF_DIR = ROOT / "experiments" / "lm_reference"
+
+# The reference's OTA-FL train step (``repro.launch.steps.make_train_step``
+# and ``make_ideal_train_step``) on smoke configs, f32, from its own
+# PRNGKey(0) weights with the leaves it inits to 0 or 1 perturbed by seeded
+# noise (as tests/test_torch_lm.py does), over ``steps`` steps of the
+# reference's own client batches: per step the draws it consumed, by its
+# recipe (``key, sub = split(key)``; ``k_fade, k_coeff, k_noise =
+# split(sub, 3)``; h = ``draw_fading(k_fade, gains)``; the coin
+# ``bernoulli(k_coeff, 0.5)``; leaf l's noise ``normal(split(k_noise,
+# n_leaves)[l], shape_l)`` in tree-flatten order over the STACKED params),
+# the metrics, and the params after the first and the last step; the same
+# for the ideal step.  Keys are the reference checkpoint's '/'-joined paths.
+_TRAIN_CHILD = r"""
+import json, sys
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+import jax.numpy as jnp
+from repro import configs
+from repro.checkpoint.checkpoint import _flatten
+from repro.core import ota, power_control as pcm
+from repro.core.channel import WirelessConfig, deploy
+from repro.core.theory import OTAParams
+from repro.launch import steps as steps_lib
+from repro.models.registry import build_bundle
+from repro.tasks.lm import client_batches
+sys.path.insert(0, cfg["tests"])
+import torch_ref
+
+def perturb(tree, seed=0):
+    rng = np.random.default_rng(seed)
+    def one(path, a):
+        name = jax.tree_util.keystr(path)
+        if any(t in name for t in ("'b'", "bkv", "ln", "norm", "a_log",
+                                   "dt_bias", "d_skip", "conv_b")):
+            a = a + 0.1 * rng.standard_normal(a.shape).astype(np.float32)
+        return jnp.asarray(a, jnp.float32)
+    return jax.tree_util.tree_map_with_path(one, tree)
+
+out = {}
+for c in cfg["cases"]:
+    name = c["name"]
+    jcfg = configs.get_config(c["arch"]).smoke(**c["smoke"])
+    bundle = build_bundle(jcfg, tp=1, dp=1)
+    params0 = perturb(bundle.init(jax.random.PRNGKey(0)))
+    for k, v in _flatten(params0).items():
+        out[f"{name}/params0/{k}"] = v
+    data = client_batches(jcfg.vocab_size, c["clients"], c["per_client"],
+                          c["seq"], c["steps"], seed=c["seed"])
+    out[f"{name}/data"] = data
+    tokens = [jnp.asarray(data[t].reshape(-1, c["seq"] + 1))
+              for t in range(c["steps"])]
+    wcfg = WirelessConfig(num_devices=c["clients"], seed=0)
+    dep = deploy(wcfg)
+    prm = OTAParams(d=bundle.num_params, gmax=10.0,
+                    es=wcfg.energy_per_sample, n0=wcfg.noise_psd,
+                    gains=dep.gains, sigma_sq=np.zeros(c["clients"]),
+                    eta=c["eta"], lsmooth=1.0, kappa_sq=4.0)
+    scheme = pcm.make_power_control(c["scheme"], dep, prm)
+    out[f"{name}/gains"] = np.asarray(dep.gains)
+    for f, v in torch_ref.scheme_fields(scheme).items():
+        out[f"{name}/scheme/{f}"] = v
+    tcfg = steps_lib.TrainStepConfig(eta=c["eta"])
+    step = jax.jit(steps_lib.make_train_step(bundle, scheme, dep.gains, tcfg))
+    gains_j = jnp.asarray(np.asarray(dep.gains), jnp.float32)
+    key = jax.random.PRNGKey(c["seed"] + 1)
+    params = params0
+    metrics = {"loss": [], "active_clients": [], "noise_scale": []}
+    for t in range(c["steps"]):
+        key, sub = jax.random.split(key)
+        k_fade, k_coeff, k_noise = jax.random.split(sub, 3)
+        out[f"{name}/h/{t}"] = np.asarray(ota.draw_fading(k_fade, gains_j))
+        out[f"{name}/coin/{t}"] = np.asarray(
+            jax.random.bernoulli(k_coeff, 0.5))
+        leaves, treedef = jax.tree.flatten(params)
+        keys = jax.random.split(k_noise, len(leaves))
+        z = jax.tree.unflatten(treedef, [jax.random.normal(k, l.shape)
+                                         for k, l in zip(keys, leaves)])
+        for k, v in _flatten(z).items():
+            out[f"{name}/z/{t}/{k}"] = v
+        params, m = step(params, tokens[t], sub)
+        for k in metrics:
+            metrics[k].append(np.asarray(m[k]))
+        if t in (0, c["steps"] - 1):
+            for k, v in _flatten(params).items():
+                out[f"{name}/params/{t}/{k}"] = v
+    for k, v in metrics.items():
+        out[f"{name}/{k}"] = np.asarray(v)
+    ideal = jax.jit(steps_lib.make_ideal_train_step(bundle, tcfg))
+    params, losses = params0, []
+    for t in range(c["steps"]):
+        params, m = ideal(params, tokens[t], None)
+        losses.append(np.asarray(m["loss"]))
+        if t in (0, c["steps"] - 1):
+            for k, v in _flatten(params).items():
+                out[f"{name}/ideal_params/{t}/{k}"] = v
+    out[f"{name}/ideal_loss"] = np.asarray(losses)
+np.savez(cfg["out"], **out)
+"""
+
+# the train-step parity cases: qwen1.5-0.5b's smoke (QKV bias, GQA) and
+# mamba2-1.3b's (a ragged 40-token input against its chunk of 32), sca;
+# and one bbfl_alternative case, whose coefficients read the coin (its
+# seed's key stream draws both outcomes over the 4 steps)
+TRAIN_CASES = (
+    dict(name="qwen", arch="qwen1.5-0.5b", smoke={}, scheme="sca", steps=4,
+         clients=4, per_client=1, seq=32, eta=0.05, seed=0),
+    dict(name="mamba2", arch="mamba2-1.3b", smoke={}, scheme="sca",
+         steps=4, clients=2, per_client=2, seq=40, eta=0.05, seed=1),
+    dict(name="bbfl", arch="qwen1.5-0.5b", smoke=dict(n_layers=1),
+         scheme="bbfl_alternative", steps=4, clients=4, per_client=1,
+         seq=16, eta=0.05, seed=4),
+)
+
+
+def run_reference_train(out_path: Path, cases=TRAIN_CASES,
+                        timeout: float = 900.0) -> dict:
+    """The reference's train and ideal steps on ``cases``, with the draws
+    they consumed (``_TRAIN_CHILD``), in a child process."""
+    return _run_child(_TRAIN_CHILD, dict(cases=list(cases), out=str(out_path),
+                                         tests=str(ROOT / "tests")),
+                      "reference train step", timeout)
+
+
+def _lm_ref_job(job) -> str:
+    """One seed of ``write_lm_reference``."""
+    import tempfile
+    from repro_torch.checkpoint import checkpoint as tckpt
+    from repro_torch.lm_curves import PRESET
+    from repro_torch.tasks.lm import make_token_stream
+    seed, out_dir = job
+    task = make_token_stream(
+        arch=PRESET["arch"], smoke=PRESET["smoke"],
+        d_model=PRESET["d_model"], n_layers=PRESET["n_layers"],
+        clients=PRESET["clients"],
+        per_client_batch=PRESET["per_client_batch"], seq=PRESET["seq"],
+        device="cpu")
+    out = Path(out_dir) / f"losses_seed{seed}.json"
+    with tempfile.TemporaryDirectory() as tmp:
+        init = str(Path(tmp) / "init.npz")
+        tckpt.save_lm(init, task.aux["cfg"],
+                      task.init_params(seed, torch.device("cpu")))
+        _child(_LM_REF_CHILD, dict(preset=PRESET, seed=int(seed), init=init,
+                                   out=str(out)),
+               "reference LM run", 4 * 3600.0)
+    with open(out) as f:
+        got = json.load(f)
+    return (f"lm seed {seed}: {got['cpu_wall_s']:.1f} s (reference on the "
+            f"CPU), first {got['losses'][0]:.4f}, last "
+            f"{got['losses'][-1]:.4f}, held out {got['held_out_loss']:.4f}")
+
+
 # The reference's cifar_conv fleet and run telemetry, at the smoke widths
 # of tests/test_tasks.py (SMOKE_KW): a [2 scheme x 2 seed] cifar fleet on
 # the fused flat path with telemetry on and a checkpoint in its run dir,
@@ -1287,10 +1511,22 @@ def main(argv=None) -> None:
                     help="write experiments/cifar_reference/ instead: the "
                          "reference's cifar_conv curves for --seeds and its "
                          "sca design")
+    ap.add_argument("--lm", action="store_true",
+                    help="write experiments/lm_reference/ instead: the "
+                         "reference's LM training runs at the example's "
+                         "preset for --seeds, from the port's initial "
+                         "weights")
     ap.add_argument("--out", default=None)
     a = ap.parse_args(argv)
     if a.jobs is None:
         a.jobs = 1 if a.cifar else 3
+    if a.lm:
+        out = Path(a.out) if a.out else LM_REF_DIR
+        out.mkdir(parents=True, exist_ok=True)
+        with ThreadPoolExecutor(max_workers=a.jobs) as pool:
+            for line in pool.map(_lm_ref_job, [(s, out) for s in a.seeds]):
+                print(line, flush=True)
+        return
     if a.population:
         print(write_population_reference(
             Path(a.out) if a.out else POP_REF_DIR), flush=True)
