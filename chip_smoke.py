@@ -12,9 +12,10 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      every K1/K2 instance and the tensor-core instructions of the
      flash-attention and ssd_scan kernels (HGMMA for wgmma, HMMA for
      mma.sync), and fail if a K1/K2 instance has no 128-bit load or store,
-     K3's bf16 kernel or K4's f32 kernel has no tensor-core instruction, or
-     K3's f32 kernel (Dh 64 and 128) has no HMMA; print K3 f32's registers
-     and spills (ptxas) and fail if it spills;
+     K3's bf16 kernel (Dh 64, 128, 256) has no HGMMA, K4's f32 kernel no
+     tensor-core instruction, or K3's f32 kernel (Dh 64, 128, 256) no
+     HMMA; print K3's registers and spills (ptxas) and fail if its f32
+     kernel spills;
   2. every kernel against its plain PyTorch version on the card, at its
      main path's shapes, with times (CUDA events around batches of 20
      back-to-back calls, the median of 5 batches) beside the plain
@@ -30,8 +31,10 @@ Phases (any failure exits nonzero, and nothing is swallowed):
          Dh 128), with window 256, at ragged S = 1000, at the prefills of
          granite-8b (H 32, KH 8, Dh 128), qwen2.5-14b (H 40) and
          chameleon-34b (H 64), at the qwen train run's eval (B 4, S 128),
-         and in f32 (the serve path's prefill in f32, qwen3's heads,
-         window 256) -- f32 to
+         in f32 (the serve path's prefill in f32, qwen3's heads, window
+         256), and at recurrentgemma-9b's local layers (Dh 256, H 16 over
+         KH 1) at its prefill (B 8, S 1024) and past its window (B 2,
+         S 4096, window 2048), in bf16 and in f32 -- f32 to
          2e-5, bf16 to two bf16 ulps plus 1e-2; the shapes, the bound and
          the ``scaled_dot_product_attention`` call timed beside it are
          ``repro_torch.profile_attention``'s; the f32 bound takes the
@@ -210,12 +213,32 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      0-3) held by ``repro_torch.lm_curves.gate`` against the reference's
      runs in ``experiments/lm_reference/``, after its false-alarm rate at
      four seeds (printed) is checked to be at most 25 %;
- 14. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
-     run's launches, with each dense arch's serve run's and with the qwen
-     train run's eval's; K3 f32 with the f32 serve run's; K4 f32 with the
+ 14. recurrentgemma-9b (module 11's RG-LRU family: 26 RG-LRU layers in
+     plain PyTorch, as the reference has no kernel for them, and 12 local
+     attention layers through K3 at head_dim 256 over one KV head): (a)
+     ``python -m repro_torch.launch.serve`` at full width and depth in
+     bf16, batch 8, prompt 1,024, 32 decode tokens, random weights from
+     seed 0: K3 12 times per prefill and its plain version, K4 and the OTA
+     kernels never, finite logits, tokens in range, the prefill ms, decode
+     ms per token and peak device memory; layer 2's attention (the first
+     local layer) K3 on vs off within K3's bf16 tolerance, the logits'
+     drift a reading; (b) the same draw in f32 at full depth on
+     ``RGEMMA_F32_BATCH`` prompts: K3 on vs off at phase 6's f32 gate; (c)
+     its greedy tokens of prefill + recurrent decode (the doubling scan's
+     final state, the conv stash, the decode step) against one prefill
+     over the prompt and the fed-back tokens, to the share of equal
+     tokens; (d) its first 6 layers in f32 at batch 2 x 4,096, past the
+     window of 2,048: K3 takes the window, the local layers decode 32
+     tokens through their 2,048-slot ring caches, held against a full
+     windowed forward over the generated sequence;
+ 15. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+     run's launches, with each dense arch's serve run's, with the qwen
+     train run's eval's and with recurrentgemma's; K3 f32 with the f32
+     serve run's and with recurrentgemma's f32 run's; K4 f32 with the
      mamba2 serve run's and the mamba2 train run's eval's; K1 f32 four
      times: the Fig.-2 main path's, the grid's, the cohort fleet's and the
-     cifar fleet's), then the last line ``{"ok": true, "device": {...}}``.
+     cifar fleet's), each phase's seconds, then the last line ``{"ok":
+     true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
 fleet's reference is full float32.
@@ -350,6 +373,18 @@ TRAIN_QWEN = ("--arch", "qwen1.5-0.5b")
 TRAIN_MAMBA = ("--arch", "mamba2-1.3b", "--steps", "10")
 STEP_TOL = dict(rtol=1e-5, atol=1e-6)
 LM_EVAL_LOSS_RTOL = 1e-3
+# phase 14: recurrentgemma-9b (26 RG-LRU and 12 local-attention layers, K3
+# at head_dim 256 over one KV head) served at full width and depth in bf16;
+# then in f32 at full depth (41.8 GB of weights) on RGEMMA_F32_BATCH
+# prompts: batch 8's f32 logits (8.4 GB) and the softcap's temporaries of
+# their size, twice over for K3 on and off, would not fit beside the
+# weights; then its first RGEMMA_RING["n_layers"] layers (two local ones)
+# in f32 past the window: 2 x 4,096 prompts against the window of 2,048,
+# decoding through the 2,048-slot ring cache
+RGEMMA_SERVE = dict(arch="recurrentgemma-9b", batch=8, prompt_len=1024,
+                    decode_tokens=32)
+RGEMMA_F32_BATCH = 4
+RGEMMA_RING = dict(n_layers=6, batch=2, prompt_len=4096, decode_tokens=32)
 
 
 class SmokeFailure(Exception):
@@ -1633,18 +1668,27 @@ def phase_scenarios(torch, np, dev, card, card_line):
 
 def attention_on_vs_off(torch, res, cfg):
     """K3 on vs forced off on a serve run's weights and prompts: the first
-    layer's attention output (on, off), and the prefill logits of K3
-    against its plain version as (max |d|, max |logit|, share of equal
-    greedy tokens)."""
+    attention layer's output (on, off), on the hidden state that the
+    layers before it (none in a dense arch) hand it, and the prefill
+    logits of K3 against its plain version as (max |d|, max |logit|, share
+    of equal greedy tokens)."""
     from repro_torch.models import attention as attn
     from repro_torch.models import transformer as tfm
     from repro_torch.models.layers import embed, rmsnorm
-    p0 = res.params["layers"][0]
+    sigs = tfm.layer_sigs(cfg)
+    first = next(i for i, (kind, _) in enumerate(sigs)
+                 if kind in tfm.GQA_KINDS)
+    p = res.params["layers"][first]
     with torch.no_grad():
-        h = rmsnorm(p0["ln1"], embed(res.params["embed"], res.prompts,
-                                     cfg.compute_dtype), cfg.norm_eps)
-        on, _ = attn.gqa_apply(p0["mixer"], h, cfg)
-        off, _ = attn.gqa_apply(p0["mixer"], h, cfg, use_kernel=False)
+        x = embed(res.params["embed"], res.prompts, cfg.compute_dtype)
+        for i in range(first):
+            x, _ = tfm.apply_layer(res.params["layers"][i], x, cfg, sigs[i])
+        h = rmsnorm(p["ln1"], x, cfg.norm_eps)
+        kind = sigs[first][0]
+        on, _ = attn.gqa_apply(p["mixer"], h, cfg, kind=kind)
+        off, _ = attn.gqa_apply(p["mixer"], h, cfg, kind=kind,
+                                use_kernel=False)
+        del x, h
         logits_off, _ = tfm.forward(res.params, res.prompts, cfg,
                                     use_kernel=False)
     kernel = (float((res.logits - logits_off).abs().max()),
@@ -1655,13 +1699,16 @@ def attention_on_vs_off(torch, res, cfg):
 
 
 def check_serve_run(torch, res, cnt, label):
-    """One GQA serve run: K3 once per layer in each of its two prefills
-    (warm-up, timed), no plain attention, OTA kernel or K4; finite logits
-    and tokens in range, of the run's shapes."""
-    n_layers = res.cfg.n_layers
+    """One serve run of a GQA arch or of a hybrid with GQA layers: K3 once
+    per attention layer in each of its two prefills (warm-up, timed), no
+    plain attention, OTA kernel or K4; finite logits and tokens in range,
+    of the run's shapes."""
+    from repro_torch.models import transformer as tfm
+    n_layers = sum(kind in tfm.GQA_KINDS for kind, _ in
+                   tfm.layer_sigs(res.cfg))
     check(res.stats["k3_launches_per_prefill"] == n_layers,
           f"{label}: K3 launched {res.stats['k3_launches_per_prefill']} "
-          f"times in a prefill of {n_layers} layers")
+          f"times in a prefill of {n_layers} attention layers")
     check(cnt["flash_attention"] == 2 * n_layers,     # warm-up + timed
           f"{label}: K3 launched {cnt['flash_attention']} times in 2 "
           "prefills")
@@ -1787,9 +1834,10 @@ def ssd_on_vs_off(torch, res, cfg):
     return on.float(), off.float(), kernel
 
 
-def ssd_state_check(torch, res, cfg):
+def state_check(torch, res, cfg):
     """Share of the greedy tokens of prefill + recurrent decode that one
-    prefill (K4) over the prompt and the fed-back tokens reproduces."""
+    prefill over the prompt and the fed-back tokens reproduces (mamba2's
+    through K4, recurrentgemma's through its doubling scan and K3)."""
     from repro_torch.models import transformer as tfm
     with torch.no_grad():
         seq = torch.cat([res.prompts, res.tokens[:, :-1]], dim=1)
@@ -1842,7 +1890,7 @@ def phase_serve_ssd(torch, dev):
         "layer0_mixer_max_abs": float(off.abs().max()),
         "logits_max_abs_diff": kernel[0], "logits_max_abs": kernel[1],
         "equal_next_tokens": kernel[2],
-        "state_equal_tokens": ssd_state_check(torch, res, cfg)}}
+        "state_equal_tokens": state_check(torch, res, cfg)}}
     print(f"  mamba2 serve (bf16), K4 on vs off and prefill + decode vs one "
           f"prefill: {json.dumps(drift['bf16'])} (tolerance: layer 0 within "
           f"{ATTN_BF16_TOL}; the whole model's numbers are readings, held "
@@ -1857,7 +1905,7 @@ def phase_serve_ssd(torch, dev):
                     device=dev)
     on, off, kernel = ssd_on_vs_off(torch, r32, cfg32)
     layer0_err = float((on - off).abs().max())
-    state_equal = ssd_state_check(torch, r32, cfg32)
+    state_equal = state_check(torch, r32, cfg32)
     drift["f32"] = {
         "layer0_mixer_max_abs_err": layer0_err,
         "layer0_mixer_max_abs": float(off.abs().max()),
@@ -1883,24 +1931,25 @@ def phase_serve_ssd(torch, dev):
     return st, cnt, drift
 
 
-def f32_gate(torch, on, off, kernel, label, **extra):
+def f32_gate(torch, on, off, kernel, label, layer=0, **extra):
     """Phase 6's f32 gate on a K3 on-vs-off reading, printed first (with
-    ``extra``): layer 0's attention within F32_TOL, the logits within
-    DRIFT_LOGITS_SHARE of their largest magnitude, greedy tokens equal at
-    >= EQUAL_TOKENS_MIN.  Returns the reading."""
-    layer0_err = float((on - off).abs().max())
-    reading = {"layer0_attention_max_abs_err": layer0_err,
-               "layer0_attention_max_abs": float(off.abs().max()),
+    ``extra``): the first attention layer's (``layer``) output within
+    F32_TOL, the logits within DRIFT_LOGITS_SHARE of their largest
+    magnitude, greedy tokens equal at >= EQUAL_TOKENS_MIN.  Returns the
+    reading."""
+    layer_err = float((on - off).abs().max())
+    reading = {f"layer{layer}_attention_max_abs_err": layer_err,
+               f"layer{layer}_attention_max_abs": float(off.abs().max()),
                "logits_max_abs_diff": kernel[0], "logits_max_abs": kernel[1],
                "equal_next_tokens": kernel[2], **extra}
     print(f"  {label} (f32), K3 on vs off: {json.dumps(reading)} "
-          f"(tolerance: layer 0 within {F32_TOL}; logits within "
+          f"(tolerance: layer {layer} within {F32_TOL}; logits within "
           f"{DRIFT_LOGITS_SHARE} of max |logit|, greedy tokens equal at >= "
           f"{EQUAL_TOKENS_MIN} of positions)", flush=True)
     check(bool((on - off).abs().le(F32_TOL["atol"]
                                    + F32_TOL["rtol"] * off.abs()).all()),
-          f"{label}: f32 layer 0 attention, K3 on vs off: max |d| "
-          f"{layer0_err}")
+          f"{label}: f32 layer {layer} attention, K3 on vs off: max |d| "
+          f"{layer_err}")
     check(kernel[0] <= DRIFT_LOGITS_SHARE * kernel[1],
           f"{label}: f32 logits drift {kernel[0]} over "
           f"{DRIFT_LOGITS_SHARE} x {kernel[1]}")
@@ -2182,6 +2231,127 @@ def phase_train(torch, np, dev):
     return out, cq, cm
 
 
+def phase_recurrentgemma(torch, dev, card_line):
+    """Phase 14: recurrentgemma-9b served at full width and depth in bf16
+    through K3 at head_dim 256, K3 on vs off and prefill + recurrent decode
+    against one prefill in f32 at full depth, and a run past the window
+    through the ring cache."""
+    import gc
+    from repro_torch.launch import serve
+    from repro_torch.models import transformer as tfm
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # (a) bf16, full width and depth, through the serve entry point
+    argv = [f"--{k.replace('_', '-')}={v}" for k, v in RGEMMA_SERVE.items()]
+    zero_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    cnt = counts()
+    cfg = res.cfg
+    kinds = [kind for kind, _ in tfm.layer_sigs(cfg)]
+    print(f"  recurrentgemma-9b serve: {kinds.count('rglru')} rglru and "
+          f"{kinds.count('local')} local layers; counts {cnt}", flush=True)
+    check(kinds.count("local") == 12 and kinds.count("rglru") == 26,
+          f"recurrentgemma-9b's layers: {kinds}")
+    check_serve_run(torch, res, cnt, "recurrentgemma-9b serve")
+    st = dict(res.stats, peak_mem_gb=torch.cuda.max_memory_allocated(dev)
+              / 1e9)
+    # bf16, K3 forced off: the first local layer (layer 2) held to K3's
+    # bf16 tolerance; the whole model's drift is a reading (bf16 layers
+    # amplify an ulp, phase 7)
+    on, off, kernel = attention_on_vs_off(torch, res, cfg)
+    layer_err = float((on - off).abs().max())
+    st["bf16_drift"] = {"layer2_attention_max_abs_err": layer_err,
+                        "layer2_attention_max_abs": float(off.abs().max()),
+                        "logits_max_abs_diff": kernel[0],
+                        "logits_max_abs": kernel[1],
+                        "equal_next_tokens": kernel[2]}
+    print(f"  (a) recurrentgemma-9b (bf16, batch {RGEMMA_SERVE['batch']} x "
+          f"{RGEMMA_SERVE['prompt_len']}) [{card_line}]: {json.dumps(st)} "
+          f"(layer 2's attention, K3 on vs off, within {ATTN_BF16_TOL}; the "
+          "logits' drift is a reading)", flush=True)
+    check(bool((on - off).abs().le(ATTN_BF16_TOL["atol"]
+                                   + ATTN_BF16_TOL["rtol"]
+                                   * off.abs()).all()),
+          f"recurrentgemma-9b: layer 2 attention, K3 on vs off: max |d| "
+          f"{layer_err}")
+    out["bf16"], out["bf16_counts"] = st, cnt
+    del res, on, off
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the same draw in float32 at full depth: K3's f32 kernel in every
+    # local layer's prefill, on vs off to phase 6's f32 gate
+    cfg32 = cfg.replace(param_dtype=torch.float32,
+                        compute_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    r32 = serve.run(cfg32, batch=RGEMMA_F32_BATCH,
+                    prompt_len=RGEMMA_SERVE["prompt_len"],
+                    decode_tokens=RGEMMA_SERVE["decode_tokens"], seed=0,
+                    device=dev)
+    torch.cuda.synchronize()
+    f32_cnt = counts()
+    check_serve_run(torch, r32, f32_cnt, "recurrentgemma-9b f32")
+    on, off, kernel = attention_on_vs_off(torch, r32, cfg32)
+    out["f32"] = f32_gate(
+        torch, on, off, kernel, f"recurrentgemma-9b, {cfg32.n_layers} "
+        f"layers, batch {RGEMMA_F32_BATCH}", layer=2, layers=cfg32.n_layers,
+        batch=RGEMMA_F32_BATCH, prefill_ms=r32.stats["prefill_ms"],
+        decode_ms_per_token=r32.stats["decode_ms_per_token"])
+    out["f32_counts"] = f32_cnt
+    del on, off
+    # (c) the recurrence: prefill + recurrent decode (the doubling scan's
+    # final state, the conv stash, the decode step) against one prefill
+    # over the prompt and the fed-back tokens
+    state_equal = state_check(torch, r32, cfg32)
+    out["f32"]["state_equal_tokens"] = state_equal
+    out["f32"]["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"  (c) recurrentgemma-9b (f32): greedy tokens of prefill + "
+          f"recurrent decode equal to one prefill's at {state_equal} "
+          f"(gate {EQUAL_TOKENS_MIN}); peak {out['f32']['peak_mem_gb']:.2f} "
+          f"GB [{card_line}]", flush=True)
+    check(state_equal >= EQUAL_TOKENS_MIN,
+          f"recurrentgemma-9b f32: recurrent decode agrees with one prefill "
+          f"at {state_equal}")
+    del r32
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (d) past the window: K3 takes window 2,048 at S 4,096, and the local
+    # layers decode through their 2,048-slot ring caches
+    ring_cfg = cfg32.replace(n_layers=RGEMMA_RING["n_layers"])
+    b, s = RGEMMA_RING["batch"], RGEMMA_RING["prompt_len"]
+    zero_counts()
+    rr = serve.run(ring_cfg, batch=b, prompt_len=s,
+                   decode_tokens=RGEMMA_RING["decode_tokens"], seed=0,
+                   device=dev)
+    torch.cuda.synchronize()
+    ring_cnt = counts()
+    check_serve_run(torch, rr, ring_cnt, "recurrentgemma ring")
+    with torch.no_grad():
+        seq = torch.cat([rr.prompts, rr.tokens[:, :-1]], dim=1)
+        full, _ = tfm.forward(rr.params, seq, ring_cfg)
+    ring_equal = float((full[:, s - 1:].argmax(-1) == rr.tokens).float()
+                       .mean())
+    out["ring"] = dict(rr.stats, equal_tokens=ring_equal,
+                       layers=ring_cfg.n_layers, window=ring_cfg.window)
+    print(f"  (d) recurrentgemma ({ring_cfg.n_layers} layers, f32, batch "
+          f"{b} x {s}, window {ring_cfg.window}, ring caches of "
+          f"{ring_cfg.window} slots): {json.dumps(out['ring'])}; greedy "
+          f"tokens equal to a full windowed forward at {ring_equal} (gate "
+          f"{EQUAL_TOKENS_MIN}) [{card_line}]", flush=True)
+    check(ring_equal >= EQUAL_TOKENS_MIN,
+          f"recurrentgemma ring decode agrees with the full forward at "
+          f"{ring_equal}")
+    del rr, full, seq
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2198,6 +2368,16 @@ def main() -> int:
     from repro_torch.kernels import build
 
     t_start = time.time()
+    phase_s, stamps = {}, [(1, t_start)]
+
+    def begin(n, title):
+        """Print the last phase's seconds and the next phase's title."""
+        now = time.time()
+        prev, t = stamps[-1]
+        phase_s[prev] = round(now - t, 1)
+        print(f"[{prev}] {now - t:.1f} s", flush=True)
+        stamps.append((n, now))
+        print(f"[{n}] {title}", flush=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, timeout=60)
@@ -2230,21 +2410,23 @@ def main() -> int:
           f"{json.dumps(sass)}", flush=True)
     bf16_kernels = {fn: n for fn, n in sass.items()
                     if "flash_attention_kernel_bf16" in fn}
-    check(len(bf16_kernels) == 2 and all(
-        n["HGMMA"] + n["HMMA"] > 0 for n in bf16_kernels.values()),
-        f"K3's bf16 kernel (Dh 64 and 128) has no tensor-core instruction: "
-        f"{bf16_kernels}")
+    check(len(bf16_kernels) == 3 and all(
+        n["HGMMA"] > 0 for n in bf16_kernels.values()),
+        f"K3's bf16 kernel (Dh 64, 128, 256) has no HGMMA: {bf16_kernels}")
     f32_kernels = {fn: n for fn, n in sass.items()
                    if "flash_attention_kernel_f32" in fn}
-    check(len(f32_kernels) == 2 and all(
+    check(len(f32_kernels) == 3 and all(
         n["HMMA"] > 0 for n in f32_kernels.values()),
-        f"K3's f32 kernel (Dh 64 and 128) has no HMMA: {f32_kernels}")
+        f"K3's f32 kernel (Dh 64, 128, 256) has no HMMA: {f32_kernels}")
+    regs = build.ptxas_report(build.log("flash_attention"),
+                              "flash_attention_kernel_bf16")
+    print(f"[1] K3 bf16 registers and spills: {json.dumps(regs)}", flush=True)
     regs = build.ptxas_report(build.log("flash_attention"),
                               "flash_attention_kernel_f32")
     print(f"[1] K3 f32 registers and spills: {json.dumps(regs)}", flush=True)
     spills = [int(n) for line in regs
               for n in re.findall(r"(\d+) bytes spill", line)]
-    check(len(spills) == 4 and not any(spills),
+    check(len(spills) == 6 and not any(spills),
           f"K3's f32 kernel spills, or its build log was not read: {regs}")
     sass = sass_ops(build, "ssd_scan")
     print(f"[1] tensor-core instructions in the ssd_scan library: "
@@ -2255,43 +2437,44 @@ def main() -> int:
         n["HMMA"] > 0 for n in f32_kernels.values()),
         f"K4's f32 kernel (16 P, N pairs) has no HMMA: {f32_kernels}")
 
-    print("[2] kernels vs plain versions on the card", flush=True)
+    begin(2, "kernels vs plain versions on the card")
     kres = phase_kernels(torch, dev, card)
     ares = phase_attention_kernel(torch, dev, card)
     sres = phase_ssd_kernel(torch, dev, card)
-    print("[3] fleet main path at full width", flush=True)
+    begin(3, "fleet main path at full width")
     world = design_world(torch, dev)
     main_counts, path_counts, walls = phase_main_path(torch, np, dev, world)
-    print("[4] fleet kernels on vs forced off, same draws", flush=True)
+    begin(4, "fleet kernels on vs forced off, same draws")
     phase_kernels_vs_plain_path(torch, dev, world)
-    print("[5] the Fig.-2 path: sca design, curves gate, kill and resume",
-          flush=True)
+    begin(5, "the Fig.-2 path: sca design, curves gate, kill and resume")
     curve_stats = phase_curves(torch, np, dev, world)
-    print("[6] LM serve path at full width", flush=True)
+    begin(6, "LM serve path at full width")
     serve_stats, serve_counts, f32_counts, drift, swa = phase_serve(torch,
                                                                      dev)
-    print("[7] Mamba-2 serve path at full width", flush=True)
+    begin(7, "Mamba-2 serve path at full width")
     ssd_stats, ssd_counts, ssd_drift = phase_serve_ssd(torch, dev)
-    print("[8] the heterogeneous-wireless path: scenarios, the grid through "
-          "K1, adaptive_sca", flush=True)
+    begin(8, "the heterogeneous-wireless path: scenarios, the grid through "
+          "K1, adaptive_sca")
     scen = phase_scenarios(torch, np, dev, card, card_line)
-    print("[9] the single-run API: run_fl, run_fl_legacy, fig2 --bench",
-          flush=True)
+    begin(9, "the single-run API: run_fl, run_fl_legacy, fig2 --bench")
     single = phase_single_run(torch, np, dev, world, card_line)
-    print("[10] population mode: a 1M-device population, streamed cohorts, "
-          "adaptive_sca's cohort redesign, through K1", flush=True)
+    begin(10, "population mode: a 1M-device population, streamed cohorts, "
+          "adaptive_sca's cohort redesign, through K1")
     popr = phase_population(torch, np, dev, card, card_line, world)
-    print("[11] the cifar_conv fleet with run telemetry: fig2 --task "
-          "cifar_conv --telemetry through K1", flush=True)
+    begin(11, "the cifar_conv fleet with run telemetry: fig2 --task "
+          "cifar_conv --telemetry through K1")
     cifar = phase_cifar(torch, np, dev, card, card_line, world)
-    print("[12] granite-8b, qwen2.5-14b and chameleon-34b served at full "
-          "width through K3", flush=True)
+    begin(12, "granite-8b, qwen2.5-14b and chameleon-34b served at full "
+          "width through K3")
     dense = phase_dense_archs(torch, dev)
-    print("[13] the LM train path: OTA-FL weighted-loss training at full "
+    begin(13, "the LM train path: OTA-FL weighted-loss training at full "
           "width, the step against the explicit aggregation, the eval's "
-          "kernels, the reference's trajectories", flush=True)
+          "kernels, the reference's trajectories")
     trained, train_k3, train_k4 = phase_train(torch, np, dev)
-
+    begin(14, "recurrentgemma-9b (RG-LRU and local attention) served at full "
+          "width through K3 at head_dim 256")
+    rgemma = phase_recurrentgemma(torch, dev, card_line)
+    begin(15, "the kernels line")
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
                     path_counts["fused_bf16"]["ota_round_step"],
@@ -2321,6 +2504,12 @@ def main() -> int:
                  ares["train_eval"]))
     rows.append(("ssd_scan[f32, mamba2-1.3b train eval]", "ssd_scan",
                  train_k4["ssd_scan"], sres["train_eval"]))
+    rows.append(("flash_attention[bf16, recurrentgemma-9b, Dh 256]",
+                 "flash_attention", rgemma["bf16_counts"]["flash_attention"],
+                 ares["recurrentgemma-9b"]))
+    rows.append(("flash_attention[f32, recurrentgemma-9b, Dh 256]",
+                 "flash_attention", rgemma["f32_counts"]["flash_attention"],
+                 ares["recurrentgemma-9b_f32"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -2329,21 +2518,21 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[14] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[15] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[14] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[14] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[14] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[14] single run: {json.dumps(single)}", flush=True)
-    print(f"[14] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[14] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[15] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[15] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[15] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[15] single run: {json.dumps(single)}", flush=True)
+    print(f"[15] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[15] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print("[14] dense archs: " + json.dumps(
+    print("[15] dense archs: " + json.dumps(
         {arch: {k: st[k] for k in ("batch", "prefill_ms",
                                    "decode_ms_per_token", "peak_mem_gb",
                                    "batch_fits")}
          for arch, (st, _) in dense.items()}), flush=True)
-    print("[14] train: " + json.dumps(
+    print("[15] train: " + json.dumps(
         {arch: {k: trained[arch][k] for k in (
             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
             "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
@@ -2351,7 +2540,16 @@ def main() -> int:
         | {"lm_curves_wall_s": trained["curves"]["wall_s"],
            "lm_curves_step_ms": trained["curves"]["step_ms"]}),
         flush=True)
-    print(f"[14] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print("[15] recurrentgemma-9b: " + json.dumps(
+        {"bf16": {k: rgemma["bf16"][k] for k in (
+            "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
+         "f32": {k: rgemma["f32"][k] for k in (
+             "layers", "batch", "prefill_ms", "decode_ms_per_token",
+             "peak_mem_gb", "state_equal_tokens")},
+         "ring": {k: rgemma["ring"][k] for k in (
+             "layers", "batch", "prompt_len", "window", "prefill_ms",
+             "decode_ms_per_token", "equal_tokens")}}), flush=True)
+    print(f"[15] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "
@@ -2361,6 +2559,7 @@ def main() -> int:
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "
           f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
+    print(f"[15] seconds per phase: {json.dumps(phase_s)}", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

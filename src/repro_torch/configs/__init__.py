@@ -2,7 +2,8 @@
 
 Copies of the reference's registry (``repro.configs``) for the archs the
 port runs: the dense GQA decoders (qwen1.5, qwen3, granite, qwen2.5 and
-chameleon's token-in, token-out backbone) and mamba2.  Any other arch
+chameleon's token-in, token-out backbone), mamba2 and recurrentgemma (RG-LRU
+with local attention).  Any other arch
 raises and names ROADMAP.md, where the reference's other archs are
 queued.
 """
@@ -17,6 +18,7 @@ _MODULES = {
     "granite-8b": "repro_torch.configs.granite_8b",
     "qwen2.5-14b": "repro_torch.configs.qwen25_14b",
     "chameleon-34b": "repro_torch.configs.chameleon_34b",
+    "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
 }
 ARCH_IDS = tuple(_MODULES)
 

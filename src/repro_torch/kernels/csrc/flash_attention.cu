@@ -15,9 +15,11 @@
 // causal) bytes and tensor-core operations about equally: 17.2 GFLOP (the
 // causal half of 4 B H S^2 Dh), 0.0174 ms at the 989 TFLOP/s bf16 peak,
 // against 67.1 MB of q, k, v and o read or written once, 0.0200 ms at
-// 3.35 TB/s.  At qwen3's Dh 128 the operations bound (0.0348 ms).  Beside
-// the products, each score needs one exp: at Dh 64 the SM's 16 exps a
-// clock take as long as its tensor cores take for the two products.
+// 3.35 TB/s.  At qwen3's Dh 128 the operations bound (0.0348 ms), and at
+// recurrentgemma's Dh 256 (B 8, S 1024, H 16 over KH 1) too: 68.8 GFLOP,
+// 0.0695 ms, against 142.6 MB, 0.0426 ms.  Beside the products, each score
+// needs one exp: at Dh 64 the SM's 16 exps a clock take as long as its
+// tensor cores take for the two products.
 //
 // bf16 (flash_attention_bf16): wgmma on the tensor cores, fed by TMA.
 //   - one block of two warpgroups per (q tile of 128 rows, head, batch);
@@ -26,8 +28,8 @@
 //   - thread 0 loads the q tile and a ring of kStages K and V tiles into
 //     shared memory by cp.async.bulk.tensor against 4-D tensor maps over
 //     [B, S, heads, Dh] (boxes of 64 columns = one 128-byte swizzle atom;
-//     Dh 128 is two boxes; rows past Sq or Sk read as zero; GQA reads KV
-//     head h / G in place); mbarriers count the bytes in;
+//     Dh 128 is two boxes, Dh 256 four; rows past Sq or Sk read as zero;
+//     GQA reads KV head h / G in place); mbarriers count the bytes in;
 //   - S = Q.K^T on the unscaled bf16 q and k (exact products, f32 sums;
 //     both operands K-major in shared memory), then scaled by 1/sqrt(Dh) in
 //     f32, the plain version's order; masks only on tiles that cross the
@@ -44,7 +46,9 @@
 //     never loaded; the output is staged in the q tile's rows and written
 //     by a TMA store (rows past Sq are not written);
 //   - Dh 64: 64-key tiles, 120 registers, two blocks per SM (one hides the
-//     other's start and end); Dh 128: 128-key tiles, one block per SM.
+//     other's start and end); Dh 128: 128-key tiles, one block per SM;
+//     Dh 256: 64-key tiles in a ring of two, 240 registers, one block per
+//     SM (192 KB of shared memory), P.V as two n128 products per k-step.
 //   Precision: bf16 enters where P is rounded for the P.V product (2^-9
 //   relative per weight; l sums the f32 p) and in the bf16 output; the
 //   plain version rounds only the output.  The rounding of P averages out
@@ -60,9 +64,12 @@
 // (3 x 17.2) at 495 TFLOP/s, 0.1043 ms (on the f32 FMA units 0.2567 ms).
 //   - one block of four warps per (q tile of 64 rows, head, batch), each
 //     warp 16 rows (one m16 tile); the heaviest causal q tiles first;
-//   - K and V tiles of 64 keys (Dh 64) or 32 (Dh 128) come in by
+//   - K and V tiles of 64 keys (Dh 64) or 32 (Dh 128, 256) come in by
 //     cp.async into a double-buffered ring; tiles wholly above the
 //     diagonal or outside the window are never loaded;
+//   - at Dh 256 two blocks share a q tile and head, each computing S over
+//     the whole head dimension and P.V for 128 of the output's columns
+//     (1.5x the products of one block, the registers of Dh 128);
 //   - q is scaled by log2(e)/sqrt(Dh) in f32 before the product (the
 //     plain version scales the product by 1/sqrt(Dh)), read once into
 //     shared memory; the softmax takes 2^x (ex2.approx, ~2 ulp) of the
@@ -180,21 +187,29 @@ __device__ __forceinline__ void split_q(const float4 (&qv)[2], int hk,
   split_tf32(part(qv[1], 2 * hk + 1), big[3], small[3]);
 }
 
-// Keys per K/V tile and shared-memory row strides (floats).  K and q rows
-// of D + 16 floats put a quad's 16-byte reads of 8 rows (K[g][16 j + 4 t])
-// on 32 banks; V rows of D + 4 put both 16-byte reads (V[2 t][32 c + 4 g]
-// and V[2 t + 1][...]) on 32 banks; every row stays 16-byte aligned for
-// cp.async.  Two blocks share an SM (94 KB and 106 KB of shared memory;
-// 175 and 234 registers).  At Dh 128, 64-key tiles spill and leave one
-// block per SM.
+// Keys per K/V tile, output columns per block and shared-memory row
+// strides (floats).  K and q rows of D + 16 floats put a quad's 16-byte
+// reads of 8 rows (K[g][16 j + 4 t]) on 32 banks; V rows of DV + 4 put both
+// 16-byte reads (V[2 t][32 c + 4 g] and V[2 t + 1][...]) on 32 banks; every
+// row stays 16-byte aligned for cp.async.  Two blocks share an SM (94 KB
+// and 106 KB of shared memory; 175 and 234 registers).  At Dh 128, 64-key
+// tiles spill and leave one block per SM.  At Dh 256 a warp's 16 x 256
+// output alone would take 128 registers a lane, so the output's columns
+// are split over two blocks (kSplit): each computes S over the whole head
+// dimension and P.V for its 128 columns (1.5x the products), with the
+// registers of Dh 128 (235); its 173 KB of shared memory leave one block
+// per SM.
 template <int D>
 struct Tile {
   static constexpr int kKeys = D == 64 ? 64 : 32;
+  static constexpr int kDV = D > 128 ? 128 : D;  // output columns a block
+  static constexpr int kSplit = D / kDV;         // blocks per q tile and head
   static constexpr int kLdK = D + 16;
-  static constexpr int kLdV = D + 4;
+  static constexpr int kLdV = kDV + 4;
   static constexpr size_t kBytes =
       sizeof(float) * (kStages * kKeys * (kLdK + kLdV) + kBQ * kLdK);
   static_assert(kKeys * D / 4 % kThreads == 0, "whole 16-byte chunks a thread");
+  static_assert(kKeys * kDV / 4 % kThreads == 0, "whole 16-byte chunks a thread");
 };
 
 // Four warps, each owning 16 of the block's 64 q rows (one m16 tile), walk
@@ -218,7 +233,9 @@ struct Tile {
 //     8 adjacent columns.
 // K and V tiles come in by cp.async into a ring of kStages, the next tile
 // in flight while this one computes; tiles wholly above the diagonal or
-// outside the window are never loaded; rows past Sk read as zero.
+// outside the window are never loaded; rows past Sk read as zero.  At Dh
+// 256 a block owns the output columns kDV ch .. kDV ch + kDV - 1 and loads
+// only those columns of V.
 template <int D>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel_f32(const float* __restrict__ q,
@@ -228,27 +245,32 @@ flash_attention_kernel_f32(const float* __restrict__ q,
                            int window, float scale) {
   using T = Tile<D>;
   constexpr int kBK = T::kKeys;
+  constexpr int kDV = T::kDV;
   constexpr int kLdK = T::kLdK, kLdV = T::kLdV;
   constexpr int kNT = kBK / 8;  // n8 tiles of S; k-steps of P.V
   constexpr int kJ = D / 16;    // 16-column slabs of q and K
-  constexpr int kC = D / 32;    // 32-column groups of V and o
+  constexpr int kC = kDV / 32;  // 32-column groups of V and o
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                          // [kStages][kBK][kLdK]
   float* v_s = smem + kStages * kBK * kLdK;   // [kStages][kBK][kLdV]
   float* q_s = v_s + kStages * kBK * kLdV;    // [kBQ][kLdK]
 
-  // heaviest causal q tiles first: blocks start in order of their index
+  // heaviest causal q tiles first: blocks start in order of their index;
+  // the kSplit blocks of one q tile and head are neighbours
   const int n_bh = nb * h;
-  const int q0 = ((sq + kBQ - 1) / kBQ - 1 - blockIdx.x / n_bh) * kBQ;
-  const int head = blockIdx.x % n_bh % h;
-  const int b = blockIdx.x % n_bh / h;
+  const int ch = blockIdx.x % T::kSplit;      // this block's output columns
+  const int bid = blockIdx.x / T::kSplit;
+  const int q0 = ((sq + kBQ - 1) / kBQ - 1 - bid / n_bh) * kBQ;
+  const int head = bid % n_bh % h;
+  const int b = bid % n_bh / h;
   const int kv_head = head / (h / kh);
   const int64_t q_stride = static_cast<int64_t>(h) * D;   // one q/o row
   const int64_t k_stride = static_cast<int64_t>(kh) * D;  // one k/v row
   const float* qb = q + (static_cast<int64_t>(b) * sq * h + head) * D;
-  float* ob = o + (static_cast<int64_t>(b) * sq * h + head) * D;
+  float* ob = o + (static_cast<int64_t>(b) * sq * h + head) * D + ch * kDV;
   const float* kb = k + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
-  const float* vb = v + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
+  const float* vb =
+      v + (static_cast<int64_t>(b) * sk * kh + kv_head) * D + ch * kDV;
 
   // the key tiles that some query row of this tile may see; tile r of the
   // walk starts at key (t_last - r) * kBK
@@ -274,7 +296,17 @@ flash_attention_kernel_f32(const float* __restrict__ q,
       const bool in = k0 + row < sk;
       const int64_t src = (in ? k0 + row : 0) * k_stride + c;
       cp_async16(kd + row * kLdK + c, kb + src, in);
-      cp_async16(vd + row * kLdV + c, vb + src, in);
+      if constexpr (kDV == D) cp_async16(vd + row * kLdV + c, vb + src, in);
+    }
+    if constexpr (kDV != D) {  // this block's columns of V
+#pragma unroll
+      for (int u = 0; u < kBK * kDV / 4 / kThreads; ++u) {
+        const int e = thread + u * kThreads;
+        const int row = e / (kDV / 4), c = 4 * (e % (kDV / 4));
+        const bool in = k0 + row < sk;
+        cp_async16(vd + row * kLdV + c,
+                   vb + (in ? k0 + row : 0) * k_stride + c, in);
+      }
     }
     cp_async_commit();
   };
@@ -300,9 +332,9 @@ flash_attention_kernel_f32(const float* __restrict__ q,
           make_float4(x.x * scale, x.y * scale, x.z * scale, x.w * scale);
     }
 
-  float acc[D / 8][4];
+  float acc[kDV / 8][4];
 #pragma unroll
-  for (int n = 0; n < D / 8; ++n)
+  for (int n = 0; n < kDV / 8; ++n)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[n][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};
@@ -391,9 +423,10 @@ flash_attention_kernel_f32(const float* __restrict__ q,
     // O = alpha O + P.V.  The tensor cores' accumulator truncates, so the
     // tile's P.V is summed from zero there (k-step n covers keys 8 n ..
     // 8 n + 7) and added to O in f32: one rounding a tile, however long the
-    // walk.  At Dh 128 in two 64-column halves, to stay within 255 registers.
+    // walk.  At Dh 128 (and in a Dh 256 block's 128 columns) in two
+    // 64-column halves, to stay within 255 registers.
 #pragma unroll
-    for (int hc = 0; hc < D / 64; ++hc) {
+    for (int hc = 0; hc < kDV / 64; ++hc) {
       float pv[8][4];
 #pragma unroll
       for (int n = 0; n < 8; ++n)
@@ -465,7 +498,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t blocks =
-      static_cast<int64_t>((sq + kBQ - 1) / kBQ) * h * b;
+      static_cast<int64_t>((sq + kBQ - 1) / kBQ) * h * b * Tile<D>::kSplit;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   // 1/sqrt(Dh) and log2(e): the softmax runs in base 2
   const float scale = 1.4426950408889634f / sqrtf(static_cast<float>(D));
@@ -485,7 +518,6 @@ namespace tc {
 using bf16 = __nv_bfloat16;
 
 constexpr int kBQ = 128;          // query rows per block: 2 consumer warpgroups
-constexpr int kStages = 3;        // K/V tiles in flight
 constexpr int kThreads = 256;     // 2 warpgroups of 64 q rows each
 constexpr int kPanel = 64;        // bf16 columns of one 128-byte swizzle atom
 constexpr float kLog2e = 1.4426950408889634f;
@@ -763,13 +795,17 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NB][4], float (&m)[2],
   }
 }
 
-// Keys per K/V tile and blocks per SM.  At Dh 64 a 64-key tile keeps a
-// thread under 128 registers, so two blocks share an SM and each hides the
-// other's start and end; at Dh 128 one block per SM with 128-key tiles is
-// faster (its products, not its softmax, set the pace).
+// Keys per K/V tile, K/V tiles in flight and blocks per SM.  At Dh 64 a
+// 64-key tile keeps a thread under 128 registers, so two blocks share an SM
+// and each hides the other's start and end; at Dh 128 one block per SM
+// with 128-key tiles is faster (its products, not its softmax, set the
+// pace).  At Dh 256 the q tile alone takes 64 KB and a 64-key K or V tile
+// 32 KB, so the ring holds two of each (192 KB in all), and the output
+// accumulator takes 128 registers a thread beside the 64-key S tile's 32.
 template <int D>
 struct Tile {
-  static constexpr int kKeys = D == 64 ? 64 : 128;
+  static constexpr int kKeys = D == 128 ? 128 : 64;
+  static constexpr int kStages = D == 256 ? 2 : 3;
   static constexpr int kBlocksPerSM = D == 64 ? 2 : 1;
 };
 
@@ -781,10 +817,10 @@ struct Smem {
   static constexpr uint32_t kQ = kBQ * D * 2;
   static constexpr uint32_t kKV = Tile<D>::kKeys * D * 2;
   static constexpr uint32_t kK = kQ;
-  static constexpr uint32_t kV = kK + kStages * kKV;
-  static constexpr uint32_t kBar = kV + kStages * kKV;
+  static constexpr uint32_t kV = kK + Tile<D>::kStages * kKV;
+  static constexpr uint32_t kBar = kV + Tile<D>::kStages * kKV;
   // q_full, then k_full and v_full for each stage
-  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * kStages);
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * Tile<D>::kStages);
 };
 
 // Two warpgroups, each owning 64 rows of the block's 128 q rows, walk the
@@ -807,6 +843,7 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
   using S = Smem<D>;
   constexpr int kPanels = D / kPanel;
   constexpr int kBK = Tile<D>::kKeys;
+  constexpr int kStages = Tile<D>::kStages;
   constexpr int kNB = kBK / 8;  // n8 blocks of a score row pair
   extern __shared__ uint8_t shm[];
   const uint32_t base = (smem_u32(shm) + 1023) & ~1023u;
@@ -878,8 +915,17 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
   auto issue_pv = [&](int t) {  // O += P_t . V_t, V through the transpose bit
     const uint32_t v_tile = base + S::kV + (t % kStages) * S::kKV;
 #pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_rs(acc, pa[kk], desc(v_tile + kk * 16 * 128, kBK * 128, 1024));
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t v_k = v_tile + kk * 16 * 128;
+      if constexpr (D == 256) {  // two n128 products, two panels each
+        wgmma_rs(*reinterpret_cast<float(*)[16][4]>(&acc[0]), pa[kk],
+                 desc(v_k, kBK * 128, 1024));
+        wgmma_rs(*reinterpret_cast<float(*)[16][4]>(&acc[16]), pa[kk],
+                 desc(v_k + 2 * kBK * 128, kBK * 128, 1024));
+      } else {
+        wgmma_rs(acc, pa[kk], desc(v_k, kBK * 128, 1024));
+      }
+    }
   };
   auto issue_s = [&](float (&s)[kNB][4], int t) {  // S_t = Q . K_t^T
     const uint32_t k_tile = base + S::kK + (t % kStages) * S::kKV;
@@ -1072,10 +1118,10 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 
 }  // namespace tc
 
-template <int (*L64)(const void*, const void*, const void*, void*, int, int,
-                     int, int, int, int, int, cudaStream_t),
-          int (*L128)(const void*, const void*, const void*, void*, int, int,
-                      int, int, int, int, int, cudaStream_t)>
+using Launch = int (*)(const void*, const void*, const void*, void*, int, int,
+                       int, int, int, int, int, cudaStream_t);
+
+template <Launch L64, Launch L128, Launch L256>
 int dispatch(const void* q, const void* k, const void* v, void* o, int b,
              int sq, int sk, int h, int kh, int dh, int causal, int window,
              void* stream) {
@@ -1085,6 +1131,8 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
       return L64(q, k, v, o, b, sq, sk, h, kh, causal, window, s);
     case 128:
       return L128(q, k, v, o, b, sq, sk, h, kh, causal, window, s);
+    case 256:
+      return L256(q, k, v, o, b, sq, sk, h, kh, causal, window, s);
     default:
       return static_cast<int>(cudaErrorInvalidValue);
   }
@@ -1097,14 +1145,14 @@ extern "C" {
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int b, int sq, int sk, int h, int kh, int dh,
                         int causal, int window, void* stream) {
-  return dispatch<tf32::launch<64>, tf32::launch<128>>(
+  return dispatch<tf32::launch<64>, tf32::launch<128>, tf32::launch<256>>(
       q, k, v, o, b, sq, sk, h, kh, dh, causal, window, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int b, int sq, int sk, int h, int kh, int dh,
                          int causal, int window, void* stream) {
-  return dispatch<tc::launch<64>, tc::launch<128>>(
+  return dispatch<tc::launch<64>, tc::launch<128>, tc::launch<256>>(
       q, k, v, o, b, sq, sk, h, kh, dh, causal, window, stream);
 }
 

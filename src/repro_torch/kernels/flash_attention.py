@@ -6,7 +6,8 @@ and sliding-window masks, the attention of every prefill.
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_pallas``
 (body ``_attn_kernel``).  CUDA C++ in ``csrc/flash_attention.cu``, for
-head_dim 64 and 128, in float32 and bfloat16.
+head_dim 64, 128 and 256 (recurrentgemma's local layers), in float32 and
+bfloat16.
 
 Bound: at the main-path shape (B 8, S 1024, H = KH = 16, Dh 64, bf16,
 causal) bytes and tensor-core operations about equally: 17.2 GFLOP,
@@ -43,7 +44,7 @@ import torch
 from repro_torch.kernels import build, ref
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 128, 256)
 ALIGN = 16                     # bytes; TMA needs each base 16-byte aligned
 
 
@@ -89,7 +90,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     use_kernel: bool = True) -> torch.Tensor:
     """q: [B, Sq, H, Dh]; k, v: [B, Sk, KH, Dh], H = KH * G.  Returns
     [B, Sq, H, Dh] in q's dtype.  On the card: contiguous f32 or bf16,
-    Dh in (64, 128)."""
+    Dh in (64, 128, 256)."""
     _check_inputs(q, k, v, window)
     if not q.is_cuda or not use_kernel:
         return ref.attention_ref(q, k, v, causal=causal, window=window)

@@ -1,11 +1,14 @@
 """Batched decode driver: prefill a batch of prompts, then step the decoder
 greedily against the KV cache (GQA layers) or the recurrent state (ssd
-layers).
+and rglru layers).
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen1.5-0.5b \
         --batch 8 --prompt-len 1024 --decode-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-1.3b \
         --batch 8 --prompt-len 1024 --decode-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch recurrentgemma-9b --batch 8 --prompt-len 1024 \
+        --decode-tokens 32
 
 The port of ``repro.launch.serve``, with ``--device`` (default: the CUDA
 card; without one it raises unless ``--device cpu`` is given).  Weights are

@@ -225,7 +225,8 @@ def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:
     ``ParamTree`` on the CPU (``.to(device)`` moves it), each leaf in the
     dtype of its ``ParamDef`` in the port's ``model_defs(cfg)``: mostly
     ``cfg.param_dtype``, but float32 for the SSD mixer's ``a_log``,
-    ``dt_bias`` and ``d_skip`` at every width, as in the reference.
+    ``dt_bias`` and ``d_skip`` and the RG-LRU block's ``lam`` at every
+    width, as in the reference.
 
     The reference groups its layers as ``lead`` (a list), ``scan`` (a dict
     ``u0 .. u{k-1}`` of unit layers whose leaves are stacked ``[n_rep,

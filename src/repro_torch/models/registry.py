@@ -1,7 +1,7 @@
 """Model bundle: one interface over the port's language models.
 
 A copy of the decoder bundle of ``repro.models.registry``, for the dense
-GQA decoders and Mamba-2 alike.  A ``ModelBundle`` holds one config and
+GQA decoders, Mamba-2 and RecurrentGemma alike.  A ``ModelBundle`` holds one config and
 its device, and exposes ``init``, ``loss`` (the next-token loss with
 per-sample weights, which the train step differentiates), ``prefill``,
 ``decode`` and ``init_caches`` (per layer, a KV cache or a recurrent

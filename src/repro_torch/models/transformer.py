@@ -1,14 +1,15 @@
-"""Decoder-only transformer of the port: the dense GQA decoders, Mamba-2
-and their hybrids.
+"""Decoder-only transformer of the port: the dense GQA decoders, Mamba-2,
+RecurrentGemma and their hybrids.
 
 A copy of the decoder path of ``repro.models.transformer``.  The reference
 groups repeating layers under ``lax.scan`` over stacked parameters with
 ``jax.checkpoint``; the port keeps one parameter entry per layer and runs
 a Python loop over them.  The reference's sharding hints are no-ops on one
-card and are dropped.  Mixers: attn | swa | local (GQA) and ssd (Mamba-2);
-FFN: dense (swiglu | geglu | gelu), or none after an ssd mixer when
-``ffn_kind="none"`` (mamba2).  MoE, RG-LRU, MLA, MTP, frame inputs and the
-encoder-decoder raise, naming ROADMAP.md, where their port is queued.
+card and are dropped.  Mixers: attn | swa | local (GQA), ssd (Mamba-2)
+and rglru (RG-LRU); FFN: dense (swiglu | geglu | gelu), or none after an
+ssd mixer when ``ffn_kind="none"`` (mamba2).  MoE, MLA, MTP, frame inputs
+and the encoder-decoder raise, naming ROADMAP.md, where their port is
+queued.
 
 The loss (``softmax_xent``, ``lm_loss``) is the reference's next-token
 cross-entropy, with its per-sample weights, which the OTA-FL train step
@@ -24,6 +25,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
@@ -31,7 +33,7 @@ from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
                                        unembed_def)
 
 GQA_KINDS = ("attn", "swa", "local")
-MIXER_KINDS = GQA_KINDS + ("ssd",)
+MIXER_KINDS = GQA_KINDS + ("ssd", "rglru")
 # Sq * Sk past which the reference's ``grouped_attention`` takes its blocked
 # online-softmax scan (``repro/models/attention.py:80``); the port has not
 # ported that form, so the plain train forward refuses such lengths
@@ -70,9 +72,10 @@ def layer_def(cfg: ModelConfig, sig: tuple) -> dict:
     """One block: the mixer of its kind (every kind in GQA_KINDS has the
     same weights), and ``ln2`` and ``ffn`` unless its FFN is none."""
     kind, ffn = sig
+    mixer = {"ssd": ssm_mod.ssd_def, "rglru": rglru_mod.rglru_def}.get(
+        kind, attn_mod.gqa_def)
     d = {"ln1": rmsnorm_def(cfg.d_model, cfg.param_dtype),
-         "mixer": ssm_mod.ssd_def(cfg) if kind == "ssd"
-         else attn_mod.gqa_def(cfg)}
+         "mixer": mixer(cfg)}
     if ffn != "none":
         d["ln2"] = rmsnorm_def(cfg.d_model, cfg.param_dtype)
         d["ffn"] = mlp_def(cfg)
@@ -94,10 +97,14 @@ def model_defs(cfg: ModelConfig) -> dict:
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device: torch.device) -> list:
     """One cache per layer, in execution order: a KV cache for a GQA
-    layer, the recurrent state for an ssd layer."""
-    return [ssm_mod.init_ssd_state(cfg, batch, device) if kind == "ssd"
-            else attn_mod.init_kv_cache(cfg, batch, max_len, kind, device)
-            for kind, _ in layer_sigs(cfg)]
+    layer, the recurrent state for an ssd or rglru layer."""
+    def one(kind):
+        if kind == "ssd":
+            return ssm_mod.init_ssd_state(cfg, batch, device)
+        if kind == "rglru":
+            return rglru_mod.init_rglru_state(cfg, batch, device)
+        return attn_mod.init_kv_cache(cfg, batch, max_len, kind, device)
+    return [one(kind) for kind, _ in layer_sigs(cfg)]
 
 
 def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
@@ -110,6 +117,9 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
     if kind == "ssd":
         mix, cache = ssm_mod.ssd_apply(p["mixer"], h, cfg, state=cache,
                                        decode=decode, use_kernel=use_kernel)
+    elif kind == "rglru":       # no kernel: plain PyTorch on every device
+        mix, cache = rglru_mod.rglru_apply(p["mixer"], h, cfg, state=cache,
+                                           decode=decode)
     else:
         mix, cache = attn_mod.gqa_apply(p["mixer"], h, cfg, kind=kind,
                                         pos_offset=pos_offset, cache=cache,

@@ -9,7 +9,8 @@ Builds ``kernels/csrc/flash_attention.cu`` (label ``this``) and each
 variant under trial) with nvcc for sm_90a and ``-Xptxas -v``, one process
 each, all at once, and prints the registers and spills of the kernels of
 the chosen dtype.  For each shape of ``SHAPES`` in that dtype (B 8, S 1024
-or 1000, or the train eval's B 4, S 128; causal) it launches every build through its C entry on the same
+or 1000, the train eval's B 4, S 128, or recurrentgemma's B 2, S 4096 past
+its window; causal) it launches every build through its C entry on the same
 inputs and compares the output with the plain version (f32 to 2e-5; bf16
 to two bf16 ulps plus 1e-2), then times every build and one
 ``scaled_dot_product_attention`` call on the same inputs
@@ -50,7 +51,10 @@ LONG = [(1024, 64, None), (4096, 64, None), (16384, 64, None),
 # (label, B, S, H, KH, Dh, dtype, window), causal; the first is the qwen
 # serve path's prefill at full width; granite-8b's, qwen2.5-14b's and
 # chameleon-34b's prefills at batch 8 x 1,024; the LM train run's held-out
-# eval (qwen1.5-0.5b, 4 clients x 128 tokens)
+# eval (qwen1.5-0.5b, 4 clients x 128 tokens); recurrentgemma-9b's local
+# layers (Dh 256, 16 heads over one KV head) at its serve prefill, whose
+# window of 2,048 does not bite at 1,024 (the same function as causal
+# attention), and past the window (2 x 4,096)
 SHAPES = [("main", 8, 1024, 16, 16, 64, "bf16", None),
           ("qwen3", 8, 1024, 16, 8, 128, "bf16", None),
           ("qwen3_window256", 8, 1024, 16, 8, 128, "bf16", 256),
@@ -61,7 +65,13 @@ SHAPES = [("main", 8, 1024, 16, 16, 64, "bf16", None),
           ("train_eval", 4, 128, 16, 16, 64, "bf16", None),
           ("main_f32", 8, 1024, 16, 16, 64, "f32", None),
           ("qwen3_f32", 8, 1024, 16, 8, 128, "f32", None),
-          ("qwen3_window256_f32", 8, 1024, 16, 8, 128, "f32", 256)]
+          ("qwen3_window256_f32", 8, 1024, 16, 8, 128, "f32", 256),
+          ("recurrentgemma-9b", 8, 1024, 16, 1, 256, "bf16", None),
+          ("recurrentgemma-9b_f32", 8, 1024, 16, 1, 256, "f32", None),
+          ("recurrentgemma-9b_window2048", 2, 4096, 16, 1, 256, "bf16",
+           2048),
+          ("recurrentgemma-9b_window2048_f32", 2, 4096, 16, 1, 256, "f32",
+           2048)]
 
 
 def pairs(sq: int, sk: int, causal: bool, window) -> int:

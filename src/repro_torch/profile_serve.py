@@ -1,7 +1,8 @@
 """Where the LM serve path's time goes, on the card.
 
-    python -m repro_torch.profile_serve [--arch qwen1.5-0.5b|mamba2-1.3b]
-        [--batch 8] [--prompt-len 1024] [--decode-tokens 32]
+    python -m repro_torch.profile_serve [--arch qwen1.5-0.5b|mamba2-1.3b|
+        recurrentgemma-9b|...] [--batch 8] [--prompt-len 1024]
+        [--decode-tokens 32]
 
 Runs ``repro_torch.launch.serve.run`` at full width (warm-up, then a timed
 prefill and decode on the host clock between device synchronizations),

@@ -8,7 +8,10 @@ the Pallas kernel, which cannot run on the installed jax) and against
 ``repro.models.attention.grouped_attention``, in its direct and its
 blocked (Sq·Sk > 2048², online softmax over key blocks) branches, on the
 same numpy-seeded inputs.  The sweep is the reference's own
-(``tests/test_kernels.py``), plus windows and the non-causal case.
+(``tests/test_kernels.py``), plus windows, the non-causal case and
+recurrentgemma's local layers (head_dim 256, 16 heads over one KV head,
+a window shorter than the prompt), whose gradient is held against
+``jax.grad`` of ``grouped_attention`` too.
 
 Tolerances: f32 at 2e-5 rel/abs (scores and softmax in f32 on both sides,
 sums in another order); bf16 outputs compared in f32 at 6e-2, the
@@ -107,6 +110,49 @@ def test_attention_matches_blocked_grouped_attention(window):
     np.testing.assert_allclose(got, blocked, **F32_TOL)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("window", [None, 48])
+def test_attention_head_dim_256_matches_reference(window, dtype):
+    """recurrentgemma's local attention at smoke length: Dh 256, H 16 over
+    KH 1 (MQA), causal, a window of 48 shorter than the 130-token prompt
+    (the kernel's 64-key tiles cross its edge), or none."""
+    ts, js = _inputs(2, 130, 130, 16, 1, 256, dtype, seed=7)
+    got = _port(ts, causal=True, window=window)
+    tol = DTYPES[dtype][2]
+    want = _np(jref.attention_ref(*js, causal=True, window=window))
+    np.testing.assert_allclose(got, want, **tol)
+    pos = jnp.arange(130)
+    grouped = _np(jattn.grouped_attention(*js, pos, pos, causal=True,
+                                          window=window))
+    np.testing.assert_allclose(got, grouped, **tol)
+
+
+@pytest.mark.parametrize("window", [None, 48])
+def test_attention_head_dim_256_gradient_matches_reference(window):
+    """The plain version's gradient at recurrentgemma's heads (the train
+    forward differentiates it) against jax.grad of grouped_attention, at
+    rtol 1e-5 plus 1e-5 of the gradient's largest magnitude (an entry sums
+    many products; one that cancels keeps only the absolute part)."""
+    import jax
+    (q, k, v), (jq, jk, jv) = _inputs(1, 70, 70, 16, 1, 256, "f32", seed=8)
+    cot = np.random.default_rng(9).standard_normal(q.shape).astype(
+        np.float32)
+    pos = jnp.arange(70)
+
+    def jf(q, k, v):
+        o = jattn.grouped_attention(q, k, v, pos, pos, causal=True,
+                                    window=window)
+        return jnp.sum(o * cot)
+    want = jax.grad(jf, argnums=(0, 1, 2))(jq, jk, jv)
+    leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+    out = flash_attention(*leaves, causal=True, window=window)
+    got = torch.autograd.grad((out * torch.from_numpy(cot)).sum(), leaves)
+    for name, g, w in zip("qkv", got, want):
+        w = np.asarray(w)
+        np.testing.assert_allclose(g.numpy(), w, rtol=1e-5,
+                                   atol=1e-5 * np.abs(w).max(), err_msg=name)
+
+
 def test_attention_at_an_offset_is_the_same():
     """Prefill at pos_offset > 0: q and k share positions, so the offset
     cancels in both masks and K3's positions from 0 give the answer."""
@@ -139,7 +185,7 @@ def _bf16_kernel_form(q, k, v, *, causal):
     return (o / l).permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).bfloat16()
 
 
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", [64, 128, 256])
 @pytest.mark.parametrize("h,kh", [(4, 4), (4, 2), (8, 1)])
 @pytest.mark.parametrize("sq,sk", [(128, 128), (256, 256), (64, 256),
                                    (1, 512), (100, 100)])
@@ -161,8 +207,10 @@ def test_bf16_kernel_rounding_within_tolerance(sq, sk, h, kh, dh):
 
 def _f32_kernel_form(q, k, v, *, causal, window, passes):
     """K3's f32 arithmetic in plain torch: q scaled by log2(e)/sqrt(Dh) in
-    f32 before the product; key tiles of 64 (Dh 64) or 32 (Dh 128) walked
-    from the last down; S = Q.K^T and each tile's P.V as TF32 products
+    f32 before the product; key tiles of 64 (Dh 64) or 32 (Dh 128, 256)
+    walked from the last down (at Dh 256 the kernel splits the output's
+    columns over two blocks, which leaves each column's arithmetic as it
+    is); S = Q.K^T and each tile's P.V as TF32 products
     (``passes`` 1, or 3 for 3xTF32) with f32 sums, P.V's keys in each 8-key
     slab in the order the kernel's registers hold them (A's column t is key
     2t, t + 4 is 2t + 1); masked scores -1e30, keys past Sk -inf; the
@@ -217,12 +265,13 @@ def _share_of_f32_tol(sq, sk, h, kh, dh, causal, window, passes, seed=6):
     (1, 512, 8, 1, 64, True, None), (65, 65, 8, 1, 128, True, None),
     (129, 129, 10, 2, 128, True, None), (256, 256, 4, 2, 128, True, 16),
     (300, 300, 8, 2, 64, True, 8), (200, 200, 4, 2, 64, False, 100),
-    (100, 300, 4, 2, 64, False, None), (300, 100, 4, 2, 128, False, None)])
+    (100, 300, 4, 2, 64, False, None), (300, 100, 4, 2, 128, False, None),
+    (130, 130, 16, 1, 256, True, None), (200, 200, 16, 1, 256, True, 48)])
 def test_f32_kernel_3xtf32_within_tolerance(sq, sk, h, kh, dh, causal,
                                             window):
     """3xTF32 products on the kernel's tiles, with its key order and online
-    softmax, stay within F32_TOL of the plain version: Dh 64 and 128, GQA
-    (G up to 8, and 5), windows, non-causal calls, ragged S."""
+    softmax, stay within F32_TOL of the plain version: Dh 64, 128 and 256,
+    GQA (G up to 16, and 5), windows, non-causal calls, ragged S."""
     assert _share_of_f32_tol(sq, sk, h, kh, dh, causal, window,
                              passes=3) <= 1.0
 

@@ -195,19 +195,21 @@ def test_plain_version_not_called_on_cuda(cuda):
         == before
 
 
-# K3: the reference's flash-attention sweep, head_dim 64 and 128, plus a
-# ragged S = 1000 at qwen3's heads; S at 127, 128, 129 and 255 around the
-# bf16 kernel's 128-row q tile and its 64- and 128-key tiles (Sq != Sk
-# both ways), S at 63 and 65 around the f32 kernel's 64-row q tile, G = 8
-# at H = 32, and the heads of granite-8b (32 over 8), qwen2.5-14b (40 over
-# 8, G = 5) and chameleon-34b (64 over 8)
+# K3: the reference's flash-attention sweep, head_dim 64, 128 and 256,
+# plus a ragged S = 1000 at qwen3's heads; S at 127, 128, 129 and 255
+# around the bf16 kernel's 128-row q tile and its 64- and 128-key tiles
+# (Sq != Sk both ways), S at 63 and 65 around the f32 kernel's 64-row q
+# tile, G = 8 at H = 32, the heads of granite-8b (32 over 8), qwen2.5-14b
+# (40 over 8, G = 5) and chameleon-34b (64 over 8), and recurrentgemma's
+# (16 over 1)
 ATTN_SHAPES = [(sq, sk, h, kh)
                for sq, sk in ((128, 128), (256, 256), (64, 256), (1, 512),
                               (100, 100), (127, 127), (129, 129), (255, 255),
                               (129, 255), (255, 127), (63, 63), (65, 65))
                for h, kh in ((4, 4), (4, 2), (8, 1), (32, 4), (32, 8),
-                             (40, 8), (64, 8))] \
+                             (40, 8), (64, 8), (16, 1))] \
     + [(1000, 1000, 16, 8)]
+HEAD_DIMS = [64, 128, 256]
 
 
 def _qkv(cuda, b, sq, sk, h, kh, dh, dtype, seed=0):
@@ -231,7 +233,7 @@ def _check_attention(q, k, v, **kw):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("sq,sk,h,kh", ATTN_SHAPES)
 def test_flash_attention_kernel_matches_plain(cuda, sq, sk, h, kh, dh,
                                               dtype):
@@ -240,7 +242,7 @@ def test_flash_attention_kernel_matches_plain(cuda, sq, sk, h, kh, dh,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 @pytest.mark.parametrize("window", [16, 64, 100, 128, 200, 256])
 def test_flash_attention_kernel_window_matches_plain(cuda, window, dh, causal,
                                                      dtype):
@@ -250,7 +252,7 @@ def test_flash_attention_kernel_window_matches_plain(cuda, window, dh, causal,
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 def test_flash_attention_kernel_window_masks_whole_key_tiles(cuda, dh, causal,
                                                              dtype):
     """Window 8: every q tile loads the key tile below its own, and in it
@@ -261,14 +263,23 @@ def test_flash_attention_kernel_window_masks_whole_key_tiles(cuda, dh, causal,
                      causal=causal, window=8)
 
 
-@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
 def test_flash_attention_kernel_f32_long_sequence(cuda, dh):
-    """S = 16,384: the last q tile walks 256 (Dh 64) or 512 key tiles.  The
-    tensor cores' accumulator truncates, so the f32 kernel sums each tile's
-    P.V from zero and adds it to the output in f32; its error must not grow
-    out of F32_TOL with the number of tiles."""
+    """S = 16,384: the last q tile walks 256 (Dh 64) or 512 (Dh 128, 256)
+    key tiles.  The tensor cores' accumulator truncates, so the f32 kernel
+    sums each tile's P.V from zero and adds it to the output in f32; its
+    error must not grow out of F32_TOL with the number of tiles."""
     _check_attention(*_qkv(cuda, 1, 16384, 16384, 2, 1, dh, torch.float32,
                            seed=4), causal=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_kernel_recurrentgemma_window(cuda, dtype):
+    """recurrentgemma's local layers past their window: S = 4,096 over a
+    window of 2,048 at its heads (16 over 1) and Dh 256, causal; the q
+    tiles past the window skip the key tiles below it."""
+    _check_attention(*_qkv(cuda, 2, 4096, 4096, 16, 1, 256, dtype, seed=6),
+                     causal=True, window=2048)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -420,13 +431,14 @@ def test_ssd_scan_rejects_what_it_does_not_take(cuda):
             ssd_scan(off, dta, a_neg, bma, cma, chunk=32)
 
 
+@pytest.mark.parametrize("dh", [64, 256])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_kernels_refuse_autograd(cuda, dtype):
+def test_kernels_refuse_autograd(cuda, dtype, dh):
     """K3 and K4 have no backward: in grad mode an input that requires grad
     raises (naming use_kernel=False) and launches nothing; under no_grad
     the kernel runs; use_kernel=False takes the plain version, which
-    autograd differentiates."""
-    q, k, v = _qkv(cuda, 1, 64, 64, 4, 2, 64, dtype)
+    autograd differentiates (K3 at Dh 64 and recurrentgemma's 256)."""
+    q, k, v = _qkv(cuda, 1, 64, 64, 4, 2, dh, dtype)
     x, dt, a_neg, bm, cm, s0 = _ssd_inputs(cuda, 1, 64, 4, 64, 64, 1,
                                            dtype, True)
     for t in (k, dt):

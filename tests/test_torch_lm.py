@@ -9,14 +9,18 @@ bundle and serve step against
 reference's own ``PRNGKey(0)`` weights, carried across with
 ``lm_params_from_jax``, and the same numpy prompts of a ragged length
 (37): the prefill logits, then 8 greedy decode steps, their tokens and
-logits.  Nine smoke variants: qwen1.5-0.5b (QKV bias), qwen3-1.7b
+logits.  Thirteen smoke variants: qwen1.5-0.5b (QKV bias), qwen3-1.7b
 (qk-norm, GQA G = 2), qwen1.5-0.5b's sliding-window variant with a
 16-slot ring cache, shorter than the prompt, the three dense archs ported
 by config alone (granite-8b, qwen2.5-14b with QKV bias, chameleon-34b
-with qk-norm), and mamba2-1.3b three ways:
+with qk-norm), mamba2-1.3b three ways:
 as it is (the prompt of 37 ragged against its chunk of 32, so the
 reference pads), with two SSD groups, and with a chunk of 64, longer than
-the prompt (one chunk of S).
+the prompt (one chunk of S), and recurrentgemma-9b four ways: its smoke
+config (two RG-LRU layers), four layers (rglru, rglru, local under the
+reference's scan, then an rglru tail layer), the same at its full
+head_dim of 256, and at head_dim 256 with a 16-slot ring cache for the
+local layer, shorter than the prompt.
 
 The reference initializes biases to 0, norm weights and the SSD's skip to
 1, and its log-decays and dt biases to 0 (every head then decays alike);
@@ -72,7 +76,16 @@ SSD_VARIANTS = {
     "mamba2-1.3b-g2": ("mamba2-1.3b", False, dict(ssm_ngroups=2)),
     "mamba2-1.3b-chunk64": ("mamba2-1.3b", False, dict(ssm_chunk=64)),
 }
-VARIANTS = {**GQA_VARIANTS, **SSD_VARIANTS}
+RGLRU_VARIANTS = {
+    "recurrentgemma-9b": ("recurrentgemma-9b", False, {}),
+    "recurrentgemma-9b-l4": ("recurrentgemma-9b", False, dict(n_layers=4)),
+    "recurrentgemma-9b-dh256": ("recurrentgemma-9b", False,
+                                dict(n_layers=4, head_dim=256)),
+    "recurrentgemma-9b-dh256-window16": (
+        "recurrentgemma-9b", False, dict(n_layers=4, head_dim=256,
+                                         window=16)),
+}
+VARIANTS = {**GQA_VARIANTS, **SSD_VARIANTS, **RGLRU_VARIANTS}
 
 
 def _cfgs(variant):
@@ -165,6 +178,18 @@ def test_dense_archs_param_count_at_full_width(arch, n_params):
     assert tbuild(cfg, CPU).num_params == n_params
 
 
+def test_recurrentgemma_param_count_at_full_width():
+    """recurrentgemma-9b: 26 RG-LRU and 12 local-attention layers (12 units
+    of rglru, rglru, local and an rglru tail of 2), d 4096, vocab 256,000."""
+    cfg = tconfigs.get_config("recurrentgemma-9b")
+    kinds = [kind for kind, _ in ttfm.layer_sigs(cfg)]
+    assert kinds.count("rglru") == 26 and kinds.count("local") == 12
+    assert tree_param_count(ttfm.model_defs(cfg)) == 10_444_984_320
+    assert jbuild(jconfigs.get_config("recurrentgemma-9b"), tp=1,
+                  dp=1).num_params == 10_444_984_320
+    assert tbuild(cfg, CPU).num_params == 10_444_984_320
+
+
 def test_init_draws_the_reference_laws():
     """``bundle.init`` draws other numbers than JAX's threefry stream, but
     the same tree of shapes and dtypes and the same laws: per leaf, the
@@ -193,7 +218,8 @@ def test_unported_archs_raise_naming_roadmap():
                 tconfigs.get_config(arch)
     assert set(tconfigs.ARCH_IDS) <= set(jconfigs.ARCH_IDS)
     for kw in (dict(moe_num_experts=4), dict(attn_kind="mla"),
-               dict(block_pattern=("attn", "rglru")), dict(encoder_layers=2)):
+               dict(block_pattern=("attn", "enc_attn")),
+               dict(encoder_layers=2)):
         cfg = tconfigs.get_config("qwen3-1.7b").smoke(**kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbuild(cfg, CPU)
@@ -476,6 +502,42 @@ def test_lm_params_from_jax_keeps_each_leaf_in_its_def_dtype():
     init = tbuild(tcfg, CPU).init(0).state_dict()
     assert {k: v.dtype for k, v in init.items()} \
         == {k: v.dtype for k, v in got.items()}
+
+
+def test_lm_params_from_jax_keeps_lam_in_float32():
+    """A bf16 recurrentgemma smoke config: each RG-LRU layer's lam comes
+    across as float32, as the reference keeps it, the rest as bf16."""
+    kw = dict(param_dtype=jnp.bfloat16, compute_dtype=jnp.bfloat16,
+              n_layers=4)
+    jcfg = jconfigs.get_config("recurrentgemma-9b").smoke(**kw)
+    tcfg = tconfigs.get_config("recurrentgemma-9b").smoke(
+        param_dtype=torch.bfloat16, compute_dtype=torch.bfloat16, n_layers=4)
+    jp = jbuild(jcfg, tp=1, dp=1).init(jax.random.PRNGKey(0))
+    got = lm_params_from_jax(tcfg, jax.tree.map(
+        lambda a: np.asarray(a, np.float32), jp)).state_dict()
+    for name, t in got.items():
+        want = torch.float32 if name.endswith(".lam") else torch.bfloat16
+        assert t.dtype == want, name
+    assert sum(name.endswith(".lam") for name in got) == 3
+    init = tbuild(tcfg, CPU).init(0).state_dict()
+    assert {k: v.dtype for k, v in init.items()} \
+        == {k: v.dtype for k, v in got.items()}
+
+
+def test_serve_entry_point_recurrentgemma_on_the_cpu(capsys):
+    res = tserve.main(["--arch", "recurrentgemma-9b", "--smoke", "--device",
+                       "cpu", "--batch", "2", "--prompt-len", "9",
+                       "--decode-tokens", "4"])
+    out = capsys.readouterr().out
+    assert "arch=recurrentgemma-9b" in out and "prefill:" in out
+    assert res.tokens.shape == (2, 4)
+    assert res.logits.shape == (2, 9, res.cfg.padded_vocab)
+    assert bool(torch.isfinite(res.logits).all())
+    assert int(res.tokens.min()) >= 0 \
+        and int(res.tokens.max()) < res.cfg.padded_vocab
+    assert res.stats["k3_launches_per_prefill"] == 0
+    assert tserve.kernel_libraries(
+        res.cfg.replace(n_layers=3)) == ["flash_attention"]
 
 
 def test_serve_entry_point_mamba2_on_the_cpu(capsys):

@@ -9,10 +9,11 @@ no backward).  Then the whole step: the port's ``make_train_step`` and
 ``make_ideal_train_step`` against the reference's
 ``repro.launch.steps`` in a child process (``torch_ref._TRAIN_CHILD``: its
 import chain reaches ``repro.solvers``, which needs the ``enable_x64``
-shim), on smoke configs of qwen1.5-0.5b and mamba2-1.3b in f32, from the
-reference's weights carried across with ``lm_params_from_jax``, on its
-tokens, fading, coin and per-leaf noise replayed (the noise of a stacked
-``scan`` leaf sliced per layer by the same mapping).  Then the checkpoint
+shim), on smoke configs of qwen1.5-0.5b, mamba2-1.3b and
+recurrentgemma-9b in f32, from the reference's weights carried across
+with ``lm_params_from_jax``, on its tokens, fading, coin and per-leaf
+noise replayed (the noise of a stacked ``scan`` leaf sliced per layer by
+the same mapping).  Then the checkpoint
 in the reference's stacked layout, both ways, and ``launch.train`` end to
 end on the CPU.
 
@@ -478,6 +479,9 @@ def test_device_step_draws_are_keyed_per_seed_and_step():
 @pytest.mark.parametrize("arch,kw", [
     ("qwen1.5-0.5b", dict(n_layers=3)),
     ("mamba2-1.3b", {}),
+    ("recurrentgemma-9b", dict(n_layers=4)),
+    ("recurrentgemma-9b", dict(n_layers=4, param_dtype=torch.bfloat16,
+                               compute_dtype=torch.bfloat16)),
     ("qwen3-1.7b", dict(param_dtype=torch.bfloat16,
                         compute_dtype=torch.bfloat16))])
 def test_checkpoint_round_trips_through_the_reference_layout(tmp_path, arch,

@@ -1201,8 +1201,10 @@ for c in cfg["cases"]:
 np.savez(cfg["out"], **out)
 """
 
-# the train-step parity cases: qwen1.5-0.5b's smoke (QKV bias, GQA) and
-# mamba2-1.3b's (a ragged 40-token input against its chunk of 32), sca;
+# the train-step parity cases: qwen1.5-0.5b's smoke (QKV bias, GQA),
+# mamba2-1.3b's (a ragged 40-token input against its chunk of 32) and
+# recurrentgemma-9b's at 4 layers (RG-LRU layers under the scan and in the
+# tail, a local layer whose window of 64 the 24 tokens stay inside), sca;
 # and one bbfl_alternative case, whose coefficients read the coin (its
 # seed's key stream draws both outcomes over the 4 steps)
 TRAIN_CASES = (
@@ -1210,6 +1212,9 @@ TRAIN_CASES = (
          clients=4, per_client=1, seq=32, eta=0.05, seed=0),
     dict(name="mamba2", arch="mamba2-1.3b", smoke={}, scheme="sca",
          steps=4, clients=2, per_client=2, seq=40, eta=0.05, seed=1),
+    dict(name="recurrentgemma", arch="recurrentgemma-9b",
+         smoke=dict(n_layers=4), scheme="sca", steps=4, clients=2,
+         per_client=1, seq=24, eta=0.05, seed=2),
     dict(name="bbfl", arch="qwen1.5-0.5b", smoke=dict(n_layers=1),
          scheme="bbfl_alternative", steps=4, clients=4, per_client=1,
          seq=16, eta=0.05, seed=4),
