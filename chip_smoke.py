@@ -34,11 +34,14 @@ Phases (any failure exits nonzero, and nothing is swallowed):
          in f32 (the serve path's prefill in f32, qwen3's heads, window
          256), and at recurrentgemma-9b's local layers (Dh 256, H 16 over
          KH 1) at its prefill (B 8, S 1024) and past its window (B 2,
-         S 4096, window 2048), in bf16 and in f32 -- f32 to
-         2e-5, bf16 to two bf16 ulps plus 1e-2; the shapes, the bound and
-         the ``scaled_dot_product_attention`` call timed beside it are
-         ``repro_torch.profile_attention``'s; the f32 bound takes the
-         cheaper of the FMA units and 3xTF32;
+         S 4096, window 2048), in bf16 and in f32, and non-causal at
+         seamless-m4t-medium's encoder (B 8, S 1024, H = KH = 16, Dh 64)
+         and a ragged cross-attention (Sq 128 over Sk 1,024), in bf16 and
+         in f32 -- f32 to 2e-5, bf16 to two bf16 ulps plus 1e-2; the
+         shapes, the bound (the pairs the masks allow: all Sq x Sk
+         non-causal) and the ``scaled_dot_product_attention`` call timed
+         beside it are ``repro_torch.profile_attention``'s; the f32 bound
+         takes the cheaper of the FMA units and 3xTF32;
        - K4 ``ssd_scan`` at the mamba2 prefill's scan (B 8, S 1024, H 64,
          P 64, N 128, G 1, f32, chunk 128), at ragged S = 1000, with
          G = 2 and a nonzero state0, with bf16 inputs, at the smoke
@@ -231,14 +234,32 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      window of 2,048: K3 takes the window, the local layers decode 32
      tokens through their 2,048-slot ring caches, held against a full
      windowed forward over the generated sequence;
- 15. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+ 15. seamless-m4t-medium (module 11's encoder-decoder: 12 bidirectional
+     encoder layers over stub frame embeddings, 12 causal decoder layers
+     with cross-attention; K3 36 times a prefill, 24 of them non-causal):
+     (a) ``python -m repro_torch.launch.serve`` at full width and depth in
+     bf16, batch 8, frames and prompts of 1,024, 32 decode tokens, random
+     weights from seed 0: K3 36 times per prefill (24 non-causal) and
+     never in decode, its plain version, K4 and the OTA kernels never,
+     finite logits, tokens in range, the prefill ms, decode ms per token
+     and peak device memory; (b) the same draw in f32 at full depth, K3
+     on vs off: the encoder's output within F32_TOL per layer (x 12), the
+     first decoder layer (self- and cross-attention) on the same memory
+     within F32_TOL, the logits within 1e-4 of their largest and greedy
+     tokens equal at >= 0.99; (c) the same gates on a ragged cross case,
+     frames 1,000 and a prompt of 100 (long audio, short text); (d) greedy
+     tokens of prefill + cached decode (self caches written in place,
+     cross caches read) against one teacher-forced pass over the prompt
+     and the fed-back tokens, >= 0.97 equal;
+ 16. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
      run's launches, with each dense arch's serve run's, with the qwen
-     train run's eval's and with recurrentgemma's; K3 f32 with the f32
-     serve run's and with recurrentgemma's f32 run's; K4 f32 with the
-     mamba2 serve run's and the mamba2 train run's eval's; K1 f32 four
-     times: the Fig.-2 main path's, the grid's, the cohort fleet's and the
-     cifar fleet's), each phase's seconds, then the last line ``{"ok":
-     true, "device": {...}}``.
+     train run's eval's, with recurrentgemma's and with seamless's, its
+     non-causal and causal launches on two rows; K3 f32 with the f32 serve
+     run's, with recurrentgemma's f32 run's and with seamless's two; K4
+     f32 with the mamba2 serve run's and the mamba2 train run's eval's; K1
+     f32 four times: the Fig.-2 main path's, the grid's, the cohort
+     fleet's and the cifar fleet's), each phase's seconds, then the last
+     line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
 fleet's reference is full float32.
@@ -385,6 +406,23 @@ RGEMMA_SERVE = dict(arch="recurrentgemma-9b", batch=8, prompt_len=1024,
                     decode_tokens=32)
 RGEMMA_F32_BATCH = 4
 RGEMMA_RING = dict(n_layers=6, batch=2, prompt_len=4096, decode_tokens=32)
+# phase 15: seamless-m4t-medium (12 encoder and 12 decoder layers; K3 36
+# times a prefill: 12 encoder self-attentions and 12 cross-attentions
+# non-causal, 12 decoder self-attentions causal) served at full width and
+# depth in bf16 (frames and prompts of 1,024), then in f32 at full depth:
+# K3 on vs off on the encoder's output (F32_TOL per layer, over its 12),
+# the first decoder layer (its self- and cross-attention, on the same
+# memory: F32_TOL), the logits within SEAMLESS_DRIFT of their largest and
+# the greedy tokens equal at >= SEAMLESS_TOKENS_MIN; the same gates on a
+# ragged cross case (frames 1,000, a prompt of 100: long audio, short
+# text); prefill + cached decode against one teacher-forced pass over the
+# prompt and the fed-back tokens, to SEAMLESS_STATE_TOKENS_MIN
+SEAMLESS_SERVE = dict(arch="seamless-m4t-medium", batch=8, prompt_len=1024,
+                      decode_tokens=32)
+SEAMLESS_LAYERS = (12, 12)                 # encoder, decoder
+SEAMLESS_RAGGED = dict(batch=8, frames=1000, prompt_len=100)
+SEAMLESS_DRIFT, SEAMLESS_TOKENS_MIN = 1e-4, 0.99
+SEAMLESS_STATE_TOKENS_MIN = 0.97
 
 
 class SmokeFailure(Exception):
@@ -479,6 +517,7 @@ def counts():
     return {"ota_round_step": round_step.ota_round_step.launches,
             "ota_aggregate": ota_aggregate.ota_aggregate.launches,
             "flash_attention": flash_attention.launches,
+            "flash_attention_noncausal": flash_attention.noncausal_launches,
             "ssd_scan": ssd_scan.launches,
             "plain_round_step": ref.ota_round_step_ref.calls,
             "plain_aggregate": ref.ota_aggregate_ref.calls,
@@ -493,6 +532,7 @@ def zero_counts():
     round_step.ota_round_step.launches = 0
     ota_aggregate.ota_aggregate.launches = 0
     flash_attention.launches = 0
+    flash_attention.noncausal_launches = 0
     ssd_scan.launches = 0
     ref.ota_round_step_ref.calls = 0
     ref.ota_aggregate_ref.calls = 0
@@ -510,22 +550,24 @@ def phase_attention_kernel(torch, dev, card):
     gen = torch.Generator(device=dev).manual_seed(1)
     results = {}
     for shape in SHAPES:
-        label, b, s, h, kh, dh, dt, window = shape
-        tol = ATTN_BF16_TOL if dt == "bf16" else F32_TOL
+        label, causal, window = shape.label, shape.causal, shape.window
+        tol = ATTN_BF16_TOL if shape.dtype == "bf16" else F32_TOL
         q, k, v = draw(shape, dev, gen)
 
         def kern():
-            return flash_attention(q, k, v, causal=True, window=window)
+            return flash_attention(q, k, v, causal=causal, window=window)
 
         def plain():
-            return ref.attention_ref(q, k, v, causal=True, window=window)
+            return ref.attention_ref(q, k, v, causal=causal, window=window)
         got, want = kern().float(), plain().float()
         torch.cuda.synchronize()
         err = (got - want).abs()
         ok = bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
-        library = sdpa(q, k, v, window)
+        library = sdpa(q, k, v, window, causal)
         lib_err = float((library().float() - want).abs().max())
-        row = {"shape": [b, s, h, kh, dh], "dtype": dt, "window": window,
+        row = {"shape": [shape.b, shape.s, shape.keys, shape.h, shape.kh,
+                         shape.dh], "dtype": shape.dtype, "window": window,
+               "causal": causal,
                "max_abs_err": float(err.max()), "tol": tol, "ok": ok,
                "ms": median_ms(kern),
                "plain_ms": median_ms(plain),
@@ -1698,14 +1740,16 @@ def attention_on_vs_off(torch, res, cfg):
     return on.float(), off.float(), kernel
 
 
-def check_serve_run(torch, res, cnt, label):
+def check_serve_run(torch, res, cnt, label, n_layers=None):
     """One serve run of a GQA arch or of a hybrid with GQA layers: K3 once
-    per attention layer in each of its two prefills (warm-up, timed), no
-    plain attention, OTA kernel or K4; finite logits and tokens in range,
-    of the run's shapes."""
+    per attention layer (``n_layers``, default the decoder's GQA layers)
+    in each of its two prefills (warm-up, timed) and never in a decode
+    step, no plain attention, OTA kernel or K4; finite logits and tokens
+    in range, of the run's shapes."""
     from repro_torch.models import transformer as tfm
-    n_layers = sum(kind in tfm.GQA_KINDS for kind, _ in
-                   tfm.layer_sigs(res.cfg))
+    if n_layers is None:
+        n_layers = sum(kind in tfm.GQA_KINDS for kind, _ in
+                       tfm.layer_sigs(res.cfg))
     check(res.stats["k3_launches_per_prefill"] == n_layers,
           f"{label}: K3 launched {res.stats['k3_launches_per_prefill']} "
           f"times in a prefill of {n_layers} attention layers")
@@ -2352,6 +2396,184 @@ def phase_recurrentgemma(torch, dev, card_line):
     return out
 
 
+def seamless_on_vs_off(torch, params, cfg, frames, prompts, logits_on):
+    """K3 on vs forced off on the encoder-decoder: the encoder's output;
+    the first decoder layer on the same memory (the plain one) and the
+    same embedded prompts; ``logits_on`` (the prefill's) against a plain
+    pass.  Returns (readings, memory through K3)."""
+    from repro_torch.models import encdec
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed
+    with torch.no_grad():
+        mem_on = encdec.encode(params, frames, cfg)
+        mem_off = encdec.encode(params, frames, cfg, use_kernel=False)
+        x = embed(params["embed"], prompts, cfg.compute_dtype)
+        p0 = params["dec_layers"][0]
+        l0_on, _ = tfm.apply_layer(p0, x, cfg, encdec.DEC_SIG, memory=mem_off)
+        l0_off, _ = tfm.apply_layer(p0, x, cfg, encdec.DEC_SIG,
+                                    memory=mem_off, use_kernel=False)
+        logits_off = encdec.decode_train(params, mem_off, prompts, cfg,
+                                         use_kernel=False)
+    enc_tol = {k: v * cfg.encoder_layers for k, v in F32_TOL.items()}
+    reading = {
+        "memory_max_abs_err": float((mem_on - mem_off).abs().max()),
+        "memory_max_abs": float(mem_off.abs().max()),
+        "memory_ok": bool((mem_on - mem_off).abs().le(
+            enc_tol["atol"] + enc_tol["rtol"] * mem_off.abs()).all()),
+        "dec_layer0_max_abs_err": float((l0_on - l0_off).abs().max()),
+        "dec_layer0_max_abs": float(l0_off.abs().max()),
+        "dec_layer0_ok": bool((l0_on - l0_off).abs().le(
+            F32_TOL["atol"] + F32_TOL["rtol"] * l0_off.abs()).all()),
+        "logits_max_abs_diff": float((logits_on - logits_off).abs().max()),
+        "logits_max_abs": float(logits_off.abs().max()),
+        "equal_next_tokens": float((logits_on.argmax(-1)
+                                    == logits_off.argmax(-1)).float()
+                                   .mean())}
+    del mem_off, x, l0_on, l0_off, logits_off
+    return reading, mem_on
+
+
+def seamless_gate(reading, label):
+    """Phase 15's f32 gates on a ``seamless_on_vs_off`` reading."""
+    print(f"  {label}, K3 on vs off: {json.dumps(reading)} (tolerance: the "
+          f"memory within F32_TOL x {SEAMLESS_LAYERS[0]} layers, decoder "
+          f"layer 0 within {F32_TOL}; logits within {SEAMLESS_DRIFT} of max "
+          f"|logit|, greedy tokens equal at >= {SEAMLESS_TOKENS_MIN})",
+          flush=True)
+    check(reading["memory_ok"], f"{label}: the encoder's output, K3 on vs "
+          f"off: max |d| {reading['memory_max_abs_err']}")
+    check(reading["dec_layer0_ok"], f"{label}: decoder layer 0, K3 on vs "
+          f"off: max |d| {reading['dec_layer0_max_abs_err']}")
+    check(reading["logits_max_abs_diff"]
+          <= SEAMLESS_DRIFT * reading["logits_max_abs"],
+          f"{label}: logits drift {reading['logits_max_abs_diff']} over "
+          f"{SEAMLESS_DRIFT} x {reading['logits_max_abs']}")
+    check(reading["equal_next_tokens"] >= SEAMLESS_TOKENS_MIN,
+          f"{label}: equal next tokens {reading['equal_next_tokens']}")
+
+
+def phase_seamless(torch, dev, card_line):
+    """Phase 15: seamless-m4t-medium served at full width and depth in
+    bf16 through K3 (its encoder and cross-attention in K3's non-causal
+    mode), then in f32 at full depth: K3 on vs off, a ragged cross case,
+    and prefill + cached decode against one teacher-forced pass."""
+    import gc
+    from repro_torch.launch import serve
+    from repro_torch.models import encdec
+    from repro_torch.models.registry import build_bundle
+    out = {}
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    # (a) bf16, full width and depth, through the serve entry point
+    argv = [f"--{k.replace('_', '-')}={v}" for k, v in SEAMLESS_SERVE.items()]
+    zero_counts()
+    res = serve.main(argv)
+    torch.cuda.synchronize()
+    cnt = counts()
+    cfg = res.cfg
+    check((cfg.encoder_layers, cfg.n_layers) == SEAMLESS_LAYERS,
+          f"seamless-m4t-medium's layers: {cfg.encoder_layers} + "
+          f"{cfg.n_layers}")
+    n_attn = cfg.encoder_layers + 2 * cfg.n_layers
+    n_noncausal = cfg.encoder_layers + cfg.n_layers
+    print(f"  seamless-m4t-medium serve: {cfg.encoder_layers} encoder and "
+          f"{cfg.n_layers} decoder layers; counts {cnt}", flush=True)
+    check_serve_run(torch, res, cnt, "seamless-m4t-medium serve", n_attn)
+    check(cnt["flash_attention_noncausal"] == 2 * n_noncausal,
+          f"seamless-m4t-medium: {cnt['flash_attention_noncausal']} "
+          f"non-causal K3 launches in 2 prefills, not {2 * n_noncausal}")
+    st = dict(res.stats, peak_mem_gb=torch.cuda.max_memory_allocated(dev)
+              / 1e9)
+    print(f"  (a) seamless-m4t-medium (bf16, batch {SEAMLESS_SERVE['batch']} "
+          f"x {SEAMLESS_SERVE['prompt_len']} frames and tokens) "
+          f"[{card_line}]: prefill {st['prefill_ms']:.3f} ms, decode "
+          f"{st['decode_ms_per_token']:.3f} ms per token, peak "
+          f"{st['peak_mem_gb']:.2f} GB; {json.dumps(st)}", flush=True)
+    out["bf16"], out["bf16_counts"] = st, cnt
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the same draw in float32 at full depth: K3's f32 kernel in all 36
+    # prefill attentions, on vs off
+    cfg32 = cfg.replace(param_dtype=torch.float32,
+                        compute_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    r32 = serve.run(cfg32, batch=SEAMLESS_SERVE["batch"],
+                    prompt_len=SEAMLESS_SERVE["prompt_len"],
+                    decode_tokens=SEAMLESS_SERVE["decode_tokens"], seed=0,
+                    device=dev)
+    torch.cuda.synchronize()
+    f32_cnt = counts()
+    check_serve_run(torch, r32, f32_cnt, "seamless-m4t-medium f32", n_attn)
+    check(f32_cnt["flash_attention_noncausal"] == 2 * n_noncausal,
+          f"seamless-m4t-medium f32: {f32_cnt['flash_attention_noncausal']} "
+          "non-causal K3 launches in 2 prefills")
+    reading, mem_on = seamless_on_vs_off(torch, r32.params, cfg32, r32.frames,
+                                         r32.prompts, r32.logits)
+    reading.update(prefill_ms=r32.stats["prefill_ms"],
+                   decode_ms_per_token=r32.stats["decode_ms_per_token"])
+    seamless_gate(reading, f"(b) seamless-m4t-medium (f32, "
+                  f"{cfg32.encoder_layers} + {cfg32.n_layers} layers, "
+                  f"batch {SEAMLESS_SERVE['batch']} x "
+                  f"{SEAMLESS_SERVE['prompt_len']})")
+    out["f32"], out["f32_counts"] = reading, f32_cnt
+
+    # (d) prefill + cached decode (self caches written in place, cross
+    # caches read) against one teacher-forced pass over the prompt and the
+    # fed-back tokens
+    s = SEAMLESS_SERVE["prompt_len"]
+    with torch.no_grad():
+        seq = torch.cat([r32.prompts, r32.tokens[:, :-1]], dim=1)
+        full = encdec.decode_train(r32.params, mem_on, seq, cfg32)
+        want = full[:, s - 1:].argmax(-1)
+    state_equal = float((want == r32.tokens).float().mean())
+    del full, seq, want, mem_on
+    out["f32"]["state_equal_tokens"] = state_equal
+    print(f"  (d) seamless-m4t-medium (f32): greedy tokens of prefill + "
+          f"cached decode equal to one teacher-forced pass at {state_equal} "
+          f"(gate {SEAMLESS_STATE_TOKENS_MIN})", flush=True)
+    check(state_equal >= SEAMLESS_STATE_TOKENS_MIN,
+          f"seamless-m4t-medium f32: cached decode agrees with one "
+          f"teacher-forced pass at {state_equal}")
+
+    # (c) ragged cross: frames 1,000 and a prompt of 100 leave a ragged
+    # tile on both sides of every cross-attention
+    rg = SEAMLESS_RAGGED
+    gen = torch.Generator(device=dev).manual_seed(2)
+    frames = torch.randn((rg["batch"], rg["frames"], cfg32.d_model),
+                         generator=gen, device=dev)
+    prompts = torch.randint(0, cfg32.vocab_size, (rg["batch"],
+                                                  rg["prompt_len"]),
+                            generator=gen, device=dev)
+    bundle = build_bundle(cfg32, dev)
+    zero_counts()
+    logits_on, _ = bundle.prefill(r32.params, (frames, prompts),
+                                  bundle.init_caches(rg["batch"],
+                                                     rg["prompt_len"]))
+    torch.cuda.synchronize()
+    rcnt = counts()
+    check(rcnt["flash_attention"] == n_attn
+          and rcnt["flash_attention_noncausal"] == n_noncausal
+          and rcnt["plain_attention"] == 0,
+          f"seamless ragged prefill: counts {rcnt}")
+    ragged, _ = seamless_on_vs_off(torch, r32.params, cfg32, frames, prompts,
+                                   logits_on)
+    seamless_gate(ragged, f"(c) seamless-m4t-medium ragged (f32, batch "
+                  f"{rg['batch']}, frames {rg['frames']}, prompt "
+                  f"{rg['prompt_len']})")
+    out["ragged"] = ragged
+    out["f32"]["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"  seamless-m4t-medium f32 peak {out['f32']['peak_mem_gb']:.2f} GB "
+          f"[{card_line}]", flush=True)
+    del r32, logits_on, frames, prompts
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2474,7 +2696,10 @@ def main() -> int:
     begin(14, "recurrentgemma-9b (RG-LRU and local attention) served at full "
           "width through K3 at head_dim 256")
     rgemma = phase_recurrentgemma(torch, dev, card_line)
-    begin(15, "the kernels line")
+    begin(15, "seamless-m4t-medium (the encoder-decoder) served at full width "
+          "through K3, its encoder and cross-attention non-causal")
+    seamless = phase_seamless(torch, dev, card_line)
+    begin(16, "the kernels line")
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
                     path_counts["fused_bf16"]["ota_round_step"],
@@ -2510,6 +2735,16 @@ def main() -> int:
     rows.append(("flash_attention[f32, recurrentgemma-9b, Dh 256]",
                  "flash_attention", rgemma["f32_counts"]["flash_attention"],
                  ares["recurrentgemma-9b_f32"]))
+    for dt, key in (("bf16", ""), ("f32", "_f32")):
+        cnt = seamless[f"{dt}_counts"]
+        rows.append((f"flash_attention[{dt}, seamless-m4t-medium, "
+                     "non-causal: encoder and cross]", "flash_attention",
+                     cnt["flash_attention_noncausal"],
+                     ares[f"seamless_encoder{key}"]))
+        rows.append((f"flash_attention[{dt}, seamless-m4t-medium, causal "
+                     "decoder]", "flash_attention",
+                     cnt["flash_attention"] - cnt["flash_attention_noncausal"],
+                     ares[f"main{key}"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -2518,21 +2753,21 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[15] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[16] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[15] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[15] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[15] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[15] single run: {json.dumps(single)}", flush=True)
-    print(f"[15] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[15] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[16] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[16] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[16] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[16] single run: {json.dumps(single)}", flush=True)
+    print(f"[16] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[16] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print("[15] dense archs: " + json.dumps(
+    print("[16] dense archs: " + json.dumps(
         {arch: {k: st[k] for k in ("batch", "prefill_ms",
                                    "decode_ms_per_token", "peak_mem_gb",
                                    "batch_fits")}
          for arch, (st, _) in dense.items()}), flush=True)
-    print("[15] train: " + json.dumps(
+    print("[16] train: " + json.dumps(
         {arch: {k: trained[arch][k] for k in (
             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
             "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
@@ -2540,7 +2775,7 @@ def main() -> int:
         | {"lm_curves_wall_s": trained["curves"]["wall_s"],
            "lm_curves_step_ms": trained["curves"]["step_ms"]}),
         flush=True)
-    print("[15] recurrentgemma-9b: " + json.dumps(
+    print("[16] recurrentgemma-9b: " + json.dumps(
         {"bf16": {k: rgemma["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: rgemma["f32"][k] for k in (
@@ -2549,7 +2784,18 @@ def main() -> int:
          "ring": {k: rgemma["ring"][k] for k in (
              "layers", "batch", "prompt_len", "window", "prefill_ms",
              "decode_ms_per_token", "equal_tokens")}}), flush=True)
-    print(f"[15] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print("[16] seamless-m4t-medium: " + json.dumps(
+        {"bf16": {k: seamless["bf16"][k] for k in (
+            "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
+         "f32": {k: seamless["f32"][k] for k in (
+             "prefill_ms", "decode_ms_per_token", "peak_mem_gb",
+             "state_equal_tokens", "memory_max_abs_err",
+             "dec_layer0_max_abs_err", "logits_max_abs_diff",
+             "equal_next_tokens")},
+         "ragged": {k: seamless["ragged"][k] for k in (
+             "memory_max_abs_err", "dec_layer0_max_abs_err",
+             "logits_max_abs_diff", "equal_next_tokens")}}), flush=True)
+    print(f"[16] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "
@@ -2559,7 +2805,7 @@ def main() -> int:
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "
           f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
-    print(f"[15] seconds per phase: {json.dumps(phase_s)}", flush=True)
+    print(f"[16] seconds per phase: {json.dumps(phase_s)}", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -2,10 +2,10 @@
 
 Copies of the reference's registry (``repro.configs``) for the archs the
 port runs: the dense GQA decoders (qwen1.5, qwen3, granite, qwen2.5 and
-chameleon's token-in, token-out backbone), mamba2 and recurrentgemma (RG-LRU
-with local attention).  Any other arch
-raises and names ROADMAP.md, where the reference's other archs are
-queued.
+chameleon's token-in, token-out backbone), mamba2, recurrentgemma (RG-LRU
+with local attention) and seamless-m4t-medium (the encoder-decoder).  Any
+other arch raises and names ROADMAP.md, where the reference's other archs
+are queued.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ _MODULES = {
     "qwen2.5-14b": "repro_torch.configs.qwen25_14b",
     "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
+    "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
 }
 ARCH_IDS = tuple(_MODULES)
 

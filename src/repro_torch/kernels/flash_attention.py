@@ -1,5 +1,7 @@
-"""Kernel K3 for Hopper: blocked online-softmax GQA attention with causal
-and sliding-window masks, the attention of every prefill.
+"""Kernel K3 for Hopper: blocked online-softmax GQA attention, causal or
+not, with an optional sliding window: the attention of every prefill
+(non-causal for an encoder's self-attention and for cross-attention, at
+any Sq and Sk).
 
     o[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h // G] / sqrt(Dh)) v[b, j, h // G]
     over j <= i (causal) and j > i - window (window); positions from 0.
@@ -114,7 +116,9 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, name)
     flash_attention.launches += 1
+    flash_attention.noncausal_launches += not causal
     return out
 
 
 flash_attention.launches = 0
+flash_attention.noncausal_launches = 0      # of ``launches``

@@ -9,11 +9,17 @@ and rglru layers).
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch recurrentgemma-9b --batch 8 --prompt-len 1024 \
         --decode-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch seamless-m4t-medium --batch 8 --prompt-len 1024 \
+        --decode-tokens 32
 
 The port of ``repro.launch.serve``, with ``--device`` (default: the CUDA
 card; without one it raises unless ``--device cpu`` is given).  Weights are
 random, drawn from ``--seed`` with the reference's init laws; prompts are
-drawn from ``--seed`` + 1.  On the card, one untimed prefill and decode
+drawn from ``--seed`` + 1.  An encoder-decoder also takes frames, as the
+reference serves it: ``[B, prompt_len, d_model]`` float32 standard
+normals (the stub front end's embeddings), drawn from the same generator
+before the prompts.  On the card, one untimed prefill and decode
 step of the same shapes runs first (the build of the kernels the arch
 uses, library loading); each time printed is then a host clock between two
 device synchronizations.  Prints the reference's lines, then one JSON line
@@ -51,6 +57,13 @@ class ServeResult:
     logits: torch.Tensor         # prefill logits [B, prompt_len, V] f32
     tokens: torch.Tensor         # greedy tokens [B, decode_tokens]
     stats: dict                  # what the JSON line prints
+    frames: Optional[torch.Tensor] = None   # enc-dec: [B, prompt_len, D]
+
+    @property
+    def inputs(self):
+        """What the prefill took: the prompts, or (frames, prompts)."""
+        return self.prompts if self.frames is None \
+            else (self.frames, self.prompts)
 
 
 def card_line() -> Optional[str]:
@@ -67,7 +80,7 @@ def card_line() -> Optional[str]:
 
 def kernel_libraries(cfg: ModelConfig) -> list:
     """The CUDA libraries a prefill of ``cfg`` launches: K3's for GQA
-    layers, K4's for ssd layers."""
+    layers (an encoder-decoder's decoder has them), K4's for ssd layers."""
     kinds = {kind for kind, _ in tfm.layer_sigs(cfg)}
     return ([name for name, uses in (("flash_attention", tfm.GQA_KINDS),
                                      ("ssd_scan", ("ssd",)))
@@ -86,12 +99,19 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, decode_tokens: int,
     greedy tokens (the first from the prefill's logits)."""
     if decode_tokens < 1:
         raise ValueError("decode_tokens must be >= 1")
+    if cfg.input_mode != "tokens" and not cfg.is_enc_dec:
+        # the reference hands such a model token ids, which it cannot take
+        raise ValueError(f"{cfg.name}: a decoder-only model of "
+                         f"{cfg.input_mode} inputs has no token loop to serve")
     bundle = build_bundle(cfg, device)
     dev = bundle.device
     params = bundle.init(seed)
     gen = torch.Generator(device=dev).manual_seed(seed + 1)
+    frames = torch.randn((batch, prompt_len, cfg.d_model), generator=gen,
+                         device=dev) if cfg.is_enc_dec else None
     prompts = torch.randint(0, cfg.vocab_size, (batch, prompt_len),
                             generator=gen, device=dev)
+    inputs = prompts if frames is None else (frames, prompts)
     max_len = prompt_len + decode_tokens
     prefill = steps_lib.make_prefill_step(bundle)
     serve = steps_lib.make_serve_step(bundle)
@@ -100,14 +120,14 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, decode_tokens: int,
         for name in kernel_libraries(cfg):
             build.library(name)
         caches = bundle.init_caches(batch, max_len)
-        logits, caches = prefill(params, prompts, caches)
+        logits, caches = prefill(params, inputs, caches)
         serve(params, caches, logits[:, -1:].argmax(-1), prompt_len)
         del logits, caches
 
     caches = bundle.init_caches(batch, max_len)
     k3, k4 = flash_attention.launches, ssd_scan.launches
     t0 = _sync(dev)
-    logits, caches = prefill(params, prompts, caches)
+    logits, caches = prefill(params, inputs, caches)
     t_prefill = _sync(dev) - t0
     k3, k4 = flash_attention.launches - k3, ssd_scan.launches - k4
     tok = torch.argmax(logits[:, -1:, :], dim=-1)
@@ -134,7 +154,7 @@ def run(cfg: ModelConfig, *, batch: int, prompt_len: int, decode_tokens: int,
         else None,
         "card_line": card_line() if dev.type == "cuda" else None,
     }
-    return ServeResult(cfg, params, prompts, logits, tokens, stats)
+    return ServeResult(cfg, params, prompts, logits, tokens, stats, frames)
 
 
 def main(argv=None) -> ServeResult:

@@ -1,14 +1,18 @@
-"""GQA self-attention of the port's dense decoders, with QKV bias, qk-norm
-and sliding-window (ring-cache) variants.
+"""GQA self-attention of the port's models, with QKV bias, qk-norm and
+sliding-window (ring-cache) variants, the encoder's bidirectional kind,
+and the encoder-decoder's cross-attention.
 
-A copy of the GQA part of ``repro.models.attention``.  A prefill computes
-its attention through kernel K3 (``kernels.flash_attention``): q and k
-share their positions there, and a shared offset cancels in both masks, so
-K3's positions from 0 give the same answer at any ``pos_offset``.  A
-decode step (one query against the KV cache) stays plain PyTorch
-(``kernels.ref.grouped_attention``, K3's plain version over the cache's
-positions), as the reference computes it outside any Pallas kernel.
-MLA and cross-attention are not ported yet (ROADMAP.md).
+A copy of the GQA and cross-attention parts of ``repro.models.attention``.
+A prefill computes its attention through kernel K3
+(``kernels.flash_attention``): q and k share their positions there, and a
+shared offset cancels in both masks, so K3's positions from 0 give the
+same answer at any ``pos_offset``.  The encoder's ``enc_attn`` layers and
+cross-attention (the reference's all-zero positions with ``causal=False``:
+plain full attention over the memory) take K3's non-causal mode, at any
+Sq and Sk.  A decode step (one query against the KV cache or the cross
+cache) stays plain PyTorch (``kernels.ref.grouped_attention``, K3's plain
+version over the cache's positions), as the reference computes it outside
+any Pallas kernel.  MLA is not ported yet (ROADMAP.md).
 """
 from __future__ import annotations
 
@@ -93,14 +97,19 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str = "attn",
     """Self-attention.  Returns (out, cache); the cache, when given, is
     updated in place.
 
-    kind: attn (full causal) | swa | local (sliding-window causal).
+    kind: attn (full causal) | swa | local (sliding-window causal) |
+    enc_attn (the encoder's: bidirectional, RoPE at 0..S-1, no cache).
     decode: S == 1, reads and updates the cache.  ``use_kernel=False``
     computes a prefill's attention with K3's plain version: the train
     path's forward, which autograd differentiates, and on-card comparison.
     """
-    if kind not in ("attn", "swa", "local"):
-        raise NotImplementedError(
-            f"attention kind {kind!r} (enc-dec) is not ported (ROADMAP.md)")
+    if kind not in ("attn", "swa", "local", "enc_attn"):
+        raise ValueError(f"unknown attention kind {kind!r}")
+    causal = kind != "enc_attn"
+    if not causal and (decode or cache is not None):
+        # the reference never decodes an encoder layer: its caches have no
+        # entry for one
+        raise ValueError("an enc_attn layer keeps no cache and never decodes")
     b, s, _ = x.shape
     dh = cfg.resolved_head_dim
     ct = cfg.compute_dtype
@@ -142,8 +151,63 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str = "attn",
         if cache is not None:
             ring = window is not None and cache["k"].shape[1] <= window
             _cache_write(cache, k, v, pos_offset, ring)
-        out = flash_attention(q, k, v.contiguous(), causal=True,
+        out = flash_attention(q, k, v.contiguous(), causal=causal,
                               window=window, use_kernel=use_kernel)
 
     out = out.reshape(b, s, cfg.n_heads * dh)
     return dense(p["wo"], out, ct), cache
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (encoder-decoder)
+# ---------------------------------------------------------------------------
+
+def cross_def(cfg: ModelConfig) -> dict:
+    """Separate q, k, v and output projections: no bias, no qk-norm, no
+    RoPE, as the reference."""
+    dh = cfg.resolved_head_dim
+    d = cfg.d_model
+    return {"wq": dense_def(d, cfg.n_heads * dh, cfg),
+            "wk": dense_def(d, cfg.n_kv_heads * dh, cfg),
+            "wv": dense_def(d, cfg.n_kv_heads * dh, cfg),
+            "wo": dense_def(cfg.n_heads * dh, d, cfg)}
+
+
+def cross_cache(p, memory: torch.Tensor, cfg: ModelConfig) -> dict:
+    """The encoder-side K and V [B, Sk, KH, Dh] in the compute dtype,
+    computed once per request."""
+    b, sk, _ = memory.shape
+    dh = cfg.resolved_head_dim
+    ct = cfg.compute_dtype
+    return {"k": dense(p["wk"], memory, ct).reshape(b, sk, cfg.n_kv_heads, dh),
+            "v": dense(p["wv"], memory, ct).reshape(b, sk, cfg.n_kv_heads, dh)}
+
+
+def cross_apply(p, x: torch.Tensor, memory: Optional[torch.Tensor],
+                cfg: ModelConfig, *, cache: Optional[dict] = None,
+                decode: bool = False, use_kernel: bool = True
+                ) -> torch.Tensor:
+    """x: [B, Sq, D] decoder states; memory: [B, Sk, D] encoder output, or
+    ``cache`` (``cross_cache``'s K and V over it; memory is then unused).
+
+    Full attention of every query over every memory row: the reference's
+    zero positions on both sides with ``causal=False``.  A prefill (any
+    Sq) goes through K3's non-causal mode; a decode step (Sq = 1) reads
+    the cache with the plain ``grouped_attention``, as the self-attention
+    decode does.
+    """
+    b, s, _ = x.shape
+    dh = cfg.resolved_head_dim
+    ct = cfg.compute_dtype
+    q = dense(p["wq"], x, ct).reshape(b, s, cfg.n_heads, dh)
+    kv = cross_cache(p, memory, cfg) if cache is None else cache
+    k, v = kv["k"], kv["v"]
+    if decode:
+        zero_q = torch.zeros(s, dtype=torch.long, device=x.device)
+        zero_k = torch.zeros(k.shape[1], dtype=torch.long, device=x.device)
+        out = grouped_attention(q, k, v, zero_q, zero_k, causal=False,
+                                window=None)
+    else:
+        out = flash_attention(q, k, v, causal=False, use_kernel=use_kernel)
+    out = out.reshape(b, s, cfg.n_heads * dh)
+    return dense(p["wo"], out, ct)

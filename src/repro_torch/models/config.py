@@ -4,8 +4,9 @@ A copy of ``repro.models.config.ModelConfig`` with torch dtypes: the
 original imports ``jax.numpy``, so the port keeps its own.  Every field of
 the original is kept, so that a configuration reads the same in both
 packages, although the port runs only the dense GQA decoders, Mamba-2,
-RecurrentGemma and their hybrids so far (``repro_torch.models.transformer.check_supported``
-says which fields it refuses).
+RecurrentGemma, their hybrids and the encoder-decoder so far
+(``repro_torch.models.transformer.check_supported`` says which fields it
+refuses).
 """
 from __future__ import annotations
 

@@ -9,9 +9,9 @@ order.
 ``init_params`` draws the init laws of ``repro.models.param`` (``scaled``:
 normal x 1/sqrt(fan_in); ``embed``: normal x 1/sqrt(d_model); ``zeros``,
 ``ones``) from a ``torch.Generator``; it cannot reproduce JAX's threefry
-stream, so weights are carried across with ``params_from_jax`` (the MLP)
-or ``lm_params_from_jax`` (the language models) where a test needs the
-reference's exact start.
+stream, so weights are carried across with ``params_from_jax`` (the MLP),
+``lm_params_from_jax`` (the decoders) or ``encdec_params_from_jax`` (the
+encoder-decoder) where a test needs the reference's exact start.
 
 The language models hold their parameters in a ``ParamTree``: a module
 whose children are indexed like the reference's pytree
@@ -208,7 +208,8 @@ def lm_params_to_stacked(cfg, params) -> dict:
         if isinstance(group[0], Mapping):
             return {key: stack([g[key] for g in group]) for key in group[0]}
         return torch.stack(group)
-    out = {"embed": tree["embed"], "lead": []}
+    out = {"embed": tree["embed"]} if "embed" in tree else {}
+    out["lead"] = []
     if n_rep:
         out["scan"] = {f"u{i}": stack(layers[i:n_rep * k:k])
                        for i in range(k)}
@@ -238,11 +239,6 @@ def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:
     # transformer imports this module, so its defs are looked up here
     from repro_torch.models.transformer import model_defs
 
-    def leaves(t, fn):
-        if isinstance(t, Mapping):
-            return {k: leaves(v, fn) for k, v in t.items()}
-        return fn(t)
-
     lead, tail = tree.get("lead", []), tree.get("tail", [])
     layers = list(lead)
     scan = tree.get("scan")
@@ -250,7 +246,7 @@ def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:
         units = [scan[f"u{i}"] for i in range(len(scan))]
         n_rep = (cfg.n_layers - len(lead) - len(tail)) // len(units)
         for r in range(n_rep):
-            layers += [leaves(u, lambda a, r=r: np.asarray(a)[r])
+            layers += [_map_leaves(u, lambda a, r=r: np.asarray(a)[r])
                        for u in units]
     layers += list(tail)
     flat = {"layers": layers, "ln_f": tree["ln_f"]}
@@ -258,6 +254,45 @@ def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:
         if key in tree:
             flat[key] = tree[key]
 
+    return _carry(flat, model_defs(cfg))
+
+
+def encdec_params_from_jax(cfg, tree: Mapping) -> ParamTree:
+    """Carry a reference encoder-decoder's parameters
+    (``repro.models.encdec`` layout, leaves converted to numpy by the
+    caller) across as a ``ParamTree`` on the CPU, each leaf in the dtype
+    of its ``ParamDef`` in ``encdec_defs(cfg)``.  The reference stacks
+    each side's layers under ``enc_scan`` and ``dec_scan`` (one unit,
+    ``u0``, leaves ``[n_layers, ...]``); the port keeps one entry per
+    layer in ``enc_layers`` and ``dec_layers``.  A leaf missing on either
+    side, or of another shape than its def, raises."""
+    from repro_torch.models.encdec import encdec_defs
+
+    flat = {"enc_layers": _unstack(tree["enc_scan"]["u0"]),
+            "dec_layers": _unstack(tree["dec_scan"]["u0"]),
+            **{k: tree[k] for k in ("enc_ln_f", "embed", "ln_f",
+                                    "unembed")}}
+    return _carry(flat, encdec_defs(cfg))
+
+
+def _unstack(unit: Mapping) -> list:
+    """A scan unit whose leaves are stacked ``[n, ...]`` as n trees."""
+    leaf = unit
+    while isinstance(leaf, Mapping):
+        leaf = next(iter(leaf.values()))
+    return [_map_leaves(unit, lambda a, r=r: np.asarray(a)[r])
+            for r in range(len(leaf))]
+
+
+def _map_leaves(t, fn):
+    if isinstance(t, Mapping):
+        return {k: _map_leaves(v, fn) for k, v in t.items()}
+    return fn(t)
+
+
+def _carry(tree, defs) -> ParamTree:
+    """A nested tree of arrays as a ParamTree in the layout and dtypes of
+    ``defs``; a key or length that differs, or a shape, raises."""
     def carry(t, d, path):
         if isinstance(d, ParamDef):
             a = np.array(t, np.float32)
@@ -274,4 +309,4 @@ def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:
         return [carry(a, b, f"{path}/{i}")
                 for i, (a, b) in enumerate(zip(t, d))]
 
-    return ParamTree(carry(flat, model_defs(cfg), ""))
+    return ParamTree(carry(tree, defs, ""))

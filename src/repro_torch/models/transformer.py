@@ -1,15 +1,18 @@
-"""Decoder-only transformer of the port: the dense GQA decoders, Mamba-2,
-RecurrentGemma and their hybrids.
+"""Transformer blocks of the port, and its decoder-only models: the dense
+GQA decoders, Mamba-2, RecurrentGemma and their hybrids (the
+encoder-decoder assembles the same blocks in ``models.encdec``).
 
-A copy of the decoder path of ``repro.models.transformer``.  The reference
-groups repeating layers under ``lax.scan`` over stacked parameters with
+A copy of ``repro.models.transformer``.  The reference groups repeating
+layers under ``lax.scan`` over stacked parameters with
 ``jax.checkpoint``; the port keeps one parameter entry per layer and runs
 a Python loop over them.  The reference's sharding hints are no-ops on one
-card and are dropped.  Mixers: attn | swa | local (GQA), ssd (Mamba-2)
-and rglru (RG-LRU); FFN: dense (swiglu | geglu | gelu), or none after an
-ssd mixer when ``ffn_kind="none"`` (mamba2).  MoE, MLA, MTP, frame inputs
-and the encoder-decoder raise, naming ROADMAP.md, where their port is
-queued.
+card and are dropped.  Mixers: attn | swa | local (GQA, causal), enc_attn
+(GQA, bidirectional), ssd (Mamba-2) and rglru (RG-LRU); a block built
+with ``cross=True`` adds cross-attention over the encoder's memory after
+its mixer; FFN: dense (swiglu | geglu | gelu), or none after an ssd mixer
+when ``ffn_kind="none"`` (mamba2).  Inputs are token ids, or with
+``input_mode="frames"`` embeddings, cast to the compute dtype.  MoE, MLA
+and MTP raise, naming ROADMAP.md, where their port is queued.
 
 The loss (``softmax_xent``, ``lm_loss``) is the reference's next-token
 cross-entropy, with its per-sample weights, which the OTA-FL train step
@@ -32,7 +35,7 @@ from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
                                        rmsnorm, rmsnorm_def, unembed,
                                        unembed_def)
 
-GQA_KINDS = ("attn", "swa", "local")
+GQA_KINDS = ("attn", "swa", "local", "enc_attn")
 MIXER_KINDS = GQA_KINDS + ("ssd", "rglru")
 # Sq * Sk past which the reference's ``grouped_attention`` takes its blocked
 # online-softmax scan (``repro/models/attention.py:80``); the port has not
@@ -43,15 +46,13 @@ BLOCKED_ATTENTION = 2048 * 2048
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet (ROADMAP.md)."""
     missing = []
-    if cfg.is_enc_dec:
-        missing.append("encoder-decoder")
     if cfg.moe_num_experts:
         missing.append("MoE")
     if cfg.attn_kind != "gqa":
         missing.append(f"{cfg.attn_kind} attention")
     if cfg.mtp_depth:
         missing.append("MTP")
-    if cfg.input_mode != "tokens":
+    if cfg.input_mode not in ("tokens", "frames"):
         missing.append(f"{cfg.input_mode} inputs")
     missing += [f"{k} mixer" for k in sorted(set(cfg.block_pattern))
                 if k not in MIXER_KINDS]
@@ -68,14 +69,19 @@ def layer_sigs(cfg: ModelConfig) -> list:
              else "dense") for kind in cfg.block_kinds(cfg.n_layers)]
 
 
-def layer_def(cfg: ModelConfig, sig: tuple) -> dict:
+def layer_def(cfg: ModelConfig, sig: tuple, cross: bool = False) -> dict:
     """One block: the mixer of its kind (every kind in GQA_KINDS has the
-    same weights), and ``ln2`` and ``ffn`` unless its FFN is none."""
+    same weights), ``ln_cross`` and ``cross`` when ``cross`` (a decoder
+    block of the encoder-decoder), and ``ln2`` and ``ffn`` unless its FFN
+    is none."""
     kind, ffn = sig
     mixer = {"ssd": ssm_mod.ssd_def, "rglru": rglru_mod.rglru_def}.get(
         kind, attn_mod.gqa_def)
     d = {"ln1": rmsnorm_def(cfg.d_model, cfg.param_dtype),
          "mixer": mixer(cfg)}
+    if cross:
+        d["ln_cross"] = rmsnorm_def(cfg.d_model, cfg.param_dtype)
+        d["cross"] = attn_mod.cross_def(cfg)
     if ffn != "none":
         d["ln2"] = rmsnorm_def(cfg.d_model, cfg.param_dtype)
         d["ffn"] = mlp_def(cfg)
@@ -83,12 +89,14 @@ def layer_def(cfg: ModelConfig, sig: tuple) -> dict:
 
 
 def model_defs(cfg: ModelConfig) -> dict:
-    """Parameter definitions of a decoder-only LM: ``embed``, one entry per
-    layer in ``layers``, ``ln_f``, and ``unembed`` unless tied."""
+    """Parameter definitions of a decoder-only LM: ``embed`` (token inputs
+    only), one entry per layer in ``layers``, ``ln_f``, and ``unembed``
+    unless tied."""
     check_supported(cfg)
-    defs = {"embed": embedding_def(cfg),
-            "layers": [layer_def(cfg, sig) for sig in layer_sigs(cfg)],
-            "ln_f": rmsnorm_def(cfg.d_model, cfg.param_dtype)}
+    defs = {"embed": embedding_def(cfg)} if cfg.input_mode == "tokens" \
+        else {}
+    defs.update(layers=[layer_def(cfg, sig) for sig in layer_sigs(cfg)],
+                ln_f=rmsnorm_def(cfg.d_model, cfg.param_dtype))
     if not cfg.tie_embeddings:
         defs["unembed"] = unembed_def(cfg)
     return defs
@@ -97,8 +105,12 @@ def model_defs(cfg: ModelConfig) -> dict:
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device: torch.device) -> list:
     """One cache per layer, in execution order: a KV cache for a GQA
-    layer, the recurrent state for an ssd or rglru layer."""
+    layer, the recurrent state for an ssd or rglru layer.  An enc_attn
+    layer keeps none: its model prefills without caches (the reference
+    raises too)."""
     def one(kind):
+        if kind == "enc_attn":
+            raise ValueError("an enc_attn layer keeps no cache")
         if kind == "ssd":
             return ssm_mod.init_ssd_state(cfg, batch, device)
         if kind == "rglru":
@@ -109,9 +121,12 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
 
 def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
                 pos_offset: int = 0, cache: Optional[dict] = None,
-                decode: bool = False, use_kernel: bool = True):
-    """One block (pre-norm mixer, then pre-norm FFN unless none).  Returns
-    (x, cache)."""
+                decode: bool = False, use_kernel: bool = True,
+                memory: Optional[torch.Tensor] = None,
+                cross_cache: Optional[dict] = None):
+    """One block (pre-norm mixer; pre-norm cross-attention over ``memory``
+    or ``cross_cache`` when the block has one and either is given; then
+    pre-norm FFN unless none).  Returns (x, cache)."""
     kind, ffn = sig
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "ssd":
@@ -125,6 +140,11 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
                                         pos_offset=pos_offset, cache=cache,
                                         decode=decode, use_kernel=use_kernel)
     x = x + mix
+    if "cross" in p and (memory is not None or cross_cache is not None):
+        hc = rmsnorm(p["ln_cross"], x, cfg.norm_eps)
+        x = x + attn_mod.cross_apply(p["cross"], hc, memory, cfg,
+                                     cache=cross_cache, decode=decode,
+                                     use_kernel=use_kernel)
     if ffn != "none":
         x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
     return x, cache
@@ -133,10 +153,12 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             pos_offset: int = 0, caches: Optional[list] = None,
             decode: bool = False, use_kernel: bool = True):
-    """tokens: int [B, S].  Returns (logits [B, S, V] float32, caches); the
-    caches, when given, are updated in place.  (The reference also returns
-    the MoE router's aux loss, always 0 without MoE.)"""
-    x = embed(params["embed"], tokens, cfg.compute_dtype)
+    """tokens: int [B, S], or with ``input_mode="frames"`` embeddings
+    [B, S, D].  Returns (logits [B, S, V] float32, caches); the caches,
+    when given, are updated in place.  (The reference also returns the MoE
+    router's aux loss, always 0 without MoE.)"""
+    x = embed(params["embed"], tokens, cfg.compute_dtype) \
+        if cfg.input_mode == "tokens" else tokens.to(cfg.compute_dtype)
     for i, sig in enumerate(layer_sigs(cfg)):
         x, _ = apply_layer(params["layers"][i], x, cfg, sig,
                            pos_offset=pos_offset,

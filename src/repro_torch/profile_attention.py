@@ -10,7 +10,8 @@ variant under trial) with nvcc for sm_90a and ``-Xptxas -v``, one process
 each, all at once, and prints the registers and spills of the kernels of
 the chosen dtype.  For each shape of ``SHAPES`` in that dtype (B 8, S 1024
 or 1000, the train eval's B 4, S 128, or recurrentgemma's B 2, S 4096 past
-its window; causal) it launches every build through its C entry on the same
+its window, causal; seamless-m4t-medium's encoder at B 8, S 1024 and its
+ragged cross-attention, Sq 128 over Sk 1,024, non-causal) it launches every build through its C entry on the same
 inputs and compares the output with the plain version (f32 to 2e-5; bf16
 to two bf16 ulps plus 1e-2), then times every build and one
 ``scaled_dot_product_attention`` call on the same inputs
@@ -34,6 +35,7 @@ import argparse
 import json
 import statistics
 from pathlib import Path
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -48,30 +50,56 @@ DTYPES = {"bf16": torch.bfloat16, "f32": torch.float32}
 # (S, Dh, window) of the --long accuracy rows, at B 1, H 2, KH 1, causal
 LONG = [(1024, 64, None), (4096, 64, None), (16384, 64, None),
         (4096, 128, None), (16384, 128, None), (16384, 128, 4096)]
-# (label, B, S, H, KH, Dh, dtype, window), causal; the first is the qwen
-# serve path's prefill at full width; granite-8b's, qwen2.5-14b's and
-# chameleon-34b's prefills at batch 8 x 1,024; the LM train run's held-out
-# eval (qwen1.5-0.5b, 4 clients x 128 tokens); recurrentgemma-9b's local
-# layers (Dh 256, 16 heads over one KV head) at its serve prefill, whose
-# window of 2,048 does not bite at 1,024 (the same function as causal
-# attention), and past the window (2 x 4,096)
-SHAPES = [("main", 8, 1024, 16, 16, 64, "bf16", None),
-          ("qwen3", 8, 1024, 16, 8, 128, "bf16", None),
-          ("qwen3_window256", 8, 1024, 16, 8, 128, "bf16", 256),
-          ("ragged_s1000", 8, 1000, 16, 16, 64, "bf16", None),
-          ("granite-8b", 8, 1024, 32, 8, 128, "bf16", None),
-          ("qwen2.5-14b", 8, 1024, 40, 8, 128, "bf16", None),
-          ("chameleon-34b", 8, 1024, 64, 8, 128, "bf16", None),
-          ("train_eval", 4, 128, 16, 16, 64, "bf16", None),
-          ("main_f32", 8, 1024, 16, 16, 64, "f32", None),
-          ("qwen3_f32", 8, 1024, 16, 8, 128, "f32", None),
-          ("qwen3_window256_f32", 8, 1024, 16, 8, 128, "f32", 256),
-          ("recurrentgemma-9b", 8, 1024, 16, 1, 256, "bf16", None),
-          ("recurrentgemma-9b_f32", 8, 1024, 16, 1, 256, "f32", None),
-          ("recurrentgemma-9b_window2048", 2, 4096, 16, 1, 256, "bf16",
-           2048),
-          ("recurrentgemma-9b_window2048_f32", 2, 4096, 16, 1, 256, "f32",
-           2048)]
+
+
+class Shape(NamedTuple):
+    """One K3 call: q [B, S, H, Dh], k and v [B, Sk, KH, Dh]."""
+    label: str
+    b: int
+    s: int                       # query rows
+    h: int
+    kh: int
+    dh: int
+    dtype: str                   # "bf16" | "f32"
+    window: Optional[int] = None
+    causal: bool = True
+    sk: Optional[int] = None     # key rows (None: S)
+
+    @property
+    def keys(self) -> int:
+        return self.s if self.sk is None else self.sk
+
+
+# the first is the qwen serve path's prefill at full width; granite-8b's,
+# qwen2.5-14b's and chameleon-34b's prefills at batch 8 x 1,024; the LM
+# train run's held-out eval (qwen1.5-0.5b, 4 clients x 128 tokens);
+# recurrentgemma-9b's local layers (Dh 256, 16 heads over one KV head) at
+# its serve prefill, whose window of 2,048 does not bite at 1,024 (the same
+# function as causal attention), and past the window (2 x 4,096);
+# seamless-m4t-medium's non-causal calls (its decoder's causal
+# self-attention has "main"'s shape): the encoder's self-attention at its
+# serve prefill (frames 1,024) and a ragged cross-attention, a short text
+# prompt (128) over long audio (1,024 frames)
+SHAPES = [Shape(*t) for t in (
+    ("main", 8, 1024, 16, 16, 64, "bf16", None),
+    ("qwen3", 8, 1024, 16, 8, 128, "bf16", None),
+    ("qwen3_window256", 8, 1024, 16, 8, 128, "bf16", 256),
+    ("ragged_s1000", 8, 1000, 16, 16, 64, "bf16", None),
+    ("granite-8b", 8, 1024, 32, 8, 128, "bf16", None),
+    ("qwen2.5-14b", 8, 1024, 40, 8, 128, "bf16", None),
+    ("chameleon-34b", 8, 1024, 64, 8, 128, "bf16", None),
+    ("train_eval", 4, 128, 16, 16, 64, "bf16", None),
+    ("main_f32", 8, 1024, 16, 16, 64, "f32", None),
+    ("qwen3_f32", 8, 1024, 16, 8, 128, "f32", None),
+    ("qwen3_window256_f32", 8, 1024, 16, 8, 128, "f32", 256),
+    ("recurrentgemma-9b", 8, 1024, 16, 1, 256, "bf16", None),
+    ("recurrentgemma-9b_f32", 8, 1024, 16, 1, 256, "f32", None),
+    ("recurrentgemma-9b_window2048", 2, 4096, 16, 1, 256, "bf16", 2048),
+    ("recurrentgemma-9b_window2048_f32", 2, 4096, 16, 1, 256, "f32", 2048),
+    ("seamless_encoder", 8, 1024, 16, 16, 64, "bf16", None, False),
+    ("seamless_encoder_f32", 8, 1024, 16, 16, 64, "f32", None, False),
+    ("seamless_cross", 8, 128, 16, 16, 64, "bf16", None, False, 1024),
+    ("seamless_cross_f32", 8, 128, 16, 16, 64, "f32", None, False, 1024))]
 
 
 def pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -84,51 +112,54 @@ def pairs(sq: int, sk: int, causal: bool, window) -> int:
     return total
 
 
-def draw(shape, dev, gen):
+def draw(shape: Shape, dev, gen):
     """q, k, v of one shape of ``SHAPES``, unit normal, in its dtype."""
-    _, b, s, h, kh, dh, dt, _ = shape
-    return [torch.randn((b, s, hh, dh), generator=gen, device=dev)
-            .to(DTYPES[dt]) for hh in (h, kh, kh)]
+    return [torch.randn((shape.b, rows, hh, shape.dh), generator=gen,
+                        device=dev).to(DTYPES[shape.dtype])
+            for rows, hh in ((shape.s, shape.h), (shape.keys, shape.kh),
+                             (shape.keys, shape.kh))]
 
 
-def bound(shape, card: str) -> dict:
-    """The least time the card could take (causal): the larger of q, k, v
-    and o read or written once over the memory rate, and the masks'
-    products over the tensor cores' bf16 rate, or in f32 over the cheaper
-    of the FMA units and three TF32 products (f32's precision)."""
-    _, b, s, h, kh, dh, dt, window = shape
+def bound(shape: Shape, card: str) -> dict:
+    """The least time the card could take: the larger of q, k, v and o
+    read or written once over the memory rate, and the products of the
+    (query, key) pairs the masks allow (all Sq * Sk of them when
+    non-causal) over the tensor cores' bf16 rate, or in f32 over the
+    cheaper of the FMA units and three TF32 products (f32's precision)."""
+    b, s, sk, h, kh, dh = (shape.b, shape.s, shape.keys, shape.h, shape.kh,
+                           shape.dh)
     _, (bw, f32_peak, bf16_peak) = peaks(card)
-    size = torch.finfo(DTYPES[dt]).bits // 8
-    byts = size * b * s * dh * (2 * h + 2 * kh)
-    flops = 4 * b * h * dh * pairs(s, s, True, window)
-    ops_s = flops / bf16_peak if dt == "bf16" else min(
+    size = torch.finfo(DTYPES[shape.dtype]).bits // 8
+    byts = size * b * dh * (2 * s * h + 2 * sk * kh)
+    flops = 4 * b * h * dh * pairs(s, sk, shape.causal, shape.window)
+    ops_s = flops / bf16_peak if shape.dtype == "bf16" else min(
         flops / f32_peak, 3 * flops / (bf16_peak / 2))
     return {"bytes": byts, "flops": flops,
             "bound_ms": 1e3 * max(byts / bw, ops_s),
             "bound_by": "bytes" if byts / bw >= ops_s else "operations"}
 
 
-def sdpa(q, k, v, window):
+def sdpa(q, k, v, window, causal=True):
     """One ``scaled_dot_product_attention`` call of the same function, as a
-    yardstick (the port never calls it)."""
+    yardstick (the port never calls it); a window is a causal one."""
     s, h, kh = q.shape[1], q.shape[2], k.shape[2]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     pos = torch.arange(s, device=q.device)
     mask = None if window is None else (
         (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window))
     return lambda: F.scaled_dot_product_attention(
-        qt, kt, vt, attn_mask=mask, is_causal=mask is None,
+        qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,
         enable_gqa=h != kh).transpose(1, 2)
 
 
-def launch(lib, q, k, v, out, window, stream):
-    """One causal call of a build's C entry for q's dtype, into ``out``."""
+def launch(lib, q, k, v, out, window, stream, causal=True):
+    """One call of a build's C entry for q's dtype, into ``out``."""
     name = "flash_attention_" + ("f32" if q.dtype == torch.float32
                                  else "bf16")
     build.check(getattr(lib, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
-        q.shape[3], 1, window or 0, stream), name)
+        q.shape[3], int(causal), window or 0, stream), name)
     return out
 
 
@@ -177,19 +208,22 @@ def main(argv=None) -> None:
     names = [*libs, "sdpa"]
     results = {}
     for shape in SHAPES:
-        label, b, s, h, kh, dh, dt, window = shape
+        label, dt, window, causal = (shape.label, shape.dtype, shape.window,
+                                     shape.causal)
         if dt not in dtypes:
             continue
         q, k, v = draw(shape, dev, gen)
-        want = ref.attention_ref(q, k, v, causal=True, window=window).float()
+        want = ref.attention_ref(q, k, v, causal=causal,
+                                 window=window).float()
         out = torch.empty_like(q)
         tol = F32_TOL if dt == "f32" else ATTN_BF16_TOL
         fns = {name: (lambda lib=lib, q=q, k=k, v=v, out=out, w=window:
-                      launch(lib, q, k, v, out, w, stream))
+                      launch(lib, q, k, v, out, w, stream, causal))
                for name, lib in libs.items()}
-        fns["sdpa"] = sdpa(q, k, v, window)
-        row = {"shape": [b, s, h, kh, dh], "dtype": dt, "window": window,
-               **bound(shape, card)}
+        fns["sdpa"] = sdpa(q, k, v, window, causal)
+        row = {"shape": [shape.b, shape.s, shape.keys, shape.h, shape.kh,
+                         shape.dh], "dtype": dt, "window": window,
+               "causal": causal, **bound(shape, card)}
         for name, fn in fns.items():
             got = fn().float()
             torch.cuda.synchronize()

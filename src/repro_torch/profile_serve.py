@@ -1,12 +1,14 @@
 """Where the LM serve path's time goes, on the card.
 
     python -m repro_torch.profile_serve [--arch qwen1.5-0.5b|mamba2-1.3b|
-        recurrentgemma-9b|...] [--batch 8] [--prompt-len 1024]
-        [--decode-tokens 32]
+        recurrentgemma-9b|seamless-m4t-medium|...] [--batch 8]
+        [--prompt-len 1024] [--decode-tokens 32]
 
 Runs ``repro_torch.launch.serve.run`` at full width (warm-up, then a timed
 prefill and decode on the host clock between device synchronizations),
-then one more prefill and the same decode steps under ``torch.profiler``.
+then one more prefill (of the same inputs: an encoder-decoder's frames
+and prompts) and the same decode steps under ``torch.profiler``, through
+the model's bundle.
 For each of the two phases it prints the unprofiled wall, the device time
 summed over every kernel the profiler saw, the device's busy share (one
 stream, so kernels do not overlap), the kernel launches, the port's own
@@ -26,7 +28,7 @@ from torch.profiler import ProfilerActivity, profile
 
 from repro_torch import configs
 from repro_torch.launch import serve
-from repro_torch.models import transformer as tfm
+from repro_torch.models.registry import build_bundle
 
 # the port's kernels, by a part of their symbol's name
 PORT_KERNELS = {"K3": "flash_attention_kernel", "K4": "ssd_scan_kernel"}
@@ -86,18 +88,18 @@ def main(argv=None) -> dict:
     st = res.stats
     dev = res.prompts.device
     steps = a.decode_tokens - 1
-    caches = tfm.init_caches(cfg, a.batch, a.prompt_len + a.decode_tokens, dev)
+    bundle = build_bundle(cfg, dev)
+    caches = bundle.init_caches(a.batch, a.prompt_len + a.decode_tokens)
     acts = [ProfilerActivity.CPU, ProfilerActivity.CUDA]
-    with torch.no_grad():
-        with profile(activities=acts) as prof_prefill:
-            tfm.forward(res.params, res.prompts, cfg, caches=caches)
-            torch.cuda.synchronize(dev)
-        with profile(activities=acts) as prof_decode:
-            for i in range(steps):
-                tfm.forward(res.params, res.tokens[:, i:i + 1], cfg,
-                            pos_offset=a.prompt_len + i, caches=caches,
-                            decode=True)
-            torch.cuda.synchronize(dev)
+    with profile(activities=acts) as prof_prefill:
+        _, caches = bundle.prefill(res.params, res.inputs, caches)
+        torch.cuda.synchronize(dev)
+    with profile(activities=acts) as prof_decode:
+        for i in range(steps):
+            _, caches = bundle.decode(res.params, caches,
+                                      res.tokens[:, i:i + 1],
+                                      a.prompt_len + i)
+        torch.cuda.synchronize(dev)
     print(f"card {st['card_line']}; {cfg.name}, batch {a.batch}, prompt "
           f"{a.prompt_len}, {steps} decode steps")
     out = {"card": st["card_line"], "arch": cfg.name, "batch": a.batch,

@@ -49,8 +49,15 @@ def make_token_stream(arch: str = "qwen1.5-0.5b", smoke: bool = True,
     smoke scale); ``launch.train`` passes its CLI sizes through.
     ``d_model=0`` / ``n_layers=0`` keep the arch's own smoke dimensions.
     ``device`` is the bundle's (None: the CUDA card, which must be
-    there)."""
+    there).  An encoder-decoder raises: its loss takes frames, which these
+    token batches do not carry (nor do the reference's, whose CLI cannot
+    train one either)."""
     cfg = configs.get_config(arch)
+    if cfg.is_enc_dec:
+        raise NotImplementedError(
+            f"{cfg.name}: the encoder-decoder's train path (frames in the "
+            "task's batches, seq2seq_loss through launch.steps) is not "
+            "ported to repro_torch yet (see ROADMAP.md, modules to port)")
     if smoke:
         over = {}
         if d_model:

@@ -300,6 +300,27 @@ def test_flash_attention_kernel_noncausal_ragged_keys(cuda, sq, sk, dtype):
                      causal=False)
 
 
+# seamless-m4t-medium's non-causal calls: its encoder's self-attention
+# (Sq = Sk = 1,024 frames) and cross-attention, a text prompt over audio
+# frames (Sq 128 over Sk 1,024; Sq 1,000 over Sk 1,024 and Sq 1,024 over Sk
+# 100, ragged key and query tiles), at its heads (16 over 16, G 1) and G 4
+NONCAUSAL_SHAPES = [(1024, 1024), (128, 1024), (1000, 1024), (1024, 100)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dh", HEAD_DIMS)
+@pytest.mark.parametrize("h,kh", [(16, 16), (16, 4)])
+@pytest.mark.parametrize("sq,sk", NONCAUSAL_SHAPES)
+def test_flash_attention_kernel_noncausal_matches_plain(cuda, sq, sk, h, kh,
+                                                        dh, dtype):
+    """Every q tile walks every key tile; the wrapper counts the launch as
+    non-causal too."""
+    before = flash_attention.noncausal_launches
+    _check_attention(*_qkv(cuda, 2, sq, sk, h, kh, dh, dtype, seed=7),
+                     causal=False)
+    assert flash_attention.noncausal_launches == before + 1
+
+
 def test_flash_attention_rejects_what_it_does_not_take(cuda):
     q, k, v = _qkv(cuda, 1, 64, 64, 4, 2, 64, torch.float32)
     with pytest.raises(TypeError):

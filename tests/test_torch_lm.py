@@ -20,7 +20,9 @@ the prompt (one chunk of S), and recurrentgemma-9b four ways: its smoke
 config (two RG-LRU layers), four layers (rglru, rglru, local under the
 reference's scan, then an rglru tail layer), the same at its full
 head_dim of 256, and at head_dim 256 with a 16-slot ring cache for the
-local layer, shorter than the prompt.
+local layer, shorter than the prompt.  Beside them, a decoder-only model
+of frame inputs (embeddings in, no embedding table) and one with a
+bidirectional ``enc_attn`` layer, against the reference's.
 
 The reference initializes biases to 0, norm weights and the SSD's skip to
 1, and its log-decays and dt biases to 0 (every head then decays alike);
@@ -217,12 +219,58 @@ def test_unported_archs_raise_naming_roadmap():
             with pytest.raises(ValueError, match="ROADMAP"):
                 tconfigs.get_config(arch)
     assert set(tconfigs.ARCH_IDS) <= set(jconfigs.ARCH_IDS)
-    for kw in (dict(moe_num_experts=4), dict(attn_kind="mla"),
-               dict(block_pattern=("attn", "enc_attn")),
-               dict(encoder_layers=2)):
+    for kw in (dict(moe_num_experts=4), dict(attn_kind="mla")):
         cfg = tconfigs.get_config("qwen3-1.7b").smoke(**kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbuild(cfg, CPU)
+
+
+def test_enc_attn_layer_in_a_decoder_matches_reference():
+    """A decoder-only model with a bidirectional ``enc_attn`` layer builds
+    and prefills without caches as the reference's does (K3's plain
+    version, non-causal, for that layer); neither keeps a cache for it."""
+    jcfg, tcfg = (c.replace(block_pattern=("attn", "enc_attn"))
+                  for c in _cfgs("qwen3-1.7b"))
+    jp = _jparams(jcfg)
+    tp = lm_params_from_jax(tcfg, jp)
+    toks = np.random.default_rng(12).integers(0, jcfg.vocab_size, (2, 17))
+    want, _, _ = jtfm.forward(jp, jnp.asarray(toks), jcfg)
+    got, _ = ttfm.forward(tp, torch.from_numpy(toks), tcfg)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    with pytest.raises(ValueError):
+        jtfm.init_caches(jcfg, 2, 20)
+    with pytest.raises(ValueError, match="enc_attn"):
+        tbuild(tcfg, CPU).init_caches(2, 20)
+
+
+def test_frames_decoder_serve_slice_matches_reference_bundle():
+    """``input_mode="frames"`` in a decoder-only model: no embedding table;
+    the prefill and 8 decode steps take embeddings [B, S, D] (cast to the
+    compute dtype) against the reference bundle, logits at TOL.
+    ``launch.serve`` refuses such a model: it has no token loop to feed."""
+    jcfg, tcfg = (c.replace(input_mode="frames")
+                  for c in _cfgs("qwen3-1.7b"))
+    jb, tb = jbuild(jcfg, tp=1, dp=1), tbuild(tcfg, CPU)
+    assert tb.num_params == jb.num_params \
+        == jbuild(jcfg.replace(input_mode="tokens"), tp=1, dp=1).num_params \
+        - jcfg.padded_vocab * jcfg.d_model
+    jp = _jparams(jcfg)
+    assert "embed" not in jp
+    tp = lm_params_from_jax(tcfg, jp)
+    b, s, steps = 2, 23, 8
+    x = _rand((b, s + steps, jcfg.d_model), 13)
+    jcache, tcache = jb.init_caches(b, s + steps), tb.init_caches(b, s + steps)
+    want, jcache = jax.jit(jb.prefill)(jp, jnp.asarray(x[:, :s]), jcache)
+    got, tcache = tb.prefill(tp, torch.from_numpy(x[:, :s]), tcache)
+    np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    jdecode = jax.jit(jb.decode)
+    for i in range(steps):
+        xs = x[:, s + i:s + i + 1]
+        want, jcache = jdecode(jp, jcache, jnp.asarray(xs), jnp.asarray(s + i))
+        got, tcache = tb.decode(tp, tcache, torch.from_numpy(xs), s + i)
+        np.testing.assert_allclose(_np(got), _np(want), **TOL)
+    with pytest.raises(ValueError, match="frames"):
+        tserve.run(tcfg, batch=1, prompt_len=4, decode_tokens=2, device=CPU)
 
 
 # ---------------------------------------------------------------------------
