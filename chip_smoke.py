@@ -37,7 +37,10 @@ Phases (any failure exits nonzero, and nothing is swallowed):
          S 4096, window 2048), in bf16 and in f32, and non-causal at
          seamless-m4t-medium's encoder (B 8, S 1024, H = KH = 16, Dh 64)
          and a ragged cross-attention (Sq 128 over Sk 1,024), in bf16 and
-         in f32 -- f32 to 2e-5, bf16 to two bf16 ulps plus 1e-2; the
+         in f32, and at mixtral-8x22b's sliding-window layers (H 48 over
+         KH 8, Dh 128, window 4,096) at its prefill (B 8, S 1024) in bf16
+         and in f32 and past its window (B 1, S 8,192) in f32 -- f32 to
+         2e-5, bf16 to two bf16 ulps plus 1e-2; the
          shapes, the bound (the pairs the masks allow: all Sq x Sk
          non-causal) and the ``scaled_dot_product_attention`` call timed
          beside it are ``repro_torch.profile_attention``'s; the f32 bound
@@ -251,11 +254,47 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      tokens of prefill + cached decode (self caches written in place,
      cross caches read) against one teacher-forced pass over the prompt
      and the fed-back tokens, >= 0.97 equal;
- 16. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+ 17. mixtral-8x22b (module 11a, MoE: every layer a sliding-window
+     attention through K3, window 4,096, H 48 over KH 8, and a top-2 of 8
+     experts FFN in plain PyTorch, as the reference has no kernel for
+     it): (a) ``launch.serve.run`` at full width on its first 12 layers
+     (the memory reckoning, printed first, must leave 8 GB of the card
+     free; 56 layers are 281 GB in bf16) in bf16, batch 8,
+     prompt 1,024, 32 decode tokens, random weights from seed 0: K3 12
+     times per prefill and never in decode, its plain version, K4 and the
+     OTA kernels never, finite logits, tokens in range, the prefill ms,
+     decode ms per token, peak device memory and each layer's kept and
+     dropped assignments (the same in both prefills, none in decode); (b)
+     the same draw in f32 on its first 2 layers, K3 on vs off layer by
+     layer: layer 0's attention within F32_TOL; every layer's expert
+     choices equal away from a near tie (sorted probabilities within
+     1e-6; their count printed); the pass without K3 dispatched on the K3
+     pass's choices (a flip at a near tie would reach every later
+     position of its row through the next layer's attention), so the
+     logits are held within 1e-4 of their largest at every position;
+     greedy tokens equal at >= 0.99; (c) at a capacity factor
+     of E / K (no drops: at the default, one forward drops the fed-back
+     tokens first, which a decode step never drops), greedy tokens of
+     prefill + cached decode against one forward over the prompt and the
+     fed-back tokens, >= 0.97; (d) the same 2 f32 layers at batch 1 x
+     8,192, past the window: K3 takes the window, the layers decode 32
+     tokens through their 4,096-slot ring caches, held against a full
+     windowed forward; (e) one MoE layer
+     at full width in f32 with capacity factor 0.5 (tokens dropped), B 1,
+     S 1,024, on the card against the same call on the CPU (the CPU's
+     experts on the card's routes): slots and drops bitwise, y within
+     1e-5 of its largest, aux within 1e-6 relative, the router's choices
+     equal away from a near tie; (f) ``launch.train --arch mixtral-8x22b
+     --layers 2 --steps 10`` at full width in bf16: finite losses, K3
+     only in the held-out eval, and an eval loss equal to its
+     cross-entropy plus ``router_aux_weight`` x the aux loss;
+ 18. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
      run's launches, with each dense arch's serve run's, with the qwen
      train run's eval's, with recurrentgemma's and with seamless's, its
-     non-causal and causal launches on two rows; K3 f32 with the f32 serve
-     run's, with recurrentgemma's f32 run's and with seamless's two; K4
+     non-causal and causal launches on two rows, and with mixtral's; K3
+     f32 with the f32 serve run's, with recurrentgemma's f32 run's, with
+     seamless's two and with mixtral's two (its prefill, past the
+     window); K4
      f32 with the mamba2 serve run's and the mamba2 train run's eval's; K1
      f32 four times: the Fig.-2 main path's, the grid's, the cohort
      fleet's and the cifar fleet's), each phase's seconds, then the last
@@ -423,6 +462,30 @@ SEAMLESS_LAYERS = (12, 12)                 # encoder, decoder
 SEAMLESS_RAGGED = dict(batch=8, frames=1000, prompt_len=100)
 SEAMLESS_DRIFT, SEAMLESS_TOKENS_MIN = 1e-4, 0.99
 SEAMLESS_STATE_TOKENS_MIN = 0.97
+# phase 17: mixtral-8x22b (56 sliding-window MoE layers: 140.6B parameters,
+# 281 GB in bf16) served at full width on its first MIXTRAL_LAYERS layers
+# (61 GB of weights; the memory reckoning must leave MIXTRAL_FREE_MIN_GB of
+# the card free); then its first MIXTRAL_F32_LAYERS layers in f32 (21.6
+# GB): K3 on vs off (layer 0's attention within F32_TOL; expert choices
+# equal but for near ties within MIXTRAL_TIE; the pass without K3 on the K3
+# pass's choices, the logits within MIXTRAL_DRIFT of their largest at every
+# position; greedy tokens equal at >= MIXTRAL_TOKENS_MIN); at a capacity
+# factor of E / K (no drops), prefill + cached decode against one forward
+# (>= MIXTRAL_STATE_TOKENS_MIN) and a run past the window (1 x 8,192 over
+# 4,096) through the ring caches; one MoE layer at full width in f32 with
+# capacity factor 0.5 on the card against the CPU (y within
+# MIXTRAL_Y_SHARE of its largest, aux within MIXTRAL_AUX_RTOL); launch.train
+# at 2 layers (bf16 params, f32 noise draws and two gradient trees: ~63 GB)
+MIXTRAL_SERVE = dict(arch="mixtral-8x22b", batch=8, prompt_len=1024,
+                     decode_tokens=32)
+MIXTRAL_LAYERS, MIXTRAL_FREE_MIN_GB = 12, 8.0
+MIXTRAL_F32_LAYERS, MIXTRAL_TIE = 2, 1e-6
+MIXTRAL_DRIFT, MIXTRAL_TOKENS_MIN = 1e-4, 0.99
+MIXTRAL_STATE_TOKENS_MIN = 0.97
+MIXTRAL_RING = dict(batch=1, prompt_len=8192, decode_tokens=32)
+MIXTRAL_DROP = dict(capacity_factor=0.5, batch=1, seq=1024)
+MIXTRAL_Y_SHARE, MIXTRAL_AUX_RTOL = 1e-5, 1e-6
+TRAIN_MIXTRAL = ("--arch", "mixtral-8x22b", "--layers", "2", "--steps", "10")
 
 
 class SmokeFailure(Exception):
@@ -1724,7 +1787,7 @@ def attention_on_vs_off(torch, res, cfg):
     with torch.no_grad():
         x = embed(res.params["embed"], res.prompts, cfg.compute_dtype)
         for i in range(first):
-            x, _ = tfm.apply_layer(res.params["layers"][i], x, cfg, sigs[i])
+            x, _, _ = tfm.apply_layer(res.params["layers"][i], x, cfg, sigs[i])
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         kind = sigs[first][0]
         on, _ = attn.gqa_apply(p["mixer"], h, cfg, kind=kind)
@@ -2409,9 +2472,10 @@ def seamless_on_vs_off(torch, params, cfg, frames, prompts, logits_on):
         mem_off = encdec.encode(params, frames, cfg, use_kernel=False)
         x = embed(params["embed"], prompts, cfg.compute_dtype)
         p0 = params["dec_layers"][0]
-        l0_on, _ = tfm.apply_layer(p0, x, cfg, encdec.DEC_SIG, memory=mem_off)
-        l0_off, _ = tfm.apply_layer(p0, x, cfg, encdec.DEC_SIG,
-                                    memory=mem_off, use_kernel=False)
+        l0_on, _, _ = tfm.apply_layer(p0, x, cfg, encdec.DEC_SIG,
+                                      memory=mem_off)
+        l0_off, _, _ = tfm.apply_layer(p0, x, cfg, encdec.DEC_SIG,
+                                       memory=mem_off, use_kernel=False)
         logits_off = encdec.decode_train(params, mem_off, prompts, cfg,
                                          use_kernel=False)
     enc_tol = {k: v * cfg.encoder_layers for k, v in F32_TOL.items()}
@@ -2574,6 +2638,398 @@ def phase_seamless(torch, dev, card_line):
     return out
 
 
+def def_bytes(torch, defs):
+    """Bytes of a nested def tree (dicts and lists of ``ParamDef``)."""
+    from repro_torch.models.param import ParamDef
+    if isinstance(defs, ParamDef):
+        return defs.size * torch.empty((), dtype=defs.dtype).element_size()
+    vals = defs.values() if isinstance(defs, dict) else defs
+    return sum(def_bytes(torch, v) for v in vals)
+
+
+def mixtral_reckoning(torch, cfg, batch, prompt_len, decode_tokens):
+    """A serve run's device memory reckoned from its shapes, in bytes: the
+    weights; the init's float32 draw of the largest leaf (an expert
+    weight ``wi``); the prefill's transients, the experts' products
+    ([B, E, cap, 2, F] and the gated [B, E, cap, F] twice, the dispatched
+    rows and the experts' outputs [B, E, cap, D]) and the logits (in the
+    compute dtype, then f32); the KV caches (ring caches of the window's
+    slots)."""
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    es = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    e, f, d = cfg.moe_num_experts, cfg.expert_d_ff, cfg.d_model
+    slots = batch * e * moe.expert_capacity(cfg, prompt_len)
+    cache_len = prompt_len + decode_tokens
+    if cfg.window:
+        cache_len = min(cache_len, cfg.window)
+    r = {"weights": def_bytes(torch, tfm.model_defs(cfg)),
+         "init_f32_leaf": 4 * e * d * 2 * f,
+         "experts": es * slots * (4 * f + 2 * d),
+         "logits": batch * prompt_len * cfg.padded_vocab * (4 + es),
+         "caches": cfg.n_layers * 2 * batch * cache_len * cfg.n_kv_heads
+         * cfg.resolved_head_dim * es}
+    r["peak"] = r["weights"] + max(
+        r["init_f32_leaf"], r["experts"] + r["logits"] + r["caches"])
+    return r
+
+
+def near_ties(torch, probs, k):
+    """[..., k] bool: a route's top-k choices whose sorted probability lies
+    within MIXTRAL_TIE of its neighbour's above or below (a rounding
+    difference may swap them)."""
+    top = torch.sort(probs, dim=-1, descending=True).values
+    tie = (top[..., :-1] - top[..., 1:]) <= MIXTRAL_TIE
+    return tie[..., :k] | torch.cat([torch.zeros_like(tie[..., :1]),
+                                     tie[..., :k - 1]], -1)
+
+
+def mixtral_on_vs_off(torch, res, cfg):
+    """K3 on vs forced off on a serve run of an MoE decoder, layer by
+    layer on the same weights and prompts: layer 0's attention (on, off)
+    on the same input; per layer, each pass's own expert choices, and how
+    many differ away from a near tie (the K3 pass's sorted probabilities
+    of a choice and its neighbour within MIXTRAL_TIE); the logits' drift
+    and greedy tokens over every position.  The off pass dispatches on the
+    K3 pass's choices, weighted by its own probabilities of them (the
+    route's law: gathered, then normalized): a choice that flipped at a
+    near tie would send its token to another expert, an O(1) move that
+    reaches every later position of its row through the next layer's
+    attention, and no tolerance could tell that from a fault of K3."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.layers import embed, rmsnorm, unembed
+    k = cfg.moe_top_k
+    params = res.params
+    reading, att = {"layers": []}, {}
+    with torch.no_grad():
+        x = embed(params["embed"], res.prompts, cfg.compute_dtype)
+        xs = {True: x, False: x}
+        for i, (kind, _) in enumerate(tfm.layer_sigs(cfg)):
+            p = params["layers"][i]
+            routes = {}
+            for on in (True, False):
+                h = rmsnorm(p["ln1"], xs[on], cfg.norm_eps)
+                a, _ = attn.gqa_apply(p["mixer"], h, cfg, kind=kind,
+                                      use_kernel=on)
+                if i == 0:
+                    att[on] = a
+                xo = xs[on] + a
+                h2 = rmsnorm(p["ln2"], xo, cfg.norm_eps)
+                probs, top_w, top_e, _ = moe.route(p["ffn"], h2, cfg)
+                routes[on] = (probs, top_e)
+                if not on:
+                    top_e = routes[True][1]
+                    top_w = torch.gather(probs, -1, top_e)
+                    top_w = top_w / torch.sum(top_w, dim=-1, keepdim=True)
+                y, _, keep = moe.experts(p["ffn"], h2, top_w, top_e, cfg)
+                xs[on] = xo + y
+                if on:
+                    dropped = int((~keep).sum())
+            (probs, e_on), (_, e_off) = routes[True], routes[False]
+            near = near_ties(torch, probs, k)
+            differ = e_on != e_off
+            reading["layers"].append({
+                "near_tie_assignments": int(near.sum()),
+                "differing_assignments": int(differ.sum()),
+                "differing_away_from_a_tie": int((differ & ~near).sum()),
+                "dropped_assignments": dropped})
+        logits = {}
+        for on in (True, False):
+            h = rmsnorm(params["ln_f"], xs[on], cfg.norm_eps)
+            logits[on] = unembed(params["unembed"], h, cfg)
+        err = (att[True] - att[False]).abs()
+        reading.update(
+            layer0_attention_max_abs_err=float(err.max()),
+            layer0_attention_ok=bool(err.le(F32_TOL["atol"] + F32_TOL["rtol"]
+                                            * att[False].abs()).all()),
+            logits_max_abs_diff=float((logits[True] - logits[False]).abs()
+                                      .max()),
+            logits_max_abs=float(logits[False].abs().max()),
+            equal_next_tokens=float((logits[True].argmax(-1)
+                                     == logits[False].argmax(-1))
+                                    .float().mean()),
+            prefill_logits_equal=bool(torch.equal(logits[True], res.logits)))
+    return reading
+
+
+def phase_mixtral(torch, np, dev, card_line):
+    """Phase 17: mixtral-8x22b served at full width on its first layers in
+    bf16 through K3 (sliding window 4,096 at H 48 over KH 8); in f32 on two
+    layers K3 on vs off, prefill + cached decode against one forward, and
+    a run past the window through the ring caches; one MoE layer on the
+    card against the CPU; and launch.train at two layers."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.launch import serve, train
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.param import init_param_tree
+    out, t_part = {"seconds": {}}, [time.time()]
+
+    def part_done(label):
+        """Record the seconds since the last part ended."""
+        now = time.time()
+        out["seconds"][label] = round(now - t_part[0], 1)
+        t_part[0] = now
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = configs.get_config(MIXTRAL_SERVE["arch"])
+    b, s = MIXTRAL_SERVE["batch"], MIXTRAL_SERVE["prompt_len"]
+    n_dec = MIXTRAL_SERVE["decode_tokens"]
+
+    # (a) bf16 at full width on MIXTRAL_LAYERS layers, through serve.run
+    total = torch.cuda.get_device_properties(dev).total_memory
+    layers = MIXTRAL_LAYERS
+    cfg = base.replace(n_layers=layers)
+    rk = mixtral_reckoning(torch, cfg, b, s, n_dec)
+    free = (total - rk["peak"]) / 1e9
+    print(f"  (a) mixtral-8x22b memory reckoning at {layers} layers (full "
+          f"width, bf16, batch {b} x {s}), GB: "
+          f"{json.dumps({k: v / 1e9 for k, v in rk.items()})}; {free:.2f} "
+          f"GB of the card's {total / 1e9:.2f} GB left free", flush=True)
+    check(free >= MIXTRAL_FREE_MIN_GB, f"mixtral-8x22b: {layers} layers "
+          f"leave {free:.2f} GB free, under {MIXTRAL_FREE_MIN_GB}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    moe.experts.kept.clear()
+    res = serve.run(cfg, batch=b, prompt_len=s, decode_tokens=n_dec,
+                    seed=0, device=dev)
+    torch.cuda.synchronize()
+    cnt = counts()
+    assignments = moe.kept_and_dropped()
+    check(tfm.layer_sigs(cfg) == [("swa", "moe")] * layers,
+          f"mixtral-8x22b's layers: {tfm.layer_sigs(cfg)}")
+    check_serve_run(torch, res, cnt, "mixtral-8x22b serve")
+    # experts calls: the warm-up prefill and decode step, the timed
+    # prefill, then the timed decode steps, one per layer each
+    check(len(assignments) == (n_dec + 2) * layers,
+          f"mixtral-8x22b: {len(assignments)} experts calls")
+    prefill = assignments[2 * layers:3 * layers]
+    check(assignments[:layers] == prefill, "mixtral-8x22b: the warm-up "
+          "and the timed prefill dispatched differently")
+    check(all(d == 0 for _, d in assignments[layers:2 * layers]
+              + assignments[3 * layers:]),
+          "mixtral-8x22b: a decode step dropped an assignment")
+    st = dict(res.stats, layers=layers,
+              peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+              reckoned_peak_gb=rk["peak"] / 1e9,
+              prefill_kept_dropped_per_layer=prefill)
+    print(f"  (a) mixtral-8x22b ({layers} layers, bf16, batch {b} x {s}) "
+          f"[{card_line}]: prefill {st['prefill_ms']:.3f} ms, decode "
+          f"{st['decode_ms_per_token']:.3f} ms per token, peak "
+          f"{st['peak_mem_gb']:.2f} GB; counts {cnt}; {json.dumps(st)}",
+          flush=True)
+    out["bf16"], out["bf16_counts"] = st, cnt
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("a")
+
+    # (b) the same draw in f32 on the first layers, K3 on vs off
+    cfg32 = base.replace(n_layers=MIXTRAL_F32_LAYERS,
+                         param_dtype=torch.float32,
+                         compute_dtype=torch.float32)
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    r32 = serve.run(cfg32, batch=b, prompt_len=s, decode_tokens=n_dec,
+                    seed=0, device=dev)
+    torch.cuda.synchronize()
+    f32_cnt = counts()
+    check_serve_run(torch, r32, f32_cnt, "mixtral-8x22b f32")
+    reading = mixtral_on_vs_off(torch, r32, cfg32)
+    reading.update(prefill_ms=r32.stats["prefill_ms"],
+                   decode_ms_per_token=r32.stats["decode_ms_per_token"])
+    print(f"  (b) mixtral-8x22b (f32, {MIXTRAL_F32_LAYERS} layers, batch {b} "
+          f"x {s}), K3 on vs off: {json.dumps(reading)} (tolerance: layer 0's "
+          f"attention within {F32_TOL}; expert choices equal away from a "
+          f"near tie of {MIXTRAL_TIE}; the pass without K3 on the K3 pass's "
+          f"choices, logits within {MIXTRAL_DRIFT} of max |logit| at every "
+          f"position; greedy tokens equal at >= "
+          f"{MIXTRAL_TOKENS_MIN})", flush=True)
+    check(reading["layer0_attention_ok"], f"mixtral-8x22b f32: layer 0 "
+          f"attention, K3 on vs off: max |d| "
+          f"{reading['layer0_attention_max_abs_err']}")
+    check(all(r["differing_away_from_a_tie"] == 0
+              for r in reading["layers"]),
+          f"mixtral-8x22b f32: expert choices differ away from a near tie: "
+          f"{reading['layers']}")
+    check(reading["logits_max_abs_diff"]
+          <= MIXTRAL_DRIFT * reading["logits_max_abs"],
+          f"mixtral-8x22b f32: logits drift {reading['logits_max_abs_diff']}"
+          f" over {MIXTRAL_DRIFT} x {reading['logits_max_abs']}")
+    check(reading["equal_next_tokens"] >= MIXTRAL_TOKENS_MIN,
+          f"mixtral-8x22b f32: equal next tokens "
+          f"{reading['equal_next_tokens']}")
+    out["f32"], out["f32_counts"] = reading, f32_cnt
+    del r32
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("b")
+
+    # (c) prefill + cached decode against one forward over the prompt and
+    # the fed-back tokens.  A capacity drops an expert's assignments past
+    # it by token order, so at the default factor one forward drops the
+    # fed-back tokens first (the last in order), which a decode step (4
+    # slots per expert for one token) never drops: the two are different
+    # functions.  With a factor of E / K every slot a row can fill exists
+    # (no drops), and they are the same function: that holds the caches
+    nodrop = cfg32.replace(capacity_factor=cfg32.moe_num_experts
+                           / cfg32.moe_top_k)
+    zero_counts()
+    moe.experts.kept.clear()
+    rc = serve.run(nodrop, batch=b, prompt_len=s, decode_tokens=n_dec,
+                   seed=0, device=dev)
+    torch.cuda.synchronize()
+    check_serve_run(torch, rc, counts(), "mixtral-8x22b f32, no drops")
+    state_equal = state_check(torch, rc, nodrop)
+    dropped = sum(d for _, d in moe.kept_and_dropped())
+    out["f32"]["state_equal_tokens"] = state_equal
+    out["f32"]["peak_mem_gb"] = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"  (c) mixtral-8x22b (f32, capacity factor "
+          f"{nodrop.capacity_factor}: {dropped} assignments dropped): greedy "
+          f"tokens of prefill + cached decode equal to one forward's at "
+          f"{state_equal} (gate {MIXTRAL_STATE_TOKENS_MIN}); peak "
+          f"{out['f32']['peak_mem_gb']:.2f} GB", flush=True)
+    check(dropped == 0, f"mixtral-8x22b at capacity factor "
+          f"{nodrop.capacity_factor}: {dropped} assignments dropped")
+    check(state_equal >= MIXTRAL_STATE_TOKENS_MIN,
+          f"mixtral-8x22b f32: cached decode agrees with one forward at "
+          f"{state_equal}")
+    del rc
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("c")
+
+    # (d) past the window: K3 takes window 4,096 at S 8,192, and the swa
+    # layers decode through their 4,096-slot ring caches (no drops, as (c))
+    rb, rs = MIXTRAL_RING["batch"], MIXTRAL_RING["prompt_len"]
+    zero_counts()
+    rr = serve.run(nodrop, batch=rb, prompt_len=rs,
+                   decode_tokens=MIXTRAL_RING["decode_tokens"], seed=0,
+                   device=dev)
+    torch.cuda.synchronize()
+    ring_cnt = counts()
+    check_serve_run(torch, rr, ring_cnt, "mixtral-8x22b ring")
+    ring_equal = state_check(torch, rr, nodrop)
+    out["ring"] = dict(rr.stats, equal_tokens=ring_equal,
+                       layers=nodrop.n_layers, window=nodrop.window,
+                       capacity_factor=nodrop.capacity_factor)
+    out["ring_counts"] = ring_cnt
+    print(f"  (d) mixtral-8x22b ({nodrop.n_layers} layers, f32, batch {rb} x "
+          f"{rs}, window {nodrop.window}, ring caches of {nodrop.window} "
+          f"slots): {json.dumps(out['ring'])}; greedy tokens equal to a "
+          f"full windowed forward at {ring_equal} (gate "
+          f"{EQUAL_TOKENS_MIN}) [{card_line}]", flush=True)
+    check(ring_equal >= EQUAL_TOKENS_MIN,
+          f"mixtral-8x22b ring decode agrees with the full forward at "
+          f"{ring_equal}")
+    del rr
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("d")
+
+    # (e) one MoE layer at full width in f32, capacity factor 0.5 (drops),
+    # on the card against the same call on the CPU; the CPU's experts take
+    # the card's routes, so their slots are the same function of the same
+    # integers
+    dcfg = base.replace(param_dtype=torch.float32,
+                        compute_dtype=torch.float32,
+                        capacity_factor=MIXTRAL_DROP["capacity_factor"])
+    p = init_param_tree(moe.moe_def(dcfg), 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((MIXTRAL_DROP["batch"], MIXTRAL_DROP["seq"],
+                     dcfg.d_model), generator=gen, device=dev)
+    cpu = torch.device("cpu")
+    pc = {key: p[key].to(cpu) for key in ("router", "wi", "wo")}
+    with torch.no_grad():
+        t0 = time.time()
+        probs, top_w, top_e, aux = moe.route(p, x, dcfg)
+        y, slot, keep = moe.experts(p, x, top_w, top_e, dcfg)
+        torch.cuda.synchronize()
+        card_s = time.time() - t0
+        t0 = time.time()
+        cprobs, _, ctop_e, caux = moe.route(pc, x.to(cpu), dcfg)
+        cy, cslot, ckeep = moe.experts(pc, x.to(cpu), top_w.to(cpu),
+                                       top_e.to(cpu), dcfg)
+        cpu_s = time.time() - t0
+    near = near_ties(torch, cprobs, dcfg.moe_top_k)
+    route_differ = top_e.to(cpu) != ctop_e
+    drop = {"kept": int(keep.sum()), "dropped": int((~keep).sum()),
+            "slot_equal": bool(torch.equal(slot.to(cpu), cslot)),
+            "keep_equal": bool(torch.equal(keep.to(cpu), ckeep)),
+            "y_max_abs_err": float((y.to(cpu) - cy).abs().max()),
+            "y_max_abs": float(cy.abs().max()),
+            "aux": float(aux), "aux_cpu": float(caux),
+            "near_tie_assignments": int(near.sum()),
+            "route_differ": int(route_differ.sum()),
+            "route_differ_away_from_a_tie": int((route_differ & ~near)
+                                                .sum()),
+            "card_s": card_s, "cpu_s": cpu_s}
+    print(f"  (e) one mixtral-8x22b MoE layer (f32, capacity factor "
+          f"{dcfg.capacity_factor}, batch {MIXTRAL_DROP['batch']} x "
+          f"{MIXTRAL_DROP['seq']}), card vs CPU: {json.dumps(drop)} "
+          f"(slots and drops bitwise; y within {MIXTRAL_Y_SHARE} of its "
+          f"largest; aux within {MIXTRAL_AUX_RTOL} relative)", flush=True)
+    check(drop["dropped"] > 0, "mixtral-8x22b MoE layer: no assignment "
+          "dropped at capacity factor 0.5")
+    check(drop["slot_equal"] and drop["keep_equal"],
+          "mixtral-8x22b MoE layer: slots or drops differ, card vs CPU")
+    check(drop["route_differ_away_from_a_tie"] == 0,
+          "mixtral-8x22b MoE layer: the router's choices differ, card vs "
+          "CPU, away from a near tie")
+    check(drop["y_max_abs_err"] <= MIXTRAL_Y_SHARE * drop["y_max_abs"],
+          f"mixtral-8x22b MoE layer: y differs by {drop['y_max_abs_err']}")
+    check(abs(drop["aux"] - drop["aux_cpu"])
+          <= MIXTRAL_AUX_RTOL * abs(drop["aux_cpu"]),
+          f"mixtral-8x22b MoE layer: aux {drop['aux']} vs "
+          f"{drop['aux_cpu']}")
+    out["drop"] = drop
+    del p, pc, x, probs, top_w, top_e, y, cy, cprobs
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("e")
+
+    # (f) launch.train at two layers, full width, bf16: the loss takes the
+    # router's aux term; K3 only in the held-out eval
+    zero_counts()
+    rt = train.main(list(TRAIN_MIXTRAL))
+    torch.cuda.synchronize()
+    tcnt = counts()
+    tcfg = rt.task.aux["cfg"]
+    print(f"  (f) mixtral-8x22b train: counts {tcnt}", flush=True)
+    check_train_run(np, rt, tcnt, tcfg.n_layers, "flash_attention",
+                    "mixtral-8x22b train")
+    bundle = rt.task.aux["bundle"]
+    test = torch.as_tensor(rt.task.build_data(0, steps=1).test,
+                           device=dev).long()
+    with torch.no_grad():
+        logits, _, aux = tfm.forward_aux(rt.params, test[:, :-1], tcfg)
+        xent = float(tfm.softmax_xent(logits, test[:, 1:], tcfg.padded_vocab))
+        loss = float(bundle.loss(rt.params, test, use_kernel=True))
+    aux = float(aux)
+    with_aux = xent + tcfg.router_aux_weight * aux
+    out["train"] = dict(rt.stats, eval_aux=aux, eval_xent=xent,
+                        eval_loss=loss)
+    print(f"  (f) mixtral-8x22b train ({tcfg.n_layers} layers) "
+          f"[{card_line}]: {json.dumps(out['train'])}; the eval loss "
+          f"{loss} = cross-entropy {xent} + {tcfg.router_aux_weight} x aux "
+          f"{aux}", flush=True)
+    check(np.isfinite(aux) and aux > 0, f"mixtral-8x22b train: aux {aux}")
+    check(abs(loss - with_aux) <= 1e-5 * abs(with_aux),
+          f"mixtral-8x22b train: the loss {loss} is not the cross-entropy "
+          f"plus the aux term {with_aux}")
+    out["train_counts"] = tcnt
+    part_done("f")
+    print(f"  seconds per part of phase 17: {json.dumps(out['seconds'])}",
+          flush=True)
+    del rt, bundle, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -2699,7 +3155,11 @@ def main() -> int:
     begin(15, "seamless-m4t-medium (the encoder-decoder) served at full width "
           "through K3, its encoder and cross-attention non-causal")
     seamless = phase_seamless(torch, dev, card_line)
-    begin(16, "the kernels line")
+    begin(17, "mixtral-8x22b (MoE, sliding-window attention) served at full "
+          "width through K3, its MoE layer card vs CPU, and its train step "
+          "with the router's aux loss")
+    mixtral = phase_mixtral(torch, np, dev, card_line)
+    begin(18, "the kernels line")
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
                     path_counts["fused_bf16"]["ota_round_step"],
@@ -2745,6 +3205,18 @@ def main() -> int:
                      "decoder]", "flash_attention",
                      cnt["flash_attention"] - cnt["flash_attention_noncausal"],
                      ares[f"main{key}"]))
+    rows.append(("flash_attention[bf16, mixtral-8x22b, H 48 over KH 8, "
+                 "window 4096]", "flash_attention",
+                 mixtral["bf16_counts"]["flash_attention"],
+                 ares["mixtral-8x22b"]))
+    rows.append(("flash_attention[f32, mixtral-8x22b, H 48 over KH 8, "
+                 "window 4096]", "flash_attention",
+                 mixtral["f32_counts"]["flash_attention"],
+                 ares["mixtral-8x22b_f32"]))
+    rows.append(("flash_attention[f32, mixtral-8x22b, past the window: "
+                 "S 8192]", "flash_attention",
+                 mixtral["ring_counts"]["flash_attention"],
+                 ares["mixtral-8x22b_window4096_f32"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -2753,21 +3225,21 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[16] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[18] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[16] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[16] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[16] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[16] single run: {json.dumps(single)}", flush=True)
-    print(f"[16] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[16] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[18] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[18] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[18] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[18] single run: {json.dumps(single)}", flush=True)
+    print(f"[18] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[18] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print("[16] dense archs: " + json.dumps(
+    print("[18] dense archs: " + json.dumps(
         {arch: {k: st[k] for k in ("batch", "prefill_ms",
                                    "decode_ms_per_token", "peak_mem_gb",
                                    "batch_fits")}
          for arch, (st, _) in dense.items()}), flush=True)
-    print("[16] train: " + json.dumps(
+    print("[18] train: " + json.dumps(
         {arch: {k: trained[arch][k] for k in (
             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
             "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
@@ -2775,7 +3247,7 @@ def main() -> int:
         | {"lm_curves_wall_s": trained["curves"]["wall_s"],
            "lm_curves_step_ms": trained["curves"]["step_ms"]}),
         flush=True)
-    print("[16] recurrentgemma-9b: " + json.dumps(
+    print("[18] recurrentgemma-9b: " + json.dumps(
         {"bf16": {k: rgemma["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: rgemma["f32"][k] for k in (
@@ -2784,7 +3256,7 @@ def main() -> int:
          "ring": {k: rgemma["ring"][k] for k in (
              "layers", "batch", "prompt_len", "window", "prefill_ms",
              "decode_ms_per_token", "equal_tokens")}}), flush=True)
-    print("[16] seamless-m4t-medium: " + json.dumps(
+    print("[18] seamless-m4t-medium: " + json.dumps(
         {"bf16": {k: seamless["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: seamless["f32"][k] for k in (
@@ -2795,7 +3267,25 @@ def main() -> int:
          "ragged": {k: seamless["ragged"][k] for k in (
              "memory_max_abs_err", "dec_layer0_max_abs_err",
              "logits_max_abs_diff", "equal_next_tokens")}}), flush=True)
-    print(f"[16] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print("[18] mixtral-8x22b: " + json.dumps(
+        {"bf16": {k: mixtral["bf16"][k] for k in (
+            "layers", "batch", "prefill_ms", "decode_ms_per_token",
+            "peak_mem_gb", "reckoned_peak_gb",
+            "prefill_kept_dropped_per_layer")},
+         "f32": {k: mixtral["f32"][k] for k in (
+             "prefill_ms", "decode_ms_per_token", "peak_mem_gb",
+             "layer0_attention_max_abs_err", "logits_max_abs_diff",
+             "equal_next_tokens",
+             "state_equal_tokens")},
+         "ring": {k: mixtral["ring"][k] for k in (
+             "layers", "batch", "prompt_len", "window", "prefill_ms",
+             "decode_ms_per_token", "equal_tokens")},
+         "drop": mixtral["drop"],
+         "train": {k: mixtral["train"][k] for k in (
+             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
+             "first_loss", "final_loss", "held_out_loss", "eval_aux",
+             "peak_mem_gb")}}), flush=True)
+    print(f"[18] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "
@@ -2805,7 +3295,7 @@ def main() -> int:
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "
           f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
-    print(f"[16] seconds per phase: {json.dumps(phase_s)}", flush=True)
+    print(f"[18] seconds per phase: {json.dumps(phase_s)}", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

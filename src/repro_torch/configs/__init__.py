@@ -3,7 +3,8 @@
 Copies of the reference's registry (``repro.configs``) for the archs the
 port runs: the dense GQA decoders (qwen1.5, qwen3, granite, qwen2.5 and
 chameleon's token-in, token-out backbone), mamba2, recurrentgemma (RG-LRU
-with local attention) and seamless-m4t-medium (the encoder-decoder).  Any
+with local attention), seamless-m4t-medium (the encoder-decoder) and
+mixtral-8x22b (MoE with sliding-window attention).  Any
 other arch raises and names ROADMAP.md, where the reference's other archs
 are queued.
 """
@@ -20,6 +21,7 @@ _MODULES = {
     "chameleon-34b": "repro_torch.configs.chameleon_34b",
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
+    "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
 }
 ARCH_IDS = tuple(_MODULES)
 

@@ -12,6 +12,8 @@ and rglru layers).
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch seamless-m4t-medium --batch 8 --prompt-len 1024 \
         --decode-tokens 32
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch mixtral-8x22b --smoke --device cpu
 
 The port of ``repro.launch.serve``, with ``--device`` (default: the CUDA
 card; without one it raises unless ``--device cpu`` is given).  Weights are
@@ -25,7 +27,9 @@ uses, library loading); each time printed is then a host clock between two
 device synchronizations.  Prints the reference's lines, then one JSON line
 with the times, the tokens per second, the launches per prefill of K3
 (flash attention) and K4 (the SSD scan), and the card's name and power
-limit.
+limit.  mixtral-8x22b at full depth (281 GB in bf16) does not fit one
+card: ``serve.run`` takes any config, and ``chip_smoke.py`` and
+``profile_serve --layers`` serve its first layers at full width.
 """
 from __future__ import annotations
 

@@ -4,7 +4,7 @@ A copy of ``repro.models.config.ModelConfig`` with torch dtypes: the
 original imports ``jax.numpy``, so the port keeps its own.  Every field of
 the original is kept, so that a configuration reads the same in both
 packages, although the port runs only the dense GQA decoders, Mamba-2,
-RecurrentGemma, their hybrids and the encoder-decoder so far
+RecurrentGemma, their hybrids, MoE and the encoder-decoder so far
 (``repro_torch.models.transformer.check_supported`` says which fields it
 refuses).
 """
@@ -91,6 +91,10 @@ class ModelConfig:
     def padded_vocab(self) -> int:
         p = self.vocab_pad_to
         return (self.vocab_size + p - 1) // p * p
+
+    @property
+    def expert_d_ff(self) -> int:
+        return self.moe_d_ff if self.moe_d_ff else self.d_ff
 
     @property
     def is_enc_dec(self) -> bool:

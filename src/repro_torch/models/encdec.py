@@ -56,7 +56,7 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, *,
     cast to the compute dtype) -> memory [B, S_frames, D]."""
     x = frames.to(cfg.compute_dtype)
     for p in params["enc_layers"]:
-        x, _ = tfm.apply_layer(p, x, cfg, ENC_SIG, use_kernel=use_kernel)
+        x, _, _ = tfm.apply_layer(p, x, cfg, ENC_SIG, use_kernel=use_kernel)
     return rmsnorm(params["enc_ln_f"], x, cfg.norm_eps)
 
 
@@ -74,7 +74,7 @@ def decode_train(params, memory: Optional[torch.Tensor], tokens: torch.Tensor,
     """
     x = embed(params["embed"], tokens, cfg.compute_dtype)
     for i, p in enumerate(params["dec_layers"]):
-        x, _ = tfm.apply_layer(
+        x, _, _ = tfm.apply_layer(
             p, x, cfg, DEC_SIG, cache=None if caches is None else caches[i],
             memory=memory,
             cross_cache=None if cross_caches is None else cross_caches[i],
@@ -139,9 +139,9 @@ def decode_step(params, caches: list, cross_caches: list,
     cross caches only read."""
     x = embed(params["embed"], token, cfg.compute_dtype)
     for i, p in enumerate(params["dec_layers"]):
-        x, _ = tfm.apply_layer(p, x, cfg, DEC_SIG, pos_offset=pos,
-                               cache=caches[i], decode=True,
-                               cross_cache=cross_caches[i])
+        x, _, _ = tfm.apply_layer(p, x, cfg, DEC_SIG, pos_offset=pos,
+                                  cache=caches[i], decode=True,
+                                  cross_cache=cross_caches[i])
     logits = unembed(params["unembed"], rmsnorm(params["ln_f"], x,
                                                 cfg.norm_eps), cfg)
     return logits, caches

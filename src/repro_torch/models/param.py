@@ -52,7 +52,9 @@ def leaf_order(tree: Mapping) -> list:
 
 def _init_one(d: ParamDef, gen: torch.Generator,
               device: Optional[torch.device] = None) -> torch.Tensor:
-    """One leaf in ``d.dtype``, drawn in float32 on ``gen``'s device."""
+    """One leaf in ``d.dtype``, drawn in float32 on ``gen``'s device and
+    scaled in place before the cast (one float32 copy of the leaf at a
+    time: an expert weight of mixtral-8x22b is 6.4 GB in float32)."""
     kw = dict(dtype=torch.float32, device=device)
     if d.init == "zeros":
         return torch.zeros(d.shape, **kw).to(d.dtype)
@@ -68,7 +70,7 @@ def _init_one(d: ParamDef, gen: torch.Generator,
         scale = 1.0 / math.sqrt(fan_in)
     else:
         raise ValueError(f"unknown init {d.init!r}")
-    return (torch.randn(d.shape, generator=gen, **kw) * scale).to(d.dtype)
+    return torch.randn(d.shape, generator=gen, **kw).mul_(scale).to(d.dtype)
 
 
 def init_params(defs: Mapping[str, ParamDef], seed: int,
@@ -179,37 +181,44 @@ def trainable(params) -> tuple:
 
 
 def layer_groups(cfg) -> tuple:
-    """(unit, n_rep, tail) over the port's per-layer entries: the
+    """(lead, unit, n_rep, tail) over the port's per-layer signatures: the
     reference's ``layer_plan`` (``repro.models.transformer``), which groups
-    the layers as ``lead`` layers, a unit of ``len(block_pattern)`` layers
-    stacked ``n_rep`` times under ``scan``, and ``tail`` layers.  Only MoE
-    has lead layers, and the port runs no MoE."""
+    the layers as ``lead`` layers (an MoE config's first
+    ``moe_first_dense``, whose FFN is dense), a unit of
+    ``len(block_pattern)`` layers stacked ``n_rep`` times under ``scan``,
+    and ``tail`` layers."""
     from repro_torch.models.transformer import layer_sigs
     sigs = layer_sigs(cfg)
+    n_lead = min(cfg.moe_first_dense if cfg.moe_num_experts else 0,
+                 len(sigs))
+    lead, body = sigs[:n_lead], sigs[n_lead:]
+    if not body:
+        return lead, [], 0, []
     k = len(cfg.block_pattern)
-    unit, n_rep = sigs[:k], 0
-    while (n_rep + 1) * k <= len(sigs) and \
-            sigs[n_rep * k:(n_rep + 1) * k] == unit:
+    unit, n_rep = body[:k], 0
+    while (n_rep + 1) * k <= len(body) and \
+            body[n_rep * k:(n_rep + 1) * k] == unit:
         n_rep += 1
-    return unit, n_rep, sigs[n_rep * k:]
+    return lead, unit, n_rep, body[n_rep * k:]
 
 
 def lm_params_to_stacked(cfg, params) -> dict:
     """The inverse of ``lm_params_from_jax``: a ParamTree (or a tree of the
     same layout, such as its gradients) in the reference's layout,
-    ``embed``, ``lead`` (empty), ``scan`` (``u0 .. u{k-1}``, leaves
-    stacked ``[n_rep, ...]``), ``tail``, ``ln_f``, ``unembed``, as nested
-    dicts and lists of tensors on the tree's device."""
-    unit, n_rep, _ = layer_groups(cfg)
+    ``embed``, ``lead``, ``scan`` (``u0 .. u{k-1}``, leaves stacked
+    ``[n_rep, ...]``), ``tail``, ``ln_f``, ``unembed``, as nested dicts
+    and lists of tensors on the tree's device."""
+    lead, unit, n_rep, _ = layer_groups(cfg)
     tree = map_named(params, lambda _, t: t.detach())
-    layers, k = tree["layers"], len(unit)
+    n_lead, k = len(lead), len(unit)
+    layers = tree["layers"][n_lead:]
 
     def stack(group):
         if isinstance(group[0], Mapping):
             return {key: stack([g[key] for g in group]) for key in group[0]}
         return torch.stack(group)
     out = {"embed": tree["embed"]} if "embed" in tree else {}
-    out["lead"] = []
+    out["lead"] = tree["layers"][:n_lead]
     if n_rep:
         out["scan"] = {f"u{i}": stack(layers[i:n_rep * k:k])
                        for i in range(k)}
@@ -226,8 +235,8 @@ def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:
     ``ParamTree`` on the CPU (``.to(device)`` moves it), each leaf in the
     dtype of its ``ParamDef`` in the port's ``model_defs(cfg)``: mostly
     ``cfg.param_dtype``, but float32 for the SSD mixer's ``a_log``,
-    ``dt_bias`` and ``d_skip`` and the RG-LRU block's ``lam`` at every
-    width, as in the reference.
+    ``dt_bias`` and ``d_skip``, the RG-LRU block's ``lam`` and the MoE
+    router at every width, as in the reference.
 
     The reference groups its layers as ``lead`` (a list), ``scan`` (a dict
     ``u0 .. u{k-1}`` of unit layers whose leaves are stacked ``[n_rep,

@@ -1,7 +1,7 @@
 """Model bundle: one interface over the port's language models.
 
 A copy of ``repro.models.registry``: the decoder bundle, for the dense
-GQA decoders, Mamba-2 and RecurrentGemma alike, and the encoder-decoder
+GQA decoders, Mamba-2, RecurrentGemma and MoE alike, and the encoder-decoder
 bundle (seamless-m4t-medium).  A ``ModelBundle`` holds one config and its
 device, and exposes ``init``, ``loss`` (the next-token loss with
 per-sample weights, which the train step differentiates), ``prefill``,

@@ -1,5 +1,5 @@
 """Transformer blocks of the port, and its decoder-only models: the dense
-GQA decoders, Mamba-2, RecurrentGemma and their hybrids (the
+GQA decoders, Mamba-2, RecurrentGemma, MoE and their hybrids (the
 encoder-decoder assembles the same blocks in ``models.encdec``).
 
 A copy of ``repro.models.transformer``.  The reference groups repeating
@@ -9,17 +9,19 @@ a Python loop over them.  The reference's sharding hints are no-ops on one
 card and are dropped.  Mixers: attn | swa | local (GQA, causal), enc_attn
 (GQA, bidirectional), ssd (Mamba-2) and rglru (RG-LRU); a block built
 with ``cross=True`` adds cross-attention over the encoder's memory after
-its mixer; FFN: dense (swiglu | geglu | gelu), or none after an ssd mixer
-when ``ffn_kind="none"`` (mamba2).  Inputs are token ids, or with
-``input_mode="frames"`` embeddings, cast to the compute dtype.  MoE, MLA
-and MTP raise, naming ROADMAP.md, where their port is queued.
+its mixer; FFN: dense (swiglu | geglu | gelu), MoE (``models.moe``) from
+layer ``moe_first_dense`` on, or none after an ssd mixer when
+``ffn_kind="none"`` (mamba2).  Inputs are token ids, or with
+``input_mode="frames"`` embeddings, cast to the compute dtype.  MLA and
+MTP raise, naming ROADMAP.md, where their port is queued.
 
 The loss (``softmax_xent``, ``lm_loss``) is the reference's next-token
 cross-entropy, with its per-sample weights, which the OTA-FL train step
-rides (``launch.steps``).  The train path differentiates the plain
-attention and SSD scan (``use_kernel=False``): the reference trains
-through its jnp forms, never a Pallas kernel, and K3 and K4 have no
-backward.
+rides (``launch.steps``), plus ``router_aux_weight`` times the MoE
+layers' load-balance loss summed over the layers.  The train path
+differentiates the plain attention and SSD scan (``use_kernel=False``):
+the reference trains through its jnp forms, never a Pallas kernel, and
+K3 and K4 have no backward.
 """
 from __future__ import annotations
 
@@ -28,6 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
@@ -46,8 +49,6 @@ BLOCKED_ATTENTION = 2048 * 2048
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet (ROADMAP.md)."""
     missing = []
-    if cfg.moe_num_experts:
-        missing.append("MoE")
     if cfg.attn_kind != "gqa":
         missing.append(f"{cfg.attn_kind} attention")
     if cfg.mtp_depth:
@@ -63,17 +64,23 @@ def check_supported(cfg: ModelConfig) -> None:
 
 
 def layer_sigs(cfg: ModelConfig) -> list:
-    """Per-layer (kind, ffn), in execution order: the reference's scan
-    groups flattened; an ssd mixer has no FFN when ``ffn_kind="none"``."""
-    return [(kind, "none" if kind == "ssd" and cfg.ffn_kind == "none"
-             else "dense") for kind in cfg.block_kinds(cfg.n_layers)]
+    """Per-layer (kind, ffn), in execution order: the reference's lead,
+    scan groups and tail flattened; an ssd mixer has no FFN when
+    ``ffn_kind="none"``, a layer from ``moe_first_dense`` on of an MoE
+    config has an MoE FFN."""
+    def ffn(i, kind):
+        if kind == "ssd" and cfg.ffn_kind == "none":
+            return "none"
+        return "moe" if cfg.layer_is_moe(i) else "dense"
+    return [(kind, ffn(i, kind))
+            for i, kind in enumerate(cfg.block_kinds(cfg.n_layers))]
 
 
 def layer_def(cfg: ModelConfig, sig: tuple, cross: bool = False) -> dict:
     """One block: the mixer of its kind (every kind in GQA_KINDS has the
     same weights), ``ln_cross`` and ``cross`` when ``cross`` (a decoder
-    block of the encoder-decoder), and ``ln2`` and ``ffn`` unless its FFN
-    is none."""
+    block of the encoder-decoder), and ``ln2`` and ``ffn`` (a dense MLP
+    or an MoE) unless its FFN is none."""
     kind, ffn = sig
     mixer = {"ssd": ssm_mod.ssd_def, "rglru": rglru_mod.rglru_def}.get(
         kind, attn_mod.gqa_def)
@@ -84,7 +91,7 @@ def layer_def(cfg: ModelConfig, sig: tuple, cross: bool = False) -> dict:
         d["cross"] = attn_mod.cross_def(cfg)
     if ffn != "none":
         d["ln2"] = rmsnorm_def(cfg.d_model, cfg.param_dtype)
-        d["ffn"] = mlp_def(cfg)
+        d["ffn"] = moe_mod.moe_def(cfg) if ffn == "moe" else mlp_def(cfg)
     return d
 
 
@@ -126,7 +133,8 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
                 cross_cache: Optional[dict] = None):
     """One block (pre-norm mixer; pre-norm cross-attention over ``memory``
     or ``cross_cache`` when the block has one and either is given; then
-    pre-norm FFN unless none).  Returns (x, cache)."""
+    pre-norm FFN unless none).  Returns (x, cache, aux): aux is the MoE
+    FFN's load-balance loss, 0.0 for any other layer."""
     kind, ffn = sig
     h = rmsnorm(p["ln1"], x, cfg.norm_eps)
     if kind == "ssd":
@@ -145,28 +153,48 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
         x = x + attn_mod.cross_apply(p["cross"], hc, memory, cfg,
                                      cache=cross_cache, decode=decode,
                                      use_kernel=use_kernel)
+    aux = 0.0
     if ffn != "none":
-        x = x + mlp(p["ffn"], rmsnorm(p["ln2"], x, cfg.norm_eps), cfg)
-    return x, cache
+        h2 = rmsnorm(p["ln2"], x, cfg.norm_eps)
+        if ffn == "moe":
+            y, aux = moe_mod.moe_apply(p["ffn"], h2, cfg)
+        else:
+            y = mlp(p["ffn"], h2, cfg)
+        x = x + y
+    return x, cache, aux
+
+
+def forward_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                pos_offset: int = 0, caches: Optional[list] = None,
+                decode: bool = False, use_kernel: bool = True):
+    """tokens: int [B, S], or with ``input_mode="frames"`` embeddings
+    [B, S, D].  Returns (logits [B, S, V] float32, caches, aux), as the
+    reference's ``forward``: the caches, when given, updated in place; aux
+    the MoE layers' load-balance losses summed in execution order (0.0
+    without MoE)."""
+    x = embed(params["embed"], tokens, cfg.compute_dtype) \
+        if cfg.input_mode == "tokens" else tokens.to(cfg.compute_dtype)
+    aux = 0.0
+    for i, sig in enumerate(layer_sigs(cfg)):
+        x, _, layer_aux = apply_layer(
+            params["layers"][i], x, cfg, sig, pos_offset=pos_offset,
+            cache=None if caches is None else caches[i], decode=decode,
+            use_kernel=use_kernel)
+        aux = aux + layer_aux
+    h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
+    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
+    return unembed(w, h, cfg), caches, aux
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             pos_offset: int = 0, caches: Optional[list] = None,
             decode: bool = False, use_kernel: bool = True):
-    """tokens: int [B, S], or with ``input_mode="frames"`` embeddings
-    [B, S, D].  Returns (logits [B, S, V] float32, caches); the caches,
-    when given, are updated in place.  (The reference also returns the MoE
-    router's aux loss, always 0 without MoE.)"""
-    x = embed(params["embed"], tokens, cfg.compute_dtype) \
-        if cfg.input_mode == "tokens" else tokens.to(cfg.compute_dtype)
-    for i, sig in enumerate(layer_sigs(cfg)):
-        x, _ = apply_layer(params["layers"][i], x, cfg, sig,
-                           pos_offset=pos_offset,
-                           cache=None if caches is None else caches[i],
-                           decode=decode, use_kernel=use_kernel)
-    h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return unembed(w, h, cfg), caches
+    """``forward_aux`` without the aux loss, which serving ignores (as the
+    reference's serve steps do): (logits, caches)."""
+    logits, caches, _ = forward_aux(params, tokens, cfg,
+                                    pos_offset=pos_offset, caches=caches,
+                                    decode=decode, use_kernel=use_kernel)
+    return logits, caches
 
 
 # ---------------------------------------------------------------------------
@@ -203,12 +231,13 @@ def lm_loss(params, tokens: torch.Tensor, cfg: ModelConfig, labels=None,
     """Next-token LM loss over tokens [B, S + 1] (or inputs [B, S] with
     ``labels``).  ``use_kernel=False`` (the train path) runs the plain
     attention and SSD scan, which autograd differentiates; the held-out
-    eval passes True under ``torch.no_grad()``, through K3 and K4.  The
-    reference's MoE aux loss and MTP head raise, as their models do."""
-    if cfg.moe_num_experts or cfg.mtp_depth:
+    eval passes True under ``torch.no_grad()``, through K3 and K4.  An MoE
+    config adds ``router_aux_weight`` times the summed aux loss, as the
+    reference does; the MTP head raises, as its model does."""
+    if cfg.mtp_depth:
         raise NotImplementedError(
-            f"{cfg.name}: the MoE aux loss and the MTP loss are not ported "
-            "to repro_torch yet (see ROADMAP.md, modules to port)")
+            f"{cfg.name}: the MTP loss is not ported to repro_torch yet "
+            "(see ROADMAP.md, modules to port)")
     if labels is None:
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
     else:
@@ -222,5 +251,8 @@ def lm_loss(params, tokens: torch.Tensor, cfg: ModelConfig, labels=None,
             "with its blocked online-softmax scan (Sq * Sk > 2048^2), which "
             "is not ported to repro_torch yet (see ROADMAP.md, modules to "
             "port)")
-    logits, _ = forward(params, inputs, cfg, use_kernel=use_kernel)
-    return softmax_xent(logits, labels, cfg.padded_vocab, sample_weights)
+    logits, _, aux = forward_aux(params, inputs, cfg, use_kernel=use_kernel)
+    loss = softmax_xent(logits, labels, cfg.padded_vocab, sample_weights)
+    if cfg.moe_num_experts:
+        loss = loss + cfg.router_aux_weight * aux
+    return loss

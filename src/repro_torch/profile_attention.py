@@ -9,11 +9,13 @@ Builds ``kernels/csrc/flash_attention.cu`` (label ``this``) and each
 variant under trial) with nvcc for sm_90a and ``-Xptxas -v``, one process
 each, all at once, and prints the registers and spills of the kernels of
 the chosen dtype.  For each shape of ``SHAPES`` in that dtype (B 8, S 1024
-or 1000, the train eval's B 4, S 128, or recurrentgemma's B 2, S 4096 past
-its window, causal; seamless-m4t-medium's encoder at B 8, S 1024 and its
-ragged cross-attention, Sq 128 over Sk 1,024, non-causal) it launches every build through its C entry on the same
-inputs and compares the output with the plain version (f32 to 2e-5; bf16
-to two bf16 ulps plus 1e-2), then times every build and one
+or 1000, the train eval's B 4, S 128, recurrentgemma's B 2, S 4096 past
+its window, or mixtral's B 1, S 8192 past its window, causal;
+seamless-m4t-medium's encoder at B 8, S 1024 and its ragged
+cross-attention, Sq 128 over Sk 1,024, non-causal) it launches every
+build through its C entry on the same inputs and compares the output
+with the plain version (f32 to 2e-5; bf16 to two bf16 ulps plus 1e-2),
+then times every build and one
 ``scaled_dot_product_attention`` call on the same inputs
 (``card.median_ms``: CUDA events around batches of 20 back-to-back
 launches, the median of 5 batches) in ``--reps`` rounds whose order
@@ -79,7 +81,10 @@ class Shape(NamedTuple):
 # seamless-m4t-medium's non-causal calls (its decoder's causal
 # self-attention has "main"'s shape): the encoder's self-attention at its
 # serve prefill (frames 1,024) and a ragged cross-attention, a short text
-# prompt (128) over long audio (1,024 frames)
+# prompt (128) over long audio (1,024 frames); mixtral-8x22b's
+# sliding-window layers (48 heads over 8, Dh 128, window 4,096) at its serve
+# prefill (8 x 1,024: K3 takes the window as the serve path hands it, but it
+# does not bite, so SDPA runs plain causal) and past the window (1 x 8,192)
 SHAPES = [Shape(*t) for t in (
     ("main", 8, 1024, 16, 16, 64, "bf16", None),
     ("qwen3", 8, 1024, 16, 8, 128, "bf16", None),
@@ -99,7 +104,10 @@ SHAPES = [Shape(*t) for t in (
     ("seamless_encoder", 8, 1024, 16, 16, 64, "bf16", None, False),
     ("seamless_encoder_f32", 8, 1024, 16, 16, 64, "f32", None, False),
     ("seamless_cross", 8, 128, 16, 16, 64, "bf16", None, False, 1024),
-    ("seamless_cross_f32", 8, 128, 16, 16, 64, "f32", None, False, 1024))]
+    ("seamless_cross_f32", 8, 128, 16, 16, 64, "f32", None, False, 1024),
+    ("mixtral-8x22b", 8, 1024, 48, 8, 128, "bf16", 4096),
+    ("mixtral-8x22b_f32", 8, 1024, 48, 8, 128, "f32", 4096),
+    ("mixtral-8x22b_window4096_f32", 1, 8192, 48, 8, 128, "f32", 4096))]
 
 
 def pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -141,11 +149,14 @@ def bound(shape: Shape, card: str) -> dict:
 
 def sdpa(q, k, v, window, causal=True):
     """One ``scaled_dot_product_attention`` call of the same function, as a
-    yardstick (the port never calls it); a window is a causal one."""
+    yardstick (the port never calls it); a window is a causal one.  A
+    window of S or more keys does not bite: the call is then plain causal
+    (``is_causal``, no mask), since an explicit mask keeps SDPA off its
+    flash kernel."""
     s, h, kh = q.shape[1], q.shape[2], k.shape[2]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     pos = torch.arange(s, device=q.device)
-    mask = None if window is None else (
+    mask = None if window is None or window >= s else (
         (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window))
     return lambda: F.scaled_dot_product_attention(
         qt, kt, vt, attn_mask=mask, is_causal=causal and mask is None,

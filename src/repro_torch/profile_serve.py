@@ -3,12 +3,15 @@
     python -m repro_torch.profile_serve [--arch qwen1.5-0.5b|mamba2-1.3b|
         recurrentgemma-9b|seamless-m4t-medium|...] [--batch 8]
         [--prompt-len 1024] [--decode-tokens 32]
+    python -m repro_torch.profile_serve --arch mixtral-8x22b --layers 12
 
 Runs ``repro_torch.launch.serve.run`` at full width (warm-up, then a timed
 prefill and decode on the host clock between device synchronizations),
 then one more prefill (of the same inputs: an encoder-decoder's frames
 and prompts) and the same decode steps under ``torch.profiler``, through
-the model's bundle.
+the model's bundle.  ``--layers`` cuts the arch's depth at full width,
+for a model that fits the card only so (mixtral-8x22b's 56 layers are
+281 GB in bf16; 12 are 61 GB).
 For each of the two phases it prints the unprofiled wall, the device time
 summed over every kernel the profiler saw, the device's busy share (one
 stream, so kernels do not overlap), the kernel launches, the port's own
@@ -81,8 +84,12 @@ def main(argv=None) -> dict:
     ap.add_argument("--batch", type=int, default=8)
     ap.add_argument("--prompt-len", type=int, default=1024)
     ap.add_argument("--decode-tokens", type=int, default=32)
+    ap.add_argument("--layers", type=int, default=0,
+                    help="serve the first N layers (default: all)")
     a = ap.parse_args(argv)
     cfg = configs.get_config(a.arch)
+    if a.layers:
+        cfg = cfg.replace(n_layers=a.layers)
     res = serve.run(cfg, batch=a.batch, prompt_len=a.prompt_len,
                     decode_tokens=a.decode_tokens)
     st = res.stats
@@ -100,9 +107,10 @@ def main(argv=None) -> dict:
                                       res.tokens[:, i:i + 1],
                                       a.prompt_len + i)
         torch.cuda.synchronize(dev)
-    print(f"card {st['card_line']}; {cfg.name}, batch {a.batch}, prompt "
-          f"{a.prompt_len}, {steps} decode steps")
-    out = {"card": st["card_line"], "arch": cfg.name, "batch": a.batch,
+    print(f"card {st['card_line']}; {cfg.name}, {cfg.n_layers} layers, "
+          f"batch {a.batch}, prompt {a.prompt_len}, {steps} decode steps")
+    out = {"card": st["card_line"], "arch": cfg.name,
+           "layers": cfg.n_layers, "batch": a.batch,
            "prompt_len": a.prompt_len,
            "prefill": _report("prefill", st["prefill_ms"], 1, prof_prefill),
            "decode_step": _report("decode step", st["decode_ms_per_token"],

@@ -47,7 +47,10 @@ def make_token_stream(arch: str = "qwen1.5-0.5b", smoke: bool = True,
                       seq: int = 32, device=None) -> Task:
     """LM task factory.  Defaults are CPU-tiny (the reference's registry
     smoke scale); ``launch.train`` passes its CLI sizes through.
-    ``d_model=0`` / ``n_layers=0`` keep the arch's own smoke dimensions.
+    ``d_model=0`` / ``n_layers=0`` keep the arch's own smoke dimensions;
+    without ``smoke``, ``n_layers`` cuts the full-width arch's depth (a
+    port addition: mixtral-8x22b fits the card only so) and ``d_model``
+    is ignored, as the reference ignores both there.
     ``device`` is the bundle's (None: the CUDA card, which must be
     there).  An encoder-decoder raises: its loss takes frames, which these
     token batches do not carry (nor do the reference's, whose CLI cannot
@@ -67,6 +70,8 @@ def make_token_stream(arch: str = "qwen1.5-0.5b", smoke: bool = True,
         if n_layers:
             over["n_layers"] = n_layers
         cfg = cfg.smoke(**over)
+    elif n_layers:
+        cfg = cfg.replace(n_layers=n_layers)
     bundle = build_bundle(cfg, device)
 
     def build(seed: int = 0, steps: int = 8) -> TaskData:

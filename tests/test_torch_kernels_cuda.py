@@ -200,14 +200,14 @@ def test_plain_version_not_called_on_cuda(cuda):
 # around the bf16 kernel's 128-row q tile and its 64- and 128-key tiles
 # (Sq != Sk both ways), S at 63 and 65 around the f32 kernel's 64-row q
 # tile, G = 8 at H = 32, the heads of granite-8b (32 over 8), qwen2.5-14b
-# (40 over 8, G = 5) and chameleon-34b (64 over 8), and recurrentgemma's
-# (16 over 1)
+# (40 over 8, G = 5) and chameleon-34b (64 over 8), recurrentgemma's
+# (16 over 1) and mixtral-8x22b's (48 over 8, G = 6)
 ATTN_SHAPES = [(sq, sk, h, kh)
                for sq, sk in ((128, 128), (256, 256), (64, 256), (1, 512),
                               (100, 100), (127, 127), (129, 129), (255, 255),
                               (129, 255), (255, 127), (63, 63), (65, 65))
                for h, kh in ((4, 4), (4, 2), (8, 1), (32, 4), (32, 8),
-                             (40, 8), (64, 8), (16, 1))] \
+                             (40, 8), (64, 8), (16, 1), (48, 8))] \
     + [(1000, 1000, 16, 8)]
 HEAD_DIMS = [64, 128, 256]
 
@@ -280,6 +280,16 @@ def test_flash_attention_kernel_recurrentgemma_window(cuda, dtype):
     tiles past the window skip the key tiles below it."""
     _check_attention(*_qkv(cuda, 2, 4096, 4096, 16, 1, 256, dtype, seed=6),
                      causal=True, window=2048)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s", [(8, 1024), (1, 8192)])
+def test_flash_attention_kernel_mixtral_swa(cuda, b, s, dtype):
+    """mixtral-8x22b's sliding-window layers: 48 heads over 8 (G = 6) at
+    Dh 128 with its window of 4,096, at its serve prefill (8 x 1,024,
+    where the window does not bite) and past the window (1 x 8,192)."""
+    _check_attention(*_qkv(cuda, b, s, s, 48, 8, 128, dtype, seed=7),
+                     causal=True, window=4096)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -9,7 +9,7 @@ bundle and serve step against
 reference's own ``PRNGKey(0)`` weights, carried across with
 ``lm_params_from_jax``, and the same numpy prompts of a ragged length
 (37): the prefill logits, then 8 greedy decode steps, their tokens and
-logits.  Thirteen smoke variants: qwen1.5-0.5b (QKV bias), qwen3-1.7b
+logits.  Seventeen smoke variants: qwen1.5-0.5b (QKV bias), qwen3-1.7b
 (qk-norm, GQA G = 2), qwen1.5-0.5b's sliding-window variant with a
 16-slot ring cache, shorter than the prompt, the three dense archs ported
 by config alone (granite-8b, qwen2.5-14b with QKV bias, chameleon-34b
@@ -20,7 +20,12 @@ the prompt (one chunk of S), and recurrentgemma-9b four ways: its smoke
 config (two RG-LRU layers), four layers (rglru, rglru, local under the
 reference's scan, then an rglru tail layer), the same at its full
 head_dim of 256, and at head_dim 256 with a 16-slot ring cache for the
-local layer, shorter than the prompt.  Beside them, a decoder-only model
+local layer, shorter than the prompt, and mixtral-8x22b four ways: its
+smoke config (two sliding-window MoE layers, 4 experts, top 2), with a
+16-slot ring cache, shorter than the prompt, with ``capacity_factor=0.5``
+(the prefill drops assignments; a decode step's capacity of 4 never
+does), and with 3 layers, a dense lead layer (``moe_first_dense=1``) and
+a shared expert.  Beside them, a decoder-only model
 of frame inputs (embeddings in, no embedding table) and one with a
 bidirectional ``enc_attn`` layer, against the reference's.
 
@@ -87,7 +92,16 @@ RGLRU_VARIANTS = {
         "recurrentgemma-9b", False, dict(n_layers=4, head_dim=256,
                                          window=16)),
 }
-VARIANTS = {**GQA_VARIANTS, **SSD_VARIANTS, **RGLRU_VARIANTS}
+MOE_VARIANTS = {
+    "mixtral-8x22b": ("mixtral-8x22b", False, {}),
+    "mixtral-8x22b-window16": ("mixtral-8x22b", False, dict(window=16)),
+    "mixtral-8x22b-cf05": ("mixtral-8x22b", False,
+                           dict(capacity_factor=0.5)),
+    "mixtral-8x22b-shared-lead": ("mixtral-8x22b", False,
+                                  dict(n_layers=3, moe_first_dense=1,
+                                       moe_shared_experts=1)),
+}
+VARIANTS = {**GQA_VARIANTS, **SSD_VARIANTS, **RGLRU_VARIANTS, **MOE_VARIANTS}
 
 
 def _cfgs(variant):
@@ -192,6 +206,20 @@ def test_recurrentgemma_param_count_at_full_width():
     assert tbuild(cfg, CPU).num_params == 10_444_984_320
 
 
+def test_mixtral_param_count_at_full_width():
+    """mixtral-8x22b: 56 sliding-window MoE layers (8 experts of width
+    16,384, the router in float32), d 6144, untied embed and unembed over
+    32,768: ~140.6B parameters, the reference's count."""
+    cfg = tconfigs.get_config("mixtral-8x22b")
+    assert ttfm.layer_sigs(cfg) == [("swa", "moe")] * 56
+    assert tree_param_count(ttfm.model_defs(cfg)) == 140_630_071_296
+    assert jbuild(jconfigs.get_config("mixtral-8x22b"), tp=1,
+                  dp=1).num_params == 140_630_071_296
+    assert tbuild(cfg, CPU).num_params == 140_630_071_296
+    assert tbuild(cfg.replace(n_layers=12), CPU).num_params \
+        == 30_451_390_464
+
+
 def test_init_draws_the_reference_laws():
     """``bundle.init`` draws other numbers than JAX's threefry stream, but
     the same tree of shapes and dtypes and the same laws: per leaf, the
@@ -219,7 +247,7 @@ def test_unported_archs_raise_naming_roadmap():
             with pytest.raises(ValueError, match="ROADMAP"):
                 tconfigs.get_config(arch)
     assert set(tconfigs.ARCH_IDS) <= set(jconfigs.ARCH_IDS)
-    for kw in (dict(moe_num_experts=4), dict(attn_kind="mla")):
+    for kw in (dict(attn_kind="mla"), dict(mtp_depth=1)):
         cfg = tconfigs.get_config("qwen3-1.7b").smoke(**kw)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             tbuild(cfg, CPU)

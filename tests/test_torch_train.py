@@ -271,11 +271,11 @@ def test_lm_loss_and_its_gradient_match_reference(arch):
 def test_unported_losses_raise_naming_roadmap():
     """Past Sq * Sk = 2048^2 the reference attends with its blocked scan,
     which is not ported: the plain train forward refuses before it runs.
-    The MoE aux loss and the MTP loss raise too."""
+    The MTP loss raises too."""
     _, tcfg = _smoke("qwen1.5-0.5b")
     with pytest.raises(NotImplementedError, match="blocked.*ROADMAP"):
         ttfm.lm_loss({}, torch.zeros(1, 2050, dtype=torch.long), tcfg)
-    for kw in (dict(moe_num_experts=2), dict(mtp_depth=1)):
+    for kw in (dict(mtp_depth=1),):
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             ttfm.lm_loss({}, torch.zeros(1, 9, dtype=torch.long),
                          tcfg.replace(**kw))
@@ -483,7 +483,8 @@ def test_device_step_draws_are_keyed_per_seed_and_step():
     ("recurrentgemma-9b", dict(n_layers=4, param_dtype=torch.bfloat16,
                                compute_dtype=torch.bfloat16)),
     ("qwen3-1.7b", dict(param_dtype=torch.bfloat16,
-                        compute_dtype=torch.bfloat16))])
+                        compute_dtype=torch.bfloat16)),
+    ("mixtral-8x22b", dict(n_layers=3, moe_first_dense=1))])
 def test_checkpoint_round_trips_through_the_reference_layout(tmp_path, arch,
                                                              kw):
     """The port's archive restores in the reference's ``restore`` bitwise
