@@ -12,10 +12,10 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      every K1/K2 instance and the tensor-core instructions of the
      flash-attention and ssd_scan kernels (HGMMA for wgmma, HMMA for
      mma.sync), and fail if a K1/K2 instance has no 128-bit load or store,
-     K3's bf16 kernel (Dh 64, 128, 256) has no HGMMA, K4's f32 kernel no
-     tensor-core instruction, or K3's f32 kernel (Dh 64, 128, 256) no
-     HMMA; print K3's registers and spills (ptxas) and fail if its f32
-     kernel spills;
+     K3's bf16 kernel ((Dqk, Dv) = (64, 64), (128, 128), (256, 256),
+     (192, 128)) has no HGMMA, K4's f32 kernel no tensor-core instruction,
+     or K3's f32 kernel (the same four) no HMMA; print K3's registers and
+     spills (ptxas) and fail if its f32 kernel spills;
   2. every kernel against its plain PyTorch version on the card, at its
      main path's shapes, with times (CUDA events around batches of 20
      back-to-back calls, the median of 5 batches) beside the plain
@@ -39,12 +39,17 @@ Phases (any failure exits nonzero, and nothing is swallowed):
          and a ragged cross-attention (Sq 128 over Sk 1,024), in bf16 and
          in f32, and at mixtral-8x22b's sliding-window layers (H 48 over
          KH 8, Dh 128, window 4,096) at its prefill (B 8, S 1024) in bf16
-         and in f32 and past its window (B 1, S 8,192) in f32 -- f32 to
+         and in f32 and past its window (B 1, S 8,192) in f32, and at
+         deepseek-v3-671b's MLA prefill (B 8, S 1024, H = KH = 128, q.k
+         width 192, v width 128, causal) in bf16 and in f32 -- f32 to
          2e-5, bf16 to two bf16 ulps plus 1e-2; the
          shapes, the bound (the pairs the masks allow: all Sq x Sk
-         non-causal) and the ``scaled_dot_product_attention`` call timed
-         beside it are ``repro_torch.profile_attention``'s; the f32 bound
-         takes the cheaper of the FMA units and 3xTF32;
+         non-causal; 2 (Dqk + Dv) operations a pair) and the
+         ``scaled_dot_product_attention`` call timed beside it (with the
+         backend that ran it, or a null time and the error's first line
+         where no backend takes the shape) are
+         ``repro_torch.profile_attention``'s; the f32 bound takes the
+         cheaper of the FMA units and 3xTF32;
        - K4 ``ssd_scan`` at the mamba2 prefill's scan (B 8, S 1024, H 64,
          P 64, N 128, G 1, f32, chunk 128), at ragged S = 1000, with
          G = 2 and a nonzero state0, with bf16 inputs, at the smoke
@@ -288,13 +293,43 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      --layers 2 --steps 10`` at full width in bf16: finite losses, K3
      only in the held-out eval, and an eval loss equal to its
      cross-entropy plus ``router_aux_weight`` x the aux loss;
- 18. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+ 18. deepseek-v3-671b (module 11b: MLA attention, whose prefill runs the
+     expanded form through K3's (192, 128) instance at H = KH = 128 and
+     whose decode the weight-absorbed form in plain PyTorch against the
+     latent cache; 3 dense lead layers, then MoE layers of 256 experts, top
+     8, and one shared expert; the MTP head in the loss): (a)
+     ``launch.serve.run`` at full width on its first 4 layers (3 dense + 1
+     MoE, 15.8B parameters; the memory reckoning, printed first, must leave
+     8 GB of the card free) in bf16, batch 8, prompt 1,024, 32 decode
+     tokens, random weights from seed 0: K3 4 times per prefill and never
+     in decode, its plain version, K4 and the OTA kernels never, finite
+     logits, tokens in range, the prefill ms, decode ms per token, peak
+     device memory and the MoE layer's kept and dropped assignments (the
+     same in both prefills); (b) the same draw in f32 on its first 2
+     layers (dense: no routing) at batch 4 x 1,024, K3 on vs off: layer
+     0's attention within F32_TOL, the logits within 1e-4 of their
+     largest, greedy tokens equal at >= 0.99; (c) on that run, greedy
+     tokens of prefill + absorbed decode against one forward over the
+     prompt and the fed-back tokens, >= 0.97, and layer 0's absorbed
+     decode of token 1,024 against row 1,024 of one expanded prefill,
+     within 1e-5 of its largest; (d) one MoE layer in f32 at E 256, K 8,
+     one shared expert, D 7,168, but an expert width of 256 (at 2,048 the
+     f32 experts are 45 GB on the card and again on the host), capacity
+     factor 0.5, B 1, S 1,024, on the card against the CPU: slots and drops
+     bitwise, y within 1e-5 of its largest, aux within 1e-6 relative; (e)
+     ``launch.train --arch deepseek-v3-671b --layers 2 --steps 10`` at full
+     width in bf16 (4 clients x 128 tokens): finite losses, K3 only in the
+     held-out eval, 3 times (2 layers and the MTP head's), and an eval
+     loss equal to its cross-entropy plus ``mtp_loss_weight`` x the MTP
+     head's cross-entropy on the reference's labels;
+ 19. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
      run's launches, with each dense arch's serve run's, with the qwen
      train run's eval's, with recurrentgemma's and with seamless's, its
      non-causal and causal launches on two rows, and with mixtral's; K3
      f32 with the f32 serve run's, with recurrentgemma's f32 run's, with
      seamless's two and with mixtral's two (its prefill, past the
-     window); K4
+     window); K3 bf16 and f32 at (192, 128) with deepseek's serve runs;
+     K4
      f32 with the mamba2 serve run's and the mamba2 train run's eval's; K1
      f32 four times: the Fig.-2 main path's, the grid's, the cohort
      fleet's and the cifar fleet's), each phase's seconds, then the last
@@ -486,6 +521,31 @@ MIXTRAL_RING = dict(batch=1, prompt_len=8192, decode_tokens=32)
 MIXTRAL_DROP = dict(capacity_factor=0.5, batch=1, seq=1024)
 MIXTRAL_Y_SHARE, MIXTRAL_AUX_RTOL = 1e-5, 1e-6
 TRAIN_MIXTRAL = ("--arch", "mixtral-8x22b", "--layers", "2", "--steps", "10")
+# phase 18: deepseek-v3-671b (61 layers: 3 dense, then MoE of 256 experts
+# top 8 and one shared, MLA attention, an MTP module; ~671.7B parameters)
+# served at full width on its first DEEPSEEK_LAYERS layers (3 dense + 1 MoE,
+# 15.8B, 31.6 GB in bf16; the memory reckoning must leave
+# DEEPSEEK_FREE_MIN_GB of the card free); then its first
+# DEEPSEEK_F32["n_layers"] layers in f32 (dense, 14.8 GB), K3 on vs off
+# (layer 0's attention within F32_TOL, the logits within DEEPSEEK_DRIFT of
+# their largest, greedy tokens equal at >= DEEPSEEK_TOKENS_MIN), prefill +
+# absorbed decode against one forward (>= DEEPSEEK_STATE_TOKENS_MIN; no
+# routing at this depth, so no capacity factor is needed) and one layer's
+# absorbed decode against the expanded form (DEEPSEEK_FORMS_SHARE of its
+# largest); one MoE layer in f32 at full E, K, D and S but an expert width
+# of DEEPSEEK_DROP["moe_d_ff"] (at 2,048 the f32 experts would be 45 GB on
+# the card and again on the host), card vs CPU; launch.train at 2 layers
+# with the MTP term (bf16 params, f32 noise draws, two gradient trees)
+DEEPSEEK_SERVE = dict(arch="deepseek-v3-671b", batch=8, prompt_len=1024,
+                      decode_tokens=32)
+DEEPSEEK_LAYERS, DEEPSEEK_FREE_MIN_GB = 4, 8.0
+DEEPSEEK_F32 = dict(n_layers=2, batch=4)
+DEEPSEEK_DRIFT, DEEPSEEK_TOKENS_MIN = 1e-4, 0.99
+DEEPSEEK_STATE_TOKENS_MIN, DEEPSEEK_FORMS_SHARE = 0.97, 1e-5
+DEEPSEEK_DROP = dict(capacity_factor=0.5, batch=1, seq=1024, moe_d_ff=256)
+DEEPSEEK_Y_SHARE, DEEPSEEK_AUX_RTOL = 1e-5, 1e-6
+TRAIN_DEEPSEEK = ("--arch", "deepseek-v3-671b", "--layers", "2", "--steps",
+                  "10")
 
 
 class SmokeFailure(Exception):
@@ -609,7 +669,8 @@ def phase_attention_kernel(torch, dev, card):
     from repro_torch.card import median_ms
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention
-    from repro_torch.profile_attention import SHAPES, bound, draw, sdpa
+    from repro_torch.profile_attention import (SHAPES, bound, draw, sdpa,
+                                               sdpa_backend)
     gen = torch.Generator(device=dev).manual_seed(1)
     results = {}
     for shape in SHAPES:
@@ -627,15 +688,19 @@ def phase_attention_kernel(torch, dev, card):
         err = (got - want).abs()
         ok = bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
         library = sdpa(q, k, v, window, causal)
-        lib_err = float((library().float() - want).abs().max())
+        backend, lib_error = sdpa_backend(library)
         row = {"shape": [shape.b, shape.s, shape.keys, shape.h, shape.kh,
-                         shape.dh], "dtype": shape.dtype, "window": window,
-               "causal": causal,
+                         shape.dh, shape.v_width], "dtype": shape.dtype,
+               "window": window, "causal": causal,
                "max_abs_err": float(err.max()), "tol": tol, "ok": ok,
                "ms": median_ms(kern),
                "plain_ms": median_ms(plain),
-               "library_ms": median_ms(library),
-               "library_max_abs_err": lib_err, **bound(shape, card)}
+               "library_ms": median_ms(library) if backend else None,
+               "library_max_abs_err": float(
+                   (library().float() - want).abs().max()) if backend
+               else None,
+               "library_backend": backend, "library_error": lib_error,
+               **bound(shape, card)}
         results[label] = row
         print(f"  K3 flash_attention {label}: " + json.dumps(row), flush=True)
         check(ok, f"K3 {label} disagrees with its plain version")
@@ -1773,7 +1838,8 @@ def phase_scenarios(torch, np, dev, card, card_line):
 
 def attention_on_vs_off(torch, res, cfg):
     """K3 on vs forced off on a serve run's weights and prompts: the first
-    attention layer's output (on, off), on the hidden state that the
+    attention layer's (GQA or MLA) output (on, off), on the hidden state
+    that the
     layers before it (none in a dense arch) hand it, and the prefill
     logits of K3 against its plain version as (max |d|, max |logit|, share
     of equal greedy tokens)."""
@@ -1790,9 +1856,13 @@ def attention_on_vs_off(torch, res, cfg):
             x, _, _ = tfm.apply_layer(res.params["layers"][i], x, cfg, sigs[i])
         h = rmsnorm(p["ln1"], x, cfg.norm_eps)
         kind = sigs[first][0]
-        on, _ = attn.gqa_apply(p["mixer"], h, cfg, kind=kind)
-        off, _ = attn.gqa_apply(p["mixer"], h, cfg, kind=kind,
-                                use_kernel=False)
+        if cfg.attn_kind == "mla":
+            on, _ = attn.mla_apply(p["mixer"], h, cfg)
+            off, _ = attn.mla_apply(p["mixer"], h, cfg, use_kernel=False)
+        else:
+            on, _ = attn.gqa_apply(p["mixer"], h, cfg, kind=kind)
+            off, _ = attn.gqa_apply(p["mixer"], h, cfg, kind=kind,
+                                    use_kernel=False)
         del x, h
         logits_off, _ = tfm.forward(res.params, res.prompts, cfg,
                                     use_kernel=False)
@@ -2684,6 +2754,66 @@ def near_ties(torch, probs, k):
                                      tie[..., :k - 1]], -1)
 
 
+def moe_layer_card_vs_cpu(torch, dev, cfg, batch, seq, y_share, aux_rtol,
+                          label):
+    """One MoE layer of ``cfg`` (f32, weights from seed 0, x from seed 3)
+    on the card against the same call on the CPU, the CPU's experts on the
+    card's routes (their slots are then the same function of the same
+    integers): assignments dropped, slots and drops bitwise, the router's
+    choices equal away from a near tie, y within ``y_share`` of its
+    largest, aux within ``aux_rtol`` relative.  Returns the reading."""
+    from repro_torch.models import moe
+    from repro_torch.models.param import init_param_tree, map_named
+    p = init_param_tree(moe.moe_def(cfg), 0, dev)
+    gen = torch.Generator(device=dev).manual_seed(3)
+    x = torch.randn((batch, seq, cfg.d_model), generator=gen, device=dev)
+    cpu = torch.device("cpu")
+    pc = map_named(p, lambda _, t: t.to(cpu))
+    with torch.no_grad():
+        t0 = time.time()
+        _, top_w, top_e, aux = moe.route(p, x, cfg)
+        y, slot, keep = moe.experts(p, x, top_w, top_e, cfg)
+        torch.cuda.synchronize()
+        card_s = time.time() - t0
+        t0 = time.time()
+        cprobs, _, ctop_e, caux = moe.route(pc, x.to(cpu), cfg)
+        cy, cslot, ckeep = moe.experts(pc, x.to(cpu), top_w.to(cpu),
+                                       top_e.to(cpu), cfg)
+        cpu_s = time.time() - t0
+    near = near_ties(torch, cprobs, cfg.moe_top_k)
+    route_differ = top_e.to(cpu) != ctop_e
+    drop = {"experts": cfg.moe_num_experts, "top_k": cfg.moe_top_k,
+            "shared": cfg.moe_shared_experts, "d_model": cfg.d_model,
+            "expert_d_ff": cfg.expert_d_ff,
+            "kept": int(keep.sum()), "dropped": int((~keep).sum()),
+            "slot_equal": bool(torch.equal(slot.to(cpu), cslot)),
+            "keep_equal": bool(torch.equal(keep.to(cpu), ckeep)),
+            "y_max_abs_err": float((y.to(cpu) - cy).abs().max()),
+            "y_max_abs": float(cy.abs().max()),
+            "aux": float(aux), "aux_cpu": float(caux),
+            "near_tie_assignments": int(near.sum()),
+            "route_differ": int(route_differ.sum()),
+            "route_differ_away_from_a_tie": int((route_differ & ~near)
+                                                .sum()),
+            "card_s": card_s, "cpu_s": cpu_s}
+    print(f"  {label} one MoE layer (f32, capacity factor "
+          f"{cfg.capacity_factor}, batch {batch} x {seq}), card vs CPU: "
+          f"{json.dumps(drop)} (slots and drops bitwise; y within {y_share} "
+          f"of its largest; aux within {aux_rtol} relative)", flush=True)
+    check(drop["dropped"] > 0, f"{label} MoE layer: no assignment dropped "
+          f"at capacity factor {cfg.capacity_factor}")
+    check(drop["slot_equal"] and drop["keep_equal"],
+          f"{label} MoE layer: slots or drops differ, card vs CPU")
+    check(drop["route_differ_away_from_a_tie"] == 0,
+          f"{label} MoE layer: the router's choices differ, card vs CPU, "
+          "away from a near tie")
+    check(drop["y_max_abs_err"] <= y_share * drop["y_max_abs"],
+          f"{label} MoE layer: y differs by {drop['y_max_abs_err']}")
+    check(abs(drop["aux"] - drop["aux_cpu"]) <= aux_rtol * abs(drop["aux_cpu"]),
+          f"{label} MoE layer: aux {drop['aux']} vs {drop['aux_cpu']}")
+    return drop
+
+
 def mixtral_on_vs_off(torch, res, cfg):
     """K3 on vs forced off on a serve run of an MoE decoder, layer by
     layer on the same weights and prompts: layer 0's attention (on, off)
@@ -2765,7 +2895,6 @@ def phase_mixtral(torch, np, dev, card_line):
     from repro_torch.launch import serve, train
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
-    from repro_torch.models.param import init_param_tree
     out, t_part = {"seconds": {}}, [time.time()]
 
     def part_done(label):
@@ -2937,56 +3066,9 @@ def phase_mixtral(torch, np, dev, card_line):
     dcfg = base.replace(param_dtype=torch.float32,
                         compute_dtype=torch.float32,
                         capacity_factor=MIXTRAL_DROP["capacity_factor"])
-    p = init_param_tree(moe.moe_def(dcfg), 0, dev)
-    gen = torch.Generator(device=dev).manual_seed(3)
-    x = torch.randn((MIXTRAL_DROP["batch"], MIXTRAL_DROP["seq"],
-                     dcfg.d_model), generator=gen, device=dev)
-    cpu = torch.device("cpu")
-    pc = {key: p[key].to(cpu) for key in ("router", "wi", "wo")}
-    with torch.no_grad():
-        t0 = time.time()
-        probs, top_w, top_e, aux = moe.route(p, x, dcfg)
-        y, slot, keep = moe.experts(p, x, top_w, top_e, dcfg)
-        torch.cuda.synchronize()
-        card_s = time.time() - t0
-        t0 = time.time()
-        cprobs, _, ctop_e, caux = moe.route(pc, x.to(cpu), dcfg)
-        cy, cslot, ckeep = moe.experts(pc, x.to(cpu), top_w.to(cpu),
-                                       top_e.to(cpu), dcfg)
-        cpu_s = time.time() - t0
-    near = near_ties(torch, cprobs, dcfg.moe_top_k)
-    route_differ = top_e.to(cpu) != ctop_e
-    drop = {"kept": int(keep.sum()), "dropped": int((~keep).sum()),
-            "slot_equal": bool(torch.equal(slot.to(cpu), cslot)),
-            "keep_equal": bool(torch.equal(keep.to(cpu), ckeep)),
-            "y_max_abs_err": float((y.to(cpu) - cy).abs().max()),
-            "y_max_abs": float(cy.abs().max()),
-            "aux": float(aux), "aux_cpu": float(caux),
-            "near_tie_assignments": int(near.sum()),
-            "route_differ": int(route_differ.sum()),
-            "route_differ_away_from_a_tie": int((route_differ & ~near)
-                                                .sum()),
-            "card_s": card_s, "cpu_s": cpu_s}
-    print(f"  (e) one mixtral-8x22b MoE layer (f32, capacity factor "
-          f"{dcfg.capacity_factor}, batch {MIXTRAL_DROP['batch']} x "
-          f"{MIXTRAL_DROP['seq']}), card vs CPU: {json.dumps(drop)} "
-          f"(slots and drops bitwise; y within {MIXTRAL_Y_SHARE} of its "
-          f"largest; aux within {MIXTRAL_AUX_RTOL} relative)", flush=True)
-    check(drop["dropped"] > 0, "mixtral-8x22b MoE layer: no assignment "
-          "dropped at capacity factor 0.5")
-    check(drop["slot_equal"] and drop["keep_equal"],
-          "mixtral-8x22b MoE layer: slots or drops differ, card vs CPU")
-    check(drop["route_differ_away_from_a_tie"] == 0,
-          "mixtral-8x22b MoE layer: the router's choices differ, card vs "
-          "CPU, away from a near tie")
-    check(drop["y_max_abs_err"] <= MIXTRAL_Y_SHARE * drop["y_max_abs"],
-          f"mixtral-8x22b MoE layer: y differs by {drop['y_max_abs_err']}")
-    check(abs(drop["aux"] - drop["aux_cpu"])
-          <= MIXTRAL_AUX_RTOL * abs(drop["aux_cpu"]),
-          f"mixtral-8x22b MoE layer: aux {drop['aux']} vs "
-          f"{drop['aux_cpu']}")
-    out["drop"] = drop
-    del p, pc, x, probs, top_w, top_e, y, cy, cprobs
+    out["drop"] = moe_layer_card_vs_cpu(
+        torch, dev, dcfg, MIXTRAL_DROP["batch"], MIXTRAL_DROP["seq"],
+        MIXTRAL_Y_SHARE, MIXTRAL_AUX_RTOL, "(e) mixtral-8x22b")
     gc.collect()
     torch.cuda.empty_cache()
     part_done("e")
@@ -3025,6 +3107,254 @@ def phase_mixtral(torch, np, dev, card_line):
     print(f"  seconds per part of phase 17: {json.dumps(out['seconds'])}",
           flush=True)
     del rt, bundle, logits
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+
+def deepseek_reckoning(torch, cfg, batch, prompt_len, decode_tokens):
+    """``mixtral_reckoning``'s terms for an MLA + MoE model, with the
+    caches its latents ([B, L, kv_lora_rank + rope] a layer), and the
+    prefill's MLA transients (the expanded q and k [B, S, H, nope + rope],
+    k_nope and v [B, S, H, v]) and the combine's [B, S, K, D] twice beside
+    the experts' and the logits."""
+    r = mixtral_reckoning(torch, cfg, batch, prompt_len, decode_tokens)
+    es = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    tokens = batch * prompt_len
+    r["caches"] = (cfg.n_layers * batch * (prompt_len + decode_tokens)
+                   * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * es)
+    r["attention"] = es * tokens * cfg.n_heads * 2 * (
+        cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim)
+    r["combine"] = 2 * es * tokens * cfg.moe_top_k * cfg.d_model
+    r["peak"] = r["weights"] + max(
+        r["init_f32_leaf"], r["experts"] + r["combine"] + r["attention"]
+        + r["logits"] + r["caches"])
+    return r
+
+
+def mla_forms(torch, res, cfg):
+    """Layer 0's MLA on a serve run's prompts and first generated token:
+    the token decoded in the weight-absorbed form against the latent cache
+    of a prefill of the prompts (K3), against row S of one expanded
+    prefill (K3) over the prompts and that token.  Returns (max |d|, max
+    |expanded row|)."""
+    from repro_torch.models import attention as attn
+    from repro_torch.models.layers import embed, rmsnorm
+    p = res.params["layers"][0]
+    b, s = res.prompts.shape
+    with torch.no_grad():
+        seq = torch.cat([res.prompts, res.tokens[:, :1]], dim=1)
+        h = rmsnorm(p["ln1"], embed(res.params["embed"], seq,
+                                    cfg.compute_dtype), cfg.norm_eps)
+        cache = attn.init_mla_cache(cfg, b, s + 1, h.device)
+        attn.mla_apply(p["mixer"], h[:, :s], cfg, cache=cache)
+        absorbed, _ = attn.mla_apply(p["mixer"], h[:, s:], cfg, pos_offset=s,
+                                     cache=cache, decode=True)
+        expanded, _ = attn.mla_apply(p["mixer"], h, cfg)
+        row = expanded[:, s:]
+    return float((absorbed - row).abs().max()), float(row.abs().max())
+
+
+def phase_deepseek(torch, np, dev, card_line):
+    """Phase 18: deepseek-v3-671b served at full width on its first layers
+    in bf16, MLA's prefill through K3's (192, 128) instance; in f32 on two
+    layers K3 on vs off, prefill + absorbed decode against one forward and
+    the absorbed decode against the expanded form; one MoE layer on the
+    card against the CPU; and launch.train at two layers with the MTP
+    term."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.launch import serve, train
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as tfm
+    out, t_part = {"seconds": {}}, [time.time()]
+
+    def part_done(label):
+        """Record the seconds since the last part ended."""
+        now = time.time()
+        out["seconds"][label] = round(now - t_part[0], 1)
+        t_part[0] = now
+    gc.collect()
+    torch.cuda.empty_cache()
+    base = configs.get_config(DEEPSEEK_SERVE["arch"])
+    b, s = DEEPSEEK_SERVE["batch"], DEEPSEEK_SERVE["prompt_len"]
+    n_dec = DEEPSEEK_SERVE["decode_tokens"]
+
+    # (a) bf16 at full width on DEEPSEEK_LAYERS layers, through serve.run
+    total = torch.cuda.get_device_properties(dev).total_memory
+    layers = DEEPSEEK_LAYERS
+    cfg = base.replace(n_layers=layers)
+    rk = deepseek_reckoning(torch, cfg, b, s, n_dec)
+    free = (total - rk["peak"]) / 1e9
+    print(f"  (a) deepseek-v3-671b memory reckoning at {layers} layers (full "
+          f"width, bf16, batch {b} x {s}), GB: "
+          f"{json.dumps({k: v / 1e9 for k, v in rk.items()})}; {free:.2f} "
+          f"GB of the card's {total / 1e9:.2f} GB left free", flush=True)
+    check(free >= DEEPSEEK_FREE_MIN_GB, f"deepseek-v3-671b: {layers} layers "
+          f"leave {free:.2f} GB free, under {DEEPSEEK_FREE_MIN_GB}")
+    sigs = tfm.layer_sigs(cfg)
+    moe_layers = sum(ffn == "moe" for _, ffn in sigs)
+    check(sigs == [("attn", "dense")] * cfg.moe_first_dense
+          + [("attn", "moe")] * (layers - cfg.moe_first_dense),
+          f"deepseek-v3-671b's layers: {sigs}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    moe.experts.kept.clear()
+    res = serve.run(cfg, batch=b, prompt_len=s, decode_tokens=n_dec,
+                    seed=0, device=dev)
+    torch.cuda.synchronize()
+    cnt = counts()
+    assignments = moe.kept_and_dropped()
+    check_serve_run(torch, res, cnt, "deepseek-v3-671b serve")
+    # experts calls: the warm-up prefill and decode step, the timed
+    # prefill, then the timed decode steps, one per MoE layer each
+    check(len(assignments) == (n_dec + 2) * moe_layers,
+          f"deepseek-v3-671b: {len(assignments)} experts calls")
+    prefill = assignments[2 * moe_layers:3 * moe_layers]
+    check(assignments[:moe_layers] == prefill, "deepseek-v3-671b: the "
+          "warm-up and the timed prefill dispatched differently")
+    st = dict(res.stats, layers=layers,
+              peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9,
+              reckoned_peak_gb=rk["peak"] / 1e9,
+              prefill_kept_dropped_per_moe_layer=prefill,
+              decode_dropped=sum(d for _, d in assignments[moe_layers:
+                                                           2 * moe_layers]
+                                 + assignments[3 * moe_layers:]))
+    print(f"  (a) deepseek-v3-671b ({layers} layers, bf16, batch {b} x {s}) "
+          f"[{card_line}]: prefill {st['prefill_ms']:.3f} ms, decode "
+          f"{st['decode_ms_per_token']:.3f} ms per token, peak "
+          f"{st['peak_mem_gb']:.2f} GB; counts {cnt}; {json.dumps(st)}",
+          flush=True)
+    out["bf16"], out["bf16_counts"] = st, cnt
+    del res
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("a")
+
+    # (b) the same draw in f32 on the first layers (dense: no routing), K3
+    # on vs off
+    fb = DEEPSEEK_F32["batch"]
+    cfg32 = base.replace(n_layers=DEEPSEEK_F32["n_layers"],
+                         param_dtype=torch.float32,
+                         compute_dtype=torch.float32)
+    check(all(ffn == "dense" for _, ffn in tfm.layer_sigs(cfg32)),
+          "deepseek-v3-671b f32: an MoE layer in the first layers")
+    torch.cuda.reset_peak_memory_stats(dev)
+    zero_counts()
+    r32 = serve.run(cfg32, batch=fb, prompt_len=s, decode_tokens=n_dec,
+                    seed=0, device=dev)
+    torch.cuda.synchronize()
+    f32_cnt = counts()
+    check_serve_run(torch, r32, f32_cnt, "deepseek-v3-671b f32")
+    on, off, kernel = attention_on_vs_off(torch, r32, cfg32)
+    err = (on - off).abs()
+    reading = {"layer0_attention_max_abs_err": float(err.max()),
+               "layer0_attention_max_abs": float(off.abs().max()),
+               "layer0_attention_ok": bool(err.le(
+                   F32_TOL["atol"] + F32_TOL["rtol"] * off.abs()).all()),
+               "logits_max_abs_diff": kernel[0], "logits_max_abs": kernel[1],
+               "equal_next_tokens": kernel[2],
+               "prefill_ms": r32.stats["prefill_ms"],
+               "decode_ms_per_token": r32.stats["decode_ms_per_token"]}
+    del on, off, err
+    print(f"  (b) deepseek-v3-671b (f32, {cfg32.n_layers} layers, batch {fb} "
+          f"x {s}), K3 on vs off: {json.dumps(reading)} (tolerance: layer "
+          f"0's attention within {F32_TOL}; logits within {DEEPSEEK_DRIFT} "
+          f"of max |logit|; greedy tokens equal at >= "
+          f"{DEEPSEEK_TOKENS_MIN})", flush=True)
+    check(reading["layer0_attention_ok"], f"deepseek-v3-671b f32: layer 0 "
+          f"attention, K3 on vs off: max |d| "
+          f"{reading['layer0_attention_max_abs_err']}")
+    check(kernel[0] <= DEEPSEEK_DRIFT * kernel[1], f"deepseek-v3-671b f32: "
+          f"logits drift {kernel[0]} over {DEEPSEEK_DRIFT} x {kernel[1]}")
+    check(kernel[2] >= DEEPSEEK_TOKENS_MIN,
+          f"deepseek-v3-671b f32: equal next tokens {kernel[2]}")
+    part_done("b")
+
+    # (c) on the same run: prefill + absorbed decode against one forward
+    # over the prompt and the fed-back tokens, and one layer's absorbed
+    # decode against the expanded form's row
+    state_equal = state_check(torch, r32, cfg32)
+    forms = mla_forms(torch, r32, cfg32)
+    reading.update(state_equal_tokens=state_equal,
+                   forms_max_abs_err=forms[0], forms_max_abs=forms[1],
+                   peak_mem_gb=torch.cuda.max_memory_allocated(dev) / 1e9)
+    print(f"  (c) deepseek-v3-671b (f32): greedy tokens of prefill + "
+          f"absorbed decode equal to one forward's at {state_equal} (gate "
+          f"{DEEPSEEK_STATE_TOKENS_MIN}); layer 0's absorbed decode of token "
+          f"{s} against the expanded form's row: max |d| {forms[0]} of "
+          f"{forms[1]} (gate {DEEPSEEK_FORMS_SHARE} of it); peak "
+          f"{reading['peak_mem_gb']:.2f} GB", flush=True)
+    check(state_equal >= DEEPSEEK_STATE_TOKENS_MIN,
+          f"deepseek-v3-671b f32: cached decode agrees with one forward at "
+          f"{state_equal}")
+    check(forms[0] <= DEEPSEEK_FORMS_SHARE * forms[1],
+          f"deepseek-v3-671b f32: absorbed decode vs expanded form {forms}")
+    out["f32"], out["f32_counts"] = reading, f32_cnt
+    del r32
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("c")
+
+    # (d) one MoE layer at full width but the expert width, in f32 at
+    # capacity factor 0.5 (drops), on the card against the same call on the
+    # CPU; the CPU's experts take the card's routes
+    dcfg = base.replace(param_dtype=torch.float32,
+                        compute_dtype=torch.float32,
+                        capacity_factor=DEEPSEEK_DROP["capacity_factor"],
+                        moe_d_ff=DEEPSEEK_DROP["moe_d_ff"])
+    out["drop"] = moe_layer_card_vs_cpu(
+        torch, dev, dcfg, DEEPSEEK_DROP["batch"], DEEPSEEK_DROP["seq"],
+        DEEPSEEK_Y_SHARE, DEEPSEEK_AUX_RTOL, "(d) deepseek-v3-671b")
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("d")
+
+    # (e) launch.train at two layers (dense), full width, bf16: the loss
+    # takes the MTP term; K3 only in the held-out eval, for the 2 layers
+    # and the MTP head's layer
+    zero_counts()
+    rt = train.main(list(TRAIN_DEEPSEEK))
+    torch.cuda.synchronize()
+    tcnt = counts()
+    tcfg = rt.task.aux["cfg"]
+    attn_layers = tcfg.n_layers + tcfg.mtp_depth
+    print(f"  (e) deepseek-v3-671b train: counts {tcnt}", flush=True)
+    check_train_run(np, rt, tcnt, attn_layers, "flash_attention",
+                    "deepseek-v3-671b train")
+    bundle = rt.task.aux["bundle"]
+    test = torch.as_tensor(rt.task.build_data(0, steps=1).test,
+                           device=dev).long()
+    inputs, labels = test[:, :-1], test[:, 1:]
+    with torch.no_grad():
+        logits, _, aux, h = tfm.forward_aux(rt.params, inputs, tcfg,
+                                            return_hidden=True)
+        xent = float(tfm.softmax_xent(logits, labels, tcfg.padded_vocab))
+        mtp = tfm.mtp_logits(rt.params, h, inputs, tcfg)
+        mtp_xent = float(tfm.softmax_xent(mtp[:, :labels.shape[1] - 2],
+                                          labels[:, 2:], tcfg.padded_vocab))
+        loss = float(bundle.loss(rt.params, test, use_kernel=True))
+    aux = float(aux)
+    want = xent + tcfg.router_aux_weight * aux \
+        + tcfg.mtp_loss_weight * mtp_xent
+    out["train"] = dict(rt.stats, eval_xent=xent, eval_mtp_xent=mtp_xent,
+                        eval_aux=aux, eval_loss=loss)
+    print(f"  (e) deepseek-v3-671b train ({tcfg.n_layers} layers + MTP) "
+          f"[{card_line}]: {json.dumps(out['train'])}; the eval loss {loss} "
+          f"= cross-entropy {xent} + {tcfg.router_aux_weight} x aux {aux} + "
+          f"{tcfg.mtp_loss_weight} x MTP cross-entropy {mtp_xent}",
+          flush=True)
+    check(np.isfinite(mtp_xent) and mtp_xent > 0,
+          f"deepseek-v3-671b train: MTP cross-entropy {mtp_xent}")
+    check(abs(loss - want) <= 1e-5 * abs(want),
+          f"deepseek-v3-671b train: the loss {loss} is not the cross-entropy "
+          f"plus the MTP term {want}")
+    out["train_counts"] = tcnt
+    part_done("e")
+    print(f"  seconds per part of phase 18: {json.dumps(out['seconds'])}",
+          flush=True)
+    del rt, bundle, logits, h, mtp
     gc.collect()
     torch.cuda.empty_cache()
     return out
@@ -3088,14 +3418,16 @@ def main() -> int:
           f"{json.dumps(sass)}", flush=True)
     bf16_kernels = {fn: n for fn, n in sass.items()
                     if "flash_attention_kernel_bf16" in fn}
-    check(len(bf16_kernels) == 3 and all(
+    check(len(bf16_kernels) == 4 and all(
         n["HGMMA"] > 0 for n in bf16_kernels.values()),
-        f"K3's bf16 kernel (Dh 64, 128, 256) has no HGMMA: {bf16_kernels}")
+        f"K3's bf16 kernel ((Dqk, Dv) = (64, 64), (128, 128), (256, 256), "
+        f"(192, 128)) has no HGMMA: {bf16_kernels}")
     f32_kernels = {fn: n for fn, n in sass.items()
                    if "flash_attention_kernel_f32" in fn}
-    check(len(f32_kernels) == 3 and all(
+    check(len(f32_kernels) == 4 and all(
         n["HMMA"] > 0 for n in f32_kernels.values()),
-        f"K3's f32 kernel (Dh 64, 128, 256) has no HMMA: {f32_kernels}")
+        f"K3's f32 kernel ((Dqk, Dv) = (64, 64), (128, 128), (256, 256), "
+        f"(192, 128)) has no HMMA: {f32_kernels}")
     regs = build.ptxas_report(build.log("flash_attention"),
                               "flash_attention_kernel_bf16")
     print(f"[1] K3 bf16 registers and spills: {json.dumps(regs)}", flush=True)
@@ -3104,7 +3436,7 @@ def main() -> int:
     print(f"[1] K3 f32 registers and spills: {json.dumps(regs)}", flush=True)
     spills = [int(n) for line in regs
               for n in re.findall(r"(\d+) bytes spill", line)]
-    check(len(spills) == 6 and not any(spills),
+    check(len(spills) == 8 and not any(spills),
           f"K3's f32 kernel spills, or its build log was not read: {regs}")
     sass = sass_ops(build, "ssd_scan")
     print(f"[1] tensor-core instructions in the ssd_scan library: "
@@ -3159,7 +3491,11 @@ def main() -> int:
           "width through K3, its MoE layer card vs CPU, and its train step "
           "with the router's aux loss")
     mixtral = phase_mixtral(torch, np, dev, card_line)
-    begin(18, "the kernels line")
+    begin(18, "deepseek-v3-671b (MLA, MoE of 256 experts top 8, MTP) served "
+          "at full width through K3's (192, 128) instance, its MoE layer "
+          "card vs CPU, and its train step with the MTP loss")
+    deepseek = phase_deepseek(torch, np, dev, card_line)
+    begin(19, "the kernels line")
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
                     path_counts["fused_bf16"]["ota_round_step"],
@@ -3217,6 +3553,14 @@ def main() -> int:
                  "S 8192]", "flash_attention",
                  mixtral["ring_counts"]["flash_attention"],
                  ares["mixtral-8x22b_window4096_f32"]))
+    rows.append(("flash_attention[bf16, deepseek-v3-671b MLA, Dqk 192, Dv "
+                 "128, H 128]", "flash_attention",
+                 deepseek["bf16_counts"]["flash_attention"],
+                 ares["deepseek-v3"]))
+    rows.append(("flash_attention[f32, deepseek-v3-671b MLA, Dqk 192, Dv "
+                 "128, H 128]", "flash_attention",
+                 deepseek["f32_counts"]["flash_attention"],
+                 ares["deepseek-v3_f32"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -3225,21 +3569,21 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[18] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[19] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[18] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[18] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[18] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[18] single run: {json.dumps(single)}", flush=True)
-    print(f"[18] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[18] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[19] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[19] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[19] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[19] single run: {json.dumps(single)}", flush=True)
+    print(f"[19] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[19] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print("[18] dense archs: " + json.dumps(
+    print("[19] dense archs: " + json.dumps(
         {arch: {k: st[k] for k in ("batch", "prefill_ms",
                                    "decode_ms_per_token", "peak_mem_gb",
                                    "batch_fits")}
          for arch, (st, _) in dense.items()}), flush=True)
-    print("[18] train: " + json.dumps(
+    print("[19] train: " + json.dumps(
         {arch: {k: trained[arch][k] for k in (
             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
             "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
@@ -3247,7 +3591,7 @@ def main() -> int:
         | {"lm_curves_wall_s": trained["curves"]["wall_s"],
            "lm_curves_step_ms": trained["curves"]["step_ms"]}),
         flush=True)
-    print("[18] recurrentgemma-9b: " + json.dumps(
+    print("[19] recurrentgemma-9b: " + json.dumps(
         {"bf16": {k: rgemma["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: rgemma["f32"][k] for k in (
@@ -3256,7 +3600,7 @@ def main() -> int:
          "ring": {k: rgemma["ring"][k] for k in (
              "layers", "batch", "prompt_len", "window", "prefill_ms",
              "decode_ms_per_token", "equal_tokens")}}), flush=True)
-    print("[18] seamless-m4t-medium: " + json.dumps(
+    print("[19] seamless-m4t-medium: " + json.dumps(
         {"bf16": {k: seamless["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: seamless["f32"][k] for k in (
@@ -3267,7 +3611,7 @@ def main() -> int:
          "ragged": {k: seamless["ragged"][k] for k in (
              "memory_max_abs_err", "dec_layer0_max_abs_err",
              "logits_max_abs_diff", "equal_next_tokens")}}), flush=True)
-    print("[18] mixtral-8x22b: " + json.dumps(
+    print("[19] mixtral-8x22b: " + json.dumps(
         {"bf16": {k: mixtral["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -3285,7 +3629,22 @@ def main() -> int:
              "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
              "first_loss", "final_loss", "held_out_loss", "eval_aux",
              "peak_mem_gb")}}), flush=True)
-    print(f"[18] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print("[19] deepseek-v3-671b: " + json.dumps(
+        {"bf16": {k: deepseek["bf16"][k] for k in (
+            "layers", "batch", "prefill_ms", "decode_ms_per_token",
+            "peak_mem_gb", "reckoned_peak_gb",
+            "prefill_kept_dropped_per_moe_layer")},
+         "f32": {k: deepseek["f32"][k] for k in (
+             "prefill_ms", "decode_ms_per_token", "peak_mem_gb",
+             "layer0_attention_max_abs_err", "logits_max_abs_diff",
+             "equal_next_tokens", "state_equal_tokens", "forms_max_abs_err")},
+         "drop": deepseek["drop"],
+         "train": {k: deepseek["train"][k] for k in (
+             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
+             "first_loss", "final_loss", "held_out_loss", "eval_mtp_xent",
+             "peak_mem_gb")},
+         "seconds": deepseek["seconds"]}), flush=True)
+    print(f"[19] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "
@@ -3295,7 +3654,7 @@ def main() -> int:
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "
           f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
-    print(f"[18] seconds per phase: {json.dumps(phase_s)}", flush=True)
+    print(f"[19] seconds per phase: {json.dumps(phase_s)}", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

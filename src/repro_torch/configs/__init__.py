@@ -3,8 +3,9 @@
 Copies of the reference's registry (``repro.configs``) for the archs the
 port runs: the dense GQA decoders (qwen1.5, qwen3, granite, qwen2.5 and
 chameleon's token-in, token-out backbone), mamba2, recurrentgemma (RG-LRU
-with local attention), seamless-m4t-medium (the encoder-decoder) and
-mixtral-8x22b (MoE with sliding-window attention).  Any
+with local attention), seamless-m4t-medium (the encoder-decoder),
+mixtral-8x22b (MoE with sliding-window attention) and deepseek-v3-671b
+(MoE with latent attention, MLA, and a multi-token-prediction head).  Any
 other arch raises and names ROADMAP.md, where the reference's other archs
 are queued.
 """
@@ -22,6 +23,7 @@ _MODULES = {
     "recurrentgemma-9b": "repro_torch.configs.recurrentgemma_9b",
     "seamless-m4t-medium": "repro_torch.configs.seamless_m4t_medium",
     "mixtral-8x22b": "repro_torch.configs.mixtral_8x22b",
+    "deepseek-v3-671b": "repro_torch.configs.deepseek_v3_671b",
 }
 ARCH_IDS = tuple(_MODULES)
 

@@ -32,8 +32,8 @@ _P = ctypes.c_void_p
 _I = ctypes.c_int
 _ROUND_STEP_ARGS = [_P] * 8 + [_I, _I, ctypes.c_longlong, _P]
 _AGGREGATE_ARGS = [_P] * 5 + [_I, _I, ctypes.c_longlong, _P]
-# q, k, v, o; b, sq, sk, h, kh, dh, causal, window; stream
-_ATTENTION_ARGS = [_P] * 4 + [_I] * 8 + [_P]
+# q, k, v, o; b, sq, sk, h, kh, dh, dv, causal, window; stream
+_ATTENTION_ARGS = [_P] * 4 + [_I] * 9 + [_P]
 # x, dt, a_neg, b, c, state0 (may be null), y, state; batch, seq, h, g, p, n;
 # stream
 _SSD_ARGS = [_P] * 8 + [_I] * 6 + [_P]

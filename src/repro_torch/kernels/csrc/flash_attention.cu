@@ -1,7 +1,7 @@
 // Hopper (sm_90a) kernel K3: blocked online-softmax GQA attention with
 // causal and sliding-window masks, for every prefill of the dense decoders.
 //
-//   o[b, i, h, :] = sum_j softmax_j(q[b,i,h,:] . k[b,j,h/G,:] / sqrt(Dh)) v[b,j,h/G,:]
+//   o[b, i, h, :] = sum_j softmax_j(q[b,i,h,:] . k[b,j,h/G,:] / sqrt(Dqk)) v[b,j,h/G,:]
 //   over the keys j that i may see: j <= i (causal), j > i - window (window);
 //   positions start at 0 for q and for k.
 //
@@ -9,7 +9,28 @@
 // (body _attn_kernel) and keeps its semantics: masked scores are -1e30, a
 // key past Sk gets no weight, the running (m, l, acc) state is f32, and the
 // output is acc / max(l, 1e-30) cast to q's dtype.  Layouts are the
-// reference's: q, o [B, Sq, H, Dh]; k, v [B, Sk, KH, Dh], H = KH * G.
+// reference's: q [B, Sq, H, Dqk]; k [B, Sk, KH, Dqk]; v [B, Sk, KH, Dv];
+// o [B, Sq, H, Dv], H = KH * G.  Instances (Dqk, Dv): (64, 64), (128, 128),
+// (256, 256) and MLA's prefill, (192, 128) (deepseek-v3: q and k carry 128
+// nope + 64 rope columns, v 128); every kernel is templated on the pair, and
+// Dh below stands for both widths of the first three.
+//
+// MLA's instance (B 8, S 1024, H = KH = 128, causal): 343.6 GFLOP
+// (2 B H pairs (Dqk + Dv)), 0.3474 ms at 989 TFLOP/s, against 1.342 GB of
+// q, k, v and o, 0.4006 ms at 3.35 TB/s: bound by bytes in bf16; in f32 by
+// its 3xTF32 products, ~2.08 ms.
+//   bf16: q and k tiles are 3 panels of 64 columns, v and o 2; S = Q.K^T
+//   takes 12 k-steps of 16, O += P.V one n128 product a k-step; 64-key
+//   tiles in a ring of 3: 48 KB of q (128 rows) + 3 x (24 + 16) KB of K and
+//   V = 168 KB, one block per SM; a thread holds the O accumulator (64
+//   registers) and a 64-key S tile (32), as the Dh-128 instance with
+//   64-key tiles.  The output (128 columns) is staged in the q tile's
+//   first two panels.
+//   f32: 32-key tiles, as Dh 128 (64-key tiles spill there): q 64 rows x
+//   (192 + 16) floats = 53 KB, a ring of two K tiles of 32 x 208 floats
+//   and V tiles of 32 x 132, 137 KB in all (a ring of two 64-key tiles
+//   would take 222 KB, within 5 KB of the 227 KB limit, and the S tile's
+//   32 more registers); one block per SM.
 //
 // Bound: at the main-path shape (B 8, S 1024, H = KH = 16, Dh 64, bf16,
 // causal) bytes and tensor-core operations about equally: 17.2 GFLOP (the
@@ -198,18 +219,22 @@ __device__ __forceinline__ void split_q(const float4 (&qv)[2], int hk,
 // are split over two blocks (kSplit): each computes S over the whole head
 // dimension and P.V for its 128 columns (1.5x the products), with the
 // registers of Dh 128 (235); its 173 KB of shared memory leave one block
-// per SM.
-template <int D>
+// per SM.  MLA's (192, 128): q and K rows of 208 floats (the same banks as
+// D + 16), 32-key tiles, 137 KB, one block per SM.
+template <int DQK, int DV>
 struct Tile {
-  static constexpr int kKeys = D == 64 ? 64 : 32;
-  static constexpr int kDV = D > 128 ? 128 : D;  // output columns a block
-  static constexpr int kSplit = D / kDV;         // blocks per q tile and head
-  static constexpr int kLdK = D + 16;
+  static constexpr int kKeys = DQK == 64 ? 64 : 32;
+  static constexpr int kDV = DV > 128 ? 128 : DV;  // output columns a block
+  static constexpr int kSplit = DV / kDV;          // blocks per q tile and head
+  static constexpr int kLdK = DQK + 16;
   static constexpr int kLdV = kDV + 4;
+  // one cp.async loop fills a K row and the V row beside it
+  static constexpr bool kFused = DV == DQK && kDV == DV;
   static constexpr size_t kBytes =
       sizeof(float) * (kStages * kKeys * (kLdK + kLdV) + kBQ * kLdK);
-  static_assert(kKeys * D / 4 % kThreads == 0, "whole 16-byte chunks a thread");
+  static_assert(kKeys * DQK / 4 % kThreads == 0, "whole 16-byte chunks a thread");
   static_assert(kKeys * kDV / 4 % kThreads == 0, "whole 16-byte chunks a thread");
+  static_assert(kBytes <= 232448, "over the 227 KB of shared memory a block");
 };
 
 // Four warps, each owning 16 of the block's 64 q rows (one m16 tile), walk
@@ -236,19 +261,19 @@ struct Tile {
 // outside the window are never loaded; rows past Sk read as zero.  At Dh
 // 256 a block owns the output columns kDV ch .. kDV ch + kDV - 1 and loads
 // only those columns of V.
-template <int D>
+template <int DQK, int DV>
 __global__ void __launch_bounds__(kThreads, 2)
 flash_attention_kernel_f32(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            int nb, int sq, int sk, int h, int kh, int causal,
                            int window, float scale) {
-  using T = Tile<D>;
+  using T = Tile<DQK, DV>;
   constexpr int kBK = T::kKeys;
   constexpr int kDV = T::kDV;
   constexpr int kLdK = T::kLdK, kLdV = T::kLdV;
   constexpr int kNT = kBK / 8;  // n8 tiles of S; k-steps of P.V
-  constexpr int kJ = D / 16;    // 16-column slabs of q and K
+  constexpr int kJ = DQK / 16;  // 16-column slabs of q and K
   constexpr int kC = kDV / 32;  // 32-column groups of V and o
   extern __shared__ __align__(16) float smem[];
   float* k_s = smem;                          // [kStages][kBK][kLdK]
@@ -264,13 +289,15 @@ flash_attention_kernel_f32(const float* __restrict__ q,
   const int head = bid % n_bh % h;
   const int b = bid % n_bh / h;
   const int kv_head = head / (h / kh);
-  const int64_t q_stride = static_cast<int64_t>(h) * D;   // one q/o row
-  const int64_t k_stride = static_cast<int64_t>(kh) * D;  // one k/v row
-  const float* qb = q + (static_cast<int64_t>(b) * sq * h + head) * D;
-  float* ob = o + (static_cast<int64_t>(b) * sq * h + head) * D + ch * kDV;
-  const float* kb = k + (static_cast<int64_t>(b) * sk * kh + kv_head) * D;
+  const int64_t q_stride = static_cast<int64_t>(h) * DQK;   // one q row
+  const int64_t o_stride = static_cast<int64_t>(h) * DV;    // one o row
+  const int64_t k_stride = static_cast<int64_t>(kh) * DQK;  // one k row
+  const int64_t v_stride = static_cast<int64_t>(kh) * DV;   // one v row
+  const float* qb = q + (static_cast<int64_t>(b) * sq * h + head) * DQK;
+  float* ob = o + (static_cast<int64_t>(b) * sq * h + head) * DV + ch * kDV;
+  const float* kb = k + (static_cast<int64_t>(b) * sk * kh + kv_head) * DQK;
   const float* vb =
-      v + (static_cast<int64_t>(b) * sk * kh + kv_head) * D + ch * kDV;
+      v + (static_cast<int64_t>(b) * sk * kh + kv_head) * DV + ch * kDV;
 
   // the key tiles that some query row of this tile may see; tile r of the
   // walk starts at key (t_last - r) * kBK
@@ -290,22 +317,22 @@ flash_attention_kernel_f32(const float* __restrict__ q,
     float* kd = k_s + (r % kStages) * kBK * kLdK;
     float* vd = v_s + (r % kStages) * kBK * kLdV;
 #pragma unroll
-    for (int u = 0; u < kBK * D / 4 / kThreads; ++u) {
+    for (int u = 0; u < kBK * DQK / 4 / kThreads; ++u) {
       const int e = thread + u * kThreads;
-      const int row = e / (D / 4), c = 4 * (e % (D / 4));
+      const int row = e / (DQK / 4), c = 4 * (e % (DQK / 4));
       const bool in = k0 + row < sk;
       const int64_t src = (in ? k0 + row : 0) * k_stride + c;
       cp_async16(kd + row * kLdK + c, kb + src, in);
-      if constexpr (kDV == D) cp_async16(vd + row * kLdV + c, vb + src, in);
+      if constexpr (T::kFused) cp_async16(vd + row * kLdV + c, vb + src, in);
     }
-    if constexpr (kDV != D) {  // this block's columns of V
+    if constexpr (!T::kFused) {  // this block's columns of V
 #pragma unroll
       for (int u = 0; u < kBK * kDV / 4 / kThreads; ++u) {
         const int e = thread + u * kThreads;
         const int row = e / (kDV / 4), c = 4 * (e % (kDV / 4));
         const bool in = k0 + row < sk;
         cp_async16(vd + row * kLdV + c,
-                   vb + (in ? k0 + row : 0) * k_stride + c, in);
+                   vb + (in ? k0 + row : 0) * v_stride + c, in);
       }
     }
     cp_async_commit();
@@ -316,7 +343,7 @@ flash_attention_kernel_f32(const float* __restrict__ q,
   const int g = lane / 4, t = lane % 4;
   const int row = q0 + 16 * warp + g;  // this lane's rows: row, row + 8
 
-  // q scaled by log2(e)/sqrt(Dh) in f32 before the product (rows past Sq
+  // q scaled by log2(e)/sqrt(Dqk) in f32 before the product (rows past Sq
   // zero) into q_s: the lane's rows, columns 16 j + 4 t .. + 3, which the
   // same lane reads back (the loop's first barrier orders them)
   float* q_row = q_s + (16 * warp + g) * kLdK + 4 * t;  // rows g, g + 8
@@ -473,7 +500,7 @@ flash_attention_kernel_f32(const float* __restrict__ q,
     const int qp = row + 8 * i;
     if (qp >= sq) continue;
     const float denom = fmaxf(li, 1e-30f);
-    float* dst = ob + qp * q_stride + 8 * t;
+    float* dst = ob + qp * o_stride + 8 * t;
 #pragma unroll
     for (int c = 0; c < kC; ++c) {
       *reinterpret_cast<float4*>(dst + 32 * c) = make_float4(
@@ -487,21 +514,22 @@ flash_attention_kernel_f32(const float* __restrict__ q,
   }
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int sk, int h, int kh, int causal, int window,
            cudaStream_t stream) {
-  constexpr size_t smem = Tile<D>::kBytes;
-  auto kernel = flash_attention_kernel_f32<D>;
+  constexpr size_t smem = Tile<DQK, DV>::kBytes;
+  auto kernel = flash_attention_kernel_f32<DQK, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   const int64_t blocks =
-      static_cast<int64_t>((sq + kBQ - 1) / kBQ) * h * b * Tile<D>::kSplit;
+      static_cast<int64_t>((sq + kBQ - 1) / kBQ) * h * b *
+      Tile<DQK, DV>::kSplit;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  // 1/sqrt(Dh) and log2(e): the softmax runs in base 2
-  const float scale = 1.4426950408889634f / sqrtf(static_cast<float>(D));
+  // 1/sqrt(Dqk) and log2(e): the softmax runs in base 2
+  const float scale = 1.4426950408889634f / sqrtf(static_cast<float>(DQK));
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), b, sq, sk, h, kh,
@@ -802,25 +830,32 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NB][4], float (&m)[2],
 // pace).  At Dh 256 the q tile alone takes 64 KB and a 64-key K or V tile
 // 32 KB, so the ring holds two of each (192 KB in all), and the output
 // accumulator takes 128 registers a thread beside the 64-key S tile's 32.
-template <int D>
+// MLA's (192, 128): 64-key tiles in a ring of three (168 KB), one block per
+// SM.
+template <int DQK, int DV>
 struct Tile {
-  static constexpr int kKeys = D == 128 ? 128 : 64;
-  static constexpr int kStages = D == 256 ? 2 : 3;
-  static constexpr int kBlocksPerSM = D == 64 ? 2 : 1;
+  static constexpr int kKeys = DQK == 128 && DV == 128 ? 128 : 64;
+  static constexpr int kStages = DQK == 256 ? 2 : 3;
+  static constexpr int kBlocksPerSM = DQK == 64 ? 2 : 1;
 };
 
 // Shared memory, every tile 1024-byte aligned (the swizzle atom): the q
 // tile, then kStages K tiles and kStages V tiles, then the mbarriers.  A
-// tile of R rows and D columns is D / 64 panels of R rows x 128 bytes.
-template <int D>
+// tile of R rows and D columns is D / 64 panels of R rows x 128 bytes: q
+// and K tiles Dqk columns wide, V tiles Dv.
+template <int DQK, int DV>
 struct Smem {
-  static constexpr uint32_t kQ = kBQ * D * 2;
-  static constexpr uint32_t kKV = Tile<D>::kKeys * D * 2;
+  using T = Tile<DQK, DV>;
+  static constexpr uint32_t kQ = kBQ * DQK * 2;
+  static constexpr uint32_t kKT = T::kKeys * DQK * 2;  // one K tile
+  static constexpr uint32_t kVT = T::kKeys * DV * 2;   // one V tile
   static constexpr uint32_t kK = kQ;
-  static constexpr uint32_t kV = kK + Tile<D>::kStages * kKV;
-  static constexpr uint32_t kBar = kV + Tile<D>::kStages * kKV;
+  static constexpr uint32_t kV = kK + T::kStages * kKT;
+  static constexpr uint32_t kBar = kV + T::kStages * kVT;
   // q_full, then k_full and v_full for each stage
-  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * Tile<D>::kStages);
+  static constexpr uint32_t kBytes = kBar + 8 * (1 + 2 * T::kStages);
+  static_assert(kBytes + 1024 <= 232448, "over 227 KB of shared memory");
+  static_assert(DV <= DQK, "the output is staged in the q tile");
 };
 
 // Two warpgroups, each owning 64 rows of the block's 128 q rows, walk the
@@ -832,18 +867,19 @@ struct Smem {
 // tiles up front, then, at the start of warpgroup 0's round r, K_{r-1+S}
 // and V_{r-2+S} into the slots that K_{r-1} and V_{r-2} left (both
 // warpgroups are done with them: the turn order says so).
-template <int D>
-__global__ void __launch_bounds__(kThreads, Tile<D>::kBlocksPerSM)
+template <int DQK, int DV>
+__global__ void __launch_bounds__(kThreads, Tile<DQK, DV>::kBlocksPerSM)
 flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tk,
                             const __grid_constant__ CUtensorMap tv,
                             const __grid_constant__ CUtensorMap to, int nb,
                             int sq, int sk, int h, int kh, int causal,
                             int window, float scale) {
-  using S = Smem<D>;
-  constexpr int kPanels = D / kPanel;
-  constexpr int kBK = Tile<D>::kKeys;
-  constexpr int kStages = Tile<D>::kStages;
+  using S = Smem<DQK, DV>;
+  constexpr int kPanelsQK = DQK / kPanel;  // of q and K
+  constexpr int kPanelsV = DV / kPanel;    // of V and o
+  constexpr int kBK = Tile<DQK, DV>::kKeys;
+  constexpr int kStages = Tile<DQK, DV>::kStages;
   constexpr int kNB = kBK / 8;  // n8 blocks of a score row pair
   extern __shared__ uint8_t shm[];
   const uint32_t base = (smem_u32(shm) + 1023) & ~1023u;
@@ -868,17 +904,19 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
 
   const bool loader = threadIdx.x == 0;
   auto load_kv = [&](const CUtensorMap* map, uint32_t bar, uint32_t dst,
-                     int t) {
-    mbar_expect_tx(bar, S::kKV);
-    for (int p = 0; p < kPanels; ++p)
+                     uint32_t bytes, int panels, int t) {
+    mbar_expect_tx(bar, bytes);
+    for (int p = 0; p < panels; ++p)
       tma_load(dst + p * (kBK * 128), map, p * kPanel, kv_head,
                (t_last - t) * kBK, b, bar);
   };
   auto load_k = [&](int t) {
-    load_kv(&tk, k_full(t), base + S::kK + (t % kStages) * S::kKV, t);
+    load_kv(&tk, k_full(t), base + S::kK + (t % kStages) * S::kKT, S::kKT,
+            kPanelsQK, t);
   };
   auto load_v = [&](int t) {
-    load_kv(&tv, v_full(t), base + S::kV + (t % kStages) * S::kKV, t);
+    load_kv(&tv, v_full(t), base + S::kV + (t % kStages) * S::kVT, S::kVT,
+            kPanelsV, t);
   };
   if (loader) {
     mbar_init(q_full, 1);
@@ -888,7 +926,7 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
     }
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     mbar_expect_tx(q_full, S::kQ);
-    for (int p = 0; p < kPanels; ++p)
+    for (int p = 0; p < kPanelsQK; ++p)
       tma_load(base + p * (kBQ * 128), &tq, p * kPanel, head, q0, b, q_full);
     for (int t = 0; t < min(n_tiles, kStages); ++t) {
       load_k(t);
@@ -900,9 +938,9 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
   const int cw = threadIdx.x / 128;  // this warpgroup: q rows 64 cw + 0..63
   const int lane = threadIdx.x % 32, warp = threadIdx.x / 32 % 4;
   const int row = q0 + 64 * cw + 16 * warp + lane / 4;  // and row + 8
-  float acc[D / 8][4];
+  float acc[DV / 8][4];
 #pragma unroll
-  for (int j = 0; j < D / 8; ++j)
+  for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
   float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f}, alpha[2];
@@ -913,11 +951,11 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
   // with no branch in between (a branch there makes the compiler serialize
   // them), so rounds 0 and n_tiles are peeled off the loop.
   auto issue_pv = [&](int t) {  // O += P_t . V_t, V through the transpose bit
-    const uint32_t v_tile = base + S::kV + (t % kStages) * S::kKV;
+    const uint32_t v_tile = base + S::kV + (t % kStages) * S::kVT;
 #pragma unroll
     for (int kk = 0; kk < kBK / 16; ++kk) {
       const uint32_t v_k = v_tile + kk * 16 * 128;
-      if constexpr (D == 256) {  // two n128 products, two panels each
+      if constexpr (DV == 256) {  // two n128 products, two panels each
         wgmma_rs(*reinterpret_cast<float(*)[16][4]>(&acc[0]), pa[kk],
                  desc(v_k, kBK * 128, 1024));
         wgmma_rs(*reinterpret_cast<float(*)[16][4]>(&acc[16]), pa[kk],
@@ -928,9 +966,9 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
     }
   };
   auto issue_s = [&](float (&s)[kNB][4], int t) {  // S_t = Q . K_t^T
-    const uint32_t k_tile = base + S::kK + (t % kStages) * S::kKV;
+    const uint32_t k_tile = base + S::kK + (t % kStages) * S::kKT;
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < DQK / 16; ++kk) {
       const uint32_t off = (kk % 4) * 32;  // k16 step in the atom
       wgmma_ss(s, desc(q_tile + (kk / 4) * (kBQ * 128) + off, 16, 1024),
                desc(k_tile + (kk / 4) * (kBK * 128) + off, 16, 1024),
@@ -944,7 +982,7 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
     softmax_tile<kNB>(s, m, l, alpha, k0, row, sk, causal, window, scale,
                       edge);
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[j][e] *= alpha[e >> 1];
 #pragma unroll
@@ -1024,7 +1062,7 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
     const float inv = 1.f / fmaxf(li, 1e-30f);
     const int r = 16 * warp + lane / 4 + 8 * i;  // row in this warpgroup's 64
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j) {
+    for (int j = 0; j < DV / 8; ++j) {
       const uint32_t dst = q_tile + (j / 8) * (kBQ * 128) + r * 128 +
                            (((j % 8) ^ (r % 8)) << 4) + 4 * c;
       asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(dst),
@@ -1035,7 +1073,7 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   named_sync(kStore + cw, 128);
   if (threadIdx.x % 128 == 0) {
-    for (int p = 0; p < kPanels; ++p)
+    for (int p = 0; p < kPanelsV; ++p)
       tma_store(&to, q_tile + p * (kBQ * 128), p * kPanel, head,
                 q0 + 64 * cw, b);
     tma_store_drain();
@@ -1089,20 +1127,21 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
            int sq, int sk, int h, int kh, int causal, int window,
            cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
+  constexpr int kKeys = Tile<DQK, DV>::kKeys;
   CUtensorMap tq, tk, tv, to;
-  if (!make_map(encode, &tq, q, D, sq, h, b, kBQ) ||
-      !make_map(encode, &to, o, D, sq, h, b, kBQ / 2) ||
-      !make_map(encode, &tk, k, D, sk, kh, b, Tile<D>::kKeys) ||
-      !make_map(encode, &tv, v, D, sk, kh, b, Tile<D>::kKeys))
+  if (!make_map(encode, &tq, q, DQK, sq, h, b, kBQ) ||
+      !make_map(encode, &to, o, DV, sq, h, b, kBQ / 2) ||
+      !make_map(encode, &tk, k, DQK, sk, kh, b, kKeys) ||
+      !make_map(encode, &tv, v, DV, sk, kh, b, kKeys))
     return static_cast<int>(cudaErrorInvalidValue);
-  constexpr size_t smem = Smem<D>::kBytes + 1024;  // + alignment slack
-  auto kernel = flash_attention_kernel_bf16<D>;
+  constexpr size_t smem = Smem<DQK, DV>::kBytes + 1024;  // + alignment slack
+  auto kernel = flash_attention_kernel_bf16<DQK, DV>;
   cudaError_t err = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -1110,7 +1149,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   const int64_t blocks =
       static_cast<int64_t>((sq + kBQ - 1) / kBQ) * h * b;
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
-  const float scale = 1.0f / sqrtf(static_cast<float>(D));
+  const float scale = 1.0f / sqrtf(static_cast<float>(DQK));
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       tq, tk, tv, to, b, sq, sk, h, kh, causal, window, scale);
   return static_cast<int>(cudaGetLastError());
@@ -1121,21 +1160,20 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
 using Launch = int (*)(const void*, const void*, const void*, void*, int, int,
                        int, int, int, int, int, cudaStream_t);
 
-template <Launch L64, Launch L128, Launch L256>
+// The instance for (dh, dv): (64, 64), (128, 128), (256, 256) or (192, 128);
+// any other pair is refused.
+template <Launch L64, Launch L128, Launch L256, Launch L192_128>
 int dispatch(const void* q, const void* k, const void* v, void* o, int b,
-             int sq, int sk, int h, int kh, int dh, int causal, int window,
-             void* stream) {
+             int sq, int sk, int h, int kh, int dh, int dv, int causal,
+             int window, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
-  switch (dh) {
-    case 64:
-      return L64(q, k, v, o, b, sq, sk, h, kh, causal, window, s);
-    case 128:
-      return L128(q, k, v, o, b, sq, sk, h, kh, causal, window, s);
-    case 256:
-      return L256(q, k, v, o, b, sq, sk, h, kh, causal, window, s);
-    default:
-      return static_cast<int>(cudaErrorInvalidValue);
-  }
+  Launch fn = nullptr;
+  if (dh == dv && dh == 64) fn = L64;
+  if (dh == dv && dh == 128) fn = L128;
+  if (dh == dv && dh == 256) fn = L256;
+  if (dh == 192 && dv == 128) fn = L192_128;
+  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, b, sq, sk, h, kh, causal, window, s);
 }
 
 }  // namespace
@@ -1143,17 +1181,19 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int b,
 extern "C" {
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
-                        int b, int sq, int sk, int h, int kh, int dh,
+                        int b, int sq, int sk, int h, int kh, int dh, int dv,
                         int causal, int window, void* stream) {
-  return dispatch<tf32::launch<64>, tf32::launch<128>, tf32::launch<256>>(
-      q, k, v, o, b, sq, sk, h, kh, dh, causal, window, stream);
+  return dispatch<tf32::launch<64, 64>, tf32::launch<128, 128>,
+                  tf32::launch<256, 256>, tf32::launch<192, 128>>(
+      q, k, v, o, b, sq, sk, h, kh, dh, dv, causal, window, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
-                         int b, int sq, int sk, int h, int kh, int dh,
+                         int b, int sq, int sk, int h, int kh, int dh, int dv,
                          int causal, int window, void* stream) {
-  return dispatch<tc::launch<64>, tc::launch<128>, tc::launch<256>>(
-      q, k, v, o, b, sq, sk, h, kh, dh, causal, window, stream);
+  return dispatch<tc::launch<64, 64>, tc::launch<128, 128>,
+                  tc::launch<256, 256>, tc::launch<192, 128>>(
+      q, k, v, o, b, sq, sk, h, kh, dh, dv, causal, window, stream);
 }
 
 }  // extern "C"

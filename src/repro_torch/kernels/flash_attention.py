@@ -3,13 +3,14 @@ not, with an optional sliding window: the attention of every prefill
 (non-causal for an encoder's self-attention and for cross-attention, at
 any Sq and Sk).
 
-    o[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h // G] / sqrt(Dh)) v[b, j, h // G]
+    o[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h // G] / sqrt(Dqk)) v[b, j, h // G]
     over j <= i (causal) and j > i - window (window); positions from 0.
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_pallas``
 (body ``_attn_kernel``).  CUDA C++ in ``csrc/flash_attention.cu``, for
-head_dim 64, 128 and 256 (recurrentgemma's local layers), in float32 and
-bfloat16.
+(q.k width, v width) = (64, 64), (128, 128), (256, 256) (recurrentgemma's
+local layers) and (192, 128) (MLA's prefill: 128 nope + 64 rope columns of
+q and k, v 128), in float32 and bfloat16.
 
 Bound: at the main-path shape (B 8, S 1024, H = KH = 16, Dh 64, bf16,
 causal) bytes and tensor-core operations about equally: 17.2 GFLOP,
@@ -46,16 +47,19 @@ import torch
 from repro_torch.kernels import build, ref
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
-HEAD_DIMS = (64, 128, 256)
+# (q.k width Dqk, v width Dv) of the kernel's instances
+HEAD_DIMS = ((64, 64), (128, 128), (256, 256), (192, 128))
 ALIGN = 16                     # bytes; TMA needs each base 16-byte aligned
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   window: Optional[int]) -> None:
     """What both the kernel and its plain version need."""
-    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
-        raise ValueError(f"need q [B, Sq, H, Dh] and k, v [B, Sk, KH, Dh]; got "
-                         f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
+            or v.shape[:3] != k.shape[:3]:
+        raise ValueError(f"need q [B, Sq, H, Dqk], k [B, Sk, KH, Dqk] and v "
+                         f"[B, Sk, KH, Dv]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
     b, sq, h, dh = q.shape
     _, sk, kh, _ = k.shape
     if k.shape[0] != b or k.shape[3] != dh or kh == 0 or h % kh:
@@ -71,6 +75,14 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if not (q.dtype == k.dtype == v.dtype):
         raise TypeError(f"q, k, v in {q.dtype}, {k.dtype}, {v.dtype}")
+
+
+def check_instance(dqk: int, dv: int) -> None:
+    """Raise unless the kernel has an instance for (q.k width, v width):
+    the C entries refuse any other pair."""
+    if (dqk, dv) not in HEAD_DIMS:
+        raise ValueError(f"(q.k width, v width) {(dqk, dv)} not in "
+                         f"{HEAD_DIMS}")
 
 
 def check_no_grad(kernel: str, *tensors) -> None:
@@ -90,9 +102,9 @@ def check_no_grad(kernel: str, *tensors) -> None:
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     use_kernel: bool = True) -> torch.Tensor:
-    """q: [B, Sq, H, Dh]; k, v: [B, Sk, KH, Dh], H = KH * G.  Returns
-    [B, Sq, H, Dh] in q's dtype.  On the card: contiguous f32 or bf16,
-    Dh in (64, 128, 256)."""
+    """q: [B, Sq, H, Dqk]; k: [B, Sk, KH, Dqk]; v: [B, Sk, KH, Dv],
+    H = KH * G.  Returns [B, Sq, H, Dv] in q's dtype.  On the card:
+    contiguous f32 or bf16, (Dqk, Dv) in ``HEAD_DIMS``."""
     _check_inputs(q, k, v, window)
     if not q.is_cuda or not use_kernel:
         return ref.attention_ref(q, k, v, causal=causal, window=window)
@@ -100,19 +112,18 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention takes {list(DTYPES)}, got {q.dtype}")
     b, sq, h, dh = q.shape
-    sk, kh = k.shape[1], k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head_dim {dh} not in {HEAD_DIMS}")
+    sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
+    check_instance(dh, dv)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
         if t.data_ptr() % ALIGN:
             raise ValueError(f"{name} must start on a {ALIGN}-byte boundary")
-    out = torch.empty_like(q)
+    out = q.new_empty((b, sq, h, dv))
     name = f"flash_attention_{DTYPES[q.dtype]}"
     err = getattr(build.library("flash_attention"), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kh, dh, int(causal), int(window or 0),
+        b, sq, sk, h, kh, dh, dv, int(causal), int(window or 0),
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, name)
     flash_attention.launches += 1

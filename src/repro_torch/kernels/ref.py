@@ -73,9 +73,10 @@ def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                       causal: bool, window: Optional[int]) -> torch.Tensor:
     """Naive full-score GQA attention over explicit positions.
 
-    q: [B, Sq, H, Dh]; k, v: [B, Sk, KH, Dh], H = KH * G; qpos: [Sq],
-    kpos: [Sk].  Scores and softmax in float32; masked scores are -1e30.
-    Returns [B, Sq, H, Dh] in q's dtype.  Not counted: decode steps call it
+    q: [B, Sq, H, Dqk]; k: [B, Sk, KH, Dqk]; v: [B, Sk, KH, Dv], H = KH * G;
+    qpos: [Sq], kpos: [Sk].  Scores (scaled by 1/sqrt(Dqk)) and softmax in
+    float32; masked scores are -1e30.  Returns [B, Sq, H, Dv] in q's
+    dtype.  Not counted: decode steps call it
     directly (the reference's direct form; its blocked form for
     Sq·Sk > 2048² computes the same function).
     """
@@ -92,7 +93,7 @@ def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     s = torch.where(mask, s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
-    return o.reshape(b, sq, h, dh).to(q.dtype)
+    return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

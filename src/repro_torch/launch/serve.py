@@ -14,6 +14,8 @@ and rglru layers).
         --decode-tokens 32
     PYTHONPATH=src python -m repro_torch.launch.serve \
         --arch mixtral-8x22b --smoke --device cpu
+    PYTHONPATH=src python -m repro_torch.launch.serve \
+        --arch deepseek-v3-671b --smoke --device cpu
 
 The port of ``repro.launch.serve``, with ``--device`` (default: the CUDA
 card; without one it raises unless ``--device cpu`` is given).  Weights are
@@ -27,9 +29,11 @@ uses, library loading); each time printed is then a host clock between two
 device synchronizations.  Prints the reference's lines, then one JSON line
 with the times, the tokens per second, the launches per prefill of K3
 (flash attention) and K4 (the SSD scan), and the card's name and power
-limit.  mixtral-8x22b at full depth (281 GB in bf16) does not fit one
-card: ``serve.run`` takes any config, and ``chip_smoke.py`` and
-``profile_serve --layers`` serve its first layers at full width.
+limit.  mixtral-8x22b at full depth (281 GB in bf16) and
+deepseek-v3-671b (1.34 TB) do not fit one card: ``serve.run`` takes any
+config, and ``chip_smoke.py`` and ``profile_serve --layers`` serve their
+first layers at full width.  Serving never runs deepseek's MTP head (the
+reference's ``forward`` does not).
 """
 from __future__ import annotations
 
@@ -83,8 +87,9 @@ def card_line() -> Optional[str]:
 
 
 def kernel_libraries(cfg: ModelConfig) -> list:
-    """The CUDA libraries a prefill of ``cfg`` launches: K3's for GQA
-    layers (an encoder-decoder's decoder has them), K4's for ssd layers."""
+    """The CUDA libraries a prefill of ``cfg`` launches: K3's for GQA and
+    MLA layers (an encoder-decoder's decoder has them), K4's for ssd
+    layers."""
     kinds = {kind for kind, _ in tfm.layer_sigs(cfg)}
     return ([name for name, uses in (("flash_attention", tfm.GQA_KINDS),
                                      ("ssd_scan", ("ssd",)))

@@ -5,6 +5,8 @@
         --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --arch mixtral-8x22b \
         --layers 2 --steps 10
+    PYTHONPATH=src python -m repro_torch.launch.train \
+        --arch deepseek-v3-671b --layers 2 --steps 10
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
 
 Runs the paper's OTA-FL SGD (``launch.steps.make_train_step``) on the
@@ -13,8 +15,9 @@ non-iid vocab-band client shards and the held-out eval come from the Task.
 Without ``--smoke`` the arch runs at full width and depth, in its
 configured dtype, on the CUDA card (``--device`` picks another; without a
 card it raises unless ``--device cpu`` is given); ``--layers`` cuts the
-depth (at full width too: mixtral-8x22b fits the card at 2 layers with
-its gradients).  An MoE arch's loss adds the router's load-balance term.
+depth (at full width too: mixtral-8x22b and deepseek-v3-671b fit the
+card at 2 layers with their gradients).  An MoE arch's loss adds the
+router's load-balance term; deepseek's, its MTP head's cross-entropy.
 
 The world is the reference's: ``WirelessConfig(num_devices=clients,
 seed)``, its deployment, ``OTAParams(d=num_params, gmax=10, sigma_sq=0,

@@ -1,8 +1,10 @@
 """GQA self-attention of the port's models, with QKV bias, qk-norm and
 sliding-window (ring-cache) variants, the encoder's bidirectional kind,
-and the encoder-decoder's cross-attention.
+the encoder-decoder's cross-attention, and DeepSeek-V3's multi-head
+latent attention (MLA).
 
-A copy of the GQA and cross-attention parts of ``repro.models.attention``.
+A copy of the GQA, cross-attention and MLA parts of
+``repro.models.attention``.
 A prefill computes its attention through kernel K3
 (``kernels.flash_attention``): q and k share their positions there, and a
 shared offset cancels in both masks, so K3's positions from 0 give the
@@ -12,7 +14,16 @@ plain full attention over the memory) take K3's non-causal mode, at any
 Sq and Sk.  A decode step (one query against the KV cache or the cross
 cache) stays plain PyTorch (``kernels.ref.grouped_attention``, K3's plain
 version over the cache's positions), as the reference computes it outside
-any Pallas kernel.  MLA is not ported yet (ROADMAP.md).
+any Pallas kernel.
+
+MLA caches the compressed latents (``ckv`` [B, L, kv_lora_rank] and the
+shared rope key ``krope`` [B, L, rope]), not per-head K and V.  Its
+prefill is the reference's expanded form: per-head k_nope and v from the
+latents, k = [k_nope, krope] and q = [q_nope, q_rope] (q.k width nope +
+rope, 192 at full width; v width 128) through K3's (192, 128) instance,
+causal, scaled by 1/sqrt(192).  Its decode step is the weight-absorbed
+form in float32 against the latent cache, plain PyTorch, as the reference
+computes it outside any Pallas kernel.
 """
 from __future__ import annotations
 
@@ -21,7 +32,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.ref import grouped_attention
+from repro_torch.kernels.ref import NEG_INF, grouped_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense, dense_def, rmsnorm,
                                        rmsnorm_def)
@@ -211,3 +222,130 @@ def cross_apply(p, x: torch.Tensor, memory: Optional[torch.Tensor],
         out = flash_attention(q, k, v, causal=False, use_kernel=use_kernel)
     out = out.reshape(b, s, cfg.n_heads * dh)
     return dense(p["wo"], out, ct)
+
+
+# ---------------------------------------------------------------------------
+# MLA: multi-head latent attention (DeepSeek-V3)
+# ---------------------------------------------------------------------------
+
+def mla_def(cfg: ModelConfig) -> dict:
+    """q through a low-rank bottleneck (``wq_a``, ``q_norm``, ``wq_b``) when
+    ``q_lora_rank``, else ``wq``; k and v from one latent of
+    ``kv_lora_rank`` plus a shared rope key (``wkv_a``, ``kv_norm``,
+    ``wkv_b``); ``wo`` from the heads' v.  The reference's order."""
+    d, h = cfg.d_model, cfg.n_heads
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    defs = {}
+    if cfg.q_lora_rank:
+        defs["wq_a"] = dense_def(d, cfg.q_lora_rank, cfg)
+        defs["q_norm"] = rmsnorm_def(cfg.q_lora_rank, cfg.param_dtype)
+        defs["wq_b"] = dense_def(cfg.q_lora_rank, h * qk, cfg)
+    else:
+        defs["wq"] = dense_def(d, h * qk, cfg)
+    defs["wkv_a"] = dense_def(d, cfg.kv_lora_rank + cfg.qk_rope_head_dim, cfg)
+    defs["kv_norm"] = rmsnorm_def(cfg.kv_lora_rank, cfg.param_dtype)
+    defs["wkv_b"] = dense_def(
+        cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim), cfg)
+    defs["wo"] = dense_def(h * cfg.v_head_dim, d, cfg)
+    return defs
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, max_len: int,
+                   device: torch.device, dtype=None) -> dict:
+    """Zero latent cache: ``ckv`` [B, L, kv_lora_rank] and ``krope``
+    [B, L, rope] -- the point of MLA, O(kv_lora_rank + rope) a token."""
+    dtype = dtype or cfg.compute_dtype
+    return {"ckv": torch.zeros((batch, max_len, cfg.kv_lora_rank),
+                               dtype=dtype, device=device),
+            "krope": torch.zeros((batch, max_len, cfg.qk_rope_head_dim),
+                                 dtype=dtype, device=device)}
+
+
+def _latent_write(cache: dict, ckv: torch.Tensor, krope: torch.Tensor,
+                  pos: int) -> dict:
+    """Insert [B, S, ...] latents at position ``pos``, IN PLACE; a write
+    past the end raises (the reference's dynamic_update_slice would clamp
+    it onto the last slots)."""
+    s, cap = ckv.shape[1], cache["ckv"].shape[1]
+    if pos + s > cap:
+        raise ValueError(f"cache write of {s} at {pos} past its {cap} slots")
+    cache["ckv"][:, pos:pos + s] = ckv.to(cache["ckv"].dtype)
+    cache["krope"][:, pos:pos + s] = krope.to(cache["krope"].dtype)
+    return cache
+
+
+def _mla_q(p, x: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor):
+    """(q_nope [B, S, H, nope], q_rope [B, S, H, rope]), RoPE on the
+    latter."""
+    b, s, _ = x.shape
+    ct = cfg.compute_dtype
+    qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
+    if cfg.q_lora_rank:
+        cq = rmsnorm(p["q_norm"], dense(p["wq_a"], x, ct), cfg.norm_eps)
+        q = dense(p["wq_b"], cq, ct)
+    else:
+        q = dense(p["wq"], x, ct)
+    q = q.reshape(b, s, cfg.n_heads, qk)
+    q_rope = apply_rope(q[..., cfg.qk_nope_head_dim:], positions,
+                        cfg.rope_theta)
+    return q[..., :cfg.qk_nope_head_dim], q_rope
+
+
+def mla_apply(p, x: torch.Tensor, cfg: ModelConfig, *, pos_offset: int = 0,
+              cache: Optional[dict] = None, decode: bool = False,
+              use_kernel: bool = True):
+    """Latent attention, causal.  Returns (out, cache); the cache, when
+    given, is updated in place.
+
+    A prefill (the train path's forward too) takes the expanded form
+    through K3 (``use_kernel=False``: its plain version); a decode step
+    (S == 1) the weight-absorbed form in float32 against the latent cache.
+    """
+    b, s, _ = x.shape
+    h, ct = cfg.n_heads, cfg.compute_dtype
+    r, nope = cfg.kv_lora_rank, cfg.qk_nope_head_dim
+    positions = pos_offset + torch.arange(s, device=x.device)
+
+    kv_a = dense(p["wkv_a"], x, ct)
+    ckv = rmsnorm(p["kv_norm"], kv_a[..., :r], cfg.norm_eps)
+    krope = apply_rope(kv_a[..., None, r:], positions,
+                       cfg.rope_theta)[..., 0, :]             # [B, S, rope]
+    q_nope, q_rope = _mla_q(p, x, cfg, positions)
+    wkv_b = p["wkv_b"]["w"].to(ct).reshape(r, h, nope + cfg.v_head_dim)
+    wk_b, wv_b = wkv_b[..., :nope], wkv_b[..., nope:]       # [R, H, D]
+
+    if decode:
+        if cache is None or s != 1:
+            raise ValueError("decode takes one token against a cache")
+        scale = 1.0 / torch.sqrt(torch.tensor(
+            float(nope + cfg.qk_rope_head_dim), dtype=torch.float32))
+        _latent_write(cache, ckv, krope, pos_offset)
+        ckv_all = cache["ckv"].float()
+        krope_all = cache["krope"].float()
+        # absorbed: q_nope into the latent space
+        q_lat = torch.einsum("bqhd,rhd->bqhr", q_nope.float(), wk_b.float())
+        sc = (torch.einsum("bqhr,bsr->bhqs", q_lat, ckv_all)
+              + torch.einsum("bqhd,bsd->bhqs", q_rope.float(),
+                             krope_all)) * scale
+        kpos = torch.arange(ckv_all.shape[1], device=x.device)
+        mask = kpos[None, :] <= positions[:, None]
+        sc = torch.where(mask[None, None], sc, NEG_INF)
+        pr = torch.softmax(sc, dim=-1)
+        o_lat = torch.einsum("bhqs,bsr->bqhr", pr, ckv_all)
+        out = torch.einsum("bqhr,rhd->bqhd", o_lat, wv_b.float())
+    else:
+        if cache is not None:
+            _latent_write(cache, ckv, krope, pos_offset)
+        # expanded: per-head k_nope and v from the latents; the rope key is
+        # shared by the heads
+        c = ckv.to(ct)
+        k_nope = torch.einsum("bsr,rhd->bshd", c, wk_b)
+        vv = torch.einsum("bsr,rhd->bshd", c, wv_b).contiguous()
+        k_full = torch.cat([k_nope, krope[:, :, None, :].expand(
+            b, s, h, cfg.qk_rope_head_dim)], dim=-1)
+        q_full = torch.cat([q_nope, q_rope], dim=-1)
+        out = flash_attention(q_full, k_full, vv, causal=True,
+                              use_kernel=use_kernel)
+
+    out = out.reshape(b, s, h * cfg.v_head_dim)
+    return dense(p["wo"], out, ct), cache

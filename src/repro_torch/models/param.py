@@ -206,8 +206,8 @@ def lm_params_to_stacked(cfg, params) -> dict:
     """The inverse of ``lm_params_from_jax``: a ParamTree (or a tree of the
     same layout, such as its gradients) in the reference's layout,
     ``embed``, ``lead``, ``scan`` (``u0 .. u{k-1}``, leaves stacked
-    ``[n_rep, ...]``), ``tail``, ``ln_f``, ``unembed``, as nested dicts
-    and lists of tensors on the tree's device."""
+    ``[n_rep, ...]``), ``tail``, ``ln_f``, ``unembed``, ``mtp``, as nested
+    dicts and lists of tensors on the tree's device."""
     lead, unit, n_rep, _ = layer_groups(cfg)
     tree = map_named(params, lambda _, t: t.detach())
     n_lead, k = len(lead), len(unit)
@@ -224,8 +224,9 @@ def lm_params_to_stacked(cfg, params) -> dict:
                        for i in range(k)}
     out["tail"] = layers[n_rep * k:]
     out["ln_f"] = tree["ln_f"]
-    if "unembed" in tree:
-        out["unembed"] = tree["unembed"]
+    for key in ("unembed", "mtp"):
+        if key in tree:
+            out[key] = tree[key]
     return out
 
 
@@ -242,7 +243,8 @@ def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:
     ``u0 .. u{k-1}`` of unit layers whose leaves are stacked ``[n_rep,
     ...]``) and ``tail`` (a list); the port keeps one entry per layer in
     ``layers``, in execution order: lead, then the units repetition by
-    repetition, then tail.  A leaf missing on either side, or of another
+    repetition, then tail.  ``mtp`` (the MTP module, with ``mtp_depth``)
+    comes across as it is.  A leaf missing on either side, or of another
     shape than its def, raises.
     """
     # transformer imports this module, so its defs are looked up here
@@ -259,7 +261,7 @@ def lm_params_from_jax(cfg, tree: Mapping) -> ParamTree:
                        for u in units]
     layers += list(tail)
     flat = {"layers": layers, "ln_f": tree["ln_f"]}
-    for key in ("embed", "unembed"):
+    for key in ("embed", "unembed", "mtp"):
         if key in tree:
             flat[key] = tree[key]
 

@@ -1,12 +1,13 @@
 """Model bundle: one interface over the port's language models.
 
 A copy of ``repro.models.registry``: the decoder bundle, for the dense
-GQA decoders, Mamba-2, RecurrentGemma and MoE alike, and the encoder-decoder
+GQA decoders, Mamba-2, RecurrentGemma, MoE and MLA alike, and the
+encoder-decoder
 bundle (seamless-m4t-medium).  A ``ModelBundle`` holds one config and its
 device, and exposes ``init``, ``loss`` (the next-token loss with
 per-sample weights, which the train step differentiates), ``prefill``,
-``decode`` and ``init_caches`` (per layer, a KV cache or a recurrent
-state; the encoder-decoder's decoder self caches).
+``decode`` and ``init_caches`` (per layer, a KV cache, an MLA latent
+cache or a recurrent state; the encoder-decoder's decoder self caches).
 """
 from __future__ import annotations
 

@@ -1,24 +1,33 @@
 """Transformer blocks of the port, and its decoder-only models: the dense
-GQA decoders, Mamba-2, RecurrentGemma, MoE and their hybrids (the
-encoder-decoder assembles the same blocks in ``models.encdec``).
+GQA decoders, Mamba-2, RecurrentGemma, MoE, DeepSeek-V3 (MLA and MTP) and
+their hybrids (the encoder-decoder assembles the same blocks in
+``models.encdec``).
 
 A copy of ``repro.models.transformer``.  The reference groups repeating
 layers under ``lax.scan`` over stacked parameters with
 ``jax.checkpoint``; the port keeps one parameter entry per layer and runs
 a Python loop over them.  The reference's sharding hints are no-ops on one
 card and are dropped.  Mixers: attn | swa | local (GQA, causal), enc_attn
-(GQA, bidirectional), ssd (Mamba-2) and rglru (RG-LRU); a block built
+(GQA, bidirectional), ssd (Mamba-2) and rglru (RG-LRU); with
+``attn_kind="mla"`` every attention kind is MLA (``attention.mla_apply``),
+as in the reference; a block built
 with ``cross=True`` adds cross-attention over the encoder's memory after
 its mixer; FFN: dense (swiglu | geglu | gelu), MoE (``models.moe``) from
 layer ``moe_first_dense`` on, or none after an ssd mixer when
 ``ffn_kind="none"`` (mamba2).  Inputs are token ids, or with
-``input_mode="frames"`` embeddings, cast to the compute dtype.  MLA and
-MTP raise, naming ROADMAP.md, where their port is queued.
+``input_mode="frames"`` embeddings, cast to the compute dtype.  With
+``mtp_depth`` the model holds the reference's one multi-token-prediction
+module (``mtp``: a projection of [final hidden, next token's embedding],
+one dense attention block, a norm; it shares the unembedding), which only
+the loss runs.
 
 The loss (``softmax_xent``, ``lm_loss``) is the reference's next-token
 cross-entropy, with its per-sample weights, which the OTA-FL train step
 rides (``launch.steps``), plus ``router_aux_weight`` times the MoE
-layers' load-balance loss summed over the layers.  The train path
+layers' load-balance loss summed over the layers, plus
+``mtp_loss_weight`` times the MTP head's cross-entropy.  The MTP labels
+keep the reference's alignment (``lm_loss``), one position later than its
+``mtp_logits`` docstring says.  The train path
 differentiates the plain attention and SSD scan (``use_kernel=False``):
 the reference trains through its jnp forms, never a Pallas kernel, and
 K3 and K4 have no backward.
@@ -37,6 +46,7 @@ from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
                                        rmsnorm, rmsnorm_def, unembed,
                                        unembed_def)
+from repro_torch.models.param import ParamDef
 
 GQA_KINDS = ("attn", "swa", "local", "enc_attn")
 MIXER_KINDS = GQA_KINDS + ("ssd", "rglru")
@@ -49,10 +59,8 @@ BLOCKED_ATTENTION = 2048 * 2048
 def check_supported(cfg: ModelConfig) -> None:
     """Raise for what the port does not run yet (ROADMAP.md)."""
     missing = []
-    if cfg.attn_kind != "gqa":
+    if cfg.attn_kind not in ("gqa", "mla"):
         missing.append(f"{cfg.attn_kind} attention")
-    if cfg.mtp_depth:
-        missing.append("MTP")
     if cfg.input_mode not in ("tokens", "frames"):
         missing.append(f"{cfg.input_mode} inputs")
     missing += [f"{k} mixer" for k in sorted(set(cfg.block_pattern))
@@ -78,12 +86,14 @@ def layer_sigs(cfg: ModelConfig) -> list:
 
 def layer_def(cfg: ModelConfig, sig: tuple, cross: bool = False) -> dict:
     """One block: the mixer of its kind (every kind in GQA_KINDS has the
-    same weights), ``ln_cross`` and ``cross`` when ``cross`` (a decoder
-    block of the encoder-decoder), and ``ln2`` and ``ffn`` (a dense MLP
-    or an MoE) unless its FFN is none."""
+    same weights: GQA's, or MLA's with ``attn_kind="mla"``), ``ln_cross``
+    and ``cross`` when ``cross`` (a decoder block of the encoder-decoder),
+    and ``ln2`` and ``ffn`` (a dense MLP or an MoE) unless its FFN is
+    none."""
     kind, ffn = sig
+    attn = attn_mod.mla_def if cfg.attn_kind == "mla" else attn_mod.gqa_def
     mixer = {"ssd": ssm_mod.ssd_def, "rglru": rglru_mod.rglru_def}.get(
-        kind, attn_mod.gqa_def)
+        kind, attn)
     d = {"ln1": rmsnorm_def(cfg.d_model, cfg.param_dtype),
          "mixer": mixer(cfg)}
     if cross:
@@ -97,8 +107,9 @@ def layer_def(cfg: ModelConfig, sig: tuple, cross: bool = False) -> dict:
 
 def model_defs(cfg: ModelConfig) -> dict:
     """Parameter definitions of a decoder-only LM: ``embed`` (token inputs
-    only), one entry per layer in ``layers``, ``ln_f``, and ``unembed``
-    unless tied."""
+    only), one entry per layer in ``layers``, ``ln_f``, ``unembed`` unless
+    tied, and ``mtp`` with ``mtp_depth`` (``proj`` [2D, D], ``ln_in``, a
+    dense attention ``layer``, ``ln_out``: the reference's one module)."""
     check_supported(cfg)
     defs = {"embed": embedding_def(cfg)} if cfg.input_mode == "tokens" \
         else {}
@@ -106,15 +117,23 @@ def model_defs(cfg: ModelConfig) -> dict:
                 ln_f=rmsnorm_def(cfg.d_model, cfg.param_dtype))
     if not cfg.tie_embeddings:
         defs["unembed"] = unembed_def(cfg)
+    if cfg.mtp_depth:
+        defs["mtp"] = {
+            "proj": ParamDef((2 * cfg.d_model, cfg.d_model), init="scaled",
+                             fan_in=2 * cfg.d_model, dtype=cfg.param_dtype),
+            "ln_in": rmsnorm_def(cfg.d_model, cfg.param_dtype),
+            "layer": layer_def(cfg, ("attn", "dense")),
+            "ln_out": rmsnorm_def(cfg.d_model, cfg.param_dtype),
+        }
     return defs
 
 
 def init_caches(cfg: ModelConfig, batch: int, max_len: int,
                 device: torch.device) -> list:
     """One cache per layer, in execution order: a KV cache for a GQA
-    layer, the recurrent state for an ssd or rglru layer.  An enc_attn
-    layer keeps none: its model prefills without caches (the reference
-    raises too)."""
+    layer, the latent cache for an MLA layer, the recurrent state for an
+    ssd or rglru layer.  An enc_attn layer keeps none: its model prefills
+    without caches (the reference raises too)."""
     def one(kind):
         if kind == "enc_attn":
             raise ValueError("an enc_attn layer keeps no cache")
@@ -122,6 +141,8 @@ def init_caches(cfg: ModelConfig, batch: int, max_len: int,
             return ssm_mod.init_ssd_state(cfg, batch, device)
         if kind == "rglru":
             return rglru_mod.init_rglru_state(cfg, batch, device)
+        if cfg.attn_kind == "mla":
+            return attn_mod.init_mla_cache(cfg, batch, max_len, device)
         return attn_mod.init_kv_cache(cfg, batch, max_len, kind, device)
     return [one(kind) for kind, _ in layer_sigs(cfg)]
 
@@ -143,6 +164,10 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
     elif kind == "rglru":       # no kernel: plain PyTorch on every device
         mix, cache = rglru_mod.rglru_apply(p["mixer"], h, cfg, state=cache,
                                            decode=decode)
+    elif cfg.attn_kind == "mla":
+        mix, cache = attn_mod.mla_apply(p["mixer"], h, cfg,
+                                        pos_offset=pos_offset, cache=cache,
+                                        decode=decode, use_kernel=use_kernel)
     else:
         mix, cache = attn_mod.gqa_apply(p["mixer"], h, cfg, kind=kind,
                                         pos_offset=pos_offset, cache=cache,
@@ -166,12 +191,15 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
 
 def forward_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
                 pos_offset: int = 0, caches: Optional[list] = None,
-                decode: bool = False, use_kernel: bool = True):
+                decode: bool = False, use_kernel: bool = True,
+                return_hidden: bool = False):
     """tokens: int [B, S], or with ``input_mode="frames"`` embeddings
     [B, S, D].  Returns (logits [B, S, V] float32, caches, aux), as the
     reference's ``forward``: the caches, when given, updated in place; aux
     the MoE layers' load-balance losses summed in execution order (0.0
-    without MoE)."""
+    without MoE); with ``return_hidden`` also the final normed hidden
+    state h [B, S, D] that the logits are taken from (the MTP head's
+    input)."""
     x = embed(params["embed"], tokens, cfg.compute_dtype) \
         if cfg.input_mode == "tokens" else tokens.to(cfg.compute_dtype)
     aux = 0.0
@@ -182,8 +210,32 @@ def forward_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             use_kernel=use_kernel)
         aux = aux + layer_aux
     h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    w = params["embed"].T if cfg.tie_embeddings else params["unembed"]
-    return unembed(w, h, cfg), caches, aux
+    logits = unembed(_unembedding(params, cfg), h, cfg)
+    return (logits, caches, aux, h) if return_hidden \
+        else (logits, caches, aux)
+
+
+def _unembedding(params, cfg: ModelConfig) -> torch.Tensor:
+    return params["embed"].T if cfg.tie_embeddings else params["unembed"]
+
+
+def mtp_logits(params, h: torch.Tensor, tokens: torch.Tensor,
+               cfg: ModelConfig, use_kernel: bool = True) -> torch.Tensor:
+    """The reference's DeepSeek-V3 MTP head: position i from (h_i,
+    emb(tokens[i + 1])).  h: [B, S, D] the final normed hidden state;
+    tokens: [B, S].  Returns logits [B, S - 1, V] in float32.  Which label
+    position i is trained on is ``lm_loss``'s choice: the reference's
+    ``tokens[i + 3]`` of the input."""
+    p = params["mtp"]
+    ct = cfg.compute_dtype
+    emb_next = embed(params["embed"], tokens[:, 1:], ct)
+    h_in = rmsnorm(p["ln_in"], h[:, :-1], cfg.norm_eps)
+    fused = torch.cat([h_in, emb_next], dim=-1)
+    x = fused.to(ct) @ p["proj"].to(ct)
+    x, _, _ = apply_layer(p["layer"], x, cfg, ("attn", "dense"),
+                          use_kernel=use_kernel)
+    h_out = rmsnorm(p["ln_out"], x, cfg.norm_eps)
+    return unembed(_unembedding(params, cfg), h_out, cfg)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -232,12 +284,13 @@ def lm_loss(params, tokens: torch.Tensor, cfg: ModelConfig, labels=None,
     ``labels``).  ``use_kernel=False`` (the train path) runs the plain
     attention and SSD scan, which autograd differentiates; the held-out
     eval passes True under ``torch.no_grad()``, through K3 and K4.  An MoE
-    config adds ``router_aux_weight`` times the summed aux loss, as the
-    reference does; the MTP head raises, as its model does."""
-    if cfg.mtp_depth:
-        raise NotImplementedError(
-            f"{cfg.name}: the MTP loss is not ported to repro_torch yet "
-            "(see ROADMAP.md, modules to port)")
+    config adds ``router_aux_weight`` times the summed aux loss, then an
+    MTP config ``mtp_loss_weight`` times the MTP head's cross-entropy, in
+    the reference's order.  The MTP labels are the reference's
+    ``labels[:, 2:]``: position i of the head, which reads h_i and
+    token i + 1 of the input, is trained on input token i + 3 (the
+    reference's docstring says i + 2; the port keeps the reference's
+    numbers)."""
     if labels is None:
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
     else:
@@ -251,8 +304,18 @@ def lm_loss(params, tokens: torch.Tensor, cfg: ModelConfig, labels=None,
             "with its blocked online-softmax scan (Sq * Sk > 2048^2), which "
             "is not ported to repro_torch yet (see ROADMAP.md, modules to "
             "port)")
-    logits, _, aux = forward_aux(params, inputs, cfg, use_kernel=use_kernel)
+    logits, _, aux, h = forward_aux(params, inputs, cfg,
+                                    use_kernel=use_kernel,
+                                    return_hidden=True)
     loss = softmax_xent(logits, labels, cfg.padded_vocab, sample_weights)
     if cfg.moe_num_experts:
         loss = loss + cfg.router_aux_weight * aux
+    if cfg.mtp_depth:
+        mtp_labels = labels[:, 2:] if labels.shape[1] > 2 else labels[:, :0]
+        if mtp_labels.shape[1] > 0:
+            mtp_lg = mtp_logits(params, h, inputs, cfg,
+                                use_kernel=use_kernel)
+            loss = loss + cfg.mtp_loss_weight * softmax_xent(
+                mtp_lg[:, :mtp_labels.shape[1]], mtp_labels,
+                cfg.padded_vocab, sample_weights)
     return loss

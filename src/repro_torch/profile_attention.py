@@ -12,7 +12,9 @@ the chosen dtype.  For each shape of ``SHAPES`` in that dtype (B 8, S 1024
 or 1000, the train eval's B 4, S 128, recurrentgemma's B 2, S 4096 past
 its window, or mixtral's B 1, S 8192 past its window, causal;
 seamless-m4t-medium's encoder at B 8, S 1024 and its ragged
-cross-attention, Sq 128 over Sk 1,024, non-causal) it launches every
+cross-attention, Sq 128 over Sk 1,024, non-causal; deepseek-v3's MLA
+prefill, B 8, S 1024, H = KH = 128, q.k width 192, v width 128) it
+launches every
 build through its C entry on the same inputs and compares the output
 with the plain version (f32 to 2e-5; bf16 to two bf16 ulps plus 1e-2),
 then times every build and one
@@ -21,7 +23,11 @@ then times every build and one
 launches, the median of 5 batches) in ``--reps`` rounds whose order
 alternates (A B S, S B A, ...).  Per shape it prints each build's median
 of the rounds' medians, its share of the bound and its max abs error,
-and SDPA's time; the last line is one JSON object.  Fails if this
+and SDPA's time (with the backend that ran it, or null and the error's
+first line where no backend takes the shape); the last line is one JSON
+object.  The C entries take the v width after the q.k width since the
+(192, 128) instance: a source older than it cannot be built ``--against``
+this one.  Fails if this
 source's kernel disagrees with the plain version.  ``--long`` first
 holds every build's f32 kernel against the plain version at long
 sequences (``LONG``: B 1, H 2, KH 1, S up to 16,384) and prints the max
@@ -55,7 +61,8 @@ LONG = [(1024, 64, None), (4096, 64, None), (16384, 64, None),
 
 
 class Shape(NamedTuple):
-    """One K3 call: q [B, S, H, Dh], k and v [B, Sk, KH, Dh]."""
+    """One K3 call: q [B, S, H, Dh], k [B, Sk, KH, Dh], v [B, Sk, KH,
+    Dv]."""
     label: str
     b: int
     s: int                       # query rows
@@ -66,10 +73,15 @@ class Shape(NamedTuple):
     window: Optional[int] = None
     causal: bool = True
     sk: Optional[int] = None     # key rows (None: S)
+    dv: Optional[int] = None     # v's width (None: Dh)
 
     @property
     def keys(self) -> int:
         return self.s if self.sk is None else self.sk
+
+    @property
+    def v_width(self) -> int:
+        return self.dh if self.dv is None else self.dv
 
 
 # the first is the qwen serve path's prefill at full width; granite-8b's,
@@ -84,7 +96,9 @@ class Shape(NamedTuple):
 # prompt (128) over long audio (1,024 frames); mixtral-8x22b's
 # sliding-window layers (48 heads over 8, Dh 128, window 4,096) at its serve
 # prefill (8 x 1,024: K3 takes the window as the serve path hands it, but it
-# does not bite, so SDPA runs plain causal) and past the window (1 x 8,192)
+# does not bite, so SDPA runs plain causal) and past the window (1 x 8,192);
+# deepseek-v3-671b's MLA prefill (its expanded form: 128 heads, q and k 192
+# wide, v 128) at 8 x 1,024
 SHAPES = [Shape(*t) for t in (
     ("main", 8, 1024, 16, 16, 64, "bf16", None),
     ("qwen3", 8, 1024, 16, 8, 128, "bf16", None),
@@ -107,7 +121,10 @@ SHAPES = [Shape(*t) for t in (
     ("seamless_cross_f32", 8, 128, 16, 16, 64, "f32", None, False, 1024),
     ("mixtral-8x22b", 8, 1024, 48, 8, 128, "bf16", 4096),
     ("mixtral-8x22b_f32", 8, 1024, 48, 8, 128, "f32", 4096),
-    ("mixtral-8x22b_window4096_f32", 1, 8192, 48, 8, 128, "f32", 4096))]
+    ("mixtral-8x22b_window4096_f32", 1, 8192, 48, 8, 128, "f32", 4096),
+    ("deepseek-v3", 8, 1024, 128, 128, 192, "bf16", None, True, None, 128),
+    ("deepseek-v3_f32", 8, 1024, 128, 128, 192, "f32", None, True, None,
+     128))]
 
 
 def pairs(sq: int, sk: int, causal: bool, window) -> int:
@@ -122,24 +139,26 @@ def pairs(sq: int, sk: int, causal: bool, window) -> int:
 
 def draw(shape: Shape, dev, gen):
     """q, k, v of one shape of ``SHAPES``, unit normal, in its dtype."""
-    return [torch.randn((shape.b, rows, hh, shape.dh), generator=gen,
+    return [torch.randn((shape.b, rows, hh, width), generator=gen,
                         device=dev).to(DTYPES[shape.dtype])
-            for rows, hh in ((shape.s, shape.h), (shape.keys, shape.kh),
-                             (shape.keys, shape.kh))]
+            for rows, hh, width in ((shape.s, shape.h, shape.dh),
+                                    (shape.keys, shape.kh, shape.dh),
+                                    (shape.keys, shape.kh, shape.v_width))]
 
 
 def bound(shape: Shape, card: str) -> dict:
     """The least time the card could take: the larger of q, k, v and o
     read or written once over the memory rate, and the products of the
     (query, key) pairs the masks allow (all Sq * Sk of them when
-    non-causal) over the tensor cores' bf16 rate, or in f32 over the
-    cheaper of the FMA units and three TF32 products (f32's precision)."""
-    b, s, sk, h, kh, dh = (shape.b, shape.s, shape.keys, shape.h, shape.kh,
-                           shape.dh)
+    non-causal), 2 (Dh + Dv) operations a pair, over the tensor cores'
+    bf16 rate, or in f32 over the cheaper of the FMA units and three TF32
+    products (f32's precision)."""
+    b, s, sk, h, kh, dh, dv = (shape.b, shape.s, shape.keys, shape.h,
+                               shape.kh, shape.dh, shape.v_width)
     _, (bw, f32_peak, bf16_peak) = peaks(card)
     size = torch.finfo(DTYPES[shape.dtype]).bits // 8
-    byts = size * b * dh * (2 * s * h + 2 * sk * kh)
-    flops = 4 * b * h * dh * pairs(s, sk, shape.causal, shape.window)
+    byts = size * b * ((s * h + sk * kh) * dh + (sk * kh + s * h) * dv)
+    flops = 2 * b * h * (dh + dv) * pairs(s, sk, shape.causal, shape.window)
     ops_s = flops / bf16_peak if shape.dtype == "bf16" else min(
         flops / f32_peak, 3 * flops / (bf16_peak / 2))
     return {"bytes": byts, "flops": flops,
@@ -152,7 +171,8 @@ def sdpa(q, k, v, window, causal=True):
     yardstick (the port never calls it); a window is a causal one.  A
     window of S or more keys does not bite: the call is then plain causal
     (``is_causal``, no mask), since an explicit mask keeps SDPA off its
-    flash kernel."""
+    flash kernel.  v may be narrower than q and k (the scale stays
+    1/sqrt(q's width))."""
     s, h, kh = q.shape[1], q.shape[2], k.shape[2]
     qt, kt, vt = (t.transpose(1, 2) for t in (q, k, v))
     pos = torch.arange(s, device=q.device)
@@ -163,6 +183,24 @@ def sdpa(q, k, v, window, causal=True):
         enable_gqa=h != kh).transpose(1, 2)
 
 
+def sdpa_backend(fn):
+    """(name, error): the SDPA backend that the default dispatch runs
+    ``fn`` on -- the first in PyTorch's priority order that takes it -- or
+    (None, the first line of the error) when none does."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    err = None
+    for backend in (SDPBackend(i) for i in torch._C._get_sdp_priority_order()):
+        if backend == SDPBackend.OVERRIDEABLE:
+            continue
+        try:
+            with sdpa_kernel(backend):
+                fn()
+            return backend.name.lower(), None
+        except RuntimeError as e:
+            err = (str(e).strip().splitlines() or [repr(e)])[0]
+    return None, err
+
+
 def launch(lib, q, k, v, out, window, stream, causal=True):
     """One call of a build's C entry for q's dtype, into ``out``."""
     name = "flash_attention_" + ("f32" if q.dtype == torch.float32
@@ -170,7 +208,7 @@ def launch(lib, q, k, v, out, window, stream, causal=True):
     build.check(getattr(lib, name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
         q.shape[0], q.shape[1], k.shape[1], q.shape[2], k.shape[2],
-        q.shape[3], int(causal), window or 0, stream), name)
+        q.shape[3], v.shape[3], int(causal), window or 0, stream), name)
     return out
 
 
@@ -226,15 +264,18 @@ def main(argv=None) -> None:
         q, k, v = draw(shape, dev, gen)
         want = ref.attention_ref(q, k, v, causal=causal,
                                  window=window).float()
-        out = torch.empty_like(q)
+        out = q.new_empty(q.shape[:3] + (shape.v_width,))
         tol = F32_TOL if dt == "f32" else ATTN_BF16_TOL
         fns = {name: (lambda lib=lib, q=q, k=k, v=v, out=out, w=window:
                       launch(lib, q, k, v, out, w, stream, causal))
                for name, lib in libs.items()}
-        fns["sdpa"] = sdpa(q, k, v, window, causal)
+        backend, lib_err = sdpa_backend(sdpa(q, k, v, window, causal))
+        if backend is not None:
+            fns["sdpa"] = sdpa(q, k, v, window, causal)
         row = {"shape": [shape.b, shape.s, shape.keys, shape.h, shape.kh,
-                         shape.dh], "dtype": dt, "window": window,
-               "causal": causal, **bound(shape, card)}
+                         shape.dh, shape.v_width], "dtype": dt,
+               "window": window, "causal": causal, "sdpa_backend": backend,
+               "sdpa_error": lib_err, **bound(shape, card)}
         for name, fn in fns.items():
             got = fn().float()
             torch.cuda.synchronize()
@@ -243,10 +284,11 @@ def main(argv=None) -> None:
                          "ok": bool((err <= tol["atol"]
                                      + tol["rtol"] * want.abs()).all()),
                          "ms_reps": []}
+        timed = [name for name in names if name in fns]
         for rep in range(a.reps):
-            for name in names if rep % 2 == 0 else names[::-1]:
+            for name in timed if rep % 2 == 0 else timed[::-1]:
                 row[name]["ms_reps"].append(median_ms(fns[name]))
-        for name in names:
+        for name in timed:
             row[name]["ms"] = statistics.median(row[name]["ms_reps"])
             row[name]["bound_share"] = row["bound_ms"] / row[name]["ms"]
         results[label] = row
@@ -256,7 +298,8 @@ def main(argv=None) -> None:
                              "the plain version")
         del q, k, v, want, out
     print(json.dumps({"card": card, "shapes": {
-        label: {name: row[name]["ms"] for name in names}
+        label: {name: row[name]["ms"] if name in row else None
+                for name in names}
         | {"bound_ms": row["bound_ms"]} for label, row in results.items()}}),
         flush=True)
 

@@ -4,6 +4,7 @@
         recurrentgemma-9b|seamless-m4t-medium|...] [--batch 8]
         [--prompt-len 1024] [--decode-tokens 32]
     python -m repro_torch.profile_serve --arch mixtral-8x22b --layers 12
+    python -m repro_torch.profile_serve --arch deepseek-v3-671b --layers 4
 
 Runs ``repro_torch.launch.serve.run`` at full width (warm-up, then a timed
 prefill and decode on the host clock between device synchronizations),
@@ -11,7 +12,8 @@ then one more prefill (of the same inputs: an encoder-decoder's frames
 and prompts) and the same decode steps under ``torch.profiler``, through
 the model's bundle.  ``--layers`` cuts the arch's depth at full width,
 for a model that fits the card only so (mixtral-8x22b's 56 layers are
-281 GB in bf16; 12 are 61 GB).
+281 GB in bf16, 12 are 61 GB; deepseek-v3-671b's 61 are 1.34 TB, its
+first 4, three dense and one MoE, 31.6 GB).
 For each of the two phases it prints the unprofiled wall, the device time
 summed over every kernel the profiler saw, the device's busy share (one
 stream, so kernels do not overlap), the kernel launches, the port's own

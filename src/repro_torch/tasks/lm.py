@@ -49,7 +49,8 @@ def make_token_stream(arch: str = "qwen1.5-0.5b", smoke: bool = True,
     smoke scale); ``launch.train`` passes its CLI sizes through.
     ``d_model=0`` / ``n_layers=0`` keep the arch's own smoke dimensions;
     without ``smoke``, ``n_layers`` cuts the full-width arch's depth (a
-    port addition: mixtral-8x22b fits the card only so) and ``d_model``
+    port addition: mixtral-8x22b and deepseek-v3-671b fit the card only
+    so) and ``d_model``
     is ignored, as the reference ignores both there.
     ``device`` is the bundle's (None: the CUDA card, which must be
     there).  An encoder-decoder raises: its loss takes frames, which these

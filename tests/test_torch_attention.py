@@ -11,7 +11,10 @@ same numpy-seeded inputs.  The sweep is the reference's own
 (``tests/test_kernels.py``), plus windows, the non-causal case and
 recurrentgemma's local layers (head_dim 256, 16 heads over one KV head,
 a window shorter than the prompt), whose gradient is held against
-``jax.grad`` of ``grouped_attention`` too.
+``jax.grad`` of ``grouped_attention`` too, and MLA's prefill, whose v is
+narrower than q and k (q.k width 192, v width 128; the reference's
+``attention_ref`` takes one width, so it is held against
+``grouped_attention`` alone).
 
 Tolerances: f32 at 2e-5 rel/abs (scores and softmax in f32 on both sides,
 sums in another order); bf16 outputs compared in f32 at 6e-2, the
@@ -36,12 +39,22 @@ DTYPES = {"f32": (torch.float32, jnp.float32, F32_TOL),
           "bf16": (torch.bfloat16, jnp.bfloat16, BF16_TOL)}
 
 
+MLA = (192, 128)                # deepseek-v3's (q.k width, v width)
+
+
+def _widths(dh):
+    """(q.k width, v width) of one width or of a pair."""
+    return (dh, dh) if isinstance(dh, int) else dh
+
+
 def _inputs(b, sq, sk, h, kh, dh, dtype, seed=0):
-    """q, k, v as torch tensors in ``dtype`` and the same values in JAX."""
+    """q, k, v as torch tensors in ``dtype`` and the same values in JAX;
+    ``dh`` is one width for q, k and v or the pair (q.k width, v width)."""
     tdt, jdt, _ = DTYPES[dtype]
+    dqk, dv = _widths(dh)
     rng = np.random.default_rng(seed)
     arrs = [rng.standard_normal(shape).astype(np.float32)
-            for shape in ((b, sq, h, dh), (b, sk, kh, dh), (b, sk, kh, dh))]
+            for shape in ((b, sq, h, dqk), (b, sk, kh, dqk), (b, sk, kh, dv))]
     ts = [torch.from_numpy(a).to(tdt) for a in arrs]
     js = [jnp.asarray(t.float().numpy()).astype(jdt) for t in ts]
     return ts, js
@@ -153,6 +166,24 @@ def test_attention_head_dim_256_gradient_matches_reference(window):
                                    atol=1e-5 * np.abs(w).max(), err_msg=name)
 
 
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+@pytest.mark.parametrize("dqk,dv,h,kh", [(192, 128, 8, 8), (48, 32, 4, 4),
+                                         (192, 128, 8, 2)])
+@pytest.mark.parametrize("sq,sk,causal", [(100, 100, True), (37, 37, True),
+                                          (64, 130, False)])
+def test_attention_narrower_v_matches_reference(sq, sk, causal, dqk, dv, h,
+                                                kh, dtype):
+    """v narrower than q and k: MLA's (192, 128) at full width and its
+    smoke width (48, 32), and with G 4: the output [B, Sq, H, Dv], scaled
+    by 1/sqrt(q.k width), against the reference's grouped_attention."""
+    ts, js = _inputs(2, sq, sk, h, kh, (dqk, dv), dtype, seed=10)
+    got = _port(ts, causal=causal)
+    assert got.shape == (2, sq, h, dv)
+    want = _np(jattn.grouped_attention(
+        *js, jnp.arange(sq), jnp.arange(sk), causal=causal, window=None))
+    np.testing.assert_allclose(got, want, **DTYPES[dtype][2])
+
+
 def test_attention_at_an_offset_is_the_same():
     """Prefill at pos_offset > 0: q and k share positions, so the offset
     cancels in both masks and K3's positions from 0 give the answer."""
@@ -168,10 +199,11 @@ ATTN_BF16_TOL = dict(rtol=1.6e-2, atol=1e-2)   # as chip_smoke.py's
 
 def _bf16_kernel_form(q, k, v, *, causal):
     """K3's bf16 rounding in plain torch: the unscaled bf16 products summed
-    in f32, then the 1/sqrt(Dh) scale, the mask and an f32 softmax; the
+    in f32, then the 1/sqrt(Dqk) scale, the mask and an f32 softmax; the
     weights P rounded to bf16 for P.V (f32 sums), l summed over the f32 p;
     one cast of the output."""
     b, sq, h, dh = q.shape
+    dv = v.shape[-1]
     kh = k.shape[2]
     qg = q.reshape(b, sq, kh, h // kh, dh).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
@@ -182,10 +214,10 @@ def _bf16_kernel_form(q, k, v, *, causal):
     p = torch.exp(s - s.amax(-1, keepdim=True))
     l = p.sum(-1, keepdim=True).clamp_min(1e-30)
     o = torch.einsum("bkgqs,bskd->bkgqd", p.bfloat16().float(), v.float())
-    return (o / l).permute(0, 3, 1, 2, 4).reshape(b, sq, h, dh).bfloat16()
+    return (o / l).permute(0, 3, 1, 2, 4).reshape(b, sq, h, dv).bfloat16()
 
 
-@pytest.mark.parametrize("dh", [64, 128, 256])
+@pytest.mark.parametrize("dh", [64, 128, 256, pytest.param(MLA, id="192x128")])
 @pytest.mark.parametrize("h,kh", [(4, 4), (4, 2), (8, 1)])
 @pytest.mark.parametrize("sq,sk", [(128, 128), (256, 256), (64, 256),
                                    (1, 512), (100, 100)])
@@ -207,8 +239,9 @@ def test_bf16_kernel_rounding_within_tolerance(sq, sk, h, kh, dh):
 
 def _f32_kernel_form(q, k, v, *, causal, window, passes):
     """K3's f32 arithmetic in plain torch: q scaled by log2(e)/sqrt(Dh) in
-    f32 before the product; key tiles of 64 (Dh 64) or 32 (Dh 128, 256)
-    walked from the last down (at Dh 256 the kernel splits the output's
+    f32 before the product; key tiles of 64 (Dh 64) or 32 (Dh 128, 256,
+    MLA's q.k width 192, whose v is 128 wide) walked from the last down
+    (at Dh 256 the kernel splits the output's
     columns over two blocks, which leaves each column's arithmetic as it
     is); S = Q.K^T and each tile's P.V as TF32 products
     (``passes`` 1, or 3 for 3xTF32) with f32 sums, P.V's keys in each 8-key
@@ -217,7 +250,7 @@ def _f32_kernel_form(q, k, v, *, causal, window, passes):
     online softmax (m, l, acc) in f32 and base 2 (p = 2^(s - m));
     o = acc / max(l, 1e-30)."""
     b, sq, h, dh = q.shape
-    sk, kh = k.shape[1], k.shape[2]
+    sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
     tile = 64 if dh == 64 else 32
     scale = (torch.tensor(1.4426950408889634)
              / torch.sqrt(torch.tensor(float(dh))))
@@ -229,7 +262,7 @@ def _f32_kernel_form(q, k, v, *, causal, window, passes):
     order = order.reshape(-1)
     pos_q = torch.arange(sq)[:, None]
     m = torch.full((b, h, sq), tref.NEG_INF)
-    l, acc = torch.zeros(b, h, sq), torch.zeros(b, h, sq, dh)
+    l, acc = torch.zeros(b, h, sq), torch.zeros(b, h, sq, dv)
     for k0 in range(kt.shape[2] - tile, -1, -tile):
         s = mm_tf32(qs, kt[:, :, k0:k0 + tile].transpose(-1, -2), passes)
         pos_k = k0 + torch.arange(tile)[None, :]
@@ -266,12 +299,15 @@ def _share_of_f32_tol(sq, sk, h, kh, dh, causal, window, passes, seed=6):
     (129, 129, 10, 2, 128, True, None), (256, 256, 4, 2, 128, True, 16),
     (300, 300, 8, 2, 64, True, 8), (200, 200, 4, 2, 64, False, 100),
     (100, 300, 4, 2, 64, False, None), (300, 100, 4, 2, 128, False, None),
-    (130, 130, 16, 1, 256, True, None), (200, 200, 16, 1, 256, True, 48)])
+    (130, 130, 16, 1, 256, True, None), (200, 200, 16, 1, 256, True, 48),
+    (129, 129, 8, 8, MLA, True, None), (37, 37, 8, 8, MLA, True, None),
+    (300, 300, 4, 2, MLA, True, 16)])
 def test_f32_kernel_3xtf32_within_tolerance(sq, sk, h, kh, dh, causal,
                                             window):
     """3xTF32 products on the kernel's tiles, with its key order and online
     softmax, stay within F32_TOL of the plain version: Dh 64, 128 and 256,
-    GQA (G up to 16, and 5), windows, non-causal calls, ragged S."""
+    MLA's (192, 128), GQA (G up to 16, and 5), windows, non-causal calls,
+    ragged S."""
     assert _share_of_f32_tol(sq, sk, h, kh, dh, causal, window,
                              passes=3) <= 1.0
 
@@ -299,3 +335,17 @@ def test_wrapper_rejects_what_no_version_takes():
         flash_attention(q, k[:, :2], v[:, :2], window=4)       # empty rows
     with pytest.raises(TypeError):
         flash_attention(q, k.double(), v.double())
+
+
+@pytest.mark.parametrize("pair", [(192, 192), (128, 64), (192, 64),
+                                  (64, 128), (48, 32)])
+def test_kernel_refuses_a_pair_it_has_no_instance_of(pair):
+    """The kernel's instances are (64, 64), (128, 128), (256, 256) and
+    MLA's (192, 128): any other (q.k width, v width) raises ValueError on
+    the card's path (the plain version on the CPU takes any pair)."""
+    from repro_torch.kernels.flash_attention import HEAD_DIMS, check_instance
+    assert MLA in HEAD_DIMS
+    with pytest.raises(ValueError, match="v width"):
+        check_instance(*pair)
+    for dqk, dv in HEAD_DIMS:
+        check_instance(dqk, dv)

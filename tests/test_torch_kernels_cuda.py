@@ -201,7 +201,9 @@ def test_plain_version_not_called_on_cuda(cuda):
 # (Sq != Sk both ways), S at 63 and 65 around the f32 kernel's 64-row q
 # tile, G = 8 at H = 32, the heads of granite-8b (32 over 8), qwen2.5-14b
 # (40 over 8, G = 5) and chameleon-34b (64 over 8), recurrentgemma's
-# (16 over 1) and mixtral-8x22b's (48 over 8, G = 6)
+# (16 over 1) and mixtral-8x22b's (48 over 8, G = 6).  Each head-dim sweep
+# takes the (q.k width, v width) pairs of the kernel's instances: 64, 128,
+# 256 (both widths alike) and MLA's (192, 128)
 ATTN_SHAPES = [(sq, sk, h, kh)
                for sq, sk in ((128, 128), (256, 256), (64, 256), (1, 512),
                               (100, 100), (127, 127), (129, 129), (255, 255),
@@ -209,14 +211,18 @@ ATTN_SHAPES = [(sq, sk, h, kh)
                for h, kh in ((4, 4), (4, 2), (8, 1), (32, 4), (32, 8),
                              (40, 8), (64, 8), (16, 1), (48, 8))] \
     + [(1000, 1000, 16, 8)]
-HEAD_DIMS = [64, 128, 256]
+MLA = (192, 128)
+HEAD_DIMS = [64, 128, 256, pytest.param(MLA, id="192x128")]
 
 
 def _qkv(cuda, b, sq, sk, h, kh, dh, dtype, seed=0):
+    """q [b, sq, h, Dqk], k [b, sk, kh, Dqk], v [b, sk, kh, Dv]; ``dh``
+    is one width for both or the pair (Dqk, Dv)."""
+    dqk, dv = (dh, dh) if isinstance(dh, int) else dh
     rng = np.random.default_rng(seed)
     return [torch.from_numpy(rng.standard_normal(s).astype(np.float32))
             .to(device=cuda, dtype=dtype)
-            for s in ((b, sq, h, dh), (b, sk, kh, dh), (b, sk, kh, dh))]
+            for s in ((b, sq, h, dqk), (b, sk, kh, dqk), (b, sk, kh, dv))]
 
 
 def _check_attention(q, k, v, **kw):
@@ -225,7 +231,7 @@ def _check_attention(q, k, v, **kw):
     got = flash_attention(q, k, v, **kw)
     torch.cuda.synchronize()
     assert flash_attention.launches == before + 1
-    assert got.dtype == q.dtype and got.shape == q.shape
+    assert got.dtype == q.dtype and got.shape == q.shape[:3] + v.shape[3:]
     np.testing.assert_allclose(got.float().cpu().numpy(),
                                want.float().cpu().numpy(),
                                **(F32_TOL if q.dtype == torch.float32
@@ -265,8 +271,8 @@ def test_flash_attention_kernel_window_masks_whole_key_tiles(cuda, dh, causal,
 
 @pytest.mark.parametrize("dh", HEAD_DIMS)
 def test_flash_attention_kernel_f32_long_sequence(cuda, dh):
-    """S = 16,384: the last q tile walks 256 (Dh 64) or 512 (Dh 128, 256)
-    key tiles.  The tensor cores' accumulator truncates, so the f32 kernel
+    """S = 16,384: the last q tile walks 256 (Dh 64) or 512 (Dh 128, 256
+    and MLA's 192 / 128) key tiles.  The tensor cores' accumulator truncates, so the f32 kernel
     sums each tile's P.V from zero and adds it to the output in f32; its
     error must not grow out of F32_TOL with the number of tiles."""
     _check_attention(*_qkv(cuda, 1, 16384, 16384, 2, 1, dh, torch.float32,
@@ -337,6 +343,10 @@ def test_flash_attention_rejects_what_it_does_not_take(cuda):
         flash_attention(q.half(), k.half(), v.half())
     with pytest.raises(ValueError):
         flash_attention(*_qkv(cuda, 1, 64, 64, 4, 2, 32, torch.float32))
+    for pair in ((192, 192), (128, 64), (192, 64), (64, 128)):
+        with pytest.raises(ValueError, match="v width"):
+            flash_attention(*_qkv(cuda, 1, 64, 64, 4, 2, pair,
+                                  torch.bfloat16))
     with pytest.raises(ValueError):
         flash_attention(q.transpose(1, 2).contiguous().transpose(1, 2), k, v)
     with pytest.raises(ValueError):
@@ -462,13 +472,14 @@ def test_ssd_scan_rejects_what_it_does_not_take(cuda):
             ssd_scan(off, dta, a_neg, bma, cma, chunk=32)
 
 
-@pytest.mark.parametrize("dh", [64, 256])
+@pytest.mark.parametrize("dh", [64, 256, pytest.param(MLA, id="192x128")])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_kernels_refuse_autograd(cuda, dtype, dh):
     """K3 and K4 have no backward: in grad mode an input that requires grad
     raises (naming use_kernel=False) and launches nothing; under no_grad
     the kernel runs; use_kernel=False takes the plain version, which
-    autograd differentiates (K3 at Dh 64 and recurrentgemma's 256)."""
+    autograd differentiates (K3 at Dh 64, recurrentgemma's 256 and MLA's
+    192 / 128)."""
     q, k, v = _qkv(cuda, 1, 64, 64, 4, 2, dh, dtype)
     x, dt, a_neg, bm, cm, s0 = _ssd_inputs(cuda, 1, 64, 4, 64, 64, 1,
                                            dtype, True)

@@ -1206,7 +1206,9 @@ np.savez(cfg["out"], **out)
 # recurrentgemma-9b's at 4 layers (RG-LRU layers under the scan and in the
 # tail, a local layer whose window of 64 the 24 tokens stay inside), sca;
 # and one bbfl_alternative case, whose coefficients read the coin (its
-# seed's key stream draws both outcomes over the 4 steps)
+# seed's key stream draws both outcomes over the 4 steps); and
+# deepseek-v3-671b's smoke (MLA, a dense lead layer and an MoE layer, the
+# MTP term in the loss) for 2 steps
 TRAIN_CASES = (
     dict(name="qwen", arch="qwen1.5-0.5b", smoke={}, scheme="sca", steps=4,
          clients=4, per_client=1, seq=32, eta=0.05, seed=0),
@@ -1218,6 +1220,8 @@ TRAIN_CASES = (
     dict(name="bbfl", arch="qwen1.5-0.5b", smoke=dict(n_layers=1),
          scheme="bbfl_alternative", steps=4, clients=4, per_client=1,
          seq=16, eta=0.05, seed=4),
+    dict(name="deepseek", arch="deepseek-v3-671b", smoke={}, scheme="sca",
+         steps=2, clients=2, per_client=1, seq=24, eta=0.05, seed=5),
 )
 
 
