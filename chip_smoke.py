@@ -41,8 +41,12 @@ Phases (any failure exits nonzero, and nothing is swallowed):
          KH 8, Dh 128, window 4,096) at its prefill (B 8, S 1024) in bf16
          and in f32 and past its window (B 1, S 8,192) in f32, and at
          deepseek-v3-671b's MLA prefill (B 8, S 1024, H = KH = 128, q.k
-         width 192, v width 128, causal) in bf16 and in f32 -- f32 to
-         2e-5, bf16 to two bf16 ulps plus 1e-2; the
+         width 192, v width 128, causal) in bf16 and in f32, and at the
+         held-out evals of phase 19's train runs (B 4, S 4,096: qwen's
+         H = KH = 16, Dh 64, causal; recurrentgemma's Dh 256, H 16 over
+         KH 1, window 2,048) in bf16 -- f32 to
+         2e-5, bf16 to two bf16 ulps plus 1e-2 (past Sq.Sk = 2048^2 the
+         plain version is the blocked form); the
          shapes, the bound (the pairs the masks allow: all Sq x Sk
          non-causal; 2 (Dqk + Dv) operations a pair) and the
          ``scaled_dot_product_attention`` call timed beside it (with the
@@ -119,7 +123,8 @@ Phases (any failure exits nonzero, and nothing is swallowed):
   8. the heterogeneous-wireless path (``repro_torch.scenario_sweep``):
      (a) the theory sweep over all ten registered scenarios x (sca, lcpc,
      zero_bias), the sca designs one batched solve per fading family on
-     the card, each row's bias, variance and objective within 1e-6
+     the card (the three at once, each in a process of its own), each
+     row's bias, variance and objective within 1e-6
      relative of the reference's (``experiments/scenario_reference/
      theory_seed0.json``), and the grid's four sca designs within 1e-6 of
      the reference's per-scenario designs; (b) the full-width grid:
@@ -135,15 +140,15 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      unfused rounds (K2 once a round) with K2 forced off vs on; K1 alone
      against its plain version at C = 48 with whole cells of s = 0 and
      per-cell noise scales over four decades, bitwise, timed; (d)
-     ``adaptive_sca`` on disk_markov at full width, seeds 0-3, 30 rounds
+     ``adaptive_sca`` on disk_markov at full width, seeds 0-3, 20 rounds
      with an eval every 10: a redesign at each chunk end before the last
-     round (the reference's cadence ends chunks after rounds 0, 10, 20 and
-     29: three redesigns), each moving the design by more than 1e-3
-     relative and differently per seed, and the final state's
-     redesign on the card within 1e-6 of the same call on the machine's
-     CPU; (e) kill after chunk 1 and resume, bitwise (params, traces,
-     evals, fading state), on a disk_markov fleet and on the grid; every
-     wall printed beside the card's name and power limit;
+     round (the reference's cadence ends chunks after rounds 0, 10 and
+     19: two redesigns), each moving the design by more than 1e-3
+     relative and differently per seed, and the run's last redesign on
+     the card within 1e-6 of the same call on the machine's CPU; (e)
+     kill after chunk 1 and resume, bitwise (params, traces, evals,
+     fading state), on a disk_markov fleet and on the grid; every wall
+     printed beside the card's name and power limit;
   9. the single-run API at full width (paper_mlp, ``sca``): ``run_fl``
      for 30 rounds at minibatch 128 through K1 (once a round, the plain
      version never) and at full batch, each bitwise the K = S = 1
@@ -221,7 +226,8 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      (mamba2) against the plain versions in f32: the loss within 1e-3
      relative, the logits to phase 6's drift gate; (d) the reference
      example's preset (d_model 512, 8 layers, 200 steps, eta 0.05, seeds
-     0-3) held by ``repro_torch.lm_curves.gate`` against the reference's
+     0-3, the four runs at once, each in a process of its own) held by
+     ``repro_torch.lm_curves.gate`` against the reference's
      runs in ``experiments/lm_reference/``, after its false-alarm rate at
      four seeds (printed) is checked to be at most 25 %;
  14. recurrentgemma-9b (module 11's RG-LRU family: 26 RG-LRU layers in
@@ -290,7 +296,7 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      experts on the card's routes): slots and drops bitwise, y within
      1e-5 of its largest, aux within 1e-6 relative, the router's choices
      equal away from a near tie; (f) ``launch.train --arch mixtral-8x22b
-     --layers 2 --steps 10`` at full width in bf16: finite losses, K3
+     --layers 1 --steps 10`` at full width in bf16: finite losses, K3
      only in the held-out eval, and an eval loss equal to its
      cross-entropy plus ``router_aux_weight`` x the aux loss;
  18. deepseek-v3-671b (module 11b: MLA attention, whose prefill runs the
@@ -322,14 +328,40 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      held-out eval, 3 times (2 layers and the MTP head's), and an eval
      loss equal to its cross-entropy plus ``mtp_loss_weight`` x the MTP
      head's cross-entropy on the reference's labels;
- 19. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+ 19. OTA-FL training at ``train_4k``'s 4,096 tokens (module 11c: the
+     blocked form of K3's plain version, ``ref.grouped_attention_blocked``,
+     which the train path differentiates past Sq.Sk = 2048^2): (a)
+     ``launch.train --seq 4096 --steps 10`` (the sca scheme) for
+     qwen1.5-0.5b at full width
+     and depth and recurrentgemma-9b at full width on its first
+     LONG_RGEMMA_LAYERS layers (one local layer, whose window of 2,048
+     bites at 4,096), bf16, 4 clients x 1 x 4,096 (``train_4k``'s global
+     batch of 256 cut to 4): the memory reckoning printed beside the
+     measured peak, step ms, tokens/s, finite losses lower at the last
+     step than at the first, K3 once per attention layer in the held-out
+     eval (at S 4,096: 24 launches at Dh 64 causal; 1 at Dh 256 with
+     window 2,048) and never in training, the plain attention once per
+     attention layer of every training forward; (b) the blocked form
+     against the direct form on the card in f32 at B 1, S 4,096 (H = KH =
+     16, Dh 64, causal; the same with window 2,048; Dh 256, H 16 over KH
+     1, window 2,048): the output within F32_TOL, dq, dk and dv within
+     GRAD_RTOL plus GRAD_ATOL_SHARE of their largest of autograd through
+     the direct form, both forms' forward + backward time and peak memory,
+     the blocked peak lower; (c) qwen1.5-0.5b's held-out eval in f32 on 2
+     layers at 4 x 4,096, K3 on vs off (off is the blocked form): the loss
+     within LM_EVAL_LOSS_RTOL, the logits within DRIFT_LOGITS_SHARE of
+     their largest; (d) phase 13 (b)'s f32 step against the explicit
+     per-client aggregation on qwen's first 2 layers at 4 x 4,096 (the
+     blocked form's backward and the loss head's chunks in the step), the
+     params at rtol 1e-5 / atol 1e-6;
+ 20. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
      run's launches, with each dense arch's serve run's, with the qwen
      train run's eval's, with recurrentgemma's and with seamless's, its
      non-causal and causal launches on two rows, and with mixtral's; K3
      f32 with the f32 serve run's, with recurrentgemma's f32 run's, with
      seamless's two and with mixtral's two (its prefill, past the
      window); K3 bf16 and f32 at (192, 128) with deepseek's serve runs;
-     K4
+     K3 bf16 with phase 19's two train runs' evals at S 4,096; K4
      f32 with the mamba2 serve run's and the mamba2 train run's eval's; K1
      f32 four times: the Fig.-2 main path's, the grid's, the cohort
      fleet's and the cifar fleet's), each phase's seconds, then the last
@@ -415,9 +447,10 @@ CURVE_SEEDS, RESUME_ROUNDS = (0, 1, 2, 3), 30
 # phase 8: the scenario path.  The theory rows against the reference's at
 # 1e-6 relative (the solver lands ~1e-8 from the reference's designs, the
 # rows move less); the adaptive fleet's length, cadence and the design move
-# it must show (the grid's settings are ``scenario_sweep``'s)
+# it must show (the grid's settings are ``scenario_sweep``'s).  20 rounds
+# give two redesigns, each ~30 s of host work
 THEORY_RTOL = 1e-6
-ADAPTIVE_ROUNDS, ADAPTIVE_EVERY, ADAPTIVE_MOVE = 30, 10, 1e-3
+ADAPTIVE_ROUNDS, ADAPTIVE_EVERY, ADAPTIVE_MOVE = 20, 10, 1e-3
 GRID_CELLS = 48                            # 4 scenarios x 3 schemes x 4 seeds
 
 
@@ -510,7 +543,9 @@ SEAMLESS_STATE_TOKENS_MIN = 0.97
 # 4,096) through the ring caches; one MoE layer at full width in f32 with
 # capacity factor 0.5 on the card against the CPU (y within
 # MIXTRAL_Y_SHARE of its largest, aux within MIXTRAL_AUX_RTOL); launch.train
-# at 2 layers (bf16 params, f32 noise draws and two gradient trees: ~63 GB)
+# at 1 layer (bf16 params, f32 noise draws and two gradient trees; the
+# train run's time is mostly the CPU draw of its weights, ~10 s a billion,
+# and one layer holds the same checks as two)
 MIXTRAL_SERVE = dict(arch="mixtral-8x22b", batch=8, prompt_len=1024,
                      decode_tokens=32)
 MIXTRAL_LAYERS, MIXTRAL_FREE_MIN_GB = 12, 8.0
@@ -520,7 +555,7 @@ MIXTRAL_STATE_TOKENS_MIN = 0.97
 MIXTRAL_RING = dict(batch=1, prompt_len=8192, decode_tokens=32)
 MIXTRAL_DROP = dict(capacity_factor=0.5, batch=1, seq=1024)
 MIXTRAL_Y_SHARE, MIXTRAL_AUX_RTOL = 1e-5, 1e-6
-TRAIN_MIXTRAL = ("--arch", "mixtral-8x22b", "--layers", "2", "--steps", "10")
+TRAIN_MIXTRAL = ("--arch", "mixtral-8x22b", "--layers", "1", "--steps", "10")
 # phase 18: deepseek-v3-671b (61 layers: 3 dense, then MoE of 256 experts
 # top 8 and one shared, MLA attention, an MTP module; ~671.7B parameters)
 # served at full width on its first DEEPSEEK_LAYERS layers (3 dense + 1 MoE,
@@ -546,6 +581,19 @@ DEEPSEEK_DROP = dict(capacity_factor=0.5, batch=1, seq=1024, moe_d_ff=256)
 DEEPSEEK_Y_SHARE, DEEPSEEK_AUX_RTOL = 1e-5, 1e-6
 TRAIN_DEEPSEEK = ("--arch", "deepseek-v3-671b", "--layers", "2", "--steps",
                   "10")
+# phase 19: training at train_4k's 4,096 tokens.  qwen1.5-0.5b at full
+# depth; recurrentgemma-9b on its first LONG_RGEMMA_LAYERS layers (rglru,
+# rglru, local: 2.75B parameters); 4 clients x 1 x 4,096 tokens; the blocked
+# form against the direct form on the card in f32 at B 1, S 4,096 ((label,
+# H, KH, Dh, window)), its gradients to the train tests' tolerance; qwen's
+# eval in f32 on LONG_EVAL_LAYERS layers, K3 on vs off; the f32 train step
+# on LONG_EVAL_LAYERS layers at 4 x 4,096 against the explicit aggregation.
+# The two runs take launch.train's default scheme, sca
+LONG_STEPS, LONG_RGEMMA_LAYERS, LONG_EVAL_LAYERS = 10, 3, 2
+LONG_FORMS = [("h16_dh64_causal", 16, 16, 64, None),
+              ("h16_dh64_window2048", 16, 16, 64, 2048),
+              ("h16_kh1_dh256_window2048", 16, 1, 256, 2048)]
+GRAD_RTOL, GRAD_ATOL_SHARE = 1e-5, 1e-5
 
 
 class SmokeFailure(Exception):
@@ -1672,11 +1720,13 @@ def phase_scenarios(torch, np, dev, card, card_line):
     from repro_torch.fl.engine import chunk_lengths
     walls = {}
     t_phase = time.time()
-    world = ss.design(scn.scenario_names(), device=dev)
+    # the three fading families' batched solves at once
+    world = ss.design(scn.scenario_names(), device=dev, jobs=3)
     walls["sca_designs_s"] = {fam: sec for fam, _, sec in world["sca_calls"]}
     for fam, group, sec in world["sca_calls"]:
         print(f"  sca designs, {fam} ({', '.join(group)}): one batched solve "
-              f"on the card, {sec:.3f} s [{card_line}]", flush=True)
+              f"on the card, {sec:.3f} s, the three families' at once "
+              f"[{card_line}]", flush=True)
     ref = ss.load_theory_reference(0)
     errs = ss.theory_errors(ss.sweep(world), ref)
     worst = max(errs, key=errs.get)
@@ -1742,7 +1792,7 @@ def phase_scenarios(torch, np, dev, card, card_line):
     t0 = time.time()
     mk = world["disk_markov"]
     fading = scn.make_fading_process(mk["dep"], mk["scenario"].dynamics)
-    redesign_s = []
+    redesign_s, last = [], {}
     pc = pcm.make_adaptive_sca(mk["dep"], mk["prm"],
                                base=mk["schemes"][0], device=dev)
     hook = pc.redesign_fn
@@ -1753,6 +1803,7 @@ def phase_scenarios(torch, np, dev, card, card_line):
         out = hook(scheme, proc, state)
         torch.cuda.synchronize()
         redesign_s.append(time.time() - ts)
+        last.update(args=(scheme, proc, state.clone()), out=out)
         return out
     pc = dataclasses.replace(pc, redesign_fn=timed)
     arun = ss.run_config(task, ADAPTIVE_ROUNDS, ADAPTIVE_EVERY)
@@ -1765,31 +1816,30 @@ def phase_scenarios(torch, np, dev, card, card_line):
     moves = [_rel(np, b, a) for a, b in zip(gam, gam[1:])]
     seed_spread = [float(np.max(np.abs(g[0] - g[0, :1]) / np.abs(g[0, :1])))
                    for g in gam[1:]]
-    state = ares.fading_state[0].expand((1,) + tuple(
-        ares.fading_state.shape[1:]))
+    # the run's last redesign on the card against the same redesign on the
+    # CPU, from the state it was made from
+    scheme, proc, state = last["args"]
+    on_card, card_s = last["out"], redesign_s[-1]
     ts = time.time()
-    on_card = hook(pc, fading, state)
-    torch.cuda.synchronize()
-    card_s = time.time() - ts
-    ts = time.time()
-    on_cpu = hook(pc, fading, state.cpu())
+    on_cpu = hook(scheme, proc, state.cpu())
     cpu_s = time.time() - ts
     cpu_err = {f: _rel(np, getattr(on_card, f), getattr(on_cpu, f))
                for f in ("gamma", "alpha")}
     walls.update(adaptive_s=time.time() - t0,
                  adaptive_round_ms=round_ms(ares), redesign_s=redesign_s,
-                 final_redesign_card_s=card_s, final_redesign_cpu_s=cpu_s)
+                 last_redesign_card_s=card_s, last_redesign_cpu_s=cpu_s)
     print(f"  adaptive_sca on disk_markov, {ADAPTIVE_ROUNDS} rounds, "
           f"S = {len(ss.SEEDS)}: designs at rounds "
           f"{[t for t, _ in ares.designs]}, moves between chunks "
           f"{moves}, spread across seeds {seed_spread}; redesign walls "
           f"{[round(x, 3) for x in redesign_s]} s; round wall "
-          f"{walls['adaptive_round_ms']:.3f} ms; counts {a_counts}; the final "
-          f"state's redesign on the card {card_s:.3f} s vs this machine's CPU "
-          f"{cpu_s:.3f} s, relative difference {json.dumps(cpu_err)} "
+          f"{walls['adaptive_round_ms']:.3f} ms; counts {a_counts}; the last "
+          f"redesign on the card {card_s:.3f} s vs the same on this "
+          f"machine's CPU {cpu_s:.3f} s, relative difference "
+          f"{json.dumps(cpu_err)} "
           f"[{card_line}]", flush=True)
     # a redesign at every chunk boundary before the last round: the
-    # reference's cadence ends chunks after rounds 0, 10, 20 and 29
+    # reference's cadence ends chunks after rounds 0, 10 and 19
     n_redesigns = len(chunk_lengths(ADAPTIVE_ROUNDS, ADAPTIVE_EVERY, True)) - 1
     check(len(ares.designs) == n_redesigns + 1
           and len(redesign_s) == n_redesigns,
@@ -2226,12 +2276,14 @@ def check_train_run(np, res, cnt, n_layers, kernel, label):
           == 0, f"{label}: another kernel ran: {cnt}")
 
 
-def step_vs_explicit(torch, dev, scheme, gains):
-    """Phase 13 (b): one full-width qwen1.5-0.5b train step in f32 against
-    explicit per-client gradients, their OTA superposition sum_m s_m g_m
-    plus noise_scale z (the same z) and the SGD step.  Returns the reading
-    (the params' max abs error, the update's largest magnitude and its
-    max abs error); the params are held at STEP_TOL."""
+def step_vs_explicit(torch, dev, scheme, gains, seq=128, n_layers=0):
+    """Phase 13 (b) and 19 (d): one full-width qwen1.5-0.5b train step in
+    f32 (on its first ``n_layers`` layers when given) at 1 x ``seq``
+    tokens a client against explicit per-client gradients, their OTA
+    superposition sum_m s_m g_m plus noise_scale z (the same z) and the
+    SGD step.  Returns the reading (the params' max abs error, the
+    update's largest magnitude and its max abs error); the params are held
+    at STEP_TOL."""
     from repro_torch import configs
     from repro_torch.launch import steps
     from repro_torch.models.param import param_leaves, trainable
@@ -2239,9 +2291,10 @@ def step_vs_explicit(torch, dev, scheme, gains):
     from repro_torch.tasks.lm import client_batches
     cfg = configs.get_config("qwen1.5-0.5b").replace(
         param_dtype=torch.float32, compute_dtype=torch.float32)
+    cfg = cfg.replace(n_layers=n_layers) if n_layers else cfg
     bundle = build_bundle(cfg, dev)
     params = bundle.init(0)
-    n, seq, eta = len(gains), 128, 0.02
+    n, eta = len(gains), 0.02
     tokens = torch.as_tensor(client_batches(cfg.vocab_size, n, 1, seq, 1, 0)
                              [0].reshape(-1, seq + 1), device=dev).long()
     leaves = param_leaves(params)
@@ -2283,22 +2336,23 @@ def step_vs_explicit(torch, dev, scheme, gains):
                "update_max_abs_err": upd_err,
                "active_clients": float(metrics["active_clients"]),
                "noise_scale": float(metrics["noise_scale"]),
-               "loss": float(metrics["loss"]), "tol": STEP_TOL}
+               "loss": float(metrics["loss"]), "layers": cfg.n_layers,
+               "seq": seq, "tol": STEP_TOL}
     check(ok, f"the weighted-loss step disagrees with the explicit "
           f"aggregation: {reading}")
     check(upd > 0, "the step moved no parameter")
     return params, bundle, reading
 
 
-def eval_on_vs_off(torch, dev, bundle, params, kernel):
-    """Phase 13 (c): the held-out eval (4 x 129 tokens of the task's
-    stream) through K3 / K4 against the plain versions on the same f32
-    params: the loss, and the logits to phase 6's drift gate."""
+def eval_on_vs_off(torch, dev, bundle, params, kernel, seq=128):
+    """Phase 13 (c) and 19 (c): the held-out eval (4 x (seq + 1) tokens of
+    the task's stream) through K3 / K4 against the plain versions on the
+    same f32 params: the loss, and the logits to phase 6's drift gate."""
     from repro_torch.models import transformer as tfm
     from repro_torch.tasks.lm import client_batches
     cfg = bundle.cfg
-    test = torch.as_tensor(client_batches(cfg.vocab_size, 4, 1, 128, 2, 0)
-                           [-1].reshape(-1, 129), device=dev).long()
+    test = torch.as_tensor(client_batches(cfg.vocab_size, 4, 1, seq, 2, 0)
+                           [-1].reshape(-1, seq + 1), device=dev).long()
     with torch.no_grad():
         zero_counts()
         loss_on = float(bundle.loss(params, test, use_kernel=True))
@@ -2397,7 +2451,8 @@ def phase_train(torch, np, dev):
           f"the LM gate's false-alarm rate {fa['any']} is over "
           f"{lm_curves.FALSE_ALARM_MAX}: widen it to more reference seeds")
     t0 = time.time()
-    port = lm_curves.run_port(lm_curves.SEEDS, dev)
+    port = lm_curves.run_port(lm_curves.SEEDS, dev,
+                              jobs=len(lm_curves.SEEDS))
     rows = lm_curves.gate(port, ref)
     print(lm_curves.table(rows), flush=True)
     check(all(r["ok"] for r in rows), "the LM trajectories miss the "
@@ -3073,7 +3128,7 @@ def phase_mixtral(torch, np, dev, card_line):
     torch.cuda.empty_cache()
     part_done("e")
 
-    # (f) launch.train at two layers, full width, bf16: the loss takes the
+    # (f) launch.train at one layer, full width, bf16: the loss takes the
     # router's aux term; K3 only in the held-out eval
     zero_counts()
     rt = train.main(list(TRAIN_MIXTRAL))
@@ -3360,6 +3415,221 @@ def phase_deepseek(torch, np, dev, card_line):
     return out
 
 
+def train_reckoning(torch, cfg, clients, seq):
+    """A ``launch.train`` step's device memory reckoned from its shapes, in
+    bytes, at ``clients`` x 1 x ``seq`` tokens: the weights; the step's f32
+    noise draws (one z per leaf); the gradients and their noisy copy;
+    what the forward keeps for the backward, by layer kind (an attention
+    layer's q, k, v, f32 output and row statistics, and one key block's
+    scores, p and their gradients while it runs; an RG-LRU layer's f32
+    gates and the doubling scan's two f32 levels a step, log2 S steps;
+    the FFN's four [T, F] products; the residual stream's f32 norms); the
+    loss head's one chunk of f32 logits five times over (the softcap, the
+    log-sum-exp and their gradients).  The peak is the largest of the
+    forward's end (weights, noise, activations, the head and the
+    unembedding's gradient) and the step's end (weights, noise, two
+    gradient trees and the SGD update's f32 copies of the largest
+    leaf)."""
+    import math
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.param import _map_defs
+    es = torch.empty((), dtype=cfg.compute_dtype).element_size()
+    defs = tfm.model_defs(cfg)
+    weights = def_bytes(torch, defs)
+    sizes = []
+    _map_defs(defs, lambda d: sizes.append(d.size))
+    n_params = sum(sizes)
+    d, dh, h, kh = (cfg.d_model, cfg.resolved_head_dim, cfg.n_heads,
+                    cfg.n_kv_heads)
+    tokens = clients * seq
+    kinds = [kind for kind, _ in tfm.layer_sigs(cfg)]
+    n_attn = sum(k != "rglru" for k in kinds)
+    n_rglru = len(kinds) - n_attn
+    w = cfg.lru_width or d
+    attn = tokens * (h * dh * es + 2 * kh * dh * es + h * dh * 4 + h * 8)
+    block = 5 * 4 * tokens * h * 1024
+    rglru = 4 * tokens * w * (6 + 2 * math.ceil(math.log2(seq)))
+    ffn = 4 * tokens * cfg.d_ff * es
+    resid = 4 * tokens * d * 4
+    r = {"weights": weights, "noise": 4 * n_params,
+         "activations": n_attn * attn + n_rglru * rglru
+         + len(kinds) * (ffn + resid) + (block if n_attn else 0),
+         "head": 5 * 4 * tfm.HEAD_CHUNK * cfg.padded_vocab,
+         "unembed_grad": cfg.padded_vocab * d * es,
+         "grads": 2 * weights, "sgd_f32": 3 * 4 * max(sizes)}
+    r["peak"] = r["weights"] + r["noise"] + max(
+        r["activations"] + r["head"] + r["unembed_grad"],
+        r["grads"] + r["sgd_f32"])
+    return r
+
+
+def blocked_vs_direct(torch, dev, label, h, kh, dh, window, seq):
+    """Phase 19 (b): one case of the blocked form against the direct form
+    on the card in f32, B 1: forward and gradients; each form's forward +
+    backward time (a host clock between synchronizations, the median of
+    3 after one warm-up) and its peak memory over the inputs."""
+    import statistics
+    from repro_torch.kernels import ref
+    gen = torch.Generator(device=dev).manual_seed(seq + h + dh)
+    q, k, v, cot = (torch.randn(shape, generator=gen, device=dev)
+                    for shape in ((1, seq, h, dh), (1, seq, kh, dh),
+                                  (1, seq, kh, dh), (1, seq, h, dh)))
+    pos = torch.arange(seq, device=dev)
+    res = {}
+    for name, form in (("direct", ref.grouped_attention),
+                       ("blocked", ref.grouped_attention_blocked)):
+        walls = []
+        for _ in range(4):
+            leaves = [t.detach().requires_grad_(True) for t in (q, k, v)]
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats(dev)
+            base = torch.cuda.memory_allocated(dev)
+            t0 = time.perf_counter()
+            out = form(*leaves, pos, pos, causal=True, window=window)
+            grads = torch.autograd.grad((out * cot).sum(), leaves)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            peak = torch.cuda.max_memory_allocated(dev) - base
+        res[name] = (out.detach(), grads, 1e3 * statistics.median(walls[1:]),
+                     peak)
+    out_d, grads_d, ms_d, peak_d = res["direct"]
+    out_b, grads_b, ms_b, peak_b = res["blocked"]
+    out_ok = bool((out_b - out_d).abs().le(
+        F32_TOL["atol"] + F32_TOL["rtol"] * out_d.abs()).all())
+    grad_err, grad_ok = {}, True
+    for name, gb, gd in zip("qkv", grads_b, grads_d):
+        tol = GRAD_RTOL * gd.abs() + GRAD_ATOL_SHARE * gd.abs().max()
+        grad_ok &= bool((gb - gd).abs().le(tol).all())
+        grad_err[f"d{name}_max_abs_err"] = float((gb - gd).abs().max())
+        grad_err[f"d{name}_max_abs"] = float(gd.abs().max())
+    reading = {"label": label, "h": h, "kh": kh, "dh": dh, "window": window,
+               "seq": seq,
+               "out_max_abs_err": float((out_b - out_d).abs().max()),
+               "out_max_abs": float(out_d.abs().max()), **grad_err,
+               "direct_fwd_bwd_ms": ms_d, "blocked_fwd_bwd_ms": ms_b,
+               "direct_peak_gb": peak_d / 1e9,
+               "blocked_peak_gb": peak_b / 1e9}
+    check(out_ok, f"blocked vs direct form, {label}: the output is not "
+          f"within {F32_TOL}: {reading}")
+    check(grad_ok, f"blocked vs direct form, {label}: a gradient is not "
+          f"within {GRAD_RTOL} + {GRAD_ATOL_SHARE} of its largest: "
+          f"{reading}")
+    check(peak_b < peak_d, f"blocked vs direct form, {label}: the blocked "
+          f"peak is not lower: {reading}")
+    return reading
+
+
+def phase_long_train(torch, np, dev, card_line):
+    """Phase 19: training at train_4k's 4,096 tokens through the blocked
+    form, both runs' evals through K3 at S 4,096; the blocked form against
+    the direct form on the card; qwen's eval K3 on vs off at S 4,096; the
+    f32 step at 4 x 4,096 against the explicit aggregation."""
+    import gc
+    from repro_torch import configs
+    from repro_torch.launch import train
+    from repro_torch.models import transformer as tfm
+    from repro_torch.models.registry import build_bundle
+    seq = configs.TRAIN_4K.seq_len
+    out, t_part = {"seconds": {}}, [time.time()]
+
+    def part_done(label):
+        """Record the seconds since the last part ended."""
+        now = time.time()
+        out["seconds"][label] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    # (a) the two runs
+    total = torch.cuda.get_device_properties(dev).total_memory
+    for arch, layers in (("qwen1.5-0.5b", 0),
+                         ("recurrentgemma-9b", LONG_RGEMMA_LAYERS)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        cfg = configs.get_config(arch)
+        cfg = cfg.replace(n_layers=layers) if layers else cfg
+        clients = 4
+        rk = train_reckoning(torch, cfg, clients, seq)
+        print(f"  (a) {arch} ({cfg.n_layers} layers, full width, bf16, "
+              f"{clients} x {seq}) memory reckoning, GB: "
+              f"{json.dumps({k: v / 1e9 for k, v in rk.items()})} of the "
+              f"card's {total / 1e9:.2f} GB", flush=True)
+        argv = ["--arch", arch, "--seq", str(seq), "--steps", str(LONG_STEPS),
+                "--clients", str(clients)]
+        if layers:
+            argv += ["--layers", str(layers)]
+        zero_counts()
+        res = train.main(argv)
+        torch.cuda.synchronize()
+        cnt = counts()
+        attn_layers = sum(kind != "rglru" for kind, _ in tfm.layer_sigs(cfg))
+        check_train_run(np, res, cnt, attn_layers, "flash_attention",
+                        f"{arch} train at {seq}")
+        check(res.losses[-1] < res.losses[0], f"{arch} at {seq}: the last "
+              f"step's loss {res.losses[-1]} is not below the first's "
+              f"{res.losses[0]}")
+        st = dict(res.stats, layers=cfg.n_layers, attention_layers=attn_layers,
+                  reckoned_peak_gb=rk["peak"] / 1e9,
+                  reckoning_gb={k: v / 1e9 for k, v in rk.items()})
+        print(f"  (a) {arch} train at {clients} x {seq} [{card_line}]: step "
+              f"{st['step_ms']:.1f} ms, {st['tokens_per_s']:.1f} tokens/s, "
+              f"peak {st['peak_mem_gb']:.2f} GB (reckoned "
+              f"{st['reckoned_peak_gb']:.2f}); losses {res.losses}; counts "
+              f"{cnt}; {json.dumps(st)}", flush=True)
+        out[arch], out[f"{arch}_counts"] = st, cnt
+        if arch == "qwen1.5-0.5b":
+            scheme, gains = res.scheme, res.gains
+        del res
+        part_done(arch)
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # (b) the blocked form against the direct form, f32
+    out["forms"] = []
+    for label, h, kh, dh, window in LONG_FORMS:
+        reading = blocked_vs_direct(torch, dev, label, h, kh, dh, window, seq)
+        print(f"  (b) blocked vs direct form, f32, B 1, S {seq}, {label} "
+              f"[{card_line}]: {json.dumps(reading)}", flush=True)
+        out["forms"].append(reading)
+        gc.collect()
+        torch.cuda.empty_cache()
+    part_done("b")
+
+    # (c) qwen's eval in f32 at S 4,096, K3 on vs off (the blocked form)
+    cfg = configs.get_config("qwen1.5-0.5b").replace(
+        n_layers=LONG_EVAL_LAYERS, param_dtype=torch.float32,
+        compute_dtype=torch.float32)
+    bundle = build_bundle(cfg, dev)
+    zero_counts()
+    out["eval_k3"] = eval_on_vs_off(torch, dev, bundle, bundle.init(0),
+                                    "flash_attention", seq=seq)
+    cnt = counts()
+    check(cnt["plain_attention"] >= LONG_EVAL_LAYERS,
+          f"qwen f32 eval at {seq}: the plain attention ran "
+          f"{cnt['plain_attention']} times")
+    print(f"  (c) f32 qwen eval ({LONG_EVAL_LAYERS} layers, 4 x {seq}), K3 "
+          f"on vs off (the blocked form): {json.dumps(out['eval_k3'])} (loss "
+          f"within {LM_EVAL_LOSS_RTOL} relative; logits within "
+          f"{DRIFT_LOGITS_SHARE} of max |logit|)", flush=True)
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("c")
+
+    # (d) the f32 step at 4 x 4,096 against the explicit aggregation, with
+    # the qwen run's scheme and gains
+    params, bundle, out["step_vs_explicit"] = step_vs_explicit(
+        torch, dev, scheme, gains, seq=seq, n_layers=LONG_EVAL_LAYERS)
+    print(f"  (d) f32 qwen step ({LONG_EVAL_LAYERS} layers, 4 x {seq}) vs "
+          f"explicit per-client aggregation: "
+          f"{json.dumps(out['step_vs_explicit'])}", flush=True)
+    del params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("d")
+    print(f"  seconds per part of phase 19: {json.dumps(out['seconds'])}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3495,7 +3765,11 @@ def main() -> int:
           "at full width through K3's (192, 128) instance, its MoE layer "
           "card vs CPU, and its train step with the MTP loss")
     deepseek = phase_deepseek(torch, np, dev, card_line)
-    begin(19, "the kernels line")
+    begin(19, "OTA-FL training at train_4k's 4,096 tokens through the "
+          "blocked form: qwen1.5-0.5b and recurrentgemma-9b at full width, "
+          "K3 in their evals at S 4,096")
+    long_train = phase_long_train(torch, np, dev, card_line)
+    begin(20, "the kernels line")
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
                     path_counts["fused_bf16"]["ota_round_step"],
@@ -3561,6 +3835,14 @@ def main() -> int:
                  "128, H 128]", "flash_attention",
                  deepseek["f32_counts"]["flash_attention"],
                  ares["deepseek-v3_f32"]))
+    rows.append(("flash_attention[bf16, qwen1.5-0.5b train eval at S 4096]",
+                 "flash_attention",
+                 long_train["qwen1.5-0.5b_counts"]["flash_attention"],
+                 ares["train_4k_eval"]))
+    rows.append(("flash_attention[bf16, recurrentgemma-9b train eval at S "
+                 "4096, Dh 256, window 2048]", "flash_attention",
+                 long_train["recurrentgemma-9b_counts"]["flash_attention"],
+                 ares["recurrentgemma-9b_train_4k_eval"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -3569,21 +3851,21 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[19] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[20] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[19] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[19] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[19] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[19] single run: {json.dumps(single)}", flush=True)
-    print(f"[19] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[19] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[20] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[20] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[20] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[20] single run: {json.dumps(single)}", flush=True)
+    print(f"[20] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[20] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print("[19] dense archs: " + json.dumps(
+    print("[20] dense archs: " + json.dumps(
         {arch: {k: st[k] for k in ("batch", "prefill_ms",
                                    "decode_ms_per_token", "peak_mem_gb",
                                    "batch_fits")}
          for arch, (st, _) in dense.items()}), flush=True)
-    print("[19] train: " + json.dumps(
+    print("[20] train: " + json.dumps(
         {arch: {k: trained[arch][k] for k in (
             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
             "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
@@ -3591,7 +3873,7 @@ def main() -> int:
         | {"lm_curves_wall_s": trained["curves"]["wall_s"],
            "lm_curves_step_ms": trained["curves"]["step_ms"]}),
         flush=True)
-    print("[19] recurrentgemma-9b: " + json.dumps(
+    print("[20] recurrentgemma-9b: " + json.dumps(
         {"bf16": {k: rgemma["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: rgemma["f32"][k] for k in (
@@ -3600,7 +3882,7 @@ def main() -> int:
          "ring": {k: rgemma["ring"][k] for k in (
              "layers", "batch", "prompt_len", "window", "prefill_ms",
              "decode_ms_per_token", "equal_tokens")}}), flush=True)
-    print("[19] seamless-m4t-medium: " + json.dumps(
+    print("[20] seamless-m4t-medium: " + json.dumps(
         {"bf16": {k: seamless["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: seamless["f32"][k] for k in (
@@ -3611,7 +3893,7 @@ def main() -> int:
          "ragged": {k: seamless["ragged"][k] for k in (
              "memory_max_abs_err", "dec_layer0_max_abs_err",
              "logits_max_abs_diff", "equal_next_tokens")}}), flush=True)
-    print("[19] mixtral-8x22b: " + json.dumps(
+    print("[20] mixtral-8x22b: " + json.dumps(
         {"bf16": {k: mixtral["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -3629,7 +3911,7 @@ def main() -> int:
              "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
              "first_loss", "final_loss", "held_out_loss", "eval_aux",
              "peak_mem_gb")}}), flush=True)
-    print("[19] deepseek-v3-671b: " + json.dumps(
+    print("[20] deepseek-v3-671b: " + json.dumps(
         {"bf16": {k: deepseek["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -3644,7 +3926,16 @@ def main() -> int:
              "first_loss", "final_loss", "held_out_loss", "eval_mtp_xent",
              "peak_mem_gb")},
          "seconds": deepseek["seconds"]}), flush=True)
-    print(f"[19] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print("[20] train at 4,096 tokens: " + json.dumps(
+        {arch: {k: long_train[arch][k] for k in (
+            "layers", "steps", "clients", "seq", "step_ms", "first_step_ms",
+            "tokens_per_s", "eval_ms", "first_loss", "final_loss",
+            "held_out_loss", "peak_mem_gb", "reckoned_peak_gb")}
+         for arch in ("qwen1.5-0.5b", "recurrentgemma-9b")}
+        | {"forms": long_train["forms"], "eval_k3": long_train["eval_k3"],
+           "step_vs_explicit": long_train["step_vs_explicit"],
+           "seconds": long_train["seconds"]}), flush=True)
+    print(f"[20] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "
@@ -3654,7 +3945,7 @@ def main() -> int:
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "
           f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
-    print(f"[19] seconds per phase: {json.dumps(phase_s)}", flush=True)
+    print(f"[20] seconds per phase: {json.dumps(phase_s)}", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -7,11 +7,16 @@ with local attention), seamless-m4t-medium (the encoder-decoder),
 mixtral-8x22b (MoE with sliding-window attention) and deepseek-v3-671b
 (MoE with latent attention, MLA, and a multi-token-prediction head).  Any
 other arch raises and names ROADMAP.md, where the reference's other archs
-are queued.
+are queued.  ``SHAPES`` are the reference's input shapes
+(``configs.shapes``); ``launch.train --seq 4096`` trains at ``TRAIN_4K``'s
+length.
 """
 from __future__ import annotations
 
 import importlib
+
+from repro_torch.configs.shapes import (SHAPES, TRAIN_4K,  # noqa: F401
+                                        InputShape, get_shape)
 
 _MODULES = {
     "qwen1.5-0.5b": "repro_torch.configs.qwen15_05b",
@@ -40,8 +45,20 @@ def get_config(arch: str):
     return _module(arch).CONFIG
 
 
+def long_context_ok(arch: str) -> bool:
+    return bool(getattr(_module(arch), "LONG_CONTEXT_OK", False))
+
+
 def long_context_config(arch: str):
     """Config used for the long_500k shape (may be a sub-quadratic variant)."""
     mod = _module(arch)
     variant = getattr(mod, "LONG_CONTEXT_VARIANT", None)
     return mod.CONFIG.replace(**variant) if variant else mod.CONFIG
+
+
+def supported_shapes(arch: str) -> tuple:
+    """Shapes this arch runs, per DESIGN.md §Arch-applicability."""
+    names = ["train_4k", "prefill_32k", "decode_32k"]
+    if long_context_ok(arch):
+        names.append("long_500k")
+    return tuple(names)

@@ -30,7 +30,8 @@ that one TF32 pass misses; K and V tiles come in by ``cp.async``, and each
 tile's P.V is summed from zero and added in f32, so the error does not
 grow with the sequence.
 
-The plain version is ``ref.attention_ref``.  The wrapper takes it for CPU
+The plain version is ``ref.attention_ref`` (past Sq·Sk = 2048² its
+blocked form, as the reference's).  The wrapper takes it for CPU
 tensors, and on the card only when asked (``use_kernel=False``: the train
 path's forward, which autograd differentiates, and on-card comparison); a
 CUDA tensor otherwise reaches the kernel or raises.  The kernel has no

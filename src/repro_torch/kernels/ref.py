@@ -8,7 +8,11 @@ the kernels' own order of operations (a loop over the devices, one
 rounded op at a time), so that the card holds K1 and K2 to them bit for
 bit.
 Each kernel's plain version keeps a plain call count (``.calls``), so
-that a run can show that its CUDA path never fell back to them.
+that a run can show that its CUDA path never fell back to them.  K3's
+plain version (``attention_ref``) is, as the reference's attention, the
+direct form up to Sq·Sk = 2048² and an online softmax over key blocks
+past it (``grouped_attention_blocked``, differentiable at O(S) memory: the
+train path's attention at long sequences).
 """
 from __future__ import annotations
 
@@ -76,36 +80,157 @@ def grouped_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     q: [B, Sq, H, Dqk]; k: [B, Sk, KH, Dqk]; v: [B, Sk, KH, Dv], H = KH * G;
     qpos: [Sq], kpos: [Sk].  Scores (scaled by 1/sqrt(Dqk)) and softmax in
     float32; masked scores are -1e30.  Returns [B, Sq, H, Dv] in q's
-    dtype.  Not counted: decode steps call it
-    directly (the reference's direct form; its blocked form for
-    Sq·Sk > 2048² computes the same function).
+    dtype.  Not counted: decode steps call it directly.  The reference's
+    direct form; ``attention_ref`` takes ``grouped_attention_blocked``
+    past Sq·Sk = 2048², as the reference's ``grouped_attention`` takes its
+    blocked form there.
     """
     b, sq, h, dh = q.shape
     kh = k.shape[2]
     qg = q.reshape(b, sq, kh, h // kh, dh).float()
     s = torch.einsum("bqkgd,bskd->bkgqs", qg, k.float())
     s = s / torch.sqrt(torch.tensor(dh, dtype=torch.float32))
-    mask = torch.ones((sq, k.shape[1]), dtype=torch.bool, device=q.device)
-    if causal:
-        mask &= kpos[None, :] <= qpos[:, None]
-    if window is not None:
-        mask &= kpos[None, :] > (qpos[:, None] - window)
-    s = torch.where(mask, s, NEG_INF)
+    s = torch.where(_mask(qpos, kpos, causal, window), s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bkgqs,bskd->bqkgd", p, v.float())
     return o.reshape(b, sq, h, v.shape[-1]).to(q.dtype)
 
 
+def _mask(qpos: torch.Tensor, kpos: torch.Tensor, causal: bool,
+          window: Optional[int]) -> torch.Tensor:
+    """[Sq, Sk] allowed (query, key) pairs."""
+    mask = torch.ones((qpos.shape[0], kpos.shape[0]), dtype=torch.bool,
+                      device=qpos.device)
+    if causal:
+        mask &= kpos[None, :] <= qpos[:, None]
+    if window is not None:
+        mask &= kpos[None, :] > (qpos[:, None] - window)
+    return mask
+
+
+def _blocks(q, k, v, kpos, block_k):
+    """The blocked form's f32 operands: q [B, Sq, KH, G, Dqk], k and v
+    padded to a multiple of ``block_k`` keys, the padded key positions,
+    each key's validity (False on the padding) and the scale."""
+    b, sq, h, dqk = q.shape
+    sk, kh = k.shape[1], k.shape[2]
+    pad = (-sk) % block_k
+    scale = 1.0 / torch.sqrt(torch.tensor(dqk, dtype=torch.float32,
+                                          device=q.device))
+    return (q.reshape(b, sq, kh, h // kh, dqk).float(),
+            F.pad(k.float(), (0, 0, 0, 0, 0, pad)),
+            F.pad(v.float(), (0, 0, 0, 0, 0, pad)), F.pad(kpos, (0, pad)),
+            torch.arange(sk + pad, device=q.device) < sk, scale)
+
+
+class _BlockedAttention(torch.autograd.Function):
+    """``grouped_attention_blocked``'s forward and backward; see there."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, qpos, kpos, causal, window, block_k):
+        qf, kf, vf, kpos_f, valid, scale = _blocks(q, k, v, kpos, block_k)
+        b, sq, kh, g, _ = qf.shape
+        dv = v.shape[-1]
+        m = torch.full((b, kh, g, sq), NEG_INF, dtype=torch.float32,
+                       device=q.device)
+        l = torch.zeros_like(m)
+        acc = torch.zeros((b, kh, g, sq, dv), dtype=torch.float32,
+                          device=q.device)
+        for j in range(0, kf.shape[1], block_k):
+            blk = slice(j, j + block_k)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf[:, blk]) * scale
+            mask = _mask(qpos, kpos_f[blk], causal, window) & valid[blk]
+            s = torch.where(mask, s, NEG_INF)
+            m_new = torch.maximum(m, s.amax(dim=-1))
+            p = torch.exp(s - m_new[..., None])
+            alpha = torch.exp(m - m_new)
+            l = l * alpha + p.sum(dim=-1)
+            acc = acc * alpha[..., None] + torch.einsum(
+                "bkgqs,bskd->bkgqd", p, vf[:, blk])
+            m = m_new
+        out = acc / torch.clamp(l, min=1e-30)[..., None]
+        out = out.permute(0, 3, 1, 2, 4).reshape(b, sq, kh * g, dv)
+        lse = m + torch.log(l)
+        ctx.save_for_backward(q, k, v, qpos, kpos, out, lse)
+        ctx.causal, ctx.window, ctx.block_k = causal, window, block_k
+        return out.to(q.dtype)
+
+    @staticmethod
+    def backward(ctx, d_out):
+        q, k, v, qpos, kpos, out, lse = ctx.saved_tensors
+        causal, window, block_k = ctx.causal, ctx.window, ctx.block_k
+        qf, kf, vf, kpos_f, valid, scale = _blocks(q, k, v, kpos, block_k)
+        b, sq, kh, g, _ = qf.shape
+        sk, dv = k.shape[1], v.shape[-1]
+        do = d_out.float().reshape(b, sq, kh, g, dv)
+        # D = rowsum(dO * O), [B, KH, G, Sq]
+        big_d = (do * out.reshape(b, sq, kh, g, dv)).sum(-1).permute(
+            0, 2, 3, 1)
+        dq = torch.zeros_like(qf)
+        dk = torch.zeros_like(kf)
+        dv_ = torch.zeros_like(vf)
+        for j in range(0, kf.shape[1], block_k):
+            blk = slice(j, j + block_k)
+            s = torch.einsum("bqkgd,bskd->bkgqs", qf, kf[:, blk]) * scale
+            mask = _mask(qpos, kpos_f[blk], causal, window) & valid[blk]
+            p = torch.exp(torch.where(mask, s, NEG_INF) - lse[..., None])
+            dv_[:, blk] = torch.einsum("bkgqs,bqkgd->bskd", p, do)
+            dp = torch.einsum("bqkgd,bskd->bkgqs", do, vf[:, blk])
+            ds = p * (dp - big_d[..., None]) * scale
+            dq += torch.einsum("bkgqs,bskd->bqkgd", ds, kf[:, blk])
+            dk[:, blk] = torch.einsum("bkgqs,bqkgd->bskd", ds, qf)
+        return (dq.reshape(q.shape).to(q.dtype), dk[:, :sk].to(k.dtype),
+                dv_[:, :sk].to(v.dtype), None, None, None, None, None)
+
+
+def grouped_attention_blocked(q: torch.Tensor, k: torch.Tensor,
+                              v: torch.Tensor, qpos: torch.Tensor,
+                              kpos: torch.Tensor, *, causal: bool,
+                              window: Optional[int],
+                              block_k: int = 1024) -> torch.Tensor:
+    """``grouped_attention`` as an online softmax over key blocks, the
+    reference's blocked form (``repro/models/attention.py:80-121``): the
+    same shapes, f32 throughout, keys padded to a multiple of ``block_k``,
+    masked scores -1e30, the running max m, sum l and accumulator rescaled
+    by exp(m_prev - m_new) at each block, ``acc / max(l, 1e-30)`` at the
+    end.  Returns [B, Sq, H, Dv] in q's dtype.
+
+    One departure: the padded keys are masked by an explicit validity mask
+    in every mode.  The reference gives them the position max(qpos) + 1,
+    which only the causal mask removes, so its non-causal blocked form
+    lets the zero keys into every row's softmax when Sk is not a multiple
+    of ``block_k`` (it then differs from its own direct form); this one
+    computes the direct form's function there too.
+
+    Differentiable, at O(S) memory: the forward saves q, k, v, the f32
+    output and each row's log-sum-exp, nothing with both an Sq and an Sk
+    extent, and the backward walks the key blocks again, recomputing each
+    block's p = exp(s - lse): dv += p^T dO, dp = dO v^T,
+    ds = p (dp - rowsum(dO O)), dq += ds k scale, dk += ds^T q scale
+    (summed over the G query heads of a KV head).  Gradients come back in
+    the inputs' dtypes.
+    """
+    return _BlockedAttention.apply(q, k, v, qpos, kpos, causal, window,
+                                   block_k)
+
+
+# Sq * Sk past which the reference's ``grouped_attention`` takes its blocked
+# form (``repro/models/attention.py:80``)
+BLOCKED_ABOVE = 2048 * 2048
+
+
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                   causal: bool = True,
                   window: Optional[int] = None) -> torch.Tensor:
-    """K3's plain version: ``grouped_attention`` with positions from 0 on
-    both sides, counted."""
+    """K3's plain version, with positions from 0 on both sides, counted:
+    ``grouped_attention`` up to Sq·Sk = 2048², ``grouped_attention_blocked``
+    past it, as the reference chooses between its two forms."""
     attention_ref.calls += 1
     qpos = torch.arange(q.shape[1], device=q.device)
     kpos = torch.arange(k.shape[1], device=q.device)
-    return grouped_attention(q, k, v, qpos, kpos, causal=causal,
-                             window=window)
+    form = grouped_attention_blocked \
+        if q.shape[1] * k.shape[1] > BLOCKED_ABOVE else grouped_attention
+    return form(q, k, v, qpos, kpos, causal=causal, window=window)
 
 
 def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,

@@ -22,7 +22,10 @@ router's load-balance term; deepseek's, its MTP head's cross-entropy.
 The world is the reference's: ``WirelessConfig(num_devices=clients,
 seed)``, its deployment, ``OTAParams(d=num_params, gmax=10, sigma_sq=0,
 eta, lsmooth=1, kappa_sq=4)`` and ``make_power_control(scheme)``, whose
-``sca`` runs the port's float64 solver on the run's device.  Each step's
+``sca`` runs the port's float64 solver on the run's device, while a
+second host thread draws the weights (both are host work: the solver's
+small launches, the CPU generator's draw; neither touches the other's
+numbers).  Each step's
 draws come from a generator on the device keyed per (seed + 1, step)
 (``launch.steps.DeviceStepDraws``; the reference keys its steps from
 ``PRNGKey(seed + 1)``).  The loss is differentiated through the plain
@@ -40,6 +43,7 @@ writes the reference's archive in its stacked layout
 from __future__ import annotations
 
 import argparse
+import concurrent.futures
 import dataclasses
 import json
 import statistics
@@ -111,14 +115,16 @@ def run(*, task: str = "token_stream", arch: str = "qwen1.5-0.5b",
                     es=wcfg.energy_per_sample, n0=wcfg.noise_psd,
                     gains=dep.gains, sigma_sq=np.zeros(clients),
                     eta=eta, lsmooth=1.0, kappa_sq=4.0)
-    pc = pcm.make_power_control(
-        scheme, dep, prm, **({"device": dev} if scheme == "sca" else {}))
+    with concurrent.futures.ThreadPoolExecutor(1) as pool:
+        drawn = pool.submit(t.init_params, seed, dev)
+        pc = pcm.make_power_control(
+            scheme, dep, prm, **({"device": dev} if scheme == "sca" else {}))
+        params = drawn.result()
     if pc.p is not None:
         print("participation p:", np.round(pc.p, 3), flush=True)
 
     step = steps_lib.make_train_step(bundle, pc, dep.gains,
                                      steps_lib.TrainStepConfig(eta=eta))
-    params = t.init_params(seed, dev)
     td = t.build_data(seed, steps=steps)
     eval_fn = t.make_eval(td, dev)
     draws = steps_lib.DeviceStepDraws(

@@ -140,16 +140,28 @@ def table(rows: Sequence[dict]) -> str:
     return "\n".join(lines)
 
 
-def run_port(seeds: Sequence[int] = SEEDS, device=None) -> list:
-    """``launch.train.run`` at the preset for each seed: {"losses",
-    "held_out_loss", "stats"} per seed."""
+def _run_seed(seed: int, device=None) -> dict:
     from repro_torch.launch import train
-    out = []
-    for s in seeds:
-        res = train.run(**PRESET, seed=s, device=device)
-        out.append({"losses": res.losses, "held_out_loss": res.held_out,
-                    "stats": res.stats})
-    return out
+    res = train.run(**PRESET, seed=seed, device=device)
+    return {"losses": res.losses, "held_out_loss": res.held_out,
+            "stats": res.stats}
+
+
+def run_port(seeds: Sequence[int] = SEEDS, device=None, jobs: int = 1
+             ) -> list:
+    """``launch.train.run`` at the preset for each seed: {"losses",
+    "held_out_loss", "stats"} per seed.  ``jobs`` > 1 runs that many seeds
+    at once, each in a spawned process of its own on the same device: a
+    run's numbers depend only on its seed, and most of its wall is the
+    host's (the ``sca`` design), so the runs overlap; each run's step
+    times are then taken beside the others'."""
+    if jobs <= 1:
+        return [_run_seed(s, device) for s in seeds]
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    with ProcessPoolExecutor(jobs, mp_context=multiprocessing.get_context(
+            "spawn")) as pool:
+        return list(pool.map(_run_seed, seeds, [device] * len(seeds)))
 
 
 def main(argv=None) -> int:

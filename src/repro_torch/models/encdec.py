@@ -14,7 +14,10 @@ Every prefill attention goes through K3: the encoder's self-attention
 and the cross-attention in its non-causal mode, the decoder's
 self-attention causal.  Decode steps stay plain PyTorch.  The train loss
 (``seq2seq_loss``) runs the plain attention (``use_kernel=False``), which
-autograd differentiates, as ``transformer.lm_loss`` does.
+autograd differentiates, as ``transformer.lm_loss`` does: past
+Sq * Sk = 2048^2 its blocked form (``kernels.ref.grouped_attention_blocked``),
+which, unlike the reference's, masks the padded keys of a ragged last
+block in the encoder's and the cross-attention's non-causal mode too.
 """
 from __future__ import annotations
 
@@ -72,6 +75,18 @@ def decode_train(params, memory: Optional[torch.Tensor], tokens: torch.Tensor,
     read the encoder's K and V from them instead of projecting ``memory``
     again: the same product on the same operands.
     """
+    h = _decode_hidden(params, memory, tokens, cfg, caches,
+                       cross_caches=cross_caches, use_kernel=use_kernel)
+    logits = unembed(params["unembed"], h, cfg)
+    return logits if caches is None else (logits, caches)
+
+
+def _decode_hidden(params, memory: Optional[torch.Tensor],
+                   tokens: torch.Tensor, cfg: ModelConfig,
+                   caches: Optional[list] = None, *,
+                   cross_caches: Optional[list] = None,
+                   use_kernel: bool = True) -> torch.Tensor:
+    """``decode_train`` up to the final normed hidden state [B, S, D]."""
     x = embed(params["embed"], tokens, cfg.compute_dtype)
     for i, p in enumerate(params["dec_layers"]):
         x, _, _ = tfm.apply_layer(
@@ -79,22 +94,7 @@ def decode_train(params, memory: Optional[torch.Tensor], tokens: torch.Tensor,
             memory=memory,
             cross_cache=None if cross_caches is None else cross_caches[i],
             use_kernel=use_kernel)
-    logits = unembed(params["unembed"], rmsnorm(params["ln_f"], x,
-                                                cfg.norm_eps), cfg)
-    return logits if caches is None else (logits, caches)
-
-
-def _check_plain_lengths(s_frames: int, s_dec: int) -> None:
-    """The train forward's plain attention materializes each score matrix;
-    past Sq * Sk = 2048^2 the reference takes its blocked scan instead,
-    which the port has not ported (``transformer.BLOCKED_ATTENTION``)."""
-    for sq, sk in ((s_frames, s_frames), (s_dec, s_dec), (s_dec, s_frames)):
-        if sq * sk > tfm.BLOCKED_ATTENTION:
-            raise NotImplementedError(
-                f"attention over {sq} x {sk}: the reference attends to it "
-                "with its blocked online-softmax scan (Sq * Sk > 2048^2), "
-                "which is not ported to repro_torch yet (see ROADMAP.md, "
-                "modules to port)")
+    return rmsnorm(params["ln_f"], x, cfg.norm_eps)
 
 
 def seq2seq_loss(params, frames: torch.Tensor, tokens: torch.Tensor,
@@ -103,15 +103,15 @@ def seq2seq_loss(params, frames: torch.Tensor, tokens: torch.Tensor,
                  use_kernel: bool = False) -> torch.Tensor:
     """Encoder frames [B, S_frames, D] + the teacher-forced next-token
     loss of the decoder over tokens [B, S + 1], with the per-sample
-    weights of ``transformer.softmax_xent``.  ``use_kernel=False`` (the
-    default, as a train step differentiates it) runs the plain attention."""
-    if not use_kernel:
-        _check_plain_lengths(frames.shape[1], tokens.shape[1] - 1)
+    weights of ``transformer.softmax_xent``, its logits taken by
+    ``transformer.head_xent``.  ``use_kernel=False`` (the default, as a
+    train step differentiates it) runs the plain attention, at any length:
+    past Sq * Sk = 2048^2 in its blocked form."""
     memory = encode(params, frames, cfg, use_kernel=use_kernel)
-    logits = decode_train(params, memory, tokens[:, :-1], cfg,
-                          use_kernel=use_kernel)
-    return tfm.softmax_xent(logits, tokens[:, 1:], cfg.padded_vocab,
-                            sample_weights)
+    h = _decode_hidden(params, memory, tokens[:, :-1], cfg,
+                       use_kernel=use_kernel)
+    return tfm.head_xent(params["unembed"], h, tokens[:, 1:], cfg,
+                         sample_weights)
 
 
 # ---------------------------------------------------------------------------

@@ -30,13 +30,19 @@ keep the reference's alignment (``lm_loss``), one position later than its
 ``mtp_logits`` docstring says.  The train path
 differentiates the plain attention and SSD scan (``use_kernel=False``):
 the reference trains through its jnp forms, never a Pallas kernel, and
-K3 and K4 have no backward.
+K3 and K4 have no backward.  Past Sq * Sk = 2048^2 the plain attention is
+the blocked form (``kernels.ref.grouped_attention_blocked``), whose saved
+state is O(S), and every loss head (``lm_loss``'s main and MTP terms,
+``encdec.seq2seq_loss``) takes its logits ``HEAD_CHUNK`` tokens at a time
+(``head_xent``), so a train sequence of any length fits the card as far
+as its layers do.
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
@@ -50,10 +56,6 @@ from repro_torch.models.param import ParamDef
 
 GQA_KINDS = ("attn", "swa", "local", "enc_attn")
 MIXER_KINDS = GQA_KINDS + ("ssd", "rglru")
-# Sq * Sk past which the reference's ``grouped_attention`` takes its blocked
-# online-softmax scan (``repro/models/attention.py:80``); the port has not
-# ported that form, so the plain train forward refuses such lengths
-BLOCKED_ATTENTION = 2048 * 2048
 
 
 def check_supported(cfg: ModelConfig) -> None:
@@ -200,6 +202,19 @@ def forward_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     without MoE); with ``return_hidden`` also the final normed hidden
     state h [B, S, D] that the logits are taken from (the MTP head's
     input)."""
+    h, caches, aux = _hidden_aux(params, tokens, cfg, pos_offset=pos_offset,
+                                 caches=caches, decode=decode,
+                                 use_kernel=use_kernel)
+    logits = unembed(_unembedding(params, cfg), h, cfg)
+    return (logits, caches, aux, h) if return_hidden \
+        else (logits, caches, aux)
+
+
+def _hidden_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
+                pos_offset: int = 0, caches: Optional[list] = None,
+                decode: bool = False, use_kernel: bool = True):
+    """``forward_aux`` up to the final normed hidden state: (h [B, S, D],
+    caches, aux)."""
     x = embed(params["embed"], tokens, cfg.compute_dtype) \
         if cfg.input_mode == "tokens" else tokens.to(cfg.compute_dtype)
     aux = 0.0
@@ -209,10 +224,7 @@ def forward_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
             cache=None if caches is None else caches[i], decode=decode,
             use_kernel=use_kernel)
         aux = aux + layer_aux
-    h = rmsnorm(params["ln_f"], x, cfg.norm_eps)
-    logits = unembed(_unembedding(params, cfg), h, cfg)
-    return (logits, caches, aux, h) if return_hidden \
-        else (logits, caches, aux)
+    return rmsnorm(params["ln_f"], x, cfg.norm_eps), caches, aux
 
 
 def _unembedding(params, cfg: ModelConfig) -> torch.Tensor:
@@ -226,6 +238,14 @@ def mtp_logits(params, h: torch.Tensor, tokens: torch.Tensor,
     tokens: [B, S].  Returns logits [B, S - 1, V] in float32.  Which label
     position i is trained on is ``lm_loss``'s choice: the reference's
     ``tokens[i + 3]`` of the input."""
+    return unembed(_unembedding(params, cfg),
+                   _mtp_hidden(params, h, tokens, cfg, use_kernel), cfg)
+
+
+def _mtp_hidden(params, h: torch.Tensor, tokens: torch.Tensor,
+                cfg: ModelConfig, use_kernel: bool = True) -> torch.Tensor:
+    """``mtp_logits`` up to the MTP head's normed hidden state
+    [B, S - 1, D]."""
     p = params["mtp"]
     ct = cfg.compute_dtype
     emb_next = embed(params["embed"], tokens[:, 1:], ct)
@@ -234,8 +254,7 @@ def mtp_logits(params, h: torch.Tensor, tokens: torch.Tensor,
     x = fused.to(ct) @ p["proj"].to(ct)
     x, _, _ = apply_layer(p["layer"], x, cfg, ("attn", "dense"),
                           use_kernel=use_kernel)
-    h_out = rmsnorm(p["ln_out"], x, cfg.norm_eps)
-    return unembed(_unembedding(params, cfg), h_out, cfg)
+    return rmsnorm(p["ln_out"], x, cfg.norm_eps)
 
 
 def forward(params, tokens: torch.Tensor, cfg: ModelConfig, *,
@@ -264,17 +283,57 @@ def softmax_xent(logits: torch.Tensor, labels: torch.Tensor, vocab_size: int,
     ``vocab_size`` is the padded vocab the logits span (the reference's
     signature; the gather needs no bound).
     """
+    return _mean_nll(_token_nll(logits, labels), labels, sample_weights)
+
+
+def _token_nll(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
+    """Each token's negative log-likelihood in f32, 0 where label == -1."""
     mask = (labels >= 0).float()
     labels_safe = torch.clamp(labels, min=0).long()
     logz = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels_safe[..., None])[..., 0]
-    nll = (logz - gold) * mask
+    return (logz - gold) * mask
+
+
+def _mean_nll(nll: torch.Tensor, labels: torch.Tensor,
+              sample_weights: Optional[torch.Tensor]) -> torch.Tensor:
+    """``softmax_xent``'s mean of the token losses nll [B, S]."""
+    mask = (labels >= 0).float()
     if sample_weights is not None:
         w = sample_weights.float()
         per_sample = torch.sum(nll, dim=-1) / torch.clamp(
             torch.sum(mask, dim=-1), min=1)
         return torch.mean(w * per_sample)
     return torch.sum(nll) / torch.clamp(torch.sum(mask), min=1)
+
+
+# tokens of one chunk of ``head_xent``
+HEAD_CHUNK = 2048
+
+
+def head_xent(w: torch.Tensor, h: torch.Tensor, labels: torch.Tensor,
+              cfg: ModelConfig,
+              sample_weights: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """``softmax_xent(unembed(w, h, cfg), labels, ...)`` without holding
+    the [B, S, V] logits: the unembedding and the token losses are taken
+    ``HEAD_CHUNK`` tokens at a time and the same mean is taken over them:
+    the same function, each chunk's unembedding a product on fewer rows.
+    With more than one chunk, each is checkpointed under autograd (its
+    logits recomputed in the backward).  At 4 x 4,096 tokens,
+    qwen1.5-0.5b's and recurrentgemma-9b's f32 logits are 10.0 and 16.8 GB
+    a copy, and the loss's backward holds several copies at once."""
+    def chunk_nll(hc, lc):
+        return _token_nll(unembed(w, hc, cfg), lc)
+    b, s = labels.shape
+    hf, lf = h.reshape(b * s, h.shape[-1]), labels.reshape(b * s)
+    starts = range(0, b * s, HEAD_CHUNK)
+    recompute = len(starts) > 1 and torch.is_grad_enabled()
+    parts = []
+    for i in starts:
+        args = hf[i:i + HEAD_CHUNK], lf[i:i + HEAD_CHUNK]
+        parts.append(checkpoint(chunk_nll, *args, use_reentrant=False)
+                     if recompute else chunk_nll(*args))
+    return _mean_nll(torch.cat(parts).reshape(b, s), labels, sample_weights)
 
 
 def lm_loss(params, tokens: torch.Tensor, cfg: ModelConfig, labels=None,
@@ -295,27 +354,16 @@ def lm_loss(params, tokens: torch.Tensor, cfg: ModelConfig, labels=None,
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
     else:
         inputs = tokens
-    s = inputs.shape[1]
-    kinds = {kind for kind, _ in layer_sigs(cfg)}
-    if not use_kernel and kinds & set(GQA_KINDS) \
-            and s * s > BLOCKED_ATTENTION:
-        raise NotImplementedError(
-            f"a train sequence of {s} tokens: the reference attends to it "
-            "with its blocked online-softmax scan (Sq * Sk > 2048^2), which "
-            "is not ported to repro_torch yet (see ROADMAP.md, modules to "
-            "port)")
-    logits, _, aux, h = forward_aux(params, inputs, cfg,
-                                    use_kernel=use_kernel,
-                                    return_hidden=True)
-    loss = softmax_xent(logits, labels, cfg.padded_vocab, sample_weights)
+    h, _, aux = _hidden_aux(params, inputs, cfg, use_kernel=use_kernel)
+    w = _unembedding(params, cfg)
+    loss = head_xent(w, h, labels, cfg, sample_weights)
     if cfg.moe_num_experts:
         loss = loss + cfg.router_aux_weight * aux
     if cfg.mtp_depth:
         mtp_labels = labels[:, 2:] if labels.shape[1] > 2 else labels[:, :0]
         if mtp_labels.shape[1] > 0:
-            mtp_lg = mtp_logits(params, h, inputs, cfg,
-                                use_kernel=use_kernel)
-            loss = loss + cfg.mtp_loss_weight * softmax_xent(
-                mtp_lg[:, :mtp_labels.shape[1]], mtp_labels,
-                cfg.padded_vocab, sample_weights)
+            h_mtp = _mtp_hidden(params, h, inputs, cfg, use_kernel=use_kernel)
+            loss = loss + cfg.mtp_loss_weight * head_xent(
+                w, h_mtp[:, :mtp_labels.shape[1]], mtp_labels, cfg,
+                sample_weights)
     return loss

@@ -98,7 +98,9 @@ class Shape(NamedTuple):
 # prefill (8 x 1,024: K3 takes the window as the serve path hands it, but it
 # does not bite, so SDPA runs plain causal) and past the window (1 x 8,192);
 # deepseek-v3-671b's MLA prefill (its expanded form: 128 heads, q and k 192
-# wide, v 128) at 8 x 1,024
+# wide, v 128) at 8 x 1,024; the held-out evals of the train runs at
+# train_4k's length (4 clients x 4,096): qwen1.5-0.5b's (Dh 64, causal)
+# and recurrentgemma-9b's local layers (Dh 256, window 2,048)
 SHAPES = [Shape(*t) for t in (
     ("main", 8, 1024, 16, 16, 64, "bf16", None),
     ("qwen3", 8, 1024, 16, 8, 128, "bf16", None),
@@ -124,7 +126,9 @@ SHAPES = [Shape(*t) for t in (
     ("mixtral-8x22b_window4096_f32", 1, 8192, 48, 8, 128, "f32", 4096),
     ("deepseek-v3", 8, 1024, 128, 128, 192, "bf16", None, True, None, 128),
     ("deepseek-v3_f32", 8, 1024, 128, 128, 192, "f32", None, True, None,
-     128))]
+     128),
+    ("train_4k_eval", 4, 4096, 16, 16, 64, "bf16", None),
+    ("recurrentgemma-9b_train_4k_eval", 4, 4096, 16, 1, 256, "bf16", 2048))]
 
 
 def pairs(sq: int, sk: int, causal: bool, window) -> int:

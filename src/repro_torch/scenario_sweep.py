@@ -89,12 +89,14 @@ def _family(prm) -> str:
 
 def design(scenario_names=scn.SWEEP_FAMILIES, schemes=SCHEMES, d: int = D,
            gmax: float = GMAX, eta: float = ETA, kappa_sq: float = KAPPA_SQ,
-           device=None) -> dict:
+           device=None, jobs: int = 1) -> dict:
     """Every scenario's world and its schemes: {"order": names,
     name: {"scenario", "dep", "prm", "schemes"}, "sca_calls": [(family,
     scenario names, seconds)]}.  ``sca`` takes one batched solve per
     fading family, on ``device``; the other schemes are host designs.  The
-    deployments are realized at seed 0."""
+    deployments are realized at seed 0.  ``jobs`` > 1 runs that many
+    families' solves at once, each in a spawned process of its own on
+    ``device`` (a solve is mostly host work: small launches)."""
     world = {"order": tuple(scenario_names), "sca_calls": []}
     for name in scenario_names:
         sc = scn.get_scenario(name)
@@ -105,21 +107,35 @@ def design(scenario_names=scn.SWEEP_FAMILIES, schemes=SCHEMES, d: int = D,
                        "schemes": {s: pcm.make_power_control(s, dep, prm)
                                    for s in schemes if s != "sca"}}
     if "sca" in schemes:
-        for fam in dict.fromkeys(_family(world[n]["prm"])
-                                 for n in scenario_names):
-            group = [n for n in scenario_names
-                     if _family(world[n]["prm"]) == fam]
-            if device is not None and torch.device(device).type == "cuda":
-                torch.cuda.synchronize()
-            t0 = time.time()
-            pcs = pcm.make_sca_batch([world[n]["prm"] for n in group],
-                                     device=device)
-            world["sca_calls"].append((fam, tuple(group), time.time() - t0))
+        groups = {}
+        for n in scenario_names:
+            groups.setdefault(_family(world[n]["prm"]), []).append(n)
+        calls = [[world[n]["prm"] for n in g] for g in groups.values()]
+        if jobs > 1:
+            import multiprocessing
+            from concurrent.futures import ProcessPoolExecutor
+            with ProcessPoolExecutor(jobs, mp_context=multiprocessing
+                                     .get_context("spawn")) as pool:
+                solved = list(pool.map(_sca_batch, calls,
+                                       [device] * len(calls)))
+        else:
+            solved = [_sca_batch(c, device) for c in calls]
+        for (fam, group), (pcs, sec) in zip(groups.items(), solved):
+            world["sca_calls"].append((fam, tuple(group), sec))
             for n, pc in zip(group, pcs):
                 world[n]["schemes"]["sca"] = pc
     for name in scenario_names:
         world[name]["schemes"] = [world[name]["schemes"][s] for s in schemes]
     return world
+
+
+def _sca_batch(prms, device) -> tuple:
+    """``make_sca_batch`` of one family's worlds and its seconds."""
+    if device is not None and torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.time()
+    pcs = pcm.make_sca_batch(prms, device=device)
+    return pcs, time.time() - t0
 
 
 def sweep(world: dict) -> list:

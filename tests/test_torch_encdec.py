@@ -326,15 +326,6 @@ def test_seq2seq_loss_and_its_gradient_match_reference(weighted):
                                    err_msg=name)
 
 
-def test_seq2seq_loss_past_the_blocked_size_raises():
-    """The plain train forward refuses what the reference attends to with
-    its blocked scan (Sq * Sk > 2048^2): here the encoder's frames."""
-    _, tcfg = _cfgs()
-    with pytest.raises(NotImplementedError, match="blocked.*ROADMAP"):
-        tencdec.seq2seq_loss({}, torch.zeros(1, 2049, tcfg.d_model),
-                             torch.zeros(1, 9, dtype=torch.long), tcfg)
-
-
 def test_init_draws_the_reference_laws():
     """``bundle.init`` draws other numbers than JAX's threefry stream, but
     the same tree of shapes and dtypes and the same laws: per leaf, the

@@ -512,3 +512,55 @@ def test_ssd_scan_plain_version_not_called_on_cuda(cuda):
     assert ref.ssd_chunked.calls == before
     ssd_scan(*args[:5], chunk=32, state0=args[5], use_kernel=False)
     assert ref.ssd_chunked.calls == before + 1
+
+
+# The blocked form of K3's plain version (the train path's attention past
+# Sq.Sk = 2048^2) against the direct form on CUDA tensors in f32, at a
+# ragged last block (S 2,100) and whole blocks (S 4,096): the output at
+# F32_TOL, dq, dk and dv at rtol 1e-5 plus 1e-5 of their largest
+# (``tests/test_torch_train.py``'s gradient tolerance).  (H, KH, Dqk, Dv,
+# window, causal): qwen's layers, recurrentgemma's local layers, MLA's
+# widths, and non-causal with a window over the padded keys
+BLOCKED_CASES = [(16, 16, 64, 64, None, True), (16, 1, 256, 256, 2048, True),
+                 (4, 2, 192, 128, None, True), (4, 2, 64, 64, 1500, False)]
+
+
+@pytest.mark.parametrize("s", [2100, 4096])
+@pytest.mark.parametrize("h,kh,dqk,dv,window,causal", BLOCKED_CASES)
+def test_blocked_form_matches_direct_form_on_cuda(cuda, s, h, kh, dqk, dv,
+                                                  window, causal):
+    gen = torch.Generator(device=cuda).manual_seed(s + h + dqk)
+    q, k, v, cot = (torch.randn(shape, generator=gen, device=cuda)
+                    for shape in ((1, s, h, dqk), (1, s, kh, dqk),
+                                  (1, s, kh, dv), (1, s, h, dv)))
+    pos = torch.arange(s, device=cuda)
+    outs, grads = [], []
+    for form in (ref.grouped_attention, ref.grouped_attention_blocked):
+        leaves = [t.clone().requires_grad_(True) for t in (q, k, v)]
+        out = form(*leaves, pos, pos, causal=causal, window=window)
+        grads.append(torch.autograd.grad((out * cot).sum(), leaves))
+        outs.append(out.detach())
+    np.testing.assert_allclose(outs[1].cpu().numpy(), outs[0].cpu().numpy(),
+                               **F32_TOL)
+    for name, got, want in zip("qkv", grads[1], grads[0]):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        want = want.cpu().numpy()
+        np.testing.assert_allclose(got.cpu().numpy(), want, rtol=1e-5,
+                                   atol=1e-5 * np.abs(want).max(),
+                                   err_msg=name)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_attention_past_2048_squared_is_the_blocked_form_on_cuda(
+        cuda, dtype):
+    """``use_kernel=False`` on CUDA tensors past 2048^2: one plain call, no
+    launch, bitwise the blocked form."""
+    q, k, v = _qkv(cuda, 1, 2100, 2100, 4, 2, 64, dtype)
+    pos = torch.arange(2100, device=cuda)
+    launches, calls = flash_attention.launches, ref.attention_ref.calls
+    got = flash_attention(q, k, v, window=300, use_kernel=False)
+    assert flash_attention.launches == launches
+    assert ref.attention_ref.calls == calls + 1
+    want = ref.grouped_attention_blocked(q, k, v, pos, pos, causal=True,
+                                         window=300)
+    assert got.dtype == dtype and torch.equal(got, want)

@@ -401,7 +401,19 @@ def test_theory_rows_match_reference():
     CPU."""
     names = [n for n in NAMES
              if scn.get_scenario(n).fading.family != "rician"]
-    world = ss.design(names, device="cpu")
+    _check_theory_rows(ss.design(names, device="cpu"), names)
+
+
+def test_design_with_a_process_per_family_matches_reference():
+    """``design(jobs=2)``: the two families' solves at once, each in a
+    spawned process, held as ``test_theory_rows_match_reference`` holds
+    the solves one after the other."""
+    names = [n for n in NAMES
+             if scn.get_scenario(n).fading.family != "rician"]
+    _check_theory_rows(ss.design(names, device="cpu", jobs=2), names)
+
+
+def _check_theory_rows(world, names):
     assert [fam for fam, _, _ in world["sca_calls"]] == ["rayleigh",
                                                           "nakagami"]
     ref = ss.load_theory_reference(0)

@@ -268,18 +268,6 @@ def test_lm_loss_and_its_gradient_match_reference(arch):
                                    err_msg=k)
 
 
-def test_unported_losses_raise_naming_roadmap():
-    """Past Sq * Sk = 2048^2 the reference attends with its blocked scan,
-    which is not ported: the plain train forward refuses before it runs,
-    for GQA and MLA layers alike (an MLA layer's kind is attn), with or
-    without the MTP head."""
-    _, tcfg = _smoke("qwen1.5-0.5b")
-    _, mla = _smoke("deepseek-v3-671b")
-    for cfg in (tcfg, tcfg.replace(mtp_depth=1), mla):
-        with pytest.raises(NotImplementedError, match="blocked.*ROADMAP"):
-            ttfm.lm_loss({}, torch.zeros(1, 2050, dtype=torch.long), cfg)
-
-
 # ---------------------------------------------------------------------------
 # the plain kernels' gradients against jax.grad of the reference's forms
 # ---------------------------------------------------------------------------
