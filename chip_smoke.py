@@ -44,7 +44,10 @@ Phases (any failure exits nonzero, and nothing is swallowed):
          width 192, v width 128, causal) in bf16 and in f32, and at the
          held-out evals of phase 19's train runs (B 4, S 4,096: qwen's
          H = KH = 16, Dh 64, causal; recurrentgemma's Dh 256, H 16 over
-         KH 1, window 2,048) in bf16 -- f32 to
+         KH 1, window 2,048) in bf16, and at phase 20's (seamless's
+         encoder self-attention, B 4, S 4,096, H = KH = 16, Dh 64, and its
+         cross-attention, Sq = Sk = 4,096, non-causal) in bf16 and in
+         f32 -- f32 to
          2e-5, bf16 to two bf16 ulps plus 1e-2 (past Sq.Sk = 2048^2 the
          plain version is the blocked form); the
          shapes, the bound (the pairs the masks allow: all Sq x Sk
@@ -354,14 +357,40 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      per-client aggregation on qwen's first 2 layers at 4 x 4,096 (the
      blocked form's backward and the loss head's chunks in the step), the
      params at rtol 1e-5 / atol 1e-6;
- 20. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+ 20. the encoder-decoder's train step at ``train_4k``'s 4,096 tokens
+     (module 11e): (a) seamless-m4t-medium at full width and depth (12
+     encoder and 12 decoder layers, 877,197,312 parameters), bf16, 4
+     clients x 1 x (4,096 frames, 4,097 tokens) (the global batch of 256
+     cut to 4), LONG_STEPS steps of ``launch.steps.make_train_step`` on
+     (frames, tokens) in ``launch.train``'s world (WirelessConfig(4, seed
+     0), eta 0.02, sca; the design made ahead on the host), draws from
+     ``DeviceStepDraws(seed + 1)``, tokens from ``tasks.lm.client_batches``,
+     frames standard normals from a card generator: the memory reckoning
+     (``train_reckoning``, the encoder and the cross-attentions counted)
+     beside the peak, step ms, tokens/s, the last loss below the first,
+     K3 never in training (the plain attention 36 times a step) and 36
+     times in the held-out eval (24 non-causal: 12 encoder, 12 cross; 12
+     causal); (c) its trained params through ``checkpoint.save_lm`` and
+     ``restore_lm`` onto the card, bitwise; (b) in f32 on the first
+     SEAMLESS_F32_LAYERS layers of each side at 4 x 4,096, the eval K3 on
+     vs off (the loss within LM_EVAL_LOSS_RTOL, the logits, taken 512
+     positions at a time, within DRIFT_LOGITS_SHARE of their largest)
+     and one step against the explicit per-client aggregation (the params
+     at rtol 1e-5 / atol 1e-6).  Every train run's ``sca`` design
+     (phases 13, 17, 18, 19, lm_curves' four seeds, 20) is solved on the
+     host's CPU in DESIGN_JOBS spawned processes started at the smoke's
+     top, while phases 1-2 keep the card busy; a run refuses a design
+     made for another world;
+ 21. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
      run's launches, with each dense arch's serve run's, with the qwen
      train run's eval's, with recurrentgemma's and with seamless's, its
      non-causal and causal launches on two rows, and with mixtral's; K3
      f32 with the f32 serve run's, with recurrentgemma's f32 run's, with
      seamless's two and with mixtral's two (its prefill, past the
      window); K3 bf16 and f32 at (192, 128) with deepseek's serve runs;
-     K3 bf16 with phase 19's two train runs' evals at S 4,096; K4
+     K3 bf16 with phase 19's two train runs' evals at S 4,096 and with
+     phase 20's (non-causal and causal on two rows), K3 f32 with phase
+     20's f32 eval's non-causal launches; K4
      f32 with the mamba2 serve run's and the mamba2 train run's eval's; K1
      f32 four times: the Fig.-2 main path's, the grid's, the cohort
      fleet's and the cifar fleet's), each phase's seconds, then the last
@@ -594,6 +623,17 @@ LONG_FORMS = [("h16_dh64_causal", 16, 16, 64, None),
               ("h16_dh64_window2048", 16, 16, 64, 2048),
               ("h16_kh1_dh256_window2048", 16, 1, 256, 2048)]
 GRAD_RTOL, GRAD_ATOL_SHARE = 1e-5, 1e-5
+# phase 20: the encoder-decoder's train step at train_4k's 4,096 tokens.
+# seamless-m4t-medium at full width and depth (SEAMLESS_LAYERS;
+# SEAMLESS_TRAIN_PARAMS parameters), bf16, 4 clients x 1 x (4,096 frames,
+# 4,097 tokens), LONG_STEPS steps at launch.train's eta through sca; its f32
+# checks on the first SEAMLESS_F32_LAYERS layers of each side
+SEAMLESS_TRAIN_PARAMS, SEAMLESS_TRAIN_ETA, SEAMLESS_F32_LAYERS = \
+    877_197_312, 0.02, 2
+# the train runs' designs, made ahead in spawned host processes on the CPU
+# (DESIGN_JOBS at once) while phases 1-2 run: (label, run() keywords) for
+# launch.train's runs, then lm_curves' seeds and phase 20's world
+DESIGN_JOBS = 5
 
 
 class SmokeFailure(Exception):
@@ -2276,10 +2316,13 @@ def check_train_run(np, res, cnt, n_layers, kernel, label):
           == 0, f"{label}: another kernel ran: {cnt}")
 
 
-def step_vs_explicit(torch, dev, scheme, gains, seq=128, n_layers=0):
-    """Phase 13 (b) and 19 (d): one full-width qwen1.5-0.5b train step in
-    f32 (on its first ``n_layers`` layers when given) at 1 x ``seq``
-    tokens a client against explicit per-client gradients, their OTA
+def step_vs_explicit(torch, dev, scheme, gains, seq=128, n_layers=0,
+                     arch="qwen1.5-0.5b"):
+    """Phase 13 (b), 19 (d) and 20 (b): one full-width train step of
+    ``arch`` in f32 (on its first ``n_layers`` layers when given, on each
+    side of an encoder-decoder) at 1 x ``seq`` tokens a client (an
+    encoder-decoder's batch (frames, tokens), its frames standard
+    normals) against explicit per-client gradients, their OTA
     superposition sum_m s_m g_m plus noise_scale z (the same z) and the
     SGD step.  Returns the reading (the params' max abs error, the
     update's largest magnitude and its max abs error); the params are held
@@ -2289,14 +2332,23 @@ def step_vs_explicit(torch, dev, scheme, gains, seq=128, n_layers=0):
     from repro_torch.models.param import param_leaves, trainable
     from repro_torch.models.registry import build_bundle
     from repro_torch.tasks.lm import client_batches
-    cfg = configs.get_config("qwen1.5-0.5b").replace(
+    cfg = configs.get_config(arch).replace(
         param_dtype=torch.float32, compute_dtype=torch.float32)
-    cfg = cfg.replace(n_layers=n_layers) if n_layers else cfg
+    if n_layers:
+        cfg = cfg.replace(n_layers=n_layers, **(
+            {"encoder_layers": n_layers} if cfg.is_enc_dec else {}))
     bundle = build_bundle(cfg, dev)
     params = bundle.init(0)
     n, eta = len(gains), 0.02
     tokens = torch.as_tensor(client_batches(cfg.vocab_size, n, 1, seq, 1, 0)
                              [0].reshape(-1, seq + 1), device=dev).long()
+    frames = torch.randn((n, seq, cfg.d_model), device=dev, generator=(
+        torch.Generator(device=dev).manual_seed(0))) if cfg.is_enc_dec \
+        else None
+
+    def batch(rows):
+        return tokens[rows] if frames is None else (frames[rows],
+                                                    tokens[rows])
     leaves = param_leaves(params)
     draws = steps.DeviceStepDraws(1, gains, {k: v.shape for k, v in
                                              leaves.items()}, dev)(0)
@@ -2306,7 +2358,7 @@ def step_vs_explicit(torch, dev, scheme, gains, seq=128, n_layers=0):
     for m in range(n):
         view, lv = trainable(params)
         with torch.enable_grad():
-            loss_m = bundle.loss(view, tokens[m:m + 1])
+            loss_m = bundle.loss(view, batch(slice(m, m + 1)))
             grads = torch.autograd.grad(loss_m, list(lv.values()))
         for k, g in zip(lv, grads):
             agg[k] += s[m] * g
@@ -2318,7 +2370,7 @@ def step_vs_explicit(torch, dev, scheme, gains, seq=128, n_layers=0):
     del agg
     step = steps.make_train_step(bundle, scheme, gains,
                                  steps.TrainStepConfig(eta=eta))
-    _, metrics = step(params, tokens, draws)
+    _, metrics = step(params, batch(slice(None)), draws)
     torch.cuda.synchronize()
     got = param_leaves(params)
     ok, err, upd, upd_err = True, 0.0, 0.0, 0.0
@@ -2337,7 +2389,8 @@ def step_vs_explicit(torch, dev, scheme, gains, seq=128, n_layers=0):
                "active_clients": float(metrics["active_clients"]),
                "noise_scale": float(metrics["noise_scale"]),
                "loss": float(metrics["loss"]), "layers": cfg.n_layers,
-               "seq": seq, "tol": STEP_TOL}
+               "encoder_layers": cfg.encoder_layers, "seq": seq,
+               "tol": STEP_TOL}
     check(ok, f"the weighted-loss step disagrees with the explicit "
           f"aggregation: {reading}")
     check(upd > 0, "the step moved no parameter")
@@ -2380,10 +2433,11 @@ def eval_on_vs_off(torch, dev, bundle, params, kernel, seq=128):
     return reading
 
 
-def phase_train(torch, np, dev):
+def phase_train(torch, np, dev, designs=None):
     """Phase 13: the LM train path at full width, the weighted-loss step
     against the explicit aggregation, the eval's kernels against their
-    plain versions, and the trajectories against the reference's."""
+    plain versions, and the trajectories against the reference's; every
+    run on its design from ``designs`` (``start_designs``)."""
     import gc
     from repro_torch import configs, lm_curves
     from repro_torch.launch import train
@@ -2391,7 +2445,8 @@ def phase_train(torch, np, dev):
     out = {}
     # (a) the runs
     zero_counts()
-    rq = train.main(list(TRAIN_QWEN))
+    rq = train.main(list(TRAIN_QWEN),
+                    design=made(designs, "qwen1.5-0.5b"))
     torch.cuda.synchronize()
     cq = counts()
     print(f"  qwen1.5-0.5b train: counts {cq}", flush=True)
@@ -2407,7 +2462,8 @@ def phase_train(torch, np, dev):
     gc.collect()
     torch.cuda.empty_cache()
     zero_counts()
-    rm = train.main(list(TRAIN_MAMBA))
+    rm = train.main(list(TRAIN_MAMBA),
+                    design=made(designs, "mamba2-1.3b"))
     torch.cuda.synchronize()
     cm = counts()
     print(f"  mamba2-1.3b train: counts {cm}", flush=True)
@@ -2451,8 +2507,10 @@ def phase_train(torch, np, dev):
           f"the LM gate's false-alarm rate {fa['any']} is over "
           f"{lm_curves.FALSE_ALARM_MAX}: widen it to more reference seeds")
     t0 = time.time()
-    port = lm_curves.run_port(lm_curves.SEEDS, dev,
-                              jobs=len(lm_curves.SEEDS))
+    port = lm_curves.run_port(
+        lm_curves.SEEDS, dev, jobs=len(lm_curves.SEEDS),
+        designs=[made(designs, f"lm_curves seed {s}")
+                 for s in lm_curves.SEEDS])
     rows = lm_curves.gate(port, ref)
     print(lm_curves.table(rows), flush=True)
     check(all(r["ok"] for r in rows), "the LM trajectories miss the "
@@ -2939,7 +2997,7 @@ def mixtral_on_vs_off(torch, res, cfg):
     return reading
 
 
-def phase_mixtral(torch, np, dev, card_line):
+def phase_mixtral(torch, np, dev, card_line, designs=None):
     """Phase 17: mixtral-8x22b served at full width on its first layers in
     bf16 through K3 (sliding window 4,096 at H 48 over KH 8); in f32 on two
     layers K3 on vs off, prefill + cached decode against one forward, and
@@ -3131,7 +3189,8 @@ def phase_mixtral(torch, np, dev, card_line):
     # (f) launch.train at one layer, full width, bf16: the loss takes the
     # router's aux term; K3 only in the held-out eval
     zero_counts()
-    rt = train.main(list(TRAIN_MIXTRAL))
+    rt = train.main(list(TRAIN_MIXTRAL),
+                    design=made(designs, "mixtral-8x22b"))
     torch.cuda.synchronize()
     tcnt = counts()
     tcfg = rt.task.aux["cfg"]
@@ -3211,7 +3270,7 @@ def mla_forms(torch, res, cfg):
     return float((absorbed - row).abs().max()), float(row.abs().max())
 
 
-def phase_deepseek(torch, np, dev, card_line):
+def phase_deepseek(torch, np, dev, card_line, designs=None):
     """Phase 18: deepseek-v3-671b served at full width on its first layers
     in bf16, MLA's prefill through K3's (192, 128) instance; in f32 on two
     layers K3 on vs off, prefill + absorbed decode against one forward and
@@ -3370,7 +3429,8 @@ def phase_deepseek(torch, np, dev, card_line):
     # takes the MTP term; K3 only in the held-out eval, for the 2 layers
     # and the MTP head's layer
     zero_counts()
-    rt = train.main(list(TRAIN_DEEPSEEK))
+    rt = train.main(list(TRAIN_DEEPSEEK),
+                    design=made(designs, "deepseek-v3-671b"))
     torch.cuda.synchronize()
     tcnt = counts()
     tcfg = rt.task.aux["cfg"]
@@ -3423,18 +3483,23 @@ def train_reckoning(torch, cfg, clients, seq):
     layer's q, k, v, f32 output and row statistics, and one key block's
     scores, p and their gradients while it runs; an RG-LRU layer's f32
     gates and the doubling scan's two f32 levels a step, log2 S steps;
-    the FFN's four [T, F] products; the residual stream's f32 norms); the
-    loss head's one chunk of f32 logits five times over (the softcap, the
-    log-sum-exp and their gradients).  The peak is the largest of the
-    forward's end (weights, noise, activations, the head and the
-    unembedding's gradient) and the step's end (weights, noise, two
-    gradient trees and the SGD update's f32 copies of the largest
-    leaf)."""
+    the FFN's four [T, F] products; the residual stream's f32 norms, two
+    a sublayer); the loss head's one chunk of f32 logits five times over
+    (the softcap, the log-sum-exp and their gradients).  An
+    encoder-decoder (``clients`` x ``seq`` frames and tokens) counts the
+    encoder's self-attentions and the decoder's self- and
+    cross-attentions (a third sublayer a decoder layer), and the
+    encoder's output, which every cross-attention's backward reads.  The
+    peak is the largest of the forward's end (weights, noise,
+    activations, the head and the unembedding's gradient) and the step's
+    end (weights, noise, two gradient trees and the SGD update's f32
+    copies of the largest leaf)."""
     import math
+    from repro_torch.models import encdec
     from repro_torch.models import transformer as tfm
     from repro_torch.models.param import _map_defs
     es = torch.empty((), dtype=cfg.compute_dtype).element_size()
-    defs = tfm.model_defs(cfg)
+    defs = encdec.encdec_defs(cfg) if cfg.is_enc_dec else tfm.model_defs(cfg)
     weights = def_bytes(torch, defs)
     sizes = []
     _map_defs(defs, lambda d: sizes.append(d.size))
@@ -3442,18 +3507,24 @@ def train_reckoning(torch, cfg, clients, seq):
     d, dh, h, kh = (cfg.d_model, cfg.resolved_head_dim, cfg.n_heads,
                     cfg.n_kv_heads)
     tokens = clients * seq
-    kinds = [kind for kind, _ in tfm.layer_sigs(cfg)]
-    n_attn = sum(k != "rglru" for k in kinds)
-    n_rglru = len(kinds) - n_attn
+    if cfg.is_enc_dec:
+        n_layers = cfg.encoder_layers + cfg.n_layers
+        n_attn, n_rglru = cfg.encoder_layers + 2 * cfg.n_layers, 0
+        sublayers = 2 * cfg.encoder_layers + 3 * cfg.n_layers
+        memory = tokens * d * es
+    else:
+        kinds = [kind for kind, _ in tfm.layer_sigs(cfg)]
+        n_layers, n_attn = len(kinds), sum(k != "rglru" for k in kinds)
+        n_rglru, sublayers, memory = n_layers - n_attn, 2 * n_layers, 0
     w = cfg.lru_width or d
     attn = tokens * (h * dh * es + 2 * kh * dh * es + h * dh * 4 + h * 8)
     block = 5 * 4 * tokens * h * 1024
     rglru = 4 * tokens * w * (6 + 2 * math.ceil(math.log2(seq)))
     ffn = 4 * tokens * cfg.d_ff * es
-    resid = 4 * tokens * d * 4
+    resid = 2 * tokens * d * 4
     r = {"weights": weights, "noise": 4 * n_params,
-         "activations": n_attn * attn + n_rglru * rglru
-         + len(kinds) * (ffn + resid) + (block if n_attn else 0),
+         "activations": n_attn * attn + n_rglru * rglru + n_layers * ffn
+         + sublayers * resid + memory + (block if n_attn else 0),
          "head": 5 * 4 * tfm.HEAD_CHUNK * cfg.padded_vocab,
          "unembed_grad": cfg.padded_vocab * d * es,
          "grads": 2 * weights, "sgd_f32": 3 * 4 * max(sizes)}
@@ -3519,7 +3590,16 @@ def blocked_vs_direct(torch, dev, label, h, kh, dh, window, seq):
     return reading
 
 
-def phase_long_train(torch, np, dev, card_line):
+def long_argv(arch, layers):
+    """launch.train's argv of a phase 19 run: 4 clients x 1 x 4,096
+    tokens, LONG_STEPS steps, the first ``layers`` layers (0: all)."""
+    from repro_torch import configs
+    argv = ["--arch", arch, "--seq", str(configs.TRAIN_4K.seq_len),
+            "--steps", str(LONG_STEPS), "--clients", "4"]
+    return argv + (["--layers", str(layers)] if layers else [])
+
+
+def phase_long_train(torch, np, dev, card_line, designs=None):
     """Phase 19: training at train_4k's 4,096 tokens through the blocked
     form, both runs' evals through K3 at S 4,096; the blocked form against
     the direct form on the card; qwen's eval K3 on vs off at S 4,096; the
@@ -3552,12 +3632,9 @@ def phase_long_train(torch, np, dev, card_line):
               f"{clients} x {seq}) memory reckoning, GB: "
               f"{json.dumps({k: v / 1e9 for k, v in rk.items()})} of the "
               f"card's {total / 1e9:.2f} GB", flush=True)
-        argv = ["--arch", arch, "--seq", str(seq), "--steps", str(LONG_STEPS),
-                "--clients", str(clients)]
-        if layers:
-            argv += ["--layers", str(layers)]
         zero_counts()
-        res = train.main(argv)
+        res = train.main(long_argv(arch, layers),
+                         design=made(designs, arch))
         torch.cuda.synchronize()
         cnt = counts()
         attn_layers = sum(kind != "rglru" for kind, _ in tfm.layer_sigs(cfg))
@@ -3630,6 +3707,291 @@ def phase_long_train(torch, np, dev, card_line):
     return out
 
 
+def start_designs(pool):
+    """The train runs' ``sca`` designs (phases 13, 17, 18 and 19, lm_curves'
+    seeds and phase 20), each solved on the host's CPU in a spawned
+    process of ``pool`` while phases 1 and 2 keep the card busy: a design
+    needs the run's world and parameter count, not its weights.  qwen's
+    runs in phases 13 and 19 share one world.  Returns {label: future of a
+    ``launch.train.TrainDesign``}."""
+    from repro_torch import lm_curves
+    from repro_torch.launch import train
+    runs = [("qwen1.5-0.5b", TRAIN_QWEN), ("mamba2-1.3b", TRAIN_MAMBA)]
+    later = [("mixtral-8x22b", TRAIN_MIXTRAL),
+             ("deepseek-v3-671b", TRAIN_DEEPSEEK),
+             ("recurrentgemma-9b", long_argv("recurrentgemma-9b",
+                                             LONG_RGEMMA_LAYERS))]
+    out = {label: pool.submit(train.design_of,
+                              train.parse_args(list(argv)), "cpu")
+           for label, argv in runs}
+    for s in lm_curves.SEEDS:
+        out[f"lm_curves seed {s}"] = pool.submit(lm_curves.design, s, "cpu")
+    out.update({label: pool.submit(train.design_of,
+                                   train.parse_args(list(argv)), "cpu")
+                for label, argv in later})
+    out["seamless-m4t-medium"] = pool.submit(
+        train.make_design, "sca", 4, SEAMLESS_TRAIN_PARAMS,
+        SEAMLESS_TRAIN_ETA, 0, "cpu")
+    return out
+
+
+def made(designs, label):
+    """The design ``start_designs`` made for ``label``'s run, or None
+    (the run designs its own) when a phase runs without them."""
+    return None if designs is None else designs[label].result()
+
+
+def seamless_eval_on_vs_off(torch, bundle, params, frames, tokens):
+    """Phase 20 (b): the encoder-decoder's held-out eval (frames, tokens)
+    through K3 against the plain attention on the same f32 params: the
+    loss, and the logits to phase 6's drift gate, taken 512 positions at
+    a time (the whole f32 logits at 256,206 words and 4 x 4,096 tokens
+    would be 16.8 GB a pass).  Returns the reading and the K3 pass's
+    counts."""
+    from repro_torch.models import encdec
+    from repro_torch.models.layers import unembed
+    cfg = bundle.cfg
+    with torch.no_grad():
+        zero_counts()
+        loss_on = float(bundle.loss(params, (frames, tokens),
+                                    use_kernel=True))
+        torch.cuda.synchronize()
+        cnt = counts()
+        loss_off = float(bundle.loss(params, (frames, tokens),
+                                     use_kernel=False))
+        hidden = {}
+        for on in (True, False):
+            memory = encdec.encode(params, frames, cfg, use_kernel=on)
+            hidden[on] = encdec._decode_hidden(params, memory, tokens[:, :-1],
+                                               cfg, use_kernel=on)
+            del memory
+        diff = top = equal = 0.0
+        for c in range(0, tokens.shape[1] - 1, 512):
+            on, off = (unembed(params["unembed"], hidden[k][:, c:c + 512],
+                               cfg) for k in (True, False))
+            diff = max(diff, float((on - off).abs().max()))
+            top = max(top, float(off.abs().max()))
+            equal += float((on.argmax(-1) == off.argmax(-1)).sum())
+            del on, off
+    reading = {"loss_kernel": loss_on, "loss_plain": loss_off,
+               "launches": cnt["flash_attention"],
+               "noncausal_launches": cnt["flash_attention_noncausal"],
+               "logits_max_abs_diff": diff, "logits_max_abs": top,
+               "equal_next_tokens": equal / tokens[:, :-1].numel()}
+    n_attn = cfg.encoder_layers + 2 * cfg.n_layers
+    check(cnt["flash_attention"] == n_attn
+          and cnt["flash_attention_noncausal"]
+          == cfg.encoder_layers + cfg.n_layers
+          and cnt["plain_attention"] == 0,
+          f"seamless f32 eval: K3 counts {cnt}, not {n_attn} launches, "
+          f"{cfg.encoder_layers + cfg.n_layers} of them non-causal")
+    check(abs(loss_on - loss_off) <= LM_EVAL_LOSS_RTOL * abs(loss_off),
+          f"seamless f32 eval: loss {loss_on} through K3, {loss_off} plain")
+    check(diff <= DRIFT_LOGITS_SHARE * top,
+          f"seamless f32 eval: logits drift {reading}")
+    check(reading["equal_next_tokens"] >= EQUAL_TOKENS_MIN,
+          f"seamless f32 eval: equal next tokens {reading}")
+    return reading, cnt
+
+
+def phase_seamless_train(torch, np, dev, card_line, design=None):
+    """Phase 20: the encoder-decoder's train step at train_4k's 4,096
+    tokens.  (a) seamless-m4t-medium at full width and depth in bf16
+    through ``launch.steps.make_train_step`` on (frames, tokens) batches,
+    on ``design`` (phase 20's world, made ahead; None: made here on the
+    card); K3 never in training and
+    36 times in the held-out eval; (c) its trained params through
+    ``save_lm`` / ``restore_lm``, bitwise; (b) in f32 on the first
+    SEAMLESS_F32_LAYERS layers of each side, the eval K3 on vs off and one
+    step against the explicit aggregation."""
+    import gc
+    import statistics
+    import tempfile
+    from repro_torch import configs
+    from repro_torch.checkpoint import checkpoint as ckpt
+    from repro_torch.launch import steps, train
+    from repro_torch.models.param import param_leaves
+    from repro_torch.models.registry import build_bundle
+    from repro_torch.tasks.lm import client_batches
+    seq, clients, seed = configs.TRAIN_4K.seq_len, 4, 0
+    out, t_part = {"seconds": {}}, [time.time()]
+    if design is None:
+        design = train.make_design("sca", clients, SEAMLESS_TRAIN_PARAMS,
+                                   SEAMLESS_TRAIN_ETA, seed, dev)
+
+    def part_done(label):
+        now = time.time()
+        out["seconds"][label] = round(now - t_part[0], 1)
+        t_part[0] = now
+
+    def sync():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    # (a) the bf16 run, full width and depth
+    cfg = configs.get_config("seamless-m4t-medium")
+    bundle = build_bundle(cfg, dev)
+    check((cfg.encoder_layers, cfg.n_layers) == SEAMLESS_LAYERS
+          and bundle.num_params == SEAMLESS_TRAIN_PARAMS,
+          f"seamless-m4t-medium: {cfg.encoder_layers} + {cfg.n_layers} "
+          f"layers, {bundle.num_params} parameters")
+    _, prm = train.world(clients, bundle.num_params, SEAMLESS_TRAIN_ETA,
+                         seed)
+    check(design.pc.name == "sca" and train.same_world(design.prm, prm),
+          f"phase 20's design was made for another world: {design.prm}")
+    rk = train_reckoning(torch, cfg, clients, seq)
+    total = torch.cuda.get_device_properties(dev).total_memory
+    print(f"  (a) seamless-m4t-medium ({cfg.encoder_layers} + {cfg.n_layers} "
+          f"layers, full width, bf16, {clients} x ({seq} frames, {seq + 1} "
+          f"tokens)) memory reckoning, GB: "
+          f"{json.dumps({k: v / 1e9 for k, v in rk.items()})} of the card's "
+          f"{total / 1e9:.2f} GB; design made ahead on the host in "
+          f"{design.seconds:.1f} s, participation p "
+          f"{np.round(design.pc.p, 3).tolist()}", flush=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats(dev)
+    params = bundle.init(seed)
+    gains = design.prm.gains
+    step = steps.make_train_step(bundle, design.pc, gains,
+                                 steps.TrainStepConfig(eta=SEAMLESS_TRAIN_ETA))
+    draws = steps.DeviceStepDraws(
+        seed + 1, gains, {k: v.shape for k, v in param_leaves(params).items()},
+        dev)
+    tokens = torch.as_tensor(client_batches(
+        cfg.vocab_size, clients, 1, seq, LONG_STEPS + 1, seed),
+        device=dev).long().reshape(LONG_STEPS + 1, clients, seq + 1)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    frames = torch.randn((LONG_STEPS + 1, clients, seq, cfg.d_model),
+                         generator=gen, device=dev).to(cfg.compute_dtype)
+    zero_counts()
+    losses, walls = [], []
+    for i in range(LONG_STEPS):
+        t0 = sync()
+        params, metrics = step(params, (frames[i], tokens[i]), draws(i))
+        losses.append(float(metrics["loss"]))
+        walls.append(sync() - t0)
+    cnt_train = counts()
+    zero_counts()
+    t0 = sync()
+    with torch.no_grad():
+        held_out = float(bundle.loss(params, (frames[-1], tokens[-1]),
+                                     use_kernel=True))
+    t_eval = sync() - t0
+    cnt_eval = counts()
+    n_attn = cfg.encoder_layers + 2 * cfg.n_layers
+    n_noncausal = cfg.encoder_layers + cfg.n_layers
+    step_s = statistics.median(walls[1:])
+    st = {"arch": cfg.name, "params": bundle.num_params,
+          "encoder_layers": cfg.encoder_layers, "layers": cfg.n_layers,
+          "steps": LONG_STEPS, "clients": clients, "seq": seq,
+          "eta": SEAMLESS_TRAIN_ETA, "step_ms": 1e3 * step_s,
+          "step_ms_mean": 1e3 * statistics.fmean(walls[1:]),
+          "first_step_ms": 1e3 * walls[0],
+          "tokens_per_s": clients * seq / step_s, "eval_ms": 1e3 * t_eval,
+          "first_loss": losses[0], "final_loss": losses[-1],
+          "held_out_loss": held_out, "losses": losses,
+          "peak_mem_gb": torch.cuda.max_memory_allocated(dev) / 1e9,
+          "reckoned_peak_gb": rk["peak"] / 1e9,
+          "reckoning_gb": {k: v / 1e9 for k, v in rk.items()},
+          "design_s": design.seconds}
+    print(f"  (a) seamless-m4t-medium train at {clients} x {seq} "
+          f"[{card_line}]: step {st['step_ms']:.1f} ms, "
+          f"{st['tokens_per_s']:.1f} tokens/s, eval {st['eval_ms']:.1f} ms "
+          f"(loss {held_out}), peak {st['peak_mem_gb']:.2f} GB (reckoned "
+          f"{st['reckoned_peak_gb']:.2f}); losses {losses}; counts in "
+          f"training {cnt_train}, in the eval {cnt_eval}; {json.dumps(st)}",
+          flush=True)
+    check(all(np.isfinite(losses)) and np.isfinite(held_out),
+          f"seamless train: losses not finite: {losses}, held out "
+          f"{held_out}")
+    check(losses[-1] < losses[0], f"seamless train at {seq}: the last "
+          f"step's loss {losses[-1]} is not below the first's {losses[0]}")
+    check(cnt_train["flash_attention"] == 0
+          and cnt_train["plain_attention"] == LONG_STEPS * n_attn,
+          f"seamless train: K3 launched {cnt_train['flash_attention']} "
+          f"times in training, the plain attention "
+          f"{cnt_train['plain_attention']} (not {LONG_STEPS} x {n_attn})")
+    check(cnt_eval["flash_attention"] == n_attn
+          and cnt_eval["flash_attention_noncausal"] == n_noncausal
+          and cnt_eval["plain_attention"] == 0,
+          f"seamless eval: K3 counts {cnt_eval}, not {n_attn} launches "
+          f"({n_noncausal} non-causal: {cfg.encoder_layers} encoder, "
+          f"{cfg.n_layers} cross; {cfg.n_layers} causal)")
+    check(all(v == 0 for k, v in {**cnt_train, **cnt_eval}.items()
+              if k not in ("flash_attention", "flash_attention_noncausal",
+                           "plain_attention")),
+          f"seamless train: another kernel ran: {cnt_train}, {cnt_eval}")
+    out["bf16"], out["train_counts"], out["eval_counts"] = \
+        st, cnt_train, cnt_eval
+    del frames, tokens, draws, step
+    part_done("a")
+
+    # (c) the checkpoint: save_lm in the reference's stacked layout, then
+    # restore_lm onto the card, bitwise
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "seamless.npz")
+        t0 = time.perf_counter()
+        ckpt.save_lm(path, cfg, params, meta={"arch": cfg.name,
+                                              "steps": LONG_STEPS})
+        t_save = time.perf_counter() - t0
+        size = Path(path).stat().st_size
+        back = ckpt.restore_lm(path, cfg, dev)
+        t_restore = time.perf_counter() - t0 - t_save
+    mine, theirs = param_leaves(params), param_leaves(back)
+    same = list(mine) == list(theirs) and all(
+        a.dtype == b.dtype and a.device == b.device and torch.equal(a, b)
+        for a, b in zip(mine.values(), theirs.values()))
+    out["checkpoint"] = {"leaves": len(mine), "archive_gb": size / 1e9,
+                         "save_s": t_save, "restore_s": t_restore,
+                         "bitwise": same}
+    print(f"  (c) seamless-m4t-medium checkpoint (save_lm, restore_lm onto "
+          f"the card): {json.dumps(out['checkpoint'])}", flush=True)
+    check(same, "seamless checkpoint: restore_lm does not give back the "
+          "trained params bitwise")
+    del params, back, mine, theirs, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("c")
+
+    # (b) f32 on the first layers of each side, 4 x 4,096: the eval K3 on
+    # vs off, then one step against the explicit aggregation
+    n = SEAMLESS_F32_LAYERS
+    cfg32 = cfg.replace(n_layers=n, encoder_layers=n,
+                        param_dtype=torch.float32,
+                        compute_dtype=torch.float32)
+    bundle = build_bundle(cfg32, dev)
+    gen = torch.Generator(device=dev).manual_seed(seed + 2)
+    frames = torch.randn((clients, seq, cfg32.d_model), generator=gen,
+                         device=dev)
+    tokens = torch.as_tensor(client_batches(
+        cfg32.vocab_size, clients, 1, seq, 2, seed)[-1].reshape(
+            clients, seq + 1), device=dev).long()
+    out["eval_k3"], out["eval_counts_f32"] = seamless_eval_on_vs_off(
+        torch, bundle, bundle.init(seed), frames, tokens)
+    print(f"  (b) f32 seamless eval ({n} + {n} layers, {clients} x {seq}), "
+          f"K3 on vs off (off: the blocked form): "
+          f"{json.dumps(out['eval_k3'])} (loss within {LM_EVAL_LOSS_RTOL} "
+          f"relative; logits within {DRIFT_LOGITS_SHARE} of max |logit|, "
+          f"greedy tokens equal at >= {EQUAL_TOKENS_MIN})", flush=True)
+    del bundle, frames, tokens
+    gc.collect()
+    torch.cuda.empty_cache()
+    params, bundle, out["step_vs_explicit"] = step_vs_explicit(
+        torch, dev, design.pc, gains, seq=seq, n_layers=n,
+        arch="seamless-m4t-medium")
+    print(f"  (b) f32 seamless step ({n} + {n} layers, {clients} x {seq}) vs "
+          f"explicit per-client aggregation: "
+          f"{json.dumps(out['step_vs_explicit'])}", flush=True)
+    del params, bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    part_done("b")
+    print(f"  seconds per part of phase 20: {json.dumps(out['seconds'])}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -3640,12 +4002,25 @@ def main() -> int:
               file=sys.stderr)
         return 1
     sys.path.insert(0, str(SRC))
+    import multiprocessing
+    from concurrent.futures import ProcessPoolExecutor
+    pool = ProcessPoolExecutor(DESIGN_JOBS, mp_context=multiprocessing
+                               .get_context("spawn"))
+    try:
+        return run_phases(torch, pool)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+
+
+def run_phases(torch, pool) -> int:
+    """Phases 1-21; the train runs' designs are solved in ``pool``."""
     import numpy as np
     from repro_torch.card import peaks
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
 
     t_start = time.time()
+    designs = start_designs(pool)
     phase_s, stamps = {}, [(1, t_start)]
 
     def begin(n, title):
@@ -3750,7 +4125,11 @@ def main() -> int:
     begin(13, "the LM train path: OTA-FL weighted-loss training at full "
           "width, the step against the explicit aggregation, the eval's "
           "kernels, the reference's trajectories")
-    trained, train_k3, train_k4 = phase_train(torch, np, dev)
+    print("[13] train runs' designs, made ahead on the host's CPU: "
+          + json.dumps({k: round(f.result().seconds, 1)
+                        for k, f in designs.items()}), flush=True)
+    pool.shutdown()                      # every design is made
+    trained, train_k3, train_k4 = phase_train(torch, np, dev, designs)
     begin(14, "recurrentgemma-9b (RG-LRU and local attention) served at full "
           "width through K3 at head_dim 256")
     rgemma = phase_recurrentgemma(torch, dev, card_line)
@@ -3760,16 +4139,21 @@ def main() -> int:
     begin(17, "mixtral-8x22b (MoE, sliding-window attention) served at full "
           "width through K3, its MoE layer card vs CPU, and its train step "
           "with the router's aux loss")
-    mixtral = phase_mixtral(torch, np, dev, card_line)
+    mixtral = phase_mixtral(torch, np, dev, card_line, designs)
     begin(18, "deepseek-v3-671b (MLA, MoE of 256 experts top 8, MTP) served "
           "at full width through K3's (192, 128) instance, its MoE layer "
           "card vs CPU, and its train step with the MTP loss")
-    deepseek = phase_deepseek(torch, np, dev, card_line)
+    deepseek = phase_deepseek(torch, np, dev, card_line, designs)
     begin(19, "OTA-FL training at train_4k's 4,096 tokens through the "
           "blocked form: qwen1.5-0.5b and recurrentgemma-9b at full width, "
           "K3 in their evals at S 4,096")
-    long_train = phase_long_train(torch, np, dev, card_line)
-    begin(20, "the kernels line")
+    long_train = phase_long_train(torch, np, dev, card_line, designs)
+    begin(20, "the encoder-decoder's train step at train_4k's 4,096 tokens: "
+          "seamless-m4t-medium at full width and depth on (frames, tokens), "
+          "K3 non-causal and causal in its eval, the checkpoint")
+    seamless_train = phase_seamless_train(
+        torch, np, dev, card_line, designs["seamless-m4t-medium"].result())
+    begin(21, "the kernels line")
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
                     path_counts["fused_bf16"]["ota_round_step"],
@@ -3843,6 +4227,17 @@ def main() -> int:
                  "4096, Dh 256, window 2048]", "flash_attention",
                  long_train["recurrentgemma-9b_counts"]["flash_attention"],
                  ares["recurrentgemma-9b_train_4k_eval"]))
+    for dt, key, cnt in (("bf16", "", seamless_train["eval_counts"]),
+                         ("f32", "_f32", seamless_train["eval_counts_f32"])):
+        rows.append((f"flash_attention[{dt}, seamless-m4t-medium train eval "
+                     "at S 4096, non-causal: encoder and cross]",
+                     "flash_attention", cnt["flash_attention_noncausal"],
+                     ares[f"seamless_train_4k_encoder{key}"]))
+    rows.append(("flash_attention[bf16, seamless-m4t-medium train eval at S "
+                 "4096, causal decoder]", "flash_attention",
+                 seamless_train["eval_counts"]["flash_attention"]
+                 - seamless_train["eval_counts"]["flash_attention_noncausal"],
+                 ares["train_4k_eval"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -3851,21 +4246,21 @@ def main() -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[20] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[21] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[20] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[20] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[20] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[20] single run: {json.dumps(single)}", flush=True)
-    print(f"[20] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[20] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[21] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[21] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[21] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[21] single run: {json.dumps(single)}", flush=True)
+    print(f"[21] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[21] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print("[20] dense archs: " + json.dumps(
+    print("[21] dense archs: " + json.dumps(
         {arch: {k: st[k] for k in ("batch", "prefill_ms",
                                    "decode_ms_per_token", "peak_mem_gb",
                                    "batch_fits")}
          for arch, (st, _) in dense.items()}), flush=True)
-    print("[20] train: " + json.dumps(
+    print("[21] train: " + json.dumps(
         {arch: {k: trained[arch][k] for k in (
             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
             "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
@@ -3873,7 +4268,7 @@ def main() -> int:
         | {"lm_curves_wall_s": trained["curves"]["wall_s"],
            "lm_curves_step_ms": trained["curves"]["step_ms"]}),
         flush=True)
-    print("[20] recurrentgemma-9b: " + json.dumps(
+    print("[21] recurrentgemma-9b: " + json.dumps(
         {"bf16": {k: rgemma["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: rgemma["f32"][k] for k in (
@@ -3882,7 +4277,7 @@ def main() -> int:
          "ring": {k: rgemma["ring"][k] for k in (
              "layers", "batch", "prompt_len", "window", "prefill_ms",
              "decode_ms_per_token", "equal_tokens")}}), flush=True)
-    print("[20] seamless-m4t-medium: " + json.dumps(
+    print("[21] seamless-m4t-medium: " + json.dumps(
         {"bf16": {k: seamless["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: seamless["f32"][k] for k in (
@@ -3893,7 +4288,7 @@ def main() -> int:
          "ragged": {k: seamless["ragged"][k] for k in (
              "memory_max_abs_err", "dec_layer0_max_abs_err",
              "logits_max_abs_diff", "equal_next_tokens")}}), flush=True)
-    print("[20] mixtral-8x22b: " + json.dumps(
+    print("[21] mixtral-8x22b: " + json.dumps(
         {"bf16": {k: mixtral["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -3911,7 +4306,7 @@ def main() -> int:
              "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
              "first_loss", "final_loss", "held_out_loss", "eval_aux",
              "peak_mem_gb")}}), flush=True)
-    print("[20] deepseek-v3-671b: " + json.dumps(
+    print("[21] deepseek-v3-671b: " + json.dumps(
         {"bf16": {k: deepseek["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -3926,7 +4321,7 @@ def main() -> int:
              "first_loss", "final_loss", "held_out_loss", "eval_mtp_xent",
              "peak_mem_gb")},
          "seconds": deepseek["seconds"]}), flush=True)
-    print("[20] train at 4,096 tokens: " + json.dumps(
+    print("[21] train at 4,096 tokens: " + json.dumps(
         {arch: {k: long_train[arch][k] for k in (
             "layers", "steps", "clients", "seq", "step_ms", "first_step_ms",
             "tokens_per_s", "eval_ms", "first_loss", "final_loss",
@@ -3935,7 +4330,17 @@ def main() -> int:
         | {"forms": long_train["forms"], "eval_k3": long_train["eval_k3"],
            "step_vs_explicit": long_train["step_vs_explicit"],
            "seconds": long_train["seconds"]}), flush=True)
-    print(f"[20] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print("[21] seamless-m4t-medium train at 4,096 tokens: " + json.dumps(
+        {"bf16": {k: seamless_train["bf16"][k] for k in (
+            "encoder_layers", "layers", "steps", "clients", "seq", "step_ms",
+            "first_step_ms", "tokens_per_s", "eval_ms", "first_loss",
+            "final_loss", "held_out_loss", "peak_mem_gb", "reckoned_peak_gb",
+            "design_s")},
+         "checkpoint": seamless_train["checkpoint"],
+         "eval_k3": seamless_train["eval_k3"],
+         "step_vs_explicit": seamless_train["step_vs_explicit"],
+         "seconds": seamless_train["seconds"]}), flush=True)
+    print(f"[21] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "
@@ -3945,7 +4350,7 @@ def main() -> int:
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "
           f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
-    print(f"[20] seconds per phase: {json.dumps(phase_s)}", flush=True)
+    print(f"[21] seconds per phase: {json.dumps(phase_s)}", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

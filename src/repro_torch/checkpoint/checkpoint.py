@@ -8,7 +8,9 @@ list indices), so restore round-trips through nested structures.
 extra keys the template does not name, and they are ignored.
 
 ``save_lm`` / ``restore_lm`` keep a language model's ParamTree in the
-reference's stacked layout (``scan/u0/...`` leaves ``[n_rep, ...]``), so
+reference's stacked layout (a decoder's ``scan/u0/...`` leaves ``[n_rep,
+...]``, an encoder-decoder's ``enc_scan/u0/...`` and ``dec_scan/u0/...``
+leaves ``[n_layers, ...]``), so
 ``repro.checkpoint.checkpoint.restore`` reads the port's archive and the
 port reads the reference's.  numpy has no bfloat16: bf16 leaves are
 written as float32, which holds them exactly, and a restore casts them
@@ -137,8 +139,12 @@ def load_meta(path: str) -> dict:
 
 def save_lm(path: str, cfg, params, meta: dict | None = None) -> None:
     """Save a language model's ParamTree in the reference's stacked layout
-    (``models.param.lm_params_to_stacked``); bf16 leaves as float32."""
-    from repro_torch.models.param import lm_params_to_stacked
+    (``models.param.lm_params_to_stacked``, or ``encdec_params_to_stacked``
+    when ``cfg.is_enc_dec``); bf16 leaves as float32."""
+    from repro_torch.models.param import (encdec_params_to_stacked,
+                                          lm_params_to_stacked)
+    to_stacked = encdec_params_to_stacked if cfg.is_enc_dec \
+        else lm_params_to_stacked
 
     def widen(tree):
         if isinstance(tree, dict):
@@ -146,7 +152,7 @@ def save_lm(path: str, cfg, params, meta: dict | None = None) -> None:
         if isinstance(tree, list):
             return [widen(v) for v in tree]
         return tree.float() if tree.dtype == torch.bfloat16 else tree
-    save(path, widen(lm_params_to_stacked(cfg, params)), meta)
+    save(path, widen(to_stacked(cfg, params)), meta)
 
 
 def _nest(flat: dict) -> dict:
@@ -174,7 +180,10 @@ def restore_lm(path: str, cfg, device: torch.device = torch.device("cpu")):
     """A ParamTree on ``device`` from an archive in the reference's stacked
     layout (the port's ``save_lm`` or the reference's ``save``); each leaf
     in its def's dtype.  A missing, extra or misshapen leaf raises."""
-    from repro_torch.models.param import lm_params_from_jax
+    from repro_torch.models.param import (encdec_params_from_jax,
+                                          lm_params_from_jax)
+    from_jax = encdec_params_from_jax if cfg.is_enc_dec \
+        else lm_params_from_jax
 
     def readable(a: np.ndarray) -> np.ndarray:
         # the reference's npz of a bf16 leaf holds its raw 2-byte values
@@ -183,4 +192,4 @@ def restore_lm(path: str, cfg, device: torch.device = torch.device("cpu")):
                 torch.bfloat16).float().numpy()
         return a
     flat = {k: readable(a) for k, a in load_flat(path).items()}
-    return lm_params_from_jax(cfg, _nest(flat)).to(device)
+    return from_jax(cfg, _nest(flat)).to(device)

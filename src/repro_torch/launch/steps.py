@@ -9,6 +9,11 @@ gradient of the batch the OTA superposition sum_m s_m grad f_m; receiver
 noise is added to it leaf by leaf in the leaf's dtype; the PS update is
 plain SGD in float32, cast back to the parameter's dtype.
 
+A batch is a token tensor [gb, S + 1] or, for an encoder-decoder, the
+pair (frames [gb, S_frames, D], tokens [gb, S + 1]) of the reference's
+``input_specs``: the client ids, gb and the device come from the tokens,
+and the pair goes whole to the bundle's loss.
+
 Random draws are inputs (``StepDraws``): the fading h [N], the scheme's
 coin (bbfl_alternative) and one float32 z per leaf.  ``DeviceStepDraws``
 is the production provider, a generator on the device keyed per (seed,
@@ -100,15 +105,30 @@ def _check_sgd(tcfg: TrainStepConfig) -> None:
                          "applies the paper's SGD only, as the reference's")
 
 
+def batch_tokens(batch) -> torch.Tensor:
+    """The tokens [gb, S + 1] of a batch: the tensor itself, or the second
+    of an encoder-decoder's (frames, tokens), whose frames must share
+    their batch axis."""
+    if not isinstance(batch, tuple):
+        return batch
+    frames, tokens = batch
+    if frames.shape[0] != tokens.shape[0]:
+        raise ValueError(f"frames {tuple(frames.shape)} and tokens "
+                         f"{tuple(tokens.shape)} differ in their batch axis")
+    return tokens
+
+
 def make_train_step(bundle: ModelBundle, scheme: PowerControl,
                     gains: np.ndarray, tcfg: TrainStepConfig):
-    """(params, tokens [gb, S + 1], draws) -> (params, metrics); params are
-    updated in place.  gb must be a multiple of the number of clients:
-    sample b belongs to client b // (gb // N)."""
+    """(params, batch, draws) -> (params, metrics); params are updated in
+    place.  ``batch`` is tokens [gb, S + 1] or (frames, tokens).  gb must
+    be a multiple of the number of clients: sample b belongs to client
+    b // (gb // N)."""
     _check_sgd(tcfg)
     n_clients = int(np.shape(gains)[0])
 
-    def train_step(params, tokens: torch.Tensor, draws: StepDraws):
+    def train_step(params, batch, draws: StepDraws):
+        tokens = batch_tokens(batch)
         s, noise_scale = scheme.round_coeffs(draws.h[None],
                                              draws.coin.reshape(1))
         s, noise_scale = s[0], noise_scale[0]
@@ -119,7 +139,7 @@ def make_train_step(bundle: ModelBundle, scheme: PowerControl,
         sample_w = w[client_ids]
 
         loss, grads = _value_and_grad(
-            lambda view: bundle.loss(view, tokens, sample_w), params)
+            lambda view: bundle.loss(view, batch, sample_w), params)
         grads = ota.add_receiver_noise_leaves(grads, noise_scale, draws.z)
         _sgd_in_place(params, grads, tcfg.eta)
         metrics = {"loss": loss,
@@ -132,11 +152,13 @@ def make_train_step(bundle: ModelBundle, scheme: PowerControl,
 
 def make_ideal_train_step(bundle: ModelBundle, tcfg: TrainStepConfig):
     """Noiseless FedAvg reference (eq. (2)), also the plain-SGD baseline:
-    (params, tokens, draws=None) -> (params, {"loss"}), in place."""
+    (params, batch, draws=None) -> (params, {"loss"}), in place; ``batch``
+    as ``make_train_step``'s."""
     _check_sgd(tcfg)
 
-    def train_step(params, tokens: torch.Tensor, draws=None):
-        loss, grads = _value_and_grad(lambda view: bundle.loss(view, tokens),
+    def train_step(params, batch, draws=None):
+        batch_tokens(batch)
+        loss, grads = _value_and_grad(lambda view: bundle.loss(view, batch),
                                       params)
         _sgd_in_place(params, grads, tcfg.eta)
         return params, {"loss": loss}

@@ -25,7 +25,10 @@ eta, lsmooth=1, kappa_sq=4)`` and ``make_power_control(scheme)``, whose
 ``sca`` runs the port's float64 solver on the run's device, while a
 second host thread draws the weights (both are host work: the solver's
 small launches, the CPU generator's draw; neither touches the other's
-numbers).  Each step's
+numbers).  ``run(design=...)`` takes a design already made for the run's
+world instead (``make_design``, which another process may run while the
+card does other work); the run refuses one made for another world.  Each
+step's
 draws come from a generator on the device keyed per (seed + 1, step)
 (``launch.steps.DeviceStepDraws``; the reference keys its steps from
 ``PRNGKey(seed + 1)``).  The loss is differentiated through the plain
@@ -45,9 +48,11 @@ from __future__ import annotations
 import argparse
 import concurrent.futures
 import dataclasses
+import inspect
 import json
 import statistics
 import time
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -56,7 +61,7 @@ from repro_torch import configs
 from repro_torch import tasks as task_registry
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.core import power_control as pcm
-from repro_torch.core.channel import WirelessConfig, deploy
+from repro_torch.core.channel import Deployment, WirelessConfig, deploy
 from repro_torch.core.theory import OTAParams
 from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.kernels.flash_attention import flash_attention
@@ -77,6 +82,47 @@ class TrainResult:
     stats: dict                  # what the JSON line prints
 
 
+class TrainDesign(NamedTuple):
+    """A power-control design, the world it was made for (its
+    ``OTAParams``, which hold the deployment's gains) and the seconds it
+    took."""
+    prm: OTAParams
+    pc: pcm.PowerControl
+    seconds: float
+
+
+def world(clients: int, d: int, eta: float = 0.02,
+          seed: int = 0) -> tuple[Deployment, OTAParams]:
+    """The reference's train world for a model of ``d`` parameters:
+    ``WirelessConfig(num_devices=clients, seed)``, its deployment and
+    ``OTAParams(d, gmax=10, sigma_sq=0, eta, lsmooth=1, kappa_sq=4)``."""
+    wcfg = WirelessConfig(num_devices=clients, seed=seed)
+    dep = deploy(wcfg)
+    return dep, OTAParams(d=d, gmax=10.0, es=wcfg.energy_per_sample,
+                          n0=wcfg.noise_psd, gains=dep.gains,
+                          sigma_sq=np.zeros(clients), eta=eta, lsmooth=1.0,
+                          kappa_sq=4.0)
+
+
+def make_design(scheme: str, clients: int, d: int, eta: float = 0.02,
+                seed: int = 0, device: DeviceLike = None) -> TrainDesign:
+    """``scheme``'s design of ``world(clients, d, eta, seed)``; ``sca``
+    solves on ``device`` (None: the card).  Its inputs need no weights,
+    so it can be made before the run, elsewhere."""
+    dep, prm = world(clients, d, eta, seed)
+    kw = {"device": resolve_device(device)} if scheme == "sca" else {}
+    t0 = time.perf_counter()
+    pc = pcm.make_power_control(scheme, dep, prm, **kw)
+    return TrainDesign(prm, pc, time.perf_counter() - t0)
+
+
+def same_world(a: OTAParams, b: OTAParams) -> bool:
+    """Whether two ``OTAParams`` are one world, field for field."""
+    return all(np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
+               for x, y in zip(dataclasses.astuple(a),
+                               dataclasses.astuple(b)))
+
+
 def _sync(dev: torch.device) -> float:
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
@@ -92,8 +138,11 @@ def run(*, task: str = "token_stream", arch: str = "qwen1.5-0.5b",
         clients: int = 4, per_client_batch: int = 1, eta: float = 0.02,
         smoke: bool = False, d_model: int = 0, n_layers: int = 0,
         log_every: int = 10, checkpoint: str = "", seed: int = 0,
-        device: DeviceLike = None) -> TrainResult:
-    """Train for ``steps`` steps and evaluate the held-out batch."""
+        device: DeviceLike = None,
+        design: Optional[TrainDesign] = None) -> TrainResult:
+    """Train for ``steps`` steps and evaluate the held-out batch.
+    ``design``: ``scheme``'s design of this run's world, made beforehand
+    (``make_design``); None designs it here."""
     dev = resolve_device(device)
     if dev.type == "cuda":
         torch.cuda.reset_peak_memory_stats(dev)
@@ -109,26 +158,29 @@ def run(*, task: str = "token_stream", arch: str = "qwen1.5-0.5b",
     print(f"arch={cfg.name} params={bundle.num_params / 1e6:.1f}M "
           f"clients={clients}", flush=True)
 
-    wcfg = WirelessConfig(num_devices=clients, seed=seed)
-    dep = deploy(wcfg)
-    prm = OTAParams(d=bundle.num_params, gmax=10.0,
-                    es=wcfg.energy_per_sample, n0=wcfg.noise_psd,
-                    gains=dep.gains, sigma_sq=np.zeros(clients),
-                    eta=eta, lsmooth=1.0, kappa_sq=4.0)
-    with concurrent.futures.ThreadPoolExecutor(1) as pool:
-        drawn = pool.submit(t.init_params, seed, dev)
-        pc = pcm.make_power_control(
-            scheme, dep, prm, **({"device": dev} if scheme == "sca" else {}))
-        params = drawn.result()
+    _, prm = world(clients, bundle.num_params, eta, seed)
+    if design is None:
+        with concurrent.futures.ThreadPoolExecutor(1) as pool:
+            drawn = pool.submit(t.init_params, seed, dev)
+            design = make_design(scheme, clients, bundle.num_params, eta,
+                                 seed, dev)
+            params = drawn.result()
+    elif design.pc.name != scheme or not same_world(design.prm, prm):
+        raise ValueError(
+            f"the given {design.pc.name} design was made for another world "
+            f"than this run's {scheme} one: {design.prm} vs {prm}")
+    else:
+        params = t.init_params(seed, dev)
+    pc = design.pc
     if pc.p is not None:
         print("participation p:", np.round(pc.p, 3), flush=True)
 
-    step = steps_lib.make_train_step(bundle, pc, dep.gains,
+    step = steps_lib.make_train_step(bundle, pc, prm.gains,
                                      steps_lib.TrainStepConfig(eta=eta))
     td = t.build_data(seed, steps=steps)
     eval_fn = t.make_eval(td, dev)
     draws = steps_lib.DeviceStepDraws(
-        seed + 1, dep.gains,
+        seed + 1, prm.gains,
         {k: v.shape for k, v in param_leaves(params).items()}, dev)
     data = torch.as_tensor(td.train, device=dev).long()
 
@@ -184,10 +236,11 @@ def run(*, task: str = "token_stream", arch: str = "qwen1.5-0.5b",
         else None,
         "card_line": card_line() if dev.type == "cuda" else None,
     }
-    return TrainResult(t, pc, dep.gains, params, losses, held_out, stats)
+    return TrainResult(t, pc, prm.gains, params, losses, held_out, stats)
 
 
-def main(argv=None) -> TrainResult:
+def parse_args(argv=None) -> dict:
+    """``run``'s keywords from the CLI's ``argv``."""
     ap = argparse.ArgumentParser()
     ap.add_argument("--task", default="token_stream",
                     help="registered LM task (runtime 'steps')")
@@ -210,12 +263,32 @@ def main(argv=None) -> TrainResult:
     ap.add_argument("--device", default=None,
                     help="torch device (default: the CUDA card)")
     a = ap.parse_args(argv)
-    res = run(task=a.task, arch=a.arch, scheme=a.scheme, steps=a.steps,
-              seq=a.seq, clients=a.clients,
-              per_client_batch=a.per_client_batch, eta=a.eta,
-              smoke=a.smoke, d_model=a.d_model, n_layers=a.layers,
-              log_every=a.log_every, checkpoint=a.checkpoint, seed=a.seed,
-              device=a.device)
+    return dict(task=a.task, arch=a.arch, scheme=a.scheme, steps=a.steps,
+                seq=a.seq, clients=a.clients,
+                per_client_batch=a.per_client_batch, eta=a.eta,
+                smoke=a.smoke, d_model=a.d_model, n_layers=a.layers,
+                log_every=a.log_every, checkpoint=a.checkpoint, seed=a.seed,
+                device=a.device)
+
+
+def design_of(kw: dict, device: DeviceLike = None) -> TrainDesign:
+    """``make_design`` of the world that ``run(**kw)`` trains in, solved
+    on ``device``; d is the task's parameter count, read from its defs
+    (no weight is drawn)."""
+    a = {k: p.default for k, p in inspect.signature(run).parameters.items()}
+    a.update(kw)
+    t = task_registry.get(
+        a["task"], expect_runtime="steps", arch=a["arch"], smoke=a["smoke"],
+        d_model=a["d_model"], n_layers=a["n_layers"], clients=a["clients"],
+        per_client_batch=a["per_client_batch"], seq=a["seq"], device="cpu")
+    return make_design(a["scheme"], a["clients"], t.param_dim, a["eta"],
+                       a["seed"], device)
+
+
+def main(argv=None, *, design: Optional[TrainDesign] = None
+         ) -> TrainResult:
+    """The CLI; ``design`` (not a flag) goes to ``run``."""
+    res = run(**parse_args(argv), design=design)
     print(json.dumps(res.stats), flush=True)
     return res
 

@@ -32,7 +32,7 @@ import argparse
 import json
 import sys
 from pathlib import Path
-from typing import Sequence
+from typing import Optional, Sequence
 
 import numpy as np
 
@@ -140,28 +140,38 @@ def table(rows: Sequence[dict]) -> str:
     return "\n".join(lines)
 
 
-def _run_seed(seed: int, device=None) -> dict:
+def _run_seed(seed: int, device=None, design=None) -> dict:
     from repro_torch.launch import train
-    res = train.run(**PRESET, seed=seed, device=device)
+    res = train.run(**PRESET, seed=seed, device=device, design=design)
     return {"losses": res.losses, "held_out_loss": res.held_out,
             "stats": res.stats}
 
 
-def run_port(seeds: Sequence[int] = SEEDS, device=None, jobs: int = 1
-             ) -> list:
+def design(seed: int, device=None):
+    """The preset run's design at ``seed`` (``launch.train.design_of``),
+    solved on ``device``: it needs no weights, so it can be made ahead."""
+    from repro_torch.launch import train
+    return train.design_of(dict(PRESET, seed=seed), device)
+
+
+def run_port(seeds: Sequence[int] = SEEDS, device=None, jobs: int = 1,
+             designs: Optional[Sequence] = None) -> list:
     """``launch.train.run`` at the preset for each seed: {"losses",
     "held_out_loss", "stats"} per seed.  ``jobs`` > 1 runs that many seeds
     at once, each in a spawned process of its own on the same device: a
     run's numbers depend only on its seed, and most of its wall is the
     host's (the ``sca`` design), so the runs overlap; each run's step
-    times are then taken beside the others'."""
+    times are then taken beside the others'.  ``designs`` (one per seed,
+    ``design``) are the runs' designs made beforehand."""
+    designs = list(designs) if designs is not None else [None] * len(seeds)
     if jobs <= 1:
-        return [_run_seed(s, device) for s in seeds]
+        return [_run_seed(s, device, d) for s, d in zip(seeds, designs)]
     import multiprocessing
     from concurrent.futures import ProcessPoolExecutor
     with ProcessPoolExecutor(jobs, mp_context=multiprocessing.get_context(
             "spawn")) as pool:
-        return list(pool.map(_run_seed, seeds, [device] * len(seeds)))
+        return list(pool.map(_run_seed, seeds, [device] * len(seeds),
+                             designs))
 
 
 def main(argv=None) -> int:

@@ -212,15 +212,10 @@ def lm_params_to_stacked(cfg, params) -> dict:
     tree = map_named(params, lambda _, t: t.detach())
     n_lead, k = len(lead), len(unit)
     layers = tree["layers"][n_lead:]
-
-    def stack(group):
-        if isinstance(group[0], Mapping):
-            return {key: stack([g[key] for g in group]) for key in group[0]}
-        return torch.stack(group)
     out = {"embed": tree["embed"]} if "embed" in tree else {}
     out["lead"] = tree["layers"][:n_lead]
     if n_rep:
-        out["scan"] = {f"u{i}": stack(layers[i:n_rep * k:k])
+        out["scan"] = {f"u{i}": _stack(layers[i:n_rep * k:k])
                        for i in range(k)}
     out["tail"] = layers[n_rep * k:]
     out["ln_f"] = tree["ln_f"]
@@ -284,6 +279,28 @@ def encdec_params_from_jax(cfg, tree: Mapping) -> ParamTree:
             **{k: tree[k] for k in ("enc_ln_f", "embed", "ln_f",
                                     "unembed")}}
     return _carry(flat, encdec_defs(cfg))
+
+
+def encdec_params_to_stacked(cfg, params) -> dict:
+    """The inverse of ``encdec_params_from_jax``: an encoder-decoder's
+    ParamTree (or a tree of its layout) in the reference's
+    ``encdec_defs`` layout, ``enc_scan`` and ``dec_scan`` (one unit,
+    ``u0``, leaves stacked ``[n_layers, ...]``), ``enc_ln_f``, ``embed``,
+    ``ln_f``, ``unembed``, as nested dicts of tensors on the tree's
+    device."""
+    tree = map_named(params, lambda _, t: t.detach())
+    return {"enc_scan": {"u0": _stack(tree["enc_layers"])},
+            "enc_ln_f": tree["enc_ln_f"], "embed": tree["embed"],
+            "dec_scan": {"u0": _stack(tree["dec_layers"])},
+            "ln_f": tree["ln_f"], "unembed": tree["unembed"]}
+
+
+def _stack(group: list):
+    """n trees of one layout as one tree whose leaves are stacked
+    ``[n, ...]``."""
+    if isinstance(group[0], Mapping):
+        return {key: _stack([g[key] for g in group]) for key in group[0]}
+    return torch.stack(group)
 
 
 def _unstack(unit: Mapping) -> list:

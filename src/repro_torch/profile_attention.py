@@ -12,7 +12,8 @@ the chosen dtype.  For each shape of ``SHAPES`` in that dtype (B 8, S 1024
 or 1000, the train eval's B 4, S 128, recurrentgemma's B 2, S 4096 past
 its window, or mixtral's B 1, S 8192 past its window, causal;
 seamless-m4t-medium's encoder at B 8, S 1024 and its ragged
-cross-attention, Sq 128 over Sk 1,024, non-causal; deepseek-v3's MLA
+cross-attention, Sq 128 over Sk 1,024, non-causal, and its train eval's
+encoder and cross-attention at B 4, Sq = Sk = 4,096; deepseek-v3's MLA
 prefill, B 8, S 1024, H = KH = 128, q.k width 192, v width 128) it
 launches every
 build through its C entry on the same inputs and compares the output
@@ -100,7 +101,11 @@ class Shape(NamedTuple):
 # deepseek-v3-671b's MLA prefill (its expanded form: 128 heads, q and k 192
 # wide, v 128) at 8 x 1,024; the held-out evals of the train runs at
 # train_4k's length (4 clients x 4,096): qwen1.5-0.5b's (Dh 64, causal)
-# and recurrentgemma-9b's local layers (Dh 256, window 2,048)
+# and recurrentgemma-9b's local layers (Dh 256, window 2,048), and
+# seamless-m4t-medium's non-causal ones, in bf16 and in f32: the encoder's
+# self-attention and the cross-attention over the encoder's 4,096 frames
+# (the same function at Sq = Sk; its decoder's causal self-attention has
+# "train_4k_eval"'s shape)
 SHAPES = [Shape(*t) for t in (
     ("main", 8, 1024, 16, 16, 64, "bf16", None),
     ("qwen3", 8, 1024, 16, 8, 128, "bf16", None),
@@ -128,7 +133,14 @@ SHAPES = [Shape(*t) for t in (
     ("deepseek-v3_f32", 8, 1024, 128, 128, 192, "f32", None, True, None,
      128),
     ("train_4k_eval", 4, 4096, 16, 16, 64, "bf16", None),
-    ("recurrentgemma-9b_train_4k_eval", 4, 4096, 16, 1, 256, "bf16", 2048))]
+    ("recurrentgemma-9b_train_4k_eval", 4, 4096, 16, 1, 256, "bf16", 2048),
+    ("seamless_train_4k_encoder", 4, 4096, 16, 16, 64, "bf16", None, False),
+    ("seamless_train_4k_encoder_f32", 4, 4096, 16, 16, 64, "f32", None,
+     False),
+    ("seamless_train_4k_cross", 4, 4096, 16, 16, 64, "bf16", None, False,
+     4096),
+    ("seamless_train_4k_cross_f32", 4, 4096, 16, 16, 64, "f32", None, False,
+     4096))]
 
 
 def pairs(sq: int, sk: int, causal: bool, window) -> int:

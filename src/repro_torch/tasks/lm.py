@@ -53,15 +53,16 @@ def make_token_stream(arch: str = "qwen1.5-0.5b", smoke: bool = True,
     so) and ``d_model``
     is ignored, as the reference ignores both there.
     ``device`` is the bundle's (None: the CUDA card, which must be
-    there).  An encoder-decoder raises: its loss takes frames, which these
-    token batches do not carry (nor do the reference's, whose CLI cannot
-    train one either)."""
+    there).  An encoder-decoder raises: its loss takes (frames, tokens),
+    and these token batches carry no frames, as the reference's do not
+    (its CLI cannot train one either); it trains through
+    ``launch.steps.make_train_step`` on (frames, tokens) batches."""
     cfg = configs.get_config(arch)
     if cfg.is_enc_dec:
         raise NotImplementedError(
-            f"{cfg.name}: the encoder-decoder's train path (frames in the "
-            "task's batches, seq2seq_loss through launch.steps) is not "
-            "ported to repro_torch yet (see ROADMAP.md, modules to port)")
+            f"{cfg.name}: token_stream batches carry no frames, as the "
+            "reference's do not; an encoder-decoder trains through "
+            "launch.steps.make_train_step on (frames, tokens) batches")
     if smoke:
         over = {}
         if d_model:

@@ -387,7 +387,9 @@ def test_serve_entry_point_on_the_cpu(capsys):
 
 
 def test_train_entry_point_refuses_the_encoder_decoder():
-    """The token_stream batches carry no frames (the reference's CLI
-    cannot train it either): queued in ROADMAP.md."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """The token_stream batches carry no frames, as the reference's do
+    not (its CLI cannot train it either); the encoder-decoder trains
+    through the train step on (frames, tokens)."""
+    with pytest.raises(NotImplementedError,
+                       match="carry no frames.*make_train_step"):
         ttrain.main(["--arch", ARCH, "--smoke", "--device", "cpu"])

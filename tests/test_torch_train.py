@@ -58,7 +58,9 @@ from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.launch import steps as tsteps
 from repro_torch.launch import train as ttrain
 from repro_torch.models import transformer as ttfm
-from repro_torch.models.param import (lm_params_from_jax,
+from repro_torch.models.param import (encdec_params_from_jax,
+                                      encdec_params_to_stacked,
+                                      lm_params_from_jax,
                                       lm_params_to_stacked, map_named,
                                       param_leaves, trainable)
 from repro_torch.models.registry import build_bundle as tbuild
@@ -344,6 +346,16 @@ def _nested(blob, prefix):
     return tckpt._nest(torch_ref.prefixed(blob, prefix))
 
 
+def _from_jax(cfg, tree):
+    return (encdec_params_from_jax if cfg.is_enc_dec
+            else lm_params_from_jax)(cfg, tree)
+
+
+def _to_stacked(cfg, params):
+    return (encdec_params_to_stacked if cfg.is_enc_dec
+            else lm_params_to_stacked)(cfg, params)
+
+
 @functools.lru_cache(maxsize=None)
 def _port_run(name, ideal, ref_id):
     """The port's run of case ``name`` on the reference's replayed draws:
@@ -351,7 +363,7 @@ def _port_run(name, ideal, ref_id):
     ref, c = _REF[ref_id], CASES[name]
     tcfg = tconfigs.get_config(c["arch"]).smoke(**c["smoke"])
     bundle = tbuild(tcfg, CPU)
-    params = lm_params_from_jax(tcfg, _nested(ref, f"{name}/params0"))
+    params = _from_jax(tcfg, _nested(ref, f"{name}/params0"))
     tc = tsteps.TrainStepConfig(eta=c["eta"])
     if ideal:
         step = tsteps.make_ideal_train_step(bundle, tc)
@@ -361,20 +373,24 @@ def _port_run(name, ideal, ref_id):
         step = tsteps.make_train_step(bundle, scheme, ref[f"{name}/gains"],
                                       tc)
     data = ref[f"{name}/data"]
+    frames = torch_ref.case_frames(c, tcfg.d_model) if tcfg.is_enc_dec \
+        else None
     metrics, snaps = [], {}
     for t in range(c["steps"]):
-        tokens = torch.from_numpy(data[t].reshape(-1, c["seq"] + 1)).long()
+        batch = torch.from_numpy(data[t].reshape(-1, c["seq"] + 1)).long()
+        if frames is not None:
+            batch = (torch.from_numpy(frames[t]), batch)
         draws = None if ideal else tsteps.StepDraws(
             h=torch.from_numpy(ref[f"{name}/h/{t}"]).to(torch.complex64),
             coin=torch.tensor(bool(ref[f"{name}/coin/{t}"])),
-            z=param_leaves(lm_params_from_jax(      # f32 smoke configs
+            z=param_leaves(_from_jax(      # f32 smoke configs
                 tcfg, _nested(ref, f"{name}/z/{t}"))))
-        params, m = step(params, tokens, draws)
+        params, m = step(params, batch, draws)
         metrics.append({k: float(v) for k, v in m.items()})
         # copies: the step updates the params in place, and a CPU
         # tensor's numpy view would follow
         snaps[t] = {k: v.copy() for k, v in tckpt._flatten(
-            lm_params_to_stacked(tcfg, params)).items()}
+            _to_stacked(tcfg, params)).items()}
     return metrics, snaps
 
 
@@ -422,7 +438,7 @@ def test_train_step_four_steps_match_reference(ref_train, name):
                 for t in range(c["steps"])} == {False, True}
 
 
-@pytest.mark.parametrize("name", ["qwen", "mamba2"])
+@pytest.mark.parametrize("name", ["qwen", "mamba2", "seamless"])
 def test_ideal_train_step_matches_reference(ref_train, name):
     metrics, snaps = _run(ref_train, name, ideal=True)
     last = CASES[name]["steps"] - 1
@@ -434,6 +450,23 @@ def test_ideal_train_step_matches_reference(ref_train, name):
                                ref_train[f"{name}/ideal_loss"], **STEP4_TOL)
     _check_params(snaps[last], ref_train, f"{name}/ideal_params/{last}",
                   STEP4_TOL)
+
+
+@pytest.mark.parametrize("ideal", [False, True])
+def test_train_step_refuses_frames_of_another_batch(ideal):
+    """(frames, tokens) whose batch axes differ raise before the loss."""
+    tcfg = tconfigs.get_config("seamless-m4t-medium").smoke()
+    bundle = tbuild(tcfg, CPU)
+    tc = tsteps.TrainStepConfig()
+    design = ttrain.make_design("vanilla", 2, bundle.num_params)
+    gains = design.prm.gains
+    step = tsteps.make_ideal_train_step(bundle, tc) if ideal else \
+        tsteps.make_train_step(bundle, design.pc, gains, tc)
+    tokens = torch.zeros((2, 9), dtype=torch.long)
+    frames = torch.zeros((4, 8, tcfg.d_model))
+    draws = tsteps.DeviceStepDraws(0, gains, {}, CPU)(0)
+    with pytest.raises(ValueError, match="batch axis"):
+        step(bundle.init(0), (frames, tokens), draws)
 
 
 def test_train_step_refuses_other_optimizers():
@@ -471,7 +504,10 @@ def test_device_step_draws_are_keyed_per_seed_and_step():
                                compute_dtype=torch.bfloat16)),
     ("qwen3-1.7b", dict(param_dtype=torch.bfloat16,
                         compute_dtype=torch.bfloat16)),
-    ("mixtral-8x22b", dict(n_layers=3, moe_first_dense=1))])
+    ("mixtral-8x22b", dict(n_layers=3, moe_first_dense=1)),
+    ("seamless-m4t-medium", {}),
+    ("seamless-m4t-medium", dict(n_layers=3, param_dtype=torch.bfloat16,
+                                 compute_dtype=torch.bfloat16))])
 def test_checkpoint_round_trips_through_the_reference_layout(tmp_path, arch,
                                                              kw):
     """The port's archive restores in the reference's ``restore`` bitwise
@@ -487,7 +523,7 @@ def test_checkpoint_round_trips_through_the_reference_layout(tmp_path, arch,
     tckpt.save_lm(path, tcfg, params, meta={"arch": tcfg.name})
     like = jbuild(jcfg, tp=1, dp=1).init(jax.random.PRNGKey(0))
     restored = jckpt.restore(path, like)
-    want = tckpt._flatten(_widened(lm_params_to_stacked(tcfg, params)))
+    want = tckpt._flatten(_widened(_to_stacked(tcfg, params)))
     got = jckpt._flatten(restored)
     assert sorted(got) == sorted(want)
     for k in want:
@@ -530,6 +566,23 @@ def test_stacked_layout_inverts_lm_params_from_jax():
         np.testing.assert_array_equal(back[k], want[k], err_msg=k)
 
 
+@pytest.mark.parametrize("kw", [{}, dict(n_layers=3)])
+def test_stacked_layout_inverts_encdec_params_from_jax(kw):
+    """encdec_params_to_stacked(encdec_params_from_jax(tree)) is the
+    reference's ``encdec_defs`` tree, leaf for leaf."""
+    jcfg = jconfigs.get_config("seamless-m4t-medium").smoke(**kw)
+    tcfg = tconfigs.get_config("seamless-m4t-medium").smoke(**kw)
+    jp = jax.tree.map(np.asarray, jbuild(jcfg, tp=1, dp=1).init(
+        jax.random.PRNGKey(0)))
+    back = tckpt._flatten(encdec_params_to_stacked(
+        tcfg, encdec_params_from_jax(tcfg, jp)))
+    want = jckpt._flatten(jp)
+    assert sorted(back) == sorted(want)
+    assert want["dec_scan/u0/cross/wq/w"].shape[0] == tcfg.n_layers
+    for k in want:
+        np.testing.assert_array_equal(back[k], want[k], err_msg=k)
+
+
 # ---------------------------------------------------------------------------
 # the registry and the entry point
 # ---------------------------------------------------------------------------
@@ -566,6 +619,35 @@ def test_train_entry_point_on_the_cpu(capsys, tmp_path):
     for a, b in zip(param_leaves(res.params).values(),
                     param_leaves(back).values()):
         assert torch.equal(a, b)
+
+
+def test_train_run_takes_a_design_made_for_its_world(capsys):
+    """A design made beforehand for the run's world is the run's own
+    design, and the run trains as it would (at the one-step tolerance: two
+    CPU runs of the same step may round an ulp apart, as the CPU's
+    reductions can follow where a tensor was allocated); one made for
+    another world, or scheme, is refused."""
+    kw = dict(smoke=True, device="cpu", steps=2, scheme="lcpc")
+    res = ttrain.run(**kw)
+    d = res.task.param_dim
+    design = ttrain.make_design("lcpc", 4, d)
+    assert ttrain.same_world(ttrain.design_of(kw, "cpu").prm, design.prm)
+    given = ttrain.run(**kw, design=design)
+    assert given.scheme is design.pc
+    for f in ("gamma", "alpha", "p", "thresholds"):
+        np.testing.assert_array_equal(getattr(design.pc, f),
+                                      getattr(res.scheme, f))
+    np.testing.assert_allclose(given.losses + [given.held_out],
+                               res.losses + [res.held_out], **STEP1_TOL)
+    for a, b in zip(param_leaves(given.params).values(),
+                    param_leaves(res.params).values()):
+        np.testing.assert_allclose(_np(a), _np(b), **STEP1_TOL)
+    for bad in (ttrain.make_design("lcpc", 4, d + 1),
+                ttrain.make_design("lcpc", 4, d, eta=0.05),
+                ttrain.make_design("lcpc", 4, d, seed=1),
+                ttrain.make_design("vanilla", 4, d)):
+        with pytest.raises(ValueError, match="another world"):
+            ttrain.run(**kw, design=bad)
 
 
 def test_train_entry_point_mamba2_on_the_cpu(capsys):

@@ -1110,7 +1110,9 @@ LM_REF_DIR = ROOT / "experiments" / "lm_reference"
 # ``bernoulli(k_coeff, 0.5)``; leaf l's noise ``normal(split(k_noise,
 # n_leaves)[l], shape_l)`` in tree-flatten order over the STACKED params),
 # the metrics, and the params after the first and the last step; the same
-# for the ideal step.  Keys are the reference checkpoint's '/'-joined paths.
+# for the ideal step.  An encoder-decoder case's batches are the reference's
+# (frames, tokens) pairs, its frames ``case_frames``.  Keys are the
+# reference checkpoint's '/'-joined paths.
 _TRAIN_CHILD = r"""
 import json, sys
 cfg = json.loads(sys.argv[1])
@@ -1153,6 +1155,9 @@ for c in cfg["cases"]:
     out[f"{name}/data"] = data
     tokens = [jnp.asarray(data[t].reshape(-1, c["seq"] + 1))
               for t in range(c["steps"])]
+    if jcfg.is_enc_dec:
+        frames = torch_ref.case_frames(c, jcfg.d_model)
+        tokens = [(jnp.asarray(f), tk) for f, tk in zip(frames, tokens)]
     wcfg = WirelessConfig(num_devices=c["clients"], seed=0)
     dep = deploy(wcfg)
     prm = OTAParams(d=bundle.num_params, gmax=10.0,
@@ -1208,7 +1213,8 @@ np.savez(cfg["out"], **out)
 # and one bbfl_alternative case, whose coefficients read the coin (its
 # seed's key stream draws both outcomes over the 4 steps); and
 # deepseek-v3-671b's smoke (MLA, a dense lead layer and an MoE layer, the
-# MTP term in the loss) for 2 steps
+# MTP term in the loss) for 2 steps; and seamless-m4t-medium's smoke (2
+# encoder and 2 decoder layers), its batches (frames, tokens)
 TRAIN_CASES = (
     dict(name="qwen", arch="qwen1.5-0.5b", smoke={}, scheme="sca", steps=4,
          clients=4, per_client=1, seq=32, eta=0.05, seed=0),
@@ -1222,7 +1228,18 @@ TRAIN_CASES = (
          seq=16, eta=0.05, seed=4),
     dict(name="deepseek", arch="deepseek-v3-671b", smoke={}, scheme="sca",
          steps=2, clients=2, per_client=1, seq=24, eta=0.05, seed=5),
+    dict(name="seamless", arch="seamless-m4t-medium", smoke={}, scheme="sca",
+         steps=4, clients=2, per_client=1, seq=24, eta=0.05, seed=6),
 )
+
+
+def case_frames(c: dict, d_model: int) -> np.ndarray:
+    """An encoder-decoder train case's frames, [steps, gb, seq, d_model]
+    float32 standard normals from the case's seed (numpy): the same on
+    both sides."""
+    gb = c["clients"] * c["per_client"]
+    return np.random.default_rng(c["seed"]).standard_normal(
+        (c["steps"], gb, c["seq"], d_model)).astype(np.float32)
 
 
 def run_reference_train(out_path: Path, cases=TRAIN_CASES,
