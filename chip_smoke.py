@@ -381,7 +381,42 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      host's CPU in DESIGN_JOBS spawned processes started at the smoke's
      top, while phases 1-2 keep the card busy; a run refuses a design
      made for another world;
- 21. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+ 21. the scripts (module 14), each with the kernels' counts set to 0 just
+     before it and read just after: (a) ``repro_torch.run.smoke``, the
+     reference harness's engine-regression gate -- the 7-scheme Fig.-2
+     fleet (8 rounds, minibatch 64: K1 8 times) on phase 3's designs, the
+     disk_rayleigh and disk_markov fleets (4 rounds each: K1 8), the
+     batched solve of 4 worlds (n 6) on the card (timed) within 1e-3 of
+     the SLSQP oracle, ``adaptive_sca`` on disk_markov (d 10,000, per
+     leaf: K1 never) whose two redesigns solve on the card (timed), and
+     the cifar_conv fleet killed after one chunk and resumed, bitwise the
+     uninterrupted run (K1 once a round of each: 12) -- its rows the
+     reference's one-device names; its scenario world, adaptive initial
+     design and cifar schemes made ahead on the host's CPU; (b) ``python
+     -m repro_torch.kernel_bench --smoke`` (K1 against its plain version
+     on three wires, the round-step rows at n 4, d 65,536), then
+     ``kernel_bench.run``: K2 at N 10, D 814,090 bitwise its plain
+     version, K3 f32 causal at B 1, S 2,048, H 8 over KH 2, Dh 64 to
+     2e-5 beside SDPA, K4 at B 1, S 1,024, H 8, P 64, N 64 against the
+     sequential oracle ``ref.ssd_ref``, each with its bound, the launches
+     of both exact (one check, then ``card.median_ms``'s warm-up and
+     batches); (c) ``fig2
+     --bench-kernel``'s ``kernel_benchmark`` on phase 3's world, 12
+     rounds: per wire a fused fleet (K1 12 times) and an unfused one (K2
+     12 times on the dequantized f32 wire), f32 bitwise (the reference's
+     acceptance pin), its summary checked by ``validate_bench``; (d)
+     ``examples.quickstart`` at paper_mlp's full width, a fleet of its 3
+     schemes and the [scheme x seed] grid of 6 cells, 60 rounds each (K1
+     60 and 60), its schemes made ahead on the host's CPU; (e)
+     ``examples.serve_decode``: qwen1.5-0.5b, mamba2-1.3b and
+     recurrentgemma-9b at smoke width, K3 once per attention layer and K4
+     once per ssd layer of each prefill (warm-up and timed); then K1
+     against its plain version, bitwise and timed, at the shapes the new
+     paths gave it that no earlier phase ran: C 3 (the scenario fleets,
+     quickstart's fleet), C 6 (quickstart's grid), each at N 10, D
+     814,090, and the cut cifar fleet's C 4; the phase's seconds by
+     part;
+ 22. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
      run's launches, with each dense arch's serve run's, with the qwen
      train run's eval's, with recurrentgemma's and with seamless's, its
      non-causal and causal launches on two rows, and with mixtral's; K3
@@ -393,8 +428,12 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      20's f32 eval's non-causal launches; K4
      f32 with the mamba2 serve run's and the mamba2 train run's eval's; K1
      f32 four times: the Fig.-2 main path's, the grid's, the cohort
-     fleet's and the cifar fleet's), each phase's seconds, then the last
-     line ``{"ok": true, "device": {...}}``.
+     fleet's and the cifar fleet's; phase 21's, each at its own shape: K1
+     with the harness smoke's three fleets, quickstart's two and
+     ``--bench-kernel``'s fused fleets (one row a wire), K2 with its
+     unfused fleets' and ``kernel_bench``'s, K3 f32 and K4 with
+     ``kernel_bench``'s and serve_decode's), each phase's seconds, then the
+     last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
 fleet's reference is full float32.
@@ -634,6 +673,11 @@ SEAMLESS_TRAIN_PARAMS, SEAMLESS_TRAIN_ETA, SEAMLESS_F32_LAYERS = \
 # (DESIGN_JOBS at once) while phases 1-2 run: (label, run() keywords) for
 # launch.train's runs, then lm_curves' seeds and phase 20's world
 DESIGN_JOBS = 5
+# phase 21: the harness smoke's designs made ahead (its Fig.-2 fleet takes
+# phase 3's world; its solver gate's batched solve runs on the card),
+# kernel_benchmark's rounds (as --bench-kernel), kernel_bench.run's batch
+SCRIPT_DESIGNS = ("scenarios", "adaptive", "cifar")
+BENCH_KERNEL_ROUNDS, KERNEL_BENCH_ITERS = 12, 20
 
 
 class SmokeFailure(Exception):
@@ -796,26 +840,11 @@ def phase_attention_kernel(torch, dev, card):
     return results
 
 
-def ssd_flops(b, s, h, p, n, g, state0):
-    """Fewest operations of the SSD scan on these inputs: the chunked form
-    at the tile length q that minimises them (the form is exact for any q;
-    K4 walks tiles of 64).  Per tile: C B^T once per group and att (dt x)
-    per head over the causal triangle, C S_in (none on the first tile
-    without a state in), the state's decay and its update B^T (dt x)."""
-    def at(q):
-        full, r = divmod(s, q)
-        pairs = full * q * (q + 1) // 2 + r * (r + 1) // 2
-        carried = 0 if state0 else 1          # the first tile's state is 0
-        return (2 * b * pairs * (g * n + h * p)
-                + 2 * b * h * n * p * (2 * s - carried * min(q, s))
-                + b * h * n * p * (full + (r > 0) - carried))
-    return min(at(q) for q in range(1, s + 1))
-
-
 def phase_ssd_kernel(torch, dev, card):
     """Phase 2, K4: the SSD scan against its plain version on the card."""
     import torch.nn.functional as F
     from repro_torch.card import median_ms, peaks
+    from repro_torch.kernel_bench import ssd_flops
     from repro_torch.kernels import ref
     from repro_torch.kernels.ssd_scan import ssd_scan
     _, (bw, f32_peak, bf16_peak) = peaks(card)
@@ -3709,11 +3738,13 @@ def phase_long_train(torch, np, dev, card_line, designs=None):
 
 def start_designs(pool):
     """The train runs' ``sca`` designs (phases 13, 17, 18 and 19, lm_curves'
-    seeds and phase 20), each solved on the host's CPU in a spawned
+    seeds and phase 20) and phase 21's (the harness smoke's scenario world,
+    adaptive initial design and cifar schemes, and quickstart's schemes),
+    each solved on the host's CPU in a spawned
     process of ``pool`` while phases 1 and 2 keep the card busy: a design
     needs the run's world and parameter count, not its weights.  qwen's
     runs in phases 13 and 19 share one world.  Returns {label: future of a
-    ``launch.train.TrainDesign``}."""
+    ``launch.train.TrainDesign`` or a ``run.Made``}."""
     from repro_torch import lm_curves
     from repro_torch.launch import train
     runs = [("qwen1.5-0.5b", TRAIN_QWEN), ("mamba2-1.3b", TRAIN_MAMBA)]
@@ -3732,6 +3763,11 @@ def start_designs(pool):
     out["seamless-m4t-medium"] = pool.submit(
         train.make_design, "sca", 4, SEAMLESS_TRAIN_PARAMS,
         SEAMLESS_TRAIN_ETA, 0, "cpu")
+    from repro_torch import run
+    from repro_torch.examples import quickstart
+    for label in SCRIPT_DESIGNS:
+        out[f"run {label}"] = pool.submit(run.design, label, 0, "cpu")
+    out["quickstart"] = pool.submit(quickstart.design, "paper_mlp", "cpu")
     return out
 
 
@@ -3992,6 +4028,226 @@ def phase_seamless_train(torch, np, dev, card_line, design=None):
     return out
 
 
+def phase_scripts(torch, np, dev, card, card_line, world, designs):
+    """Phase 21: the scripts (module 14) on the card -- the harness smoke,
+    ``kernel_bench --smoke`` and ``kernel_bench.run``, ``fig2
+    --bench-kernel``'s benchmark, ``examples.quickstart`` and
+    ``examples.serve_decode`` -- each with the kernels' counts set to 0
+    just before it and read just after; then K1 at the shapes these paths
+    gave it that no earlier phase timed."""
+    from repro_torch import configs, fig2, kernel_bench, run, validate_bench
+    from repro_torch import scenario_sweep
+    from repro_torch.examples import quickstart, serve_decode
+    from repro_torch.fl.engine import chunk_lengths
+    from repro_torch.models import transformer as tfm
+    t_phase, out, sec = time.time(), {}, {}
+
+    def part(label, t0):
+        torch.cuda.synchronize()
+        sec[label] = round(time.time() - t0, 1)
+
+    # (a) the harness smoke; its Fig.-2 fleet takes phase 3's designs (the
+    # same world: run.smoke checks), the rest were made on the host's CPU
+    made = {"fig2": run.Made((world["prm"],), world["schemes"],
+                             world["design_s"]["torch_card"])}
+    made.update({label: designs[f"run {label}"].result()
+                 for label in SCRIPT_DESIGNS})
+    out["design_s"] = {label: round(m.seconds, 1)
+                       for label, m in made.items()}
+    t0 = time.time()
+    zero_counts()
+    sm = run.smoke(0, dev, designs=made)
+    torch.cuda.synchronize()
+    cnt = counts()
+    part("smoke", t0)
+    want = ([f"smoke_fig2_{n}" for n in fig2.SCHEMES]
+            + [f"smoke_{sc}_{s}" for sc in run.SMOKE_SCENARIOS
+               for s in ("sca", "lcpc", "zero_bias")]
+            + ["smoke_solver_batch4", "smoke_adaptive_sca",
+               "smoke_cifar_conv_vmap"])
+    names = [row.split(",")[0] for row in sm["rows"]]
+    check(names == want, f"harness smoke rows {names}")
+    cifar = chunk_lengths(6, 2, True)[0]
+    k1 = {"fig2": 8, "scenarios": 2 * 4, "solver_adaptive": 0,
+          "cifar": cifar + (6 - cifar) + 6}
+    for gate, n in k1.items():
+        got = sm["launches"][gate]
+        check(got["ota_round_step"] == n and got["ota_aggregate"] == 0
+              and got["plain_round_step"] == got["plain_aggregate"] == 0,
+              f"harness smoke {gate}: counts {got}, K1 not {n}")
+    check(cnt["ota_round_step"] == sum(k1.values()),
+          f"harness smoke: counts {cnt}")
+    check(set(sm["walls"]) >= {"solver_s", "redesign_s"}
+          and "designs_s" not in sm["walls"],
+          f"harness smoke: the solver gate's solve or a design was not "
+          f"where it should be: {sm['walls']}")
+    walls = {k: (round(v, 1) if isinstance(v, float) else v)
+             for k, v in sm["walls"].items()}
+    out["smoke"] = {"walls": walls, "launches": sm["launches"],
+                    "k1": cnt["ota_round_step"]}
+    print(f"  harness smoke (run.smoke): rows {len(names)}, K1 "
+          f"{json.dumps(k1)}, walls {json.dumps(walls)}; designs made "
+          f"ahead (s) {json.dumps(out['design_s'])} [{card_line}]",
+          flush=True)
+
+    # (b) kernel_bench --smoke, then its rows.  A timed call launches
+    # card.median_ms's warm-up and batches; a row's first call is its check
+    def timed(iters):
+        return kernel_bench.WARMUP + kernel_bench.BATCHES * iters
+    t0 = time.time()
+    zero_counts()
+    kernel_bench.main(["--smoke"])
+    torch.cuda.synchronize()
+    cnt = counts()
+    wires = len(kernel_bench.UPLINKS)
+    per_wire = timed(kernel_bench.SMOKE_ROWS["iters"])
+    want = dict.fromkeys(cnt, 0) | {
+        "ota_round_step": wires + wires * (per_wire + 1),   # equivalence,
+        "plain_round_step": wires,                  # then fused and out
+        "ota_aggregate": wires * per_wire}                  # unfused
+    check(cnt == want, f"kernel_bench --smoke counts {cnt}, want {want}")
+    zero_counts()
+    rows = {r["bench"]: r for r in kernel_bench.run(
+        dev, iters=KERNEL_BENCH_ITERS)}
+    torch.cuda.synchronize()
+    cnt = counts()
+    part("kernel_bench", t0)
+    check(list(rows) == ["ota_aggregate_d814k", "attention_ref_2k_full",
+                         "ssd_chunked_1k"], f"kernel_bench rows {list(rows)}")
+    n = 1 + timed(KERNEL_BENCH_ITERS)
+    want = dict.fromkeys(cnt, 0) | dict.fromkeys(
+        ("ota_aggregate", "flash_attention", "ssd_scan", "plain_aggregate",
+         "plain_attention", "plain_ssd"), n)
+    check(cnt == want, f"kernel_bench.run counts {cnt}, want {want}")
+    out["kernel_bench"] = {"rows": rows, "counts": cnt}
+    print(f"  kernel_bench.run: {json.dumps(rows)}; counts {cnt}",
+          flush=True)
+
+    # (c) fig2 --bench-kernel's benchmark on phase 3's world
+    t0 = time.time()
+    zero_counts()
+    rep = fig2.kernel_benchmark(world["task"], BENCH_KERNEL_ROUNDS, 6,
+                                designs=world["schemes"], device=dev)
+    cnt = counts()
+    part("bench_kernel", t0)
+    n = BENCH_KERNEL_ROUNDS
+    for ud, f in rep["fleet"].items():
+        check(f["launches"]["fused"] == {
+            "ota_round_step": n, "ota_aggregate": 0, "plain_round_step": 0,
+            "plain_aggregate": 0} and f["launches"]["unfused"] == {
+            "ota_round_step": 0, "ota_aggregate": n, "plain_round_step": 0,
+            "plain_aggregate": 0}, f"--bench-kernel {ud}: {f['launches']}")
+    check(rep["f32_bitwise"], "--bench-kernel: f32 fused and unfused fleets "
+          "are not bitwise equal")
+    errors = validate_bench.validate_summary(fig2.bench_summary(
+        {"round_step": rep}, world["task"].name,
+        "repro_torch.fig2 --bench-kernel"))
+    check(not errors, f"--bench-kernel summary: {errors}")
+    out["bench_kernel"] = {
+        "fleet": rep["fleet"], "kernel": rep["kernel"],
+        "interpret_max_err": rep["interpret_max_err"],
+        "fleet_k1": sum(f["launches"]["fused"]["ota_round_step"]
+                        for f in rep["fleet"].values()),
+        "fleet_k2": sum(f["launches"]["unfused"]["ota_aggregate"]
+                        for f in rep["fleet"].values())}
+    print(f"  fig2 --bench-kernel: {json.dumps(out['bench_kernel'])}; "
+          f"phase counts (micro rows included) {cnt}", flush=True)
+
+    # (d) examples.quickstart: a fleet and a [scheme x seed] grid, 60
+    # rounds each through K1; each fleet's launches read around it
+    fleet_k1, train = [], quickstart.train
+
+    def counted(*args, **kw):
+        before = counts()["ota_round_step"]
+        res = train(*args, **kw)
+        torch.cuda.synchronize()
+        fleet_k1.append(counts()["ota_round_step"] - before)
+        return res
+    t0 = time.time()
+    zero_counts()
+    quickstart.train = counted
+    try:
+        qs = quickstart.main([], designs=designs["quickstart"].result())
+    finally:
+        quickstart.train = train
+    torch.cuda.synchronize()
+    cnt = counts()
+    part("quickstart", t0)
+    rounds = quickstart.DEMO["paper_mlp"]["rounds"]
+    check(fleet_k1 == [rounds, rounds] and cnt["ota_round_step"] == 2 * rounds
+          and cnt["ota_aggregate"] == 0 and cnt["plain_round_step"] == 0,
+          f"quickstart: counts {cnt}, per fleet {fleet_k1}, K1 not "
+          f"{rounds} a fleet")
+    cells = {key: tuple(qs[key].traces["active_devices"].shape[:2])
+             for key in ("fleet", "grid")}
+    check(cells == {"fleet": (len(quickstart.NAMES), 1),
+                    "grid": (len(quickstart.NAMES),
+                             len(quickstart.GRID_SEEDS))},
+          f"quickstart: cells {cells}")
+    out["quickstart"] = {
+        "k1": cnt["ota_round_step"], "fleet_k1": fleet_k1,
+        "walls": [qs["fleet"].wall, qs["grid"].wall],
+        "final_acc": np.asarray(qs["grid"].evals[-1][1]["acc"]).tolist()}
+
+    # (e) examples.serve_decode: K3 per attention layer, K4 per ssd layer,
+    # a prefill each in the warm-up and in the timed run
+    t0 = time.time()
+    zero_counts()
+    sd = serve_decode.main([])
+    torch.cuda.synchronize()
+    cnt = counts()
+    part("serve_decode", t0)
+    kinds = [k for arch in serve_decode.ARCHS for k, _ in tfm.layer_sigs(
+        configs.get_config(arch).smoke())]
+    k3 = 2 * sum(k not in ("rglru", "ssd") for k in kinds)
+    k4 = 2 * kinds.count("ssd")
+    check(cnt["flash_attention"] == k3 and cnt["ssd_scan"] == k4
+          and cnt["plain_attention"] == cnt["plain_ssd"] == 0,
+          f"serve_decode: counts {cnt}, not K3 {k3} and K4 {k4}")
+    for arch, res in sd.items():
+        check(bool(torch.isfinite(res.logits).all())
+              and tuple(res.tokens.shape) == (2, 16),
+              f"serve_decode {arch}: logits or tokens")
+    out["serve_decode"] = {"k3": k3, "k4": k4, "stats": {
+        arch: {k: res.stats[k] for k in ("prefill_ms", "decode_ms_per_token",
+                                         "k3_launches_per_prefill",
+                                         "k4_launches_per_prefill")}
+        for arch, res in sd.items()}}
+
+    # (f) K1 against its plain version, bitwise and timed, at the shapes
+    # these paths gave it that no earlier phase ran (the Fig.-2 smoke fleet
+    # and --bench-kernel's fleets are phase 2's C 7 x N 10 x D 814,090)
+    t0 = time.time()
+    prm, cifar_prm = world["prm"], made["cifar"].prms[0]
+    main_nd = (prm.num_devices, prm.d)
+    check((len(fig2.SCHEMES),) + main_nd == MAIN,
+          f"phase 3's world is not MAIN: {main_nd}")
+    out["k1_shapes"] = {
+        "c3": (len(scenario_sweep.SCHEMES),) + main_nd,
+        "c6": (len(quickstart.NAMES) * len(quickstart.GRID_SEEDS),)
+        + main_nd,
+        "cifar": (len(run.CIFAR_SCHEMES) * len(run.CIFAR_SEEDS),
+                  cifar_prm.num_devices, cifar_prm.d)}
+    check(out["k1_shapes"]["c3"][0] == len(quickstart.NAMES),
+          "the scenario fleets and quickstart's fleet differ in cells")
+    out["k1_rows"] = {
+        key: k1_row(torch, dev, card, shape, label, seed)
+        for (key, shape), label, seed in zip(
+            out["k1_shapes"].items(),
+            ("the scenario fleets' and quickstart's fleet's",
+             "quickstart's [scheme x seed] grid's",
+             "the harness smoke's cut cifar fleet's"), (21, 22, 23))}
+    part("k1_rows", t0)
+    sec["phase"] = round(time.time() - t_phase, 1)
+    out["seconds"] = sec
+    print(f"  phase 21 breakdown (s): designs made ahead on the host "
+          f"{json.dumps(out['design_s'])}, the solver gate's batched solve "
+          f"on the card {walls['solver_s']}, adaptive redesigns on the card "
+          f"{walls['redesign_s']}, parts {json.dumps(sec)} "
+          f"[{card_line}]", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4013,7 +4269,7 @@ def main() -> int:
 
 
 def run_phases(torch, pool) -> int:
-    """Phases 1-21; the train runs' designs are solved in ``pool``."""
+    """Phases 1-22; the designs made ahead are solved in ``pool``."""
     import numpy as np
     from repro_torch.card import peaks
     from repro_torch.device import resolve_device
@@ -4125,7 +4381,8 @@ def run_phases(torch, pool) -> int:
     begin(13, "the LM train path: OTA-FL weighted-loss training at full "
           "width, the step against the explicit aggregation, the eval's "
           "kernels, the reference's trajectories")
-    print("[13] train runs' designs, made ahead on the host's CPU: "
+    print("[13] designs made ahead on the host's CPU (the train runs' and "
+          "phase 21's): "
           + json.dumps({k: round(f.result().seconds, 1)
                         for k, f in designs.items()}), flush=True)
     pool.shutdown()                      # every design is made
@@ -4153,7 +4410,11 @@ def run_phases(torch, pool) -> int:
           "K3 non-causal and causal in its eval, the checkpoint")
     seamless_train = phase_seamless_train(
         torch, np, dev, card_line, designs["seamless-m4t-medium"].result())
-    begin(21, "the kernels line")
+    begin(21, "the scripts: the harness smoke, kernel_bench, fig2 "
+          "--bench-kernel, examples.quickstart and examples.serve_decode")
+    scripts = phase_scripts(torch, np, dev, card, card_line, world,
+                            designs)
+    begin(22, "the kernels line")
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
                     path_counts["fused_bf16"]["ota_round_step"],
@@ -4238,6 +4499,55 @@ def run_phases(torch, pool) -> int:
                  seamless_train["eval_counts"]["flash_attention"]
                  - seamless_train["eval_counts"]["flash_attention_noncausal"],
                  ares["train_4k_eval"]))
+    sk = scripts["kernel_bench"]["rows"]
+    k1s, shp = scripts["k1_rows"], scripts["k1_shapes"]
+    gates, qs_k1 = scripts["smoke"]["launches"], scripts["quickstart"]
+    c3, c6, cc = (shp[k] for k in ("c3", "c6", "cifar"))
+    for label, n_launch, row in (
+            (f"run --smoke: the Fig.-2 fleet, C={MAIN[0]}",
+             gates["fig2"]["ota_round_step"],
+             kres[("ota_round_step", "f32", MAIN[2])]),
+            (f"run --smoke: the scenario fleets, C={c3[0]}",
+             gates["scenarios"]["ota_round_step"], k1s["c3"]),
+            (f"run --smoke: the cifar fleet, C={cc[0]} D={cc[2]}",
+             gates["cifar"]["ota_round_step"], k1s["cifar"]),
+            (f"examples.quickstart: its fleet, C={c3[0]}",
+             qs_k1["fleet_k1"][0], k1s["c3"]),
+            (f"examples.quickstart: its grid, C={c6[0]}",
+             qs_k1["fleet_k1"][1], k1s["c6"])):
+        rows.append((f"ota_round_step[f32, {label}]", "ota_round_step",
+                     n_launch, row))
+    for wire, f in scripts["bench_kernel"]["fleet"].items():
+        rows.append((f"ota_round_step[{wire}, fig2 --bench-kernel fused "
+                     f"fleet, C={MAIN[0]}]", "ota_round_step",
+                     f["launches"]["fused"]["ota_round_step"],
+                     kres[("ota_round_step", wire, MAIN[2])]))
+    rows.append(("ota_aggregate[f32, fig2 --bench-kernel unfused fleets]",
+                 "ota_aggregate", scripts["bench_kernel"]["fleet_k2"],
+                 kres[("ota_aggregate", "f32", MAIN[2])]))
+    kb_counts = scripts["kernel_bench"]["counts"]
+    for label, name, key, count in (
+            ("ota_aggregate[f32, kernel_bench: C=1, N 10, D 814,090]",
+             "ota_aggregate", "ota_aggregate_d814k", "ota_aggregate"),
+            ("flash_attention[f32, kernel_bench: B 1, S 2048, H 8 over KH "
+             "2, Dh 64, causal]", "flash_attention", "attention_ref_2k_full",
+             "flash_attention"),
+            ("ssd_scan[f32, kernel_bench: B 1, S 1024, H 8, P 64, N 64]",
+             "ssd_scan", "ssd_chunked_1k", "ssd_scan")):
+        r = sk[key]
+        err = r.get("kernel_max_err", r.get("max_err"))
+        lib = r.get("sdpa_us", r.get("library_us"))
+        rows.append((label, name, kb_counts[count], {
+            "max_abs_err": err, "ms": r["us_per_call"] / 1e3,
+            "plain_ms": r["plain_us"] / 1e3, "bound_ms": r["bound_us"] / 1e3,
+            "bound_by": r["bound_by"],
+            "library_ms": None if lib is None else lib / 1e3}))
+    rows.append(("flash_attention[f32, examples.serve_decode: qwen1.5-0.5b "
+                 "smoke]", "flash_attention", scripts["serve_decode"]["k3"],
+                 ares["main_f32"]))
+    rows.append(("ssd_scan[f32, examples.serve_decode: mamba2-1.3b smoke]",
+                 "ssd_scan", scripts["serve_decode"]["k4"],
+                 sres["smoke_p32_n32"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -4246,21 +4556,21 @@ def run_phases(torch, pool) -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[21] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[22] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[21] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[21] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[21] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[21] single run: {json.dumps(single)}", flush=True)
-    print(f"[21] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[21] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[22] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[22] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[22] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[22] single run: {json.dumps(single)}", flush=True)
+    print(f"[22] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[22] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print("[21] dense archs: " + json.dumps(
+    print("[22] dense archs: " + json.dumps(
         {arch: {k: st[k] for k in ("batch", "prefill_ms",
                                    "decode_ms_per_token", "peak_mem_gb",
                                    "batch_fits")}
          for arch, (st, _) in dense.items()}), flush=True)
-    print("[21] train: " + json.dumps(
+    print("[22] train: " + json.dumps(
         {arch: {k: trained[arch][k] for k in (
             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
             "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
@@ -4268,7 +4578,7 @@ def run_phases(torch, pool) -> int:
         | {"lm_curves_wall_s": trained["curves"]["wall_s"],
            "lm_curves_step_ms": trained["curves"]["step_ms"]}),
         flush=True)
-    print("[21] recurrentgemma-9b: " + json.dumps(
+    print("[22] recurrentgemma-9b: " + json.dumps(
         {"bf16": {k: rgemma["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: rgemma["f32"][k] for k in (
@@ -4277,7 +4587,7 @@ def run_phases(torch, pool) -> int:
          "ring": {k: rgemma["ring"][k] for k in (
              "layers", "batch", "prompt_len", "window", "prefill_ms",
              "decode_ms_per_token", "equal_tokens")}}), flush=True)
-    print("[21] seamless-m4t-medium: " + json.dumps(
+    print("[22] seamless-m4t-medium: " + json.dumps(
         {"bf16": {k: seamless["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: seamless["f32"][k] for k in (
@@ -4288,7 +4598,7 @@ def run_phases(torch, pool) -> int:
          "ragged": {k: seamless["ragged"][k] for k in (
              "memory_max_abs_err", "dec_layer0_max_abs_err",
              "logits_max_abs_diff", "equal_next_tokens")}}), flush=True)
-    print("[21] mixtral-8x22b: " + json.dumps(
+    print("[22] mixtral-8x22b: " + json.dumps(
         {"bf16": {k: mixtral["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -4306,7 +4616,7 @@ def run_phases(torch, pool) -> int:
              "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
              "first_loss", "final_loss", "held_out_loss", "eval_aux",
              "peak_mem_gb")}}), flush=True)
-    print("[21] deepseek-v3-671b: " + json.dumps(
+    print("[22] deepseek-v3-671b: " + json.dumps(
         {"bf16": {k: deepseek["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -4321,7 +4631,7 @@ def run_phases(torch, pool) -> int:
              "first_loss", "final_loss", "held_out_loss", "eval_mtp_xent",
              "peak_mem_gb")},
          "seconds": deepseek["seconds"]}), flush=True)
-    print("[21] train at 4,096 tokens: " + json.dumps(
+    print("[22] train at 4,096 tokens: " + json.dumps(
         {arch: {k: long_train[arch][k] for k in (
             "layers", "steps", "clients", "seq", "step_ms", "first_step_ms",
             "tokens_per_s", "eval_ms", "first_loss", "final_loss",
@@ -4330,7 +4640,7 @@ def run_phases(torch, pool) -> int:
         | {"forms": long_train["forms"], "eval_k3": long_train["eval_k3"],
            "step_vs_explicit": long_train["step_vs_explicit"],
            "seconds": long_train["seconds"]}), flush=True)
-    print("[21] seamless-m4t-medium train at 4,096 tokens: " + json.dumps(
+    print("[22] seamless-m4t-medium train at 4,096 tokens: " + json.dumps(
         {"bf16": {k: seamless_train["bf16"][k] for k in (
             "encoder_layers", "layers", "steps", "clients", "seq", "step_ms",
             "first_step_ms", "tokens_per_s", "eval_ms", "first_loss",
@@ -4340,7 +4650,7 @@ def run_phases(torch, pool) -> int:
          "eval_k3": seamless_train["eval_k3"],
          "step_vs_explicit": seamless_train["step_vs_explicit"],
          "seconds": seamless_train["seconds"]}), flush=True)
-    print(f"[21] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print(f"[22] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "
@@ -4350,7 +4660,8 @@ def run_phases(torch, pool) -> int:
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "
           f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
-    print(f"[21] seconds per phase: {json.dumps(phase_s)}", flush=True)
+    print(f"[22] scripts: {json.dumps(scripts['seconds'])}", flush=True)
+    print(f"[22] seconds per phase: {json.dumps(phase_s)}", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

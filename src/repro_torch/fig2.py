@@ -4,7 +4,7 @@ rounds for all seven schemes, run as ONE fleet on the GPU.
     python -m repro_torch.fig2 [--task paper_mlp|cifar_conv] [--rounds 150]
         [--every 10] [--batch B] [--uplink f32|bf16|int8] [--unfused]
         [--seed 0] [--checkpoint] [--resume] [--max-chunks N]
-        [--telemetry] [--legacy] [--bench] [--json PATH]
+        [--telemetry] [--legacy] [--bench] [--bench-kernel] [--json PATH]
         [--population P --cohort N [--cohort-rounds R] [--no-stream]]
         [--device cuda]
 
@@ -37,11 +37,16 @@ the legacy loop at full batch, the fleet at full batch and the fleet at
 minibatch 128, with ``wall_s``, ``speedup`` and ``equivalence`` in the
 keys of ``benchmarks/bench_schema.json``.  ``--bench --population P``
 runs ``population_benchmark`` instead: ``adaptive_sca`` on P devices,
-stream vs serial, and the full-participation identity.  Both write JSON
-only to ``--json`` (nothing when it is not given): the report condensed to
-the schema's summary (``bench_summary``), checked by
+stream vs serial, and the full-participation identity.
+``--bench-kernel`` runs ``kernel_benchmark``: the round tail fused (K1)
+against unfused (K2, then the step) per uplink dtype, alone and through
+the 7-scheme fleet (12 rounds), the fleets checked bitwise; with
+``--bench`` it runs after the engine benchmark.  All write JSON only to
+``--json`` (nothing when it is not given): the report condensed to the
+schema's summary (``bench_summary``), checked by
 ``repro_torch.validate_bench`` before it is written, and the whole report
-beside it (``<name>.report.json``).
+beside it (``<name>.report.json``).  ``rounds_to_accuracy`` and
+``summarize`` make the reference's per-scheme rows of a run's histories.
 """
 from __future__ import annotations
 
@@ -63,7 +68,7 @@ from repro_torch.fl.driver import run_fleet_task
 from repro_torch.fl.server import run_fl_legacy
 from repro_torch.kernels import ref, round_step
 from repro_torch.kernels.ops import UPLINK_DTYPES
-from repro_torch.scenario_sweep import bitwise
+from repro_torch.scenario_sweep import bitwise, ota_counts
 from repro_torch.telemetry import Telemetry
 
 SCHEMES = ["ideal", "opc", "sca", "lcpc", "vanilla", "bbfl_interior",
@@ -236,6 +241,33 @@ def run(num_rounds: int = 150, eval_every: int = 10, seed: int = 0,
         with open(out / f"histories_seed{seed}.json", "w") as f:
             json.dump(hist, f, indent=1)
     return hist, res
+
+
+def rounds_to_accuracy(hist, target: float):
+    """The first eval round of ``hist`` at or above ``target`` accuracy
+    (None if none is)."""
+    for h in hist:
+        if h["acc"] >= target:
+            return h["round"]
+    return None
+
+
+def summarize(histories) -> list:
+    """One row per scheme: its final accuracy and global loss, the rounds
+    to 80 % accuracy and the CSI it needs (the reference's rows)."""
+    rows = []
+    for name, hist in histories.items():
+        final = hist[-1]
+        rows.append({
+            "scheme": name,
+            "final_acc": round(final["acc"], 4),
+            "final_loss": round(final["global_loss"], 4),
+            "rounds_to_80": rounds_to_accuracy(hist, 0.80),
+            "csi": ("global" if name in ("opc", "vanilla", "bbfl_interior",
+                                         "bbfl_alternative")
+                    else ("none" if name == "ideal" else "statistical")),
+        })
+    return rows
 
 
 def _history_deltas(a: dict, b: dict) -> dict:
@@ -437,12 +469,90 @@ def population_benchmark(task="paper_mlp", size: int = 1_000_000,
     return report
 
 
+def kernel_benchmark(task="paper_mlp", num_rounds: int = 12,
+                     eval_every: int = 6, seed: int = 0,
+                     batch_size: int = BENCH_BATCH, log: bool = True,
+                     designs=None, device=None) -> dict:
+    """Fused-vs-unfused round tails per uplink dtype (the reference's
+    ``benchmarks.fig2.kernel_benchmark``), in two layers:
+
+    kernel  the round tail alone at the paper's scale
+            (``kernel_bench.round_step_rows``): one K1 launch against
+            K2, ghat written out and the SGD step, with the uplink bytes
+            per wire dtype; beside it ``kernel_bench.round_step_equivalence``,
+            K1 against its plain version (``interpret_max_err``: the
+            reference's interpret-mode gate stands here).
+    fleet   the same comparison through ``run_fleet_task`` on the 7-scheme
+            grid at seed 0: the exec walls with ``fuse_round`` on and off
+            at each ``uplink_dtype``, the round tail's launches of each run
+            (K1 once a round fused; K2 once a round unfused, on the
+            dequantized f32 wire), and whether the two runs' params and
+            traces are bitwise equal (f32's is the acceptance pin: fusing
+            must not move a bit).
+
+    ``designs``: the schemes of this task's world (``make_schemes``),
+    else designed here.  Returns the report (``round_step`` of
+    ``bench_schema.json``)."""
+    from repro_torch import kernel_bench
+    dev = resolve_device(device)
+    task = _task(task)
+    micro = kernel_bench.round_step_rows(device=dev)
+    if log:
+        for r in micro:
+            print(f"  {r['uplink_dtype']}: fused {r['fused_us']} us vs "
+                  f"unfused {r['unfused_us']} us ({r['speedup']}x), uplink "
+                  f"{r['uplink_mb']} MB", flush=True)
+    equiv_err = kernel_bench.round_step_equivalence(device=dev)
+    dep, prm, td = build_world(task, seed)
+    pcs = designs if designs is not None \
+        else make_schemes(task, dep, prm, device=dev)
+    run_cfg = task.run_config(num_rounds=num_rounds, eval_every=eval_every,
+                              seed=seed, batch_size=batch_size)
+    kw = dict(task_data=td, params=task.init_params(seed, dev),
+              eval_fn=task.make_eval(td, dev), seeds=(0,), flat=True,
+              device=dev)
+    fleet = {}
+    for ud in kernel_bench.UPLINKS:
+        res, launches = {}, {}
+        for label, fuse in (("fused", True), ("unfused", False)):
+            before = ota_counts()
+            res[label] = run_fleet_task(task, pcs, dep.gains, run_cfg, **kw,
+                                        uplink_dtype=ud, fuse_round=fuse)
+            _sync(dev)
+            launches[label] = {k: v - before[k]
+                               for k, v in ota_counts().items()}
+        same = bitwise(res["fused"], res["unfused"])
+        fleet[ud] = {"fused_exec_s": res["fused"].wall_exec,
+                     "unfused_exec_s": res["unfused"].wall_exec,
+                     "bitwise_fused_vs_unfused": same,
+                     "launches": launches}
+        if log:
+            print(f"fleet grid ({ud}): fused exec "
+                  f"{res['fused'].wall_exec:.3f} s vs unfused "
+                  f"{res['unfused'].wall_exec:.3f} s, bitwise={same}, "
+                  f"launches {json.dumps(launches)}", flush=True)
+    return {"config": {"task": task.name, "schemes": list(SCHEMES),
+                       "num_rounds": num_rounds, "eval_every": eval_every,
+                       "seed": seed, "batch_size": batch_size,
+                       "device": _card(dev), "backend": "torch-" + dev.type},
+            "kernel": micro, "interpret_max_err": equiv_err, "fleet": fleet,
+            "f32_bitwise": fleet["f32"]["bitwise_fused_vs_unfused"]}
+
+
 def bench_summary(report: dict, task_name: str, source: str) -> dict:
     """A ``--bench`` report condensed to the summary that
     ``bench_schema.json`` describes (the reference's
     ``write_bench_summary``): the engine benchmark's grid, walls and
-    speedups, or the population benchmark as its ``population`` section."""
+    speedups, or the population benchmark as its ``population`` section;
+    a ``round_step`` entry (``kernel_benchmark``'s report, alone for
+    ``--bench-kernel`` or beside the engine benchmark's) is its
+    ``round_step`` section."""
     summary = {"source": source, "task": task_name}
+    if "round_step" in report:
+        summary["round_step"] = report["round_step"]
+        report = {k: v for k, v in report.items() if k != "round_step"}
+        if not report:
+            return summary
     if "population" in report.get("config", {}):
         summary["population"] = {k: v for k, v in report.items()
                                  if k != "result"}
@@ -460,7 +570,9 @@ def write_bench(report: dict, task_name: str, path: str) -> None:
     ``validate_bench`` passes it (a ValueError names the violations), and
     the whole report beside it as ``<stem>.report.json``."""
     path = Path(path).resolve()
-    summary = bench_summary(report, task_name, "repro_torch.fig2 --bench")
+    summary = bench_summary(report, task_name, "repro_torch.fig2 --bench"
+                            + ("-kernel" if set(report) == {"round_step"}
+                               else ""))
     errors = validate_bench.validate_summary(summary)
     if errors:
         raise ValueError(f"{path.name} would violate the bench schema: "
@@ -493,8 +605,12 @@ def main(argv=None) -> None:
     ap.add_argument("--bench", action="store_true",
                     help="the engine-vs-legacy benchmark; with "
                          "--population, the population benchmark")
+    ap.add_argument("--bench-kernel", action="store_true",
+                    help="fused-vs-unfused round tails per uplink dtype "
+                         "(kernel_benchmark); with --bench, after it")
     ap.add_argument("--json", default=None,
-                    help="where --bench writes its report")
+                    help="where --bench and --bench-kernel write their "
+                         "report")
     ap.add_argument("--population", type=int, default=0,
                     help="population mode: the population's size "
                          "(0 = full participation)")
@@ -532,15 +648,26 @@ def main(argv=None) -> None:
         raise SystemExit(str(e))
     if a.population and a.legacy:
         raise SystemExit("--population applies to the fleet; drop --legacy")
-    if (a.checkpoint or a.resume) and (a.legacy or a.bench):
+    if (a.checkpoint or a.resume) and (a.legacy or a.bench
+                                       or a.bench_kernel):
         raise SystemExit("--checkpoint/--resume apply to the fleet run "
-                         "only; drop --legacy/--bench")
+                         "only; drop --legacy/--bench/--bench-kernel")
     if a.legacy and (a.uplink != "f32" or a.unfused):
         raise SystemExit("--uplink/--unfused apply to the fleet; the legacy "
                          "loop runs f32, fused; drop --legacy")
-    if a.telemetry and (a.legacy or a.bench):
+    if a.telemetry and (a.legacy or a.bench or a.bench_kernel):
         raise SystemExit("--telemetry applies to the fleet run only; drop "
-                         "--legacy/--bench")
+                         "--legacy/--bench/--bench-kernel")
+    if a.bench_kernel and not a.bench:
+        report = {"round_step": kernel_benchmark(
+            task=task, num_rounds=min(a.rounds or 12, 12),
+            eval_every=a.every or 6, seed=a.seed,
+            batch_size=a.batch or BENCH_BATCH, device=a.device)}
+        if a.json:
+            write_bench(report, task.name, a.json)
+            print(f"# wrote {a.json} (schema-checked) and its "
+                  ".report.json", flush=True)
+        return
     # --bench runs the reference's bench batch whatever the task prefers
     batch = a.batch if a.batch is not None \
         else BENCH_BATCH if a.bench else default_batch(task)
@@ -555,6 +682,10 @@ def main(argv=None) -> None:
             report = benchmark(num_rounds=a.rounds or 150,
                                eval_every=a.every or 15, seed=a.seed,
                                batch_size=batch, task=task, device=a.device)
+        if a.bench_kernel:
+            report["round_step"] = kernel_benchmark(
+                task=task, num_rounds=12, eval_every=a.every or 6,
+                seed=a.seed, batch_size=batch, device=a.device)
         if a.json:
             write_bench(report, task.name, a.json)
             print(f"# wrote {a.json} (schema-checked) and its "

@@ -305,6 +305,34 @@ def ssd_chunked(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
     return y.to(x.dtype), state
 
 
+def ssd_ref(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
+            b_mat: torch.Tensor, c_mat: torch.Tensor) -> torch.Tensor:
+    """The sequential SSD recurrence, one step at a time in float32 (the
+    mathematical definition; ``repro.kernels.ref.ssd_ref``):
+
+        S_t = exp(dt_t a) S_{t-1} + dt_t x_t (x) B_t,   S_0 = 0
+        y_t = S_t C_t
+
+    x: [B, S, H, P]; dt: [B, S, H]; a_neg: [H]; b_mat, c_mat: [B, S, G, N],
+    head h reading group h // (H / G).  Returns y [B, S, H, P] in x's
+    dtype.  The oracle that ``kernel_bench`` holds the chunked scan and K4
+    against; not a kernel's plain version, so not counted."""
+    bsz, s, h, p_dim = x.shape
+    rep = h // b_mat.shape[2]
+    bh, ch = (m.float().repeat_interleave(rep, dim=2) if rep > 1
+              else m.float() for m in (b_mat, c_mat))
+    xf, dtf, af = x.float(), dt.float(), a_neg.float()
+    state = torch.zeros((bsz, h, p_dim, b_mat.shape[3]), dtype=torch.float32,
+                        device=x.device)
+    ys = []
+    for t in range(s):
+        da = torch.exp(dtf[:, t] * af[None, :])                  # [B, H]
+        state = state * da[..., None, None] + torch.einsum(
+            "bh,bhn,bhp->bhpn", dtf[:, t], bh[:, t], xf[:, t])
+        ys.append(torch.einsum("bhn,bhpn->bhp", ch[:, t], state))
+    return torch.stack(ys, dim=1).to(x.dtype)
+
+
 ota_aggregate_ref.calls = 0
 ota_round_step_ref.calls = 0
 attention_ref.calls = 0

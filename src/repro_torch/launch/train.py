@@ -117,10 +117,15 @@ def make_design(scheme: str, clients: int, d: int, eta: float = 0.02,
 
 
 def same_world(a: OTAParams, b: OTAParams) -> bool:
-    """Whether two ``OTAParams`` are one world, field for field."""
-    return all(np.array_equal(x, y) if isinstance(x, np.ndarray) else x == y
-               for x, y in zip(dataclasses.astuple(a),
-                               dataclasses.astuple(b)))
+    """Whether two ``OTAParams`` are one world, field for field (a nested
+    dataclass, such as a scenario's fading spec, field for field too)."""
+    if dataclasses.is_dataclass(a) and dataclasses.is_dataclass(b):
+        return type(a) is type(b) and all(
+            same_world(getattr(a, f.name), getattr(b, f.name))
+            for f in dataclasses.fields(a))
+    if isinstance(a, np.ndarray) or isinstance(b, np.ndarray):
+        return np.array_equal(a, b)
+    return a == b
 
 
 def _sync(dev: torch.device) -> float:

@@ -13,6 +13,7 @@ At the reference's settings: device counts ``SIZES``, batches ``BATCHES``,
 * ``solver_benchmark``: the SLSQP loop against the port's batched f64
   torch solver (``solvers.solve_batch``) on the card and on the host CPU,
   per device count and batch size: walls, speedups, the objective gap;
+  ``solver_rows`` makes the reference's CSV rows of it;
 * ``tradeoff_sweep``: the bias-variance decomposition along gamma =
   f gamma_max (noise falls and bias rises as f grows);
 * ``bound_decomposition``: the Theorem-1 bound's three terms for the SCA
@@ -137,6 +138,29 @@ def solver_benchmark(sizes=SIZES, batches=BATCHES, device=None) -> dict:
                   f"{t_cpu:.3f} s, gap {np.max(gaps):.2e}", flush=True)
         out["sizes"].append(row)
     return out
+
+
+def solver_rows(result: dict) -> list:
+    """``solver_benchmark``'s report flattened into the reference's CSV
+    rows ``sca_solver_n{n}_b{b}``, under the reference's column names so
+    that the two CSVs diff cleanly: ``jax_batch_s`` holds the port's
+    ``torch_device_s`` (the second batched solve on the device),
+    ``speedup`` its ``speedup_device``, and ``us_per_call`` that solve's
+    wall per scenario."""
+    rows = []
+    for size in result["sizes"]:
+        n = size["num_devices"]
+        for b in size["batch"]:
+            rows.append({
+                "bench": f"sca_solver_n{n}_b{b['batch_size']}",
+                "us_per_call": round(b["torch_device_s"] * 1e6
+                                     / b["batch_size"], 1),
+                "scipy_loop_s": b["scipy_loop_s"],
+                "jax_batch_s": b["torch_device_s"],
+                "speedup": b["speedup_device"],
+                "gap_max": f"{b['objective_rel_gap_max']:.2e}",
+            })
+    return rows
 
 
 def tradeoff_sweep(n: int = 10, seed: int = 0, points: int = 9) -> list:

@@ -89,18 +89,18 @@ def _family(prm) -> str:
 
 def design(scenario_names=scn.SWEEP_FAMILIES, schemes=SCHEMES, d: int = D,
            gmax: float = GMAX, eta: float = ETA, kappa_sq: float = KAPPA_SQ,
-           device=None, jobs: int = 1) -> dict:
+           device=None, jobs: int = 1, seed: int = 0) -> dict:
     """Every scenario's world and its schemes: {"order": names,
     name: {"scenario", "dep", "prm", "schemes"}, "sca_calls": [(family,
     scenario names, seconds)]}.  ``sca`` takes one batched solve per
     fading family, on ``device``; the other schemes are host designs.  The
-    deployments are realized at seed 0.  ``jobs`` > 1 runs that many
+    deployments are realized at ``seed``.  ``jobs`` > 1 runs that many
     families' solves at once, each in a spawned process of its own on
     ``device`` (a solve is mostly host work: small launches)."""
     world = {"order": tuple(scenario_names), "sca_calls": []}
     for name in scenario_names:
         sc = scn.get_scenario(name)
-        dep = scn.realize(sc, seed=0)
+        dep = scn.realize(sc, seed=seed)
         prm = scn.make_ota_params(dep, d=d, gmax=gmax, eta=eta,
                                   kappa_sq=kappa_sq)
         world[name] = {"scenario": sc, "dep": dep, "prm": prm,
@@ -158,12 +158,15 @@ def _task(task):
         if isinstance(task, str) else task
 
 
-def run_config(task, num_rounds, eval_every):
-    """The sweep's run config: eta 0.05, seed 0 and the task's own batch
-    (paper_mlp: full batch)."""
+def run_config(task, num_rounds, eval_every, seed: int = 0,
+               batch_size=None):
+    """The sweep's run config: eta 0.05, ``seed`` and ``batch_size``
+    (None: the task's own, paper_mlp's full batch)."""
+    if batch_size is None:
+        batch_size = int(task.defaults.get("batch_size", 0))
     return task.run_config(eta=ETA, num_rounds=num_rounds,
-                           eval_every=eval_every, seed=0,
-                           batch_size=int(task.defaults.get("batch_size", 0)))
+                           eval_every=eval_every, seed=seed,
+                           batch_size=batch_size)
 
 
 def scenario_fleet(task, world: dict, name: str, run, seeds, **kw):
@@ -239,25 +242,38 @@ def theory_errors(rows: Sequence[dict], ref: dict) -> dict:
     return out
 
 
-def train_sweep(world: dict, task="paper_mlp", device=None) -> list:
-    """A fleet per scenario of ``world`` (its schemes on its fading
-    process; ROUNDS rounds, seed 0), the task built once; one row per
-    (scenario, scheme)."""
+def train_sweep(world: dict, task="paper_mlp", device=None, *,
+                scenario_names=None, num_rounds: int = ROUNDS,
+                eval_every: int = EVERY, seed: int = 0,
+                batch_size=None) -> list:
+    """A fleet per scenario of ``world`` (a ``design`` for the task's d,
+    realized at ``seed``: its schemes on its fading process; seed
+    ``seed``), the task built once; one row per (scenario, scheme).  The
+    keywords are the reference's: ``scenario_names`` (default every
+    scenario of ``world``), ``num_rounds``, ``eval_every``, ``seed`` and
+    ``batch_size`` (None: the task's own)."""
     from repro_torch.device import resolve_device
     task = _task(task)
-    td = task.build_data(0)
     dev = resolve_device(device)
-    kw = dict(task_data=td, params=task.init_params(0, dev),
+    names = tuple(scenario_names or world["order"])
+    for name in names:
+        n_dev = len(world[name]["dep"].gains)
+        if n_dev != task.num_devices:
+            raise ValueError(f"scenario {name!r} deploys {n_dev} devices "
+                             f"but task {task.name!r} partitions "
+                             f"{task.num_devices}")
+    td = task.build_data(seed)
+    kw = dict(task_data=td, params=task.init_params(seed, dev),
               eval_fn=task.make_eval(td, dev), device=dev)
-    run = run_config(task, ROUNDS, EVERY)
+    run = run_config(task, num_rounds, eval_every, seed, batch_size)
     rows = []
-    for name in world["order"]:
-        res = scenario_fleet(task, world, name, run, (0,), **kw)
+    for name in names:
+        res = scenario_fleet(task, world, name, run, (seed,), **kw)
         final = res.evals[-1][1]["acc"]
         for i, scheme in enumerate(res.names):
             rows.append({"scenario": name, "scheme": scheme,
                          "final_acc": round(float(final[i, 0]), 4),
-                         "rounds": ROUNDS})
+                         "rounds": num_rounds})
     return rows
 
 
@@ -267,6 +283,12 @@ def _ota_counters() -> dict:
             "ota_aggregate": (ota_aggregate.ota_aggregate, "launches"),
             "plain_round_step": (ref.ota_round_step_ref, "calls"),
             "plain_aggregate": (ref.ota_aggregate_ref, "calls")}
+
+
+def ota_counts() -> dict:
+    """The round tail's counts now: K1 and K2 launches, their plain
+    versions' calls."""
+    return {k: getattr(fn, attr) for k, (fn, attr) in _ota_counters().items()}
 
 
 def _counted(fleet, dev):

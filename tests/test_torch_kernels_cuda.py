@@ -564,3 +564,66 @@ def test_plain_attention_past_2048_squared_is_the_blocked_form_on_cuda(
     want = ref.grouped_attention_blocked(q, k, v, pos, pos, causal=True,
                                          window=300)
     assert got.dtype == dtype and torch.equal(got, want)
+
+
+# The scripts (module 14) on the card: ``kernel_bench``'s rows hold K2,
+# K3 and K4 against their plain versions (and K4 against the sequential
+# oracle) and its round-step rows hold fused against unfused bitwise;
+# ``fig2 --bench-kernel``'s f32 fused and unfused fleets are bitwise equal
+# (the reference's acceptance pin), on a cut paper_mlp with the SLSQP
+# oracle's sca design.
+
+def test_kernel_bench_rows_on_cuda(cuda):
+    from repro_torch import kernel_bench
+    before = (flash_attention.launches, ssd_scan.launches,
+              ota_aggregate.ota_aggregate.launches)
+    rows = {r["bench"]: r for r in kernel_bench.run(cuda, iters=2)}
+    assert list(rows) == ["ota_aggregate_d814k", "attention_ref_2k_full",
+                          "ssd_chunked_1k"]
+    assert rows["ota_aggregate_d814k"]["bitwise"]
+    assert rows["attention_ref_2k_full"]["max_err"] <= 1e-4
+    assert rows["ssd_chunked_1k"]["speedup_vs_sequential"] > 1
+    assert all(r["us_per_call"] > 0 and r["bound_us"] > 0
+               for r in rows.values())
+    after = (flash_attention.launches, ssd_scan.launches,
+             ota_aggregate.ota_aggregate.launches)
+    assert all(a > b for a, b in zip(after, before))
+
+
+@pytest.mark.parametrize("uplink", ["f32", "bf16", "int8"])
+def test_round_step_fused_equals_unfused_on_cuda(cuda, uplink):
+    from repro_torch import kernel_bench
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    n, d = 10, 65_537
+    g = torch.randn((1, n, d), generator=gen, device=cuda)
+    s = 0.1 + 0.9 * torch.rand((1, n), generator=gen, device=cuda)
+    z = torch.randn((1, d), generator=gen, device=cuda)
+    p = torch.randn((1, d), generator=gen, device=cuda)
+    ns = torch.full((1,), 0.2, device=cuda)
+    eta = torch.full((1,), 0.05, device=cuda)
+    wire, qs = ops.quantize_uplink(g, uplink)
+    k1 = round_step.ota_round_step.launches
+    fused = ops.ota_round_step_flat(wire, s, z, ns, p, eta, qs)
+    ghat = ops.ota_aggregate_flat(ops.dequantize_uplink(wire, qs), s, z, ns)
+    assert round_step.ota_round_step.launches == k1 + 1
+    assert torch.equal(fused, p - eta[:, None] * ghat)
+    assert kernel_bench.round_step_equivalence(device=cuda) == 0.0
+
+
+def test_bench_kernel_f32_pin_on_cuda(cuda):
+    from repro_torch import fig2, tasks
+    from repro_torch.core import power_control as pcm
+    task = tasks.get("paper_mlp", expect_runtime="fleet", hidden=16,
+                     samples_per_class=20)
+    dep, prm, _ = fig2.build_world(task, 0)
+    pcs = [pcm.make_power_control(
+        n, dep, prm.replace(eta=task.eta_for(n, 0.05)),
+        **({"method": "scipy"} if n == "sca" else {})) for n in fig2.SCHEMES]
+    rep = fig2.kernel_benchmark(task, num_rounds=4, eval_every=2,
+                                designs=pcs, device=cuda, log=False)
+    assert rep["f32_bitwise"] and rep["interpret_max_err"] == 0.0
+    for f in rep["fleet"].values():
+        assert f["launches"]["fused"]["ota_round_step"] == 4
+        assert f["launches"]["unfused"]["ota_aggregate"] == 4
+        assert f["launches"]["fused"]["plain_round_step"] == 0
+        assert f["launches"]["unfused"]["plain_aggregate"] == 0

@@ -1431,6 +1431,191 @@ def run_reference_telemetry(out_dir: Path, *, rounds: int = 4,
     return _run_child(_TEL_CHILD, cfg, "reference telemetry", timeout)
 
 
+# The reference's scripts (``benchmarks/fig2.py``, ``sca_bench.py``,
+# ``kernels/ref.py``; module 14) on inputs both sides rebuild from numpy
+# seeds: ``summarize`` and ``rounds_to_accuracy`` of ``script_histories``,
+# ``solver_rows`` of ``script_solver_result`` and the sequential SSD oracle
+# on ``ssd_inputs``.
+_SCRIPTS_CHILD = r"""
+import json, sys
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+import jax.numpy as jnp
+sys.path.insert(0, cfg["tests"])
+import torch_ref
+from benchmarks import fig2, sca_bench
+from repro.kernels import ref
+
+hist = torch_ref.script_histories()
+blob = {"summarize": fig2.summarize(hist),
+        "rounds_to": {"%s/%s" % (name, t): fig2.rounds_to_accuracy(h, t)
+                      for name, h in hist.items()
+                      for t in torch_ref.SCRIPT_TARGETS},
+        "solver_rows": sca_bench.solver_rows(
+            torch_ref.script_solver_result("jax"))}
+out = {"blob": np.asarray(json.dumps(blob))}
+for i, shape in enumerate(torch_ref.SSD_SHAPES):
+    args = torch_ref.ssd_inputs(*shape, seed=i)
+    out["ssd/%d" % i] = np.asarray(ref.ssd_ref(*map(jnp.asarray, args)))
+np.savez(cfg["out"], **out)
+"""
+
+SCRIPT_SCHEMES = ("ideal", "opc", "sca", "lcpc", "vanilla", "bbfl_interior",
+                  "bbfl_alternative", "zero_bias")
+SCRIPT_TARGETS = (0.5, 0.8, 0.95)
+# (B, S, H, P, G, N) of the SSD oracle's cases: G = 1 and G dividing H
+SSD_SHAPES = ((1, 64, 4, 16, 1, 16), (2, 48, 4, 8, 2, 16))
+
+
+def script_histories(seed: int = 0) -> dict:
+    """Fig.-2 histories of every scheme name (and one outside the grid):
+    eval rows at rounds 0, 10, ..., 50 with accuracies rising at random
+    from numpy ``seed``; one scheme never reaches 0.8."""
+    rng = np.random.default_rng(seed)
+    out = {}
+    for i, name in enumerate(SCRIPT_SCHEMES):
+        top = 0.7 if i == 2 else 0.99
+        acc = np.sort(rng.uniform(0.05, top, 6))
+        loss = np.sort(rng.uniform(0.1, 2.5, 6))[::-1]
+        out[name] = [{"acc": float(a), "global_loss": float(lo),
+                      "round": 10 * t, "scheme": name}
+                     for t, (a, lo) in enumerate(zip(acc, loss))]
+    return out
+
+
+def script_solver_result(names: str, seed: int = 0) -> dict:
+    """A ``solver_benchmark`` report from numpy ``seed``, under the port's
+    column names (``names="torch"``) or the reference's (``"jax"``): the
+    same numbers either way."""
+    rng = np.random.default_rng(seed)
+    sizes = []
+    for n in (10, 20):
+        batch = []
+        for b in (1, 16):
+            t_dev, t_scipy = rng.uniform(0.01, 2.0, 2)
+            row = {"batch_size": b, "scipy_loop_s": float(t_scipy),
+                   "objective_rel_gap_max": float(rng.uniform(-1e-6, 1e-4))}
+            if names == "torch":
+                row.update(torch_device_s=float(t_dev),
+                           speedup_device=float(t_scipy / t_dev),
+                           torch_device_first_call_s=float(3 * t_dev),
+                           torch_host_cpu_s=float(2 * t_dev))
+            else:
+                row.update(jax_batch_s=float(t_dev),
+                           speedup=float(t_scipy / t_dev),
+                           jax_first_call_s=float(3 * t_dev))
+            batch.append(row)
+        sizes.append({"num_devices": n, "batch": batch})
+    return {"sizes": sizes}
+
+
+def ssd_inputs(b, s, h, p, g, n, seed=0):
+    """x, dt (> 0), a_neg (< 0), B, C of one SSD case, f32 numpy."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((b, s, h, p)).astype(np.float32)
+    dt = np.log1p(np.exp(rng.standard_normal((b, s, h)))).astype(np.float32)
+    a_neg = -np.exp(0.5 * rng.standard_normal(h)).astype(np.float32)
+    bm = (0.5 * rng.standard_normal((b, s, g, n))).astype(np.float32)
+    cm = (0.5 * rng.standard_normal((b, s, g, n))).astype(np.float32)
+    return x, dt, a_neg, bm, cm
+
+
+def run_reference_scripts(out_path: Path, timeout: float = 300.0) -> dict:
+    """The reference scripts' outputs on the seeded inputs above:
+    {"blob": summarize / rounds_to / solver_rows,
+    "ssd/<i>": the oracle's y per ``SSD_SHAPES`` case}."""
+    got = _run_child(_SCRIPTS_CHILD, {"out": str(out_path),
+                                      "tests": str(ROOT / "tests")},
+                     "reference scripts", timeout)
+    got["blob"] = json.loads(str(got["blob"]))
+    return got
+
+
+# The reference's numbers behind the examples' tables (its theory, SLSQP
+# oracle, worlds and scenario deployments: deterministic), evaluated on the
+# port's designs, handed over as gammas: ``examples/sca_power_control.py``'s
+# rows, ``examples/quickstart.py``'s world and ``examples/scenario_sweep.py``'s
+# theory rows.
+_EXAMPLES_CHILD = r"""
+import json, sys
+cfg = json.loads(sys.argv[1])
+import numpy as np
+from repro.core import channel, sca, scenarios as scn, theory
+from repro.core.theory import OTAParams
+
+def prm_of(seed, n, d):                 # examples/sca_power_control.py
+    w = channel.WirelessConfig(num_devices=n, seed=seed)
+    dep = channel.deploy(w)
+    return OTAParams(d=d, gmax=10.0, es=w.energy_per_sample, n0=w.noise_psd,
+                     gains=dep.gains, sigma_sq=np.zeros(n), eta=0.05,
+                     lsmooth=1.0, kappa_sq=4.0), dep
+
+def rows_of(gamma, prm):
+    z = theory.zeta_terms(gamma, prm)
+    _, _, p = theory.participation(gamma, prm)
+    return {"bias": float(theory.bias_term(p, prm)),
+            "variance": float(z["total"]), "noise": float(z["noise"]),
+            "transmission": float(z["transmission"]),
+            "objective": float(theory.p1_objective(gamma, prm)),
+            "p_spread": float(np.max(p) - np.min(p))}
+
+out = {}
+c = cfg["sca_power_control"]
+out["sca_power_control"] = []
+for seed, gamma in zip(c["seeds"], c["gammas"]):
+    prm, dep = prm_of(seed, c["n"], c["d"])
+    r = rows_of(np.asarray(gamma), prm)
+    r["oracle_objective"] = float(sca.solve_sca(prm).objective)
+    r["zero_bias"] = rows_of(theory.zero_bias_gamma(prm), prm)
+    r["max_power"] = rows_of(theory.gamma_max(prm), prm)
+    r["distances"] = dep.distances.tolist()
+    out["sca_power_control"].append(r)
+
+q = cfg["quickstart"]
+w = channel.WirelessConfig(num_devices=q["num_devices"], seed=0)
+dep = channel.deploy(w)
+prm = OTAParams(d=q["d"], gmax=q["gmax"], es=w.energy_per_sample,
+                n0=w.noise_psd, gains=dep.gains,
+                sigma_sq=np.zeros(q["num_devices"]), eta=0.05, lsmooth=1.0,
+                kappa_sq=4.0)
+out["quickstart"] = {"gains": dep.gains.tolist(),
+                     "distances": dep.distances.tolist(),
+                     "es": prm.es, "n0": prm.n0,
+                     "sca": rows_of(np.asarray(q["gamma"]), prm),
+                     "oracle_objective": float(sca.solve_sca(prm).objective)}
+
+s = cfg["scenarios"]
+out["scenarios"] = {}
+for name, gamma in s["gammas"].items():
+    dep = scn.realize(scn.get_scenario(name))
+    prm = scn.make_ota_params(dep, d=s["d"], gmax=10.0, eta=0.05,
+                              kappa_sq=4.0)
+    r = rows_of(np.asarray(gamma), prm)
+    r["fading"] = dep.fading_spec.family
+    r["gain_spread_db"] = float(10 * np.log10(dep.gains.max()
+                                              / dep.gains.min()))
+    r["oracle_objective"] = float(sca.solve_sca(prm).objective)
+    out["scenarios"][name] = r
+with open(cfg["out"], "w") as f:
+    json.dump(out, f)
+"""
+
+
+def run_reference_examples(out_path: Path, cfg: dict,
+                           timeout: float = 300.0) -> dict:
+    """The reference's numbers behind the examples' tables on the port's
+    designs: ``cfg`` = {"sca_power_control": {"seeds", "n", "d",
+    "gammas"}, "quickstart": {"num_devices", "d", "gmax", "gamma"},
+    "scenarios": {"d", "gammas": {name: gamma}}}."""
+    _child(_EXAMPLES_CHILD, dict(cfg, out=str(out_path)),
+           "reference examples", timeout)
+    with open(out_path) as f:
+        return json.load(f)
+
+
 def prefixed(blob: dict, prefix: str) -> dict:
     """The entries of ``blob`` under ``prefix/``, prefix stripped."""
     p = prefix + "/"
