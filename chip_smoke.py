@@ -416,7 +416,23 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      quickstart's fleet), C 6 (quickstart's grid), each at N 10, D
      814,090, and the cut cifar fleet's C 4; the phase's seconds by
      part;
- 22. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+ 22. the dry-run and roofline (module 13): ``launch.dryrun.run_one``
+     counts, on CUDA fakes on the host's CPU while the card idles (no
+     launch, no build), three steps the smoke timed, at their own shapes
+     and depths: the bf16 qwen1.5-0.5b prefill at 8 x 1,024 (phase 6: K3
+     24 calls in the tally), the mamba2-1.3b prefill (phase 7: K4 48) and
+     the qwen1.5-0.5b train step at 4 x 1 x 4,096 (phase 19: no kernel);
+     each count again on CPU fakes that stand for the card (how the
+     committed ``experiments/dryrun_torch/`` records were made), which
+     must be equal; each step's roofline time (``roofline.terms``: the
+     FLOPs over the bf16 tensor-core peak, the bytes over the memory
+     rate, the larger, reckoned from the card's published peaks) beside
+     the time its phase measured, the share (fails above
+     ROOFLINE_SHARE_MAX) and the card line; the fused K1 launch's bytes
+     (``roofline.ota_round_step_roofline`` at [10, 814,090]) x 7 cells,
+     plus the per-cell coefficients it leaves out (616 bytes), equal to
+     the bytes behind phase 2's K1 f32 bound;
+ 23. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
      run's launches, with each dense arch's serve run's, with the qwen
      train run's eval's, with recurrentgemma's and with seamless's, its
      non-causal and causal launches on two rows, and with mixtral's; K3
@@ -673,6 +689,10 @@ SEAMLESS_TRAIN_PARAMS, SEAMLESS_TRAIN_ETA, SEAMLESS_F32_LAYERS = \
 # (DESIGN_JOBS at once) while phases 1-2 run: (label, run() keywords) for
 # launch.train's runs, then lm_curves' seeds and phase 20's world
 DESIGN_JOBS = 5
+# phase 22: a step's roofline time (the dry-run's count over the card's
+# published peaks) over its measured time; above this the count or the
+# peaks are wrong
+ROOFLINE_SHARE_MAX = 1.05
 # phase 21: the harness smoke's designs made ahead (its Fig.-2 fleet takes
 # phase 3's world; its solver gate's batched solve runs on the card),
 # kernel_benchmark's rounds (as --bench-kernel), kernel_bench.run's batch
@@ -2850,42 +2870,6 @@ def phase_seamless(torch, dev, card_line):
     return out
 
 
-def def_bytes(torch, defs):
-    """Bytes of a nested def tree (dicts and lists of ``ParamDef``)."""
-    from repro_torch.models.param import ParamDef
-    if isinstance(defs, ParamDef):
-        return defs.size * torch.empty((), dtype=defs.dtype).element_size()
-    vals = defs.values() if isinstance(defs, dict) else defs
-    return sum(def_bytes(torch, v) for v in vals)
-
-
-def mixtral_reckoning(torch, cfg, batch, prompt_len, decode_tokens):
-    """A serve run's device memory reckoned from its shapes, in bytes: the
-    weights; the init's float32 draw of the largest leaf (an expert
-    weight ``wi``); the prefill's transients, the experts' products
-    ([B, E, cap, 2, F] and the gated [B, E, cap, F] twice, the dispatched
-    rows and the experts' outputs [B, E, cap, D]) and the logits (in the
-    compute dtype, then f32); the KV caches (ring caches of the window's
-    slots)."""
-    from repro_torch.models import moe
-    from repro_torch.models import transformer as tfm
-    es = torch.empty((), dtype=cfg.compute_dtype).element_size()
-    e, f, d = cfg.moe_num_experts, cfg.expert_d_ff, cfg.d_model
-    slots = batch * e * moe.expert_capacity(cfg, prompt_len)
-    cache_len = prompt_len + decode_tokens
-    if cfg.window:
-        cache_len = min(cache_len, cfg.window)
-    r = {"weights": def_bytes(torch, tfm.model_defs(cfg)),
-         "init_f32_leaf": 4 * e * d * 2 * f,
-         "experts": es * slots * (4 * f + 2 * d),
-         "logits": batch * prompt_len * cfg.padded_vocab * (4 + es),
-         "caches": cfg.n_layers * 2 * batch * cache_len * cfg.n_kv_heads
-         * cfg.resolved_head_dim * es}
-    r["peak"] = r["weights"] + max(
-        r["init_f32_leaf"], r["experts"] + r["logits"] + r["caches"])
-    return r
-
-
 def near_ties(torch, probs, k):
     """[..., k] bool: a route's top-k choices whose sorted probability lies
     within MIXTRAL_TIE of its neighbour's above or below (a rounding
@@ -3034,7 +3018,7 @@ def phase_mixtral(torch, np, dev, card_line, designs=None):
     card against the CPU; and launch.train at two layers."""
     import gc
     from repro_torch import configs
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import memory, serve, train
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
     out, t_part = {"seconds": {}}, [time.time()]
@@ -3054,7 +3038,7 @@ def phase_mixtral(torch, np, dev, card_line, designs=None):
     total = torch.cuda.get_device_properties(dev).total_memory
     layers = MIXTRAL_LAYERS
     cfg = base.replace(n_layers=layers)
-    rk = mixtral_reckoning(torch, cfg, b, s, n_dec)
+    rk = memory.mixtral_reckoning(cfg, b, s, n_dec)
     free = (total - rk["peak"]) / 1e9
     print(f"  (a) mixtral-8x22b memory reckoning at {layers} layers (full "
           f"width, bf16, batch {b} x {s}), GB: "
@@ -3256,26 +3240,6 @@ def phase_mixtral(torch, np, dev, card_line, designs=None):
 
 
 
-def deepseek_reckoning(torch, cfg, batch, prompt_len, decode_tokens):
-    """``mixtral_reckoning``'s terms for an MLA + MoE model, with the
-    caches its latents ([B, L, kv_lora_rank + rope] a layer), and the
-    prefill's MLA transients (the expanded q and k [B, S, H, nope + rope],
-    k_nope and v [B, S, H, v]) and the combine's [B, S, K, D] twice beside
-    the experts' and the logits."""
-    r = mixtral_reckoning(torch, cfg, batch, prompt_len, decode_tokens)
-    es = torch.empty((), dtype=cfg.compute_dtype).element_size()
-    tokens = batch * prompt_len
-    r["caches"] = (cfg.n_layers * batch * (prompt_len + decode_tokens)
-                   * (cfg.kv_lora_rank + cfg.qk_rope_head_dim) * es)
-    r["attention"] = es * tokens * cfg.n_heads * 2 * (
-        cfg.qk_nope_head_dim + cfg.qk_rope_head_dim + cfg.v_head_dim)
-    r["combine"] = 2 * es * tokens * cfg.moe_top_k * cfg.d_model
-    r["peak"] = r["weights"] + max(
-        r["init_f32_leaf"], r["experts"] + r["combine"] + r["attention"]
-        + r["logits"] + r["caches"])
-    return r
-
-
 def mla_forms(torch, res, cfg):
     """Layer 0's MLA on a serve run's prompts and first generated token:
     the token decoded in the weight-absorbed form against the latent cache
@@ -3308,7 +3272,7 @@ def phase_deepseek(torch, np, dev, card_line, designs=None):
     term."""
     import gc
     from repro_torch import configs
-    from repro_torch.launch import serve, train
+    from repro_torch.launch import memory, serve, train
     from repro_torch.models import moe
     from repro_torch.models import transformer as tfm
     out, t_part = {"seconds": {}}, [time.time()]
@@ -3328,7 +3292,7 @@ def phase_deepseek(torch, np, dev, card_line, designs=None):
     total = torch.cuda.get_device_properties(dev).total_memory
     layers = DEEPSEEK_LAYERS
     cfg = base.replace(n_layers=layers)
-    rk = deepseek_reckoning(torch, cfg, b, s, n_dec)
+    rk = memory.deepseek_reckoning(cfg, b, s, n_dec)
     free = (total - rk["peak"]) / 1e9
     print(f"  (a) deepseek-v3-671b memory reckoning at {layers} layers (full "
           f"width, bf16, batch {b} x {s}), GB: "
@@ -3504,65 +3468,6 @@ def phase_deepseek(torch, np, dev, card_line, designs=None):
     return out
 
 
-def train_reckoning(torch, cfg, clients, seq):
-    """A ``launch.train`` step's device memory reckoned from its shapes, in
-    bytes, at ``clients`` x 1 x ``seq`` tokens: the weights; the step's f32
-    noise draws (one z per leaf); the gradients and their noisy copy;
-    what the forward keeps for the backward, by layer kind (an attention
-    layer's q, k, v, f32 output and row statistics, and one key block's
-    scores, p and their gradients while it runs; an RG-LRU layer's f32
-    gates and the doubling scan's two f32 levels a step, log2 S steps;
-    the FFN's four [T, F] products; the residual stream's f32 norms, two
-    a sublayer); the loss head's one chunk of f32 logits five times over
-    (the softcap, the log-sum-exp and their gradients).  An
-    encoder-decoder (``clients`` x ``seq`` frames and tokens) counts the
-    encoder's self-attentions and the decoder's self- and
-    cross-attentions (a third sublayer a decoder layer), and the
-    encoder's output, which every cross-attention's backward reads.  The
-    peak is the largest of the forward's end (weights, noise,
-    activations, the head and the unembedding's gradient) and the step's
-    end (weights, noise, two gradient trees and the SGD update's f32
-    copies of the largest leaf)."""
-    import math
-    from repro_torch.models import encdec
-    from repro_torch.models import transformer as tfm
-    from repro_torch.models.param import _map_defs
-    es = torch.empty((), dtype=cfg.compute_dtype).element_size()
-    defs = encdec.encdec_defs(cfg) if cfg.is_enc_dec else tfm.model_defs(cfg)
-    weights = def_bytes(torch, defs)
-    sizes = []
-    _map_defs(defs, lambda d: sizes.append(d.size))
-    n_params = sum(sizes)
-    d, dh, h, kh = (cfg.d_model, cfg.resolved_head_dim, cfg.n_heads,
-                    cfg.n_kv_heads)
-    tokens = clients * seq
-    if cfg.is_enc_dec:
-        n_layers = cfg.encoder_layers + cfg.n_layers
-        n_attn, n_rglru = cfg.encoder_layers + 2 * cfg.n_layers, 0
-        sublayers = 2 * cfg.encoder_layers + 3 * cfg.n_layers
-        memory = tokens * d * es
-    else:
-        kinds = [kind for kind, _ in tfm.layer_sigs(cfg)]
-        n_layers, n_attn = len(kinds), sum(k != "rglru" for k in kinds)
-        n_rglru, sublayers, memory = n_layers - n_attn, 2 * n_layers, 0
-    w = cfg.lru_width or d
-    attn = tokens * (h * dh * es + 2 * kh * dh * es + h * dh * 4 + h * 8)
-    block = 5 * 4 * tokens * h * 1024
-    rglru = 4 * tokens * w * (6 + 2 * math.ceil(math.log2(seq)))
-    ffn = 4 * tokens * cfg.d_ff * es
-    resid = 2 * tokens * d * 4
-    r = {"weights": weights, "noise": 4 * n_params,
-         "activations": n_attn * attn + n_rglru * rglru + n_layers * ffn
-         + sublayers * resid + memory + (block if n_attn else 0),
-         "head": 5 * 4 * tfm.HEAD_CHUNK * cfg.padded_vocab,
-         "unembed_grad": cfg.padded_vocab * d * es,
-         "grads": 2 * weights, "sgd_f32": 3 * 4 * max(sizes)}
-    r["peak"] = r["weights"] + r["noise"] + max(
-        r["activations"] + r["head"] + r["unembed_grad"],
-        r["grads"] + r["sgd_f32"])
-    return r
-
-
 def blocked_vs_direct(torch, dev, label, h, kh, dh, window, seq):
     """Phase 19 (b): one case of the blocked form against the direct form
     on the card in f32, B 1: forward and gradients; each form's forward +
@@ -3635,7 +3540,7 @@ def phase_long_train(torch, np, dev, card_line, designs=None):
     f32 step at 4 x 4,096 against the explicit aggregation."""
     import gc
     from repro_torch import configs
-    from repro_torch.launch import train
+    from repro_torch.launch import memory, train
     from repro_torch.models import transformer as tfm
     from repro_torch.models.registry import build_bundle
     seq = configs.TRAIN_4K.seq_len
@@ -3656,7 +3561,7 @@ def phase_long_train(torch, np, dev, card_line, designs=None):
         cfg = configs.get_config(arch)
         cfg = cfg.replace(n_layers=layers) if layers else cfg
         clients = 4
-        rk = train_reckoning(torch, cfg, clients, seq)
+        rk = memory.train_reckoning(cfg, clients, seq)
         print(f"  (a) {arch} ({cfg.n_layers} layers, full width, bf16, "
               f"{clients} x {seq}) memory reckoning, GB: "
               f"{json.dumps({k: v / 1e9 for k, v in rk.items()})} of the "
@@ -3733,6 +3638,94 @@ def phase_long_train(torch, np, dev, card_line, designs=None):
     part_done("d")
     print(f"  seconds per part of phase 19: {json.dumps(out['seconds'])}",
           flush=True)
+    return out
+
+
+def phase_roofline(torch, card, card_line, measured, design, k1_row):
+    """Phase 22 (module 13): ``launch.dryrun.run_one`` counts three steps
+    the smoke timed, at their own shapes and depths, on CUDA fakes on the
+    host's CPU (no launch, no build) and again on CPU fakes that stand for
+    the card (how the committed records were made: the two counts must be
+    equal); each step's roofline time (``roofline.terms``: reckoned from
+    the card's published peaks) beside the time its phase measured, and
+    the share; and the fused K1 launch's bytes
+    (``roofline.ota_round_step_roofline``) x the main path's cells
+    against phase 2's K1 f32 bound."""
+    from repro_torch import roofline
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import dryrun
+    b, s = SERVE["batch"], SERVE["prompt_len"]
+    prefill = InputShape(f"prefill {b} x {s}", s, b, "prefill")
+    train = InputShape("train 4 x 4096", 4096, 4, "train")
+    cases = [
+        ("qwen1.5-0.5b prefill, bf16 (phase 6)", "qwen1.5-0.5b", prefill,
+         measured["qwen_prefill_ms"], {"flash_attention": 24}),
+        ("mamba2-1.3b prefill, bf16 (phase 7)", "mamba2-1.3b", prefill,
+         measured["mamba2_prefill_ms"], {"ssd_scan": 48}),
+        ("qwen1.5-0.5b train step, bf16, 4 clients x 1 x 4,096 (phase 19)",
+         "qwen1.5-0.5b", train, measured["qwen_train_step_ms"], {})]
+    launches = (flash_attention.launches, ssd_scan.launches)
+    out = {"steps": []}
+    for label, arch, shape, ms, tally in cases:
+        t0 = time.time()
+        rec = dryrun.run_one(arch, shape, save=False, design=design)
+        t_cuda = time.time() - t0
+        rec_cpu = dryrun.run_one(arch, shape, save=False, design=design,
+                                 fakes="cpu")
+        calls = {k: v["calls"] for k, v in rec["kernels"].items()}
+        t = roofline.terms(rec)
+        row = {"step": label, "fakes": rec["fake_device"],
+               "flops": rec["flops_per_device"],
+               "bytes": rec["bytes_accessed_per_device"],
+               "kernels": rec["kernels"],
+               "compute_ms": 1e3 * t["compute_s"],
+               "memory_ms": 1e3 * t["memory_s"],
+               "roofline_ms": 1e3 * t["bound_s"], "bound_by": t["bound_by"],
+               "measured_ms": ms, "share": 1e3 * t["bound_s"] / ms,
+               "count_s": round(t_cuda, 2),
+               "count_s_cpu_fakes": round(time.time() - t0 - t_cuda, 2)}
+        print(f"  {label} [{card_line}]: roofline {row['roofline_ms']:.3f} ms "
+              f"({t['bound_by']}; reckoned from the published peaks of "
+              f"{rec['card']}), measured {ms:.3f} ms, share "
+              f"{row['share']:.4f}; {json.dumps(row)}", flush=True)
+        check(rec["fake_device"].startswith("cuda"),
+              f"{label}: counted on {rec['fake_device']} fakes")
+        check(calls == tally, f"{label}: kernel tally {calls}, expected "
+              f"{tally}")
+        check([rec_cpu[k] for k in ("flops_per_device",
+                                    "bytes_accessed_per_device", "kernels")]
+              == [rec[k] for k in ("flops_per_device",
+                                   "bytes_accessed_per_device", "kernels")],
+              f"{label}: the count on CPU fakes ({rec_cpu['flops_per_device']}"
+              f" FLOPs, {rec_cpu['bytes_accessed_per_device']} bytes) is not "
+              "the count on CUDA fakes")
+        check(row["share"] <= ROOFLINE_SHARE_MAX,
+              f"{label}: the roofline time is {row['share']:.4f} of the "
+              f"measured time (> {ROOFLINE_SHARE_MAX}): the count or the "
+              "peaks are wrong")
+        out["steps"].append(row)
+    check((flash_attention.launches, ssd_scan.launches) == launches,
+          "a dry-run launched a kernel")
+    # (c) the fused K1 launch's bytes at the main path's [N, D], x C cells;
+    # the reference's reckoning leaves out the per-cell coefficients (s
+    # and its scales [C, N], the noise scale and eta [C], f32), which
+    # phase 2 counts
+    c, n, d = MAIN
+    ota = roofline.ota_round_step_roofline(n=n, d=d, card=card)[0]
+    check(ota["uplink_dtype"] == "f32", f"first row {ota['uplink_dtype']}")
+    byts = c * round(ota["fused_bytes_mb"] * 1e6)
+    coeffs = 4 * c * (2 * n + 2)
+    out["k1"] = {"roofline_bytes": byts, "coefficient_bytes": coeffs,
+                 "phase2_bytes": k1_row["bytes"],
+                 "phase2_bound_ms": k1_row["bound_ms"],
+                 "roofline_memory_ms": 1e3 * c * ota["memory_s"]}
+    print(f"  K1 f32 at [C {c}, N {n}, D {d}]: the roofline's fused bytes x "
+          f"{c} cells {byts} + the coefficients' {coeffs} against phase 2's "
+          f"{k1_row['bytes']}: {json.dumps(out['k1'])}", flush=True)
+    check(byts + coeffs == k1_row["bytes"], f"K1 f32: the roofline's bytes "
+          f"{byts} + {coeffs} are not phase 2's {k1_row['bytes']}")
     return out
 
 
@@ -3845,7 +3838,7 @@ def phase_seamless_train(torch, np, dev, card_line, design=None):
     import tempfile
     from repro_torch import configs
     from repro_torch.checkpoint import checkpoint as ckpt
-    from repro_torch.launch import steps, train
+    from repro_torch.launch import memory, steps, train
     from repro_torch.models.param import param_leaves
     from repro_torch.models.registry import build_bundle
     from repro_torch.tasks.lm import client_batches
@@ -3875,7 +3868,7 @@ def phase_seamless_train(torch, np, dev, card_line, design=None):
                          seed)
     check(design.pc.name == "sca" and train.same_world(design.prm, prm),
           f"phase 20's design was made for another world: {design.prm}")
-    rk = train_reckoning(torch, cfg, clients, seq)
+    rk = memory.train_reckoning(cfg, clients, seq)
     total = torch.cuda.get_device_properties(dev).total_memory
     print(f"  (a) seamless-m4t-medium ({cfg.encoder_layers} + {cfg.n_layers} "
           f"layers, full width, bf16, {clients} x ({seq} frames, {seq + 1} "
@@ -4269,7 +4262,7 @@ def main() -> int:
 
 
 def run_phases(torch, pool) -> int:
-    """Phases 1-22; the designs made ahead are solved in ``pool``."""
+    """Phases 1-23; the designs made ahead are solved in ``pool``."""
     import numpy as np
     from repro_torch.card import peaks
     from repro_torch.device import resolve_device
@@ -4414,7 +4407,16 @@ def run_phases(torch, pool) -> int:
           "--bench-kernel, examples.quickstart and examples.serve_decode")
     scripts = phase_scripts(torch, np, dev, card, card_line, world,
                             designs)
-    begin(22, "the kernels line")
+    begin(22, "the dry-run and roofline: three timed steps counted on fakes "
+          "on the host's CPU, their roofline shares")
+    roof = phase_roofline(
+        torch, card, card_line,
+        {"qwen_prefill_ms": serve_stats["prefill_ms"],
+         "mamba2_prefill_ms": ssd_stats["prefill_ms"],
+         "qwen_train_step_ms": long_train["qwen1.5-0.5b"]["step_ms"]},
+        made(designs, "qwen1.5-0.5b"),
+        kres[("ota_round_step", "f32", MAIN[2])])
+    begin(23, "the kernels line")
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
                     path_counts["fused_bf16"]["ota_round_step"],
@@ -4556,21 +4558,21 @@ def run_phases(torch, pool) -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[22] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[23] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[22] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[22] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[22] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[22] single run: {json.dumps(single)}", flush=True)
-    print(f"[22] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[22] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[23] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[23] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[23] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[23] single run: {json.dumps(single)}", flush=True)
+    print(f"[23] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[23] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print("[22] dense archs: " + json.dumps(
+    print("[23] dense archs: " + json.dumps(
         {arch: {k: st[k] for k in ("batch", "prefill_ms",
                                    "decode_ms_per_token", "peak_mem_gb",
                                    "batch_fits")}
          for arch, (st, _) in dense.items()}), flush=True)
-    print("[22] train: " + json.dumps(
+    print("[23] train: " + json.dumps(
         {arch: {k: trained[arch][k] for k in (
             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
             "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
@@ -4578,7 +4580,7 @@ def run_phases(torch, pool) -> int:
         | {"lm_curves_wall_s": trained["curves"]["wall_s"],
            "lm_curves_step_ms": trained["curves"]["step_ms"]}),
         flush=True)
-    print("[22] recurrentgemma-9b: " + json.dumps(
+    print("[23] recurrentgemma-9b: " + json.dumps(
         {"bf16": {k: rgemma["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: rgemma["f32"][k] for k in (
@@ -4587,7 +4589,7 @@ def run_phases(torch, pool) -> int:
          "ring": {k: rgemma["ring"][k] for k in (
              "layers", "batch", "prompt_len", "window", "prefill_ms",
              "decode_ms_per_token", "equal_tokens")}}), flush=True)
-    print("[22] seamless-m4t-medium: " + json.dumps(
+    print("[23] seamless-m4t-medium: " + json.dumps(
         {"bf16": {k: seamless["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: seamless["f32"][k] for k in (
@@ -4598,7 +4600,7 @@ def run_phases(torch, pool) -> int:
          "ragged": {k: seamless["ragged"][k] for k in (
              "memory_max_abs_err", "dec_layer0_max_abs_err",
              "logits_max_abs_diff", "equal_next_tokens")}}), flush=True)
-    print("[22] mixtral-8x22b: " + json.dumps(
+    print("[23] mixtral-8x22b: " + json.dumps(
         {"bf16": {k: mixtral["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -4616,7 +4618,7 @@ def run_phases(torch, pool) -> int:
              "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
              "first_loss", "final_loss", "held_out_loss", "eval_aux",
              "peak_mem_gb")}}), flush=True)
-    print("[22] deepseek-v3-671b: " + json.dumps(
+    print("[23] deepseek-v3-671b: " + json.dumps(
         {"bf16": {k: deepseek["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -4631,7 +4633,7 @@ def run_phases(torch, pool) -> int:
              "first_loss", "final_loss", "held_out_loss", "eval_mtp_xent",
              "peak_mem_gb")},
          "seconds": deepseek["seconds"]}), flush=True)
-    print("[22] train at 4,096 tokens: " + json.dumps(
+    print("[23] train at 4,096 tokens: " + json.dumps(
         {arch: {k: long_train[arch][k] for k in (
             "layers", "steps", "clients", "seq", "step_ms", "first_step_ms",
             "tokens_per_s", "eval_ms", "first_loss", "final_loss",
@@ -4640,7 +4642,7 @@ def run_phases(torch, pool) -> int:
         | {"forms": long_train["forms"], "eval_k3": long_train["eval_k3"],
            "step_vs_explicit": long_train["step_vs_explicit"],
            "seconds": long_train["seconds"]}), flush=True)
-    print("[22] seamless-m4t-medium train at 4,096 tokens: " + json.dumps(
+    print("[23] seamless-m4t-medium train at 4,096 tokens: " + json.dumps(
         {"bf16": {k: seamless_train["bf16"][k] for k in (
             "encoder_layers", "layers", "steps", "clients", "seq", "step_ms",
             "first_step_ms", "tokens_per_s", "eval_ms", "first_loss",
@@ -4650,7 +4652,7 @@ def run_phases(torch, pool) -> int:
          "eval_k3": seamless_train["eval_k3"],
          "step_vs_explicit": seamless_train["step_vs_explicit"],
          "seconds": seamless_train["seconds"]}), flush=True)
-    print(f"[22] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print(f"[23] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "
@@ -4660,8 +4662,12 @@ def run_phases(torch, pool) -> int:
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "
           f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
-    print(f"[22] scripts: {json.dumps(scripts['seconds'])}", flush=True)
-    print(f"[22] seconds per phase: {json.dumps(phase_s)}", flush=True)
+    print(f"[23] scripts: {json.dumps(scripts['seconds'])}", flush=True)
+    print("[23] roofline shares: " + json.dumps(
+        {r["step"]: {k: r[k] for k in ("roofline_ms", "bound_by",
+                                       "measured_ms", "share")}
+         for r in roof["steps"]}), flush=True)
+    print(f"[23] seconds per phase: {json.dumps(phase_s)}", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

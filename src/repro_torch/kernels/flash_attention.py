@@ -38,14 +38,23 @@ CUDA tensor otherwise reaches the kernel or raises.  The kernel has no
 backward: in grad mode, an input that requires grad raises rather than
 pass through a launch that records no autograd node (ROADMAP.md §1,
 module 10).
+
+A fake tensor on the card's path (the dry-run's: a fake CUDA tensor, or
+a fake inside ``launch.count.fake_mode(card=True)``; ``count.on_card``)
+passes the same checks but the pointers' alignment and gets its output
+allocated, but builds and launches nothing and leaves ``launches`` as it
+is: the call's ``work`` goes into the open ``launch.count.Count``, and
+with none open it raises.
 """
 from __future__ import annotations
 
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import build, ref
+from repro_torch.launch import count
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 # (q.k width Dqk, v width Dv) of the kernel's instances
@@ -100,6 +109,30 @@ def check_no_grad(kernel: str, *tensors) -> None:
             "module 10; §2 queues the backward kernels)")
 
 
+def pairs(sq: int, sk: int, causal: bool = True,
+          window: Optional[int] = None) -> int:
+    """(query, key) pairs the masks allow, positions from 0 on both sides
+    (``profile_attention.pairs``, in numpy)."""
+    i = np.arange(sq, dtype=np.int64)
+    hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, i - window + 1) if window else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
+def work(q, k, v, *, causal: bool = True,
+         window: Optional[int] = None) -> dict:
+    """{"flops", "bytes"} of one call on q, k, v (tensors or anything with
+    ``shape`` and ``dtype``): q, k and v read once and o written once, and
+    2 (Dqk + Dv) operations for each (query, key) pair the masks allow
+    (the arithmetic of ``profile_attention.bound``)."""
+    b, sq, h, dqk = q.shape
+    sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
+    size = q.dtype.itemsize
+    return {"flops": 2 * b * h * (dqk + dv) * pairs(sq, sk, causal, window),
+            "bytes": size * b * ((sq * h + sk * kh) * dqk
+                                 + (sk * kh + sq * h) * dv)}
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
                     use_kernel: bool = True) -> torch.Tensor:
@@ -107,7 +140,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     H = KH * G.  Returns [B, Sq, H, Dv] in q's dtype.  On the card:
     contiguous f32 or bf16, (Dqk, Dv) in ``HEAD_DIMS``."""
     _check_inputs(q, k, v, window)
-    if not q.is_cuda or not use_kernel:
+    if not use_kernel or not count.on_card(q):
         return ref.attention_ref(q, k, v, causal=causal, window=window)
     check_no_grad("flash_attention (K3)", q, k, v)
     if q.dtype not in DTYPES:
@@ -115,12 +148,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     b, sq, h, dh = q.shape
     sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
     check_instance(dh, dv)
+    fake = count.is_fake(q)
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-        if t.data_ptr() % ALIGN:
+        if not fake and t.data_ptr() % ALIGN:
             raise ValueError(f"{name} must start on a {ALIGN}-byte boundary")
     out = q.new_empty((b, sq, h, dv))
+    if fake:                    # a dry-run: counted, never launched
+        count.add_kernel("flash_attention",
+                         work(q, k, v, causal=causal, window=window))
+        return out
     name = f"flash_attention_{DTYPES[q.dtype]}"
     err = getattr(build.library("flash_attention"), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),

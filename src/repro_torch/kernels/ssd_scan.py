@@ -35,16 +35,20 @@ tensors, and on the card only when asked (``use_kernel=False``: the train
 path's forward, which autograd differentiates, and on-card comparison); a
 CUDA tensor otherwise reaches the kernel or raises.  The kernel has no
 backward: in grad mode, an input that requires grad raises
-(``flash_attention.check_no_grad``).
+(``flash_attention.check_no_grad``).  A fake on the card's path (the
+dry-run's, ``launch.count.on_card``) is counted by ``work`` and never
+launched, as K3's.
 """
 from __future__ import annotations
 
+import functools
 from typing import Optional, Tuple
 
 import torch
 
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attention import check_no_grad
+from repro_torch.launch import count
 
 DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 DIMS = (32, 64, 96, 128)       # P and N the kernel is built for
@@ -78,6 +82,43 @@ def _check_inputs(x, dt, a_neg, b_mat, c_mat, chunk, state0) -> None:
         raise ValueError(f"inputs on {[str(t.device) for t in tensors]}")
 
 
+@functools.lru_cache(maxsize=256)
+def flops(b: int, s: int, h: int, p: int, n: int, g: int,
+          state0: bool) -> int:
+    """Fewest operations of the SSD scan on these inputs
+    (``kernel_bench.ssd_flops``): the chunked form at the tile length q
+    that minimises them (the form is exact for any q; K4 walks tiles of
+    64).  Per tile: C B^T once per group and att (dt x) per head over the
+    causal triangle, C S_in (none on the first tile without a state in),
+    the state's decay and its update B^T (dt x)."""
+    def at(q):
+        full, r = divmod(s, q)
+        pairs = full * q * (q + 1) // 2 + r * (r + 1) // 2
+        carried = 0 if state0 else 1          # the first tile's state is 0
+        return (2 * b * pairs * (g * n + h * p)
+                + 2 * b * h * n * p * (2 * s - carried * min(q, s))
+                + b * h * n * p * (full + (r > 0) - carried))
+    return min(at(q) for q in range(1, s + 1))
+
+
+def work(x, dt, a_neg, b_mat, c_mat, state0=None) -> dict:
+    """{"flops", "bytes"} of one call (tensors or anything with ``shape``
+    and ``dtype``): ``flops`` above, and x, dt, a_neg, b_mat, c_mat and
+    state0 read once, y (x's dtype) and the f32 final state written
+    once."""
+    def size(t):
+        n = t.dtype.itemsize
+        for e in t.shape:
+            n *= int(e)
+        return n
+    bsz, s, h, p = x.shape
+    g, n = b_mat.shape[2], b_mat.shape[3]
+    ins = [x, dt, a_neg, b_mat, c_mat] + ([] if state0 is None else [state0])
+    return {"flops": flops(bsz, s, h, p, n, g, state0 is not None),
+            "bytes": sum(size(t) for t in ins) + size(x)
+            + 4 * bsz * h * p * n}
+
+
 def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
              b_mat: torch.Tensor, c_mat: torch.Tensor, *, chunk: int,
              state0: Optional[torch.Tensor] = None,
@@ -89,7 +130,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
     starting on a 16-byte boundary, a_neg and state0 in f32, P and N in
     ``DIMS``."""
     _check_inputs(x, dt, a_neg, b_mat, c_mat, chunk, state0)
-    if not x.is_cuda or not use_kernel:
+    if not use_kernel or not count.on_card(x):
         return ref.ssd_chunked(x, dt, a_neg, b_mat, c_mat, chunk,
                                state0=state0)
     check_no_grad("ssd_scan (K4)", x, dt, a_neg, b_mat, c_mat, state0)
@@ -111,11 +152,15 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
                     (c_mat, "c_mat"), (state0, "state0")):
         if t is not None and not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
+    fake = count.is_fake(x)
     for t, name in ((x, "x"), (b_mat, "b_mat"), (c_mat, "c_mat")):
-        if t.data_ptr() % ALIGN:
+        if not fake and t.data_ptr() % ALIGN:
             raise ValueError(f"{name} must start on a {ALIGN}-byte boundary")
     y = torch.empty_like(x)
     state = torch.empty((bsz, h, p, n), dtype=torch.float32, device=x.device)
+    if fake:                    # a dry-run: counted, never launched
+        count.add_kernel("ssd_scan", work(x, dt, a_neg, b_mat, c_mat, state0))
+        return y, state
     name = f"ssd_scan_{DTYPES[x.dtype]}"
     err = getattr(build.library("ssd_scan"), name)(
         x.data_ptr(), dt.data_ptr(), a_neg.data_ptr(), b_mat.data_ptr(),

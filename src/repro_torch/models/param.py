@@ -143,6 +143,20 @@ def init_param_tree(defs: Mapping, seed: int, device: torch.device,
         defs, lambda d: _init_one(d, gen, draw).to(device)))
 
 
+def abstract_params(defs: Mapping, device: torch.device) -> ParamTree:
+    """A ParamTree of empty leaves of ``defs``' shapes and dtypes on
+    ``device``, drawn from no generator: the analog of the reference's
+    ``abstract_params``, for the dry-run.  Inside
+    ``launch.count.fake_mode`` the leaves are fakes and nothing is
+    allocated; outside it, it raises."""
+    from repro_torch.launch import count
+    if not count.faking():
+        raise RuntimeError("abstract_params makes fakes: open "
+                           "launch.count.fake_mode() first")
+    return ParamTree(_map_defs(defs, lambda d: torch.empty(
+        d.shape, dtype=d.dtype, device=device)))
+
+
 def map_named(tree, fn, path=""):
     """``fn(path, leaf)`` over a ParamTree (or nested dicts and lists of
     tensors) as nested dicts and lists; paths are ``named_parameters``'s

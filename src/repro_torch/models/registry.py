@@ -6,7 +6,8 @@ encoder-decoder
 bundle (seamless-m4t-medium).  A ``ModelBundle`` holds one config and its
 device, and exposes ``init``, ``loss`` (the next-token loss with
 per-sample weights, which the train step differentiates), ``prefill``,
-``decode`` and ``init_caches`` (per layer, a KV cache, an MLA latent
+``decode``, ``abstract`` (the dry-run's fake parameters) and
+``init_caches`` (per layer, a KV cache, an MLA latent
 cache or a recurrent state; the encoder-decoder's decoder self caches).
 """
 from __future__ import annotations
@@ -20,8 +21,8 @@ from repro_torch.device import DeviceLike, resolve_device
 from repro_torch.models import encdec as encdec_mod
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param import (ParamTree, init_param_tree,
-                                      tree_param_count)
+from repro_torch.models.param import (ParamTree, abstract_params,
+                                      init_param_tree, tree_param_count)
 
 
 @dataclasses.dataclass
@@ -43,6 +44,11 @@ class ModelBundle:
         on the bundle's device, seeded with ``seed`` (not JAX's stream:
         ``lm_params_from_jax`` carries the reference's weights across)."""
         return init_param_tree(self.defs, seed, self.device)
+
+    def abstract(self) -> ParamTree:
+        """Empty fakes of the parameters' shapes and dtypes on the bundle's
+        device, for the dry-run (inside ``launch.count.fake_mode``)."""
+        return abstract_params(self.defs, self.device)
 
 
 def _decoder_bundle(cfg: ModelConfig, device: torch.device) -> ModelBundle:

@@ -11,8 +11,9 @@ prints the reference's sections in its order: the SCA solver's quality
 bias-variance trade-off, the Theorem-1 bound, the scenario sweep, the
 kernel rows (``kernel_bench.run``), Fig. 2 (``fig2.run`` at the paper's
 full batch, ``save=False``: no artifact is written; ``fig2.summarize``
-and its wall), and the roofline, whose dry-run is not ported yet (module
-13, ROADMAP.md §1): that section prints one line saying so.
+and its wall), and the roofline rows of the dry-run's records
+(``roofline.run`` over ``experiments/dryrun_torch/``; without any, one
+line says how to make them).
 
 ``--smoke`` (``smoke``) is the reference's engine-regression gate, its
 five gates in its order, sizes and assertions: the 7-scheme Fig.-2 fleet
@@ -33,7 +34,7 @@ import os
 import sys
 import tempfile
 import time
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -369,10 +370,26 @@ def main(argv=None) -> None:
             print(_csv(row), flush=True)
         print(f"# fig2 wall time: {wall:.1f}s", flush=True)
 
-    # the roofline rows come from the dry-run's artifacts, which the port
-    # does not make yet
-    print("# roofline: the dry-run and roofline (module 13, ROADMAP.md §1) "
-          "are not ported yet; no rows", flush=True)
+    roofline_section()
+
+
+def roofline_section(directory: Optional[str] = None) -> None:
+    """The roofline rows of the dry-run's records (``roofline.run``), in
+    the reference's format; without any, the line that says how to make
+    them."""
+    from repro_torch import roofline
+    rows = roofline.run(directory or roofline.ARTIFACT_DIR)
+    for row in rows:
+        row["bench"] = f"roofline_{row.pop('arch')}_{row.pop('shape')}"
+        for k in ("compute_s", "memory_s", "collective_s",
+                  "model_flops_per_device"):
+            row[k] = f"{row[k]:.4g}"
+        row["useful_flops_ratio"] = f"{row['useful_flops_ratio']:.3f}"
+        print(_csv(row), flush=True)
+    if not rows:
+        print("# no dryrun artifacts yet — run: "
+              "PYTHONPATH=src python -m repro_torch.launch.dryrun --all",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -627,3 +627,68 @@ def test_bench_kernel_f32_pin_on_cuda(cuda):
         assert f["launches"]["unfused"]["ota_aggregate"] == 4
         assert f["launches"]["fused"]["plain_round_step"] == 0
         assert f["launches"]["unfused"]["plain_aggregate"] == 0
+
+
+# --- the dry-run (module 13): fakes on the card's path are counted, never
+# launched; real CUDA tensors still launch ---
+
+def test_k3_k4_launch_on_real_tensors_after_the_fake_branch(cuda):
+    """A dry-run in between leaves K3 and K4 launching on real CUDA
+    tensors, each call bumping ``launches`` by one."""
+    from repro_torch.launch import count
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    q = torch.randn((1, 64, 2, 64), generator=gen, device=cuda)
+    x = torch.randn((1, 64, 2, 32), generator=gen, device=cuda)
+    dt = torch.rand((1, 64, 2), generator=gen, device=cuda) + 0.1
+    a_neg = -torch.rand(2, generator=gen, device=cuda) - 0.1
+    bc = torch.randn((1, 64, 1, 32), generator=gen, device=cuda)
+    k3, k4 = flash_attention.launches, ssd_scan.launches
+    with count.fake_mode(), count.Count() as c:
+        fq = torch.empty((1, 64, 2, 64), device=cuda)
+        fx = torch.empty((1, 64, 2, 32), device=cuda)
+        flash_attention(fq, fq, fq)
+        ssd_scan(fx, torch.empty((1, 64, 2), device=cuda),
+                 torch.empty(2, device=cuda),
+                 torch.empty((1, 64, 1, 32), device=cuda),
+                 torch.empty((1, 64, 1, 32), device=cuda), chunk=16)
+    assert {k: v["calls"] for k, v in c.kernels.items()} \
+        == {"flash_attention": 1, "ssd_scan": 1}
+    assert (flash_attention.launches, ssd_scan.launches) == (k3, k4)
+    got = flash_attention(q, q, q)
+    y, _ = ssd_scan(x, dt, a_neg, bc, bc, chunk=16)
+    torch.cuda.synchronize()
+    assert (flash_attention.launches, ssd_scan.launches) == (k3 + 1, k4 + 1)
+    np.testing.assert_allclose(
+        got.cpu().numpy(), ref.attention_ref(q, q, q).cpu().numpy(),
+        **F32_TOL)
+    want, _ = ref.ssd_chunked(x, dt, a_neg, bc, bc, 16)
+    assert float((y - want).abs().max()) <= 1e-4 * float(want.abs().max()) \
+        + 1e-6
+
+
+def test_dryrun_on_cuda_fakes_builds_no_kernel(cuda, monkeypatch):
+    """``run_one`` on CUDA fakes (the card's path: K3 in the prefill,
+    counted by its work) builds and loads no kernel library, launches
+    nothing, and counts what CPU fakes standing for the card count."""
+    from repro_torch import configs
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.kernels import build
+    from repro_torch.launch import dryrun
+
+    def refuse(*a, **k):
+        raise AssertionError("a dry-run built or loaded a kernel library")
+    monkeypatch.setattr(build, "library", refuse)
+    monkeypatch.setattr(build, "build", refuse)
+    cfg = configs.get_config("qwen1.5-0.5b").replace(n_layers=2)
+    shape = InputShape("p", 1024, 8, "prefill")
+    k3 = flash_attention.launches
+    rec = dryrun.run_one("qwen1.5-0.5b", shape, cfg=cfg, save=False)
+    assert rec["fake_device"].startswith("cuda") and rec["path"] == "card"
+    assert rec["kernels"]["flash_attention"]["calls"] == 2
+    assert flash_attention.launches == k3
+    on_cpu = dryrun.run_one("qwen1.5-0.5b", shape, cfg=cfg, save=False,
+                            fakes="cpu")
+    assert [on_cpu[k] for k in ("flops_per_device",
+                                "bytes_accessed_per_device", "kernels")] \
+        == [rec[k] for k in ("flops_per_device",
+                             "bytes_accessed_per_device", "kernels")]

@@ -17,6 +17,7 @@ takes ~9 s a solve on this CPU); the solver gate's batched solve is the
 torch solver's own, and the adaptive fleet's two redesigns solve here.
 """
 import ast
+import json
 import re
 from pathlib import Path
 
@@ -325,3 +326,39 @@ def test_smoke_refuses_a_design_of_another_world(cut_world, monkeypatch):
     other = prm.replace(eta=0.07)
     with pytest.raises(ValueError, match="another world"):
         run.smoke(0, "cpu", designs={"fig2": run.Made((other,), pcs, 0.0)})
+
+
+@pytest.mark.parametrize("with_records", (True, False))
+def test_run_roofline_section(with_records, capsys, tmp_path):
+    """``run.main``'s roofline section, the reference's (``benchmarks/
+    run.py``): one row a dry-run record, the reference's keys and
+    formats; without records, its line saying how to make them."""
+    from repro_torch import configs, roofline
+    from repro_torch.configs.shapes import InputShape
+    from repro_torch.launch import dryrun
+    if with_records:
+        rec = dryrun.run_one(
+            "qwen1.5-0.5b", InputShape("prefill_32k", 40, 2, "prefill"),
+            cfg=configs.get_config("qwen1.5-0.5b").smoke(), save=False)
+        (tmp_path / "x_card.json").write_text(json.dumps(rec))
+    run.roofline_section(str(tmp_path))
+    out = capsys.readouterr().out
+    if not with_records:
+        assert out == ("# no dryrun artifacts yet — run: PYTHONPATH=src "
+                       "python -m repro_torch.launch.dryrun --all\n")
+        return
+    lines = out.splitlines()
+    assert len(lines) == 1
+    name, us, derived = lines[0].split(",", 2)
+    row = roofline.roofline_row(rec)
+    assert name == "roofline_qwen1.5-0.5b_prefill_32k" and us == ""
+    kv = dict(x.split("=", 1) for x in derived.split(";"))
+    assert list(kv) == ["devices", "compute_s", "memory_s", "collective_s",
+                        "collective_note", "dominant",
+                        "model_flops_per_device", "useful_flops_ratio",
+                        "hbm_gb_per_device"]
+    for k in ("compute_s", "memory_s", "collective_s",
+              "model_flops_per_device"):
+        assert kv[k] == f"{row[k]:.4g}", k
+    assert kv["useful_flops_ratio"] == f"{row['useful_flops_ratio']:.3f}"
+    assert kv["dominant"] == row["dominant"]
