@@ -432,7 +432,28 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      (``roofline.ota_round_step_roofline`` at [10, 814,090]) x 7 cells,
      plus the per-cell coefficients it leaves out (616 bytes), equal to
      the bytes behind phase 2's K1 f32 bound;
- 23. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+ 23. the fleet's multi-device placement (module 12a) on four slots of the
+     one card (``launch.mesh.make_debug_mesh(2, 2)`` with
+     ``REPRO_TORCH_DEVICE_SLOTS=4``; its first line says "4 slots on 1
+     device"): (a) the Fig.-2 fleet at full width (phase 3's designs, 7
+     schemes x seeds (0, 1), minibatch 128, flat and fused, 30 rounds, an
+     eval every 10) under ``VmapPlacement`` and under ``ShardedPlacement``
+     (C = 14 pads to 16: four cells a slot): K1 30 and 120 times, the
+     key-stream traces bitwise, the other traces at 1e-6 (or, where the
+     card's GEMMs at a block of 4 round otherwise than at 14, at the port's
+     trajectory tolerance 1e-4 / 1e-5, the class printed with the largest
+     gap), the evals at rtol 1e-5 / atol 3e-3; (b) the sharded fleet
+     killed after its first chunk and resumed, bitwise the uninterrupted
+     sharded run, and a resume of that checkpoint under ``VmapPlacement``
+     refused; (c) K1 at a slot's block, C 4 x 10 x 814,090 f32, bitwise its
+     plain version, timed with its bound; (d) ``python -m
+     repro_torch.grid_smoke --launch``: two processes on the card, four
+     slots each, the process-sliced scenario grid and the canary digests
+     (its designs made on the host's CPU in the pool at the top); (e)
+     ``fig2.placement_benchmark``: vmap against sharded exec walls and K1
+     launches at K.S 7, 14 and 28, beside the card line, its summary
+     checked by ``validate_bench``; the phase's seconds by part;
+ 24. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
      run's launches, with each dense arch's serve run's, with the qwen
      train run's eval's, with recurrentgemma's and with seamless's, its
      non-causal and causal launches on two rows, and with mixtral's; K3
@@ -444,7 +465,8 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      20's f32 eval's non-causal launches; K4
      f32 with the mamba2 serve run's and the mamba2 train run's eval's; K1
      f32 four times: the Fig.-2 main path's, the grid's, the cohort
-     fleet's and the cifar fleet's; phase 21's, each at its own shape: K1
+     fleet's and the cifar fleet's; the sharded Fig.-2 fleet's at a slot's
+     block (phase 23); phase 21's, each at its own shape: K1
      with the harness smoke's three fleets, quickstart's two and
      ``--bench-kernel``'s fused fleets (one row a wire), K2 with its
      unfused fleets' and ``kernel_bench``'s, K3 f32 and K4 with
@@ -693,6 +715,22 @@ DESIGN_JOBS = 5
 # published peaks) over its measured time; above this the count or the
 # peaks are wrong
 ROOFLINE_SHARE_MAX = 1.05
+# phase 23: the fleet's placement over PLACEMENT_SLOTS slots of the one card
+# (a 2 x 2 debug mesh): the Fig.-2 fleet at full width over seeds
+# PLACEMENT_SEEDS (C = 14 pads to 16: a slot's block is SLOT_BLOCK), held
+# against the vmap fleet with the reference's tolerance classes
+# (tests/test_placement.py): the key-stream traces bitwise, the others at
+# PLACEMENT_TRACE_TOL -- or, where the card's GEMMs at a block of 4 cells
+# round otherwise than at 14, at the port's trajectory tolerance
+# TRAJECTORY_TOL, and no looser -- and the evals at PLACEMENT_EVAL_TOL;
+# the grid smoke's two processes get GRID_SMOKE_TIMEOUT seconds
+PLACEMENT_SLOTS, PLACEMENT_SEEDS = 4, (0, 1)
+SLOT_BLOCK = (4, MAIN[1], MAIN[2])
+PLACEMENT_TRACE_TOL = dict(rtol=1e-6, atol=1e-6)
+TRAJECTORY_TOL = dict(rtol=1e-4, atol=1e-5)
+PLACEMENT_EVAL_TOL = dict(rtol=1e-5, atol=3e-3)
+PLACEMENT_EXACT = ("active_devices", "noise_scale")
+GRID_SMOKE_TIMEOUT = 300
 # phase 21: the harness smoke's designs made ahead (its Fig.-2 fleet takes
 # phase 3's world; its solver gate's batched solve runs on the card),
 # kernel_benchmark's rounds (as --bench-kernel), kernel_bench.run's batch
@@ -4241,6 +4279,221 @@ def phase_scripts(torch, np, dev, card, card_line, world, designs):
     return out
 
 
+def _gap(np, a, b, tol):
+    """(largest |a - b|, whether every element is within ``tol``)."""
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return (float(np.max(np.abs(a - b))) if a.size else 0.0,
+            bool(np.all(np.abs(a - b) <= tol["atol"]
+                        + tol["rtol"] * np.abs(b))))
+
+
+def placement_vs_vmap(np, torch, vm, sh):
+    """The sharded fleet ``sh`` against the vmap fleet ``vm``: the
+    key-stream traces bitwise, every other trace in the tightest of
+    PLACEMENT_TRACE_TOL and TRAJECTORY_TOL it meets, the evals at
+    PLACEMENT_EVAL_TOL; returns each comparison's largest gap and class."""
+    out = {}
+    check(vm.names == sh.names and set(vm.traces) == set(sh.traces),
+          "sharded and vmap fleets differ in their cells or traces")
+    for k in sorted(vm.traces):
+        gap, tight = _gap(np, sh.traces[k], vm.traces[k], PLACEMENT_TRACE_TOL)
+        if k in PLACEMENT_EXACT:
+            check(np.array_equal(sh.traces[k], vm.traces[k]),
+                  f"trace {k} is not bitwise the vmap fleet's")
+            out[k] = {"gap": gap, "class": "bitwise"}
+            continue
+        _, loose = _gap(np, sh.traces[k], vm.traces[k], TRAJECTORY_TOL)
+        check(tight or loose, f"trace {k} misses the trajectory tolerance "
+              f"{TRAJECTORY_TOL}: largest gap {gap:.3e}")
+        out[k] = {"gap": gap, "class": "1e-6" if tight else "trajectory"}
+    check([t for t, _ in vm.evals] == [t for t, _ in sh.evals],
+          "sharded and vmap fleets evaluated at other rounds")
+    for name in vm.evals[0][1]:
+        a = np.stack([ev[name] for _, ev in sh.evals])
+        b = np.stack([ev[name] for _, ev in vm.evals])
+        gap, ok = _gap(np, a, b, PLACEMENT_EVAL_TOL)
+        check(ok, f"eval {name} misses {PLACEMENT_EVAL_TOL}: gap {gap:.3e}")
+        out[f"eval/{name}"] = {"gap": gap, "class": "eval"}
+    out["params"] = {"gap": max(float((sh.params[k] - vm.params[k]).abs()
+                                      .max()) for k in vm.params),
+                     "class": "reading"}
+    return out
+
+
+def phase_placement(torch, np, dev, card, card_line, world, grid_designs):
+    """Phase 23: the fleet's placement over four slots of the one card --
+    the full-width Fig.-2 fleet sharded against vmapped, kill and resume
+    on the sharded placement, K1 at a slot's block, the two-process grid
+    smoke, and the placement benchmark."""
+    import os
+    import signal
+    import tempfile
+    from repro_torch import fig2, validate_bench
+    from repro_torch.fl.driver import run_fleet_task
+    from repro_torch.fl.placement import ShardedPlacement, VmapPlacement
+    from repro_torch.launch import mesh as tmesh
+    t_phase, sec, out = time.time(), {}, {}
+    prev = os.environ.get(tmesh.SLOTS_ENV)
+    os.environ[tmesh.SLOTS_ENV] = str(PLACEMENT_SLOTS)
+    try:
+        mesh = tmesh.make_debug_mesh(2, 2)
+        on = sorted({str(d) for d in mesh.devices.flat})
+        print(f"  {mesh.size} slots on {len(on)} device ({', '.join(on)}): "
+              f"{mesh}", flush=True)
+        check(mesh.size == PLACEMENT_SLOTS and len(on) == 1,
+              f"the debug mesh is not {PLACEMENT_SLOTS} slots on one card")
+        pl = ShardedPlacement(mesh)
+        task, dep, td, schemes = (world[k] for k in ("task", "dep", "td",
+                                                     "schemes"))
+        cells = len(schemes) * len(PLACEMENT_SEEDS)
+        run = task.run_config(num_rounds=ROUNDS, eval_every=EVERY, seed=0,
+                              batch_size=BATCH)
+        kw = dict(task_data=td, seeds=PLACEMENT_SEEDS, flat=True,
+                  device=dev)
+        # (a) the Fig.-2 fleet at full width, vmapped and sharded
+        t0 = time.time()
+        zero_counts()
+        vm = run_fleet_task(task, schemes, dep.gains, run, **kw)
+        torch.cuda.synchronize()
+        vcnt = counts()
+        zero_counts()
+        sh = run_fleet_task(task, schemes, dep.gains, run, **kw,
+                            placement=pl)
+        torch.cuda.synchronize()
+        scnt = counts()
+        sec["a"] = round(time.time() - t0, 1)
+        print(f"  (a) {pl.describe(cells=cells)}: counts vmap {vcnt}, "
+              f"sharded {scnt}", flush=True)
+        check(pl.describe(cells=cells)
+              == f"sharded[data=2,model=2,cells={cells},pad=2/16]",
+              f"describe: {pl.describe(cells=cells)}")
+        check(vcnt["ota_round_step"] == ROUNDS
+              and scnt["ota_round_step"] == PLACEMENT_SLOTS * ROUNDS,
+              f"K1 launched {vcnt['ota_round_step']} (vmap) and "
+              f"{scnt['ota_round_step']} (sharded) times in {ROUNDS} rounds")
+        for c in (vcnt, scnt):
+            check(c["ota_aggregate"] == 0 and c["plain_round_step"] == 0
+                  and c["plain_aggregate"] == 0,
+                  "K2 or a plain round tail ran on the fused CUDA path")
+        for name, v in sh.params.items():
+            check(v.shape[:2] == (len(schemes), len(PLACEMENT_SEEDS))
+                  and bool(torch.isfinite(v).all()),
+                  f"sharded params {name}: {tuple(v.shape)} or not finite")
+        gaps = placement_vs_vmap(np, torch, vm, sh)
+        print(f"  (a) sharded vs vmap, largest gaps and classes: "
+              f"{json.dumps(gaps)}", flush=True)
+        out["gaps"] = gaps
+        out["walls"] = {"vmap_exec_s": vm.wall_exec,
+                        "sharded_exec_s": sh.wall_exec,
+                        "vmap_round_ms": round_ms(vm),
+                        "sharded_round_ms": round_ms(sh)}
+        print(f"  (a) exec walls: vmap {vm.wall_exec:.3f} s, sharded "
+              f"{sh.wall_exec:.3f} s; round walls {round_ms(vm):.3f} vs "
+              f"{round_ms(sh):.3f} ms ({card_line})", flush=True)
+
+        # (b) kill and resume on the sharded placement
+        t0 = time.time()
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "fleet")
+            part = run_fleet_task(task, schemes, dep.gains, run, **kw,
+                                  placement=pl, checkpoint_path=ck,
+                                  max_chunks=1)
+            done = part.traces["active_devices"].shape[-1]
+            check(done < ROUNDS, f"the killed run ran {done} rounds")
+            zero_counts()
+            res = run_fleet_task(task, schemes, dep.gains, run, **kw,
+                                 placement=pl, checkpoint_path=ck,
+                                 resume=True)
+            torch.cuda.synchronize()
+            k1 = counts()["ota_round_step"]
+            check(k1 == PLACEMENT_SLOTS * (ROUNDS - done),
+                  f"the resumed run launched K1 {k1} times")
+            check(_same_run(np, torch, res, sh),
+                  "the resumed sharded fleet is not bitwise the "
+                  "uninterrupted one")
+            try:
+                run_fleet_task(task, schemes, dep.gains, run, **kw,
+                               placement=VmapPlacement(), checkpoint_path=ck,
+                               resume=True)
+                refused = None
+            except ValueError as e:
+                refused = str(e)
+            check(refused is not None and "placement" in refused,
+                  "a resume under VmapPlacement was not refused")
+        sec["b"] = round(time.time() - t0, 1)
+        print(f"  (b) killed after {done} rounds, resumed: bitwise, K1 "
+              f"{k1}; a resume under vmap refused", flush=True)
+
+        # (c) K1 at a slot's block
+        t0 = time.time()
+        out["k1_row"] = k1_row(torch, dev, card, SLOT_BLOCK,
+                               "a slot's block (the sharded Fig.-2 fleet's)",
+                               14)
+        out["k1_launches"] = scnt["ota_round_step"]
+        sec["c"] = round(time.time() - t0, 1)
+
+        # (d) the grid smoke: two processes, four slots each, on the card
+        t0 = time.time()
+        env = dict(os.environ, PYTHONPATH=str(SRC))
+        env.pop(tmesh.SLOTS_ENV, None)
+        # its own session: should the parent outlive its own --timeout,
+        # the whole group (parent and workers) is killed, not the parent
+        gs = subprocess.Popen([sys.executable, "-m", "repro_torch.grid_smoke",
+                               "--launch", "--timeout",
+                               str(GRID_SMOKE_TIMEOUT), "--designs",
+                               grid_designs.result()],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True, env=env, cwd=str(ROOT),
+                              start_new_session=True)
+        try:
+            gs_out, gs_err = gs.communicate(timeout=GRID_SMOKE_TIMEOUT + 60)
+        except subprocess.TimeoutExpired:
+            os.killpg(gs.pid, signal.SIGKILL)
+            gs_out, gs_err = gs.communicate()
+            gs_err += f"\ngrid_smoke killed after {GRID_SMOKE_TIMEOUT + 60} s"
+        for line in (gs_out + gs_err).splitlines():
+            if line.startswith(("[p", "grid smoke")):
+                print(f"  (d) {line}", flush=True)
+        check(gs.returncode == 0, f"grid_smoke --launch exited "
+              f"{gs.returncode}: {gs_err[-2000:]}")
+        sec["d"] = round(time.time() - t0, 1)
+
+        # (e) the placement benchmark: vmap against sharded at K.S 7, 14, 28
+        t0 = time.time()
+        bench = fig2.placement_benchmark(task=task, designs=schemes,
+                                         log=False, device=dev)
+        check(not validate_bench.validate_summary(fig2.bench_summary(
+            {"placement": bench}, task.name, "chip_smoke")),
+            "the placement benchmark's summary fails the schema")
+        for r in bench["rows"]:
+            check(isinstance(r["sharded"], dict),
+                  f"the placement benchmark skipped sharding: {r}")
+            k1v = r["vmap"]["launches"]["ota_round_step"]
+            k1s = r["sharded"]["launches"]["ota_round_step"]
+            check(k1v == bench["config"]["num_rounds"]
+                  and k1s == PLACEMENT_SLOTS * k1v,
+                  f"placement benchmark K1 launches {k1v}, {k1s}")
+            print(f"  (e) K.S {r['cells']}: exec vmap "
+                  f"{r['vmap']['exec']:.4f} s, sharded "
+                  f"{r['sharded']['exec']:.4f} s (x"
+                  f"{r['exec_speedup_sharded_vs_vmap']:.3f}), K1 {k1v} vs "
+                  f"{k1s} ({card_line})", flush=True)
+        out["bench"] = [{"cells": r["cells"], "vmap": r["vmap"],
+                         "sharded": r["sharded"],
+                         "exec_speedup": r["exec_speedup_sharded_vs_vmap"]}
+                        for r in bench["rows"]]
+        sec["e"] = round(time.time() - t0, 1)
+    finally:
+        if prev is None:
+            os.environ.pop(tmesh.SLOTS_ENV, None)
+        else:
+            os.environ[tmesh.SLOTS_ENV] = prev
+    sec["phase"] = round(time.time() - t_phase, 1)
+    out["seconds"] = sec
+    print(f"  placement phase seconds: {json.dumps(sec)}", flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4255,21 +4508,30 @@ def main() -> int:
     from concurrent.futures import ProcessPoolExecutor
     pool = ProcessPoolExecutor(DESIGN_JOBS, mp_context=multiprocessing
                                .get_context("spawn"))
+    import os
+    import tempfile
+    grid_designs = Path(tempfile.gettempdir()) \
+        / f"grid_smoke_designs_{os.getpid()}.pkl"
     try:
-        return run_phases(torch, pool)
+        return run_phases(torch, pool, grid_designs)
     finally:
         pool.shutdown(wait=True, cancel_futures=True)
+        grid_designs.unlink(missing_ok=True)
 
 
-def run_phases(torch, pool) -> int:
-    """Phases 1-23; the designs made ahead are solved in ``pool``."""
+def run_phases(torch, pool, grid_designs_path) -> int:
+    """Phases 1-24; the designs made ahead are solved in ``pool``, the
+    grid smoke's (phase 23) into ``grid_designs_path``."""
     import numpy as np
     from repro_torch.card import peaks
     from repro_torch.device import resolve_device
     from repro_torch.kernels import build
 
+    from repro_torch import grid_smoke
     t_start = time.time()
     designs = start_designs(pool)
+    grid_designs = pool.submit(grid_smoke.write_designs,
+                               str(grid_designs_path))
     phase_s, stamps = {}, [(1, t_start)]
 
     def begin(n, title):
@@ -4416,7 +4678,13 @@ def run_phases(torch, pool) -> int:
          "qwen_train_step_ms": long_train["qwen1.5-0.5b"]["step_ms"]},
         made(designs, "qwen1.5-0.5b"),
         kres[("ota_round_step", "f32", MAIN[2])])
-    begin(23, "the kernels line")
+    begin(23, "the fleet's multi-device placement: 4 slots on 1 device, the "
+          "Fig.-2 fleet sharded against vmapped, kill and resume, K1 at a "
+          "slot's block, the two-process grid smoke, the placement "
+          "benchmark")
+    place = phase_placement(torch, np, dev, card, card_line, world,
+                            grid_designs)
+    begin(24, "the kernels line")
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
                     path_counts["fused_bf16"]["ota_round_step"],
@@ -4438,6 +4706,9 @@ def run_phases(torch, pool) -> int:
                  "ota_round_step", popr["k1_launches"], popr["k1_row"]))
     rows.append((f"ota_round_step[f32, cifar C={CIFAR[0]} D={CIFAR[2]}]",
                  "ota_round_step", cifar["k1_launches"], cifar["k1_row"]))
+    rows.append((f"ota_round_step[f32, sharded Fig.-2 fleet: a slot's block "
+                 f"C={SLOT_BLOCK[0]}]", "ota_round_step",
+                 place["k1_launches"], place["k1_row"]))
     for arch in DENSE_ARCHS:
         rows.append((f"flash_attention[bf16, {arch}]", "flash_attention",
                      dense[arch][1]["flash_attention"], ares[arch]))
@@ -4558,21 +4829,21 @@ def run_phases(torch, pool) -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[23] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[24] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[23] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[23] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[23] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[23] single run: {json.dumps(single)}", flush=True)
-    print(f"[23] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[23] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[24] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[24] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[24] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[24] single run: {json.dumps(single)}", flush=True)
+    print(f"[24] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[24] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print("[23] dense archs: " + json.dumps(
+    print("[24] dense archs: " + json.dumps(
         {arch: {k: st[k] for k in ("batch", "prefill_ms",
                                    "decode_ms_per_token", "peak_mem_gb",
                                    "batch_fits")}
          for arch, (st, _) in dense.items()}), flush=True)
-    print("[23] train: " + json.dumps(
+    print("[24] train: " + json.dumps(
         {arch: {k: trained[arch][k] for k in (
             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
             "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
@@ -4580,7 +4851,7 @@ def run_phases(torch, pool) -> int:
         | {"lm_curves_wall_s": trained["curves"]["wall_s"],
            "lm_curves_step_ms": trained["curves"]["step_ms"]}),
         flush=True)
-    print("[23] recurrentgemma-9b: " + json.dumps(
+    print("[24] recurrentgemma-9b: " + json.dumps(
         {"bf16": {k: rgemma["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: rgemma["f32"][k] for k in (
@@ -4589,7 +4860,7 @@ def run_phases(torch, pool) -> int:
          "ring": {k: rgemma["ring"][k] for k in (
              "layers", "batch", "prompt_len", "window", "prefill_ms",
              "decode_ms_per_token", "equal_tokens")}}), flush=True)
-    print("[23] seamless-m4t-medium: " + json.dumps(
+    print("[24] seamless-m4t-medium: " + json.dumps(
         {"bf16": {k: seamless["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: seamless["f32"][k] for k in (
@@ -4600,7 +4871,7 @@ def run_phases(torch, pool) -> int:
          "ragged": {k: seamless["ragged"][k] for k in (
              "memory_max_abs_err", "dec_layer0_max_abs_err",
              "logits_max_abs_diff", "equal_next_tokens")}}), flush=True)
-    print("[23] mixtral-8x22b: " + json.dumps(
+    print("[24] mixtral-8x22b: " + json.dumps(
         {"bf16": {k: mixtral["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -4618,7 +4889,7 @@ def run_phases(torch, pool) -> int:
              "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
              "first_loss", "final_loss", "held_out_loss", "eval_aux",
              "peak_mem_gb")}}), flush=True)
-    print("[23] deepseek-v3-671b: " + json.dumps(
+    print("[24] deepseek-v3-671b: " + json.dumps(
         {"bf16": {k: deepseek["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -4633,7 +4904,7 @@ def run_phases(torch, pool) -> int:
              "first_loss", "final_loss", "held_out_loss", "eval_mtp_xent",
              "peak_mem_gb")},
          "seconds": deepseek["seconds"]}), flush=True)
-    print("[23] train at 4,096 tokens: " + json.dumps(
+    print("[24] train at 4,096 tokens: " + json.dumps(
         {arch: {k: long_train[arch][k] for k in (
             "layers", "steps", "clients", "seq", "step_ms", "first_step_ms",
             "tokens_per_s", "eval_ms", "first_loss", "final_loss",
@@ -4642,7 +4913,7 @@ def run_phases(torch, pool) -> int:
         | {"forms": long_train["forms"], "eval_k3": long_train["eval_k3"],
            "step_vs_explicit": long_train["step_vs_explicit"],
            "seconds": long_train["seconds"]}), flush=True)
-    print("[23] seamless-m4t-medium train at 4,096 tokens: " + json.dumps(
+    print("[24] seamless-m4t-medium train at 4,096 tokens: " + json.dumps(
         {"bf16": {k: seamless_train["bf16"][k] for k in (
             "encoder_layers", "layers", "steps", "clients", "seq", "step_ms",
             "first_step_ms", "tokens_per_s", "eval_ms", "first_loss",
@@ -4652,7 +4923,7 @@ def run_phases(torch, pool) -> int:
          "eval_k3": seamless_train["eval_k3"],
          "step_vs_explicit": seamless_train["step_vs_explicit"],
          "seconds": seamless_train["seconds"]}), flush=True)
-    print(f"[23] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print(f"[24] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "
@@ -4662,12 +4933,15 @@ def run_phases(torch, pool) -> int:
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "
           f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
-    print(f"[23] scripts: {json.dumps(scripts['seconds'])}", flush=True)
-    print("[23] roofline shares: " + json.dumps(
+    print(f"[24] scripts: {json.dumps(scripts['seconds'])}", flush=True)
+    print("[24] placement: " + json.dumps(
+        {k: place[k] for k in ("walls", "gaps", "bench", "seconds")}),
+        flush=True)
+    print("[24] roofline shares: " + json.dumps(
         {r["step"]: {k: r[k] for k in ("roofline_ms", "bound_by",
                                        "measured_ms", "share")}
          for r in roof["steps"]}), flush=True)
-    print(f"[23] seconds per phase: {json.dumps(phase_s)}", flush=True)
+    print(f"[24] seconds per phase: {json.dumps(phase_s)}", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,9 +9,11 @@ three OTA power-control schemes -- noiseless FedAvg, the paper's SCA
 design and the weakest-channel inversion baseline -- as ONE fleet through
 ``fl.driver.run_fleet_task``: the round tail is kernel K1 on the card,
 once a round for the whole fleet.  Then the same fleet over a [scheme x
-seed] grid, seeds (0, 1), which is what the reference runs on one device;
-sharding the grid over a mesh of devices is module 12, not ported yet
-(``fl/driver.py:71``).
+seed] grid, seeds (0, 1), through the placement layer (``fl.placement``):
+vmapped on one device, or, where four or more slots are visible (several
+GPUs, or ``REPRO_TORCH_DEVICE_SLOTS=4`` slots on one), its cells sharded
+over the ("data", "model") debug mesh -- the script is the same either
+way.
 """
 from __future__ import annotations
 
@@ -69,14 +71,16 @@ def design(task_name: str = "paper_mlp", device=None):
     return Made((prm,), pcs, time.time() - t0)
 
 
-def train(task, pcs, dep, run_cfg, td, device=None, seeds=None):
+def train(task, pcs, dep, run_cfg, td, device=None, seeds=None,
+          placement=None):
     """One fleet of the schemes (and ``seeds``), trained at the design's
-    step size: the schemes were designed at ``run_cfg.eta``."""
+    step size (the schemes were designed at ``run_cfg.eta``), through
+    ``placement`` (None: vmapped on ``device``)."""
     from repro_torch.fl.driver import run_fleet_task
     kw = {} if seeds is None else {"seeds": seeds}
     return run_fleet_task(task, pcs, dep.gains, run_cfg, task_data=td,
                           etas=[run_cfg.eta] * len(pcs), flat=True,
-                          device=device, **kw)
+                          placement=placement, device=device, **kw)
 
 
 def main(argv=None, *, designs=None) -> dict:
@@ -123,11 +127,24 @@ def main(argv=None, *, designs=None) -> dict:
         print(f"{pc.name:8s} acc: {traj}")
     print(f"one fleet, wall {res.wall:.1f}s; per-round traces: "
           f"{sorted(res.traces)} shape {res.traces['active_devices'].shape}")
-    # 5. the [scheme x seed] grid: on one device the reference vmaps it
-    res2 = train(task, pcs, dep, run_cfg, td, dev, seeds=GRID_SEEDS)
+    # 5. the SAME fleet through the placement layer: vmapped on one
+    #    device, or with >= 4 slots (several GPUs, or
+    #    REPRO_TORCH_DEVICE_SLOTS=4 on one) the [scheme x seed] cells
+    #    sharded over the ("data", "model") mesh -- the script is
+    #    unchanged either way
+    from repro_torch.fl.placement import ShardedPlacement, VmapPlacement
+    from repro_torch.launch.mesh import make_debug_mesh, visible_slots
+    slots = visible_slots(dev.type)
+    if len(slots) >= 4:
+        placement = ShardedPlacement(make_debug_mesh(2, 2, slots=slots))
+        where = f"sharded over {placement.num_devices} devices"
+    else:
+        placement = VmapPlacement()
+        where = "vmapped on 1 device"
+    res2 = train(task, pcs, dep, run_cfg, td, dev, seeds=GRID_SEEDS,
+                 placement=placement)
     final = res2.evals[-1][1]["acc"]
-    print(f"[scheme x seed] grid on 1 device (sharding over a mesh is "
-          f"module 12, fl/driver.py:71): final acc per cell "
+    print(f"[scheme x seed] grid {where}: final acc per cell "
           f"{np.round(np.asarray(final), 3).tolist()}")
     return {"fleet": res, "grid": res2}
 

@@ -4,9 +4,11 @@ rounds for all seven schemes, run as ONE fleet on the GPU.
     python -m repro_torch.fig2 [--task paper_mlp|cifar_conv] [--rounds 150]
         [--every 10] [--batch B] [--uplink f32|bf16|int8] [--unfused]
         [--seed 0] [--checkpoint] [--resume] [--max-chunks N]
-        [--telemetry] [--legacy] [--bench] [--bench-kernel] [--json PATH]
+        [--telemetry] [--legacy] [--bench] [--bench-kernel]
+        [--bench-placement] [--sharded] [--json PATH]
         [--population P --cohort N [--cohort-rounds R] [--no-stream]]
-        [--device cuda]
+        [--coordinator HOST:PORT --num-processes P --process-id I
+         [--local-devices N]] [--device cuda]
 
 A port of the fleet branch of ``benchmarks/fig2.py::run``; the workload
 comes from the task registry (``repro_torch.tasks``).  The default is the
@@ -32,12 +34,23 @@ Gumbel-top-k sampling), redrawn every ``--cohort-rounds`` rounds, the
 next cohort staged on a host thread while the current chunk runs
 (``--no-stream`` serializes the same stages: identical numbers).
 
+``--sharded`` runs the fleet through ``ShardedPlacement`` over the
+("data", "model") debug mesh of four slots (``launch.mesh``; set
+``REPRO_TORCH_DEVICE_SLOTS=4`` for four slots on one card).
+``--coordinator`` joins a multi-process cluster first
+(``distributed.initialize_multiprocess``; ``--local-devices`` sets this
+process's slot count).
+
 ``--bench`` is the reference's engine-vs-legacy benchmark (``benchmark``):
 the legacy loop at full batch, the fleet at full batch and the fleet at
 minibatch 128, with ``wall_s``, ``speedup`` and ``equivalence`` in the
 keys of ``benchmarks/bench_schema.json``.  ``--bench --population P``
 runs ``population_benchmark`` instead: ``adaptive_sca`` on P devices,
 stream vs serial, and the full-participation identity.
+``--bench-placement`` (implied by ``--bench``) runs
+``placement_benchmark``: the 7-scheme grid at K.S = 7, 14 and 28 under
+``VmapPlacement`` and, with four or more slots visible, under
+``ShardedPlacement``, their walls and K1 launches.
 ``--bench-kernel`` runs ``kernel_benchmark``: the round tail fused (K1)
 against unfused (K2, then the step) per uplink dtype, alone and through
 the 7-scheme fleet (12 rounds), the fleets checked bitwise; with
@@ -65,6 +78,7 @@ from repro_torch.core import scenarios as scn
 from repro_torch.core.theory import OTAParams
 from repro_torch.device import resolve_device
 from repro_torch.fl.driver import run_fleet_task
+from repro_torch.fl.placement import ShardedPlacement
 from repro_torch.fl.server import run_fl_legacy
 from repro_torch.kernels import ref, round_step
 from repro_torch.kernels.ops import UPLINK_DTYPES
@@ -159,7 +173,7 @@ def run(num_rounds: int = 150, eval_every: int = 10, seed: int = 0,
         resume: bool = False, max_chunks=None, designs=None, fading=None,
         engine: str = "fleet", population: int = 0, cohort=None,
         cohort_rounds=None, stream: bool = True, telemetry=None,
-        device=None):
+        placement=None, device=None):
     """Histories of every scheme on ``task`` (a registered name or a Task;
     default paper_mlp at full width); returns (histories, FLResult) (the
     FLResult is None for the legacy engine).  ``batch_size > 0`` runs the
@@ -176,7 +190,9 @@ def run(num_rounds: int = 150, eval_every: int = 10, seed: int = 0,
     ``run_fl_legacy`` one scheme at a time.  ``population > 0`` runs the
     fleet in population mode: ``cohort`` devices a round (default the
     task's device count) drawn from ``make_population(population)``, the
-    schemes designed for the cohort-sized world."""
+    schemes designed for the cohort-sized world.  ``placement`` (an
+    ``fl.placement`` object; None: the one-device vmap fleet) passes to
+    the driver."""
     dev = resolve_device(device)
     task = _task(task)
     if batch_size is None:
@@ -189,7 +205,8 @@ def run(num_rounds: int = 150, eval_every: int = 10, seed: int = 0,
                       "fuse_round": fuse_round is not None,
                       "fading": fading is not None,
                       "checkpoint_path": checkpoint_path is not None,
-                      "resume": resume, "max_chunks": max_chunks is not None}
+                      "resume": resume, "max_chunks": max_chunks is not None,
+                      "placement": placement is not None}
         if any(fleet_only.values()):
             raise ValueError("the legacy loop runs f32, fused, i.i.d. "
                              "Rayleigh and without checkpoints; drop "
@@ -230,8 +247,8 @@ def run(num_rounds: int = 150, eval_every: int = 10, seed: int = 0,
                              flat=batch_size > 0, fuse_round=fuse_round,
                              log=log, checkpoint_path=checkpoint_path,
                              resume=resume, max_chunks=max_chunks,
-                             fading=fading, telemetry=telemetry, device=dev,
-                             **pop_kw)
+                             fading=fading, telemetry=telemetry,
+                             placement=placement, device=dev, **pop_kw)
         hist = histories(res)
     else:
         raise ValueError(f"unknown engine {engine!r}")
@@ -357,6 +374,87 @@ def benchmark(num_rounds: int = 150, eval_every: int = 15, seed: int = 0,
     if log:
         print(json.dumps(report["speedup"], indent=1), flush=True)
     return report
+
+
+def _sharded_placement(device=None) -> ShardedPlacement:
+    """``--sharded``'s placement: the ("data", "model") debug mesh over
+    four of the visible slots of ``device``'s type (default: the card's;
+    several slots may share a card)."""
+    from repro_torch.launch.mesh import make_debug_mesh, visible_slots
+    slots = visible_slots(resolve_device(device).type)
+    if len(slots) < 4:
+        raise SystemExit(
+            "--sharded needs >= 4 devices; set REPRO_TORCH_DEVICE_SLOTS=4 "
+            "(four slots, which may share one card)")
+    return ShardedPlacement(make_debug_mesh(2, 2, slots=slots))
+
+
+def placement_benchmark(task="paper_mlp", num_rounds: int = 30,
+                        eval_every: int = 15, seed: int = 0,
+                        batch_size: int = BENCH_BATCH, seeds_grid=(1, 2, 4),
+                        log: bool = True, designs=None, device=None) -> dict:
+    """vmap-vs-sharded wall clocks of the 7-scheme grid at growing K.S
+    (the reference's ``benchmarks.fig2.placement_benchmark``).
+
+    Each grid point (seeds 0 .. s - 1 for s in ``seeds_grid``: K.S = 7,
+    14, 28) runs the same minibatch, flat, fused fleet once under
+    ``VmapPlacement`` and, when ``visible_slots()`` holds four or more
+    slots, once under ``_sharded_placement()``; the walls are the
+    driver's split (the first chunk against the rest), and each run's
+    round-tail counts are recorded (``scenario_sweep.ota_counts``): K1
+    once a round under vmap, once a slot a round sharded.  On one card
+    the slots take turns on it, so sharding adds launches and buys no
+    speed; the benchmark records what it costs.
+    ``designs``: the schemes of this task's world (``make_schemes``),
+    else designed here.  Returns the report (``placement`` of
+    ``bench_schema.json``)."""
+    from repro_torch.launch.mesh import visible_slots
+    dev = resolve_device(device)
+    task = _task(task)
+    dep, prm, td = build_world(task, seed)
+    pcs = designs if designs is not None \
+        else make_schemes(task, dep, prm, device=dev)
+    slots = visible_slots(dev.type)
+    sharded = _sharded_placement(dev) if len(slots) >= 4 else None
+    kw = dict(task_data=td, params=task.init_params(seed, dev),
+              eval_fn=task.make_eval(td, dev), flat=True, device=dev)
+    run_cfg = task.run_config(num_rounds=num_rounds, eval_every=eval_every,
+                              seed=seed, batch_size=batch_size)
+    rows = []
+    for s in seeds_grid:
+        row = {"k": len(pcs), "s": s, "cells": len(pcs) * s}
+        for label, pl in (("vmap", None), ("sharded", sharded)):
+            if label == "sharded" and pl is None:
+                row["sharded"] = ("skipped (needs >= 4 devices; set "
+                                  "REPRO_TORCH_DEVICE_SLOTS=4)")
+                continue
+            before = ota_counts()
+            res = run_fleet_task(task, pcs, dep.gains, run_cfg, **kw,
+                                 seeds=tuple(range(s)), placement=pl)
+            _sync(dev)
+            row[label] = {"wall": res.wall, "compile": res.wall_compile,
+                          "exec": res.wall_exec, "launches": {
+                              k: v - before[k]
+                              for k, v in ota_counts().items()}}
+        if sharded is not None:
+            row["sharded_devices"] = sharded.num_devices
+            row["placement"] = sharded.describe(cells=row["cells"])
+            row["exec_speedup_sharded_vs_vmap"] = \
+                row["vmap"]["exec"] / max(row["sharded"]["exec"], 1e-9)
+        if log:
+            print(f"cells={row['cells']}: vmap exec "
+                  f"{row['vmap']['exec']:.3f} s"
+                  + (f", sharded exec {row['sharded']['exec']:.3f} s "
+                     f"({row['exec_speedup_sharded_vs_vmap']:.3f}x)"
+                     if sharded is not None else " (sharded skipped)"),
+                  flush=True)
+        rows.append(row)
+    return {"config": {"task": task.name, "num_rounds": num_rounds,
+                       "eval_every": eval_every, "seed": seed,
+                       "batch_size": batch_size, "device_count": len(slots),
+                       "slots": [str(d) for d in slots],
+                       "device": _card(dev), "backend": "torch-" + dev.type},
+            "rows": rows}
 
 
 def population_benchmark(task="paper_mlp", size: int = 1_000_000,
@@ -546,8 +644,22 @@ def bench_summary(report: dict, task_name: str, source: str) -> dict:
     speedups, or the population benchmark as its ``population`` section;
     a ``round_step`` entry (``kernel_benchmark``'s report, alone for
     ``--bench-kernel`` or beside the engine benchmark's) is its
-    ``round_step`` section."""
+    ``round_step`` section; a ``placement`` entry (``placement_benchmark``'s
+    report) is its ``placement`` section, one row per K.S point."""
     summary = {"source": source, "task": task_name}
+    if "placement" in report:
+        pl = report["placement"]
+        summary["placement"] = {
+            "config": pl["config"],
+            "rows": [{"cells": r["cells"], "vmap_exec_s": r["vmap"]["exec"],
+                      **({"sharded_exec_s": r["sharded"]["exec"],
+                          "exec_speedup": r["exec_speedup_sharded_vs_vmap"]}
+                         if isinstance(r.get("sharded"), dict)
+                         else {"sharded": "skipped"})}
+                     for r in pl["rows"]]}
+        report = {k: v for k, v in report.items() if k != "placement"}
+        if not report:
+            return summary
     if "round_step" in report:
         summary["round_step"] = report["round_step"]
         report = {k: v for k, v in report.items() if k != "round_step"}
@@ -570,9 +682,11 @@ def write_bench(report: dict, task_name: str, path: str) -> None:
     ``validate_bench`` passes it (a ValueError names the violations), and
     the whole report beside it as ``<stem>.report.json``."""
     path = Path(path).resolve()
-    summary = bench_summary(report, task_name, "repro_torch.fig2 --bench"
-                            + ("-kernel" if set(report) == {"round_step"}
-                               else ""))
+    flags = {"placement": "--bench-placement", "round_step": "--bench-kernel"}
+    source = "repro_torch.fig2 " + (
+        " ".join(flags[k] for k in flags if k in report)
+        if set(report) <= set(flags) else "--bench")
+    summary = bench_summary(report, task_name, source)
     errors = validate_bench.validate_summary(summary)
     if errors:
         raise ValueError(f"{path.name} would violate the bench schema: "
@@ -608,6 +722,20 @@ def main(argv=None) -> None:
     ap.add_argument("--bench-kernel", action="store_true",
                     help="fused-vs-unfused round tails per uplink dtype "
                          "(kernel_benchmark); with --bench, after it")
+    ap.add_argument("--bench-placement", action="store_true",
+                    help="vmap-vs-sharded walls at K.S = 7, 14, 28 "
+                         "(placement_benchmark; implied by --bench)")
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard the fleet's cells over the ('data', "
+                         "'model') debug mesh of four slots")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="join a multi-process cluster first "
+                         "(process 0 hosts its store here)")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--local-devices", type=int, default=None,
+                    help="this process's slot count (several slots may "
+                         "share one card)")
     ap.add_argument("--json", default=None,
                     help="where --bench and --bench-kernel write their "
                          "report")
@@ -642,27 +770,52 @@ def main(argv=None) -> None:
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--device", default=None)
     a = ap.parse_args(argv)
+    if a.coordinator:
+        if a.num_processes is None or a.process_id is None:
+            raise SystemExit("--coordinator needs --num-processes and "
+                             "--process-id")
+        from repro_torch.distributed import initialize_multiprocess
+        nproc, ndev = initialize_multiprocess(
+            a.coordinator, a.num_processes, a.process_id,
+            local_device_count=a.local_devices)
+        print(f"process {a.process_id}/{nproc}: {ndev} local devices",
+              flush=True)
     try:
         task = _task(a.task)
     except (KeyError, ValueError) as e:
         raise SystemExit(str(e))
-    if a.population and a.legacy:
-        raise SystemExit("--population applies to the fleet; drop --legacy")
+    if a.sharded and (a.legacy or a.bench or a.bench_kernel):
+        raise SystemExit("--sharded applies to the fleet engine only; "
+                         "drop --legacy/--bench/--bench-kernel")
+    if a.population and (a.legacy or a.sharded):
+        raise SystemExit("--population applies to the vmap fleet engine; "
+                         "drop --legacy/--sharded")
     if (a.checkpoint or a.resume) and (a.legacy or a.bench
+                                       or a.bench_placement
                                        or a.bench_kernel):
         raise SystemExit("--checkpoint/--resume apply to the fleet run "
-                         "only; drop --legacy/--bench/--bench-kernel")
+                         "only; drop --legacy/--bench/--bench-placement/"
+                         "--bench-kernel")
     if a.legacy and (a.uplink != "f32" or a.unfused):
         raise SystemExit("--uplink/--unfused apply to the fleet; the legacy "
                          "loop runs f32, fused; drop --legacy")
-    if a.telemetry and (a.legacy or a.bench or a.bench_kernel):
+    if a.telemetry and (a.legacy or a.bench or a.bench_placement
+                        or a.bench_kernel):
         raise SystemExit("--telemetry applies to the fleet run only; drop "
-                         "--legacy/--bench/--bench-kernel")
-    if a.bench_kernel and not a.bench:
-        report = {"round_step": kernel_benchmark(
-            task=task, num_rounds=min(a.rounds or 12, 12),
-            eval_every=a.every or 6, seed=a.seed,
-            batch_size=a.batch or BENCH_BATCH, device=a.device)}
+                         "--legacy/--bench/--bench-placement/--bench-kernel")
+    placement = _sharded_placement(a.device) if a.sharded else None
+    if (a.bench_placement or a.bench_kernel) and not a.bench:
+        report = {}
+        if a.bench_placement:
+            report["placement"] = placement_benchmark(
+                task=task, num_rounds=min(a.rounds or 30, 30),
+                eval_every=a.every or 15, seed=a.seed,
+                batch_size=a.batch or BENCH_BATCH, device=a.device)
+        if a.bench_kernel:
+            report["round_step"] = kernel_benchmark(
+                task=task, num_rounds=min(a.rounds or 12, 12),
+                eval_every=a.every or 6, seed=a.seed,
+                batch_size=a.batch or BENCH_BATCH, device=a.device)
         if a.json:
             write_bench(report, task.name, a.json)
             print(f"# wrote {a.json} (schema-checked) and its "
@@ -682,6 +835,10 @@ def main(argv=None) -> None:
             report = benchmark(num_rounds=a.rounds or 150,
                                eval_every=a.every or 15, seed=a.seed,
                                batch_size=batch, task=task, device=a.device)
+        report["placement"] = placement_benchmark(
+            task=task, num_rounds=min(a.rounds or 30, 30),
+            eval_every=a.every or 15, seed=a.seed, batch_size=batch,
+            device=a.device)
         if a.bench_kernel:
             report["round_step"] = kernel_benchmark(
                 task=task, num_rounds=12, eval_every=a.every or 6,
@@ -703,7 +860,8 @@ def main(argv=None) -> None:
                     engine="legacy" if a.legacy else "fleet",
                     population=a.population, cohort=a.cohort,
                     cohort_rounds=a.cohort_rounds, stream=not a.no_stream,
-                    telemetry=a.telemetry, device=a.device)
+                    telemetry=a.telemetry, placement=placement,
+                    device=a.device)
     for name, h in hist.items():
         print(f"{name:>17}: acc {h[-1]['acc']:.4f}  "
               f"global_loss {h[-1]['global_loss']:.4f}")

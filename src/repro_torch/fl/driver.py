@@ -1,8 +1,12 @@
-"""Host driver of the fleet on one GPU, ported from ``repro.fl.driver``.
+"""Host driver of the fleet, ported from ``repro.fl.driver``.
 
 ``run_fleet`` runs a [K scheme x S seed] grid as one fleet: every tensor
-carries a leading cell axis C = K * S, the rounds run as a Python loop, and
-the evals come on ``engine.chunk_lengths``' cadence.  Each round's random
+carries a leading cell axis C = K * S, the rounds run as a Python loop in
+chunks, and the evals come on ``engine.chunk_lengths``' cadence.  A
+placement (``fl.placement``) runs each chunk: ``VmapPlacement`` (the
+default) all C cells at once on the run's device, ``ShardedPlacement``
+one block of cells per slot of a mesh; the driver reads the gathered
+results either way.  Each round's random
 numbers come from a draws provider (``fl.draws``): by default
 ``DeviceDraws`` on the run's device, keyed per (seed, round) and broadcast
 over the K schemes, as the reference keys them.
@@ -64,12 +68,8 @@ from repro_torch.core import ota
 from repro_torch.device import resolve_device
 from repro_torch.fl.draws import DeviceDraws
 from repro_torch.fl.engine import FLResult, chunk_lengths, make_round_body
+from repro_torch.fl.placement import Placement, VmapPlacement
 from repro_torch.solvers import sca as sca_solver
-
-
-# the reference's run_fleet keywords whose modules are not ported yet
-NOT_PORTED = {"placement": "ROADMAP.md §1, module 12 (multi-device "
-                           "placement)"}
 
 
 class _Staged(NamedTuple):
@@ -116,13 +116,14 @@ def _scheme_digest(pc) -> str:
 
 
 def _fleet_identity(names, seeds, run, etas, flat, fuse_round, uplink_dtype,
-                    d, task_name, schemes, gains, data, fading=None,
-                    scenarios=None, population=None, cohort_size=None,
-                    cohort_rounds=None) -> dict:
+                    d, task_name, schemes, gains, data, placement,
+                    fading=None, scenarios=None, population=None,
+                    cohort_size=None, cohort_rounds=None) -> dict:
     """Everything that must match for a resumed run to be bitwise equal to
     the uninterrupted one: the schemes (names and design leaves), seeds,
     etas, the run config, the round tail (``flat``, ``fuse_round``, the
-    uplink dtype), the model size D, the task, and the world (gains and
+    uplink dtype), the placement (the bitwise contract holds per
+    placement), the model size D, the task, and the world (gains and
     data, hashed; the fading process's descriptor; a grid's scenario names
     and its stack's digest; the population's descriptor and the cohort
     schedule).  On a grid the gains digest covers the stack's [R, N]
@@ -142,6 +143,7 @@ def _fleet_identity(names, seeds, run, etas, flat, fuse_round, uplink_dtype,
             "etas": [float(e) for e in np.asarray(etas)],
             "run": dataclasses.asdict(run),
             "flat": bool(flat), "fuse_round": fuse_round,
+            "placement": placement.describe(),
             "uplink_dtype": str(uplink_dtype), "d": int(d),
             "task": task_name,
             "gains": _digest(gains if gains is not None
@@ -318,8 +320,9 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
               task_name: Optional[str] = None, fading=None, scenarios=None,
               population=None, cohort_size: Optional[int] = None,
               cohort_rounds: Optional[int] = None, stream: bool = True,
-              telemetry=None, placement=None, device=None) -> FLResult:
-    """A [K-scheme x S-seed] experiment grid on one device.
+              telemetry=None, placement: Optional[Placement] = None,
+              device=None) -> FLResult:
+    """A [K-scheme x S-seed] experiment grid through a placement.
 
     ``schemes``: K power-control schemes; ``params``: the initial parameter
     dict (shared by every cell); ``data``: stacked device shards (x [N, Dn,
@@ -330,7 +333,7 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
     the round tail as in the reference; ``draws`` (a provider, t ->
     ``RoundDraws``) replaces the default ``DeviceDraws``; ``use_kernel``
     passes to the kernel dispatch.  ``device=None`` means CUDA and raises
-    without it.
+    without it; the fleet's tensors live there between chunks.
 
     checkpoint_path  save the fleet at every chunk boundary (an npz; see
                      the module docstring).
@@ -375,13 +378,22 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                      keeps the run id) and the ``bv_*`` diagnostic traces.
                      Params, the other traces and the evals are bitwise
                      those of the run without it.
-    placement        the reference's multi-device placement: not ported yet
-                     (NotImplementedError).
+    placement        ``fl.placement.VmapPlacement()`` (the default: all C
+                     cells at once on ``device``) or
+                     ``ShardedPlacement(mesh)``: each chunk's rounds run
+                     on one block of cells per slot of the mesh, and the
+                     params, the fading state and the traces come back
+                     gathered on ``device`` at every chunk boundary, where
+                     the evals, the adaptive redesign, the population
+                     table's commit and the checkpoint read them.  Part of
+                     the checkpoint's identity: a resume on another
+                     placement raises.
     """
-    if placement is not None:
-        raise NotImplementedError(
-            "run_fleet(placement=...) is not ported yet; see "
-            f"{NOT_PORTED['placement']}")
+    placement = placement if placement is not None else VmapPlacement()
+    if not isinstance(placement, Placement):
+        raise TypeError("placement must be a fl.placement.Placement "
+                        "(VmapPlacement, ShardedPlacement), got "
+                        f"{placement!r}")
     t0 = time.time()
     dev = resolve_device(device)
     schemes = list(schemes)
@@ -473,6 +485,7 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
     body = make_round_body(loss_fn, run, flat=flat, uplink_dtype=uplink_dtype,
                            fuse_round=fuse_round, use_kernel=use_kernel,
                            metrics_hook=metrics_hook)
+    chunk = placement.build_chunk(body)
     x_dev = torch.as_tensor(data[0], dtype=torch.float32, device=dev)
     y_dev = torch.as_tensor(data[1], device=dev).long()
     shard_len = int(x_dev.shape[1])
@@ -531,7 +544,8 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
         identity = _fleet_identity(
             names, seeds, run, etas, flat, body.fuse, body.uplink_dtype,
             sum(v.numel() for v in params.values()), task_name, schemes,
-            gains, data, fading, scenarios, population, n_cohort, cadence)
+            gains, data, placement, fading, scenarios, population, n_cohort,
+            cadence)
     start_chunk, t = 0, 0
     if resuming:
         (start_chunk, t, params_b, fstate, schemes, designs, prior_traces,
@@ -550,7 +564,8 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
             tracer.resume(start_chunk)
         tracer.event("fleet_config", names=list(names), seeds=list(seeds),
                      num_rounds=int(run.num_rounds),
-                     eval_every=int(run.eval_every), placement="vmap",
+                     eval_every=int(run.eval_every),
+                     placement=placement.describe(cells=c),
                      chunks=len(lengths),
                      population=(int(population.size) if pop_mode else None),
                      cohort_size=n_cohort, cohort_rounds=cadence,
@@ -616,12 +631,11 @@ def run_fleet(loss_fn: Callable, params: dict, schemes, gains: np.ndarray,
                         # chunk ci runs
                         next_fut = executor.submit(stage, ci + 1, schemes[0])
                 tc, t_ex, t_chunk = time.time(), time.monotonic(), t
-                for _ in range(length):
-                    params_b, fstate, metrics = body(
-                        schemes, eta_c, params_b, fstate, draws(t),
-                        chunk_data, cell_seed, proc, cohort_op)
-                    metric_rounds.append(metrics)
-                    t += 1
+                params_b, fstate, metrics = chunk(
+                    schemes, eta_c, params_b, fstate, draws, t, chunk_data,
+                    cell_seed, length, proc, cohort_op, grid=(k, s_axis))
+                metric_rounds.extend(metrics)
+                t += length
                 _sync(dev)
                 chunk_walls.append((length, time.time() - tc))
                 if tracer is not None:

@@ -31,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Callable, Optional
 
+import numpy as np
 import torch
 from torch.func import grad, vmap
 
@@ -92,7 +93,8 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
     """One FL round over the whole fleet:
 
         body(schemes, eta, params, fstate, draws, data, cell_seed,
-             proc=None, cohort=None) -> (params, fstate, metrics)
+             proc=None, cohort=None, cell_scheme=None)
+            -> (params, fstate, metrics)
 
     ``schemes``: the power-control schemes (R * K on a scenario grid,
     scenario-major); ``eta`` [C] f32 step sizes; ``params``: leaves
@@ -100,6 +102,18 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
     process); ``draws``: the round's ``RoundDraws`` or ``FadingDraws``
     (rows per seed); ``data``: the stacked device shards (x [N, Dn, ...],
     y [N, Dn] int64); ``cell_seed`` [C]: the seed row of each cell.
+
+    ``cell_scheme`` (a host int array [C], ``fl.placement``'s sharded
+    blocks) makes the round run on a block of cells, any contiguous run of
+    the flattened grid that may start or end inside a scheme's seeds or a
+    scenario row (padded blocks repeat cell 0): ``params`` and ``eta``
+    are then the block's, ``cell_seed`` and ``cell_scheme`` each cell's
+    seed row and scheme.  The channel is stepped for every row as on the
+    whole grid (so every block carries the same fading state), the
+    coefficients are those of the schemes the block holds, gathered per
+    cell, and the gradients run one scenario row's run of cells at a
+    time.  Left at None, the round is the whole grid's, cell-major, with
+    exactly the launches it had before blocks existed.
 
     The channel: when the draws carry innovations (``FadingDraws``),
     ``proc`` (a ``core.scenarios.ScenarioStack`` of R rows) steps the state
@@ -150,19 +164,50 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
                              None if cohort is None else cohort["fade"])
         return fstate, (draws.h if draws.h.dim() == 3 else draws.h[None])
 
+    layouts = {}
+
+    def layout(cell_scheme, k_row, device):
+        """(held schemes, each cell's position among them [Cb], each
+        cell's scenario row [Cb], the runs of one scenario row) of a block
+        of cells, made once per block."""
+        key = (np.asarray(cell_scheme).tobytes(), k_row, str(device))
+        out = layouts.get(key)
+        if out is None:
+            cs = np.asarray(cell_scheme, np.int64)
+            held = sorted(set(cs.tolist()))
+            row = cs // k_row
+            cuts = [0] + [i for i in range(1, len(cs))
+                          if row[i] != row[i - 1]] + [len(cs)]
+            out = layouts[key] = (
+                held,
+                torch.as_tensor(np.searchsorted(held, cs), device=device),
+                torch.as_tensor(row, device=device),
+                list(zip(cuts[:-1], cuts[1:])))
+        return out
+
     def body(schemes, eta, params, fstate, draws, data, cell_seed,
-             proc=None, cohort=None):
+             proc=None, cohort=None, cell_scheme=None):
         x_dev, y_dev = data
         c = eta.shape[0]
         fstate, h_rows = channel(fstate, draws, proc, cohort)
         rows = h_rows.shape[0]
-        grads, norms = gradients(params, x_dev, y_dev, draws.idx, cell_seed,
-                                 rows, cohort)
         k_row = len(schemes) // rows
-        coeffs = [pc.round_coeffs(h_rows[j // k_row], draws.coin)
-                  for j, pc in enumerate(schemes)]
-        s = torch.stack([sc_ for sc_, _ in coeffs]).reshape(c, -1)  # [C, N]
-        ns = torch.stack([n for _, n in coeffs]).reshape(c)         # [C]
+        if cell_scheme is None:          # the whole grid, cell-major
+            grads, norms = gradients(params, x_dev, y_dev, draws.idx,
+                                     cell_seed, rows, cohort)
+            coeffs = [pc.round_coeffs(h_rows[j // k_row], draws.coin)
+                      for j, pc in enumerate(schemes)]
+            s = torch.stack([sc_ for sc_, _ in coeffs]).reshape(c, -1)
+            ns = torch.stack([n for _, n in coeffs]).reshape(c)
+        else:                            # a block of a sharded placement
+            held, pos, row, runs = layout(cell_scheme, k_row,
+                                          cell_seed.device)
+            grads, norms = gradients(params, x_dev, y_dev, draws.idx,
+                                     cell_seed, cohort=cohort, runs=runs)
+            coeffs = [schemes[j].round_coeffs(h_rows[j // k_row], draws.coin)
+                      for j in held]
+            s = torch.stack([sc_ for sc_, _ in coeffs])[pos, cell_seed]
+            ns = torch.stack([n for _, n in coeffs])[pos, cell_seed]
         z = draws.z[cell_seed]                                      # [C, D]
         if fuse:
             params = ota.fused_round_step(grads, s, ns, z, params, eta,
@@ -182,10 +227,13 @@ def make_round_body(loss_fn: Callable, run, flat: bool = False,
             "noise_scale": ns.float(),
         }
         if metrics_hook is not None:
-            h_cells = torch.stack([h_rows[j // k_row]
-                                   for j in range(len(schemes))])
-            metrics.update(metrics_hook(s=s, noise_scale=ns,
-                                        h=h_cells.reshape(c, -1),
+            if cell_scheme is None:
+                h_cells = torch.stack([h_rows[j // k_row]
+                                       for j in range(len(schemes))]) \
+                    .reshape(c, -1)
+            else:
+                h_cells = h_rows[row, cell_seed]
+            metrics.update(metrics_hook(s=s, noise_scale=ns, h=h_cells,
                                         params=params))
         return params, fstate, metrics
 
@@ -197,12 +245,14 @@ def make_gradients(loss_fn: Callable, run) -> Callable:
     """Per-device gradients of every cell, clipped to G_max:
 
         gradients(params, x_dev, y_dev, idx, cell_seed, rows=1,
-                  cohort=None) -> (grads {leaf: [C, N, ...]}, norms [C, N])
+                  cohort=None, runs=None)
+            -> (grads {leaf: [C, N, ...]}, norms [C, N])
 
     ``idx`` [S, N, B] picks each seed's minibatch (None: full batch).  The
-    C cells are ``rows`` equal blocks (a grid's scenarios), and each block
-    is one ``torch.func.vmap`` over its cells and devices, so a scenario's
-    cells run at the shapes of that scenario's own fleet.  ``cohort``
+    C cells are ``rows`` equal blocks (a grid's scenarios), or the
+    ``runs`` [(start, stop)] given, and each block is one
+    ``torch.func.vmap`` over its cells and devices, so a scenario's cells
+    run at the shapes of that scenario's own fleet.  ``cohort``
     (population mode, see ``make_round_body``): a minibatch gathers
     through its ``data_idx``; a full batch gathered per seed row runs per
     cell, one gathered once runs as the plain path."""
@@ -232,12 +282,13 @@ def make_gradients(loss_fn: Callable, run) -> Callable:
         return per_cell_full(params, x_dev, y_dev)
 
     def gradients(params, x_dev, y_dev, idx, cell_seed, rows=1,
-                  cohort=None):
-        per = cell_seed.shape[0] // rows
-        parts = [block({k: v[r * per:(r + 1) * per]
-                        for k, v in params.items()}, x_dev, y_dev, idx,
-                       cell_seed[r * per:(r + 1) * per], cohort)
-                 for r in range(rows)]
+                  cohort=None, runs=None):
+        if runs is None:
+            per = cell_seed.shape[0] // rows
+            runs = [(r * per, (r + 1) * per) for r in range(rows)]
+        parts = [block({k: v[a:b] for k, v in params.items()}, x_dev, y_dev,
+                       idx, cell_seed[a:b], cohort)
+                 for a, b in runs]
         return _cat([g for g, _ in parts]), _cat([n for _, n in parts])
 
     return gradients

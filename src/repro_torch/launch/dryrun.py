@@ -41,11 +41,12 @@ The record keeps the reference's keys: ``arch``, ``shape``, ``mesh``
 (``{"data": 1, "model": 1}``), ``devices`` (1), ``scheme``,
 ``num_params``, ``param_bytes_total``, ``flops_per_device``,
 ``bytes_accessed_per_device``, ``collective_bytes_per_device`` (every op
-0: one card; placement over cards is module 12), ``memory_analysis``
-(``argument_bytes``: the step's arguments, parameters, inputs and caches,
-and a train step's draws, which the reference makes inside its step;
-``output_bytes``: what it returns; and, where a reckoning was built for
-the arch and the kind (``RECKONINGS``), its terms under ``reckoned``; no
+0: one card; model sharding over cards is module 12b),
+``memory_analysis`` (``argument_bytes``: the step's arguments,
+parameters, inputs and caches, and a train step's draws, which the
+reference makes inside its step; ``output_bytes``: what it returns;
+and, where a reckoning was built for the arch and the kind
+(``RECKONINGS``), its terms under ``reckoned``; no
 ``temp_bytes``: eager PyTorch has no compiled program to ask),
 ``lower_s`` and ``compile_s``; and adds ``card`` (``card.peaks``'s name
 of the card whose peaks the roofline uses), ``fake_device``, ``path`` and
@@ -244,7 +245,8 @@ def run_one(arch: str, shape: Union[str, InputShape], *,
         "bytes_accessed_per_device": float(rep["bytes"]),
         "collective_bytes_per_device": {
             **dict.fromkeys(COLLECTIVES, 0), "total": 0,
-            "note": "one card: no collectives (placement is module 12)"},
+            "note": "one card: no collectives (model sharding is "
+                    "module 12b)"},
         "memory_analysis": mem,
         "lower_s": round(t_lower, 2),
         "compile_s": round(t_compile, 2),
@@ -263,14 +265,15 @@ def main(argv=None):
     ap.add_argument("--arch", default=None, choices=configs.ARCH_IDS)
     ap.add_argument("--shape", default=None, choices=tuple(configs.SHAPES))
     ap.add_argument("--multi-pod", action="store_true",
-                    help="refused: placement over cards is module 12")
+                    help="refused: model sharding over cards is module "
+                         "12b")
     ap.add_argument("--scheme", default="sca", choices=pcm.SCHEMES)
     ap.add_argument("--all", action="store_true",
                     help="run every supported (arch x shape)")
     args = ap.parse_args(argv)
     if args.multi_pod:
-        ap.error("--multi-pod: the port runs on one card; placement over "
-                 "cards is module 12 (ROADMAP.md §1)")
+        ap.error("--multi-pod: the port runs on one card; model sharding "
+                 "over cards is module 12b (ROADMAP.md §1)")
     if args.all:
         pairs = [(arch, shp) for arch in configs.ARCH_IDS
                  for shp in configs.supported_shapes(arch)]

@@ -5,7 +5,8 @@ bound, and the model-FLOPs ratio: the port of ``benchmarks/roofline.py``.
 
     compute    = counted FLOPs / the card's bf16 tensor-core peak
     memory     = counted bytes accessed / the card's memory bytes/s
-    collective = 0: one card moves nothing between cards (module 12)
+    collective = 0: one card moves nothing between cards (model sharding
+                 across cards is module 12b)
 
 The counts are the port's (``launch.dryrun``: the eager step on fakes,
 K3 and K4 by their own work) and the peaks the card's published ones
@@ -124,7 +125,7 @@ def roofline_row(record: dict) -> dict:
         "compute_s": t["compute_s"],
         "memory_s": t["memory_s"],
         "collective_s": 0.0,
-        "collective_note": "one card (module 12)",
+        "collective_note": "one card (module 12b)",
         "dominant": t["bound_by"],
         "model_flops_per_device": mf_dev,
         "useful_flops_ratio": mf_dev / flops if flops > 0 else 0.0,

@@ -20,7 +20,9 @@ five gates in its order, sizes and assertions: the 7-scheme Fig.-2 fleet
 (8 minibatch rounds), the disk_rayleigh and disk_markov scenario fleets, a
 batched SCA solve against the SLSQP oracle, an ``adaptive_sca`` fleet on
 disk_markov that must re-design, and a cifar_conv fleet killed after one
-chunk and resumed, bitwise the uninterrupted run; it ends with
+chunk and resumed, bitwise the uninterrupted run (sharded over the
+debug mesh where four or more slots are visible: the row
+``smoke_cifar_conv_sharded4``, else ``smoke_cifar_conv_vmap``); it ends with
 ``# smoke OK``.  Its ``sca`` designs may be handed in, made ahead
 (``design``; each is checked against its world).  Everything runs on the
 card unless ``--device cpu``.
@@ -170,7 +172,9 @@ def smoke(seed: int = 0, device=None, designs=None) -> dict:
     from repro_torch.data import partition, synthetic
     from repro_torch.device import resolve_device
     from repro_torch.fl.driver import run_fleet, run_fleet_task
+    from repro_torch.fl.placement import ShardedPlacement
     from repro_torch.fl.server import FLRunConfig
+    from repro_torch.launch.mesh import make_debug_mesh, visible_slots
     from repro_torch.models import mlp
     from repro_torch.models.param import init_params
     dev = resolve_device(device)
@@ -270,15 +274,19 @@ def smoke(seed: int = 0, device=None, designs=None) -> dict:
           flush=True)
 
     # the task registry through the fleet stack, a kill and a resume
-    # included.  The reference shards the cells over a mesh of four or
-    # more devices; that is module 12 (ROADMAP.md §1), so the port runs
-    # them vmapped on one device and prints the one-device row
+    # included: sharded over the debug mesh where four or more slots are
+    # visible, vmapped otherwise
     t0, before = time.time(), scenario_sweep.ota_counts()
     pcs, (task_c, dep_c, _, td) = _take(designs, "cifar", seed, dev, walls)
     run_cfg = task_c.run_config(num_rounds=6, eval_every=2, batch_size=4,
                                 seed=seed)
-    where = "vmap"
-    kw = dict(task_data=td, seeds=CIFAR_SEEDS, flat=True, device=dev)
+    placement, where = None, "vmap"
+    slots = visible_slots(dev.type)
+    if len(slots) >= 4:
+        placement = ShardedPlacement(make_debug_mesh(2, 2, slots=slots))
+        where = f"sharded{placement.num_devices}"
+    kw = dict(task_data=td, seeds=CIFAR_SEEDS, flat=True,
+              placement=placement, device=dev)
     with tempfile.TemporaryDirectory() as tmp:
         ck = os.path.join(tmp, "cifar_fleet")
         res_part = run_fleet_task(task_c, pcs, dep_c.gains, run_cfg, **kw,

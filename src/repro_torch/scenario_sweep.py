@@ -3,8 +3,9 @@ scheme, a fleet per scenario, and the [scenario x scheme x seed] grid
 fleet, ported from ``benchmarks/scenario_sweep.py``.
 
     python -m repro_torch.scenario_sweep [--all] [--train] [--grid]
-        [--false-alarm] [--rss-probe] [--json PATH]
-        [--device cuda]
+        [--sharded] [--false-alarm] [--rss-probe] [--json PATH]
+        [--coordinator HOST:PORT --num-processes P --process-id I
+         [--local-devices N]] [--device cuda]
 
 For every scenario (``scenarios.SWEEP_FAMILIES``; ``--all`` the whole
 registry) and every statistical-CSI scheme (sca, lcpc, zero_bias) it
@@ -25,9 +26,16 @@ the check that ``chip_smoke.py`` phase 8 runs too: the 48-cell grid of the
 over the 48 cells), the same grid at seeds 4-7, the grid's bitwise
 identities, and ``curves.gate`` against the reference's committed grid
 (``experiments/scenario_reference``) over seeds 0-7; it exits nonzero on a
-miss.  ``--false-alarm`` prints how often that gate misses when the port
-and the reference agree in distribution, at four and at eight seeds a
-side (``gate_false_alarm``, on the CPU).  ``--rss-probe`` runs the
+miss.  ``--sharded`` runs the training fleets and the grid's two gate
+runs through ``ShardedPlacement`` over the debug mesh of four slots
+(``fig2._sharded_placement``); the grid's bitwise identities stay the
+vmap placement's contract, and the grid's record carries the placement's
+``describe`` and its padded fraction.  ``--coordinator`` joins a
+multi-process cluster (``distributed.initialize_multiprocess``) and runs
+only this process's ``process_grid_slice`` of the scenario axis; only
+process 0 writes ``--json``.  ``--false-alarm`` prints how often that
+gate misses when the port and the reference agree in distribution, at
+four and at eight seeds a side (``gate_false_alarm``, on the CPU).  ``--rss-probe`` runs the
 48-cell grid for ``RSS_PROBE_ROUNDS`` (20) rounds in a fresh child process
 and prints its peak host RSS and peak device memory (``rss_probe``: the
 reference's probe compares buffer donation on and off; the port has no
@@ -245,13 +253,14 @@ def theory_errors(rows: Sequence[dict], ref: dict) -> dict:
 def train_sweep(world: dict, task="paper_mlp", device=None, *,
                 scenario_names=None, num_rounds: int = ROUNDS,
                 eval_every: int = EVERY, seed: int = 0,
-                batch_size=None) -> list:
+                batch_size=None, placement=None) -> list:
     """A fleet per scenario of ``world`` (a ``design`` for the task's d,
     realized at ``seed``: its schemes on its fading process; seed
     ``seed``), the task built once; one row per (scenario, scheme).  The
     keywords are the reference's: ``scenario_names`` (default every
     scenario of ``world``), ``num_rounds``, ``eval_every``, ``seed`` and
-    ``batch_size`` (None: the task's own)."""
+    ``batch_size`` (None: the task's own), and ``placement`` (an
+    ``fl.placement`` object; None: the vmap fleet)."""
     from repro_torch.device import resolve_device
     task = _task(task)
     dev = resolve_device(device)
@@ -264,7 +273,8 @@ def train_sweep(world: dict, task="paper_mlp", device=None, *,
                              f"{task.num_devices}")
     td = task.build_data(seed)
     kw = dict(task_data=td, params=task.init_params(seed, dev),
-              eval_fn=task.make_eval(td, dev), device=dev)
+              eval_fn=task.make_eval(td, dev), placement=placement,
+              device=dev)
     run = run_config(task, num_rounds, eval_every, seed, batch_size)
     rows = []
     for name in names:
@@ -306,7 +316,8 @@ def _counted(fleet, dev):
             time.time() - t0)
 
 
-def grid(world: dict, task="paper_mlp", device=None) -> dict:
+def grid(world: dict, task="paper_mlp", device=None,
+         placement=None) -> dict:
     """The grid check, on ``world``'s designs of the ``SWEEP_FAMILIES``:
 
     1. the [4 x 3 x 4] grid at SEEDS, ROUNDS rounds with an eval every
@@ -321,11 +332,16 @@ def grid(world: dict, task="paper_mlp", device=None) -> dict:
     4. ``curves.gate`` of 1 and 2 against the reference's grid over
        GATE_SEEDS.
 
-    Returns {"result", "more": the FLResults of 1 and 2, "counts": {"grid",
+    ``placement`` (an ``fl.placement`` object; None: the vmap fleet) runs
+    1 and 2; the identities of 3 are the vmap placement's.  Returns
+    {"result", "more": the FLResults of 1 and 2, "counts": {"grid",
     "unfused"}, "identities": {name: bool, "grid_vs_scenario_fleets":
-    [bool per scenario]}, "gate": rows, "walls": seconds}."""
+    [bool per scenario]}, "gate": rows, "walls": seconds, "config": the
+    grid record: its cells, the placement's ``describe(cells=)`` and,
+    sharded, the padded fraction}."""
     from repro_torch import curves
     from repro_torch.device import resolve_device
+    from repro_torch.fl.placement import ShardedPlacement
     task = _task(task)
     dev = resolve_device(device)
     td = task.build_data(0)
@@ -333,11 +349,19 @@ def grid(world: dict, task="paper_mlp", device=None) -> dict:
               eval_fn=task.make_eval(td, dev), device=dev)
     names = scn.SWEEP_FAMILIES
     run = run_config(task, ROUNDS, EVERY)
+    cells = len(names) * len(world[names[0]]["schemes"]) * len(SEEDS)
+    config = {"cells": cells, "slots": 1, "placement": "vmap"
+              if placement is None else placement.describe(cells=cells)}
+    if isinstance(placement, ShardedPlacement):
+        config["padded_frac"] = placement.pad(cells)[1]
+        config["slots"] = placement.num_devices
     res, grid_counts, grid_s = _counted(
-        lambda: grid_fleet(task, world, names, run, SEEDS, **kw), dev)
+        lambda: grid_fleet(task, world, names, run, SEEDS,
+                           placement=placement, **kw), dev)
     more_seeds = tuple(s for s in GATE_SEEDS if s not in SEEDS)
     more, _, more_s = _counted(
-        lambda: grid_fleet(task, world, names, run, more_seeds, **kw), dev)
+        lambda: grid_fleet(task, world, names, run, more_seeds,
+                           placement=placement, **kw), dev)
     gate = curves.gate(histories(res) + histories(more),
                        load_reference(SEEDS + more_seeds))
 
@@ -361,7 +385,7 @@ def grid(world: dict, task="paper_mlp", device=None) -> dict:
                for r, f in enumerate(per)],
            "k1_off_vs_on": bitwise(off, g),
            "k2_off_vs_on": bitwise(k2_off, k2)}
-    return {"result": res, "more": more,
+    return {"result": res, "more": more, "config": config,
             "counts": {"grid": grid_counts, "unfused": unfused_counts},
             "identities": ids, "gate": gate,
             "walls": {"grid_s": grid_s, "grid_more_seeds_s": more_s,
@@ -369,13 +393,14 @@ def grid(world: dict, task="paper_mlp", device=None) -> dict:
 
 
 def grid_ok(rep: dict) -> dict:
-    """Which of ``grid``'s checks held: K1 once a round and nothing else of
-    the tail in the grid run, K2 once a round in the unfused one, every
-    identity, every gate row."""
+    """Which of ``grid``'s checks held: K1 once a round (once a slot a
+    round, sharded) and nothing else of the tail in the grid run, K2 once
+    a round in the unfused one, every identity, every gate row."""
     ids = rep["identities"]
     return {
         "grid_launches": rep["counts"]["grid"] == {
-            "ota_round_step": ROUNDS, "ota_aggregate": 0,
+            "ota_round_step": ROUNDS * rep["config"]["slots"],
+            "ota_aggregate": 0,
             "plain_round_step": 0, "plain_aggregate": 0},
         "unfused_launches": rep["counts"]["unfused"] == {
             "ota_round_step": 0, "ota_aggregate": UNFUSED_ROUNDS,
@@ -485,9 +510,27 @@ def main(argv=None) -> int:
                          "(a child process) and exit")
     ap.add_argument("--rss-probe-child", action="store_true",
                     help=argparse.SUPPRESS)
+    ap.add_argument("--sharded", action="store_true",
+                    help="shard the training fleets and the grid's gate "
+                         "runs over the ('data', 'model') debug mesh of "
+                         "four slots")
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="join a multi-process cluster and run only this "
+                         "process's slice of the scenario axis")
+    ap.add_argument("--num-processes", type=int, default=None)
+    ap.add_argument("--process-id", type=int, default=None)
+    ap.add_argument("--local-devices", type=int, default=None,
+                    help="this process's slot count (several slots may "
+                         "share one card)")
     ap.add_argument("--json", default=None, help="write the results here")
     ap.add_argument("--device", default=None)
     a = ap.parse_args(argv)
+    if a.sharded and not (a.train or a.grid):
+        raise SystemExit("--sharded shards the training fleets; pass "
+                         "--train or --grid with it")
+    if a.coordinator and a.grid:
+        raise SystemExit("--grid gates the whole SWEEP_FAMILIES grid "
+                         "against the reference; drop --coordinator")
     if a.rss_probe_child:
         _rss_probe_child(a.device)
         return 0
@@ -510,8 +553,26 @@ def main(argv=None) -> int:
                       f"{c} {r:.4f}" for c, r in worst[:4]), flush=True)
         return 0
     names = scn.scenario_names() if a.all else scn.SWEEP_FAMILIES
+    process_id = 0
+    if a.coordinator:
+        from repro_torch import distributed as dist
+        if a.num_processes is None or a.process_id is None:
+            raise SystemExit("--coordinator needs --num-processes and "
+                             "--process-id")
+        nproc, ndev = dist.initialize_multiprocess(
+            a.coordinator, a.num_processes, a.process_id,
+            local_device_count=a.local_devices)
+        process_id = a.process_id
+        sl = dist.process_grid_slice(len(names))
+        print(f"process {process_id}/{nproc} ({ndev} local devices): "
+              f"scenarios {list(names[sl])}", flush=True)
+        names = tuple(names[sl])
     from repro_torch.device import resolve_device
     dev = resolve_device(a.device)
+    placement = None
+    if a.sharded:
+        from repro_torch.fig2 import _sharded_placement
+        placement = _sharded_placement(dev)
 
     world = design(names, device=dev)
     for fam, group, sec in world["sca_calls"]:
@@ -525,18 +586,19 @@ def main(argv=None) -> int:
         print(",".join(_fmt(r[c]) for c in cols), flush=True)
     out, ok = {"theory": rows}, True
     if a.train:
-        out["train"] = train_sweep(world, device=dev)
+        out["train"] = train_sweep(world, device=dev, placement=placement)
         print("scenario,scheme,final_acc,rounds")
         for r in out["train"]:
             print(f"{r['scenario']},{r['scheme']},{r['final_acc']},"
                   f"{r['rounds']}", flush=True)
     if a.grid:
         from repro_torch import curves
-        rep = grid(world, device=dev)
+        rep = grid(world, device=dev, placement=placement)
         checks = grid_ok(rep)
         print(f"# grid [{len(scn.SWEEP_FAMILIES)} x {len(SCHEMES)} x "
               f"{len(SEEDS)}], seeds {list(SEEDS)} then "
-              f"{[s for s in GATE_SEEDS if s not in SEEDS]}: walls "
+              f"{[s for s in GATE_SEEDS if s not in SEEDS]} on "
+              f"{rep['config']['placement']}: walls "
               f"{json.dumps(rep['walls'])}; counts "
               f"{json.dumps(rep['counts'])}; identities "
               f"{json.dumps(rep['identities'])}; checks {json.dumps(checks)}",
@@ -545,6 +607,7 @@ def main(argv=None) -> int:
               flush=True)
         ok &= all(checks.values())
         out["grid"] = {
+            "config": rep["config"],
             "identities": rep["identities"], "counts": rep["counts"],
             "checks": checks, "walls": rep["walls"], "gate": rep["gate"],
             "chunk_walls": [r.chunk_walls for r in (rep["result"],
@@ -552,7 +615,7 @@ def main(argv=None) -> int:
             "histories": dict(zip(
                 rep["result"].seeds + rep["more"].seeds,
                 histories(rep["result"]) + histories(rep["more"])))}
-    if a.json:
+    if a.json and process_id == 0:   # process 0 owns the artifacts
         Path(a.json).parent.mkdir(parents=True, exist_ok=True)
         with open(a.json, "w") as f:
             json.dump(out, f, indent=1, default=float)

@@ -335,21 +335,29 @@ def solve(prm: OTAParams, gamma0: Optional[np.ndarray] = None,
 
 def solve_batch(prms: Union[Sequence[OTAParams], SolverParams],
                 cfg: SolverConfig = DEFAULT_CONFIG,
-                device: DeviceLike = None) -> BatchResult:
+                device: DeviceLike = None, placement=None) -> BatchResult:
     """Design powers for a batch of scenarios at once on ``device``
     (default: the card).
 
     ``prms``: a sequence of ``OTAParams`` (stacked here), or an already
     stacked ``SolverParams`` with a leading [B] axis (moved to ``device``
     and cast to float64).  All rows share the fading family and device
-    count."""
+    count.  ``placement`` (an ``fl.placement`` object) maps the batch
+    axis onto slots: ``ShardedPlacement(mesh)`` pads the rows with copies
+    of row 0 to a multiple of the slot count and runs one solve per slot
+    on its block (rows are independent); None, or ``VmapPlacement()``,
+    is the one solve over the whole batch."""
     dev = resolve_device(device)
     if isinstance(prms, SolverParams):
         pt = prms.to(dev, torch.float64)
     else:
         pt = tt.stack_params(prms, dev)
     with torch.no_grad():
-        out = _numpy(_solve_rows(pt, None, cfg))
+        if placement is None:
+            out = _numpy(_solve_rows(pt, None, cfg))
+        else:
+            out = _numpy(placement.map_batch(
+                lambda p: _solve_rows(p, None, cfg), pt))
     return BatchResult(gamma=out["gamma"], p=out["p"], alpha=out["alpha"],
                        objective=out["objective"], history=out["history"],
                        converged=out["converged"])

@@ -62,6 +62,8 @@ def header(events) -> None:
     end = next((e for e in reversed(events) if e["ev"] == "run_end"), None)
     print("run".ljust(12), start["run"] if start else "?")
     if cfg:
+        # the placement's describe(cells=): "vmap", or the sharded mesh
+        # with its padding, "sharded[data=2,model=2,cells=14,pad=2/16]"
         print("fleet".ljust(12),
               f"{len(cfg.get('names', []))} schemes x "
               f"{len(cfg.get('seeds', []))} seeds, "

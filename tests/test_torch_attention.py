@@ -32,6 +32,7 @@ from repro.models import attention as jattn
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.flash_attention import flash_attention
 from torch_ref import mm_tf32
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=6e-2, atol=6e-2)

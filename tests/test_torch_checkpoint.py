@@ -22,6 +22,7 @@ from repro.checkpoint import checkpoint as jckpt
 from repro_torch import fig2, tasks
 from repro_torch.checkpoint import checkpoint as ckpt
 from repro_torch.fl.driver import run_fleet_task
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 CPU = "cpu"
 ROUNDS, EVERY, BATCH = 7, 3, 8

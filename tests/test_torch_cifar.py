@@ -42,6 +42,7 @@ from repro_torch.fl import driver as tdriver
 from repro_torch.fl.draws import ReplayDraws
 from repro_torch.models import conv as tconv
 from repro_torch.models.param import params_from_jax
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 MODEL_TOL = dict(rtol=2e-5, atol=1e-6)

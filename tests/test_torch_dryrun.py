@@ -32,6 +32,7 @@ from repro_torch.models.param import abstract_params, param_leaves
 from repro_torch.models.registry import build_bundle
 from repro_torch.roofline import active_params
 import torch_ref
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 REF_RECORD = ROOT / "experiments" / "dryrun" / "qwen1.5-0.5b_decode_32k_pod.json"
@@ -53,16 +54,6 @@ for arch in configs.ARCH_IDS:
 with open(cfg["out"], "w") as f:
     json.dump(out, f)
 """
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many tiny ops, which threads
-    only slow down, and the suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

@@ -46,6 +46,7 @@ from repro_torch.models.param import (ParamTree, encdec_params_from_jax,
 from repro_torch.models.registry import build_bundle as tbuild
 from repro_torch.profile_attention import SHAPES as K3_SHAPES
 from repro_torch.profile_attention import bound, pairs
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 CPU = torch.device("cpu")

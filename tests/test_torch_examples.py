@@ -26,6 +26,7 @@ from repro_torch.launch import train
 from repro_torch.models import mlp
 from repro_torch.models.param import param_count
 import torch_ref
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 RTOL = 1e-9                       # test_torch_solvers.py's THEORY_RTOL
 GAP = 1e-3                        # the reference smoke's solver gate
@@ -33,16 +34,6 @@ CUT = dict(hidden=16, samples_per_class=20)
 PC_SEEDS, PC_N = (0, 1), 10
 SCN = ("disk_rayleigh", "two_cluster")
 SCN_D = param_count(mlp.mlp_defs(hidden=16))
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many tiny ops, which threads
-    only slow down, and the suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def _rel(a, b):
@@ -127,7 +118,7 @@ def test_quickstart_main_end_to_end(quick, monkeypatch, capsys):
     out = quickstart.main(["--device", "cpu"],
                           designs=run.Made((prm,), pcs, 0.0))
     text = capsys.readouterr().out
-    assert "sca      acc:" in text and "module 12" in text
+    assert "sca      acc:" in text and "grid vmapped on 1 device" in text
     assert out["grid"].evals[-1][1]["acc"].shape == (3, 2)
     with pytest.raises(ValueError, match="another world"):
         quickstart.main(["--device", "cpu"], designs=run.Made(

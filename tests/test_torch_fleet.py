@@ -32,6 +32,7 @@ from repro_torch.fl.server import FLRunConfig
 from repro_torch.models import mlp as tmlp
 from repro_torch.models.param import params_from_jax
 from repro_torch.tasks.image import make_paper_mlp
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -28,6 +28,7 @@ from repro_torch.kernels import ops as tops
 from repro_torch.kernels import ota_aggregate as toa
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels import round_step as trs
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=6e-2, atol=6e-2)

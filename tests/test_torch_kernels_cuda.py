@@ -129,6 +129,43 @@ def test_aggregate_kernel_bitwise(cuda, dtype, c, n, d):
     assert torch.equal(got, want)
 
 
+# a slot's block of the sharded Fig.-2 fleet: C = 7 x 2 seeds = 14 cells
+# padded to 16 over four slots, four cells a slot
+SLOT_BLOCK = (4, 10, 814090)
+
+
+@pytest.mark.parametrize("wire", ["f32", "bf16", "int8"])
+def test_round_step_kernel_bitwise_at_a_slots_block(cuda, wire):
+    g, s, z, p, ns, eta = (t.to(cuda) for t in _inputs(*SLOT_BLOCK, seed=4))
+    w, qs = ops.quantize_uplink(g, wire)
+    want = ref.ota_round_step_ref(w, s, z, ns, p, eta, q_scale=qs)
+    before = round_step.ota_round_step.launches
+    got = ops.ota_round_step_flat(w, s, z, ns, p, eta, qs)
+    torch.cuda.synchronize()
+    assert round_step.ota_round_step.launches == before + 1
+    assert torch.equal(got, want)
+
+
+def test_shard_vmap_two_slots_on_one_card(cuda):
+    """K1 through ``distributed.shard_vmap`` over two slots on one card:
+    C = 7 padded to 8, one launch a slot, equal to the whole-batch call
+    bit for bit (K1's cells are independent)."""
+    from repro_torch import distributed
+    from repro_torch.launch.mesh import make_mesh
+    mesh = make_mesh((2,), ("data",), slots=[cuda, cuda])
+    args = [t.to(cuda) for t in _inputs(7, 10, 5000, seed=5)]
+    g, s, z, p, ns, eta = args
+
+    def fn(g, s, z, p, ns, eta):
+        return ops.ota_round_step_flat(g, s, z, ns, p, eta)
+    whole = fn(*args)
+    before = round_step.ota_round_step.launches
+    got = distributed.shard_vmap(fn, mesh, ("data",), num_sharded=6)(*args)
+    torch.cuda.synchronize()
+    assert round_step.ota_round_step.launches == before + 2
+    assert got.shape == whole.shape and torch.equal(got, whole)
+
+
 def _offset(t: torch.Tensor, k: int) -> torch.Tensor:
     """A contiguous copy of ``t`` whose data starts ``k`` elements into a
     fresh buffer (so ``k * itemsize`` bytes off 16-byte alignment)."""

@@ -72,6 +72,7 @@ from repro_torch.models import transformer as ttfm
 from repro_torch.models.param import (ParamTree, lm_params_from_jax,
                                       tree_param_count)
 from repro_torch.models.registry import build_bundle as tbuild
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 CPU = torch.device("cpu")

@@ -52,6 +52,7 @@ from repro_torch.models.param import (ParamTree, lm_params_from_jax,
                                       param_leaves, trainable,
                                       tree_param_count)
 from repro_torch.models.registry import build_bundle as tbuild
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 ARCH = "deepseek-v3-671b"

@@ -20,6 +20,7 @@ from repro_torch.models import mlp as tmlp
 from repro_torch.models.param import (init_params, param_count,
                                       params_from_jax)
 from repro_torch.optim.optimizers import clip_by_global_norm as tclip
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=2e-5, atol=1e-6)
 

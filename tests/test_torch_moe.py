@@ -50,6 +50,7 @@ from repro_torch.models.param import (ParamDef, ParamTree, _init_one,
                                       lm_params_to_stacked, map_named,
                                       param_leaves, trainable)
 from repro_torch.models.registry import build_bundle as tbuild
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 ROUTE_TOL = dict(rtol=1e-5, atol=1e-7)

@@ -43,6 +43,7 @@ from repro_torch.fl.engine import chunk_lengths
 from repro_torch.models.param import params_from_jax
 from repro_torch.solvers import sca as solver_sca
 from repro_torch.tasks.image import make_paper_mlp
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=1e-4, atol=1e-5)
@@ -465,7 +466,7 @@ def test_refusals(task, td, world, tmp_path):
         tdriver.run_fleet_task(task, pcs, None, run, **kw,
                                scenarios=scn.stack_scenarios(
                                    ["disk_rayleigh"]))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(TypeError, match="Placement"):
         tdriver.run_fleet_task(task, pcs, dep.gains, run, **kw,
                                placement="on")
     path = str(tmp_path / "fleet")

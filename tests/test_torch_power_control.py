@@ -28,6 +28,7 @@ from repro_torch.core import sca as tsca
 from repro_torch.core import theory as tth
 from repro_torch.core.theory import OTAParams as TPrm
 from repro_torch.tasks.image import make_paper_mlp
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-5, atol=0)
 ROUNDS = 12

@@ -29,6 +29,7 @@ from repro.models.param import init_params as jinit
 from repro_torch import configs as tconfigs
 from repro_torch.models import rglru as trglru
 from repro_torch.models.param import ParamTree, tree_param_count
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 SCAN_TOL = dict(rtol=1e-5, atol=1e-6)
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -20,6 +20,7 @@ from repro_torch.card import peaks
 from repro_torch.configs.shapes import InputShape
 from repro_torch.launch import dryrun
 import torch_ref
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 PAIRS = [(arch, shp) for arch in configs.ARCH_IDS
@@ -45,16 +46,6 @@ for arch, shp in cfg["pairs"]:
 with open(cfg["out"], "w") as f:
     json.dump(out, f)
 """
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many tiny ops, which threads
-    only slow down, and the suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 def smoke_record(kind="prefill"):

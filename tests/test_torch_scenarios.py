@@ -32,6 +32,7 @@ from repro_torch import solvers
 from repro_torch.core import channel, ota, power_control as tpc
 from repro_torch.core import scenarios as scn
 from repro_torch.fl.draws import DeviceDraws
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 NAMES = scn.scenario_names()

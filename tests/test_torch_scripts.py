@@ -30,20 +30,11 @@ from repro_torch import tasks, validate_bench
 from repro_torch.core import power_control as pcm
 from repro_torch.kernels import ops, ref
 import torch_ref
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 ROOT = Path(__file__).resolve().parents[1]
 SEQ_TOL = dict(rtol=2e-4, atol=2e-4)      # tests/test_torch_ssm.py's
 CUT = dict(hidden=16, samples_per_class=20)
-
-
-@pytest.fixture(autouse=True, scope="module")
-def _one_thread():
-    """One intra-op thread: these tests run many tiny ops, which threads
-    only slow down, and the suite's workers share the cores."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 @pytest.fixture(scope="module")

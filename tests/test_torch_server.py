@@ -38,6 +38,7 @@ from repro_torch.fl import driver as tdriver, server
 from repro_torch.fl.draws import ReplayDraws
 from repro_torch.models.param import params_from_jax
 from repro_torch.tasks.image import make_paper_mlp
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 TOL = dict(rtol=1e-4, atol=1e-5)

@@ -33,6 +33,7 @@ from repro_torch.core.channel import FadingSpec
 from repro_torch.core.theory import OTAParams
 from repro_torch.solvers import sca as tsca
 from repro_torch.solvers import theory as tt
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 THEORY_RTOL = 1e-9
 DESIGN_RTOL = 1e-6

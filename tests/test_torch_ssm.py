@@ -27,6 +27,7 @@ from repro.models import ssm as jssm
 from repro_torch.kernels import ref as tref
 from repro_torch.kernels.ssd_scan import ssd_scan
 from torch_ref import mm_tf32
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 TOL = dict(rtol=1e-4, atol=1e-5)
 SEQ_TOL = dict(rtol=2e-4, atol=2e-4)

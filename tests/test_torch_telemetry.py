@@ -43,6 +43,7 @@ from repro_torch.models.param import params_from_jax
 from repro_torch.solvers import sca as tsca
 from repro_torch.solvers import theory as tth
 from repro_torch.telemetry import report as treport
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 ROOT = Path(__file__).resolve().parents[1]
@@ -419,7 +420,7 @@ def test_run_fleet_telemetry_accepted_placement_refused(tmp_path):
     kinds = [e["ev"] for e in tlm.read_events(str(tmp_path / "run"))]
     assert kinds[:2] == ["run_start", "fleet_config"] \
         and kinds[-1] == "run_end"
-    with pytest.raises(NotImplementedError, match="module 12"):
+    with pytest.raises(TypeError, match="Placement"):
         tdriver.run_fleet_task(task, pcs, np.full(10, 1e-12), run,
                                task_data=td, device="cpu", placement="mesh")
 

@@ -67,6 +67,7 @@ from repro_torch.models.registry import build_bundle as tbuild
 from repro_torch.optim import optimizers as toptim
 from repro_torch.optim import schedules as tsched
 from repro_torch.tasks import lm as tlm
+from torch_ref import one_thread  # noqa: F401 (autouse)
 
 CPU = torch.device("cpu")
 STEP1_TOL = dict(rtol=1e-5, atol=1e-6)

@@ -2,9 +2,12 @@
 
 * numpy <-> tensor conversion of parameter dicts;
 * the reference's draws recipe, replayed for the port;
+* ``one_thread``, an autouse fixture that a test module imports to run
+  on one intra-op thread;
 * child-process runners for the reference: its fleet, its default ``sca``
-  design, its solvers (``repro.solvers``), its task registry, and one
-  seed of its Fig.-2 run (``benchmarks.fig2.run(..., save=False)``);
+  design, its solvers (``repro.solvers``), its task registry, its
+  placement layer on eight forced host devices, and one seed of its
+  Fig.-2 run (``benchmarks.fig2.run(..., save=False)``);
 * ``python -m tests.torch_ref``, which writes the reference's Fig.-2
   curves and ``sca`` design under ``experiments/fig2_reference/`` for the
   port's curve check (``repro_torch.curves``), its scenario data
@@ -25,8 +28,10 @@ import os
 import subprocess
 import sys
 from pathlib import Path
+from typing import Optional
 
 import numpy as np
+import pytest
 import torch
 
 # the curve check's protocols (the paper's full batch, aggregated leaf by
@@ -47,6 +52,18 @@ FIG2_SCHEMES = ("ideal", "opc", "sca", "lcpc", "vanilla", "bbfl_interior",
 FLEET_VARIANTS = {"fused": {}, "unfused": {"fuse_round": False},
                   "int8": {"uplink_dtype": "int8"},
                   "full_batch": {"batch_size": 0, "flat": False}}
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread():
+    """One intra-op thread for each test module that imports this fixture:
+    the port's tests run many small ops, which threads only slow down, and
+    the suite's workers share the cores (with a thread per core in each of
+    six workers the port's files ran several times slower)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def to_numpy(tree: dict) -> dict:
@@ -428,21 +445,164 @@ def run_reference_sca(out_path: Path, timeout: float = 300.0,
                       "reference sca", timeout)
 
 
-def _run_child(script: str, cfg: dict, what: str, timeout: float) -> dict:
+def _run_child(script: str, cfg: dict, what: str, timeout: float,
+               extra_env: Optional[dict] = None) -> dict:
     """Run ``script`` with the shim in a child process (JAX on the CPU) and
     return the arrays it saved to ``cfg["out"]``."""
-    _child(script, cfg, what, timeout)
+    _child(script, cfg, what, timeout, extra_env)
     with np.load(cfg["out"]) as f:
         return {k: f[k] for k in f.files}
 
 
-def _child(script: str, cfg: dict, what: str, timeout: float) -> None:
-    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu")
+def _child(script: str, cfg: dict, what: str, timeout: float,
+           extra_env: Optional[dict] = None) -> None:
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"), JAX_PLATFORMS="cpu",
+               **(extra_env or {}))
     proc = subprocess.run([sys.executable, "-c", script, json.dumps(cfg)],
                           env=env, cwd=str(ROOT), capture_output=True,
                           text=True, timeout=timeout)
     if proc.returncode != 0:
         raise RuntimeError(f"{what} failed:\n{proc.stderr[-4000:]}")
+
+
+# The reference's placement layer on eight forced host devices: its
+# ``shard_vmap`` on a fixed batch, its meshes' and placements' structure
+# (``grid_devices``, ``num_devices``, the default axes, the ``describe``
+# strings), ``process_grid_slice`` for g in 0..9 and P in 1..4, and one
+# ``ShardedPlacement`` fleet of the shrunk paper_mlp with the draws it
+# consumed.  XLA_FLAGS is set in the child's environment, before jax is
+# imported.  On jax 0.9.0 the reference's padded path raises (slicing the
+# padding off a sharded output is "not implemented"), so the batch and
+# the fleet here fill the four slots exactly (G = 8, K x S = 4 x 2).
+_PLACEMENT_CHILD = r'''
+import json, sys
+cfg = json.loads(sys.argv[1])
+import numpy as np
+import jax
+import jax.experimental
+jax.experimental.enable_x64 = jax.enable_x64      # the shim: child only
+import jax.numpy as jnp
+from jax import random as jr
+from repro import distributed
+from repro.core import channel, ota, power_control as pcm
+from repro.core.theory import OTAParams
+from repro.fl import driver
+from repro.fl.placement import ShardedPlacement, VmapPlacement
+from repro.launch import mesh as jmesh
+from repro.tasks.image import make_paper_mlp
+sys.path.insert(0, cfg["tests"])
+import torch_ref
+
+assert jax.device_count() >= 8, jax.device_count()
+out, meta = {}, {}
+m = jmesh.make_debug_mesh(2, 2)
+xs = jnp.asarray(np.asarray(cfg["xs"], np.float32))
+
+
+def f(x, b):
+    return {"out": x * x + b, "norm": jnp.sum(x)}
+
+
+got = jax.jit(distributed.shard_vmap(f, m, num_sharded=1))(
+    xs, jnp.float32(cfg["bias"]))
+out["shard_vmap/out"] = np.asarray(got["out"])
+out["shard_vmap/norm"] = np.asarray(got["norm"])
+for label, mesh in (("debug", m),
+                    ("multi_pod", jmesh.make_debug_mesh(2, 2,
+                                                        multi_pod=True))):
+    rec = {"shape": {k: int(v) for k, v in mesh.shape.items()},
+           "axis_names": list(mesh.axis_names),
+           "grid_axes": list(jmesh.grid_axes(mesh)),
+           "num_clients": int(jmesh.num_clients(mesh)),
+           "batch_axes": list(jmesh.batch_axes(mesh)), "placements": {}}
+    for axes in cfg["axes"][label]:
+        pl = ShardedPlacement(mesh) if axes is None \
+            else ShardedPlacement(mesh, tuple(axes))
+        rec["placements"][",".join(axes or ["default"])] = {
+            "axes": list(pl.axes), "num_devices": int(pl.num_devices),
+            "grid_devices": int(distributed.grid_devices(mesh, pl.axes)),
+            "describe": pl.describe(),
+            "cells": {str(c): pl.describe(cells=c) for c in cfg["cells"]},
+            "pad": {str(c): list(pl._pad(c)) for c in cfg["cells"]}}
+    meta[label] = rec
+meta["vmap"] = [VmapPlacement().describe(), VmapPlacement().describe(cells=6)]
+meta["slices"] = {}
+for g in range(10):
+    for p in range(1, 5):
+        for i in range(p):
+            sl = distributed.process_grid_slice(g, i, p)
+            meta["slices"]["%d/%d/%d" % (g, p, i)] = [sl.start, sl.stop]
+
+task = make_paper_mlp(hidden=cfg["hidden"],
+                      samples_per_class=cfg["samples_per_class"])
+wcfg = channel.WirelessConfig(num_devices=task.num_devices, seed=0)
+dep = channel.deploy(wcfg)
+td = task.build_data(0)
+prm = OTAParams(d=task.param_dim, gmax=10.0, es=wcfg.energy_per_sample,
+                n0=wcfg.noise_psd, gains=dep.gains,
+                sigma_sq=np.zeros(wcfg.num_devices), eta=0.05, lsmooth=1.0,
+                kappa_sq=4.0)
+schemes = [pcm.make_power_control(n, dep, prm.replace(eta=task.eta_for(n, 0.05)),
+                                  method="scipy") if n == "sca" else
+           pcm.make_power_control(n, dep, prm.replace(eta=task.eta_for(n, 0.05)))
+           for n in cfg["schemes"]]
+params0 = task.init_params(0)
+out["gains"] = dep.gains
+for k, v in params0.items():
+    out["params0/" + k] = np.asarray(v)
+for pc in schemes:
+    for fld, v in torch_ref.scheme_fields(pc).items():
+        out["scheme/%s/%s" % (pc.name, fld)] = v
+run = task.run_config(num_rounds=cfg["rounds"], eval_every=cfg["every"],
+                      seed=0, batch_size=cfg["batch"])
+res = driver.run_fleet_task(task, schemes, dep.gains, run, task_data=td,
+                            params=params0, seeds=tuple(cfg["seeds"]),
+                            flat=True, placement=ShardedPlacement(m))
+for k, v in res.params.items():
+    out["sharded/params/" + k] = np.asarray(v)
+for k, v in res.traces.items():
+    out["sharded/traces/" + k] = np.asarray(v)
+out["sharded/evals_t"] = np.asarray([t for t, _ in res.evals])
+for k in res.evals[0][1]:
+    out["sharded/evals/" + k] = np.stack(
+        [np.asarray(ev[k]) for _, ev in res.evals])
+sizes = [int(np.asarray(params0[k]).size) for k in sorted(params0)]
+x_dev = td.train[0]
+draws = torch_ref.reference_draws(jr, ota, dep.gains, cfg["seeds"],
+                                  cfg["rounds"], sizes, x_dev.shape[0],
+                                  cfg["batch"], x_dev.shape[1])
+for k, v in draws.items():
+    out["draws/" + k] = v
+out["meta"] = np.asarray(json.dumps(meta))
+np.savez(cfg["out"], **out)
+'''
+
+PLACEMENT_CELLS = (1, 3, 4, 6, 7, 8, 14, 16, 28, 48)
+PLACEMENT_AXES = {"debug": [None, ["data"], ["model"], ["model", "data"]],
+                  "multi_pod": [None, ["pod", "data"], ["data", "model"]]}
+
+
+def run_reference_placement(out_path: Path, *, xs, bias: float,
+                            schemes=("ideal", "sca", "vanilla", "zero_bias"),
+                            seeds=(0, 1), hidden: int = 16,
+                            samples_per_class: int = 40, batch: int = 8,
+                            rounds: int = 4, every: int = 2,
+                            timeout: float = 300.0) -> dict:
+    """The reference's placement layer in a child process with eight
+    forced host devices (``_PLACEMENT_CHILD``): returns its arrays, with
+    the structure records (meshes, placements, slices) decoded from JSON
+    under ``"meta"``."""
+    cfg = dict(out=str(out_path), xs=np.asarray(xs).tolist(),
+               bias=float(bias), schemes=list(schemes), seeds=list(seeds),
+               hidden=hidden, samples_per_class=samples_per_class,
+               batch=batch, rounds=rounds, every=every,
+               cells=list(PLACEMENT_CELLS), axes=PLACEMENT_AXES,
+               tests=str(ROOT / "tests"))
+    got = _run_child(_PLACEMENT_CHILD, cfg, "reference placement", timeout,
+                     {"XLA_FLAGS":
+                      "--xla_force_host_platform_device_count=8"})
+    got["meta"] = json.loads(str(got["meta"]))
+    return got
 
 
 # The reference's Fig.-2 run of one seed and one protocol.  ``save=False``
