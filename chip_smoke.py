@@ -453,7 +453,29 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      ``fig2.placement_benchmark``: vmap against sharded exec walls and K1
      launches at K.S 7, 14 and 28, beside the card line, its summary
      checked by ``validate_bench``; the phase's seconds by part;
- 24. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+ 24. model sharding (module 12b) on a simulated mesh: a ("data",
+     "model") = (2, 2) mesh of 4 ranks on the one card
+     (``distributed.simulated_world(4, local=True)``: every rank computes
+     under ``LocalTensorMode``, in turn), the parameters, caches and
+     activations as DTensors by the reference's specs: (a) qwen1.5-0.5b
+     served at full width and depth, 8 x 1,024 prompts and 4 decode steps,
+     in f32 sharded against the same model unsharded on the card (logits
+     within SHARD_LOGITS_SHARE of their largest, the greedy tokens equal,
+     K3 once per rank and layer: 4 x 24), and the bf16 prefill's wall
+     sharded and not (a check that the mesh runs, not a speed); (b) the
+     mamba2-1.3b prefill at full width in f32 against unsharded (K4 4 x
+     48, the states); (c) two OTA train steps of qwen1.5-0.5b in f32 (its
+     width, 8 of its layers), 4 x 128 tokens, 2 clients (the data axis),
+     the same device draws,
+     sharded against unsharded (every parameter within STEP_TOL, K3 and
+     K4 never); (d) the query-sequence split on a (1, 4) mesh (10 heads
+     over 4 ranks, 2 layers of qwen2.5-14b's width): logits against
+     unsharded, K3 4 x 2 launches, each rank's query block from its
+     q_offset; K3 with q_offset against its plain version at a rank's
+     block in bf16 and f32; then K3 (bf16, f32) and K4 at the ranks'
+     shapes of (a) and (b), timed, for the kernels line; the phase's
+     seconds by part, beside the card line;
+ 25. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
      run's launches, with each dense arch's serve run's, with the qwen
      train run's eval's, with recurrentgemma's and with seamless's, its
      non-causal and causal launches on two rows, and with mixtral's; K3
@@ -470,7 +492,10 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      with the harness smoke's three fleets, quickstart's two and
      ``--bench-kernel``'s fused fleets (one row a wire), K2 with its
      unfused fleets' and ``kernel_bench``'s, K3 f32 and K4 with
-     ``kernel_bench``'s and serve_decode's), each phase's seconds, then the
+     ``kernel_bench``'s and serve_decode's; K3 bf16 and f32 and K4 with
+     phase 24's sharded runs, a rank's heads, and K3 f32 with its
+     query-sequence split's launches from q_offset), each phase's
+     seconds, then the
      last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
@@ -736,6 +761,31 @@ GRID_SMOKE_TIMEOUT = 300
 # kernel_benchmark's rounds (as --bench-kernel), kernel_bench.run's batch
 SCRIPT_DESIGNS = ("scenarios", "adaptive", "cifar")
 BENCH_KERNEL_ROUNDS, KERNEL_BENCH_ITERS = 12, 20
+# phase 24: model sharding on a simulated mesh of 4 ranks on the card.
+# Each op of a step on the mesh runs once per rank in Python (a serving
+# layer's body once per rank; autograd needs the op-by-op form): on an
+# H100 the 24-layer bf16 prefill takes ~1.8 s against ~45 ms unsharded,
+# and a train step at 8 layers ~4 s, so the phase keeps to 4 decode steps
+# and the train step to 8 of qwen's 24 layers (its full width), for the
+# smoke's time
+SHARD_MESH = (2, 2)                        # ("data", "model")
+SHARD_SERVE = dict(arch="qwen1.5-0.5b", batch=8, prompt_len=1024,
+                   decode_tokens=4)
+SHARD_SSD = dict(arch="mamba2-1.3b", batch=8, prompt_len=1024)
+SHARD_TRAIN = dict(arch="qwen1.5-0.5b", n_layers=8, batch=4, seq=128,
+                   steps=2, eta=0.02, scheme="vanilla")
+# (d): 10 heads over KH 2 on a ("data", "model") = (1, 4) mesh, 2 layers
+# of qwen2.5-14b's width: the query-sequence split, K3 from q_offset
+SHARD_SPLIT = dict(arch="qwen2.5-14b", n_layers=2, n_heads=10, n_kv_heads=2,
+                   head_dim=128, batch=2, prompt_len=1024, mesh=(1, 4))
+# sharded against unsharded in f32: the logits within this share of their
+# largest (the sums are split over ranks: partial products summed in
+# another order, GEMMs on other shapes), greedy tokens equal; the train
+# step's parameters within STEP_TOL.  The 48 SSD layers of mamba2 with
+# random weights carry an f32 rounding further than 24 attention layers
+# (1.56e-4 of the largest logit on the card): 1e-3, 50 times under the
+# DRIFT_LOGITS_SHARE that phase 7 holds K4 on vs off to
+SHARD_LOGITS_SHARE = {"dense": 1e-4, "ssd": 1e-3}
 
 
 class SmokeFailure(Exception):
@@ -4494,6 +4544,384 @@ def phase_placement(torch, np, dev, card, card_line, world, grid_designs):
     return out
 
 
+def _one(torch, x):
+    """A value that every simulated rank holds alike, as a plain tensor:
+    a DTensor's whole tensor, the first rank's of a simulated tensor."""
+    from repro_torch import distributed as dist
+    if dist.is_dtensor(x):
+        x = x.full_tensor()
+    if dist.is_local(x):
+        x = next(iter(x._local_tensors.values()))
+    return x
+
+
+def _timed(torch, fn):
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, 1e3 * (time.perf_counter() - t0)
+
+
+def shard_k3_row(torch, dev, card, b, s, h, kh, dh, dtype, q_offset=0,
+                 sk=None, gen=None):
+    """K3 at one rank's shape (its heads, or its query block from
+    ``q_offset`` against ``sk`` keys) against its plain version, timed,
+    with SDPA beside it where the block starts at 0, and the bound of the
+    pairs the mask allows from that offset."""
+    from repro_torch.card import median_ms, peaks
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.flash_attention import flash_attention, work
+    sk = sk or s
+    dt = torch.float32 if dtype == "f32" else torch.bfloat16
+    q = torch.randn((b, s, h, dh), generator=gen, device=dev).to(dt)
+    k, v = (torch.randn((b, sk, kh, dh), generator=gen, device=dev).to(dt)
+            for _ in range(2))
+
+    def kern():
+        return flash_attention(q, k, v, causal=True, q_offset=q_offset)
+
+    def plain():
+        return ref.attention_ref(q, k, v, causal=True, q_offset=q_offset)
+    got, want = kern().float(), plain().float()
+    tol = F32_TOL if dtype == "f32" else ATTN_BF16_TOL
+    err = (got - want).abs()
+    ok = bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
+    _, (bw, f32_peak, bf16_peak) = peaks(card)
+    w = work(q, k, v, causal=True, q_offset=q_offset)
+    ops_s = w["flops"] / bf16_peak if dtype == "bf16" else min(
+        w["flops"] / f32_peak, 3 * w["flops"] / (bf16_peak / 2))
+    library = None
+    if q_offset == 0 and sk == s:
+        from repro_torch.profile_attention import sdpa
+        library = median_ms(sdpa(q, k, v, None, True))
+    row = {"shape": [b, s, sk, h, kh, dh], "dtype": dtype,
+           "q_offset": q_offset, "max_abs_err": float(err.max()),
+           "tol": tol, "ok": ok, "ms": median_ms(kern),
+           "plain_ms": median_ms(plain), "library_ms": library,
+           "bound_ms": 1e3 * max(w["bytes"] / bw, ops_s),
+           "bound_by": "bytes" if w["bytes"] / bw >= ops_s
+           else "operations", "bytes": w["bytes"], "flops": w["flops"]}
+    check(ok, f"K3 at a rank's shape {row['shape']} from q_offset "
+          f"{q_offset} ({dtype}) disagrees with its plain version")
+    return row
+
+
+def shard_k4_row(torch, dev, card, b, s, h, p, n, gen):
+    """K4 at one rank's heads of the mamba2 prefill, against its plain
+    version, timed, with its bound."""
+    import torch.nn.functional as F
+    from repro_torch.card import median_ms, peaks
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan, work
+    x = torch.randn((b, s, h, p), generator=gen, device=dev)
+    dt = F.softplus(torch.randn((b, s, h), generator=gen, device=dev))
+    a_neg = -torch.exp(0.5 * torch.randn(h, generator=gen, device=dev))
+    bm, cm = (0.5 * torch.randn((b, s, 1, n), generator=gen, device=dev)
+              for _ in range(2))
+
+    def kern():
+        return ssd_scan(x, dt, a_neg, bm, cm, chunk=256)
+
+    def plain():
+        return ref.ssd_chunked(x, dt, a_neg, bm, cm, 256)
+    (y, st), (wy, wst) = kern(), plain()
+    err = float((y - wy).abs().max())
+    scale = float(wy.abs().max())
+    ok = bool(((y - wy).abs() <= SSD_SCALE_TOL * scale
+               + SSD_REL_TOL["f32"] * wy.abs()).all())
+    _, (bw, f32_peak, bf16_peak) = peaks(card)
+    w = work(x, dt, a_neg, bm, cm)
+    ops_s = min(w["flops"] / f32_peak, 3 * w["flops"] / (bf16_peak / 2))
+    row = {"shape": [b, s, h, p, n, 1], "max_abs_err": err,
+           "max_abs_y": scale, "ok": ok, "ms": median_ms(kern),
+           "plain_ms": median_ms(plain), "library_ms": None,
+           "bound_ms": 1e3 * max(w["bytes"] / bw, ops_s),
+           "bound_by": "bytes" if w["bytes"] / bw >= ops_s
+           else "operations"}
+    check(ok, f"K4 at a rank's heads {row['shape']} disagrees with its "
+          "plain version")
+    return row
+
+
+def phase_sharding(torch, np, dev, card, card_line):
+    """Phase 24: model sharding (module 12b) on a simulated mesh of 4
+    ranks on the card, every rank computing under ``LocalTensorMode``:
+    (a) qwen1.5-0.5b served at full width and depth, sharded against
+    unsharded in f32 (K3 once per rank and layer), the bf16 prefill's
+    walls; (b) the mamba2-1.3b prefill in f32 (K4 once per rank and
+    layer); (c) two OTA train steps sharded against unsharded; (d) the
+    query-sequence split at a (1, 4) mesh, K3 from each rank's q_offset,
+    and K3 with q_offset against its plain version in both dtypes."""
+    import torch.distributed as tdist
+    from repro_torch import configs
+    from repro_torch import distributed as dist
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.launch.train import make_design
+    from repro_torch.models.param import param_leaves
+    from repro_torch.models.registry import build_bundle
+    t_phase, sec, out = time.time(), {}, {}
+    data, model = SHARD_MESH
+    n_ranks = data * model
+    gen = torch.Generator(device=dev).manual_seed(24)
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+
+    def world(shape):
+        return dist.simulated_world(int(np.prod(shape)), local=True)
+
+    def mesh_of(shape):
+        return mesh_lib.make_device_mesh(shape, ("data", "model"), dev.type)
+
+    def logits_gate(label, got, want, kind="dense"):
+        got, want = _one(torch, got).float(), want.float()
+        diff, top = float((got - want).abs().max()), float(want.abs().max())
+        share = SHARD_LOGITS_SHARE[kind]
+        check(bool(torch.isfinite(got).all()), f"{label}: logits not finite")
+        check(diff <= share * top, f"{label}: sharded logits {diff} from "
+              f"the unsharded over {share} x {top}")
+        return {"logits_max_abs_diff": diff, "logits_max_abs": top,
+                "tolerance_share": share}
+
+    # (a) qwen1.5-0.5b serve, f32, sharded vs unsharded; then bf16 walls
+    t0 = time.time()
+    sv = SHARD_SERVE
+    b, s, n_dec = sv["batch"], sv["prompt_len"], sv["decode_tokens"]
+    cfg = configs.get_config(sv["arch"]).replace(**f32)
+    bundle = build_bundle(cfg, dev, tp=model, dp=data)
+    params = bundle.init(0)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=dev)
+    caches = bundle.init_caches(b, s + n_dec)
+    prefill, serve = steps.make_prefill_step(bundle), \
+        steps.make_serve_step(bundle)
+    with torch.no_grad():
+        want, caches = prefill(params, prompts, caches)
+        tok, want_toks = want[:, -1:].argmax(-1), []
+        for i in range(n_dec):
+            tok, caches = serve(params, caches, tok, s + i)
+            want_toks.append(tok)
+    want_toks = torch.cat(want_toks, 1)
+    with world(SHARD_MESH):
+        mesh = mesh_of(SHARD_MESH)
+        sp = steps.shard_params(params, bundle, mesh)
+        sc = steps.shard_caches(bundle.init_caches(b, s + n_dec), mesh, b)
+        zero_counts()
+        got, sc = steps.make_prefill_step(bundle, mesh)(sp, prompts, sc)
+        torch.cuda.synchronize()
+        cnt = counts()
+        a = logits_gate("(a) f32 prefill", got, want)
+        sserve, toks = steps.make_serve_step(bundle, mesh), []
+        tok = _one(torch, got)[:, -1:].argmax(-1)
+        for i in range(n_dec):
+            tok, sc = sserve(sp, sc, tok, s + i)
+            tok = _one(torch, tok)
+            toks.append(tok)
+        toks = torch.cat(toks, 1)
+    k3_sharded = cnt["flash_attention"]
+    a.update({"k3_launches": k3_sharded, "plain_attention":
+              cnt["plain_attention"],
+              "equal_tokens": float((toks == want_toks).float().mean())})
+    print(f"  (a) {sv['arch']} f32 on a {SHARD_MESH} mesh of {n_ranks} "
+          f"ranks, {b} x {s} + {n_dec} decode steps: {json.dumps(a)}",
+          flush=True)
+    check(k3_sharded == n_ranks * cfg.n_layers and cnt["plain_attention"]
+          == 0, f"(a): K3 {k3_sharded} launches (want {n_ranks} ranks x "
+          f"{cfg.n_layers} layers), plain {cnt['plain_attention']}")
+    check(a["equal_tokens"] == 1.0, f"(a): greedy tokens differ: "
+          f"{a['equal_tokens']}")
+    out["serve_f32"] = a
+    del params, sp, sc, caches, got, want
+    # bf16: the prefill's walls, sharded and not (a check of a simulated
+    # mesh: four ranks take turns on one card, in Python)
+    cfg16 = configs.get_config(sv["arch"])
+    b16 = build_bundle(cfg16, dev, tp=model, dp=data)
+    p16 = b16.init(0)
+    with torch.no_grad():
+        prefill = steps.make_prefill_step(b16)
+        prefill(p16, prompts, b16.init_caches(b, s))
+        _, plain_ms = _timed(torch, lambda: prefill(
+            p16, prompts, b16.init_caches(b, s)))
+    with world(SHARD_MESH):
+        mesh = mesh_of(SHARD_MESH)
+        sp = steps.shard_params(p16, b16, mesh)
+        pre = steps.make_prefill_step(b16, mesh)
+        pre(sp, prompts, steps.shard_caches(b16.init_caches(b, s), mesh, b))
+        zero_counts()
+        _, shard_ms = _timed(torch, lambda: pre(
+            sp, prompts, steps.shard_caches(b16.init_caches(b, s), mesh, b)))
+        cnt16 = counts()
+    out["serve_bf16"] = {"prefill_ms_unsharded": plain_ms,
+                         "prefill_ms_simulated_mesh": shard_ms,
+                         "k3_launches": cnt16["flash_attention"]}
+    print(f"  (a) bf16 prefill {b} x {s}: unsharded {plain_ms:.1f} ms; on "
+          f"the simulated mesh {shard_ms:.1f} ms (a check that the mesh "
+          f"runs, not a speed: {n_ranks} simulated ranks in one process); "
+          f"K3 {cnt16['flash_attention']} launches | {card_line}",
+          flush=True)
+    check(cnt16["flash_attention"] == n_ranks * cfg16.n_layers,
+          f"(a) bf16: K3 {cnt16['flash_attention']} launches")
+    del p16, sp
+    sec["a"] = round(time.time() - t0, 1)
+
+    # (b) mamba2-1.3b prefill, f32, sharded vs unsharded
+    t0 = time.time()
+    sd = SHARD_SSD
+    b, s = sd["batch"], sd["prompt_len"]
+    cfg = configs.get_config(sd["arch"]).replace(**f32)
+    bundle = build_bundle(cfg, dev, tp=model, dp=data)
+    params = bundle.init(0)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=dev)
+    with torch.no_grad():
+        want, caches = steps.make_prefill_step(bundle)(
+            params, prompts, bundle.init_caches(b, s))
+    with world(SHARD_MESH):
+        mesh = mesh_of(SHARD_MESH)
+        sp = steps.shard_params(params, bundle, mesh)
+        sc = steps.shard_caches(bundle.init_caches(b, s), mesh, b)
+        zero_counts()
+        got, sc = steps.make_prefill_step(bundle, mesh)(sp, prompts, sc)
+        torch.cuda.synchronize()
+        cnt = counts()
+        bres = logits_gate("(b) mamba2 f32 prefill", got, want, "ssd")
+        st_err = max(float((_one(torch, sc[i][k]) - caches[i][k]).abs().max())
+                     for i in range(cfg.n_layers) for k in ("ssm", "conv"))
+    bres.update({"k4_launches": cnt["ssd_scan"], "plain_ssd":
+                 cnt["plain_ssd"], "state_max_abs_err": st_err})
+    print(f"  (b) {sd['arch']} f32 prefill {b} x {s} on the {SHARD_MESH} "
+          f"mesh: {json.dumps(bres)}", flush=True)
+    check(cnt["ssd_scan"] == n_ranks * cfg.n_layers and cnt["plain_ssd"] == 0,
+          f"(b): K4 {cnt['ssd_scan']} launches (want {n_ranks} x "
+          f"{cfg.n_layers})")
+    out["ssd_f32"] = bres
+    del params, sp, sc, caches, got, want
+    sec["b"] = round(time.time() - t0, 1)
+
+    # (c) the OTA train step: 2 clients (the data axis), 2 steps, the same
+    # device draws, sharded against unsharded
+    t0 = time.time()
+    tr = SHARD_TRAIN
+    cfg = configs.get_config(tr["arch"]).replace(n_layers=tr["n_layers"],
+                                                 **f32)
+    bundle = build_bundle(cfg, dev, tp=model, dp=data)
+    design = make_design(tr["scheme"], data, bundle.num_params, tr["eta"],
+                         seed=0, device=dev)
+    tcfg = steps.TrainStepConfig(eta=tr["eta"])
+    params = bundle.init(0)
+    shapes = {k: v.shape for k, v in param_leaves(params).items()}
+    drawer = steps.DeviceStepDraws(0, design.prm.gains, shapes, dev)
+    draws = [drawer(t) for t in range(tr["steps"])]
+    tokens = torch.randint(0, cfg.vocab_size, (tr["batch"], tr["seq"] + 1),
+                           generator=gen, device=dev)
+    ref_params = bundle.init(0)
+    step = steps.make_train_step(bundle, design.pc, design.prm.gains, tcfg)
+    zero_counts()
+    want_loss = [float(step(ref_params, tokens, d)[1]["loss"]) for d in draws]
+    with world(SHARD_MESH):
+        mesh = mesh_of(SHARD_MESH)
+        sp = steps.shard_params(params, bundle, mesh)
+        sstep = steps.make_train_step(bundle, design.pc, design.prm.gains,
+                                      tcfg, mesh=mesh)
+        got_loss = [float(_one(torch, sstep(sp, tokens, d)[1]["loss"]))
+                    for d in draws]
+        torch.cuda.synchronize()
+        cnt = counts()
+        worst, worst_leaf = 0.0, None
+        for name, v in param_leaves(sp).items():
+            w_ = param_leaves(ref_params)[name].float()
+            g_ = _one(torch, v).float()
+            excess = float(((g_ - w_).abs() - STEP_TOL["atol"]
+                            - STEP_TOL["rtol"] * w_.abs()).max())
+            if worst_leaf is None or excess > worst:
+                worst, worst_leaf = excess, name
+    cres = {"clients": data, "losses": got_loss, "unsharded_losses":
+            want_loss, "worst_leaf": worst_leaf, "worst_excess": worst,
+            "k3_launches": cnt["flash_attention"], "k4_launches":
+            cnt["ssd_scan"]}
+    print(f"  (c) the OTA train step, {tr['arch']} f32 at {cfg.n_layers} "
+          f"layers, {tr['batch']} x "
+          f"{tr['seq']} tokens, {data} clients, {tr['steps']} steps: "
+          f"{json.dumps(cres)} (tolerance {STEP_TOL})", flush=True)
+    check(worst <= 0, f"(c): {worst_leaf} past STEP_TOL by {worst}")
+    check(cnt["flash_attention"] == 0 and cnt["ssd_scan"] == 0,
+          "(c): a kernel launched in training")
+    out["train"] = cres
+    del params, ref_params, sp, draws
+    sec["c"] = round(time.time() - t0, 1)
+
+    # (d) the query-sequence split: heads that the model axis does not
+    # divide; K3 from each rank's q_offset; then K3 with q_offset against
+    # its plain version at a rank's block, both dtypes, timed
+    t0 = time.time()
+    sp_cfg = dict(SHARD_SPLIT)
+    arch, shape = sp_cfg.pop("arch"), sp_cfg.pop("mesh")
+    b, s = sp_cfg.pop("batch"), sp_cfg.pop("prompt_len")
+    cfg = configs.get_config(arch).replace(**sp_cfg, **f32)
+    bundle = build_bundle(cfg, dev, tp=shape[1], dp=shape[0])
+    params = bundle.init(0)
+    prompts = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                            device=dev)
+    with torch.no_grad():
+        want, _ = steps.make_prefill_step(bundle)(params, prompts, None)
+    with world(shape):
+        mesh = mesh_of(shape)
+        sp = steps.shard_params(params, bundle, mesh)
+        zero_counts()
+        got, _ = steps.make_prefill_step(bundle, mesh)(sp, prompts, None)
+        torch.cuda.synchronize()
+        cnt = counts()
+        dres = logits_gate("(d) query-sequence split", got, want)
+    ranks = int(np.prod(shape))
+    dres["k3_launches"] = cnt["flash_attention"]
+    check(cnt["flash_attention"] == ranks * cfg.n_layers,
+          f"(d): K3 {cnt['flash_attention']} launches")
+    blk = s // shape[1]
+    rows = {}
+    for dtype in ("bf16", "f32"):
+        for r in (1, shape[1] - 1):
+            rows[f"{dtype}_r{r}"] = shard_k3_row(
+                torch, dev, card, b, blk, cfg.n_heads, cfg.n_kv_heads,
+                cfg.resolved_head_dim, dtype, q_offset=r * blk, sk=s,
+                gen=gen)
+            print(f"  (d) K3 {dtype} from q_offset {r * blk}: "
+                  + json.dumps(rows[f"{dtype}_r{r}"]), flush=True)
+    dres["k3_q_offset"] = rows
+    print(f"  (d) {arch} cut to {cfg.n_layers} layers, {cfg.n_heads} heads "
+          f"over KH {cfg.n_kv_heads} on a {shape} mesh, {b} x {s}: "
+          f"{json.dumps({k: v for k, v in dres.items() if k != 'k3_q_offset'})}",
+          flush=True)
+    out["split"] = dres
+    del params, sp, got, want
+    sec["d"] = round(time.time() - t0, 1)
+
+    # the kernels line's rows at the ranks' shapes of (a) and (b)
+    t0 = time.time()
+    qcfg = configs.get_config(SHARD_SERVE["arch"])
+    rb, rs = SHARD_SERVE["batch"] // data, SHARD_SERVE["prompt_len"]
+    out["k3_rows"] = {dt: shard_k3_row(
+        torch, dev, card, rb, rs, qcfg.n_heads // model,
+        qcfg.n_kv_heads // model, qcfg.resolved_head_dim, dt, gen=gen)
+        for dt in ("bf16", "f32")}
+    mcfg = configs.get_config(SHARD_SSD["arch"])
+    from repro_torch.models.ssm import _dims
+    out["k4_row"] = shard_k4_row(
+        torch, dev, card, SHARD_SSD["batch"] // data, SHARD_SSD["prompt_len"],
+        _dims(mcfg)[1] // model, mcfg.ssm_headdim, mcfg.ssm_state, gen)
+    for key, row in (("K3 bf16", out["k3_rows"]["bf16"]),
+                     ("K3 f32", out["k3_rows"]["f32"]),
+                     ("K4 f32", out["k4_row"])):
+        print(f"  {key} at a rank's shape: {json.dumps(row)}", flush=True)
+    sec["rows"] = round(time.time() - t0, 1)
+    check(not tdist.is_initialized(), "a simulated world was left open")
+    out["seconds"] = {**sec, "phase": round(time.time() - t_phase, 1)}
+    print(f"  phase 24 seconds: {json.dumps(out['seconds'])} | {card_line}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4520,7 +4948,7 @@ def main() -> int:
 
 
 def run_phases(torch, pool, grid_designs_path) -> int:
-    """Phases 1-24; the designs made ahead are solved in ``pool``, the
+    """Phases 1-25; the designs made ahead are solved in ``pool``, the
     grid smoke's (phase 23) into ``grid_designs_path``."""
     import numpy as np
     from repro_torch.card import peaks
@@ -4684,7 +5112,11 @@ def run_phases(torch, pool, grid_designs_path) -> int:
           "benchmark")
     place = phase_placement(torch, np, dev, card, card_line, world,
                             grid_designs)
-    begin(24, "the kernels line")
+    begin(24, "model sharding on a simulated mesh of 4 ranks on the card: "
+          "qwen1.5-0.5b served and trained, the mamba2 prefill, the "
+          "query-sequence split with K3's q_offset")
+    shard = phase_sharding(torch, np, dev, card, card_line)
+    begin(25, "the kernels line")
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
                     path_counts["fused_bf16"]["ota_round_step"],
@@ -4821,6 +5253,19 @@ def run_phases(torch, pool, grid_designs_path) -> int:
     rows.append(("ssd_scan[f32, examples.serve_decode: mamba2-1.3b smoke]",
                  "ssd_scan", scripts["serve_decode"]["k4"],
                  sres["smoke_p32_n32"]))
+    mesh_label = f"a {SHARD_MESH} mesh of simulated ranks"
+    for dt, key in (("bf16", "serve_bf16"), ("f32", "serve_f32")):
+        rows.append((f"flash_attention[{dt}, qwen1.5-0.5b sharded over "
+                     f"{mesh_label}: a rank's heads]", "flash_attention",
+                     shard[key]["k3_launches"], shard["k3_rows"][dt]))
+    rows.append((f"ssd_scan[f32, mamba2-1.3b sharded over {mesh_label}: a "
+                 "rank's heads]", "ssd_scan", shard["ssd_f32"]["k4_launches"],
+                 shard["k4_row"]))
+    rows.append((f"flash_attention[f32, the query-sequence split over a "
+                 f"{SHARD_SPLIT['mesh']} mesh: a rank's block from q_offset]",
+                 "flash_attention", shard["split"]["k3_launches"],
+                 shard["split"]["k3_q_offset"][
+                     f"f32_r{SHARD_SPLIT['mesh'][1] - 1}"]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -4829,21 +5274,21 @@ def run_phases(torch, pool, grid_designs_path) -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[24] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[25] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[24] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[24] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[24] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[24] single run: {json.dumps(single)}", flush=True)
-    print(f"[24] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[24] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[25] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[25] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[25] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[25] single run: {json.dumps(single)}", flush=True)
+    print(f"[25] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[25] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print("[24] dense archs: " + json.dumps(
+    print("[25] dense archs: " + json.dumps(
         {arch: {k: st[k] for k in ("batch", "prefill_ms",
                                    "decode_ms_per_token", "peak_mem_gb",
                                    "batch_fits")}
          for arch, (st, _) in dense.items()}), flush=True)
-    print("[24] train: " + json.dumps(
+    print("[25] train: " + json.dumps(
         {arch: {k: trained[arch][k] for k in (
             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
             "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
@@ -4851,7 +5296,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
         | {"lm_curves_wall_s": trained["curves"]["wall_s"],
            "lm_curves_step_ms": trained["curves"]["step_ms"]}),
         flush=True)
-    print("[24] recurrentgemma-9b: " + json.dumps(
+    print("[25] recurrentgemma-9b: " + json.dumps(
         {"bf16": {k: rgemma["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: rgemma["f32"][k] for k in (
@@ -4860,7 +5305,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
          "ring": {k: rgemma["ring"][k] for k in (
              "layers", "batch", "prompt_len", "window", "prefill_ms",
              "decode_ms_per_token", "equal_tokens")}}), flush=True)
-    print("[24] seamless-m4t-medium: " + json.dumps(
+    print("[25] seamless-m4t-medium: " + json.dumps(
         {"bf16": {k: seamless["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: seamless["f32"][k] for k in (
@@ -4871,7 +5316,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
          "ragged": {k: seamless["ragged"][k] for k in (
              "memory_max_abs_err", "dec_layer0_max_abs_err",
              "logits_max_abs_diff", "equal_next_tokens")}}), flush=True)
-    print("[24] mixtral-8x22b: " + json.dumps(
+    print("[25] mixtral-8x22b: " + json.dumps(
         {"bf16": {k: mixtral["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -4889,7 +5334,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
              "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
              "first_loss", "final_loss", "held_out_loss", "eval_aux",
              "peak_mem_gb")}}), flush=True)
-    print("[24] deepseek-v3-671b: " + json.dumps(
+    print("[25] deepseek-v3-671b: " + json.dumps(
         {"bf16": {k: deepseek["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -4904,7 +5349,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
              "first_loss", "final_loss", "held_out_loss", "eval_mtp_xent",
              "peak_mem_gb")},
          "seconds": deepseek["seconds"]}), flush=True)
-    print("[24] train at 4,096 tokens: " + json.dumps(
+    print("[25] train at 4,096 tokens: " + json.dumps(
         {arch: {k: long_train[arch][k] for k in (
             "layers", "steps", "clients", "seq", "step_ms", "first_step_ms",
             "tokens_per_s", "eval_ms", "first_loss", "final_loss",
@@ -4913,7 +5358,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
         | {"forms": long_train["forms"], "eval_k3": long_train["eval_k3"],
            "step_vs_explicit": long_train["step_vs_explicit"],
            "seconds": long_train["seconds"]}), flush=True)
-    print("[24] seamless-m4t-medium train at 4,096 tokens: " + json.dumps(
+    print("[25] seamless-m4t-medium train at 4,096 tokens: " + json.dumps(
         {"bf16": {k: seamless_train["bf16"][k] for k in (
             "encoder_layers", "layers", "steps", "clients", "seq", "step_ms",
             "first_step_ms", "tokens_per_s", "eval_ms", "first_loss",
@@ -4923,7 +5368,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
          "eval_k3": seamless_train["eval_k3"],
          "step_vs_explicit": seamless_train["step_vs_explicit"],
          "seconds": seamless_train["seconds"]}), flush=True)
-    print(f"[24] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print(f"[25] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "
@@ -4933,15 +5378,18 @@ def run_phases(torch, pool, grid_designs_path) -> int:
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "
           f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
-    print(f"[24] scripts: {json.dumps(scripts['seconds'])}", flush=True)
-    print("[24] placement: " + json.dumps(
+    print(f"[25] scripts: {json.dumps(scripts['seconds'])}", flush=True)
+    print("[25] placement: " + json.dumps(
         {k: place[k] for k in ("walls", "gaps", "bench", "seconds")}),
         flush=True)
-    print("[24] roofline shares: " + json.dumps(
+    print("[25] roofline shares: " + json.dumps(
         {r["step"]: {k: r[k] for k in ("roofline_ms", "bound_by",
                                        "measured_ms", "share")}
          for r in roof["steps"]}), flush=True)
-    print(f"[24] seconds per phase: {json.dumps(phase_s)}", flush=True)
+    print("[25] sharding: " + json.dumps(
+        {k: shard[k] for k in ("serve_f32", "serve_bf16", "ssd_f32",
+                               "train", "seconds")}), flush=True)
+    print(f"[25] seconds per phase: {json.dumps(phase_s)}", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

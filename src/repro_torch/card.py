@@ -14,6 +14,24 @@ PEAKS = {"H100 PCIe": (2.0e12, 51e12, 756e12),
          "H200": (4.8e12, 67e12, 989e12), "H100": (3.35e12, 67e12, 989e12)}
 
 
+# the card's link to the other cards, bytes/s each way (data sheets): the
+# H100 SXM's and the H200's NVLink 4, 900 GB/s in all over 18 links, 450
+# GB/s each way; the PCIe card's and the NVL's NVLink bridge, 600 GB/s,
+# 300 each way.  Between nodes traffic crosses a slower network (a 400
+# Gb/s InfiniBand port a card is 50 GB/s), so a collective term at this
+# rate is a lower bound for a mesh of more than one node.
+LINKS = {"H100 PCIe": 300e9, "H100 NVL": 300e9, "H200": 450e9,
+         "H100": 450e9}
+
+
+def link_rate(name: str):
+    """(matched name, bytes/s each way over the card's NVLink)."""
+    for key, val in LINKS.items():
+        if key in name:
+            return key, val
+    return "H100 (assumed)", LINKS["H100"]
+
+
 def peaks(name: str):
     """(matched name, (bytes/s, f32 flop/s, bf16 tensor flop/s))."""
     for key, val in PEAKS.items():

@@ -15,22 +15,269 @@ agree by exchanging result digests through ``kv_put`` / ``kv_get``
 (``repro_torch.grid_smoke``).  Cells are independent and only strings are
 exchanged, so no process group is created.
 
-Left out, for model sharding across cards: ``bind``, ``constrain``,
-``logical_to_spec``, ``mesh_rules``, ``active_mesh``, ``batch_logical`` and
-``shard_map``.
+Model sharding (module 12b), the rules half of ``repro.distributed``:
+model code annotates activations with *logical* axes (("batch", "seq",
+None)); ``bind`` / ``mesh_rules`` bind a mesh of ranks
+(``launch.mesh.ShardMesh``, a ``DeviceMesh`` with its axis names) and the
+rules that map logical axes to mesh axes (``DEFAULT_RULES``);
+``constrain`` then redistributes a DTensor to the placements they give,
+and is a no-op with no mesh bound or on a plain tensor, so the same model
+code serves one card and a mesh.  ``shard_map`` is DTensor's
+``local_map`` with placements from specs.
+
+The mesh's ranks are simulated in one process: ``simulated_world(n)``
+opens PyTorch's fake process group of n ranks (collectives return at once)
+and stands as rank 0, which is the dry-run's view of a production mesh on
+fake tensors; ``simulated_world(n, local=True)`` also enters
+``LocalTensorMode(n)``, under which every tensor holds one value per rank
+and every op and collective runs for all n ranks, for real, on the CPU or
+on one card.  ``per_rank`` hands each rank's plain tensors to a function
+that cannot take the simulated ones (a kernel's ctypes launch).
 """
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
+import logging
 import os
-from typing import Callable, Optional
+import threading
+from typing import Callable, Optional, Sequence
 
 import torch
 
 from repro_torch.launch import mesh as mesh_mod
 
 _STATE: dict = {}
+_RULES = threading.local()
+
+DEFAULT_RULES = {
+    "batch": ("data",),
+    "batch_pod": ("pod", "data"),
+    "seq": None,
+    "kv_seq": None,         # overridden to ("data",) for long-context decode
+    "heads": ("model",),
+    "ff": ("model",),
+    "embed": None,
+    "vocab": ("model",),
+    "expert": None,
+}
+
+
+def bind(mesh, rules: Optional[dict] = None) -> None:
+    _RULES.mesh = mesh
+    _RULES.rules = dict(DEFAULT_RULES)
+    if rules:
+        _RULES.rules.update(rules)
+
+
+def unbind() -> None:
+    _RULES.mesh = None
+    _RULES.rules = None
+
+
+@contextlib.contextmanager
+def mesh_rules(mesh, rules: Optional[dict] = None):
+    prev = (getattr(_RULES, "mesh", None), getattr(_RULES, "rules", None))
+    bind(mesh, rules)
+    try:
+        yield
+    finally:
+        _RULES.mesh, _RULES.rules = prev
+
+
+def active_mesh():
+    return getattr(_RULES, "mesh", None)
+
+
+def logical_to_spec(logical):
+    """The spec (``models.param.P``) of logical axes under the bound rules
+    (the defaults when none are bound): each logical axis's mesh axes,
+    those present in the bound mesh (all of them with none bound)."""
+    from repro_torch.models.param import P
+    rules = getattr(_RULES, "rules", None) or DEFAULT_RULES
+    mesh = active_mesh()
+    axes = []
+    for ax in logical:
+        mapped = rules.get(ax) if isinstance(ax, str) else ax
+        if mapped is None:
+            axes.append(None)
+            continue
+        if isinstance(mapped, str):
+            mapped = (mapped,)
+        present = tuple(a for a in mapped if mesh is None
+                        or a in mesh.axis_names)
+        axes.append(present if present else None)
+    return P(*axes)
+
+
+def batch_logical() -> str:
+    """'batch' or 'batch_pod' depending on the bound mesh."""
+    mesh = active_mesh()
+    if mesh is not None and "pod" in mesh.axis_names:
+        return "batch_pod"
+    return "batch"
+
+
+def placements(mesh, spec, partial: Sequence[str] = ()) -> tuple:
+    """DTensor placements over ``mesh``'s axes of a spec (one entry per
+    tensor dim: None, an axis name or a tuple of them): Shard(dim) on each
+    mesh axis a dim names, Partial() on the axes in ``partial``, else
+    Replicate().  A dim over several axes is split over them in the mesh's
+    axis order, major first, as the reference's tuple axes are."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    out = []
+    for name in mesh.axis_names:
+        dims = [d for d, ax in enumerate(spec) if ax is not None and (
+            ax == name if isinstance(ax, str) else name in ax)]
+        if len(dims) > 1:
+            raise ValueError(f"spec {spec}: axis {name!r} on dims {dims}")
+        if dims and name in partial:
+            raise ValueError(f"axis {name!r} both sharded and partial")
+        out.append(Shard(dims[0]) if dims else
+                   Partial() if name in partial else Replicate())
+    return tuple(out)
+
+
+def is_dtensor(x) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def constrain(x, logical):
+    """Redistribute the DTensor ``x`` to the placements that its logical
+    axes map to on the bound mesh; ``x`` itself with no mesh bound or when
+    it is a plain tensor."""
+    mesh = active_mesh()
+    if mesh is None or not is_dtensor(x):
+        return x
+    spec = []
+    for n, ax in zip(x.shape, logical_to_spec(logical)):
+        size = 1
+        for a in ((ax,) if isinstance(ax, str) else ax or ()):
+            size *= mesh.shape[a]
+        # a dim its axes do not divide stays whole (the reference's XLA
+        # would pad it): a batch of 1 on a data axis of 16
+        spec.append(ax if n % size == 0 else None)
+    want = placements(mesh, spec)
+    return x if tuple(x.placements) == want \
+        else x.redistribute(mesh.device_mesh, want)
+
+
+@dataclasses.dataclass(frozen=True)
+class Layout:
+    """A spec with partial axes: a tensor laid out as ``spec`` whose value
+    is the sum over the mesh axes in ``partial`` of its local tensors."""
+    spec: tuple
+    partial: tuple = ()
+
+
+def _placements_of(mesh, layout) -> Optional[tuple]:
+    if layout is None:
+        return None
+    if isinstance(layout, Layout):
+        return placements(mesh, layout.spec, layout.partial)
+    return placements(mesh, layout)
+
+
+def shard_map(f: Callable, mesh, in_specs, out_specs,
+              in_grad_specs=None) -> Callable:
+    """DTensor's ``local_map`` of ``f`` over ``mesh``: each DTensor argument
+    is handed to ``f`` as its local tensor, laid out as its entry of
+    ``in_specs`` says (None for an argument that is not a tensor), and
+    each output comes back a DTensor laid out as ``out_specs`` says (one
+    entry, or a tuple of them for a tuple of outputs).  An entry is a spec
+    (``models.param.P``) or a ``Layout`` with partial axes.
+    ``in_grad_specs`` gives each input's gradient layout where it differs
+    from the input's: a partial sum over the axes that ``f`` splits its
+    work over and the input is replicated on."""
+    from torch.distributed.tensor.experimental import local_map
+
+    def many(entries):
+        return None if entries is None else tuple(
+            _placements_of(mesh, e) for e in entries)
+
+    from repro_torch.models.param import P
+    single = out_specs is None or isinstance(out_specs, (Layout, P))
+    # local_map reads a tuple as one placement list per output
+    outs = list(_placements_of(mesh, out_specs)) if single \
+        else tuple(list(p) for p in many(out_specs))
+    return local_map(f, out_placements=outs, in_placements=many(in_specs),
+                     in_grad_placements=many(in_grad_specs),
+                     device_mesh=mesh.device_mesh)
+
+
+@contextlib.contextmanager
+def simulated_world(n: int, local: bool = False):
+    """A world of ``n`` ranks in this process: PyTorch's fake process
+    group (every collective returns at once), this process standing as
+    rank 0; with ``local``, ``LocalTensorMode(n)`` too, under which every
+    rank computes and every collective is carried out.  A process group
+    that is already open (``initialize_multiprocess``'s store makes none)
+    is refused rather than replaced; on exit the group is destroyed and
+    the mode left, whatever happened inside."""
+    import torch.distributed as tdist
+    from torch.testing._internal.distributed.fake_pg import FakeStore
+    if tdist.is_initialized():
+        raise RuntimeError("a process group is already open in this process")
+    tdist.init_process_group("fake", world_size=int(n), rank=0,
+                             store=FakeStore())
+    # DTensor warns at each redistribution over two batch axes that one
+    # collective over their flattened axis would be faster: the pod mesh's
+    # every step
+    log = logging.getLogger("torch.distributed.tensor._redistribute")
+    level = log.level
+    log.setLevel(logging.ERROR)
+    try:
+        if local:
+            from torch.distributed._local_tensor import LocalTensorMode
+            with LocalTensorMode(int(n)):
+                yield
+        else:
+            yield
+    finally:
+        log.setLevel(level)
+        tdist.destroy_process_group()
+
+
+def local_mode():
+    """The open ``LocalTensorMode``, or None."""
+    from torch.distributed._local_tensor import enabled_local_tensor_mode
+    return enabled_local_tensor_mode()
+
+
+def per_rank(fn: Callable) -> Callable:
+    """``fn`` called once per simulated rank on that rank's plain tensors
+    (and ints) when a ``LocalTensorMode`` is open, its results gathered
+    back into simulated tensors; ``fn`` itself otherwise.  For what cannot
+    take a simulated tensor: a kernel's ctypes launch reads a data
+    pointer, so under ``simulated_world(n, local=True)`` it launches n
+    times, once for each rank's shard."""
+    from torch.distributed._local_tensor import maybe_run_for_local_tensor
+    return maybe_run_for_local_tensor(fn)
+
+
+def distribute(t: torch.Tensor, mesh, placements):
+    """``t`` (whole, the same on every rank) as a DTensor of ``placements``
+    on ``mesh`` (a ``ShardMesh``): each rank keeps its shard and nothing
+    is sent.  Under ``LocalTensorMode`` every rank's local tensor is a
+    copy of its own (a replicated one too), so that rank-dependent
+    arithmetic and in-place updates act on each rank's copy."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    out = distribute_tensor(t, mesh.device_mesh, placements,
+                            src_data_rank=None)
+    lm = local_mode()
+    local = out.to_local()
+    if lm is None or is_local(local):
+        return out
+    return DTensor.from_local(lm.rank_map(lambda r: local.clone()),
+                              mesh.device_mesh, placements, run_check=False)
+
+
+def is_local(t) -> bool:
+    """Whether ``t`` is a simulated tensor (one value per rank)."""
+    from torch.distributed._local_tensor import LocalTensor
+    return isinstance(t, LocalTensor)
 
 
 def tree_map(fn: Callable, tree):

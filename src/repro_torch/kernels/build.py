@@ -34,6 +34,8 @@ _ROUND_STEP_ARGS = [_P] * 8 + [_I, _I, ctypes.c_longlong, _P]
 _AGGREGATE_ARGS = [_P] * 5 + [_I, _I, ctypes.c_longlong, _P]
 # q, k, v, o; b, sq, sk, h, kh, dh, dv, causal, window; stream
 _ATTENTION_ARGS = [_P] * 4 + [_I] * 9 + [_P]
+# the same and the query offset qoff before the stream
+_ATTENTION_OFFSET_ARGS = [_P] * 4 + [_I] * 10 + [_P]
 # x, dt, a_neg, b, c, state0 (may be null), y, state; batch, seq, h, g, p, n;
 # stream
 _SSD_ARGS = [_P] * 8 + [_I] * 6 + [_P]
@@ -48,6 +50,8 @@ ENTRIES = {
     "flash_attention": {
         "flash_attention_f32": _ATTENTION_ARGS,
         "flash_attention_bf16": _ATTENTION_ARGS,
+        "flash_attention_offset_f32": _ATTENTION_OFFSET_ARGS,
+        "flash_attention_offset_bf16": _ATTENTION_OFFSET_ARGS,
     },
     "ssd_scan": {
         "ssd_scan_f32": _SSD_ARGS,
@@ -121,10 +125,13 @@ def log(name: str) -> str:
 def load_variant(path: Path, name: str) -> ctypes.CDLL:
     """A built library of ``csrc/<name>.cu`` or of a copy of it, with the
     argtypes of its entries declared (pointers as c_void_p, or ctypes would
-    cut them to 32 bits)."""
+    cut them to 32 bits); an older copy may lack the newer entries (K3's
+    ``_offset`` ones before the query offset)."""
     lib = ctypes.CDLL(str(path))
     for entry, argtypes in ENTRIES[name].items():
-        fn = getattr(lib, entry)
+        fn = getattr(lib, entry, None)
+        if fn is None:
+            continue
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int
     return lib

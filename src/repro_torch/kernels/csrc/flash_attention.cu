@@ -3,7 +3,9 @@
 //
 //   o[b, i, h, :] = sum_j softmax_j(q[b,i,h,:] . k[b,j,h/G,:] / sqrt(Dqk)) v[b,j,h/G,:]
 //   over the keys j that i may see: j <= i (causal), j > i - window (window);
-//   positions start at 0 for q and for k.
+//   key positions start at 0 and query positions at qoff (0 but for a block
+//   of a longer sequence's query rows, the query-sequence split of a model
+//   sharded over a mesh: rank r's rows start at r Sq).
 //
 // Replaces src/repro/kernels/flash_attention.py::flash_attention_pallas
 // (body _attn_kernel) and keeps its semantics: masked scores are -1e30, a
@@ -267,7 +269,7 @@ flash_attention_kernel_f32(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v, float* __restrict__ o,
                            int nb, int sq, int sk, int h, int kh, int causal,
-                           int window, float scale) {
+                           int window, int qoff, float scale) {
   using T = Tile<DQK, DV>;
   constexpr int kBK = T::kKeys;
   constexpr int kDV = T::kDV;
@@ -302,8 +304,9 @@ flash_attention_kernel_f32(const float* __restrict__ q,
   // the key tiles that some query row of this tile may see; tile r of the
   // walk starts at key (t_last - r) * kBK
   const int q_last = min(q0 + kBQ, sq) - 1;
-  const int k_end = causal ? min(sk, q_last + 1) : sk;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int p0 = q0 + qoff, p_last = q_last + qoff;  // their positions
+  const int k_end = causal ? min(sk, p_last + 1) : sk;
+  const int k_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   const int t_last = (k_end - 1) / kBK;
   const int n_tiles = t_last - k_begin / kBK + 1;
 
@@ -410,14 +413,14 @@ flash_attention_kernel_f32(const float* __restrict__ q,
     // becomes p = 2^(s - m_new), and alpha = 2^(m - m_new) rescales the
     // running sums
     const int k0 = (t_last - r) * kBK;
-    if (k0 + kBK > sk || (causal && k0 + kBK - 1 > q0) ||
-        (window > 0 && k0 <= q_last - window)) {
+    if (k0 + kBK > sk || (causal && k0 + kBK - 1 > p0) ||
+        (window > 0 && k0 <= p_last - window)) {
 #pragma unroll
       for (int n = 0; n < kNT; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int kp = k0 + 8 * n + 2 * t + (e & 1);
-          const int qp = row + 8 * (e >> 1);
+          const int qp = row + 8 * (e >> 1) + qoff;
           if (kp >= sk)
             s[n][e] = __int_as_float(0xff800000);  // past Sk: -inf, no weight
           else if ((causal && kp > qp) || (window > 0 && kp <= qp - window))
@@ -516,7 +519,7 @@ flash_attention_kernel_f32(const float* __restrict__ q,
 
 template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int h, int kh, int causal, int window,
+           int sq, int sk, int h, int kh, int causal, int window, int qoff,
            cudaStream_t stream) {
   constexpr size_t smem = Tile<DQK, DV>::kBytes;
   auto kernel = flash_attention_kernel_f32<DQK, DV>;
@@ -533,7 +536,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k),
       static_cast<const float*>(v), static_cast<float*>(o), b, sq, sk, h, kh,
-      causal, window, scale);
+      causal, window, qoff, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -779,7 +782,7 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 template <int NB>
 __device__ __forceinline__ void softmax_tile(float (&s)[NB][4], float (&m)[2],
                                              float (&l)[2], float (&alpha)[2],
-                                             int k0, int row, int sk,
+                                             int k0, int qpos, int sk,
                                              int causal, int window,
                                              float scale, bool edge) {
   const int c = threadIdx.x % 4;
@@ -793,7 +796,7 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NB][4], float (&m)[2],
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
         const int kp = k0 + 8 * j + 2 * c + (e & 1);
-        const int qp = row + 8 * (e >> 1);
+        const int qp = qpos + 8 * (e >> 1);
         if (kp >= sk)
           s[j][e] = __int_as_float(0xff800000);  // past Sk: -inf, no weight
         else if ((causal && kp > qp) || (window > 0 && kp <= qp - window))
@@ -874,7 +877,7 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
                             const __grid_constant__ CUtensorMap tv,
                             const __grid_constant__ CUtensorMap to, int nb,
                             int sq, int sk, int h, int kh, int causal,
-                            int window, float scale) {
+                            int window, int qoff, float scale) {
   using S = Smem<DQK, DV>;
   constexpr int kPanelsQK = DQK / kPanel;  // of q and K
   constexpr int kPanelsV = DV / kPanel;    // of V and o
@@ -897,8 +900,9 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
   // the key tiles that some query row of this tile may see; tile t of the
   // walk starts at key (t_last - t) * kBK
   const int q_last = min(q0 + kBQ, sq) - 1;
-  const int k_end = causal ? min(sk, q_last + 1) : sk;
-  const int k_begin = window > 0 ? max(0, q0 - window + 1) : 0;
+  const int p0 = q0 + qoff, p_last = q_last + qoff;  // their positions
+  const int k_end = causal ? min(sk, p_last + 1) : sk;
+  const int k_begin = window > 0 ? max(0, p0 - window + 1) : 0;
   const int t_last = (k_end - 1) / kBK;
   const int n_tiles = t_last - k_begin / kBK + 1;
 
@@ -977,9 +981,9 @@ flash_attention_kernel_bf16(const __grid_constant__ CUtensorMap tq,
   };
   auto softmax = [&](float (&s)[kNB][4], int t) {  // then P_t in bf16
     const int k0 = (t_last - t) * kBK;
-    const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > q0) ||
-                      (window > 0 && k0 <= q_last - window);
-    softmax_tile<kNB>(s, m, l, alpha, k0, row, sk, causal, window, scale,
+    const bool edge = k0 + kBK > sk || (causal && k0 + kBK - 1 > p0) ||
+                      (window > 0 && k0 <= p_last - window);
+    softmax_tile<kNB>(s, m, l, alpha, k0, row + qoff, sk, causal, window, scale,
                       edge);
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j)
@@ -1129,7 +1133,7 @@ bool make_map(EncodeTiled encode, CUtensorMap* map, const void* ptr, int d,
 
 template <int DQK, int DV>
 int launch(const void* q, const void* k, const void* v, void* o, int b,
-           int sq, int sk, int h, int kh, int causal, int window,
+           int sq, int sk, int h, int kh, int causal, int window, int qoff,
            cudaStream_t stream) {
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return static_cast<int>(cudaErrorNotSupported);
@@ -1151,49 +1155,72 @@ int launch(const void* q, const void* k, const void* v, void* o, int b,
   if (blocks > 0x7fffffff) return static_cast<int>(cudaErrorInvalidValue);
   const float scale = 1.0f / sqrtf(static_cast<float>(DQK));
   kernel<<<static_cast<unsigned>(blocks), kThreads, smem, stream>>>(
-      tq, tk, tv, to, b, sq, sk, h, kh, causal, window, scale);
+      tq, tk, tv, to, b, sq, sk, h, kh, causal, window, qoff, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace tc
 
 using Launch = int (*)(const void*, const void*, const void*, void*, int, int,
-                       int, int, int, int, int, cudaStream_t);
+                       int, int, int, int, int, int, cudaStream_t);
 
 // The instance for (dh, dv): (64, 64), (128, 128), (256, 256) or (192, 128);
 // any other pair is refused.
 template <Launch L64, Launch L128, Launch L256, Launch L192_128>
 int dispatch(const void* q, const void* k, const void* v, void* o, int b,
              int sq, int sk, int h, int kh, int dh, int dv, int causal,
-             int window, void* stream) {
+             int window, int qoff, void* stream) {
   auto s = static_cast<cudaStream_t>(stream);
   Launch fn = nullptr;
   if (dh == dv && dh == 64) fn = L64;
   if (dh == dv && dh == 128) fn = L128;
   if (dh == dv && dh == 256) fn = L256;
   if (dh == 192 && dv == 128) fn = L192_128;
-  if (fn == nullptr) return static_cast<int>(cudaErrorInvalidValue);
-  return fn(q, k, v, o, b, sq, sk, h, kh, causal, window, s);
+  if (fn == nullptr || qoff < 0) return static_cast<int>(cudaErrorInvalidValue);
+  return fn(q, k, v, o, b, sq, sk, h, kh, causal, window, qoff, s);
 }
 
 }  // namespace
 
+#define F32_INSTANCES                                                    \
+  tf32::launch<64, 64>, tf32::launch<128, 128>, tf32::launch<256, 256>, \
+      tf32::launch<192, 128>
+#define BF16_INSTANCES                                                 \
+  tc::launch<64, 64>, tc::launch<128, 128>, tc::launch<256, 256>, \
+      tc::launch<192, 128>
+
+// The entries with query positions from 0, and the `_offset` entries with
+// query positions from qoff (>= 0).
 extern "C" {
 
 int flash_attention_f32(const void* q, const void* k, const void* v, void* o,
                         int b, int sq, int sk, int h, int kh, int dh, int dv,
                         int causal, int window, void* stream) {
-  return dispatch<tf32::launch<64, 64>, tf32::launch<128, 128>,
-                  tf32::launch<256, 256>, tf32::launch<192, 128>>(
-      q, k, v, o, b, sq, sk, h, kh, dh, dv, causal, window, stream);
+  return dispatch<F32_INSTANCES>(q, k, v, o, b, sq, sk, h, kh, dh, dv, causal,
+                                 window, 0, stream);
 }
 
 int flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                          int b, int sq, int sk, int h, int kh, int dh, int dv,
                          int causal, int window, void* stream) {
-  return dispatch<tc::launch<64, 64>, tc::launch<128, 128>,
-                  tc::launch<256, 256>, tc::launch<192, 128>>(
-      q, k, v, o, b, sq, sk, h, kh, dh, dv, causal, window, stream);
+  return dispatch<BF16_INSTANCES>(q, k, v, o, b, sq, sk, h, kh, dh, dv,
+                                  causal, window, 0, stream);
+}
+
+int flash_attention_offset_f32(const void* q, const void* k, const void* v,
+                               void* o, int b, int sq, int sk, int h, int kh,
+                               int dh, int dv, int causal, int window,
+                               int qoff, void* stream) {
+  return dispatch<F32_INSTANCES>(q, k, v, o, b, sq, sk, h, kh, dh, dv, causal,
+                                 window, qoff, stream);
+}
+
+int flash_attention_offset_bf16(const void* q, const void* k, const void* v,
+                                void* o, int b, int sq, int sk, int h, int kh,
+                                int dh, int dv, int causal, int window,
+                                int qoff, void* stream) {
+  return dispatch<BF16_INSTANCES>(q, k, v, o, b, sq, sk, h, kh, dh, dv,
+                                  causal, window, qoff, stream);
 }
 
 }  // extern "C"

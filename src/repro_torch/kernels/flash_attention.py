@@ -4,7 +4,11 @@ not, with an optional sliding window: the attention of every prefill
 any Sq and Sk).
 
     o[b, i, h] = softmax_j(q[b, i, h] . k[b, j, h // G] / sqrt(Dqk)) v[b, j, h // G]
-    over j <= i (causal) and j > i - window (window); positions from 0.
+    over j <= i + q0 (causal) and j > i + q0 - window (window); key
+    positions from 0, query positions from q0 = ``q_offset`` (0 but for a
+    block of a longer sequence's query rows: the query-sequence split of a
+    model sharded over a mesh, ``models.sharded``, where rank r holds the
+    rows from r Sq on against all the keys).
 
 Replaces ``src/repro/kernels/flash_attention.py::flash_attention_pallas``
 (body ``_attn_kernel``).  CUDA C++ in ``csrc/flash_attention.cu``, for
@@ -53,6 +57,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from repro_torch import distributed as dist
 from repro_torch.kernels import build, ref
 from repro_torch.launch import count
 
@@ -63,7 +68,7 @@ ALIGN = 16                     # bytes; TMA needs each base 16-byte aligned
 
 
 def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  window: Optional[int]) -> None:
+                  window: Optional[int], q_offset: int = 0) -> None:
     """What both the kernel and its plain version need."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4 \
             or v.shape[:3] != k.shape[:3]:
@@ -77,10 +82,15 @@ def _check_inputs(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          "head_dim must agree and KH divide H")
     if sq == 0 or sk == 0:
         raise ValueError("empty query or key sequence")
-    if window is not None and (window < 1 or sq >= sk + window):
+    if not isinstance(q_offset, int):   # one per simulated rank: checked
+        q_offset = 0                    # on each rank's call (per_rank)
+    if q_offset < 0:
+        raise ValueError(f"query offset {q_offset} < 0")
+    if window is not None and (window < 1 or q_offset + sq >= sk + window):
         # a query row at or past Sk + window would see no key at all
-        raise ValueError(f"window {window} with Sq {sq}, Sk {sk}: need "
-                         "window >= 1 and Sq < Sk + window")
+        raise ValueError(f"window {window} with Sq {sq} from {q_offset}, Sk "
+                         f"{sk}: need window >= 1 and offset + Sq < Sk + "
+                         "window")
     if not (q.device == k.device == v.device):
         raise ValueError(f"q, k, v on {q.device}, {k.device}, {v.device}")
     if not (q.dtype == k.dtype == v.dtype):
@@ -110,17 +120,17 @@ def check_no_grad(kernel: str, *tensors) -> None:
 
 
 def pairs(sq: int, sk: int, causal: bool = True,
-          window: Optional[int] = None) -> int:
-    """(query, key) pairs the masks allow, positions from 0 on both sides
-    (``profile_attention.pairs``, in numpy)."""
-    i = np.arange(sq, dtype=np.int64)
+          window: Optional[int] = None, q_offset: int = 0) -> int:
+    """(query, key) pairs the masks allow, key positions from 0 and query
+    positions from ``q_offset`` (``profile_attention.pairs``, in numpy)."""
+    i = q_offset + np.arange(sq, dtype=np.int64)
     hi = np.minimum(i, sk - 1) if causal else np.full(sq, sk - 1)
     lo = np.maximum(0, i - window + 1) if window else 0
     return int(np.maximum(0, hi - lo + 1).sum())
 
 
-def work(q, k, v, *, causal: bool = True,
-         window: Optional[int] = None) -> dict:
+def work(q, k, v, *, causal: bool = True, window: Optional[int] = None,
+         q_offset: int = 0) -> dict:
     """{"flops", "bytes"} of one call on q, k, v (tensors or anything with
     ``shape`` and ``dtype``): q, k and v read once and o written once, and
     2 (Dqk + Dv) operations for each (query, key) pair the masks allow
@@ -128,20 +138,30 @@ def work(q, k, v, *, causal: bool = True,
     b, sq, h, dqk = q.shape
     sk, kh, dv = k.shape[1], k.shape[2], v.shape[3]
     size = q.dtype.itemsize
-    return {"flops": 2 * b * h * (dqk + dv) * pairs(sq, sk, causal, window),
+    return {"flops": 2 * b * h * (dqk + dv) * pairs(sq, sk, causal, window,
+                                                    q_offset),
             "bytes": size * b * ((sq * h + sk * kh) * dqk
                                  + (sk * kh + sq * h) * dv)}
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                     causal: bool = True, window: Optional[int] = None,
-                    use_kernel: bool = True) -> torch.Tensor:
+                    use_kernel: bool = True,
+                    q_offset: int = 0) -> torch.Tensor:
     """q: [B, Sq, H, Dqk]; k: [B, Sk, KH, Dqk]; v: [B, Sk, KH, Dv],
-    H = KH * G.  Returns [B, Sq, H, Dv] in q's dtype.  On the card:
-    contiguous f32 or bf16, (Dqk, Dv) in ``HEAD_DIMS``."""
-    _check_inputs(q, k, v, window)
+    H = KH * G; query rows at positions ``q_offset`` onward.  Returns
+    [B, Sq, H, Dv] in q's dtype.  On the card: contiguous f32 or bf16,
+    (Dqk, Dv) in ``HEAD_DIMS``.  One call launches once: a model sharded
+    over a simulated mesh hands each rank's plain tensors to it
+    (``distributed.per_rank``)."""
+    _check_inputs(q, k, v, window, q_offset)
     if not use_kernel or not count.on_card(q):
-        return ref.attention_ref(q, k, v, causal=causal, window=window)
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
+    if dist.is_local(q):                # a simulated mesh: one launch a rank
+        return dist.per_rank(flash_attention)(
+            q, k, v, causal=causal, window=window, q_offset=q_offset)
+    q_offset = int(q_offset)
     check_no_grad("flash_attention (K3)", q, k, v)
     if q.dtype not in DTYPES:
         raise TypeError(f"flash_attention takes {list(DTYPES)}, got {q.dtype}")
@@ -157,12 +177,13 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = q.new_empty((b, sq, h, dv))
     if fake:                    # a dry-run: counted, never launched
         count.add_kernel("flash_attention",
-                         work(q, k, v, causal=causal, window=window))
+                         work(q, k, v, causal=causal, window=window,
+                              q_offset=q_offset))
         return out
-    name = f"flash_attention_{DTYPES[q.dtype]}"
+    name = f"flash_attention_offset_{DTYPES[q.dtype]}"
     err = getattr(build.library("flash_attention"), name)(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, sk, h, kh, dh, dv, int(causal), int(window or 0),
+        b, sq, sk, h, kh, dh, dv, int(causal), int(window or 0), q_offset,
         torch.cuda.current_stream(q.device).cuda_stream)
     build.check(err, name)
     flash_attention.launches += 1

@@ -220,13 +220,14 @@ BLOCKED_ABOVE = 2048 * 2048
 
 
 def attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                  causal: bool = True,
-                  window: Optional[int] = None) -> torch.Tensor:
-    """K3's plain version, with positions from 0 on both sides, counted:
+                  causal: bool = True, window: Optional[int] = None,
+                  q_offset: int = 0) -> torch.Tensor:
+    """K3's plain version, with key positions from 0 and query positions
+    from ``q_offset`` (a block of a longer sequence's query rows), counted:
     ``grouped_attention`` up to Sq·Sk = 2048², ``grouped_attention_blocked``
     past it, as the reference chooses between its two forms."""
     attention_ref.calls += 1
-    qpos = torch.arange(q.shape[1], device=q.device)
+    qpos = q_offset + torch.arange(q.shape[1], device=q.device)
     kpos = torch.arange(k.shape[1], device=q.device)
     form = grouped_attention_blocked \
         if q.shape[1] * k.shape[1] > BLOCKED_ABOVE else grouped_attention

@@ -46,6 +46,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import distributed as dist
 from repro_torch.kernels import build, ref
 from repro_torch.kernels.flash_attention import check_no_grad
 from repro_torch.launch import count
@@ -133,6 +134,9 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
     if not use_kernel or not count.on_card(x):
         return ref.ssd_chunked(x, dt, a_neg, b_mat, c_mat, chunk,
                                state0=state0)
+    if dist.is_local(x):                # a simulated mesh: one launch a rank
+        return dist.per_rank(ssd_scan)(x, dt, a_neg, b_mat, c_mat,
+                                       chunk=chunk, state0=state0)
     check_no_grad("ssd_scan (K4)", x, dt, a_neg, b_mat, c_mat, state0)
     if x.dtype not in DTYPES or not (x.dtype == dt.dtype == b_mat.dtype
                                      == c_mat.dtype):

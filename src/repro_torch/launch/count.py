@@ -28,6 +28,17 @@ counters:
   (``benchmarks/roofline.py``), this is an upper bound on device-memory
   traffic: every operand access counts, and no reuse in caches or
   shared memory, nor any fusion, is modeled;
+* a tally of the collectives that a step on a mesh of ranks asks for
+  (``models.sharded``: DTensor's functional collectives,
+  ``_c10d_functional.*``), by the reference's names (``all-gather``,
+  ``all-reduce``, ``reduce-scatter``, ``all-to-all``,
+  ``collective-permute``) and ``total``: each op counted by the bytes of
+  its result on one device, as ``repro/launch/hlo.py`` counts the result
+  shapes of the HLO's collectives.  DTensor on a CPU mesh outside
+  ``LocalTensorMode`` carries an all-to-all out as an all-gather and a
+  chunk; it is counted as the all-to-all it stands for, by the chunk.
+  Collectives move bytes between devices, not through one's memory, and
+  are not in the bytes above;
 * a tally of kernel calls by kernel (``calls``, ``flops``, ``bytes``): a
   kernel wrapper that meets a fake input on the card's path (``on_card``)
   launches nothing and adds its ``work(...)`` here instead (``kernels.flash_attention.work``,
@@ -63,6 +74,22 @@ FREE_OPS = frozenset({
 
 _OPEN: list = []            # the open Counts, innermost last
 _FAKING: list = []          # the open fake_mode()s' ``card`` flags
+_INSIDE: list = []          # an all-to-all's fallback in progress
+_PATCHED: list = []         # the patched fallback's original
+COLLECTIVES = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+               "collective-permute")
+# DTensor's functional collectives by the reference's names
+_COLLECTIVE_OPS = {
+    "all_gather_into_tensor": "all-gather",
+    "all_gather_into_tensor_coalesced": "all-gather",
+    "all_reduce": "all-reduce",
+    "all_reduce_coalesced": "all-reduce",
+    "reduce_scatter_tensor": "reduce-scatter",
+    "reduce_scatter_tensor_coalesced": "reduce-scatter",
+    "all_to_all_single": "all-to-all",
+    "shard_dim_alltoall": "all-to-all",
+    "broadcast": "collective-permute",
+}
 
 
 @contextlib.contextmanager
@@ -133,6 +160,12 @@ class _Bytes(TorchDispatchMode):
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         out = func(*args, **kwargs)
+        if func.namespace in ("_c10d_functional", "_dtensor"):
+            name = _COLLECTIVE_OPS.get(func.overloadpacket.__name__)
+            if name is not None and not _INSIDE:
+                for c in _OPEN:
+                    c.add_collective(name, out)
+            return out
         if not (func.overloadpacket in FREE_OPS or func.is_view
                 or not _has_tensor(out)):
             # an ``out=`` tensor is the result: counted once, as written
@@ -151,18 +184,34 @@ class Count:
         self._flops = FlopCounterMode(display=False)
         self._bytes = _Bytes()
         self.kernels: dict = {}
+        self.collectives: dict = dict.fromkeys(COLLECTIVES, 0)
+        self.collective_calls: dict = dict.fromkeys(COLLECTIVES, 0)
+        # (bytes, op, result shape, dtype) of each collective, in order
+        self.collective_log: list = []
 
     def __enter__(self) -> "Count":
         self._flops.__enter__()
         self._bytes.__enter__()
+        if not _OPEN:
+            _patch_alltoall()
         _OPEN.append(self)
         return self
 
     def __exit__(self, *exc):
         _OPEN.remove(self)
+        if not _OPEN:
+            _unpatch_alltoall()
         self._bytes.__exit__(*exc)
         self._flops.__exit__(*exc)
         return False
+
+    def add_collective(self, name: str, out) -> None:
+        """One collective ``name`` whose result on this device is ``out``."""
+        n = _nbytes(out)
+        self.collectives[name] += n
+        self.collective_calls[name] += 1
+        self.collective_log.append((n, name, tuple(out.shape),
+                                    str(out.dtype).replace("torch.", "")))
 
     def add(self, kernel: str, work: dict) -> None:
         """One call of ``kernel`` doing ``work`` ({"flops", "bytes"})."""
@@ -184,7 +233,41 @@ class Count:
 
     def report(self) -> dict:
         return {"flops": self.flops, "bytes": self.bytes,
-                "kernels": {k: dict(v) for k, v in self.kernels.items()}}
+                "kernels": {k: dict(v) for k, v in self.kernels.items()},
+                "collectives": {**self.collectives,
+                                "total": sum(self.collectives.values())},
+                "collective_calls": dict(self.collective_calls)}
+
+
+def _patch_alltoall() -> None:
+    """Count DTensor's all-to-all as one, where a CPU mesh carries it out
+    as an all-gather and a chunk (``shard_dim_alltoall``)."""
+    try:
+        from torch.distributed.tensor import placement_types as pt
+    except ImportError:         # a build without torch.distributed
+        return
+    orig = getattr(pt, "shard_dim_alltoall", None)
+    if orig is None:
+        return
+
+    def counted(input, gather_dim, shard_dim, mesh, mesh_dim):
+        _INSIDE.append(True)
+        try:
+            out = orig(input, gather_dim, shard_dim, mesh, mesh_dim)
+        finally:
+            _INSIDE.pop()
+        for c in _OPEN:
+            c.add_collective("all-to-all", out)
+        return out
+
+    _PATCHED.append(orig)
+    pt.shard_dim_alltoall = counted
+
+
+def _unpatch_alltoall() -> None:
+    if _PATCHED:
+        from torch.distributed.tensor import placement_types as pt
+        pt.shard_dim_alltoall = _PATCHED.pop()
 
 
 def add_kernel(kernel: str, work: dict) -> None:

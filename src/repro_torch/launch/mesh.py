@@ -14,9 +14,17 @@ counterpart of ``XLA_FLAGS=--xla_force_host_platform_device_count=n``,
 and read here only.  ``distributed.initialize_multiprocess`` sets it for
 its process.
 
-Left out: ``make_production_mesh`` (a 16 x 16 TPU mesh, which waits for
-model sharding across cards) and the TPU's peak constants (the card's are
-``repro_torch.card.peaks``).
+Model sharding (module 12b) lays a mesh over the ranks of a process group
+instead: ``ShardMesh`` is a ``torch.distributed.DeviceMesh`` read the same
+way (``.shape[...]``, ``.axis_names``), made by ``make_device_mesh`` (a
+debug shape, or ``from_slots`` of a slot ``Mesh``'s shape) or
+``make_production_mesh`` (the reference's (16, 16) pod and (2, 16, 16)
+multi-pod meshes).  Its ranks are simulated in this process
+(``distributed.simulated_world``); real ranks on several cards over NCCL
+wait for more than one card.
+
+Left out: the TPU's peak constants (the card's, its link rate among them,
+are ``repro_torch.card.peaks``).
 """
 from __future__ import annotations
 
@@ -125,3 +133,74 @@ def grid_axes(mesh) -> tuple:
     independent programs, so the whole mesh -- every axis, pods included
     -- is one flat pool of cell slots."""
     return tuple(mesh.axis_names)
+
+
+class ShardMesh:
+    """A ``torch.distributed.DeviceMesh`` of ranks with named axes, read as
+    the reference reads a jax ``Mesh``: ``shape`` (axis name -> size),
+    ``axis_names``, ``size``; ``device_mesh`` is the DeviceMesh that
+    DTensors are laid out on."""
+
+    def __init__(self, device_mesh):
+        self.device_mesh = device_mesh
+        self.axis_names = tuple(device_mesh.mesh_dim_names)
+        self.shape = dict(zip(self.axis_names, device_mesh.shape))
+        self.device_type = device_mesh.device_type
+
+    @property
+    def size(self) -> int:
+        return int(np.prod(list(self.shape.values())))
+
+    def local_rank(self, axis: str):
+        """This rank's coordinate on ``axis``: an int, or under
+        ``LocalTensorMode`` one int per simulated rank (a SymInt)."""
+        return self.device_mesh.get_local_rank(axis)
+
+    def __repr__(self) -> str:
+        return (f"ShardMesh({', '.join(f'{a}={n}' for a, n in self.shape.items())};"
+                f" {self.device_type})")
+
+
+def make_device_mesh(shape: Sequence[int], axis_names: Sequence[str],
+                     device_type: str = "cpu") -> ShardMesh:
+    """A mesh of prod(shape) ranks of the open process group (a
+    ``distributed.simulated_world`` of that many) on ``device_type``."""
+    import torch.distributed as tdist
+    from torch.distributed.device_mesh import init_device_mesh
+    need = int(np.prod(shape))
+    if not tdist.is_initialized() or tdist.get_world_size() != need:
+        raise RuntimeError(
+            f"a mesh of shape {tuple(shape)} needs a world of {need} ranks: "
+            f"open distributed.simulated_world({need}) first")
+    return ShardMesh(init_device_mesh(device_type, tuple(shape),
+                                      mesh_dim_names=tuple(axis_names)))
+
+
+def from_slots(mesh: Mesh, device_type: Optional[str] = None) -> ShardMesh:
+    """The ranks' mesh of a slot ``Mesh``'s shape and axes, on
+    ``device_type`` (default: the type of its first slot)."""
+    if device_type is None:
+        device_type = mesh.devices.flat[0].type
+    return make_device_mesh(tuple(mesh.shape.values()), mesh.axis_names,
+                            device_type)
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: str = "cpu") -> ShardMesh:
+    """The reference's production mesh: ("data", "model") = (16, 16), or
+    with ``multi_pod`` ("pod", "data", "model") = (2, 16, 16); over a
+    ``distributed.simulated_world`` of 256 or 512 ranks."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_device_mesh(shape, axes, device_type)
+
+
+def make_debug_device_mesh(data: int = 2, model: int = 2, *,
+                           multi_pod: bool = False,
+                           device_type: str = "cpu") -> ShardMesh:
+    """``make_debug_mesh``'s shapes over ranks: (data, model), or
+    (2, data, model) with ``multi_pod``."""
+    if multi_pod:
+        return make_device_mesh((2, data, model), ("pod", "data", "model"),
+                                device_type)
+    return make_device_mesh((data, model), ("data", "model"), device_type)

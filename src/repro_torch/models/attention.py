@@ -36,22 +36,28 @@ from repro_torch.kernels.ref import NEG_INF, grouped_attention
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense, dense_def, rmsnorm,
                                        rmsnorm_def)
-from repro_torch.models.param import ParamDef
+from repro_torch.models.param import P, ParamDef, divisible
 
 
-def gqa_def(cfg: ModelConfig) -> dict:
+def gqa_def(cfg: ModelConfig, tp: int = 16) -> dict:
     dh = cfg.resolved_head_dim
     d = cfg.d_model
     kv = cfg.n_kv_heads * dh
+    kv_ax = "model" if divisible(kv, tp) else None
     defs = {
-        "wq": dense_def(d, cfg.n_heads * dh, cfg, bias=cfg.qkv_bias),
-        # k and v as one [D, 2, KV] weight, as the reference
+        "wq": dense_def(d, cfg.n_heads * dh, cfg, tp_out=True,
+                        bias=cfg.qkv_bias, tp=tp),
+        # k and v as one [D, 2, KV] weight, as the reference: the k/v axis
+        # unsharded, KV over 'model'
         "wkv": ParamDef((d, 2, kv), init="scaled", fan_in=d,
-                        dtype=cfg.param_dtype),
-        "wo": dense_def(cfg.n_heads * dh, d, cfg),
+                        dtype=cfg.param_dtype,
+                        spec=P("data" if divisible(d, tp) else None, None,
+                               kv_ax)),
+        "wo": dense_def(cfg.n_heads * dh, d, cfg, tp_out=False, tp=tp),
     }
     if cfg.qkv_bias:
-        defs["bkv"] = ParamDef((2, kv), init="zeros", dtype=cfg.param_dtype)
+        defs["bkv"] = ParamDef((2, kv), init="zeros", dtype=cfg.param_dtype,
+                               spec=P(None, kv_ax))
     if cfg.qk_norm:
         defs["q_norm"] = rmsnorm_def(dh, cfg.param_dtype)
         defs["k_norm"] = rmsnorm_def(dh, cfg.param_dtype)
@@ -102,6 +108,70 @@ def _cache_write(cache: dict, k_new: torch.Tensor, v_new: torch.Tensor,
     return cache
 
 
+def gqa_q(p, x: torch.Tensor, cfg: ModelConfig, n_heads: int):
+    """q [B, S, n_heads, Dh] from ``wq`` (its columns of n_heads heads),
+    qk-normed; no RoPE yet."""
+    b, s, _ = x.shape
+    dh = cfg.resolved_head_dim
+    q = dense(p["wq"], x, cfg.compute_dtype).reshape(b, s, n_heads, dh)
+    return rmsnorm(p["q_norm"], q, cfg.norm_eps) if cfg.qk_norm else q
+
+
+def gqa_kv(p, x: torch.Tensor, cfg: ModelConfig, n_kv_heads: int):
+    """(k, v) [B, S, n_kv_heads, Dh] from ``wkv`` (its columns of
+    n_kv_heads heads) and ``bkv``, k qk-normed; no RoPE yet."""
+    b, s, _ = x.shape
+    dh = cfg.resolved_head_dim
+    wkv = p["wkv"].to(cfg.compute_dtype)                    # [D, 2, KV]
+    kv2 = (x.to(cfg.compute_dtype) @ wkv.reshape(wkv.shape[0], -1)
+           ).unflatten(-1, wkv.shape[1:])
+    if "bkv" in p:
+        kv2 = kv2 + p["bkv"].to(cfg.compute_dtype)
+    k = kv2[..., 0, :].reshape(b, s, n_kv_heads, dh)
+    v = kv2[..., 1, :].reshape(b, s, n_kv_heads, dh)
+    if cfg.qk_norm:
+        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
+    return k, v
+
+
+def gqa_attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               cfg: ModelConfig, *, kind: str, pos_offset: int = 0,
+               cache: Optional[dict] = None, decode: bool = False,
+               use_kernel: bool = True, select=None, q_offset=0):
+    """The attention of roped q [B, Sq, H, Dh] over roped k, v [B, S, KH,
+    Dh] (S = Sq but for a query block), writing k and v into ``cache``
+    first when given; [B, Sq, H, Dh].  ``select`` maps the cache's (or
+    k's and v's) KV heads to those q's heads read (a rank's heads of a
+    model sharded over a mesh); ``q_offset`` is the first query row's
+    position in the segment (its query-sequence block)."""
+    causal = kind != "enc_attn"
+    window = cfg.window if kind in ("swa", "local") else None
+    select = select or (lambda t: t)
+    if decode:
+        if cache is None or q.shape[1] != 1:
+            raise ValueError("decode takes one token against a cache")
+        cap = cache["k"].shape[1]
+        ring = window is not None and cap <= window
+        _cache_write(cache, k, v, pos_offset, ring)
+        slots = torch.arange(cap, device=q.device)
+        if ring:
+            # absolute position of slot i from the write pointer; slots never
+            # written decode to negative positions: push them into the future
+            kpos = pos_offset - torch.remainder(pos_offset - slots, cap)
+            kpos = torch.where(kpos < 0, pos_offset + 1, kpos)
+        else:
+            kpos = slots
+        positions = pos_offset + torch.arange(1, device=q.device)
+        return grouped_attention(q, select(cache["k"]), select(cache["v"]),
+                                 positions, kpos, causal=True, window=window)
+    if cache is not None:
+        ring = window is not None and cache["k"].shape[1] <= window
+        _cache_write(cache, k, v, pos_offset, ring)
+    return flash_attention(q, select(k), select(v).contiguous(),
+                           causal=causal, window=window,
+                           use_kernel=use_kernel, q_offset=q_offset)
+
+
 def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str = "attn",
               pos_offset: int = 0, cache: Optional[dict] = None,
               decode: bool = False, use_kernel: bool = True):
@@ -116,72 +186,35 @@ def gqa_apply(p, x: torch.Tensor, cfg: ModelConfig, *, kind: str = "attn",
     """
     if kind not in ("attn", "swa", "local", "enc_attn"):
         raise ValueError(f"unknown attention kind {kind!r}")
-    causal = kind != "enc_attn"
-    if not causal and (decode or cache is not None):
+    if kind == "enc_attn" and (decode or cache is not None):
         # the reference never decodes an encoder layer: its caches have no
         # entry for one
         raise ValueError("an enc_attn layer keeps no cache and never decodes")
     b, s, _ = x.shape
-    dh = cfg.resolved_head_dim
-    ct = cfg.compute_dtype
-    window = cfg.window if kind in ("swa", "local") else None
-
-    q = dense(p["wq"], x, ct).reshape(b, s, cfg.n_heads, dh)
-    wkv = p["wkv"].to(ct)                                   # [D, 2, KV]
-    kv2 = (x.to(ct) @ wkv.reshape(wkv.shape[0], -1)).unflatten(
-        -1, wkv.shape[1:])
-    if "bkv" in p:
-        kv2 = kv2 + p["bkv"].to(ct)
-    k = kv2[..., 0, :].reshape(b, s, cfg.n_kv_heads, dh)
-    v = kv2[..., 1, :].reshape(b, s, cfg.n_kv_heads, dh)
-    if cfg.qk_norm:
-        q = rmsnorm(p["q_norm"], q, cfg.norm_eps)
-        k = rmsnorm(p["k_norm"], k, cfg.norm_eps)
-
+    q = gqa_q(p, x, cfg, cfg.n_heads)
+    k, v = gqa_kv(p, x, cfg, cfg.n_kv_heads)
     positions = pos_offset + torch.arange(s, device=x.device)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
-
-    if decode:
-        if cache is None or s != 1:
-            raise ValueError("decode takes one token against a cache")
-        cap = cache["k"].shape[1]
-        ring = window is not None and cap <= window
-        _cache_write(cache, k, v, pos_offset, ring)
-        slots = torch.arange(cap, device=x.device)
-        if ring:
-            # absolute position of slot i from the write pointer; slots never
-            # written decode to negative positions: push them into the future
-            kpos = pos_offset - torch.remainder(pos_offset - slots, cap)
-            kpos = torch.where(kpos < 0, pos_offset + 1, kpos)
-        else:
-            kpos = slots
-        out = grouped_attention(q, cache["k"], cache["v"], positions, kpos,
-                                causal=True, window=window)
-    else:
-        if cache is not None:
-            ring = window is not None and cache["k"].shape[1] <= window
-            _cache_write(cache, k, v, pos_offset, ring)
-        out = flash_attention(q, k, v.contiguous(), causal=causal,
-                              window=window, use_kernel=use_kernel)
-
-    out = out.reshape(b, s, cfg.n_heads * dh)
-    return dense(p["wo"], out, ct), cache
+    out = gqa_attend(q, k, v, cfg, kind=kind, pos_offset=pos_offset,
+                     cache=cache, decode=decode, use_kernel=use_kernel)
+    out = out.reshape(b, s, -1)
+    return dense(p["wo"], out, cfg.compute_dtype), cache
 
 
 # ---------------------------------------------------------------------------
 # Cross-attention (encoder-decoder)
 # ---------------------------------------------------------------------------
 
-def cross_def(cfg: ModelConfig) -> dict:
+def cross_def(cfg: ModelConfig, tp: int = 16) -> dict:
     """Separate q, k, v and output projections: no bias, no qk-norm, no
     RoPE, as the reference."""
     dh = cfg.resolved_head_dim
     d = cfg.d_model
-    return {"wq": dense_def(d, cfg.n_heads * dh, cfg),
-            "wk": dense_def(d, cfg.n_kv_heads * dh, cfg),
-            "wv": dense_def(d, cfg.n_kv_heads * dh, cfg),
-            "wo": dense_def(cfg.n_heads * dh, d, cfg)}
+    return {"wq": dense_def(d, cfg.n_heads * dh, cfg, tp_out=True, tp=tp),
+            "wk": dense_def(d, cfg.n_kv_heads * dh, cfg, tp_out=True, tp=tp),
+            "wv": dense_def(d, cfg.n_kv_heads * dh, cfg, tp_out=True, tp=tp),
+            "wo": dense_def(cfg.n_heads * dh, d, cfg, tp_out=False, tp=tp)}
 
 
 def cross_cache(p, memory: torch.Tensor, cfg: ModelConfig) -> dict:
@@ -228,7 +261,7 @@ def cross_apply(p, x: torch.Tensor, memory: Optional[torch.Tensor],
 # MLA: multi-head latent attention (DeepSeek-V3)
 # ---------------------------------------------------------------------------
 
-def mla_def(cfg: ModelConfig) -> dict:
+def mla_def(cfg: ModelConfig, tp: int = 16) -> dict:
     """q through a low-rank bottleneck (``wq_a``, ``q_norm``, ``wq_b``) when
     ``q_lora_rank``, else ``wq``; k and v from one latent of
     ``kv_lora_rank`` plus a shared rope key (``wkv_a``, ``kv_norm``,
@@ -237,16 +270,19 @@ def mla_def(cfg: ModelConfig) -> dict:
     qk = cfg.qk_nope_head_dim + cfg.qk_rope_head_dim
     defs = {}
     if cfg.q_lora_rank:
-        defs["wq_a"] = dense_def(d, cfg.q_lora_rank, cfg)
+        defs["wq_a"] = dense_def(d, cfg.q_lora_rank, cfg, tp_out=True, tp=tp)
         defs["q_norm"] = rmsnorm_def(cfg.q_lora_rank, cfg.param_dtype)
-        defs["wq_b"] = dense_def(cfg.q_lora_rank, h * qk, cfg)
+        defs["wq_b"] = dense_def(cfg.q_lora_rank, h * qk, cfg, tp_out=True,
+                                 tp=tp)
     else:
-        defs["wq"] = dense_def(d, h * qk, cfg)
-    defs["wkv_a"] = dense_def(d, cfg.kv_lora_rank + cfg.qk_rope_head_dim, cfg)
+        defs["wq"] = dense_def(d, h * qk, cfg, tp_out=True, tp=tp)
+    defs["wkv_a"] = dense_def(d, cfg.kv_lora_rank + cfg.qk_rope_head_dim, cfg,
+                              tp_out=True, tp=tp)
     defs["kv_norm"] = rmsnorm_def(cfg.kv_lora_rank, cfg.param_dtype)
     defs["wkv_b"] = dense_def(
-        cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim), cfg)
-    defs["wo"] = dense_def(h * cfg.v_head_dim, d, cfg)
+        cfg.kv_lora_rank, h * (cfg.qk_nope_head_dim + cfg.v_head_dim), cfg,
+        tp_out=True, tp=tp)
+    defs["wo"] = dense_def(h * cfg.v_head_dim, d, cfg, tp_out=False, tp=tp)
     return defs
 
 

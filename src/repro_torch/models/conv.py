@@ -18,7 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from repro_torch.models.param import ParamDef, param_count
+from repro_torch.models.param import P, ParamDef, param_count
 
 INPUT_SHAPE = (32, 32, 3)
 NUM_CLASSES = 10
@@ -38,10 +38,12 @@ def conv_defs(channels: tuple = (16, 32), hidden: int = 128,
         "bc1": ParamDef((c1,), init="zeros"),
         "conv2": ParamDef((3, 3, c1, c2), init="scaled", fan_in=3 * 3 * c1),
         "bc2": ParamDef((c2,), init="zeros"),
-        "w1": ParamDef((pooled, hidden), init="scaled", fan_in=pooled),
-        "b1": ParamDef((hidden,), init="zeros"),
-        "w2": ParamDef((hidden, num_classes), init="scaled", fan_in=hidden),
-        "b2": ParamDef((num_classes,), init="zeros"),
+        "w1": ParamDef((pooled, hidden), init="scaled", fan_in=pooled,
+                       spec=P("data", "model")),
+        "b1": ParamDef((hidden,), init="zeros", spec=P("model")),
+        "w2": ParamDef((hidden, num_classes), init="scaled", fan_in=hidden,
+                       spec=P("model", None)),
+        "b2": ParamDef((num_classes,), init="zeros", spec=P(None)),
     }
 
 

@@ -35,21 +35,21 @@ ENC_SIG = ("enc_attn", "dense")
 DEC_SIG = ("attn", "dense")
 
 
-def encdec_defs(cfg: ModelConfig) -> dict:
+def encdec_defs(cfg: ModelConfig, tp: int = 16, dp: int = 16) -> dict:
     """Parameter definitions, in the reference's order: ``enc_layers``
     (the reference's ``enc_scan``), ``enc_ln_f``, ``embed`` (the decoder's
     tokens), ``dec_layers`` (``dec_scan``, blocks with cross-attention),
     ``ln_f``, ``unembed``."""
     tfm.check_supported(cfg)
     return {
-        "enc_layers": [tfm.layer_def(cfg, ENC_SIG)
+        "enc_layers": [tfm.layer_def(cfg, ENC_SIG, tp, dp)
                        for _ in range(cfg.encoder_layers)],
         "enc_ln_f": rmsnorm_def(cfg.d_model, cfg.param_dtype),
-        "embed": embedding_def(cfg),
-        "dec_layers": [tfm.layer_def(cfg, DEC_SIG, cross=True)
+        "embed": embedding_def(cfg, tp),
+        "dec_layers": [tfm.layer_def(cfg, DEC_SIG, tp, dp, cross=True)
                        for _ in range(cfg.n_layers)],
         "ln_f": rmsnorm_def(cfg.d_model, cfg.param_dtype),
-        "unembed": unembed_def(cfg),
+        "unembed": unembed_def(cfg, tp),
     }
 
 

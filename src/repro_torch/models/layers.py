@@ -5,7 +5,10 @@ Copies of ``repro.models.layers`` as plain functions on tensors, with the
 reference's layouts (weights ``[d_in, d_out]``, the gated MLP's ``wi`` as
 ``[D, 2, F]``) and its casts: norms and RoPE in float32, matmuls in the
 config's compute dtype, logits in float32.  The ``*_def`` functions give
-each weight's shape, init law and dtype (``repro_torch.models.param``).
+each weight's shape, init law, dtype and the reference's sharding spec
+for a model axis of ``tp`` (``repro_torch.models.param``): a
+column-parallel weight's out-dim over "model" and in-dim over "data"
+(FSDP), a row-parallel one the transpose.
 """
 from __future__ import annotations
 
@@ -15,11 +18,11 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param import ParamDef
+from repro_torch.models.param import P, ParamDef, divisible
 
 
 def rmsnorm_def(dim: int, dtype) -> ParamDef:
-    return ParamDef((dim,), init="ones", dtype=dtype)
+    return ParamDef((dim,), init="ones", dtype=dtype, spec=P(None))
 
 
 def rmsnorm(w: torch.Tensor, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
@@ -47,12 +50,24 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     return out.to(x.dtype)
 
 
-def dense_def(d_in: int, d_out: int, cfg: ModelConfig, *,
-              bias: bool = False) -> dict:
+def dense_def(d_in: int, d_out: int, cfg: ModelConfig, *, tp_out: bool,
+              bias: bool = False, tp: int = 16) -> dict:
+    """Weight [d_in, d_out]; ``tp_out``: out-dim over 'model'
+    (column-parallel), else in-dim over 'model' (row-parallel); the other
+    dim over 'data' (FSDP)."""
+    if tp_out:
+        spec = P("data" if divisible(d_in, tp) else None,
+                 "model" if divisible(d_out, tp) else None)
+        bspec = P("model" if divisible(d_out, tp) else None)
+    else:
+        spec = P("model" if divisible(d_in, tp) else None,
+                 "data" if divisible(d_out, tp) else None)
+        bspec = P(None)
     d = {"w": ParamDef((d_in, d_out), init="scaled", fan_in=d_in,
-                       dtype=cfg.param_dtype)}
+                       dtype=cfg.param_dtype, spec=spec)}
     if bias:
-        d["b"] = ParamDef((d_out,), init="zeros", dtype=cfg.param_dtype)
+        d["b"] = ParamDef((d_out,), init="zeros", dtype=cfg.param_dtype,
+                          spec=bspec)
     return d
 
 
@@ -63,17 +78,21 @@ def dense(p, x: torch.Tensor, compute_dtype) -> torch.Tensor:
     return out
 
 
-def mlp_def(cfg: ModelConfig, d_ff: Optional[int] = None) -> dict:
+def mlp_def(cfg: ModelConfig, d_ff: Optional[int] = None,
+            tp: int = 16) -> dict:
     d_ff = d_ff or cfg.d_ff
     defs = {}
     if cfg.ffn_kind in ("swiglu", "geglu"):
-        # gate and up projections as one [D, 2, F] weight, as the reference
-        defs["wi"] = {"w": ParamDef((cfg.d_model, 2, d_ff), init="scaled",
-                                    fan_in=cfg.d_model,
-                                    dtype=cfg.param_dtype)}
+        # gate and up projections as one [D, 2, F] weight, as the
+        # reference; the gate/up axis unsharded, F over 'model'
+        defs["wi"] = {"w": ParamDef(
+            (cfg.d_model, 2, d_ff), init="scaled", fan_in=cfg.d_model,
+            dtype=cfg.param_dtype,
+            spec=P("data" if divisible(cfg.d_model, tp) else None, None,
+                   "model" if divisible(d_ff, tp) else None))}
     else:
-        defs["wi"] = dense_def(cfg.d_model, d_ff, cfg)
-    defs["wo"] = dense_def(d_ff, cfg.d_model, cfg)
+        defs["wi"] = dense_def(cfg.d_model, d_ff, cfg, tp_out=True, tp=tp)
+    defs["wo"] = dense_def(d_ff, cfg.d_model, cfg, tp_out=False, tp=tp)
     return defs
 
 
@@ -94,18 +113,23 @@ def mlp(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     return dense(p["wo"], h, ct)
 
 
-def embedding_def(cfg: ModelConfig) -> ParamDef:
-    return ParamDef((cfg.padded_vocab, cfg.d_model), init="embed",
-                    dtype=cfg.param_dtype)
+def embedding_def(cfg: ModelConfig, tp: int = 16) -> ParamDef:
+    v = cfg.padded_vocab
+    return ParamDef((v, cfg.d_model), init="embed", dtype=cfg.param_dtype,
+                    spec=P("model" if divisible(v, tp) else None,
+                           "data" if divisible(cfg.d_model, tp) else None))
 
 
 def embed(table: torch.Tensor, ids: torch.Tensor, compute_dtype) -> torch.Tensor:
     return table[ids].to(compute_dtype)
 
 
-def unembed_def(cfg: ModelConfig) -> ParamDef:
-    return ParamDef((cfg.d_model, cfg.padded_vocab), init="scaled",
-                    fan_in=cfg.d_model, dtype=cfg.param_dtype)
+def unembed_def(cfg: ModelConfig, tp: int = 16) -> ParamDef:
+    v = cfg.padded_vocab
+    return ParamDef((cfg.d_model, v), init="scaled", fan_in=cfg.d_model,
+                    dtype=cfg.param_dtype,
+                    spec=P("data" if divisible(cfg.d_model, tp) else None,
+                           "model" if divisible(v, tp) else None))
 
 
 def unembed(w: torch.Tensor, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from repro_torch.models.param import ParamDef
+from repro_torch.models.param import P, ParamDef
 
 INPUT_DIM = 784
 HIDDEN_DIM = 1024
@@ -23,10 +23,12 @@ PARAM_DIM = INPUT_DIM * HIDDEN_DIM + HIDDEN_DIM + HIDDEN_DIM * NUM_CLASSES + NUM
 def mlp_defs(hidden: int = HIDDEN_DIM, num_classes: int = NUM_CLASSES,
              input_dim: int = INPUT_DIM) -> dict:
     return {
-        "w1": ParamDef((input_dim, hidden), init="scaled", fan_in=input_dim),
-        "b1": ParamDef((hidden,), init="zeros"),
-        "w2": ParamDef((hidden, num_classes), init="scaled", fan_in=hidden),
-        "b2": ParamDef((num_classes,), init="zeros"),
+        "w1": ParamDef((input_dim, hidden), init="scaled", fan_in=input_dim,
+                       spec=P("data", "model")),
+        "b1": ParamDef((hidden,), init="zeros", spec=P("model")),
+        "w2": ParamDef((hidden, num_classes), init="scaled", fan_in=hidden,
+                       spec=P("model", None)),
+        "b2": ParamDef((num_classes,), init="zeros", spec=P(None)),
     }
 
 

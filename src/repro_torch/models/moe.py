@@ -30,7 +30,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import mlp, mlp_def
-from repro_torch.models.param import ParamDef
+from repro_torch.models.param import P, ParamDef, divisible
 
 
 def expert_capacity(cfg: ModelConfig, seq: int) -> int:
@@ -41,23 +41,27 @@ def expert_capacity(cfg: ModelConfig, seq: int) -> int:
     return max(4, ((cap + 3) // 4) * 4)
 
 
-def moe_def(cfg: ModelConfig) -> dict:
+def moe_def(cfg: ModelConfig, tp: int = 16, dp: int = 16) -> dict:
     """``router`` [D, E] in float32; ``wi`` [E, D, 2, F] (gate and up, as
     the dense MLP's) and ``wo`` [E, F, D] in the param dtype; ``shared``,
     a dense MLP of width ``expert_d_ff * moe_shared_experts``, when the
-    config has shared experts."""
+    config has shared experts.  The experts over 'data' where E divides
+    ``dp`` (else D), F over 'model'."""
     e, d, f = cfg.moe_num_experts, cfg.d_model, cfg.expert_d_ff
+    e_ax = "data" if divisible(e, dp) else None
+    d_ax = None if e_ax == "data" else ("data" if divisible(d, dp) else None)
+    f_ax = "model" if divisible(f, tp) else None
     defs = {
         "router": ParamDef((d, e), init="scaled", fan_in=d,
-                           dtype=torch.float32),
+                           dtype=torch.float32, spec=P(None, None)),
         "wi": ParamDef((e, d, 2, f), init="scaled", fan_in=d,
-                       dtype=cfg.param_dtype),
+                       dtype=cfg.param_dtype, spec=P(e_ax, d_ax, None, f_ax)),
         "wo": ParamDef((e, f, d), init="scaled", fan_in=f,
-                       dtype=cfg.param_dtype),
+                       dtype=cfg.param_dtype, spec=P(e_ax, f_ax, d_ax)),
     }
     if cfg.moe_shared_experts:
         defs["shared"] = mlp_def(cfg, d_ff=cfg.expert_d_ff
-                                 * cfg.moe_shared_experts)
+                                 * cfg.moe_shared_experts, tp=tp)
     return defs
 
 

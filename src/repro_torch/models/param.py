@@ -17,6 +17,14 @@ The language models hold their parameters in a ``ParamTree``: a module
 whose children are indexed like the reference's pytree
 (``p["mixer"]["wq"]["w"]``), with one child per layer where the reference
 stacks the layers of a ``lax.scan``.
+
+Every ``ParamDef`` carries the reference's sharding ``spec`` (``P``: one
+entry per dim, None or mesh axis names, the port's stand-in for jax's
+``PartitionSpec``): "data" is the FSDP axis, "model" the tensor-parallel
+one, and a dim is sharded only where it divides the axis size the defs
+were built for (``tp``, ``dp``; ``divisible``).  ``param_specs`` gives
+the tree of specs, which ``launch.steps.shard_params`` lays a ParamTree
+out by on a mesh.
 """
 from __future__ import annotations
 
@@ -29,12 +37,28 @@ import torch
 from torch import nn
 
 
+class P(tuple):
+    """A partition spec: per dim None (replicated), a mesh axis name, or a
+    tuple of them (sharded over their product); ``tuple(P(...))`` equals
+    ``tuple()`` of the reference's ``PartitionSpec`` of the same axes,
+    which reads a tuple of one axis as that axis."""
+
+    def __new__(cls, *axes):
+        return super().__new__(cls, (
+            (ax[0] if len(ax) == 1 else tuple(ax) if ax else None)
+            if isinstance(ax, (tuple, list)) else ax for ax in axes))
+
+    def __repr__(self) -> str:
+        return f"P{tuple.__repr__(self)}"
+
+
 @dataclasses.dataclass(frozen=True)
 class ParamDef:
     shape: tuple
     init: str = "scaled"          # scaled | zeros | ones | embed
     fan_in: Optional[int] = None  # for 'scaled': 1/sqrt(fan_in)
     dtype: Any = torch.float32
+    spec: P = P()                 # over ("data", "model"); P() replicated
 
     @property
     def size(self) -> int:
@@ -121,6 +145,26 @@ def _map_defs(defs, fn):
     if isinstance(defs, Mapping):
         return {k: _map_defs(v, fn) for k, v in defs.items()}
     return [_map_defs(v, fn) for v in defs]
+
+
+def param_specs(defs):
+    """The tree of ``defs``' specs, in its layout (dicts and lists)."""
+    return _map_defs(defs, lambda d: d.spec)
+
+
+def matmul_spec(d_in_shardable: bool, d_out_shardable: bool,
+                transpose: bool = False) -> P:
+    """Standard 2-D weight sharding: in-dim over 'data', out-dim over
+    'model' (or the Megatron row-parallel transpose)."""
+    if transpose:
+        return P("model" if d_in_shardable else None,
+                 "data" if d_out_shardable else None)
+    return P("data" if d_in_shardable else None,
+             "model" if d_out_shardable else None)
+
+
+def divisible(n: int, by: int) -> bool:
+    return n % by == 0
 
 
 def tree_param_count(defs) -> int:

@@ -51,8 +51,9 @@ class ModelBundle:
         return abstract_params(self.defs, self.device)
 
 
-def _decoder_bundle(cfg: ModelConfig, device: torch.device) -> ModelBundle:
-    defs = tfm.model_defs(cfg)
+def _decoder_bundle(cfg: ModelConfig, device: torch.device, tp: int,
+                    dp: int) -> ModelBundle:
+    defs = tfm.model_defs(cfg, tp, dp)
 
     def loss(params, tokens, sample_weights=None, use_kernel=False):
         return tfm.lm_loss(params, tokens, cfg, sample_weights=sample_weights,
@@ -76,11 +77,12 @@ def _decoder_bundle(cfg: ModelConfig, device: torch.device) -> ModelBundle:
                        num_params=tree_param_count(defs))
 
 
-def _encdec_bundle(cfg: ModelConfig, device: torch.device) -> ModelBundle:
+def _encdec_bundle(cfg: ModelConfig, device: torch.device, tp: int,
+                   dp: int) -> ModelBundle:
     """Inputs are (frames [B, S_frames, D], decoder tokens [B, S]); the
     caches the decoder's self caches, then with the prefill's cross
     caches as the pair (self, cross)."""
-    defs = encdec_mod.encdec_defs(cfg)
+    defs = encdec_mod.encdec_defs(cfg, tp, dp)
 
     def loss(params, batch, sample_weights=None, use_kernel=False):
         frames, tokens = batch
@@ -118,8 +120,11 @@ def _encdec_bundle(cfg: ModelConfig, device: torch.device) -> ModelBundle:
                        num_params=tree_param_count(defs))
 
 
-def build_bundle(cfg: ModelConfig, device: DeviceLike = None) -> ModelBundle:
+def build_bundle(cfg: ModelConfig, device: DeviceLike = None, tp: int = 16,
+                 dp: int = 16) -> ModelBundle:
     """The bundle of ``cfg`` on ``device`` (None: the CUDA card, which must
-    be there; ``"cpu"`` runs every kernel's plain version)."""
+    be there; ``"cpu"`` runs every kernel's plain version), its defs'
+    sharding specs for a model axis of ``tp`` and a data axis of ``dp``
+    (the reference's defaults: its (16, 16) pod mesh)."""
     make = _encdec_bundle if cfg.is_enc_dec else _decoder_bundle
-    return make(cfg, resolve_device(device))
+    return make(cfg, resolve_device(device), tp, dp)

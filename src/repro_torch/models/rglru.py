@@ -30,7 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.models.config import ModelConfig
-from repro_torch.models.param import ParamDef
+from repro_torch.models.param import P, ParamDef, divisible
 
 C_FACTOR = 8.0
 CONV_K = 4
@@ -40,22 +40,32 @@ def _width(cfg: ModelConfig) -> int:
     return cfg.lru_width or cfg.d_model
 
 
-def rglru_def(cfg: ModelConfig) -> dict:
+def rglru_def(cfg: ModelConfig, tp: int = 16) -> dict:
     """The block's weights; ``lam`` stays float32 at every width, as in the
     reference."""
     d, w, pd = cfg.d_model, _width(cfg), cfg.param_dtype
+    in_spec = P("data" if divisible(d, tp) else None,
+                "model" if divisible(w, tp) else None)
+    diag = P("model" if divisible(w, tp) else None)
+    full = P(None, None)
     return {
-        "w_branch": ParamDef((d, w), init="scaled", fan_in=d, dtype=pd),
-        "w_gate": ParamDef((d, w), init="scaled", fan_in=d, dtype=pd),
+        "w_branch": ParamDef((d, w), init="scaled", fan_in=d, dtype=pd,
+                             spec=in_spec),
+        "w_gate": ParamDef((d, w), init="scaled", fan_in=d, dtype=pd,
+                           spec=in_spec),
         "conv_w": ParamDef((CONV_K, w), init="scaled", fan_in=CONV_K,
-                           dtype=pd),
-        "conv_b": ParamDef((w,), init="zeros", dtype=pd),
-        "w_a": ParamDef((w, w), init="scaled", fan_in=w, dtype=pd),
-        "b_a": ParamDef((w,), init="zeros", dtype=pd),
-        "w_x": ParamDef((w, w), init="scaled", fan_in=w, dtype=pd),
-        "b_x": ParamDef((w,), init="zeros", dtype=pd),
-        "lam": ParamDef((w,), init="ones", dtype=torch.float32),
-        "w_out": ParamDef((w, d), init="scaled", fan_in=w, dtype=pd),
+                           dtype=pd, spec=full),
+        "conv_b": ParamDef((w,), init="zeros", dtype=pd, spec=P(None)),
+        "w_a": ParamDef((w, w), init="scaled", fan_in=w, dtype=pd,
+                        spec=full),
+        "b_a": ParamDef((w,), init="zeros", dtype=pd, spec=diag),
+        "w_x": ParamDef((w, w), init="scaled", fan_in=w, dtype=pd,
+                        spec=full),
+        "b_x": ParamDef((w,), init="zeros", dtype=pd, spec=diag),
+        "lam": ParamDef((w,), init="ones", dtype=torch.float32, spec=diag),
+        "w_out": ParamDef((w, d), init="scaled", fan_in=w, dtype=pd,
+                          spec=P("model" if divisible(w, tp) else None,
+                                 "data" if divisible(d, tp) else None)),
     }
 
 

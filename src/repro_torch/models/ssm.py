@@ -23,7 +23,7 @@ import torch.nn.functional as F
 from repro_torch.kernels.ssd_scan import ssd_scan
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import rmsnorm
-from repro_torch.models.param import ParamDef
+from repro_torch.models.param import P, ParamDef, divisible
 
 
 def _dims(cfg: ModelConfig):
@@ -33,24 +33,32 @@ def _dims(cfg: ModelConfig):
     return d_inner, nheads, conv_dim
 
 
-def ssd_def(cfg: ModelConfig) -> dict:
+def ssd_def(cfg: ModelConfig, tp: int = 16) -> dict:
     """The mixer's weights; ``a_log``, ``dt_bias`` and ``d_skip`` stay
-    float32 at every width, as in the reference."""
+    float32 at every width, as in the reference.  ``in_proj``'s out-dim
+    [z, xBC, dt] is sharded over 'model' as one axis, as the reference's,
+    though its parts do not fall on shard boundaries."""
     d = cfg.d_model
     d_inner, nheads, conv_dim = _dims(cfg)
     d_in_proj = 2 * d_inner + 2 * cfg.ssm_ngroups * cfg.ssm_state + nheads
-    pd = cfg.param_dtype
+    pd, f32 = cfg.param_dtype, torch.float32
     return {
-        "in_proj": ParamDef((d, d_in_proj), init="scaled", fan_in=d, dtype=pd),
+        "in_proj": ParamDef((d, d_in_proj), init="scaled", fan_in=d, dtype=pd,
+                            spec=P("data" if divisible(d, tp) else None,
+                                   "model" if divisible(d_in_proj, tp)
+                                   else None)),
         "conv_w": ParamDef((cfg.ssm_conv, conv_dim), init="scaled",
-                           fan_in=cfg.ssm_conv, dtype=pd),
-        "conv_b": ParamDef((conv_dim,), init="zeros", dtype=pd),
-        "a_log": ParamDef((nheads,), init="zeros", dtype=torch.float32),
-        "dt_bias": ParamDef((nheads,), init="zeros", dtype=torch.float32),
-        "d_skip": ParamDef((nheads,), init="ones", dtype=torch.float32),
-        "norm": ParamDef((d_inner,), init="ones", dtype=pd),
+                           fan_in=cfg.ssm_conv, dtype=pd, spec=P(None, None)),
+        "conv_b": ParamDef((conv_dim,), init="zeros", dtype=pd, spec=P(None)),
+        "a_log": ParamDef((nheads,), init="zeros", dtype=f32, spec=P(None)),
+        "dt_bias": ParamDef((nheads,), init="zeros", dtype=f32, spec=P(None)),
+        "d_skip": ParamDef((nheads,), init="ones", dtype=f32, spec=P(None)),
+        "norm": ParamDef((d_inner,), init="ones", dtype=pd, spec=P(None)),
         "out_proj": ParamDef((d_inner, d), init="scaled", fan_in=d_inner,
-                             dtype=pd),
+                             dtype=pd,
+                             spec=P("model" if divisible(d_inner, tp)
+                                    else None,
+                                    "data" if divisible(d, tp) else None)),
     }
 
 
@@ -94,13 +102,31 @@ def ssd_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     given, is updated in place.  ``use_kernel=False`` computes a prefill's
     scan with K4's plain version: the train path's forward, which autograd
     differentiates, and on-card comparison."""
-    bsz, s, _ = x.shape
     d_inner, nheads, _ = _dims(cfg)
-    g, n, hd = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
     ct = cfg.compute_dtype
-
     zxbcdt = x.to(ct) @ p["in_proj"].to(ct)
     z, xbc, dt = _split_proj(cfg, zxbcdt)
+    y = ssd_gated(p, z, xbc, dt, cfg, nheads, cfg.ssm_ngroups, state=state,
+                  decode=decode, use_kernel=use_kernel)
+    # gated RMSNorm, then the out projection
+    y = rmsnorm(p["norm"], y, cfg.norm_eps)
+    return y.to(ct) @ p["out_proj"].to(ct), state
+
+
+def ssd_gated(p, z: torch.Tensor, xbc: torch.Tensor, dt: torch.Tensor,
+              cfg: ModelConfig, nheads: int, ngroups: int, *,
+              state: Optional[dict] = None, decode: bool = False,
+              use_kernel: bool = True) -> torch.Tensor:
+    """The mixer between its two projections, up to the gated norm's
+    input: the conv over xbc [B, S, nheads P + 2 ngroups N], the SSD scan
+    of ``nheads`` heads (``dt`` [B, S, nheads] before softplus), the skip,
+    and ``y * silu(z)`` [B, S, nheads P] in the compute dtype.  ``p``'s
+    ``conv_w``, ``conv_b``, ``a_log``, ``dt_bias`` and ``d_skip`` are those
+    heads' and channels' (all of them, but on a rank of a mesh)."""
+    bsz, s, _ = xbc.shape
+    g, n, hd = ngroups, cfg.ssm_state, cfg.ssm_headdim
+    d_inner = nheads * hd
+    ct = cfg.compute_dtype
     dt = _softplus(dt.float() + p["dt_bias"])             # [B, S, H]
     a_neg = -torch.exp(p["a_log"])                        # [H] < 0
 
@@ -147,8 +173,4 @@ def ssd_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
         if state is not None:       # prefill: stash the trailing conv window
             state["ssm"].copy_(s_fin)
             state["conv"].copy_(xbc[:, -k:])
-
-    # gated RMSNorm, then the out projection
-    y = y.to(ct) * F.silu(z)
-    y = rmsnorm(p["norm"], y, cfg.norm_eps)
-    return y.to(ct) @ p["out_proj"].to(ct), state
+    return y.to(ct) * F.silu(z)

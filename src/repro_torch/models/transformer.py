@@ -44,15 +44,17 @@ from typing import Optional
 import torch
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import distributed as dist
 from repro_torch.models import attention as attn_mod
 from repro_torch.models import moe as moe_mod
 from repro_torch.models import rglru as rglru_mod
+from repro_torch.models import sharded
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embedding_def, mlp, mlp_def,
                                        rmsnorm, rmsnorm_def, unembed,
                                        unembed_def)
-from repro_torch.models.param import ParamDef
+from repro_torch.models.param import P, ParamDef
 
 GQA_KINDS = ("attn", "swa", "local", "enc_attn")
 MIXER_KINDS = GQA_KINDS + ("ssd", "rglru")
@@ -86,45 +88,51 @@ def layer_sigs(cfg: ModelConfig) -> list:
             for i, kind in enumerate(cfg.block_kinds(cfg.n_layers))]
 
 
-def layer_def(cfg: ModelConfig, sig: tuple, cross: bool = False) -> dict:
+def layer_def(cfg: ModelConfig, sig: tuple, tp: int = 16, dp: int = 16,
+              cross: bool = False) -> dict:
     """One block: the mixer of its kind (every kind in GQA_KINDS has the
     same weights: GQA's, or MLA's with ``attn_kind="mla"``), ``ln_cross``
     and ``cross`` when ``cross`` (a decoder block of the encoder-decoder),
     and ``ln2`` and ``ffn`` (a dense MLP or an MoE) unless its FFN is
-    none."""
+    none.  Specs for a model axis of ``tp`` and a data axis of ``dp``."""
     kind, ffn = sig
     attn = attn_mod.mla_def if cfg.attn_kind == "mla" else attn_mod.gqa_def
     mixer = {"ssd": ssm_mod.ssd_def, "rglru": rglru_mod.rglru_def}.get(
         kind, attn)
     d = {"ln1": rmsnorm_def(cfg.d_model, cfg.param_dtype),
-         "mixer": mixer(cfg)}
+         "mixer": mixer(cfg, tp)}
     if cross:
         d["ln_cross"] = rmsnorm_def(cfg.d_model, cfg.param_dtype)
-        d["cross"] = attn_mod.cross_def(cfg)
+        d["cross"] = attn_mod.cross_def(cfg, tp)
     if ffn != "none":
         d["ln2"] = rmsnorm_def(cfg.d_model, cfg.param_dtype)
-        d["ffn"] = moe_mod.moe_def(cfg) if ffn == "moe" else mlp_def(cfg)
+        d["ffn"] = (moe_mod.moe_def(cfg, tp, dp) if ffn == "moe"
+                    else mlp_def(cfg, tp=tp))
     return d
 
 
-def model_defs(cfg: ModelConfig) -> dict:
+def model_defs(cfg: ModelConfig, tp: int = 16, dp: int = 16) -> dict:
     """Parameter definitions of a decoder-only LM: ``embed`` (token inputs
     only), one entry per layer in ``layers``, ``ln_f``, ``unembed`` unless
     tied, and ``mtp`` with ``mtp_depth`` (``proj`` [2D, D], ``ln_in``, a
-    dense attention ``layer``, ``ln_out``: the reference's one module)."""
+    dense attention ``layer``, ``ln_out``: the reference's one module).
+    Specs for a model axis of ``tp`` and a data axis of ``dp``, the
+    reference's defaults (its (16, 16) pod mesh)."""
     check_supported(cfg)
-    defs = {"embed": embedding_def(cfg)} if cfg.input_mode == "tokens" \
-        else {}
-    defs.update(layers=[layer_def(cfg, sig) for sig in layer_sigs(cfg)],
+    defs = {"embed": embedding_def(cfg, tp)} \
+        if cfg.input_mode == "tokens" else {}
+    defs.update(layers=[layer_def(cfg, sig, tp, dp)
+                        for sig in layer_sigs(cfg)],
                 ln_f=rmsnorm_def(cfg.d_model, cfg.param_dtype))
     if not cfg.tie_embeddings:
-        defs["unembed"] = unembed_def(cfg)
+        defs["unembed"] = unembed_def(cfg, tp)
     if cfg.mtp_depth:
         defs["mtp"] = {
             "proj": ParamDef((2 * cfg.d_model, cfg.d_model), init="scaled",
-                             fan_in=2 * cfg.d_model, dtype=cfg.param_dtype),
+                             fan_in=2 * cfg.d_model, dtype=cfg.param_dtype,
+                             spec=P(None, "data")),
             "ln_in": rmsnorm_def(cfg.d_model, cfg.param_dtype),
-            "layer": layer_def(cfg, ("attn", "dense")),
+            "layer": layer_def(cfg, ("attn", "dense"), tp, dp),
             "ln_out": rmsnorm_def(cfg.d_model, cfg.param_dtype),
         }
     return defs
@@ -188,6 +196,7 @@ def apply_layer(p, x: torch.Tensor, cfg: ModelConfig, sig: tuple, *,
         else:
             y = mlp(p["ffn"], h2, cfg)
         x = x + y
+    x = dist.constrain(x, (dist.batch_logical(), "seq", None))
     return x, cache, aux
 
 
@@ -201,7 +210,15 @@ def forward_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     the MoE layers' load-balance losses summed in execution order (0.0
     without MoE); with ``return_hidden`` also the final normed hidden
     state h [B, S, D] that the logits are taken from (the MTP head's
-    input)."""
+    input).  With DTensor parameters and a mesh bound, the model runs on
+    the mesh (``models.sharded``): logits as a DTensor, aux 0.0."""
+    if sharded.on_mesh(params):
+        if return_hidden:
+            raise NotImplementedError("return_hidden on a mesh (MTP: 12c)")
+        logits, caches = sharded.forward(
+            params, tokens, cfg, pos_offset=pos_offset, caches=caches,
+            decode=decode, use_kernel=use_kernel)
+        return logits, caches, 0.0
     h, caches, aux = _hidden_aux(params, tokens, cfg, pos_offset=pos_offset,
                                  caches=caches, decode=decode,
                                  use_kernel=use_kernel)
@@ -217,6 +234,7 @@ def _hidden_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     caches, aux)."""
     x = embed(params["embed"], tokens, cfg.compute_dtype) \
         if cfg.input_mode == "tokens" else tokens.to(cfg.compute_dtype)
+    x = dist.constrain(x, (dist.batch_logical(), "seq", None))
     aux = 0.0
     for i, sig in enumerate(layer_sigs(cfg)):
         x, _, layer_aux = apply_layer(
@@ -349,7 +367,11 @@ def lm_loss(params, tokens: torch.Tensor, cfg: ModelConfig, labels=None,
     ``labels[:, 2:]``: position i of the head, which reads h_i and
     token i + 1 of the input, is trained on input token i + 3 (the
     reference's docstring says i + 2; the port keeps the reference's
-    numbers)."""
+    numbers).  With DTensor parameters and a mesh bound, the loss of the
+    model on the mesh (``models.sharded.lm_loss``)."""
+    if sharded.on_mesh(params) and labels is None:
+        return sharded.lm_loss(params, tokens, cfg, sample_weights,
+                               use_kernel=use_kernel)
     if labels is None:
         inputs, labels = tokens[:, :-1], tokens[:, 1:]
     else:

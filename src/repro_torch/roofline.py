@@ -1,12 +1,16 @@
-"""Roofline terms of the dry-run's records on one card, the dominant
-bound, and the model-FLOPs ratio: the port of ``benchmarks/roofline.py``.
+"""Roofline terms of the dry-run's records, the dominant bound, and the
+model-FLOPs ratio: the port of ``benchmarks/roofline.py``.
 
-    PYTHONPATH=src python -m repro_torch.roofline
+    PYTHONPATH=src python -m repro_torch.roofline [--mesh card|pod|multipod]
 
     compute    = counted FLOPs / the card's bf16 tensor-core peak
     memory     = counted bytes accessed / the card's memory bytes/s
-    collective = 0: one card moves nothing between cards (model sharding
-                 across cards is module 12b)
+    collective = collective bytes per device / the card's link rate each
+                 way (``card.link_rate``: NVLink 4's 450 GB/s on the H100
+                 SXM); 0 on one card.  Reckoned, and a lower bound for a
+                 mesh of more than one node: the reference's 256 (512)
+                 ranks are 32 (64) nodes of 8 cards, and traffic between
+                 nodes crosses a slower network
 
 The counts are the port's (``launch.dryrun``: the eager step on fakes,
 K3 and K4 by their own work) and the peaks the card's published ones
@@ -26,7 +30,7 @@ import json
 import os
 
 from repro_torch import configs
-from repro_torch.card import peaks
+from repro_torch.card import link_rate, peaks
 from repro_torch.launch.dryrun import ARTIFACT_DIR, config_for
 from repro_torch.models.config import ModelConfig
 
@@ -113,9 +117,19 @@ def terms(record: dict) -> dict:
 
 def roofline_row(record: dict) -> dict:
     """The reference's row for one record at its card's peaks
-    (``terms``); the collective term 0 (``collective_note``)."""
+    (``terms``) and its collective term at the card's link rate
+    (``collective_note`` says what it is)."""
     t = terms(record)
     n_dev = record["devices"]
+    coll = record["collective_bytes_per_device"].get("total", 0)
+    link_name, link = link_rate(record.get("card", "H100"))
+    if n_dev == 1:
+        note = "one card: no collective"
+    else:
+        note = (f"reckoned: {coll / 1e9:.3f} GB a device over {link_name}'s "
+                f"NVLink at {link / 1e9:g} GB/s each way, a lower bound: "
+                f"{n_dev} cards span {-(-n_dev // 8)} nodes and between "
+                "them traffic crosses a slower network")
     flops = record["flops_per_device"]
     mf_dev = model_flops(record["arch"], record["shape"]) / n_dev
     return {
@@ -124,9 +138,12 @@ def roofline_row(record: dict) -> dict:
         "devices": n_dev,
         "compute_s": t["compute_s"],
         "memory_s": t["memory_s"],
-        "collective_s": 0.0,
-        "collective_note": "one card (module 12b)",
-        "dominant": t["bound_by"],
+        "collective_s": coll / link,
+        "collective_note": note,
+        "dominant": max((("compute", t["compute_s"]),
+                         ("memory", t["memory_s"]),
+                         ("collective", coll / link)),
+                        key=lambda kv: kv[1])[0],
         "model_flops_per_device": mf_dev,
         "useful_flops_ratio": mf_dev / flops if flops > 0 else 0.0,
         "hbm_gb_per_device": record["memory_analysis"].get(
@@ -173,20 +190,27 @@ def ota_round_step_roofline(n: int = 10, d: int = 814_090,
     return rows
 
 
-def load_records(directory: str = ARTIFACT_DIR) -> list:
+def load_records(directory: str = ARTIFACT_DIR, mesh: str = "card") -> list:
+    """The records of one mesh: ``card`` (one card), ``pod`` or
+    ``multipod``."""
     rows = []
-    for path in sorted(glob.glob(os.path.join(directory, "*_card.json"))):
+    for path in sorted(glob.glob(os.path.join(directory,
+                                              f"*_{mesh}.json"))):
         with open(path) as f:
             rows.append(json.load(f))
     return rows
 
 
-def run(directory: str = ARTIFACT_DIR) -> list:
-    return [roofline_row(r) for r in load_records(directory)]
+def run(directory: str = ARTIFACT_DIR, mesh: str = "card") -> list:
+    return [roofline_row(r) for r in load_records(directory, mesh)]
 
 
 if __name__ == "__main__":
-    for row in run():
+    import argparse
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mesh", default="card",
+                    choices=["card", "pod", "multipod"])
+    for row in run(mesh=ap.parse_args().mesh):
         print(row)
     for row in ota_round_step_roofline():
         print(row)

@@ -1,14 +1,17 @@
 """Markdown tables of the dry-run's records: the port of
 ``benchmarks/tables.py``.
 
-    PYTHONPATH=src python -m repro_torch.tables
+    PYTHONPATH=src python -m repro_torch.tables [--mesh card|pod|multipod]
 
 ``dryrun_table`` renders a record as the reference's does (the port's
 records have its keys: ``collective_bytes_per_device`` all 0 on one
-card); ``roofline_table`` the reference's roofline columns at the card's
-peaks (``roofline.roofline_row``: reckoned from the published peaks, not
-measured).  A record's kernel tally (K3 and K4 by their own work) is in
-its ``kernels``.
+card, by op on a mesh); ``roofline_table`` the reference's roofline
+columns at the card's peaks and link rate (``roofline.roofline_row``:
+reckoned from the published peaks, not measured; the collective term a
+lower bound on a mesh of more than one node).  ``--mesh`` picks the
+records, as the reference's ``benchmarks/tables.py --mesh pod|multipod``
+(default: the one card's).  A record's kernel tally (K3 and K4 by their
+own work) is in its ``kernels``.
 """
 from __future__ import annotations
 
@@ -57,17 +60,23 @@ def roofline_table(records: list) -> str:
 
 
 def main(argv=None):
-    argparse.ArgumentParser(description=__doc__).parse_args(argv)
-    records = roofline.load_records()
+    ap = argparse.ArgumentParser(description=__doc__)
+    ap.add_argument("--mesh", default="card",
+                    choices=["card", "pod", "multipod"])
+    mesh = ap.parse_args(argv).mesh
+    records = roofline.load_records(mesh=mesh)
     cards = []
     for name in sorted({r.get("card", "H100") for r in records}):
         _, (bw, _, bf16) = peaks(name)
         cards.append(f"{name}: {bw / 1e12:g} TB/s, {bf16 / 1e12:g} TFLOP/s "
                      "bf16")
-    print("### Dry-run (one card)\n")
+    where = "one card" if mesh == "card" else f"the {mesh} mesh"
+    print(f"### Dry-run ({where})\n")
     print(dryrun_table(records))
-    print(f"\n### Roofline (one card; reckoned from the published peaks, "
-          f"{'; '.join(cards)}; not measured)\n")
+    links = "" if mesh == "card" else "; the collective term over the " \
+        "card's NVLink each way, a lower bound across nodes"
+    print(f"\n### Roofline ({where}; reckoned from the published peaks, "
+          f"{'; '.join(cards)}{links}; not measured)\n")
     print(roofline_table(records))
 
 

@@ -328,12 +328,20 @@ def test_param_bytes_equal_the_reference(reference_params):
         assert got == reference_params[arch], arch
 
 
-def test_cli_refuses_multi_pod_and_needs_a_pair():
+def test_cli_refuses_multi_pod_and_needs_a_pair(tmp_path, monkeypatch):
+    """``--multi-pod`` runs on the (2, 16, 16) mesh since model sharding
+    (module 12b); it refuses an arch whose model does not run on a mesh
+    yet (mixtral's MoE, ROADMAP.md §1, 12c), and the CLI still needs an
+    (arch, shape) pair."""
+    monkeypatch.setattr(dryrun, "ARTIFACT_DIR", str(tmp_path))
     with pytest.raises(SystemExit):
-        dryrun.main(["--arch", "qwen1.5-0.5b", "--shape", "decode_32k",
+        dryrun.main(["--arch", "mixtral-8x22b", "--shape", "decode_32k",
                      "--multi-pod"])
+    assert list(tmp_path.iterdir()) == []
     with pytest.raises(SystemExit):
         dryrun.main(["--arch", "qwen1.5-0.5b"])
+    with pytest.raises(SystemExit):
+        dryrun.main(["--multi-pod"])
 
 
 def test_dryrun_leaves_the_moe_record_and_plain_counts():

@@ -729,3 +729,100 @@ def test_dryrun_on_cuda_fakes_builds_no_kernel(cuda, monkeypatch):
                                 "bytes_accessed_per_device", "kernels")] \
         == [rec[k] for k in ("flops_per_device",
                              "bytes_accessed_per_device", "kernels")]
+
+
+# ---------------------------------------------------------------------------
+# Model sharding (module 12b): K3's query offset, K3 and K4 on each
+# simulated rank's shards
+# ---------------------------------------------------------------------------
+
+@pytest.mark.parametrize("window", [None, 96])
+@pytest.mark.parametrize("dh", [64, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_q_offset_matches_plain(cuda, dtype, dh, window):
+    """A block of 128 query rows from positions 0, 128, 200 and 384 of a
+    512-key sequence (the query-sequence split's blocks, and one off the
+    tiles' edges), causal or windowed, against the plain version from the
+    same offset."""
+    gen = torch.Generator(device=cuda).manual_seed(7)
+    q = torch.randn((2, 128, 6, dh), generator=gen, device=cuda).to(dtype)
+    k, v = (torch.randn((2, 512, 2, dh), generator=gen,
+                        device=cuda).to(dtype) for _ in range(2))
+    tol = F32_TOL if dtype == torch.float32 else ATTN_BF16_TOL
+    for off in (0, 128, 200, 384):
+        before = flash_attention.launches
+        got = flash_attention(q, k, v, causal=True, window=window,
+                              q_offset=off)
+        want = ref.attention_ref(q, k, v, causal=True, window=window,
+                                 q_offset=off)
+        torch.cuda.synchronize()
+        assert flash_attention.launches == before + 1
+        np.testing.assert_allclose(got.float().cpu().numpy(),
+                                   want.float().cpu().numpy(), **tol)
+    # the offset moves the mask: from 384 the block sees keys the block
+    # from 0 does not
+    assert not torch.allclose(
+        flash_attention(q, k, v, q_offset=384).float(),
+        flash_attention(q, k, v, q_offset=0).float())
+    with pytest.raises(ValueError, match="offset"):
+        flash_attention(q, k, v, q_offset=-1)
+
+
+def test_k3_k4_launch_per_rank_on_simulated_shards(cuda):
+    """Under ``LocalTensorMode`` of 4 ranks, one K3 and one K4 call through
+    ``local_map`` on the ranks' head shards launches once per rank, and the
+    gathered result equals the unsharded call."""
+    import torch.nn.functional as F
+    from torch.distributed.tensor import Replicate, Shard, distribute_tensor
+    from torch.distributed.tensor.experimental import local_map
+    from repro_torch import distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    gen = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn((2, 256, 8, 64), generator=gen, device=cuda)
+               for _ in range(3))
+    x = torch.randn((2, 256, 8, 64), generator=gen, device=cuda)
+    dt = F.softplus(torch.randn((2, 256, 8), generator=gen, device=cuda))
+    a_neg = -torch.exp(0.5 * torch.randn(8, generator=gen, device=cuda))
+    bm, cm = (torch.randn((2, 256, 1, 64), generator=gen, device=cuda)
+              for _ in range(2))
+    want_o = flash_attention(q, k, v)
+    want_y, want_s = ssd_scan(x, dt, a_neg, bm, cm, chunk=64)
+    with dist.simulated_world(4, local=True):
+        mesh = mesh_lib.make_debug_device_mesh(1, 4, device_type="cuda")
+        dm = mesh.device_mesh
+        heads = (Replicate(), Shard(2))
+
+        def put(t, pl):
+            return dist.distribute(t, mesh, pl)
+        before = (flash_attention.launches, ssd_scan.launches)
+        o = local_map(lambda a, b, c: flash_attention(
+            a.contiguous(), b.contiguous(), c.contiguous()),
+                      out_placements=list(heads),
+                      in_placements=(heads,) * 3, device_mesh=dm)(
+            put(q, heads), put(k, heads), put(v, heads))
+        rep = (Replicate(), Replicate())
+        y, st = local_map(
+            lambda a, b, c, d, e: ssd_scan(
+                a.contiguous(), b.contiguous(), c, d, e, chunk=64),
+            out_placements=(list(heads), [Replicate(), Shard(1)]),
+            in_placements=(heads, heads, (Replicate(), Shard(0)), rep, rep),
+            device_mesh=dm)(put(x, heads), put(dt, heads),
+                            put(a_neg, (Replicate(), Shard(0))),
+                            put(bm, rep), put(cm, rep))
+        torch.cuda.synchronize()
+        assert (flash_attention.launches, ssd_scan.launches) == (
+            before[0] + 4, before[1] + 4)
+        got_o = o.full_tensor()
+        got_y, got_s = y.full_tensor(), st.full_tensor()
+        first = next(iter(got_o._local_tensors.values())) \
+            if dist.is_local(got_o) else got_o
+        fy = next(iter(got_y._local_tensors.values())) \
+            if dist.is_local(got_y) else got_y
+        fs = next(iter(got_s._local_tensors.values())) \
+            if dist.is_local(got_s) else got_s
+    np.testing.assert_allclose(first.cpu().numpy(), want_o.cpu().numpy(),
+                               **F32_TOL)
+    np.testing.assert_allclose(fy.cpu().numpy(), want_y.cpu().numpy(),
+                               **F32_TOL)
+    np.testing.assert_allclose(fs.cpu().numpy(), want_s.cpu().numpy(),
+                               **F32_TOL)
