@@ -475,7 +475,28 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      block in bf16 and f32; then K3 (bf16, f32) and K4 at the ranks'
      shapes of (a) and (b), timed, for the kernels line; the phase's
      seconds by part, beside the card line;
- 25. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
+ 25. module 12c on the same simulated (2, 2) mesh, at published widths:
+     (a) recurrentgemma-9b at 6 of its 38 layers (two units of rglru,
+     rglru, local), (b) seamless-m4t-medium at 6 + 6 of its 12 + 12
+     layers on frames and tokens, its self and cross caches, (c)
+     mixtral-8x22b at 2 of its 56 layers, each at 8 x 1,024 and 2
+     decode steps, sharded
+     against unsharded in f32 (logits within SHARD_LOGITS_SHARE["dense"]
+     of their largest, greedy tokens equal, K3 once per rank and attention
+     layer: 4 x 2, 4 x 18 (12 non-causal), 4 x 2; mixtral's kept and
+     dropped assignments per layer, summed over the ranks, tp times the
+     unsharded run's), the reckoned bytes and the peak printed beside
+     each, then the same prefill sharded in bf16 (its wall, K3's
+     launches); (d) two OTA train steps sharded against unsharded:
+     seamless at 2 + 2 layers on (frames, tokens) 4 x 128, mixtral at 1
+     layer 4 x 128 with its aux loss (every parameter within STEP_TOL, K3
+     never); then K3 at a rank's shard of each instance (B 4, S 1,024:
+     recurrentgemma's local layers, 8 heads over KH 1, Dh 256, window
+     2,048; seamless's 8 heads over 8, Dh 64, non-causal and causal;
+     mixtral's 24 heads over KH 4, Dh 128, window 4,096) in bf16 and f32
+     against its plain version, timed with SDPA and its bound; the
+     phase's seconds by part;
+ 26. one JSON line ``{"kernels": [...]}`` (K3 bf16 with the bf16 serve
      run's launches, with each dense arch's serve run's, with the qwen
      train run's eval's, with recurrentgemma's and with seamless's, its
      non-causal and causal launches on two rows, and with mixtral's; K3
@@ -494,8 +515,9 @@ Phases (any failure exits nonzero, and nothing is swallowed):
      unfused fleets' and ``kernel_bench``'s, K3 f32 and K4 with
      ``kernel_bench``'s and serve_decode's; K3 bf16 and f32 and K4 with
      phase 24's sharded runs, a rank's heads, and K3 f32 with its
-     query-sequence split's launches from q_offset), each phase's
-     seconds, then the
+     query-sequence split's launches from q_offset; K3 bf16 and f32 with
+     phase 25's sharded prefills, one row an instance at a rank's shard),
+     each phase's seconds, then the
      last line ``{"ok": true, "device": {...}}``.
 
 TF32 is off throughout (``repro_torch.device.resolve_device``): the
@@ -786,6 +808,37 @@ SHARD_SPLIT = dict(arch="qwen2.5-14b", n_layers=2, n_heads=10, n_kv_heads=2,
 # (1.56e-4 of the largest logit on the card): 1e-3, 50 times under the
 # DRIFT_LOGITS_SHARE that phase 7 holds K4 on vs off to
 SHARD_LOGITS_SHARE = {"dense": 1e-4, "ssd": 1e-3}
+# phase 25: recurrentgemma-9b, seamless-m4t-medium and mixtral-8x22b on the
+# same simulated mesh, at their published widths; depth cut where the
+# card's 80 GB must hold two f32 copies (sharded and not) and the ranks'
+# gathered weights: recurrentgemma 6 of 38 layers (two units of rglru,
+# rglru, local), mixtral 2 of 56 (a MoE layer is 2.42 G parameters, 9.7 GB
+# in f32; the ranks' experts gathered over "data" add 4 x 4.8 GB); seamless
+# at 6 + 6 of its 12 + 12 layers, for the phase's time (at full depth it
+# ran 14.6 s of the phase's 52.1 on one H100, past the 45 s the phase may
+# take).  Each serve case: sharded against unsharded in f32 (logits,
+# greedy tokens, K3 once per rank and attention layer), then the sharded
+# prefill in bf16 (its wall and K3 launches)
+SHARD_12C = {
+    "recurrentgemma-9b": dict(n_layers=6, batch=8, prompt_len=1024,
+                              decode_tokens=2),
+    "seamless-m4t-medium": dict(encoder_layers=6, n_layers=6, batch=8,
+                                frames=1024, prompt_len=1024,
+                                decode_tokens=2),
+    "mixtral-8x22b": dict(n_layers=2, batch=8, prompt_len=1024,
+                          decode_tokens=2),
+}
+# (d) the OTA train step on the mesh, 2 clients, 2 steps as SHARD_TRAIN:
+# seamless at 2 + 2 layers on (frames, tokens) (with 4 + 4, (d) took
+# 25.0 s on one H100), mixtral at 1 layer, its
+# aux loss in the loss (at 2 layers the step would hold the f32 weights,
+# one z draw, the gradients and, saved for the backward, every rank's
+# gathered experts: ~100 GB)
+SHARD_12C_TRAIN = {
+    "seamless-m4t-medium": dict(encoder_layers=2, n_layers=2, batch=4,
+                                seq=128),
+    "mixtral-8x22b": dict(n_layers=1, batch=4, seq=128),
+}
 
 
 class SmokeFailure(Exception):
@@ -4555,6 +4608,32 @@ def _one(torch, x):
     return x
 
 
+def _step_excess(torch, got, want):
+    """The largest of |got - want| less STEP_TOL's bound, in float32: > 0
+    past the tolerance, +inf where ``got`` is not finite (a NaN is no
+    number to compare, and never passes)."""
+    got, want = got.float(), want.float()
+    e = (got - want).abs() - STEP_TOL["atol"] - STEP_TOL["rtol"] * want.abs()
+    return float(torch.nan_to_num(e, nan=float("inf"),
+                                  posinf=float("inf")).max())
+
+
+def _check_losses(label, got, want):
+    """The sharded step's losses within STEP_TOL of the unsharded's (a NaN
+    fails)."""
+    ok = all(abs(g - w) <= STEP_TOL["atol"] + STEP_TOL["rtol"] * abs(w)
+             for g, w in zip(got, want)) and len(got) == len(want)
+    check(ok, f"{label}: sharded losses {got} not within {STEP_TOL} of the "
+          f"unsharded {want}")
+
+
+def _max_abs_diff(torch, a, b):
+    """max |a - b| in float32, a batch row at a time (no whole-size
+    temporaries)."""
+    return max(float((a[i].float() - b[i].float()).abs().max())
+               for i in range(a.shape[0]))
+
+
 def _timed(torch, fn):
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4564,11 +4643,11 @@ def _timed(torch, fn):
 
 
 def shard_k3_row(torch, dev, card, b, s, h, kh, dh, dtype, q_offset=0,
-                 sk=None, gen=None):
+                 sk=None, gen=None, causal=True, window=None):
     """K3 at one rank's shape (its heads, or its query block from
-    ``q_offset`` against ``sk`` keys) against its plain version, timed,
-    with SDPA beside it where the block starts at 0, and the bound of the
-    pairs the mask allows from that offset."""
+    ``q_offset`` against ``sk`` keys; causal, windowed or not) against its
+    plain version, timed, with SDPA beside it where the block starts at
+    0, and the bound of the pairs the mask allows from that offset."""
     from repro_torch.card import median_ms, peaks
     from repro_torch.kernels import ref
     from repro_torch.kernels.flash_attention import flash_attention, work
@@ -4579,23 +4658,26 @@ def shard_k3_row(torch, dev, card, b, s, h, kh, dh, dtype, q_offset=0,
             for _ in range(2))
 
     def kern():
-        return flash_attention(q, k, v, causal=True, q_offset=q_offset)
+        return flash_attention(q, k, v, causal=causal, window=window,
+                               q_offset=q_offset)
 
     def plain():
-        return ref.attention_ref(q, k, v, causal=True, q_offset=q_offset)
+        return ref.attention_ref(q, k, v, causal=causal, window=window,
+                                 q_offset=q_offset)
     got, want = kern().float(), plain().float()
     tol = F32_TOL if dtype == "f32" else ATTN_BF16_TOL
     err = (got - want).abs()
     ok = bool((err <= tol["atol"] + tol["rtol"] * want.abs()).all())
     _, (bw, f32_peak, bf16_peak) = peaks(card)
-    w = work(q, k, v, causal=True, q_offset=q_offset)
+    w = work(q, k, v, causal=causal, window=window, q_offset=q_offset)
     ops_s = w["flops"] / bf16_peak if dtype == "bf16" else min(
         w["flops"] / f32_peak, 3 * w["flops"] / (bf16_peak / 2))
     library = None
     if q_offset == 0 and sk == s:
         from repro_torch.profile_attention import sdpa
-        library = median_ms(sdpa(q, k, v, None, True))
+        library = median_ms(sdpa(q, k, v, window, causal))
     row = {"shape": [b, s, sk, h, kh, dh], "dtype": dtype,
+           "causal": causal, "window": window,
            "q_offset": q_offset, "max_abs_err": float(err.max()),
            "tol": tol, "ok": ok, "ms": median_ms(kern),
            "plain_ms": median_ms(plain), "library_ms": library,
@@ -4831,10 +4913,8 @@ def phase_sharding(torch, np, dev, card, card_line):
         cnt = counts()
         worst, worst_leaf = 0.0, None
         for name, v in param_leaves(sp).items():
-            w_ = param_leaves(ref_params)[name].float()
-            g_ = _one(torch, v).float()
-            excess = float(((g_ - w_).abs() - STEP_TOL["atol"]
-                            - STEP_TOL["rtol"] * w_.abs()).max())
+            excess = _step_excess(torch, _one(torch, v),
+                                  param_leaves(ref_params)[name])
             if worst_leaf is None or excess > worst:
                 worst, worst_leaf = excess, name
     cres = {"clients": data, "losses": got_loss, "unsharded_losses":
@@ -4846,6 +4926,7 @@ def phase_sharding(torch, np, dev, card, card_line):
           f"{tr['seq']} tokens, {data} clients, {tr['steps']} steps: "
           f"{json.dumps(cres)} (tolerance {STEP_TOL})", flush=True)
     check(worst <= 0, f"(c): {worst_leaf} past STEP_TOL by {worst}")
+    _check_losses("(c)", got_loss, want_loss)
     check(cnt["flash_attention"] == 0 and cnt["ssd_scan"] == 0,
           "(c): a kernel launched in training")
     out["train"] = cres
@@ -4922,6 +5003,288 @@ def phase_sharding(torch, np, dev, card, card_line):
     return out
 
 
+def _attn_layers(cfg):
+    """The layers of a prefill that launch K3: every attention layer, the
+    encoder-decoder's decoder layers twice (self and cross)."""
+    if cfg.is_enc_dec:
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return sum(k not in ("rglru", "ssd") for k in cfg.block_kinds())
+
+
+def phase_sharding_12c(torch, np, dev, card, card_line):
+    """Phase 25: recurrentgemma-9b, seamless-m4t-medium and mixtral-8x22b
+    on the simulated (2, 2) mesh of 4 ranks (module 12c): (a)-(c) each
+    served sharded against unsharded in f32 at its published width (the
+    logits within SHARD_LOGITS_SHARE of their largest, the greedy tokens
+    of the decode steps equal, K3 once per rank and attention layer, the
+    reckoned bytes and the peak beside each case; mixtral's kept and
+    dropped assignments per layer, summed over the ranks, the unsharded
+    run's times tp), then the same prefill sharded in bf16 (wall, K3);
+    (d) two OTA train steps of seamless (on (frames, tokens)) and of
+    mixtral (its aux loss in the loss) sharded against unsharded, every
+    parameter within STEP_TOL, K3 never; then K3's instances at a rank's
+    shard of the serve shape in both dtypes, timed, for the kernels
+    line."""
+    import torch.distributed as tdist
+    from repro_torch import configs
+    from repro_torch import distributed as dist
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch import steps
+    from repro_torch.launch.memory import def_bytes
+    from repro_torch.launch.train import make_design
+    from repro_torch.models import moe
+    from repro_torch.models.param import param_leaves
+    from repro_torch.models.registry import build_bundle
+    t_phase, sec, out = time.time(), {}, {}
+    data, model = SHARD_MESH
+    n_ranks = data * model
+    gen = torch.Generator(device=dev).manual_seed(25)
+    f32 = dict(param_dtype=torch.float32, compute_dtype=torch.float32)
+    gib = 2 ** 30
+
+    def world():
+        return dist.simulated_world(n_ranks, local=True)
+
+    def mesh_of():
+        return mesh_lib.make_device_mesh(SHARD_MESH, ("data", "model"),
+                                         dev.type)
+
+    def inputs_of(cfg, c):
+        b, s = c["batch"], c["prompt_len"]
+        toks = torch.randint(0, cfg.vocab_size, (b, s), generator=gen,
+                             device=dev)
+        if not cfg.is_enc_dec:
+            return toks
+        return (torch.randn((b, c["frames"], cfg.d_model), generator=gen,
+                            device=dev), toks)
+
+    def serve_case(label, arch, c):
+        t0 = time.time()
+        b, s, n_dec = c["batch"], c["prompt_len"], c["decode_tokens"]
+        cut = {k: v for k, v in c.items() if k in ("n_layers",
+                                                   "encoder_layers")}
+        cfg = configs.get_config(arch).replace(**cut, **f32)
+        bundle = build_bundle(cfg, dev, tp=model, dp=data)
+        reckoned = 2 * def_bytes(bundle.defs)
+        torch.cuda.reset_peak_memory_stats()
+        print(f"  ({label}) {arch}: {bundle.num_params:,} parameters, "
+              f"reckoned {reckoned / gib:.1f} GiB for the two f32 copies; "
+              f"allocated before the case "
+              f"{torch.cuda.max_memory_allocated() / gib:.1f} GiB",
+              flush=True)
+        params = bundle.init(0)
+        inputs = inputs_of(cfg, c)
+        prefill, serve = steps.make_prefill_step(bundle), \
+            steps.make_serve_step(bundle)
+        moe.experts.kept.clear()
+        with torch.no_grad():
+            want, caches = prefill(params, inputs,
+                                   bundle.init_caches(b, s + n_dec))
+            kept = moe.kept_and_dropped()
+            tok, want_toks = want[:, -1:].argmax(-1), []
+            for i in range(n_dec):
+                tok, caches = serve(params, caches, tok, s + i)
+                want_toks.append(tok)
+        want_toks = torch.cat(want_toks, 1)
+        del caches
+        with world():
+            mesh = mesh_of()
+            sp = steps.shard_params(params, bundle, mesh)
+            del params
+            sc = steps.shard_caches(bundle.init_caches(b, s + n_dec), mesh,
+                                    b)
+            zero_counts()
+            moe.experts.kept.clear()
+            got, sc = steps.make_prefill_step(bundle, mesh)(sp, inputs, sc)
+            torch.cuda.synchronize()
+            cnt = counts()
+            skept = moe.kept_and_dropped()
+            plain = dist.local_mode().disable
+            with plain():
+                full = dist.assemble(got)
+                del got
+                diff = _max_abs_diff(torch, full, want)
+                top = float(want.abs().max())
+                finite = bool(torch.isfinite(full).all())
+                tok = full[:, -1:].argmax(-1)
+                del full, want
+            sserve, toks = steps.make_serve_step(bundle, mesh), []
+            for i in range(n_dec):
+                tok, sc = sserve(sp, sc, tok, s + i)
+                tok = _one(torch, tok)
+                toks.append(tok)
+            toks = torch.cat(toks, 1)
+            del sp, sc
+        peak = torch.cuda.max_memory_allocated()
+        share = SHARD_LOGITS_SHARE["dense"]
+        res = {"layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+               "batch": b, "prompt_len": s, "decode_tokens": n_dec,
+               "logits_max_abs_diff": diff, "logits_max_abs": top,
+               "tolerance_share": share,
+               "equal_tokens": float((toks == want_toks).float().mean()),
+               "k3_launches": cnt["flash_attention"],
+               "k3_noncausal_launches": cnt["flash_attention_noncausal"],
+               "plain_attention": cnt["plain_attention"],
+               "reckoned_gib": reckoned / gib, "peak_gib": peak / gib}
+        want_k3 = n_ranks * _attn_layers(cfg)
+        if kept:
+            per = np.array(skept).reshape(len(kept), n_ranks, 2).sum(1)
+            res["kept_dropped_per_layer"] = kept
+            res["ranks_kept_dropped_per_layer"] = per.tolist()
+            check(per.tolist() == (np.array(kept) * model).tolist(),
+                  f"({label}): the ranks' kept and dropped assignments "
+                  f"{per.tolist()} are not {model} x the unsharded run's "
+                  f"{kept}")
+        print(f"  ({label}) {arch} f32 on a {SHARD_MESH} mesh of {n_ranks} "
+              f"ranks: {json.dumps(res)}", flush=True)
+        check(finite, f"({label}): logits not finite")
+        check(diff <= share * top, f"({label}): sharded logits {diff} from "
+              f"the unsharded over {share} x {top}")
+        check(res["equal_tokens"] == 1.0, f"({label}): greedy tokens differ: "
+              f"{res['equal_tokens']}")
+        check(cnt["flash_attention"] == want_k3
+              and cnt["plain_attention"] == 0,
+              f"({label}): K3 {cnt['flash_attention']} launches (want "
+              f"{n_ranks} ranks x {_attn_layers(cfg)} attention layers), "
+              f"plain {cnt['plain_attention']}")
+
+        # bf16: the sharded prefill's wall and its launches
+        cfg16 = configs.get_config(arch).replace(**cut)
+        b16 = build_bundle(cfg16, dev, tp=model, dp=data)
+        p16 = b16.init(0)
+        with world():
+            mesh = mesh_of()
+            sp = steps.shard_params(p16, b16, mesh)
+            del p16
+            pre = steps.make_prefill_step(b16, mesh)
+            zero_counts()
+            _, ms = _timed(torch, lambda: pre(sp, inputs, steps.shard_caches(
+                b16.init_caches(b, s), mesh, b)))
+            cnt16 = counts()
+            del sp
+        res["bf16"] = {"prefill_ms_simulated_mesh": ms,
+                       "k3_launches": cnt16["flash_attention"],
+                       "k3_noncausal_launches":
+                           cnt16["flash_attention_noncausal"]}
+        print(f"  ({label}) bf16 prefill {b} x {s} on the simulated mesh "
+              f"{ms:.1f} ms (a check that the mesh runs, not a speed); K3 "
+              f"{cnt16['flash_attention']} launches | {card_line}",
+              flush=True)
+        check(cnt16["flash_attention"] == want_k3,
+              f"({label}) bf16: K3 {cnt16['flash_attention']} launches")
+        sec[label] = round(time.time() - t0, 1)
+        return res
+
+    for label, arch in (("a", "recurrentgemma-9b"),
+                        ("b", "seamless-m4t-medium"), ("c", "mixtral-8x22b")):
+        out[arch] = serve_case(label, arch, SHARD_12C[arch])
+
+    # (d) the OTA train step, sharded against unsharded; each step's draws
+    # made anew from (seed, step), the unsharded result held on the host
+    t0 = time.time()
+    tr = SHARD_TRAIN
+    out["train"] = {}
+    for arch, c in SHARD_12C_TRAIN.items():
+        t_arch = time.time()
+        cut = {k: v for k, v in c.items() if k in ("n_layers",
+                                                   "encoder_layers")}
+        cfg = configs.get_config(arch).replace(**cut, **f32)
+        bundle = build_bundle(cfg, dev, tp=model, dp=data)
+        design = make_design(tr["scheme"], data, bundle.num_params, tr["eta"],
+                             seed=0, device=dev)
+        tcfg = steps.TrainStepConfig(eta=tr["eta"])
+        torch.cuda.reset_peak_memory_stats()
+        ref = bundle.init(0)
+        shapes = {k: v.shape for k, v in param_leaves(ref).items()}
+        drawer = steps.DeviceStepDraws(0, design.prm.gains, shapes, dev)
+        tokens = torch.randint(0, cfg.vocab_size, (c["batch"], c["seq"] + 1),
+                               generator=gen, device=dev)
+        batch = tokens if not cfg.is_enc_dec else (torch.randn(
+            (c["batch"], c["seq"], cfg.d_model), generator=gen,
+            device=dev), tokens)
+        step = steps.make_train_step(bundle, design.pc, design.prm.gains,
+                                     tcfg)
+        zero_counts()
+        want_loss = [float(step(ref, batch, drawer(t))[1]["loss"])
+                     for t in range(tr["steps"])]
+        want = {k: v.cpu() for k, v in param_leaves(ref).items()}
+        del ref
+        with world():
+            mesh = mesh_of()
+            # draws made under LocalTensorMode come from each rank's
+            # generator in turn: the init and each step's draws are made
+            # with the mode set aside, the same numbers as above
+            plain = dist.local_mode().disable
+            with plain():
+                p0 = bundle.init(0)
+            sp = steps.shard_params(p0, bundle, mesh)
+            del p0
+            sstep = steps.make_train_step(bundle, design.pc,
+                                          design.prm.gains, tcfg, mesh=mesh)
+            got_loss = []
+            for t in range(tr["steps"]):
+                with plain():
+                    d = drawer(t)
+                got_loss.append(float(_one(torch, sstep(sp, batch, d)[1][
+                    "loss"])))
+                del d
+            torch.cuda.synchronize()
+            cnt = counts()
+            worst, worst_leaf = 0.0, None
+            for name, v in param_leaves(sp).items():
+                with plain():
+                    excess = _step_excess(torch, dist.assemble(v),
+                                          want[name].to(dev))
+                if worst_leaf is None or excess > worst:
+                    worst, worst_leaf = excess, name
+            del sp
+        res = {"layers": cfg.n_layers, "encoder_layers": cfg.encoder_layers,
+               "clients": data, "batch": c["batch"], "seq": c["seq"],
+               "losses": got_loss, "unsharded_losses": want_loss,
+               "worst_leaf": worst_leaf, "worst_excess": worst,
+               "k3_launches": cnt["flash_attention"],
+               "peak_gib": torch.cuda.max_memory_allocated() / gib}
+        print(f"  (d) the OTA train step, {arch} f32: {json.dumps(res)} "
+              f"(tolerance {STEP_TOL})", flush=True)
+        check(worst <= 0, f"(d) {arch}: {worst_leaf} past STEP_TOL by "
+              f"{worst}")
+        _check_losses(f"(d) {arch}", got_loss, want_loss)
+        check(cnt["flash_attention"] == 0, f"(d) {arch}: K3 launched in "
+              "training")
+        out["train"][arch] = res
+        del want
+        sec[f"d {arch}"] = round(time.time() - t_arch, 1)
+    sec["d"] = round(time.time() - t0, 1)
+
+    # the kernels line's rows: K3's instances at a rank's shard of the
+    # serve shape (B 8 / 2, S 1,024), both dtypes
+    t0 = time.time()
+    rows = {}
+    for key, arch, causal, window in (
+            ("recurrentgemma-9b", "recurrentgemma-9b", True, "cfg"),
+            ("seamless_noncausal", "seamless-m4t-medium", False, None),
+            ("seamless_causal", "seamless-m4t-medium", True, None),
+            ("mixtral-8x22b", "mixtral-8x22b", True, "cfg")):
+        cfg = configs.get_config(arch)
+        h, kh = cfg.n_heads // model, cfg.n_kv_heads
+        kh = kh // model if kh % model == 0 else kh
+        for dt in ("bf16", "f32"):
+            rows[(key, dt)] = shard_k3_row(
+                torch, dev, card, SHARD_12C[arch]["batch"] // data,
+                SHARD_12C[arch]["prompt_len"], h, kh, cfg.resolved_head_dim,
+                dt, gen=gen, causal=causal,
+                window=cfg.window if window == "cfg" else None)
+            print(f"  K3 {dt} at a rank's shard of {key}: "
+                  f"{json.dumps(rows[(key, dt)])}", flush=True)
+    out["k3_rows"] = rows
+    sec["rows"] = round(time.time() - t0, 1)
+    check(not tdist.is_initialized(), "a simulated world was left open")
+    out["seconds"] = {**sec, "phase": round(time.time() - t_phase, 1)}
+    print(f"  phase 25 seconds: {json.dumps(out['seconds'])} | {card_line}",
+          flush=True)
+    return out
+
+
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
@@ -4948,7 +5311,7 @@ def main() -> int:
 
 
 def run_phases(torch, pool, grid_designs_path) -> int:
-    """Phases 1-25; the designs made ahead are solved in ``pool``, the
+    """Phases 1-26; the designs made ahead are solved in ``pool``, the
     grid smoke's (phase 23) into ``grid_designs_path``."""
     import numpy as np
     from repro_torch.card import peaks
@@ -5116,7 +5479,12 @@ def run_phases(torch, pool, grid_designs_path) -> int:
           "qwen1.5-0.5b served and trained, the mamba2 prefill, the "
           "query-sequence split with K3's q_offset")
     shard = phase_sharding(torch, np, dev, card, card_line)
-    begin(25, "the kernels line")
+    begin(25, "recurrentgemma-9b, seamless-m4t-medium and mixtral-8x22b on "
+          "the simulated mesh: the RG-LRU, the encoder-decoder and MoE "
+          "sharded against unsharded, K3 on each rank's heads, OTA train "
+          "steps")
+    shard12c = phase_sharding_12c(torch, np, dev, card, card_line)
+    begin(26, "the kernels line")
     launches = {("ota_round_step", "f32"): main_counts["ota_round_step"],
                 ("ota_round_step", "bf16"):
                     path_counts["fused_bf16"]["ota_round_step"],
@@ -5266,6 +5634,25 @@ def run_phases(torch, pool, grid_designs_path) -> int:
                  "flash_attention", shard["split"]["k3_launches"],
                  shard["split"]["k3_q_offset"][
                      f"f32_r{SHARD_SPLIT['mesh'][1] - 1}"]))
+    for key, arch, what in (
+            ("recurrentgemma-9b", "recurrentgemma-9b",
+             "local layers, a rank's 8 heads over KH 1, Dh 256, window 2048"),
+            ("seamless_noncausal", "seamless-m4t-medium",
+             "encoder and cross, non-causal, a rank's 8 heads over 8"),
+            ("seamless_causal", "seamless-m4t-medium",
+             "causal decoder, a rank's 8 heads over 8"),
+            ("mixtral-8x22b", "mixtral-8x22b",
+             "a rank's 24 heads over KH 4, Dh 128, window 4096")):
+        for dt in ("bf16", "f32"):
+            res = shard12c[arch] if dt == "f32" else shard12c[arch]["bf16"]
+            n_launch = res["k3_launches"]
+            if key.startswith("seamless"):
+                nc = res["k3_noncausal_launches"]
+                n_launch = nc if key == "seamless_noncausal" \
+                    else n_launch - nc
+            rows.append((f"flash_attention[{dt}, {arch} sharded over "
+                         f"{mesh_label}: {what}]", "flash_attention",
+                         n_launch, shard12c["k3_rows"][(key, dt)]))
     kernels = [{
         "name": label, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": n_launch,
@@ -5274,21 +5661,21 @@ def run_phases(torch, pool, grid_designs_path) -> int:
         "bound_by": row["bound_by"], "library_ms": row.get("library_ms")}
         for label, name, n_launch, row in rows]
     agg_bf16 = kres[("ota_aggregate", "bf16", MAIN[2])]
-    print(f"[25] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
+    print(f"[26] ota_aggregate[bf16] (no path hands K2 a bf16 g): "
           f"{json.dumps(agg_bf16)}", flush=True)
-    print(f"[25] round walls ms: {json.dumps(walls)}", flush=True)
-    print(f"[25] curves: {json.dumps(curve_stats)}", flush=True)
-    print(f"[25] scenarios: {json.dumps(scen['walls'])}", flush=True)
-    print(f"[25] single run: {json.dumps(single)}", flush=True)
-    print(f"[25] population: {json.dumps(popr['walls'])}", flush=True)
-    print(f"[25] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
+    print(f"[26] round walls ms: {json.dumps(walls)}", flush=True)
+    print(f"[26] curves: {json.dumps(curve_stats)}", flush=True)
+    print(f"[26] scenarios: {json.dumps(scen['walls'])}", flush=True)
+    print(f"[26] single run: {json.dumps(single)}", flush=True)
+    print(f"[26] population: {json.dumps(popr['walls'])}", flush=True)
+    print(f"[26] cifar_conv with telemetry: {json.dumps(cifar['walls'])}",
           flush=True)
-    print("[25] dense archs: " + json.dumps(
+    print("[26] dense archs: " + json.dumps(
         {arch: {k: st[k] for k in ("batch", "prefill_ms",
                                    "decode_ms_per_token", "peak_mem_gb",
                                    "batch_fits")}
          for arch, (st, _) in dense.items()}), flush=True)
-    print("[25] train: " + json.dumps(
+    print("[26] train: " + json.dumps(
         {arch: {k: trained[arch][k] for k in (
             "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
             "first_loss", "final_loss", "held_out_loss", "peak_mem_gb")}
@@ -5296,7 +5683,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
         | {"lm_curves_wall_s": trained["curves"]["wall_s"],
            "lm_curves_step_ms": trained["curves"]["step_ms"]}),
         flush=True)
-    print("[25] recurrentgemma-9b: " + json.dumps(
+    print("[26] recurrentgemma-9b: " + json.dumps(
         {"bf16": {k: rgemma["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: rgemma["f32"][k] for k in (
@@ -5305,7 +5692,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
          "ring": {k: rgemma["ring"][k] for k in (
              "layers", "batch", "prompt_len", "window", "prefill_ms",
              "decode_ms_per_token", "equal_tokens")}}), flush=True)
-    print("[25] seamless-m4t-medium: " + json.dumps(
+    print("[26] seamless-m4t-medium: " + json.dumps(
         {"bf16": {k: seamless["bf16"][k] for k in (
             "batch", "prefill_ms", "decode_ms_per_token", "peak_mem_gb")},
          "f32": {k: seamless["f32"][k] for k in (
@@ -5316,7 +5703,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
          "ragged": {k: seamless["ragged"][k] for k in (
              "memory_max_abs_err", "dec_layer0_max_abs_err",
              "logits_max_abs_diff", "equal_next_tokens")}}), flush=True)
-    print("[25] mixtral-8x22b: " + json.dumps(
+    print("[26] mixtral-8x22b: " + json.dumps(
         {"bf16": {k: mixtral["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -5334,7 +5721,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
              "steps", "step_ms", "first_step_ms", "tokens_per_s", "eval_ms",
              "first_loss", "final_loss", "held_out_loss", "eval_aux",
              "peak_mem_gb")}}), flush=True)
-    print("[25] deepseek-v3-671b: " + json.dumps(
+    print("[26] deepseek-v3-671b: " + json.dumps(
         {"bf16": {k: deepseek["bf16"][k] for k in (
             "layers", "batch", "prefill_ms", "decode_ms_per_token",
             "peak_mem_gb", "reckoned_peak_gb",
@@ -5349,7 +5736,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
              "first_loss", "final_loss", "held_out_loss", "eval_mtp_xent",
              "peak_mem_gb")},
          "seconds": deepseek["seconds"]}), flush=True)
-    print("[25] train at 4,096 tokens: " + json.dumps(
+    print("[26] train at 4,096 tokens: " + json.dumps(
         {arch: {k: long_train[arch][k] for k in (
             "layers", "steps", "clients", "seq", "step_ms", "first_step_ms",
             "tokens_per_s", "eval_ms", "first_loss", "final_loss",
@@ -5358,7 +5745,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
         | {"forms": long_train["forms"], "eval_k3": long_train["eval_k3"],
            "step_vs_explicit": long_train["step_vs_explicit"],
            "seconds": long_train["seconds"]}), flush=True)
-    print("[25] seamless-m4t-medium train at 4,096 tokens: " + json.dumps(
+    print("[26] seamless-m4t-medium train at 4,096 tokens: " + json.dumps(
         {"bf16": {k: seamless_train["bf16"][k] for k in (
             "encoder_layers", "layers", "steps", "clients", "seq", "step_ms",
             "first_step_ms", "tokens_per_s", "eval_ms", "first_loss",
@@ -5368,7 +5755,7 @@ def run_phases(torch, pool, grid_designs_path) -> int:
          "eval_k3": seamless_train["eval_k3"],
          "step_vs_explicit": seamless_train["step_vs_explicit"],
          "seconds": seamless_train["seconds"]}), flush=True)
-    print(f"[25] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
+    print(f"[26] serve: prefill {serve_stats['prefill_ms']:.3f} ms, decode "
           f"{serve_stats['decode_ms_per_token']:.3f} ms per token "
           f"(batch {serve_stats['batch']}); f32 prefill "
           f"{drift['f32']['prefill_ms']:.3f} ms, decode "
@@ -5378,18 +5765,24 @@ def run_phases(torch, pool, grid_designs_path) -> int:
           f"{ssd_stats['prefill_ms']:.3f} ms, decode "
           f"{ssd_stats['decode_ms_per_token']:.3f} ms per token; total "
           f"{time.time() - t_start:.1f} s", flush=True)
-    print(f"[25] scripts: {json.dumps(scripts['seconds'])}", flush=True)
-    print("[25] placement: " + json.dumps(
+    print(f"[26] scripts: {json.dumps(scripts['seconds'])}", flush=True)
+    print("[26] placement: " + json.dumps(
         {k: place[k] for k in ("walls", "gaps", "bench", "seconds")}),
         flush=True)
-    print("[25] roofline shares: " + json.dumps(
+    print("[26] roofline shares: " + json.dumps(
         {r["step"]: {k: r[k] for k in ("roofline_ms", "bound_by",
                                        "measured_ms", "share")}
          for r in roof["steps"]}), flush=True)
-    print("[25] sharding: " + json.dumps(
+    print("[26] sharding: " + json.dumps(
         {k: shard[k] for k in ("serve_f32", "serve_bf16", "ssd_f32",
                                "train", "seconds")}), flush=True)
-    print(f"[25] seconds per phase: {json.dumps(phase_s)}", flush=True)
+    print("[26] sharding 12c: " + json.dumps(
+        {**{arch: {k: v for k, v in shard12c[arch].items()
+                   if k != "kept_dropped_per_layer"}
+            for arch in SHARD_12C},
+         "train": shard12c["train"], "seconds": shard12c["seconds"]}),
+        flush=True)
+    print(f"[26] seconds per phase: {json.dumps(phase_s)}", flush=True)
     print(card_line, flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,9 @@ The reference compiles one scan unit's forward and gradient for its
 (16, 16) pod mesh and reads the collectives out of the HLO.  The port
 compiles nothing: it runs the unit (``models.sharded.apply_layer`` over
 ``repro_torch.models.transformer``'s repeating unit of ``layer_plan``:
-one layer for the dense archs and mamba2) at the shape's global batch
+one layer for the dense archs, mamba2 and mixtral, three for
+recurrentgemma, a decoder block with its cross-attention for the
+encoder-decoder) at the shape's global batch
 and sequence on the mesh, on fakes, standing as rank 0 of a simulated
 world of 256 (or 512) ranks, and ``launch.count.Count`` records each
 collective that DTensor asks for, by the bytes of its result on one
@@ -50,7 +52,10 @@ def unit_collectives(arch: str, shape_name: str = "train_4k",
         sm = mesh_lib.make_device_mesh(dims, axes, "cpu")
         tp, dp = sm.shape["model"], sm.shape["data"]
         with count.fake_mode(card=True), dist.mesh_rules(sm):
-            defs = {"layers": [tfm.layer_def(cfg, sig, tp, dp)
+            # the encoder-decoder's unit: a decoder block, its
+            # cross-attention over a memory of the input's shape
+            cross = cfg.is_enc_dec
+            defs = {"layers": [tfm.layer_def(cfg, sig, tp, dp, cross=cross)
                                for sig in unit]}
             params = steps_lib.shard_params(
                 abstract_params(defs, torch.device("cpu")), defs, sm)
@@ -61,8 +66,9 @@ def unit_collectives(arch: str, shape_name: str = "train_4k",
 
             def unit_fwd(p, x_):
                 for i, sig in enumerate(unit):
-                    x_ = sharded.apply_layer(ctx, p["layers"][i], x_, cfg,
-                                             sig, use_kernel=False)
+                    x_, _ = sharded.apply_layer(
+                        ctx, p["layers"][i], x_, cfg, sig, use_kernel=False,
+                        memory=x_ if cross else None)
                 return x_
 
             with count.Count() as c:

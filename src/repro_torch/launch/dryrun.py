@@ -74,8 +74,9 @@ step's clients are the mesh's ``num_clients`` (16, or 32 on the
 multi-pod mesh); ``memory_analysis`` holds rank 0's shards of the
 arguments and outputs (a train step's draws as each rank's shard of z).
 Records go to ``experiments/dryrun_torch/<arch>_<shape>_pod.json`` or
-``_multipod.json``, the reference's tags; only the six archs whose model
-runs on a mesh (``models.sharded.check_sharded``) are counted there.
+``_multipod.json``, the reference's tags; only the nine archs whose model
+runs on a mesh (``SHARDED_ARCHS``: all but deepseek-v3-671b, whose MLA and
+MTP ``models.sharded.check_sharded`` refuses) are counted there.
 """
 from __future__ import annotations
 
@@ -236,12 +237,21 @@ def build_mesh_step_and_args(cfg, shape: InputShape, mesh,
     params = steps_lib.shard_params(bundle.abstract(), bundle, mesh)
     gb, s = shape.global_batch, shape.seq_len
 
-    def tokens(n):
+    def batch(shp, dtype, extra=1):
         from torch.distributed.tensor import distribute_tensor
         return distribute_tensor(
-            torch.zeros((gb, n), dtype=torch.long), mesh.device_mesh,
-            steps_lib.named(mesh, steps_lib.batch_spec(mesh, gb, 1)),
+            torch.zeros(shp, dtype=dtype), mesh.device_mesh,
+            steps_lib.named(mesh, steps_lib.batch_spec(mesh, gb, extra)),
             src_data_rank=None)
+
+    def tokens(n):
+        return batch((gb, n), torch.long)
+
+    def inputs(n):
+        """tokens, or the encoder-decoder's (frames, tokens)"""
+        if not cfg.is_enc_dec:
+            return tokens(n)
+        return (batch((gb, s, cfg.d_model), cfg.compute_dtype, 2), tokens(n))
 
     if shape.kind == "train":
         from torch.distributed.tensor import distribute_tensor
@@ -259,12 +269,17 @@ def build_mesh_step_and_args(cfg, shape: InputShape, mesh,
             h=torch.zeros(n, dtype=torch.complex64),
             coin=torch.zeros((), dtype=torch.bool), z=z)
         pc.round_coeffs(draws.h[None], draws.coin.reshape(1))
-        return step, (params, tokens(s + 1), draws), bundle
+        return step, (params, inputs(s + 1), draws), bundle
     caches = steps_lib.shard_caches(bundle.init_caches(gb, s), mesh, gb)
     if shape.kind == "prefill":
         return (steps_lib.make_prefill_step(bundle, mesh),
-                (params, tokens(s), caches), bundle)
+                (params, inputs(s), caches), bundle)
     if shape.kind == "decode":
+        if cfg.is_enc_dec:
+            kv = torch.zeros((gb, s, cfg.n_kv_heads, cfg.resolved_head_dim),
+                             dtype=cfg.compute_dtype)
+            caches = (caches, steps_lib.shard_caches(
+                [{"k": kv, "v": kv} for _ in range(cfg.n_layers)], mesh, gb))
         return (steps_lib.make_serve_step(bundle, mesh),
                 (params, caches, tokens(1), s - 1), bundle)
     raise ValueError(f"unknown kind {shape.kind!r}")
@@ -416,7 +431,8 @@ def _count_mesh(arch, shape, cfg, sm, scheme, design) -> dict:
 
 
 SHARDED_ARCHS = ("qwen1.5-0.5b", "qwen3-1.7b", "mamba2-1.3b", "granite-8b",
-                 "qwen2.5-14b", "chameleon-34b")
+                 "qwen2.5-14b", "chameleon-34b", "recurrentgemma-9b",
+                 "seamless-m4t-medium", "mixtral-8x22b")
 
 
 def main(argv=None):

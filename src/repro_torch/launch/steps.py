@@ -154,14 +154,17 @@ def shard_params(params, defs, mesh) -> ParamTree:
     ParamTree of DTensors laid out by the specs of ``defs`` (their def
     tree, or a ModelBundle's) on ``mesh``: each rank keeps its shard, and
     nothing is sent (``distributed.distribute``; a copy: the step's
-    in-place updates leave ``params`` as they were)."""
+    in-place updates leave ``params`` as they were; under
+    ``LocalTensorMode`` each rank's copy of its shard alone)."""
     specs = param_specs(getattr(defs, "defs", defs))
 
     def one(path, t):
         spec = specs
         for key in path.split("."):
             spec = spec[int(key)] if isinstance(spec, list) else spec[key]
-        return dist.distribute(t.detach().clone(), mesh, named(mesh, spec))
+        src = t.detach() if dist.local_mode() is not None \
+            else t.detach().clone()
+        return dist.distribute(src, mesh, named(mesh, spec))
     return ParamTree(map_named(params, one))
 
 

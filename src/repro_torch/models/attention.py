@@ -217,20 +217,22 @@ def cross_def(cfg: ModelConfig, tp: int = 16) -> dict:
             "wo": dense_def(cfg.n_heads * dh, d, cfg, tp_out=False, tp=tp)}
 
 
-def cross_cache(p, memory: torch.Tensor, cfg: ModelConfig) -> dict:
+def cross_cache(p, memory: torch.Tensor, cfg: ModelConfig,
+                kv_heads: Optional[int] = None) -> dict:
     """The encoder-side K and V [B, Sk, KH, Dh] in the compute dtype,
-    computed once per request."""
+    computed once per request; ``kv_heads`` (default KH) is how many KV
+    heads ``wk`` / ``wv`` hold (a rank's of a mesh)."""
     b, sk, _ = memory.shape
-    dh = cfg.resolved_head_dim
+    kh, dh = kv_heads or cfg.n_kv_heads, cfg.resolved_head_dim
     ct = cfg.compute_dtype
-    return {"k": dense(p["wk"], memory, ct).reshape(b, sk, cfg.n_kv_heads, dh),
-            "v": dense(p["wv"], memory, ct).reshape(b, sk, cfg.n_kv_heads, dh)}
+    return {"k": dense(p["wk"], memory, ct).reshape(b, sk, kh, dh),
+            "v": dense(p["wv"], memory, ct).reshape(b, sk, kh, dh)}
 
 
 def cross_apply(p, x: torch.Tensor, memory: Optional[torch.Tensor],
                 cfg: ModelConfig, *, cache: Optional[dict] = None,
-                decode: bool = False, use_kernel: bool = True
-                ) -> torch.Tensor:
+                decode: bool = False, use_kernel: bool = True,
+                heads: Optional[tuple] = None, select=None) -> torch.Tensor:
     """x: [B, Sq, D] decoder states; memory: [B, Sk, D] encoder output, or
     ``cache`` (``cross_cache``'s K and V over it; memory is then unused).
 
@@ -238,22 +240,28 @@ def cross_apply(p, x: torch.Tensor, memory: Optional[torch.Tensor],
     zero positions on both sides with ``causal=False``.  A prefill (any
     Sq) goes through K3's non-causal mode; a decode step (Sq = 1) reads
     the cache with the plain ``grouped_attention``, as the self-attention
-    decode does.
+    decode does.  ``heads`` (default (H, KH)) is how many q and KV heads
+    the weights hold, and ``select`` picks the q heads' KV heads out of
+    K and V (``gqa_attend``'s): a rank's of a mesh (``models.sharded``).
     """
     b, s, _ = x.shape
+    h, kh = heads or (cfg.n_heads, cfg.n_kv_heads)
     dh = cfg.resolved_head_dim
     ct = cfg.compute_dtype
-    q = dense(p["wq"], x, ct).reshape(b, s, cfg.n_heads, dh)
-    kv = cross_cache(p, memory, cfg) if cache is None else cache
+    q = dense(p["wq"], x, ct).reshape(b, s, h, dh)
+    kv = cross_cache(p, memory, cfg, kh) if cache is None else cache
     k, v = kv["k"], kv["v"]
+    if select is not None:
+        k, v = select(k), select(v)
     if decode:
         zero_q = torch.zeros(s, dtype=torch.long, device=x.device)
         zero_k = torch.zeros(k.shape[1], dtype=torch.long, device=x.device)
         out = grouped_attention(q, k, v, zero_q, zero_k, causal=False,
                                 window=None)
     else:
-        out = flash_attention(q, k, v, causal=False, use_kernel=use_kernel)
-    out = out.reshape(b, s, cfg.n_heads * dh)
+        out = flash_attention(q, k, v.contiguous(), causal=False,
+                              use_kernel=use_kernel)
+    out = out.reshape(b, s, h * dh)
     return dense(p["wo"], out, ct)
 
 

@@ -18,6 +18,10 @@ autograd differentiates, as ``transformer.lm_loss`` does: past
 Sq * Sk = 2048^2 its blocked form (``kernels.ref.grouped_attention_blocked``),
 which, unlike the reference's, masks the padded keys of a ragged last
 block in the encoder's and the cross-attention's non-causal mode too.
+
+With DTensor parameters and a mesh bound, ``encode``, ``decode_train``,
+``seq2seq_loss``, ``build_cross_caches`` and ``decode_step`` run on the
+mesh (``models.sharded``), as ``transformer.forward_aux`` does.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from typing import Optional
 import torch
 
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import sharded
 from repro_torch.models import transformer as tfm
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (embed, embedding_def, rmsnorm,
@@ -57,6 +62,8 @@ def encode(params, frames: torch.Tensor, cfg: ModelConfig, *,
            use_kernel: bool = True) -> torch.Tensor:
     """frames: [B, S_frames, D] stub front-end embeddings (any float dtype,
     cast to the compute dtype) -> memory [B, S_frames, D]."""
+    if sharded.on_mesh(params):
+        return sharded.encode(params, frames, cfg, use_kernel=use_kernel)
     x = frames.to(cfg.compute_dtype)
     for p in params["enc_layers"]:
         x, _, _ = tfm.apply_layer(p, x, cfg, ENC_SIG, use_kernel=use_kernel)
@@ -75,6 +82,11 @@ def decode_train(params, memory: Optional[torch.Tensor], tokens: torch.Tensor,
     read the encoder's K and V from them instead of projecting ``memory``
     again: the same product on the same operands.
     """
+    if sharded.on_mesh(params):
+        logits = sharded.decode_logits(params, memory, tokens, cfg, caches,
+                                       cross_caches=cross_caches,
+                                       use_kernel=use_kernel)
+        return logits if caches is None else (logits, caches)
     h = _decode_hidden(params, memory, tokens, cfg, caches,
                        cross_caches=cross_caches, use_kernel=use_kernel)
     logits = unembed(params["unembed"], h, cfg)
@@ -107,6 +119,9 @@ def seq2seq_loss(params, frames: torch.Tensor, tokens: torch.Tensor,
     ``transformer.head_xent``.  ``use_kernel=False`` (the default, as a
     train step differentiates it) runs the plain attention, at any length:
     past Sq * Sk = 2048^2 in its blocked form."""
+    if sharded.on_mesh(params):
+        return sharded.seq2seq_loss(params, frames, tokens, cfg,
+                                    sample_weights, use_kernel=use_kernel)
     memory = encode(params, frames, cfg, use_kernel=use_kernel)
     h = _decode_hidden(params, memory, tokens[:, :-1], cfg,
                        use_kernel=use_kernel)
@@ -128,6 +143,8 @@ def init_decode_caches(cfg: ModelConfig, batch: int, max_len: int,
 def build_cross_caches(params, memory: torch.Tensor,
                        cfg: ModelConfig) -> list:
     """Per decoder layer, the encoder-side K and V over ``memory``."""
+    if sharded.on_mesh(params):
+        return sharded.cross_caches(params, memory, cfg)
     return [attn_mod.cross_cache(p["cross"], memory, cfg)
             for p in params["dec_layers"]]
 
@@ -137,6 +154,10 @@ def decode_step(params, caches: list, cross_caches: list,
     """One decode step: token [B, 1] at position ``pos`` -> (logits
     [B, 1, V] f32, caches); the self caches are written in place, the
     cross caches only read."""
+    if sharded.on_mesh(params):
+        return sharded.decode_logits(
+            params, None, token, cfg, caches, cross_caches=cross_caches,
+            pos_offset=pos, decode=True), caches
     x = embed(params["embed"], token, cfg.compute_dtype)
     for i, p in enumerate(params["dec_layers"]):
         x, _, _ = tfm.apply_layer(p, x, cfg, DEC_SIG, pos_offset=pos,

@@ -79,14 +79,16 @@ def init_rglru_state(cfg: ModelConfig, batch: int, device: torch.device,
                                 device=device)}
 
 
-def _gates(p, x: torch.Tensor):
-    """x [.., W] -> (log_a, gated input), both float32; the gates' products
-    in float32 whatever the compute dtype, as the reference's."""
+def _gates(p, x: torch.Tensor, x_ch: Optional[torch.Tensor] = None):
+    """x [.., W_in] -> (log_a, gated input), both float32; the gates read
+    all of x (against ``w_a`` / ``w_x`` [W_in, W]) and gate ``x_ch``'s
+    channels (None: x itself); the products in float32 whatever the
+    compute dtype, as the reference's."""
     xf = x.float()
     r = torch.sigmoid(xf @ p["w_a"].float() + p["b_a"].float())
     i = torch.sigmoid(xf @ p["w_x"].float() + p["b_x"].float())
     log_a = C_FACTOR * r * F.logsigmoid(p["lam"].float())    # <= 0
-    return log_a, i * xf
+    return log_a, i * (xf if x_ch is None else x_ch.float())
 
 
 def _lru_scan(log_a: torch.Tensor, gated: torch.Tensor,
@@ -111,6 +113,63 @@ def _lru_scan(log_a: torch.Tensor, gated: torch.Tensor,
     return b[:, 1:] if h0 is not None else b
 
 
+def check_call(s: int, state: Optional[dict], decode: bool) -> None:
+    """A decode step takes one token against a state; a prefill with a
+    state is no shorter than the conv window it stashes."""
+    if decode and (state is None or s != 1):
+        raise ValueError("decode takes one token against a state")
+    if not decode and state is not None and s < CONV_K - 1:
+        raise ValueError(f"a prefill of {s} tokens is shorter than the "
+                         f"conv window of {CONV_K - 1} rows it stashes")
+
+
+def rglru_conv(p, x: torch.Tensor, cfg: ModelConfig, *,
+               conv: Optional[torch.Tensor] = None, decode: bool = False):
+    """The branch and GELU-gate linears and the causal conv on the branch:
+    x [B, S, D] -> (z [B, S, W] float32, gate [B, S, W] compute dtype).
+    The conv window ``conv`` [B, CONV_K - 1, W], when given, is updated
+    in place; a prefill zero-pads the window whatever ``conv`` holds."""
+    s = x.shape[1]
+    ct = cfg.compute_dtype
+    branch = x.to(ct) @ p["w_branch"].to(ct)
+    gate = F.gelu(x.to(ct) @ p["w_gate"].to(ct), approximate="tanh")
+    cw, cb = p["conv_w"].float(), p["conv_b"].float()
+    if decode:
+        conv_in = torch.cat([conv, branch.to(conv.dtype)], dim=1)
+        z = (torch.einsum("bkw,kw->bw", conv_in.float(), cw) + cb)[:, None]
+        conv.copy_(conv_in[:, 1:])
+        return z, gate
+    k = CONV_K - 1
+    pad = F.pad(branch.float(), (0, 0, k, 0))
+    z = sum(pad[:, i:i + s, :] * cw[i] for i in range(CONV_K)) + cb
+    if conv is not None:
+        conv.copy_(branch[:, -k:])
+    return z, gate
+
+
+def rglru_recur(p, z_in: torch.Tensor, z: torch.Tensor, gate: torch.Tensor,
+                cfg: ModelConfig, *, h: Optional[torch.Tensor] = None,
+                decode: bool = False) -> torch.Tensor:
+    """The RG-LRU, the merge and the output linear: the gates read all of
+    ``z_in``, the recurrence runs on ``z``'s channels from ``h`` [B, W]
+    (None: zero; updated in place), then ``(y * gate) @ w_out``.  The
+    block passes its z twice; a rank of a mesh passes all of z and its
+    own channels (``models.sharded``)."""
+    ct = cfg.compute_dtype
+    log_a, gated = _gates(p, z_in, z)
+    if decode:
+        a = torch.exp(log_a[:, 0])
+        hn = (a * h.float()
+              + torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated[:, 0])
+        h.copy_(hn)
+        y = hn[:, None, :]
+    else:
+        y = _lru_scan(log_a, gated, None if h is None else h.float())
+        if h is not None:
+            h.copy_(y[:, -1])
+    return (y.to(ct) * gate) @ p["w_out"].to(ct)
+
+
 def rglru_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
                 state: Optional[dict] = None, decode: bool = False):
     """x [B, S, D] -> (y [B, S, D], state); the state, when given, is
@@ -122,37 +181,8 @@ def rglru_apply(p, x: torch.Tensor, cfg: ModelConfig, *,
     trailing ``CONV_K - 1`` rows of the branch.  A prefill with a state
     shorter than that raises (the reference would stash a window of the
     wrong length)."""
-    bsz, s, _ = x.shape
-    ct = cfg.compute_dtype
-    branch = x.to(ct) @ p["w_branch"].to(ct)
-    gate = F.gelu(x.to(ct) @ p["w_gate"].to(ct), approximate="tanh")
-    cw, cb = p["conv_w"].float(), p["conv_b"].float()
-    if decode:
-        if state is None or s != 1:
-            raise ValueError("decode takes one token against a state")
-        conv_in = torch.cat([state["conv"],
-                             branch.to(state["conv"].dtype)], dim=1)
-        z = torch.einsum("bkw,kw->bw", conv_in.float(), cw) + cb
-        log_a, gated = _gates(p, z)
-        a = torch.exp(log_a)
-        h = (a * state["h"].float()
-             + torch.sqrt(torch.clamp(1.0 - a * a, min=1e-12)) * gated)
-        y = h[:, None, :]
-        state["h"].copy_(h)
-        state["conv"].copy_(conv_in[:, 1:])
-    else:
-        k = CONV_K - 1
-        if state is not None and s < k:
-            raise ValueError(f"a prefill of {s} tokens is shorter than the "
-                             f"conv window of {k} rows it stashes")
-        pad = F.pad(branch.float(), (0, 0, k, 0))
-        z = sum(pad[:, i:i + s, :] * cw[i] for i in range(CONV_K)) + cb
-        log_a, gated = _gates(p, z)
-        h = _lru_scan(log_a, gated,
-                      None if state is None else state["h"].float())
-        y = h
-        if state is not None:
-            state["h"].copy_(h[:, -1])
-            state["conv"].copy_(branch[:, -k:])
-    y = y.to(ct) * gate
-    return y @ p["w_out"].to(ct), state
+    check_call(x.shape[1], state, decode)
+    st = state or {}
+    z, gate = rglru_conv(p, x, cfg, conv=st.get("conv"), decode=decode)
+    return rglru_recur(p, z, z, gate, cfg, h=st.get("h"),
+                       decode=decode), state

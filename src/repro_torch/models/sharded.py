@@ -1,18 +1,21 @@
-"""The decoder-only models on a mesh of ranks (module 12b): the dense GQA
-decoders and Mamba-2, with parameters, caches and activations as DTensors
-laid out by the reference's specs and logical-axis rules.
+"""The language models on a mesh of ranks (modules 12b and 12c): the dense
+GQA decoders, Mamba-2, RecurrentGemma, the encoder-decoder and MoE, with
+parameters, caches and activations as DTensors laid out by the
+reference's specs and logical-axis rules.
 
-``models.transformer`` hands a forward or a loss here when its parameters
-are DTensors and a mesh is bound (``distributed.mesh_rules``); one card
-never comes here.  The layout is the reference's:
+``models.transformer`` and ``models.encdec`` hand a forward, a loss, an
+encoder pass, the cross caches or a decode step here when their
+parameters are DTensors and a mesh is bound (``distributed.mesh_rules``);
+one card never comes here.  The layout is the reference's:
 
 * parameters as ``launch.steps.shard_params`` lays them out, by their
   ``ParamDef.spec``: column-parallel weights' out-dim over "model" and
   in-dim over "data" (FSDP), row-parallel ones the transpose;
 * activations [B, S, D] with the batch over the batch axes ("data", or
   ("pod", "data")), when it divides them, and replicated over "model"
-  (``distributed.constrain`` after the embedding and after each layer, as
-  ``repro/models/transformer.py:212``, ``:279``).
+  (``distributed.constrain`` after the embedding, or on the encoder's
+  frames, and after each layer, as ``repro/models/transformer.py:212``,
+  ``:279`` and ``repro/models/encdec.py:56``, ``:68``).
 
 Each sublayer is one ``distributed.shard_map`` (DTensor's ``local_map``)
 of the plain model code on each rank's local tensors, with its placements
@@ -36,7 +39,12 @@ projects its block of S / tp query rows against all S keys, and K3 takes
 the block's offset (``q_offset``); a decode step, or a sequence that tp
 does not divide, is computed whole on every "model" rank.  K3 and K4 run
 on each rank's local tensors (``distributed.per_rank`` under
-``LocalTensorMode``: one launch per rank and layer).
+``LocalTensorMode``: one launch per rank and layer).  The
+encoder-decoder's cross-attention (``_cross``) takes the same heads: q
+of the rank's heads from x, K and V of their KV heads from the encoder's
+memory or from the cross cache (laid out as a KV cache), ``wo``
+row-parallel; a prefill through K3 non-causal, a decode step through the
+plain attention, as ``attention.cross_apply``.
 
 Mamba-2 (``ssd``): ``in_proj``'s out-dim [z, xBC, dt] is sharded over
 "model" as one axis (the reference's spec), and its parts do not fall on
@@ -48,22 +56,43 @@ the gated norm's sum of squares over d_inner is one all-reduce, and
 cache is sharded over channels that do not fall on heads either: it is
 gathered before the mixer and written back after it.
 
+The RG-LRU (``_rglru``): ``w_branch`` and ``w_gate`` column-parallel,
+each rank W / tp channels; the conv on the rank's channels; the gates
+read all of the conv's output z (``w_a`` and ``w_x`` are [W, W],
+replicated), so z is all-gathered over "model" once and rank r takes
+their columns of its channels; the scan, the decode update and the
+states (``h``, ``conv``: the reference's cache specs, the channels over
+"model") stay on the rank's channels; ``w_out`` row-parallel.
+
+MoE (``_moe``): the router (replicated, f32) routes each rank's batch
+rows; the dispatch and the combine stay local to the batch shard (the
+reference's ``shard_map``, ``repro/models/moe.py:118-145``: the capacity
+is per row, so a shard's dispatch is exact); the experts' weights are
+gathered over "data" (E or D, whichever the spec puts there) to all
+experts and the rank's F columns, and ``wo``'s F rows give a partial sum
+over "model".  The load-balance loss is global: each rank's counts of
+first choices and sums of probabilities are reduced over the batch axes
+before the product.
+
 Any cache whose layout the step cannot compute on (a KV cache sharded
 over its sequence, the long-context rule "kv_seq" over "data") is
 gathered to the layout it needs first and written back after.
 
-Refused by name (``check_sharded``): the RG-LRU, MoE, MLA, MTP and the
-encoder-decoder (ROADMAP.md §1, 12c).
+Refused by name (``check_sharded``): MLA and the MTP head
+(deepseek-v3-671b; ROADMAP.md §1, 12c.4).
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 
 from repro_torch import distributed as dist
 from repro_torch.launch import mesh as mesh_lib
 from repro_torch.models import attention as attn_mod
+from repro_torch.models import moe as moe_mod
+from repro_torch.models import rglru as rglru_mod
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.config import ModelConfig
 from repro_torch.models.layers import (apply_rope, dense, embed, mlp,
@@ -73,25 +102,29 @@ from repro_torch.models.param import P
 Layout = dist.Layout
 
 
+MESH_MIXERS = ("attn", "swa", "local", "ssd", "rglru")
+ENC_SIG = ("enc_attn", "dense")         # ``models.encdec``'s block kinds
+DEC_SIG = ("attn", "dense")
+
+
 def check_sharded(cfg: ModelConfig) -> None:
-    """Raise for what does not run on a mesh yet (ROADMAP.md §1, 12c)."""
+    """Raise for what does not run on a mesh yet: MLA and the MTP head
+    (ROADMAP.md §1, 12c.4)."""
     missing = []
-    if cfg.is_enc_dec:
-        missing.append("the encoder-decoder")
     if cfg.attn_kind != "gqa":
-        missing.append(f"{cfg.attn_kind} attention")
-    if cfg.moe_num_experts:
-        missing.append("MoE")
+        missing.append("MLA" if cfg.attn_kind == "mla"
+                       else f"{cfg.attn_kind} attention")
     if cfg.mtp_depth:
         missing.append("MTP")
-    if cfg.input_mode != "tokens":
+    if cfg.input_mode != "tokens" and not (
+            cfg.input_mode == "frames" and cfg.is_enc_dec):
         missing.append(f"{cfg.input_mode} inputs")
     missing += [f"{k} mixer" for k in sorted(set(cfg.block_pattern))
-                if k not in ("attn", "swa", "local", "ssd")]
+                if k not in MESH_MIXERS]
     if missing:
         raise NotImplementedError(
             f"{cfg.name}: {', '.join(missing)} not sharded over a mesh yet "
-            "(ROADMAP.md §1, 12c)")
+            "(ROADMAP.md §1, 12c.4)")
 
 
 def on_mesh(params) -> bool:
@@ -353,6 +386,22 @@ def _spec_of(ctx: _Ctx, t) -> P:
     return P(*dims)
 
 
+def _kv_select(heads: bool, kv_split: bool, h: int, kh: int, hl: int, r,
+               device):
+    """Rank r's q heads' KV heads out of all KH, as a function of a
+    [B, S, KH, Dh] tensor (by index: one KV head when the rank's hl heads
+    share it, else one per q head); None where the rank holds its own KV
+    heads or all q heads (``heads`` False)."""
+    g = h // kh
+    if not heads or kv_split:
+        return None
+    if g % hl == 0:
+        idx = _arange(1, (r * hl) // g, device)
+    else:
+        idx = (_arange(hl, r * hl, device)) // g
+    return lambda t: torch.index_select(t, 2, idx)
+
+
 def _attention(ctx: _Ctx, p, x, cfg: ModelConfig, *, kind: str,
                pos_offset: int, cache: Optional[dict], decode: bool,
                use_kernel: bool):
@@ -380,18 +429,6 @@ def _attention(ctx: _Ctx, p, x, cfg: ModelConfig, *, kind: str,
     hl, kvl = (h // tp, kh // tp if kv_split else kh) if mode == "heads" \
         else (h, kh)
 
-    def select_heads(r, device):
-        """Rank r's q heads' KV heads out of all KH (by index: one KV
-        head when the rank's heads share it, else one per q head)."""
-        g = h // kh
-        if mode != "heads" or kv_split:
-            return None
-        if g % hl == 0:
-            idx = _arange(1, (r * hl) // g, device)
-        else:
-            idx = (_arange(hl, r * hl, device)) // g
-        return lambda t: torch.index_select(t, 2, idx)
-
     def body(r, pl, xl, *cl):
         c = dict(zip(cache, cl)) if cache is not None else None
         if mode == "seq":
@@ -411,7 +448,8 @@ def _attention(ctx: _Ctx, p, x, cfg: ModelConfig, *, kind: str,
         out = attn_mod.gqa_attend(q, k, v, cfg, kind=kind,
                                   pos_offset=pos_offset, cache=c,
                                   decode=decode, use_kernel=use_kernel,
-                                  select=select_heads(r, xl.device),
+                                  select=_kv_select(mode == "heads", kv_split,
+                                                    h, kh, hl, r, xl.device),
                                   q_offset=q_offset)
         out = out.reshape(out.shape[0], out.shape[1], -1)
         return dense(pl["wo"], out, cfg.compute_dtype)
@@ -437,15 +475,77 @@ def _tree_map_pair(fn, tree, specs):
     return {k: _tree_map_pair(fn, tree[k], specs[k]) for k in specs}
 
 
+def _cross(ctx: _Ctx, p, x, memory, cfg: ModelConfig, *,
+           cache: Optional[dict], decode: bool, use_kernel: bool):
+    """``attention.cross_apply`` on the mesh: q of the rank's heads from
+    x, K and V of their KV heads from ``memory`` (``wk`` / ``wv``) or from
+    ``cache`` (read only), the attention (K3 non-causal in a prefill, the
+    plain attention in a decode step), ``wo`` row-parallel: a partial sum
+    over "model", one all-reduce.  Where tp does not divide H, whole on
+    every "model" rank."""
+    h, kh, act = cfg.n_heads, cfg.n_kv_heads, ctx.act()
+    split = h % ctx.tp == 0
+    kv_split = split and kh % ctx.tp == 0
+    col = "model" if split else None
+    kv_col = "model" if kv_split else None
+    specs = {"wq": {"w": P(None, col)}, "wo": {"w": P(col, None)}}
+    if cache is None:
+        specs.update(wk={"w": P(None, kv_col)}, wv={"w": P(None, kv_col)})
+    pp = _tree_map_pair(ctx.to, _params(p), specs)
+    hl = h // ctx.tp if split else h
+    kvl = kh // ctx.tp if kv_split else kh
+    cspec = P(ctx.b, None, kv_col, None)
+    if cache is None:
+        src, src_specs = (memory,), (act,)
+    else:
+        moved, _ = _moved(ctx, cache, {"k": cspec, "v": cspec})
+        src, src_specs = (moved["k"], moved["v"]), (cspec, cspec)
+
+    def body(r, pl, xl, *srcl):
+        cache_l = None if cache is None else dict(zip(("k", "v"), srcl))
+        return attn_mod.cross_apply(
+            pl, xl, srcl[0] if cache is None else None, cfg, cache=cache_l,
+            decode=decode, use_kernel=use_kernel, heads=(hl, kvl),
+            select=_kv_select(split, kv_split, h, kh, hl, r, xl.device))
+
+    out = ctx.run(body, (pp, x) + src, (specs, act) + src_specs,
+                  Layout(act, ("model",)) if split else act,
+                  split_model=split,
+                  no_grad=() if cache is None else (2, 3))
+    return ctx.to(out, act)
+
+
+def _cross_cache(ctx: _Ctx, p, memory, cfg: ModelConfig) -> dict:
+    """``attention.cross_cache`` on the mesh: each rank's K and V of its
+    KV heads (where tp divides KH) over its batch rows, laid out as the
+    reference lays out a KV cache (``launch.steps._cache_leaf_spec``)."""
+    from repro_torch.launch.steps import _cache_leaf_spec
+    kh = cfg.n_kv_heads
+    kv_col = "model" if kh % ctx.tp == 0 else None
+    specs = {"wk": {"w": P(None, kv_col)}, "wv": {"w": P(None, kv_col)}}
+    pp = _tree_map_pair(ctx.to, _params(p), specs)
+    kvl = kh // ctx.tp if kv_col else kh
+
+    def body(r, pl, m):
+        kv = attn_mod.cross_cache(pl, m, cfg, kvl)
+        return kv["k"], kv["v"]
+
+    spec = P(ctx.b, None, kv_col, None)
+    k, v = ctx.run(body, (pp, memory), (specs, ctx.act()), (spec, spec),
+                   split_model=kv_col is not None)
+    want = _cache_leaf_spec("k", tuple(k.shape), ctx.mesh, ctx.bdiv)
+    return {"k": ctx.to(k, want), "v": ctx.to(v, want)}
+
+
 # ---------------------------------------------------------------------------
 # MLP
 # ---------------------------------------------------------------------------
 
 def _mlp(ctx: _Ctx, p, x, cfg: ModelConfig):
-    """The dense MLP: its width over "model" (a partial sum, one
-    all-reduce), or whole where tp does not divide it."""
+    """The dense MLP (or MoE's shared experts): its width over "model" (a
+    partial sum, one all-reduce), or whole where tp does not divide it."""
     gated = cfg.ffn_kind in ("swiglu", "geglu")
-    split = cfg.d_ff % ctx.tp == 0
+    split = p["wo"]["w"].shape[0] % ctx.tp == 0
     col = "model" if split else None
     specs = {"wi": {"w": P(None, None, col) if gated else P(None, col)},
              "wo": {"w": P(col, None)}}
@@ -559,6 +659,124 @@ def _ssd(ctx: _Ctx, p, x, cfg: ModelConfig, *, state: Optional[dict],
 
 
 # ---------------------------------------------------------------------------
+# RG-LRU
+# ---------------------------------------------------------------------------
+
+def _rglru(ctx: _Ctx, p, x, cfg: ModelConfig, *, state: Optional[dict],
+           decode: bool):
+    """``rglru.rglru_apply`` on the mesh; (out, state), the state updated
+    in place on its own shards.  Two bodies: the branch, the gate and the
+    conv on the rank's channels; then, after one all-gather of the conv's
+    output z over "model", the gates (z against the rank's columns of
+    ``w_a`` and ``w_x``, in float32), the scan or the decode update, the
+    merge and ``w_out``'s partial sum."""
+    act = ctx.act()
+    if rglru_mod._width(cfg) % ctx.tp:
+        # whole on every "model" rank
+        full = {n: P(*([None] * v.dim())) for n, v in _params(p).items()}
+        sspec = {"h": P(ctx.b, None), "conv": P(ctx.b, None, None)}
+        st, write_back = _moved(ctx, state, sspec)
+
+        def whole(r, pl, xl, *sl):
+            s_ = dict(zip(("h", "conv"), sl)) if sl else None
+            return rglru_mod.rglru_apply(pl, xl, cfg, state=s_,
+                                         decode=decode)[0]
+        args = (_tree_map_pair(ctx.to, _params(p), full), x) + (
+            (st["h"], st["conv"]) if st else ())
+        specs = (full, act) + ((sspec["h"], sspec["conv"]) if st else ())
+        out = ctx.run(whole, args, specs, act, split_model=False,
+                      no_grad=tuple(range(2, len(args))))
+        write_back()
+        return out, state
+
+    ch = P(ctx.b, None, "model")                    # [B, S, W] by channel
+    in_specs = {"w_branch": P(None, "model"), "w_gate": P(None, "model"),
+                "conv_w": P(None, "model"), "conv_b": P("model")}
+    sspec = {"h": P(ctx.b, "model"), "conv": ch}
+    st, write_back = _moved(ctx, state, sspec)
+
+    def conv(r, pl, xl, *cl):
+        return rglru_mod.rglru_conv(pl, xl, cfg, conv=cl[0] if cl else None,
+                                    decode=decode)
+
+    rglru_mod.check_call(x.shape[1], state, decode)
+    pc = _tree_map_pair(ctx.to, _params(p), in_specs)
+    args = (pc, x) + ((st["conv"],) if st else ())
+    z, gate = ctx.run(conv, args, (in_specs, act) + ((ch,) if st else ()),
+                      (ch, ch), split_model=True,
+                      no_grad=tuple(range(2, len(args))))
+    z_all = ctx.to(z, act)
+
+    g_specs = {"w_a": P(None, "model"), "w_x": P(None, "model"),
+               "b_a": P("model"), "b_x": P("model"), "lam": P("model"),
+               "w_out": P("model", None)}
+
+    def lru(r, pl, za, zl, gl, *hl):
+        # the gates of the rank's channels read all of z
+        return rglru_mod.rglru_recur(pl, za, zl, gl, cfg,
+                                     h=hl[0] if hl else None, decode=decode)
+
+    pg = _tree_map_pair(ctx.to, _params(p), g_specs)
+    args = (pg, z_all, z, gate) + ((st["h"],) if st else ())
+    specs = (g_specs, act, ch, ch) + ((sspec["h"],) if st else ())
+    out = ctx.run(lru, args, specs, Layout(act, ("model",)),
+                  split_model=True, no_grad=tuple(range(4, len(args))))
+    write_back()
+    return ctx.to(out, act), state
+
+
+# ---------------------------------------------------------------------------
+# MoE
+# ---------------------------------------------------------------------------
+
+def _moe(ctx: _Ctx, p, x, cfg: ModelConfig):
+    """``moe.moe_apply`` on the mesh; (y, aux).  The route on each rank's
+    batch rows (replicated over "model"); then ``moe.experts`` on the same
+    rows, with every expert's weights gathered over "data" and the rank's
+    F columns (a partial sum over "model"), its dispatch and combine local
+    to the batch shard; the shared experts through ``_mlp``.  The aux loss
+    from the first choices' counts and the probabilities' sums reduced
+    over the batch axes.  ``moe.experts.calls`` and ``.kept`` count once
+    per rank in serving (each rank records its batch rows' (kept, all):
+    the "model" ranks of a batch shard record the same rows), once per
+    layer under autograd."""
+    e = cfg.moe_num_experts
+    act = ctx.act()
+    b, s, _ = x.shape
+    rspec = {"router": P(None, None)}
+    one = P(None)
+
+    def route(r, pl, xl):
+        probs, top_w, top_e, _ = moe_mod.route(pl, xl, cfg)
+        first = F.one_hot(top_e[..., 0], e).float()
+        return top_w, top_e, first.sum((0, 1)), probs.sum((0, 1))
+
+    top_w, top_e, n_first, p_sum = ctx.run(
+        route, (_tree_map_pair(ctx.to, _params(p), rspec), x),
+        (rspec, act), (act, act, Layout(one, ctx.baxes),
+                       Layout(one, ctx.baxes)), split_model=False)
+    n_first, p_sum = ctx.to(n_first, one), ctx.to(p_sum, one)
+    aux = e * torch.sum((n_first / (b * s)) * (p_sum / (b * s)))
+
+    f_col = "model" if cfg.expert_d_ff % ctx.tp == 0 else None
+    especs = {"wi": P(None, None, None, f_col), "wo": P(None, f_col, None)}
+    cfg_routed = cfg.replace(moe_shared_experts=0)
+
+    def experts(r, pl, xl, tw, te):
+        return moe_mod.experts(pl, xl, tw, te, cfg_routed)[0]
+
+    y = ctx.run(experts, (_tree_map_pair(ctx.to, _params(p), especs), x,
+                          top_w, top_e),
+                (especs, act, act, act),
+                Layout(act, ("model",)) if f_col else act,
+                split_model=f_col is not None, no_grad=(3,))
+    y = ctx.to(y, act)
+    if cfg.moe_shared_experts:
+        y = y + _mlp(ctx, p["shared"], x, cfg)
+    return y, aux
+
+
+# ---------------------------------------------------------------------------
 # The model
 # ---------------------------------------------------------------------------
 
@@ -573,23 +791,43 @@ def _batch(ctx: _Ctx, t):
 
 def apply_layer(ctx: _Ctx, p, x, cfg: ModelConfig, sig: tuple, *,
                 pos_offset: int = 0, cache: Optional[dict] = None,
-                decode: bool = False, use_kernel: bool = True):
-    """``transformer.apply_layer`` on the mesh (no cross-attention, no
-    MoE): x [B, S, D] laid out as ``ctx.act()``; the cache updated in
-    place."""
+                decode: bool = False, use_kernel: bool = True,
+                memory=None, cross_cache: Optional[dict] = None):
+    """``transformer.apply_layer`` on the mesh: x [B, S, D] laid out as
+    ``ctx.act()``; the cache updated in place; the cross-attention over
+    ``memory`` or ``cross_cache`` where the block has one and either is
+    given.  Returns (x, aux): the MoE FFN's load-balance loss (a
+    replicated scalar DTensor), 0.0 for any other layer."""
     kind, ffn = sig
     hn = _rmsnorm(ctx, p["ln1"], x, cfg.norm_eps)
     if kind == "ssd":
         mix, _ = _ssd(ctx, p["mixer"], hn, cfg, state=cache, decode=decode,
                       use_kernel=use_kernel)
+    elif kind == "rglru":
+        mix, _ = _rglru(ctx, p["mixer"], hn, cfg, state=cache, decode=decode)
     else:
         mix, _ = _attention(ctx, p["mixer"], hn, cfg, kind=kind,
                             pos_offset=pos_offset, cache=cache,
                             decode=decode, use_kernel=use_kernel)
     x = x + mix
+    if "cross" in p and (memory is not None or cross_cache is not None):
+        x = x + _cross(ctx, p["cross"],
+                       _rmsnorm(ctx, p["ln_cross"], x, cfg.norm_eps), memory,
+                       cfg, cache=cross_cache, decode=decode,
+                       use_kernel=use_kernel)
+    aux = 0.0
     if ffn != "none":
-        x = x + _mlp(ctx, p["ffn"], _rmsnorm(ctx, p["ln2"], x, cfg.norm_eps),
-                     cfg)
+        h2 = _rmsnorm(ctx, p["ln2"], x, cfg.norm_eps)
+        if ffn == "moe":
+            y, aux = _moe(ctx, p["ffn"], h2, cfg)
+        else:
+            y = _mlp(ctx, p["ffn"], h2, cfg)
+        x = x + y
+    return _constrained(x), aux
+
+
+def _constrained(x):
+    """x [B, S, D] constrained to the activations' logical axes."""
     return dist.constrain(x, (dist.batch_logical(), "seq", None))
 
 
@@ -597,40 +835,112 @@ def hidden(params, tokens, cfg: ModelConfig, *, pos_offset: int = 0,
            caches: Optional[list] = None, decode: bool = False,
            use_kernel: bool = True):
     """``transformer._hidden_aux`` on the mesh: (h [B, S, D], caches, the
-    step's ``_Ctx``)."""
+    step's ``_Ctx``, aux)."""
     from repro_torch.models.transformer import layer_sigs
     check_sharded(cfg)
     ctx = _Ctx(tokens.shape[0])
     tokens = _batch(ctx, tokens)
-    x = _embed(ctx, params["embed"], tokens, cfg)
-    x = dist.constrain(x, (dist.batch_logical(), "seq", None))
+    x = _constrained(_embed(ctx, params["embed"], tokens, cfg))
+    aux = 0.0
     for i, sig in enumerate(layer_sigs(cfg)):
-        x = apply_layer(ctx, params["layers"][i], x, cfg, sig,
-                        pos_offset=pos_offset,
-                        cache=None if caches is None else caches[i],
-                        decode=decode, use_kernel=use_kernel)
-    return _rmsnorm(ctx, params["ln_f"], x, cfg.norm_eps), caches, ctx
+        x, layer_aux = apply_layer(
+            ctx, params["layers"][i], x, cfg, sig, pos_offset=pos_offset,
+            cache=None if caches is None else caches[i], decode=decode,
+            use_kernel=use_kernel)
+        aux = aux + layer_aux
+    return _rmsnorm(ctx, params["ln_f"], x, cfg.norm_eps), caches, ctx, aux
 
 
 def forward(params, tokens, cfg: ModelConfig, *, pos_offset: int = 0,
             caches: Optional[list] = None, decode: bool = False,
             use_kernel: bool = True):
     """(logits [B, S, V] f32, the vocab over "model" where tp divides it,
-    caches updated in place)."""
-    h, caches, ctx = hidden(params, tokens, cfg, pos_offset=pos_offset,
-                            caches=caches, decode=decode,
-                            use_kernel=use_kernel)
-    return _logits(ctx, params, h, cfg)[0], caches
+    caches updated in place, aux: the MoE layers' load-balance losses
+    summed, h: the final normed hidden state [B, S, D])."""
+    h, caches, ctx, aux = hidden(params, tokens, cfg, pos_offset=pos_offset,
+                                 caches=caches, decode=decode,
+                                 use_kernel=use_kernel)
+    return _logits(ctx, params, h, cfg)[0], caches, aux, h
 
 
 def lm_loss(params, tokens, cfg: ModelConfig, sample_weights=None,
             use_kernel: bool = False):
-    """``transformer.lm_loss`` on the mesh (the next-token loss; no MoE
-    aux, no MTP): a replicated scalar DTensor."""
+    """``transformer.lm_loss`` on the mesh (the next-token loss, plus
+    ``router_aux_weight`` times the summed aux loss of an MoE config; no
+    MTP): a replicated scalar DTensor."""
     inputs, labels = tokens[:, :-1], tokens[:, 1:]
-    h, _, ctx = hidden(params, inputs, cfg, use_kernel=use_kernel)
+    h, _, ctx, aux = hidden(params, inputs, cfg, use_kernel=use_kernel)
     logits, split = _logits(ctx, params, h, cfg)
     labels = _batch(ctx, labels)
+    if sample_weights is not None:
+        sample_weights = _batch(ctx, sample_weights)
+    loss = _xent(ctx, logits, split, labels, sample_weights)
+    if cfg.moe_num_experts:
+        loss = loss + cfg.router_aux_weight * aux
+    return loss
+
+
+# ---------------------------------------------------------------------------
+# The encoder-decoder
+# ---------------------------------------------------------------------------
+
+def encode(params, frames, cfg: ModelConfig, *, use_kernel: bool = True):
+    """``encdec.encode`` on the mesh: the frames [B, S, D] over the batch
+    axes (no embedding), the bidirectional ``enc_attn`` blocks (K3
+    non-causal on each rank's heads), the norm: memory [B, S, D]."""
+    check_sharded(cfg)
+    ctx = _Ctx(frames.shape[0])
+    x = _constrained(_batch(ctx, frames.to(cfg.compute_dtype)))
+    for p in params["enc_layers"]:
+        x, _ = apply_layer(ctx, p, x, cfg, ENC_SIG, use_kernel=use_kernel)
+    return _rmsnorm(ctx, params["enc_ln_f"], x, cfg.norm_eps)
+
+
+def decode_hidden(params, memory, tokens, cfg: ModelConfig,
+                  caches: Optional[list] = None, *,
+                  cross_caches: Optional[list] = None, pos_offset: int = 0,
+                  decode: bool = False, use_kernel: bool = True):
+    """``encdec._decode_hidden`` on the mesh (with ``decode``, the blocks
+    of ``encdec.decode_step``): (h [B, S, D], the step's ``_Ctx``)."""
+    check_sharded(cfg)
+    ctx = _Ctx(tokens.shape[0])
+    tokens = _batch(ctx, tokens)
+    x = _constrained(_embed(ctx, params["embed"], tokens, cfg))
+    for i, p in enumerate(params["dec_layers"]):
+        x, _ = apply_layer(
+            ctx, p, x, cfg, DEC_SIG, pos_offset=pos_offset,
+            cache=None if caches is None else caches[i], decode=decode,
+            memory=memory,
+            cross_cache=None if cross_caches is None else cross_caches[i],
+            use_kernel=use_kernel)
+    return _rmsnorm(ctx, params["ln_f"], x, cfg.norm_eps), ctx
+
+
+def decode_logits(params, memory, tokens, cfg: ModelConfig,
+                  caches: Optional[list] = None, **kw):
+    """``encdec.decode_train`` (or, with ``decode=True``,
+    ``encdec.decode_step``) on the mesh: logits [B, S, V] f32, the vocab
+    over "model" where tp divides it."""
+    h, ctx = decode_hidden(params, memory, tokens, cfg, caches, **kw)
+    return _logits(ctx, params, h, cfg)[0]
+
+
+def cross_caches(params, memory, cfg: ModelConfig) -> list:
+    """``encdec.build_cross_caches`` on the mesh."""
+    ctx = _Ctx(memory.shape[0])
+    return [_cross_cache(ctx, p["cross"], memory, cfg)
+            for p in params["dec_layers"]]
+
+
+def seq2seq_loss(params, frames, tokens, cfg: ModelConfig,
+                 sample_weights=None, use_kernel: bool = False):
+    """``encdec.seq2seq_loss`` on the mesh: a replicated scalar
+    DTensor."""
+    memory = encode(params, frames, cfg, use_kernel=use_kernel)
+    h, ctx = decode_hidden(params, memory, tokens[:, :-1], cfg,
+                           use_kernel=use_kernel)
+    logits, split = _logits(ctx, params, h, cfg)
+    labels = _batch(ctx, tokens[:, 1:])
     if sample_weights is not None:
         sample_weights = _batch(ctx, sample_weights)
     return _xent(ctx, logits, split, labels, sample_weights)

@@ -211,14 +211,14 @@ def forward_aux(params, tokens: torch.Tensor, cfg: ModelConfig, *,
     without MoE); with ``return_hidden`` also the final normed hidden
     state h [B, S, D] that the logits are taken from (the MTP head's
     input).  With DTensor parameters and a mesh bound, the model runs on
-    the mesh (``models.sharded``): logits as a DTensor, aux 0.0."""
+    the mesh (``models.sharded``): logits, aux and h as DTensors (aux 0.0
+    without MoE)."""
     if sharded.on_mesh(params):
-        if return_hidden:
-            raise NotImplementedError("return_hidden on a mesh (MTP: 12c)")
-        logits, caches = sharded.forward(
+        logits, caches, aux, h = sharded.forward(
             params, tokens, cfg, pos_offset=pos_offset, caches=caches,
             decode=decode, use_kernel=use_kernel)
-        return logits, caches, 0.0
+        return (logits, caches, aux, h) if return_hidden \
+            else (logits, caches, aux)
     h, caches, aux = _hidden_aux(params, tokens, cfg, pos_offset=pos_offset,
                                  caches=caches, decode=decode,
                                  use_kernel=use_kernel)

@@ -331,11 +331,11 @@ def test_param_bytes_equal_the_reference(reference_params):
 def test_cli_refuses_multi_pod_and_needs_a_pair(tmp_path, monkeypatch):
     """``--multi-pod`` runs on the (2, 16, 16) mesh since model sharding
     (module 12b); it refuses an arch whose model does not run on a mesh
-    yet (mixtral's MoE, ROADMAP.md §1, 12c), and the CLI still needs an
-    (arch, shape) pair."""
+    yet (deepseek's MLA and MTP, ROADMAP.md §1, 12c.4), and the CLI still
+    needs an (arch, shape) pair."""
     monkeypatch.setattr(dryrun, "ARTIFACT_DIR", str(tmp_path))
     with pytest.raises(SystemExit):
-        dryrun.main(["--arch", "mixtral-8x22b", "--shape", "decode_32k",
+        dryrun.main(["--arch", "deepseek-v3-671b", "--shape", "decode_32k",
                      "--multi-pod"])
     assert list(tmp_path.iterdir()) == []
     with pytest.raises(SystemExit):

@@ -10,8 +10,9 @@ program whose collectives are known, byte for byte; the qwen1.5-0.5b
 ``decode_32k`` step on the reference's (16, 16) pod mesh within 1 % of the
 reference record's argument and output bytes (``experiments/dryrun/``:
 the KV cache's shards and the parameters' are the reference's specs end to
-end); the committed records of the six archs on the pod and multi-pod
-meshes; ``collective_detail`` gathering weights, not activations; the
+end); the committed records of the nine archs on the pod and multi-pod
+meshes (K3 once per attention layer: 12 of recurrentgemma's 38, 36 for
+seamless, 56 for mixtral); ``collective_detail`` gathering weights, not activations; the
 roofline's collective term.
 """
 import json
@@ -40,7 +41,10 @@ PAIRS = [(arch, shp) for arch in dryrun.SHARDED_ARCHS
 
 @pytest.mark.parametrize("arch,kind", [("granite-8b", "train"),
                                        ("mamba2-1.3b", "decode"),
-                                       ("qwen2.5-14b", "prefill")])
+                                       ("qwen2.5-14b", "prefill"),
+                                       ("recurrentgemma-9b", "decode"),
+                                       ("seamless-m4t-medium", "train"),
+                                       ("mixtral-8x22b", "prefill")])
 def test_debug_mesh_dryrun_all_kinds(arch, kind):
     """Smoke configs at (S 64, global batch 16) on a (2, 2, 2) mesh of 8
     ranks: FLOPs, collective bytes and argument bytes all > 0."""
@@ -123,11 +127,22 @@ def test_qwen_decode_pod_record_within_one_percent_of_the_reference():
         24 * 2 * 8 * 32768 * 1 * 64 * 2
 
 
+def kernel_layers(cfg) -> int:
+    """The layers of a prefill that launch K3 (or K4, for mamba2): every
+    layer but the RG-LRU's (recurrentgemma: 12 local layers of its 38);
+    the encoder-decoder's encoder layers and its decoder layers twice
+    (self and cross: 36 for seamless)."""
+    if cfg.is_enc_dec:
+        return cfg.encoder_layers + 2 * cfg.n_layers
+    return sum(k != "rglru" for k in cfg.block_kinds())
+
+
 @pytest.mark.parametrize("mesh", ["pod", "multipod"])
 def test_committed_mesh_records(mesh):
-    """One record per (arch, shape) of the six archs that run on a mesh,
+    """One record per (arch, shape) of the nine archs that run on a mesh,
     with the reference's keys; collectives in every step; K3 in every
-    prefill of an attention arch, one call a layer; K4 in mamba2's."""
+    prefill of an attention arch, one call an attention layer; K4 in
+    mamba2's, one call a layer."""
     recs = {(r["arch"], r["shape"]): r
             for r in roofline.load_records(mesh=mesh)}
     assert sorted(recs) == sorted(PAIRS)
@@ -141,7 +156,8 @@ def test_committed_mesh_records(mesh):
         cfg = dryrun.config_for(arch, shp)
         if configs.get_shape(shp).kind == "prefill":
             key = "ssd_scan" if arch == "mamba2-1.3b" else "flash_attention"
-            assert r["kernels"][key]["calls"] == cfg.n_layers, (arch, shp)
+            assert r["kernels"][key]["calls"] == kernel_layers(cfg), \
+                (arch, shp)
         else:
             assert r["kernels"] == {}, (arch, shp)
 
